@@ -1,0 +1,42 @@
+"""imageanalysis_tpu_torch — the PyTorch/CUDA port of ``imageanalysis_tpu``.
+
+The JAX package beside this one is the reference; this package holds the
+same modules in PyTorch, with the Pallas kernels rewritten as CUDA C++ for
+Hopper (``csrc/``, built at first use by ``_build.py`` and bound through
+``ctypes``). Module paths mirror the reference, so each counterpart is found
+by its path:
+
+- ``io/logger.py``           ← ``imageanalysis_tpu/io/logger.py``
+- ``ops/knn.py``             ← ``imageanalysis_tpu/ops/knn.py`` (kernel K1,
+                               ``csrc/knn_packed.cu``)
+- ``ops/ransac.py``          ← ``imageanalysis_tpu/ops/ransac.py``
+- ``ops/clahe.py``           ← ``imageanalysis_tpu/ops/clahe.py``
+- ``features/sift.py``       ← ``imageanalysis_tpu/features/sift_tpu.py``
+                               (kernel K2, ``csrc/gauss_blur.cu``) — the one
+                               module whose name differs
+- ``match/worklist.py``, ``match/store.py``, ``match/matcher.py``
+                             ← the same paths under ``imageanalysis_tpu/match``
+- ``testing/synthetic.py``   ← part of ``imageanalysis_tpu/testing/synthetic.py``
+                               (a mission generator that needs no OpenCV)
+
+Conventions:
+
+- functions take tensors and run on the device of the tensors they get;
+  there is no global device choice and no fallback between devices;
+- a kernel wrapper takes its plain PyTorch version for a CPU tensor and
+  launches its CUDA kernel for a CUDA tensor, or raises;
+- randomness comes from an explicit ``torch.Generator``;
+- ``vmap`` becomes a written-out batch dimension, ``lax.scan`` a loop.
+
+This package imports neither ``jax`` nor ``imageanalysis_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Full-f32 products for geometry (RANSAC's DLT normal equations, CLAHE's
+# LUT blend): the counterpart of the reference's
+# jax_default_matmul_precision=float32. TF32 keeps ~3 decimal digits.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
