@@ -6,18 +6,29 @@ Hopper (``csrc/``, built at first use by ``_build.py`` and bound through
 ``ctypes``). Module paths mirror the reference, so each counterpart is found
 by its path:
 
-- ``io/logger.py``           ← ``imageanalysis_tpu/io/logger.py``
+- ``core/rotations.py``, ``core/camera.py``, ``core/geodesy.py``,
+  ``core/transforms.py``     ← the same paths under ``imageanalysis_tpu/core``
+- ``io/logger.py``, ``io/props.py``, ``io/state.py``, ``io/camera_db.py``
+  (less ``estimate_from_exif``), ``io/project.py`` (``ImageRecord``,
+  ``ProjectMgr``; the same on-disk workspace)
+                             ← the same paths under ``imageanalysis_tpu/io``
 - ``ops/knn.py``             ← ``imageanalysis_tpu/ops/knn.py`` (kernel K1,
-                               ``csrc/knn_packed.cu``)
+                               ``csrc/knn_packed.cu``, in its int8, bf16, f32
+                               and gated modes; kernel K3,
+                               ``csrc/knn_wide.cu``; both share
+                               ``csrc/knn_common.cuh``)
 - ``ops/ransac.py``          ← ``imageanalysis_tpu/ops/ransac.py``
 - ``ops/clahe.py``           ← ``imageanalysis_tpu/ops/clahe.py``
+- ``ops/triangulate.py``     ← ``imageanalysis_tpu/ops/triangulate.py``
 - ``features/sift.py``       ← ``imageanalysis_tpu/features/sift_tpu.py``
                                (kernel K2, ``csrc/gauss_blur.cu``) — the one
                                module whose name differs
 - ``match/worklist.py``, ``match/store.py``, ``match/matcher.py``
+  (``BatchMatcher``, ``find_matches``), ``match/smart.py``
                              ← the same paths under ``imageanalysis_tpu/match``
 - ``testing/synthetic.py``   ← part of ``imageanalysis_tpu/testing/synthetic.py``
-                               (a mission generator that needs no OpenCV)
+                               (a mission generator that needs no OpenCV,
+                               and a writer of its project workspace)
 
 Conventions:
 

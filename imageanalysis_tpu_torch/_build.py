@@ -1,10 +1,11 @@
 """Build the CUDA kernels of ``csrc/`` at first use and bind them by ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface under ``<repo>/build/``; the file name carries a hash
-of the sources and flags, so an edited source rebuilds and an unchanged one
-loads the library already built. No PyTorch headers are compiled, which
-keeps the build to seconds.
+Every ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface under ``<repo>/build/``; the file name carries a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already built. No PyTorch headers are
+compiled, which keeps the build to seconds.
 
 Every C entry point returns the ``cudaError_t`` of its launch (0 = ok) and
 takes every pointer, the stream included, as ``void*``.
@@ -27,14 +28,23 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 # the default toolkit location, searched after PATH and CUDA_HOME
 CUDA_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name → argtypes of every C entry point
 _SIGNATURES = {
     # a, b, row_p, col_p, n_pairs, n_a, n_b, stream
     "knn_packed_i8": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a, n_b, stream
+    "knn_packed_i8_gated": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
+    # n_b, bf16, stream
+    "knn_packed_float": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
+                         _P],
+    # a, b, na2, nb2, row_k, col_k, n_pairs, n_a, n_b, bf16, stream
+    "knn_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # in, out, taps (host float*), n_img, H, W, radius, stream
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -82,20 +92,25 @@ def build():
             "nvcc not found (PATH, $CUDA_HOME, " + CUDA_DEFAULT + "): the "
             "CUDA kernels of imageanalysis_tpu_torch need the CUDA toolkit")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [s for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        out = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", out, *objs],
                               capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed:\n{build_log}")
+        os.replace(out, lib)
     build_seconds = time.perf_counter() - t0
     return lib
 

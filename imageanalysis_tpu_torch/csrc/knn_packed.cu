@@ -1,44 +1,49 @@
-// K1: streaming packed-key 2-NN over int8 descriptors, for Hopper (sm_90a).
+// K1: streaming packed-key 2-NN, for Hopper (sm_90a).
 //
-// Replaces imageanalysis_tpu/ops/knn.py::_knn_kernel_packed (int8 inputs,
-// no spatial gate), which the reference launches through _knn_packed_raw
-// for every pair of the match path.
+// Replaces imageanalysis_tpu/ops/knn.py::_knn_kernel_packed in all of its
+// modes: int8, bf16 and f32 descriptors, each with or without the spatial
+// gate of the smart strategy. The reference launches it through
+// _knn_packed_raw for every pair of n <= 8192 rows.
 //
 // What it computes, for each pair p, A row i and B row j:
-//   d2   = |a_i|^2 + |b_j|^2 - 2 a_i.b_j                  (exact int32)
-//   key  = (bits(float(d2)) & ~0x1FFF) | j                (row key)
-//   row_p[p, i, 0:2] = the two smallest row keys of row i
-//   col_p[p, j]      = min_i (bits(float(d2)) & ~0x1FFF) | i
-// d2 <= 128 * 255^2 < 2^23, so float(d2) is exact; non-negative float bit
-// patterns order like int32, and every key is unique (its index sits in
-// the low 13 bits), so the result is bit-exact whatever the order of the
-// reductions and the tiling.
+//   d2   = |a_i|^2 + |b_j|^2 - 2 a_i.b_j     int8: exact int32
+//                                            float: f32, clamped at 0; the
+//                                            norms come from the f32
+//                                            descriptors, the dot from the
+//                                            bf16-rounded (or f32) ones
+//   bits = bits(float(d2)) & ~0x1FFF, or (0x7FFFFFFF & ~0x1FFF) where the
+//          gate is on and |uv_a[i] - pred_b[j]|^2 > radius2
+//   row_p[p, i, 0:2] = the two smallest bits | j of row i
+//   col_p[p, j]      = min_i bits | i
+// Non-negative float bit patterns order like int32 and every key is unique
+// (its index sits in the low 13 bits), so the result is bit-exact whatever
+// the order of the reductions and the tiling, given bit-exact d2 — which
+// integer-valued descriptors give in every mode.
 //
-// What bounds it on the H100: integer arithmetic. A 4096 x 4096 pair is
-// 2.1 G int8 multiply-adds over only 1 MB of descriptors, so memory is no
-// limit; the limit is the issue rate of __dp4a (4 MACs per instruction)
-// and of the per-element key epilogue (convert, mask, or, two compares).
+// What bounds it on the H100: arithmetic. A 4096 x 4096 pair is 2.1 G
+// multiply-adds over 1-4 MB of descriptors, so memory is no limit; the
+// limit is the issue rate of __dp4a (int8, 4 MACs per instruction) or of
+// f32 FMAs fed from shared memory (float modes), and of the per-element
+// key epilogue (convert, mask, gate, or, two compares).
 //
 // Design: one block owns TA = 64 rows of A of one pair in shared memory
 // and streams B through shared memory in tiles of TB = 64 rows, so each
-// descriptor byte read from shared memory feeds 4 dot products per thread
-// (a 4 x 4 register tile per thread). Row top-2 keys stay in registers for
-// the whole sweep over B and are merged across the 16 threads of a row by
+// value read from shared memory feeds 4 dot products per thread (a 4 x 4
+// register tile per thread). Row top-2 keys stay in registers for the
+// whole sweep over B and are merged across the 16 threads of a row by
 // warp shuffles at the end; the column minimum of each tile is reduced in
 // shared memory and leaves the block by one global atomicMin per column.
-// The int8 tensor cores (mma.sync / wgmma s8) are the next step.
+// The float modes share their body with K3 (knn_common.cuh). Tensor cores
+// (mma.sync / wgmma, s8 and bf16) are the next step.
 
-#include <cuda_runtime.h>
+#include "knn_common.cuh"
 
 namespace {
 
+using namespace knn;
+
 constexpr int kWords = 32;          // 128 int8 = 32 int32 words per row
-constexpr int kTA = 64;             // A rows per block
-constexpr int kTB = 64;             // B rows per streamed tile
-constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 elements each
 constexpr int kLds = kWords + 1;    // padded shared row: conflict-free reads
-constexpr int kKeyMax = 0x7FFFFFFF;
-constexpr int kIdxMask = 0x1FFF;
 
 __device__ __forceinline__ int row_norm(const int* row) {
   int s = 0;
@@ -47,8 +52,11 @@ __device__ __forceinline__ int row_norm(const int* row) {
   return s;
 }
 
+template <bool GATED>
 __global__ void __launch_bounds__(kThreads)
 knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                     const float* __restrict__ uv_a,
+                     const float* __restrict__ pred_b, float radius2,
                      int* __restrict__ row_p, int* __restrict__ col_p,
                      int n_a, int n_b) {
   __shared__ int sa[kTA * kLds];
@@ -56,6 +64,8 @@ knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
   __shared__ int na2[kTA];
   __shared__ int nb2[kTB];
   __shared__ int colmin[kTB];
+  __shared__ float sua[kTA * 2];
+  __shared__ float spb[kTB * 2];
 
   const int pair = blockIdx.y;
   const int a0 = blockIdx.x * kTA;
@@ -68,6 +78,8 @@ knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
 
   for (int w = tid; w < kTA * kWords; w += kThreads)
     sa[(w / kWords) * kLds + (w % kWords)] = A[w];
+  if (GATED && tid < kTA * 2)
+    sua[tid] = uv_a[((size_t)pair * n_a + a0) * 2 + tid];
   __syncthreads();
   if (tid < kTA) na2[tid] = row_norm(sa + tid * kLds);
 
@@ -81,6 +93,8 @@ knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
     for (int w = tid; w < kTB * kWords; w += kThreads)
       sb[(w / kWords) * kLds + (w % kWords)] = Bt[w];
     if (tid < kTB) colmin[tid] = kKeyMax;
+    if (GATED && tid < kTB * 2)
+      spb[tid] = pred_b[((size_t)pair * n_b + b0) * 2 + tid];
     __syncthreads();
     if (tid < kTB) nb2[tid] = row_norm(sb + tid * kLds);
     __syncthreads();
@@ -111,7 +125,10 @@ knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 16 * j;
         const int d2 = na2[row] + nb2[col] - 2 * acc[i][j];
-        const int bits = __float_as_int((float)d2) & ~kIdxMask;
+        int bits = __float_as_int((float)d2) & ~kIdxMask;
+        if (GATED && gated_out(sua[2 * row], sua[2 * row + 1], spb[2 * col],
+                               spb[2 * col + 1], radius2))
+          bits = kGatedBits;
         const int rk = bits | (b0 + col);
         if (rk < r1[i]) { r2[i] = r1[i]; r1[i] = rk; }
         else if (rk < r2[i]) { r2[i] = rk; }
@@ -143,20 +160,76 @@ knn_packed_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
   }
 }
 
+template <bool GATED>
+int launch_i8(const void* a, const void* b, const void* uv_a,
+              const void* pred_b, float radius2, void* row_p, void* col_p,
+              int n_pairs, int n_a, int n_b, void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n_a / kTA, n_pairs);
+  knn_packed_i8_kernel<GATED><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)a, (const int*)b, (const float*)uv_a, (const float*)pred_b,
+      radius2, (int*)row_p, (int*)col_p, n_a, n_b);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_float(const void* a, const void* b, const void* na2,
+                 const void* nb2, const void* uv_a, const void* pred_b,
+                 float radius2, void* row_p, void* col_p, int n_pairs,
+                 int n_a, int n_b, void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n_a / kTA, n_pairs);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (uv_a)
+    knn_float_kernel<T, kPackedGated><<<grid, kThreads, 0, s>>>(
+        (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
+        (const float*)uv_a, (const float*)pred_b, radius2, (int*)row_p,
+        (int*)col_p, nullptr, nullptr, n_a, n_b);
+  else
+    knn_float_kernel<T, kPacked><<<grid, kThreads, 0, s>>>(
+        (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
+        nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p, nullptr, nullptr,
+        n_a, n_b);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// a (n_pairs, n_a, 128) int8, b (n_pairs, n_b, 128) int8, both contiguous
-// and 4-byte aligned; row_p (n_pairs, n_a, 2) int32; col_p (n_pairs, n_b)
-// int32 pre-filled with 0x7FFFFFFF. n_a and n_b are multiples of 64 and at
-// most 8192. Returns the cudaError_t of the launch.
+// Inputs (n_pairs, n_a, 128) and (n_pairs, n_b, 128), contiguous; row_p
+// (n_pairs, n_a, 2) int32; col_p (n_pairs, n_b) int32 pre-filled with
+// 0x7FFFFFFF. n_a and n_b are multiples of 64 and at most 8192. The gated
+// entry points take uv_a (n_pairs, n_a, 2) and pred_b (n_pairs, n_b, 2)
+// f32. Each returns the cudaError_t of its launch.
+
+// int8 descriptors (value - 128), 4-byte aligned; norms computed inside
 extern "C" int knn_packed_i8(const void* a, const void* b, void* row_p,
                              void* col_p, int n_pairs, int n_a, int n_b,
                              void* stream) {
-  if (n_pairs <= 0 || n_a <= 0 || n_b <= 0 || n_a % kTA || n_b % kTB ||
-      n_a > kIdxMask + 1 || n_b > kIdxMask + 1 || n_pairs > 65535)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(n_a / kTA, n_pairs);
-  knn_packed_i8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, (int*)row_p, (int*)col_p, n_a, n_b);
-  return (int)cudaGetLastError();
+  return launch_i8<false>(a, b, nullptr, nullptr, 0.f, row_p, col_p, n_pairs,
+                          n_a, n_b, stream);
+}
+
+extern "C" int knn_packed_i8_gated(const void* a, const void* b,
+                                   const void* uv_a, const void* pred_b,
+                                   float radius2, void* row_p, void* col_p,
+                                   int n_pairs, int n_a, int n_b,
+                                   void* stream) {
+  return launch_i8<true>(a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs,
+                         n_a, n_b, stream);
+}
+
+// bf16 (bf16 != 0) or f32 descriptors with their f32 squared norms na2
+// (n_pairs, n_a) and nb2 (n_pairs, n_b); uv_a == NULL: no gate
+extern "C" int knn_packed_float(const void* a, const void* b, const void* na2,
+                                const void* nb2, const void* uv_a,
+                                const void* pred_b, float radius2,
+                                void* row_p, void* col_p, int n_pairs,
+                                int n_a, int n_b, int bf16, void* stream) {
+  if (bf16)
+    return launch_float<uint16_t>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                  row_p, col_p, n_pairs, n_a, n_b, stream);
+  return launch_float<float>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                             col_p, n_pairs, n_a, n_b, stream);
 }

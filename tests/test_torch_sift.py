@@ -79,8 +79,8 @@ def detect_case():
     """One 256×320 frame of the port's mission, its CLAHE, and the
     reference detector run once on each (one compile: JAX's
     detect_dispatch(equalize=True) is clahe then _detect_batch)."""
-    frames, _, _ = make_mission(strips=1, per_strip=1, size=(320, 256),
-                                seed=11)
+    frames = make_mission(strips=1, per_strip=1, size=(320, 256),
+                          seed=11).frames
     frame = frames.numpy()
     eq = np.array(jclahe.clahe(jnp.asarray(frame)))
     per_octave, n_octaves = tsift._octave_plan(256, 320, 512, True)

@@ -47,11 +47,10 @@ B = 4
 @pytest.fixture(scope="module")
 def mission():
     """6 frames, 3 strips of 2, with their planted homographies."""
-    frames, positions, H_ij = make_mission(strips=3, per_strip=2, size=SIZE,
-                                           strip_gap=1.5, seed=3)
+    m = make_mission(strips=3, per_strip=2, size=SIZE, strip_gap=1.5, seed=3)
     pairs = [(i, j) for _, i, j in
-             worklist.build_work_list(positions, use_distance=True)]
-    return frames, pairs, H_ij
+             worklist.build_work_list(m.ned, use_distance=True)]
+    return m.frames, pairs, m.H_ij
 
 
 def _store_arrays(dets):
@@ -90,8 +89,9 @@ def _jax_match(desc, uv, counts, pairs):
 
 
 def _config():
+    """The kernel arm (use_pallas=True), as the reference's side runs."""
     return tmatcher.MatchConfig(batch_size=B, store_scan=1, n_hyp=N_HYP,
-                                ratio=0.75, min_pairs=25)
+                                ratio=0.75, min_pairs=25, use_pallas=True)
 
 
 def test_slice_matches_reference_from_one_store(mission):
@@ -163,6 +163,9 @@ def test_port_imports_no_jax():
     code = ("import sys, imageanalysis_tpu_torch.features.sift, "
             "imageanalysis_tpu_torch.match.matcher, "
             "imageanalysis_tpu_torch.match.worklist, "
+            "imageanalysis_tpu_torch.match.smart, "
+            "imageanalysis_tpu_torch.io.project, "
+            "imageanalysis_tpu_torch.core.camera, "
             "imageanalysis_tpu_torch.testing.synthetic; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'imageanalysis_tpu' not in sys.modules")
@@ -184,6 +187,12 @@ def test_kernel_wrappers_raise_on_other_devices():
     d = torch.empty((1, 64, 128), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="meta"):
         tknn.knn_packed_raw(d, d)
+    f = torch.empty((1, 64, 128), dtype=torch.bfloat16, device="meta")
+    n = torch.empty((1, 64), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        tknn.knn_packed_raw(f, f, n, n)
+    with pytest.raises(ValueError, match="meta"):
+        tknn.knn_wide_raw(f, f, n, n)
     img = torch.empty((1, 64, 64), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="meta"):
         tsift._blur(img, 1.6)
