@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (imageanalysis_tpu_torch).
 
     python3 chip_smoke.py              # needs one CUDA card
-    python3 chip_smoke.py --profile    # + a torch.profiler rerun of phase 8
+    python3 chip_smoke.py --profile    # + torch.profiler reruns of phases 8
+                                       #   and 13
 
 Phases, one printed line (or a few) each; any failure raises and exits
 non-zero:
@@ -38,12 +39,33 @@ non-zero:
    matches pull some images' far off);
 10. wide store: 64 images × 10240 planted int8 descriptors through
     match_pairs_store, which takes K3; ≥ 95% of the planted matches
-    survive in every pair.
+    survive in every pair;
+11. K4 (match epilogue) against match_epilogue_plain on K1's raw keys of
+    planted int8 rows: bench.py's 64 pairs × 6144, the store's 256 ×
+    4096, ungated and gated; best_j, ok and pb bit-exact;
+12. the fused arm (IMGTPU_FUSED_EPILOGUE=1: K1, then K4): phase 6's
+    workload through match_pair_batch, its matches equal to the unfused
+    arm's, pairs/s beside phase 6's; find_matches(strategy="smart") on a
+    fresh copy of phase 8's workspace, its match lists equal to phase 8's
+    pair by pair;
+13. Steps 3b–4 on phase 8's workspace, after its yaw corrections and
+    requalify_pairs, as apps/process.py runs them: link_matches,
+    triangulate_ground (the smart surface, else the flat ground),
+    groups, setup_from_matches, bundle.solve, refit, write_back and the
+    re-triangulation of stale chains; the poses against the mission's
+    truth, the points against the ground (0 m);
+14. mission-scale BA: the 2812-camera, 4,062,000-observation graph of
+    scripts_dev/ba_synth_scale.py (testing/synthetic.py, on the card),
+    bundle.solve twice (10 iterations), then f32 against f64 on the
+    300-camera graph of scripts_dev/ba_f64_oracle.py.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
 {"kernels": [...]}, each kernel with the launches of the phase that
-exercises it; the last line is {"ok": true, "device": {...}}.
+exercises it, its times, its bound (the larger of bytes over 3.35 TB/s
+and operations over the H100's peak for their type) and, where one
+PyTorch call computes the same function, that call's time; the last line
+is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -63,13 +85,18 @@ if not os.path.isdir(os.path.join(os.path.dirname(os.path.abspath(__file__)),
              "imageanalysis_tpu_torch/ is not beside this script")
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
+from imageanalysis_tpu_torch.ba import bundle  # noqa: E402
+from imageanalysis_tpu_torch.ba import setup as ba_setup  # noqa: E402
+from imageanalysis_tpu_torch.core.rotations import quat_multiply  # noqa: E402
 from imageanalysis_tpu_torch.features import sift  # noqa: E402
 from imageanalysis_tpu_torch.io.project import ProjectMgr  # noqa: E402
-from imageanalysis_tpu_torch.match import matcher, smart, worklist  # noqa: E402
+from imageanalysis_tpu_torch.match import (  # noqa: E402
+    cleanup, groups, matcher, smart, worklist)
 from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
-    image_name, make_mission, write_workspace)
+    image_name, make_ba_grid_graph, make_ba_mission_graph, make_mission,
+    write_workspace)
 
 FRAME = (2176, 1440)        # (W, H), benchmarks/mission_bench.py
 MAX_FEATURES = 4096
@@ -85,6 +112,13 @@ REP_STRIPS, REP_PER_STRIP, REP_PERIOD = 2, 8, 700
 REP_BATCH, REP_SRTM_M = 4, 10.0
 WIDE_IMAGES, WIDE_N, WIDE_PLANTED = 64, 10240, 2000
 STORE_SHAPE = (256, 4096)   # pairs × rows of the store's K1 batches
+BENCH_SHAPE = (64, 6144)    # bench.py's pairs × rows
+# the H100 SXM's device-memory rate and dense peaks (NVIDIA's data sheet,
+# at the 700 W limit), for the bounds in the kernels line
+HBM_BYTES_PER_S = 3.35e12
+PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+GATE_FLOPS = 5              # dx, dy, dx², dy², the sum: per gated candidate
+FUSED = "IMGTPU_FUSED_EPILOGUE"
 
 
 def log(*a):
@@ -105,6 +139,42 @@ def time_ms(fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate and
+    the operations over their peaks (ops: {peak type: count})."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * sum(n / PEAK[k] for k, n in ops.items())
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_bound(r, n_bytes, ops, library_ms=None):
+    r["bound_ms"], r["bound_by"] = bound(n_bytes, ops)
+    r["library_ms"] = library_ms
+    return r
+
+
+def device_ms(fn, kernel=None, reps=20):
+    """Device time per call of fn from torch.profiler: the CUDA kernels
+    whose name contains kernel (all of fn's kernels when None), summed
+    and divided by reps. For kernels of a few microseconds, where CUDA
+    events around a call would time the wrapper's host work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (kernel is None or kernel in e.key))
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time for {kernel}")
+    return us / reps / 1e3
 
 
 def reset_launches():
@@ -156,9 +226,15 @@ def blur_configs():
 
 
 def check_blur():
+    """K2 at every blur of octaves 0-1; the yardstick is one cuDNN conv2d
+    (TF32 off, the package's setting) with the 2-D outer-product taps on
+    the reflect-padded input."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device="cuda").manual_seed(1)
-    ms = plain_ms = 0.0
+    ms = plain_ms = lib_ms = bound_ms = 0.0
     err = 0.0
+    by = set()
     for H, W, sigma in blur_configs():
         x = torch.rand((2, H, W), generator=gen, device="cuda")
         taps = sift._gauss_kernel(sigma)
@@ -172,12 +248,28 @@ def check_blur():
         err = max(err, e)
         t_k = time_ms(lambda: sift._blur(x, sigma), 7)
         t_p = time_ms(lambda: sift.blur_plain(x, taps), 3)
+        r = len(taps) // 2
+        xp = F.pad(x[:, None], (r, r, r, r), mode="reflect")
+        w2 = torch.from_numpy(np.outer(taps, taps)).cuda()[None, None]
+        t_l = time_ms(lambda: F.conv2d(xp, w2), 3)
+        del xp
+        px = 2 * H * W
+        # each pass: len(taps) products and len(taps) − 1 sums per pixel
+        b, kind = bound(2 * 4 * px, {"f32": 2 * (2 * len(taps) - 1) * px})
+        by.add(kind)
         ms += t_k
         plain_ms += t_p
+        lib_ms += t_l
+        bound_ms += b
         log(f"[K2] B=2 {H}x{W} taps {len(taps):2d}: bit-exact; kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms")
-    log(f"[K2] octaves 0-1 total: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, conv2d {t_l:.3f} ms, bound "
+            f"{b:.3f} ms")
+    bound_by = by.pop() if len(by) == 1 else "bytes"
+    log(f"[K2] octaves 0-1 total: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, conv2d {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({'/'.join(sorted(by | {bound_by}))})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def planted_descriptors(gen, pairs, n, n_planted):
@@ -194,12 +286,12 @@ def planted_descriptors(gen, pairs, n, n_planted):
 
 
 def compare_keys(name, raw, plain, args, reps=5, plain_reps=2):
-    """Hold a kernel's raw keys bit-exact against its plain version on the
+    """Hold a kernel's outputs bit-exact against its plain version on the
     same inputs; median times of both."""
     got = raw(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max())
+    err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         bad = sum(int((g != w).sum()) for g, w in zip(got, want))
@@ -218,25 +310,72 @@ def float_inputs(a, b, dtype):
     return (af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1))
 
 
+def k1_bound(pairs, n, elem_bytes, peak, gated=False):
+    """K1's bound at pairs × n × n: descriptors, the float modes' f32
+    norms and the gate's positions read once, row_p (8 B) and col_p (4 B)
+    written once; the 2·n·n·128 products at the mode's peak, plus the
+    gate's f32 arithmetic."""
+    n_bytes = pairs * n * (2 * 128 * elem_bytes + 12
+                           + (8 if elem_bytes > 1 else 0)
+                           + (16 if gated else 0))
+    ops = {peak: 2 * pairs * n * n * 128}
+    if gated:
+        ops["f32"] = GATE_FLOPS * pairs * n * n
+    return n_bytes, ops
+
+
+def product_only(name, fn):
+    """Median time of one library product (the 'product only' yardstick
+    beside a 2-NN kernel), or None where the call is refused."""
+    try:
+        t = time_ms(fn, 3)
+    except RuntimeError as e:
+        log(f"[{name}] product only: not measured ({str(e)[:120]})")
+        return None
+    log(f"[{name}] product only: {t:.3f} ms")
+    return t
+
+
 def check_knn():
     """K1 in every mode; returns {mode: measurements}."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
-    for name, pairs, n in (("store", *STORE_SHAPE), ("bench", 64, 6144)):
+    for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
         a, b = planted_descriptors(gen, pairs, n, n // 4)
         r = compare_keys("K1 int8", knn.knn_packed_raw, knn.knn_packed_plain,
                          (a, b))
+        with_bound(r, *k1_bound(pairs, n, 1, "int8"))
         log(f"[K1] int8 {name} {pairs} pairs x {n}: bit-exact; kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
         out[f"i8_{name}"] = r
+        if name == "bench":
+            # all A rows against one pair's B rows: the batch's products in
+            # one call (the output alone is 9.7 GB of int32)
+            bt = b[0].t()
+            out["i8_product_ms"] = product_only(
+                "K1 int8 torch._int_mm 64x6144 x 6144",
+                lambda: torch._int_mm(a.reshape(-1, 128), bt))
+            del bt
     pairs, n = STORE_SHAPE
     a, b = planted_descriptors(gen, pairs, n, n // 4)
-    for mode, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
+                            ("f32", torch.float32, 4)):
+        args = float_inputs(a, b, dtype)
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
-                         knn.knn_packed_plain, float_inputs(a, b, dtype))
+                         knn.knn_packed_plain, args)
+        with_bound(r, *k1_bound(pairs, n, eb, mode))
         log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact; kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
         out[mode] = r
+        if mode == "bf16":
+            bt = args[1].transpose(1, 2)
+            out["bf16_product_ms"] = product_only(
+                "K1 bf16 torch.bmm 256 x 4096 x 4096",
+                lambda: torch.bmm(args[0], bt))
+            del bt
+        del args
     # a prior that gates out about half the candidates: positions in a
     # 1000 px square, radius 400 px
     uv_a = torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000
@@ -244,14 +383,17 @@ def check_knn():
     radius2 = 400.0 ** 2
     d = uv_a[0, :, None, :] - pred[0, None, :, :]
     frac = float(((d * d).sum(-1) > radius2).float().mean())
-    for mode, args in (("gated_i8", (a, b, None, None)),
-                       ("gated_bf16", float_inputs(a, b, torch.bfloat16))):
+    for mode, args, eb, peak in (
+            ("gated_i8", (a, b, None, None), 1, "int8"),
+            ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16")):
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain,
                          (*args, uv_a, pred, radius2))
+        with_bound(r, *k1_bound(pairs, n, eb, peak, gated=True))
         log(f"[K1] {mode} {pairs} pairs x {n}, {100 * frac:.1f}% of the "
             f"candidates gated out: bit-exact; kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms")
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
         out[mode] = r
     return out
 
@@ -277,9 +419,17 @@ def check_wide():
     args = (a.bfloat16(), b.bfloat16(), knn._sq_norms(a), knn._sq_norms(b))
     r = compare_keys("K3 bf16", knn.knn_wide_raw, knn.knn_wide_plain, args,
                      reps=3, plain_reps=1)
+    # descriptors and norms read once; row keys (16 B) and column keys
+    # (8 B) written once
+    with_bound(r, pairs * n * (2 * 128 * 2 + 8 + 24),
+               {"bf16": 2 * pairs * n * n * 128})
     log(f"[K3] bf16 (int8 cast) {pairs} pairs x {n}: bit-exact; kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
-    del args
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    bt = args[1].transpose(1, 2)
+    r["product_ms"] = product_only("K3 bf16 torch.bmm 64 x 10240 x 10240",
+                                   lambda: torch.bmm(args[0], bt))
+    del args, bt
     # random floats: the kernel's FMA order differs from cuBLAS's
     fa = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
     fb = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
@@ -310,15 +460,8 @@ def check_wide():
 def bench_workload(steps=16):
     import bench
 
-    rng = np.random.default_rng(0)
-    desc_a, desc_b, uv_a, uv_b = bench.make_pair_batch(rng, bench.BATCH)
-    to8 = lambda d: (d.astype(np.int16) - 128).astype(np.int8)  # noqa: E731
-    dev = torch.device("cuda")
-    args = [torch.from_numpy(x).to(dev) for x in
-            (to8(desc_a), to8(desc_b), uv_a, uv_b)]
-    n = torch.full((bench.BATCH,), bench.N_FEAT, dtype=torch.int32,
-                   device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    args, n = _bench_args()
+    gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
         return matcher.match_pair_batch(*args, n, n, gen, ratio=0.75,
@@ -461,7 +604,9 @@ def run_smart_slice(m, dets, root, profile=False):
     corrections and requalify_pairs. find_matches's output is checked
     against the planted homographies and the true ground; what the
     corrections and requalify_pairs then drop is reported. profile=True
-    runs find_matches once more on a fresh copy under torch.profiler."""
+    runs find_matches once more on a fresh copy under torch.profiler.
+    Returns (launches, find_matches's {(i, j): matches}, the workspace
+    after requalify_pairs, its smart state)."""
     W, _ = FRAME
     t0 = time.perf_counter()
     proj = write_workspace(os.path.join(root, "smart"), m, dets)
@@ -525,17 +670,17 @@ def run_smart_slice(m, dets, root, profile=False):
 
     if profile:
         from torch.profiler import ProfilerActivity
-        proj = write_workspace(os.path.join(root, "smart_profiled"), m, dets)
-        state = smart.SmartState(proj.analysis_dir)
+        proj2 = write_workspace(os.path.join(root, "smart_profiled"), m, dets)
+        state2 = smart.SmartState(proj2.analysis_dir)
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            matcher.find_matches(proj, config, smart_state=state,
+            matcher.find_matches(proj2, config, smart_state=state2,
                                  device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         profile_summary(prof, wall)
-    return launches
+    return launches, result, proj, state
 
 
 def run_repetitive(root):
@@ -656,6 +801,401 @@ def run_wide_store():
     return launches
 
 
+def check_epilogue():
+    """Phase 11: K4 against its plain version on K1's raw keys of planted
+    int8 rows, at bench.py's shape and the store's, ungated and gated."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, (pairs, n), gated in (("bench", BENCH_SHAPE, False),
+                                    ("store", STORE_SHAPE, False),
+                                    ("store_gated", STORE_SHAPE, True)):
+        a, b = planted_descriptors(gen, pairs, n, n // 4)
+        gate = ()
+        if gated:
+            gate = (torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                    * 1000, torch.rand((pairs, n, 2), generator=gen,
+                                       device="cuda") * 1000, 400.0 ** 2)
+        row_p, col_p = knn.knn_packed_raw(a, b, None, None, *gate)
+        uv_b = torch.rand((pairs, n, 2), generator=gen, device="cuda") * 4000
+        args = (row_p, col_p, uv_b, 0.75)
+        r = compare_keys(f"K4 {name}", knn.match_epilogue_raw,
+                         knn.match_epilogue_plain, args, reps=20,
+                         plain_reps=3)
+        call_ms, plain_call_ms = r["ms"], r["plain_ms"]
+
+        def k1():
+            return knn.knn_packed_raw(a, b, None, None, *gate)
+
+        # a call is microseconds of device work: device time from the
+        # profiler, each call right after a fresh K1 launch as on the
+        # fused arm (K1's keys just written, uv_b evicted by K1's reads);
+        # the kernel's alone, and all of the plain version's less K1's
+        r["ms"] = device_ms(lambda: knn.match_epilogue_raw(*k1(), uv_b,
+                                                           0.75),
+                            "match_epilogue_kernel")
+        r["plain_ms"] = (device_ms(lambda: knn.match_epilogue_plain(
+            *k1(), uv_b, 0.75)) - device_ms(k1))
+        r["timed_by"] = "profiler device time, after a fresh K1 launch"
+        # per A row: row_p 8 B in, best_j 4 + ok 1 + pb 8 B out; per B row:
+        # col_p 4 B and uv_b 8 B in
+        with_bound(r, pairs * n * (8 + 13) + pairs * n * 12, {})
+        kept = int(knn.match_epilogue_plain(*args)[1].sum())
+        log(f"[K4] {name} {pairs} pairs x {n}: bit-exact (best_j, ok, pb); "
+            f"{kept} rows ok; device time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); per call by CUDA events (host work "
+            f"included): kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} "
+            f"ms")
+        out[name] = r
+        del a, b, gate, args
+    return out
+
+
+def _bench_args():
+    """bench.py's batch on the card: int8 descriptors, uv, counts."""
+    import bench
+
+    rng = np.random.default_rng(0)
+    desc_a, desc_b, uv_a, uv_b = bench.make_pair_batch(rng, bench.BATCH)
+    to8 = lambda d: (d.astype(np.int16) - 128).astype(np.int8)  # noqa: E731
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(x).to(dev) for x in
+            (to8(desc_a), to8(desc_b), uv_a, uv_b)]
+    n = torch.full((bench.BATCH,), bench.N_FEAT, dtype=torch.int32,
+                   device=dev)
+    return args, n
+
+
+def run_fused_bench(unfused_pps, steps=8):
+    """Phase 12a: bench.py's workload through match_pair_batch, unfused
+    then fused, each from the same generator seed: equal matches; then
+    both arms' pairs/s in turns (unfused, fused, fused, unfused)."""
+    import bench
+
+    args, n = _bench_args()
+
+    def step(gen):
+        return matcher.match_pair_batch(*args, n, n, gen, ratio=0.75,
+                                        thresh=7.9, n_hyp=512)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    def arm(fused):
+        if fused:
+            os.environ[FUSED] = "1"
+        else:
+            os.environ.pop(FUSED, None)
+
+    arm(False)
+    want = step(seeded())
+    arm(True)
+    got = step(seeded())
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], want[1])
+            and torch.equal(got[0][got[1]], want[0][want[1]])):
+        raise AssertionError("fused bench matches differ from the unfused "
+                             "arm's")
+    rates = {False: [], True: []}
+    gen = seeded()
+    for fused in (False, True, True, False):
+        arm(fused)
+        step(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, ok = step(gen)
+        torch.cuda.synchronize()
+        rates[fused].append(bench.BATCH * steps / (time.perf_counter() - t0))
+        if int(ok.sum(1).min()) < 0.95 * bench.PLANTED:
+            raise AssertionError("the fused bench lost planted matches")
+    arm(True)
+    pps = float(np.mean(rates[True]))
+    log(f"[fused] bench {bench.BATCH} pairs x {bench.N_PAD} int8: matches "
+        f"equal to the unfused arm's ({int(want[1].sum())}); in turns of "
+        f"{steps} steps (unfused, fused, fused, unfused): unfused "
+        f"{rates[False][0]:.1f}, {rates[False][1]:.1f} pairs/s, fused "
+        f"{rates[True][0]:.1f}, {rates[True][1]:.1f} pairs/s; phase 6 "
+        f"(unfused) {unfused_pps:.1f}")
+    return pps
+
+
+def run_fused_smart(m, dets, root, want):
+    """Phase 12b: find_matches(strategy="smart") on a fresh copy of phase
+    8's workspace with the fused arm on; match lists equal to phase 8's
+    (want) pair by pair."""
+    proj = write_workspace(os.path.join(root, "smart_fused"), m, dets)
+    state = smart.SmartState(proj.analysis_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    matcher.find_matches(proj, matcher.MatchConfig(strategy="smart"),
+                         smart_state=state, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = project_matches(proj, list(want))
+    bad = [p for p in want if not np.array_equal(got[p], want[p])]
+    log(f"[fused] smart find_matches: {len(want)} pairs in {dt:.3f} s = "
+        f"{len(want) / dt:.1f} pairs/s; {len(want) - len(bad)} of "
+        f"{len(want)} pairs' match lists equal to phase 8's")
+    if bad:
+        raise AssertionError(f"fused smart matches differ on {len(bad)} "
+                             f"pairs, e.g. {bad[:3]}")
+
+
+def quat_angle_deg(q1, q2):
+    """Angles between two sets of attitude quaternions, degrees."""
+    q1 = np.asarray(q1, np.float64)
+    q2 = np.asarray(q2, np.float64)
+    q1 = q1 / np.linalg.norm(q1, axis=-1, keepdims=True)
+    q2 = q2 / np.linalg.norm(q2, axis=-1, keepdims=True)
+    d = np.minimum(np.linalg.norm(q1 - q2, axis=-1),
+                   np.linalg.norm(q1 + q2, axis=-1))
+    return np.degrees(4.0 * np.arcsin(np.clip(d / 2.0, 0.0, 1.0)))
+
+
+def steps_3b_4(proj, state):
+    """apps/process.py:275-417 on one card: link → triangulate (the smart
+    surface, else the flat ground: the mission's truth, since the card's
+    machine has no SRTM tiles) → groups → BA on group 0 → refit onto the
+    start positions → write_back → the stale chains' re-triangulation.
+    Returns what phase 13 reports."""
+    walls = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    for im in proj.image_list:
+        if im.kp is None:
+            im.load_features()
+        if not im.match_list:
+            im.load_matches()
+    matches = cleanup.link_matches(proj)
+    proj.save_matches_grouped(matches)
+    t0 = lap("link", t0)
+
+    def base(image):
+        n = state.node(image.name)
+        return n["tri_surface_m"] if "tri_surface_m" in n else 0.0
+
+    cleanup.triangulate_ground(proj, matches, get_base_elev=base,
+                               device="cuda")
+    proj.save_matches_grouped(matches)
+    t0 = lap("triangulate", t0)
+    grps = groups.compute(proj.image_list, matches, min_chain_len=3)
+    groups.save(proj.analysis_dir, grps)
+    proj.save_matches_grouped(matches)
+    t0 = lap("groups", t0)
+    grps = groups.load(proj.analysis_dir)
+    cams0, pts0, obs, cam_names, match_map = ba_setup.setup_from_matches(
+        proj, matches, group_images=grps[0] if grps else None,
+        min_chain_len=3)
+    t0 = lap("setup", t0)
+    model = proj.camera_model()
+    result = bundle.solve(cams0, pts0, obs, model.K, model.dist,
+                          bundle.BAConfig(), log_fn=log, device="cuda")
+    t0 = lap("solve", t0)
+    new_cams, new_pts, _ = bundle.refit(result.cams, result.pts,
+                                        cams0[:, :3], device="cuda")
+    result = result._replace(cams=new_cams, pts=new_pts)
+    ba_setup.write_back(proj, matches, result, cam_names, match_map)
+    t0 = lap("refit_write_back", t0)
+    active = set(int(mi) for mi in match_map)
+    by_name = {im.name: i for i, im in enumerate(proj.image_list)}
+    opt_imgs = {by_name[n] for n in cam_names if n in by_name}
+    stale = [mi for mi, mm in enumerate(matches)
+             if mi not in active and any(o[0] in opt_imgs for o in mm[2:])]
+    if stale:
+        cleanup.triangulate_ground(proj, matches, get_base_elev=base,
+                                   subset=stale, optimized=True,
+                                   device="cuda")
+    proj.save_matches_grouped(matches)
+    lap("stale_refresh", t0)
+    return dict(matches=matches, groups=grps, cams0=cams0, obs=obs,
+                cam_names=cam_names, result=result, stale=stale,
+                base=base, walls=walls)
+
+
+def run_steps_3b_4(proj, state, m, root, profile=False):
+    """Phase 13: Steps 3b–4 on phase 8's workspace as it stands after the
+    yaw corrections and requalify_pairs; checks and the poses against the
+    mission's truth."""
+    snapshot = os.path.join(root, "steps34_profiled")
+    if profile:
+        shutil.copytree(proj.project_dir, snapshot)
+    t0 = time.perf_counter()
+    out = steps_3b_4(proj, state)
+    wall = time.perf_counter() - t0
+    matches, res, cams0 = out["matches"], out["result"], out["cams0"]
+    idx = [int(n.split("_")[1]) for n in out["cam_names"]]
+    n_obs = sum(len(mm) - 2 for mm in matches)
+    sizes = [len(g) for g in out["groups"]]
+    err0 = np.linalg.norm(cams0[:, :3] - m.ned[idx], axis=1)
+    err1 = np.linalg.norm(res.cams[:, :3] - m.ned[idx], axis=1)
+    att0 = quat_angle_deg(cams0[:, 3:7], m.cam_quat[idx])
+    att1 = quat_angle_deg(res.cams[:, 3:7], m.cam_quat[idx])
+    height = -res.pts[:, 2]
+    log(f"[steps34] {len(matches)} chains, {n_obs} observations; groups "
+        f"{sizes}; BA {len(res.cams)} cameras, {len(res.pts)} points, "
+        f"{len(out['obs'].uv)} observations")
+    log(f"[steps34] BA {res.iters} iterations, cost {res.cost_history[0]:.6g}"
+        f" -> {res.cost_history[-1]:.6g}, mre {res.mre:.4f} px; walls s "
+        + json.dumps({k: round(v, 3) for k, v in out["walls"].items()})
+        + f", total {wall:.3f} s")
+    log(f"[steps34] camera position error vs truth: before BA median "
+        f"{np.median(err0):.4f} max {err0.max():.4f} m, after refit median "
+        f"{np.median(err1):.4f} max {err1.max():.4f} m")
+    log(f"[steps34] attitude error vs truth: before BA median "
+        f"{np.median(att0):.3f} max {att0.max():.3f} deg ({(att0 > 0.5).sum()}"
+        f" over 0.5 deg), after median {np.median(att1):.4f} max "
+        f"{att1.max():.4f} deg ({(att1 > 0.5).sum()} over 0.5 deg)")
+    log(f"[steps34] BA points' height vs the ground (0 m): median "
+        f"{np.median(height):.4f} m, |h| p50 {np.median(np.abs(height)):.4f}"
+        f" p95 {np.percentile(np.abs(height), 95):.4f} m; "
+        f"{len(out['stale'])} stale chains re-triangulated")
+    # the refresh covered every stale chain: re-derive them from scratch
+    # with the optimized poses and compare
+    again = [list(mm) for mm in matches]
+    for mi in out["stale"]:
+        again[mi][0] = None
+    cleanup.triangulate_ground(proj, again, get_base_elev=out["base"],
+                               subset=out["stale"], optimized=True,
+                               device="cuda")
+    fresh = all(again[mi][0] is not None
+                and np.allclose(again[mi][0], matches[mi][0])
+                for mi in out["stale"])
+    if not sizes or max(sizes) < 0.9 * len(proj.image_list):
+        raise AssertionError(f"no group holds 90% of the images: {sizes}")
+    if not res.cost_history[-1] < res.cost_history[0]:
+        raise AssertionError("BA did not lower the cost")
+    if res.mre > 1.0:
+        raise AssertionError(f"BA mre {res.mre} px > 1.0")
+    if not np.isfinite(res.pts).all():
+        raise AssertionError("a BA point is not finite")
+    if abs(np.median(height)) > 1.0:
+        raise AssertionError(f"median BA point {np.median(height)} m off "
+                             "the ground")
+    if not fresh:
+        raise AssertionError("the stale-chain refresh missed chains")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        proj2 = ProjectMgr(snapshot)
+        proj2.load_images_info()
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps_3b_4(proj2, smart.SmartState(proj2.analysis_dir))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log("[steps34] profiled rerun on a snapshot of the workspace:")
+        profile_summary(prof, wall)
+    return out
+
+
+def ba_stop(res, cfg):
+    """Why a solve ended: "converged" (the last accepted step cut the cost
+    by less than ftol), "stalled" (an iteration accepted no step in
+    max_retries) or "max_iters"."""
+    h = res.cost_history
+    if len(h) > 1 and 1.0 - h[-1] / h[-2] < cfg.ftol:
+        return "converged"
+    return "max_iters" if len(h) - 1 == cfg.max_iters else "stalled"
+
+
+def run_mission_ba():
+    """Phase 14: bundle.solve at mission scale with the pipeline's
+    BAConfig(), in f32 twice (first, warm) and in f64; one LM iteration's
+    split; then f32 against f64 on the 300-camera grid. A mission solve
+    passes if it did not stall, ends within 5% of the noise floor
+    ½σ²(2·n_obs − 7·n_cam − 3·n_pt) with no residual above 5 px, and f32
+    ends within 0.01 px of f64's mre."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    g = make_ba_mission_graph(device=dev)
+    torch.cuda.synchronize()
+    n_cam, n_pt, n_obs = len(g.cams0), len(g.pts0), len(g.obs.uv)
+    floor = 0.5 * 0.5 ** 2 * (2 * n_obs - 7 * n_cam - 3 * n_pt)
+    log(f"[ba] mission graph: {n_cam} cameras, {n_pt} points, {n_obs} "
+        f"observations, built on the card in {time.perf_counter() - t0:.2f} "
+        f"s; noise floor of the cost {floor:.6g}")
+    cfg = bundle.BAConfig()
+    out = {}
+    for run, dtype in (("first", torch.float32), ("warm", torch.float32),
+                       ("f64", torch.float64)):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist, cfg,
+                           verbose=run == "first", log_fn=log, dtype=dtype,
+                           device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stop = ba_stop(res, cfg)
+        _, _, mx = bundle.ba_cost(*bundle._problem_on(
+            res.cams, res.pts, g.obs, g.K, g.dist, dev, dtype))
+        cost = res.cost_history[-1]
+        out[run] = res
+        log(f"[ba] {run} run ({str(dtype)[6:]}): {wall:.3f} s, "
+            f"{len(res.cost_history) - 1} accepted steps, stop: {stop}; "
+            f"cost {res.cost_history[0]:.6g} -> {cost:.6g} "
+            f"({cost / floor:.4f} of the noise floor), mre {res.mre:.4f} "
+            f"px, max residual {float(mx):.3f} px, peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        if not (stop != "stalled" and cost <= 1.05 * floor
+                and float(mx) <= 5.0 and np.isfinite(res.pts).all()):
+            raise AssertionError(f"mission BA did not converge ({run})")
+    r32, r64 = out["warm"], out["f64"]
+    d = np.linalg.norm(r32.cams[:, :3] - r64.cams[:, :3], axis=1)
+    dmre = abs(r32.mre - r64.mre)
+    log(f"[ba] mission f32 vs f64: mre delta {dmre:.2e} px, final cost "
+        f"ratio {r32.cost_history[-1] / r64.cost_history[-1]:.6f}, camera "
+        f"position delta mean {d.mean():.2e} max {d.max():.2e} m")
+    if dmre >= 0.01:
+        raise AssertionError("mission f32 BA strays from f64")
+    obs = bundle.observations_on(g.obs, dev)
+    split = {}
+    for _ in range(2):                  # the second pass is reported
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jac = bundle.lm_jacobians(g.cams0, g.pts0, obs, g.K, g.dist, n_cam,
+                                  n_pt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bundle.lm_solve(jac, obs.cam_idx, obs.pt_idx, 1e-3)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bundle.ba_cost(g.cams0, g.pts0, obs, g.K, g.dist)
+        torch.cuda.synchronize()
+        split = {"lm_jacobians": t1 - t0, "lm_solve": t2 - t1,
+                 "ba_cost": time.perf_counter() - t2}
+        del jac
+    log("[ba] one LM iteration at the start, s: "
+        + json.dumps({k: round(v, 4) for k, v in split.items()}))
+    del g, obs
+    g = make_ba_grid_graph(device=dev)
+    cfg = bundle.BAConfig(max_iters=40, ftol=1e-6)
+    t0 = time.perf_counter()
+    r32 = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist, cfg,
+                       verbose=False, dtype=torch.float32, device=dev)
+    t1 = time.perf_counter()
+    r64 = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist, cfg,
+                       verbose=False, dtype=torch.float64, device=dev)
+    t2 = time.perf_counter()
+    d = np.linalg.norm(r32.cams[:, :3] - r64.cams[:, :3], axis=1)
+    dmre = abs(r32.mre - r64.mre)
+    log(f"[ba] f32 vs f64, {len(g.cams0)} cameras, {len(g.obs.uv)} "
+        f"observations: mre {r32.mre:.6f} / {r64.mre:.6f} px (delta "
+        f"{dmre:.2e}), camera position delta mean {d.mean():.2e} max "
+        f"{d.max():.2e} m; iterations {r32.iters} / {r64.iters}; walls "
+        f"{t1 - t0:.3f} / {t2 - t1:.3f} s")
+    if dmre >= 0.01 or d.mean() >= 1e-3:
+        raise AssertionError("f32 BA strays from the f64 oracle")
+    return out, split
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     device_info()
@@ -663,20 +1203,36 @@ def main():
     k2 = check_blur()
     k1 = check_knn()
     k3 = check_wide()
-    bench_workload()
+    k4 = check_epilogue()
+    bench_pps = bench_workload()
     slice_launches, m, dets = run_slice()
     with tempfile.TemporaryDirectory() as root:
-        smart_launches = run_smart_slice(m, dets, root, profile)
-        del m
+        smart_launches, smart_result, proj, state = run_smart_slice(
+            m, dets, root, profile)
+        reset_launches()
+        try:
+            run_fused_bench(bench_pps)
+            run_fused_smart(m, dets, root, smart_result)
+        finally:
+            os.environ.pop(FUSED, None)
+        fused_launches = read_launches()
+        log(f"[fused] launches: {fused_launches}")
+        if fused_launches["match_epilogue"] == 0:
+            raise AssertionError(f"K4 never launched: {fused_launches}")
+        run_steps_3b_4(proj, state, m, root, profile)
+        del m, dets, proj
         rep_launches = run_repetitive(root)
     wide_launches = run_wide_store()
+    run_mission_ba()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
                     source=f"imageanalysis_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches,
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    timed_by=r.get("timed_by", "CUDA events, median"))
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [
@@ -693,6 +1249,9 @@ def main():
         entry("gauss_blur_f32", "gauss_blur.cu",
               "imageanalysis_tpu/features/sift_tpu.py:67",
               slice_launches["gauss_blur_f32"], k2),
+        entry("match_epilogue", "match_epilogue.cu",
+              "imageanalysis_tpu/ops/knn.py:253",
+              fused_launches["match_epilogue"], k4["bench"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -16,7 +16,8 @@ by its path:
                                ``csrc/knn_packed.cu``, in its int8, bf16, f32
                                and gated modes; kernel K3,
                                ``csrc/knn_wide.cu``; both share
-                               ``csrc/knn_common.cuh``)
+                               ``csrc/knn_common.cuh``; kernel K4, the fused
+                               match epilogue, ``csrc/match_epilogue.cu``)
 - ``ops/ransac.py``          ← ``imageanalysis_tpu/ops/ransac.py``
 - ``ops/clahe.py``           ← ``imageanalysis_tpu/ops/clahe.py``
 - ``ops/triangulate.py``     ← ``imageanalysis_tpu/ops/triangulate.py``
@@ -24,16 +25,22 @@ by its path:
                                (kernel K2, ``csrc/gauss_blur.cu``) — the one
                                module whose name differs
 - ``match/worklist.py``, ``match/store.py``, ``match/matcher.py``
-  (``BatchMatcher``, ``find_matches``), ``match/smart.py``
+  (``BatchMatcher``, ``find_matches``), ``match/smart.py``,
+  ``match/cleanup.py``, ``match/groups.py``
                              ← the same paths under ``imageanalysis_tpu/match``
+- ``ba/bundle.py`` (less the calibration path), ``ba/setup.py``
+                             ← the same paths under ``imageanalysis_tpu/ba``
 - ``testing/synthetic.py``   ← part of ``imageanalysis_tpu/testing/synthetic.py``
                                (a mission generator that needs no OpenCV,
-                               and a writer of its project workspace)
+                               a writer of its project workspace, and the
+                               synthetic BA graphs of ``scripts_dev``)
 
 Conventions:
 
 - functions take tensors and run on the device of the tensors they get;
-  there is no global device choice and no fallback between devices;
+  entry points that take a ``device`` default to ``"cuda"`` (the CPU only
+  when asked); there is no global device choice and no fallback between
+  devices;
 - a kernel wrapper takes its plain PyTorch version for a CPU tensor and
   launches its CUDA kernel for a CUDA tensor, or raises;
 - randomness comes from an explicit ``torch.Generator``;

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "knn_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # in, out, taps (host float*), n_img, H, W, radius, stream
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # row_p, col_p, uv_b, ratio2, best_j, ok, pb, n_pairs, n_a, n_b, stream
+    "match_epilogue": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

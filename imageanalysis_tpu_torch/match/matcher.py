@@ -257,7 +257,7 @@ class BatchMatcher:
     draws every RANSAC sample."""
 
     def __init__(self, proj, config: MatchConfig, use_store=None,
-                 smart_state=None, device="cpu"):
+                 smart_state=None, device="cuda"):
         self.proj = proj
         self.config = config
         self.device = torch.device(device)
@@ -541,7 +541,7 @@ def _store_unpack_compact(images, chunk, counts, entries, min_pairs):
 
 def find_matches(proj, config: MatchConfig | None = None, use_distance=True,
                  sort=False, save_interval=300.0, smart_state=None,
-                 device="cpu"):
+                 device="cuda"):
     """Step 3a's matching stage: build the pair work list, match every pair
     on ``device``, save incrementally.
 

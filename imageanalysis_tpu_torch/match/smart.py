@@ -124,7 +124,7 @@ class SmartState:
 # batched pair estimators
 # ---------------------------------------------------------------------------
 
-def pair_surface_stats_batched(proj, pair_list, chunk=256, device="cpu"):
+def pair_surface_stats_batched(proj, pair_list, chunk=256, device="cuda"):
     """Triangulated (avg_elev, std, baseline) and the uv2→uv1 similarity
     for many pairs in few device calls: each pair's matches are subsampled
     to 256 evenly strided ones, and chunks of pairs go through one batched
@@ -209,7 +209,7 @@ def _pair_stats_fused(P1, P2, uv1, uv2, msk, K):
     return mean_z, torch.sqrt(var_z), A, cnt
 
 
-def requalify_pairs(proj, smart: SmartState, std_cutoff=50.0, device="cpu"):
+def requalify_pairs(proj, smart: SmartState, std_cutoff=50.0, device="cuda"):
     """Re-triangulate every matched pair with the current poses and
     discard pairs whose surface stddev still exceeds the cutoff (the
     reference's bad-geometry rejection, run after the yaw-error correction
@@ -276,7 +276,7 @@ def _yaw_from_affine(proj, i1, i2, A):
     return yaw_error, dist, crs_aff, weight
 
 
-def update_pairs_batched(proj, smart: SmartState, pair_list, device="cpu"):
+def update_pairs_batched(proj, smart: SmartState, pair_list, device="cuda"):
     """Surface + yaw updates for many freshly matched pairs with a few
     device calls."""
     pair_list = [(i1, i2) for i1, i2 in pair_list

@@ -53,7 +53,7 @@ class DescriptorStore:
         self.index = {n: i for i, n in enumerate(self.names)}
 
     @classmethod
-    def from_project(cls, proj, images=None, npad=None, device="cpu"):
+    def from_project(cls, proj, images=None, npad=None, device="cuda"):
         """The store of a project workspace: every image's undistorted
         keypoints and int8 descriptors, staged on the device 256 images at
         a time (peak host memory one chunk). npad rounds the largest count
@@ -107,7 +107,7 @@ class DescriptorStore:
         return n_images * npad * d <= budget_bytes
 
     @classmethod
-    def from_numpy(cls, desc, uv, counts, device="cpu"):
+    def from_numpy(cls, desc, uv, counts, device="cuda"):
         """A store from the arrays of an existing one: desc (n, npad, d)
         int8 (value − 128, pad 127), uv (n, npad, 2), counts (n,)."""
         return cls(torch.as_tensor(np.asarray(desc, np.int8), device=device),
@@ -116,7 +116,7 @@ class DescriptorStore:
                                    device=device))
 
     @classmethod
-    def from_arrays(cls, des, uv, device="cpu", npad=None):
+    def from_arrays(cls, des, uv, device="cuda", npad=None):
         """A store from per-image arrays: des[i] (n_i, d) 0..255 descriptors
         (uint8 or float, rounded and clipped), uv[i] (n_i, 2). npad rounds
         the largest count up to a multiple of 256 (at least 256)."""

@@ -14,10 +14,16 @@ pair dimension (the reference vmaps over pairs):
   (``csrc/knn_wide.cu``): unpacked 64-bit (value, index) keys, any size;
 - ``knn_top2`` — the reference's dispatch: K1 up to 8192 rows, K3 beyond
   (int8 cast to bf16; no gate there), decoded;
+- ``match_epilogue_plain`` / ``match_epilogue_raw`` — the plain version of
+  kernel K4 and its wrapper (``csrc/match_epilogue.cu``): decode K1's raw
+  keys, ratio test, mutual check and the uv pick, per A row;
+- ``knn_match_fused`` — K1 in raw packed mode, then K4 (two launches);
 - ``match_pair_dense`` — Lowe ratio on squared distances, mutual check and
   the uv pick. On a CPU tensor ``use_pallas`` picks the arm as the
   reference's does (None is the CPU arm); a CUDA tensor always takes the
-  kernels (``kernel_arm``).
+  kernels (``kernel_arm``). With ``IMGTPU_FUSED_EPILOGUE`` set to anything
+  but "0" (read at each call, default off, as the reference's switch) the
+  kernel arm takes ``knn_match_fused`` where the reference does.
 
 Packed keys are exact for int8 descriptors (d2 ≤ 128·255² < 2²³) and for
 integer-valued float descriptors (every product and partial sum of the
@@ -26,6 +32,8 @@ its plain version agree bit for bit there.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -43,9 +51,10 @@ _DIM = 128
 _WIDE_MAX = (1 << 63) - 1
 
 # kernel launches (not plain-version calls), by mode: K1 int8 ungated, K1
-# gated (any dtype), K1 bf16 and f32 ungated, K3
+# gated (any dtype), K1 bf16 and f32 ungated, K3, K4
 LAUNCHES = dict.fromkeys(("knn_packed_i8", "knn_packed_gated",
-                          "knn_packed_bf16", "knn_packed_f32", "knn_wide"), 0)
+                          "knn_packed_bf16", "knn_packed_f32", "knn_wide",
+                          "match_epilogue"), 0)
 
 
 def pad_descriptors(desc, n_pad):
@@ -431,6 +440,113 @@ def kernel_arm(device, use_pallas, gated, n_rows):
     return True
 
 
+# ---------------------------------------------------------------------------
+# K4: the fused match epilogue
+# ---------------------------------------------------------------------------
+
+def _check_epilogue(row_p, col_p, uv_b, name):
+    if (row_p.dim() != 3 or row_p.shape[2] != 2 or col_p.dim() != 2
+            or row_p.shape[0] != col_p.shape[0]
+            or tuple(uv_b.shape) != (*col_p.shape, 2)):
+        raise ValueError(f"{name}: need row_p (B, n_a, 2), col_p (B, n_b) "
+                         f"and uv_b (B, n_b, 2), got {tuple(row_p.shape)}, "
+                         f"{tuple(col_p.shape)} and {tuple(uv_b.shape)}")
+    if (row_p.dtype != torch.int32 or col_p.dtype != torch.int32
+            or uv_b.dtype != torch.float32):
+        raise ValueError(f"{name}: need int32 row_p and col_p and f32 uv_b, "
+                         f"got {row_p.dtype}, {col_p.dtype}, {uv_b.dtype}")
+    if not row_p.device == col_p.device == uv_b.device:
+        raise ValueError(f"{name}: inputs on {row_p.device}, {col_p.device} "
+                         f"and {uv_b.device}")
+    if max(row_p.shape[1], col_p.shape[1]) > (1 << _IDX_BITS):
+        raise ValueError(f"{name}: packed keys hold at most "
+                         f"{1 << _IDX_BITS} rows")
+
+
+def match_epilogue_plain(row_p, col_p, uv_b, ratio=0.75):
+    """Plain version of K4: K1's raw packed keys → (best_j, ok, pb).
+
+    row_p (B, n_a, 2) int32 and col_p (B, n_b) int32 as knn_packed_raw
+    returns them, uv_b (B, n_b, 2) f32. Per A row i: j = the low 13 bits
+    of the best key; d1, d2 = the two keys with those bits cleared, as
+    f32; ok = max(d1, 0) < ratio²·max(d2, 0) (the product rounded to f32)
+    and the mutual check col_p[j]'s index == i; pb = uv_b[j]. A j ≥ n_b
+    (no key of K1 names one) gives ok False and pb (0, 0). Returns
+    (best_j (B, n_a) int32, ok (B, n_a) bool, pb (B, n_a, 2) f32)."""
+    _check_epilogue(row_p, col_p, uv_b, "match_epilogue_plain")
+    n_a, n_b = row_p.shape[1], col_p.shape[1]
+    best_j = row_p[..., 0] & _IDX_MASK
+    d1 = (row_p[..., 0] & ~_IDX_MASK).view(torch.float32).clamp_min(0.0)
+    d2 = (row_p[..., 1] & ~_IDX_MASK).view(torch.float32).clamp_min(0.0)
+    in_b = best_j < n_b
+    j = torch.where(in_b, best_j, 0).long()
+    col_i = torch.gather(col_p, 1, j) & _IDX_MASK
+    arange_a = torch.arange(n_a, dtype=torch.int32, device=row_p.device)
+    ok = (d1 < (ratio * ratio) * d2) & in_b & (col_i == arange_a)
+    pb = torch.gather(uv_b, 1, j[..., None].expand(-1, -1, 2))
+    return best_j, ok, torch.where(in_b[..., None], pb, 0.0)
+
+
+def match_epilogue_raw(row_p, col_p, uv_b, ratio=0.75):
+    """K4 (see match_epilogue_plain). A CUDA tensor launches
+    csrc/match_epilogue.cu, one thread per A row; a CPU tensor takes
+    match_epilogue_plain; any other device, dtype or shape raises."""
+    _check_epilogue(row_p, col_p, uv_b, "match_epilogue_raw")
+    dev = row_p.device
+    if dev.type == "cpu":
+        return match_epilogue_plain(row_p, col_p, uv_b, ratio)
+    if dev.type != "cuda":
+        raise ValueError(f"match_epilogue_raw: no kernel for device {dev}")
+    for t in (row_p, col_p, uv_b):
+        if not t.is_contiguous() or t.data_ptr() % 8:
+            raise ValueError("match_epilogue_raw: inputs must be contiguous "
+                             "and 8-byte aligned")
+    B, n_a, _ = row_p.shape
+    n_b = col_p.shape[1]
+    lib = _build.load()
+    best_j = torch.empty((B, n_a), dtype=torch.int32, device=dev)
+    ok = torch.empty((B, n_a), dtype=torch.bool, device=dev)
+    pb = torch.empty((B, n_a, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.match_epilogue(
+            row_p.data_ptr(), col_p.data_ptr(), uv_b.data_ptr(),
+            float(ratio) ** 2, best_j.data_ptr(), ok.data_ptr(),
+            pb.data_ptr(), B, n_a, n_b,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "match_epilogue")
+    LAUNCHES["match_epilogue"] += 1
+    return best_j, ok, pb
+
+
+def knn_match_fused(desc_a, desc_b, uv_b, ratio=0.75, gate_uv_a=None,
+                    gate_pred_b=None, gate_radius=0.0):
+    """2-NN + ratio + mutual + uv pick in two launches: K1 in raw packed
+    mode, then K4. desc_a (B, n_a, 128), desc_b (B, n_b, 128) int8 or
+    float, n ≤ 8192; uv_b (B, n_b, 2). Float descriptors always run K1's
+    bf16 mode (norms from the unrounded values), whatever a caller's bf16
+    says, as the reference's knn_match_fused. gate_* as knn_top2. Returns
+    match_epilogue_raw's (best_j, ok, pb); the caller masks padded rows."""
+    if desc_a.dtype == torch.int8:
+        a, b, na2, nb2 = desc_a, desc_b, None, None
+    else:
+        na2, nb2 = _sq_norms(desc_a), _sq_norms(desc_b)
+        a = desc_a.bfloat16().contiguous()
+        b = desc_b.bfloat16().contiguous()
+    if gate_radius > 0.0 and gate_uv_a is not None:
+        row_p, col_p = knn_packed_raw(
+            a, b, na2, nb2, gate_uv_a.float().contiguous(),
+            gate_pred_b.float().contiguous(), float(gate_radius) ** 2)
+    else:
+        row_p, col_p = knn_packed_raw(a, b, na2, nb2)
+    return match_epilogue_raw(row_p, col_p, uv_b.float().contiguous(), ratio)
+
+
+def _fused_epilogue_on():
+    """The reference's switch, read at each call: IMGTPU_FUSED_EPILOGUE set
+    to anything but "0" (default off)."""
+    return os.environ.get("IMGTPU_FUSED_EPILOGUE", "0") != "0"
+
+
 def match_pair_dense(desc_a, desc_b, n_a, n_b, ratio=0.75, mutual=True,
                      use_pallas=None, bf16=True, gate_uv_a=None,
                      gate_pred_b=None, gate_radius=0.0, uv_b=None):
@@ -443,17 +559,30 @@ def match_pair_dense(desc_a, desc_b, n_a, n_b, ratio=0.75, mutual=True,
     Returns (best_j (B, n_a_pad) int32, ok (B, n_a_pad) bool) and, when
     uv_b (B, n_b_pad, 2) is given, pb = uv_b[best_j] as a third output.
     The ratio test is d1 < ratio²·d2 on squared distances; the mutual
-    check keeps rows whose best B row picks them back."""
+    check keeps rows whose best B row picks them back.
+
+    The fused arm (knn_match_fused, K1 then K4) is taken under the
+    reference's condition: the kernel arm, mutual, uv_b given, n_a_pad
+    and n_b_pad ≤ 8192, n_a_pad a multiple of 8 and IMGTPU_FUSED_EPILOGUE
+    set to anything but "0" (read at each call)."""
     gate = dict(gate_uv_a=gate_uv_a, gate_pred_b=gate_pred_b,
                 gate_radius=gate_radius)
-    if kernel_arm(desc_a.device, use_pallas, gate_radius > 0.0,
-                  max(desc_a.shape[1], desc_b.shape[1])):
+    n_rows = max(desc_a.shape[1], desc_b.shape[1])
+    dev = desc_a.device
+    arange_a = torch.arange(desc_a.shape[1], dtype=torch.int32, device=dev)
+    arm = kernel_arm(dev, use_pallas, gate_radius > 0.0, n_rows)
+    if (arm and mutual and uv_b is not None and n_rows <= (1 << _IDX_BITS)
+            and desc_a.shape[1] % 8 == 0 and _fused_epilogue_on()):
+        best_j, ok, pb = knn_match_fused(desc_a, desc_b, uv_b, ratio=ratio,
+                                         **gate)
+        ok &= arange_a < torch.as_tensor(n_a).to(dev)[:, None]
+        ok &= best_j < torch.as_tensor(n_b).to(dev)[:, None]
+        return best_j, ok, pb
+    if arm:
         row_d, row_i, _, col_i = knn_top2(desc_a, desc_b, bf16=bf16, **gate)
     else:
         row_d, row_i, _, col_i = knn_top2_ref(desc_a, desc_b, bf16=bf16,
                                               **gate)
-    dev = desc_a.device
-    arange_a = torch.arange(desc_a.shape[1], dtype=torch.int32, device=dev)
     best_j = row_i[..., 0]
     d1 = row_d[..., 0].clamp_min(0.0)
     d2 = row_d[..., 1].clamp_min(0.0)

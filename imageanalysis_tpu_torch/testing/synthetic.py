@@ -12,6 +12,11 @@ are known exactly. Frames are made in memory on the given device.
 workspace (config.json, meta/*.json, cache/*.feat, cache/*.desc; no image
 files: ``ProjectMgr.load_images_info`` reads meta/ only) that both
 packages' ``find_matches`` can run on.
+
+``make_ba_mission_graph`` and ``make_ba_grid_graph`` draw the synthetic
+bundle-adjustment graphs of ``scripts_dev/ba_synth_scale.py`` (the
+2812-camera mission) and ``scripts_dev/ba_f64_oracle.py`` (the f64
+oracle's grid) with torch on the given device.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def _normalize_u8(tex, rounding):
     return (torch.round(tex) if rounding else tex).to(torch.uint8)
 
 
-def make_ground_texture(rng, shape, device="cpu"):
+def make_ground_texture(rng, shape, device="cuda"):
     """(h, w) uint8 texture from numpy Generator rng, built on device."""
     h, w = shape
     noise = rng.uniform(0, 255, (h, w)).astype(np.float32)
@@ -52,7 +57,7 @@ def make_ground_texture(rng, shape, device="cpu"):
     return _normalize_u8(tex, rounding=True)
 
 
-def make_tiled_texture(rng, shape, period=140, blur=1.5, device="cpu"):
+def make_tiled_texture(rng, shape, period=140, blur=1.5, device="cuda"):
     """(h, w) uint8 texture that repeats every `period` px: one blurred
     noise cell (reflect-101 borders), tiled — the reference's synthetic
     'row crop / forest canopy', where every feature has a near-identical
@@ -113,7 +118,7 @@ def _reference_attitude(rot):
 
 
 def make_mission(strips=4, per_strip=16, size=(2176, 1440), strip_gap=2.5,
-                 seed=0, device="cpu", texture_period=None):
+                 seed=0, device="cuda", texture_period=None):
     """Render a strips × per_strip frame mission over a flat textured ground.
 
     size is (W, H) px; the focal length scales as 1400 px at W = 2176, as
@@ -195,6 +200,163 @@ def make_mission(strips=4, per_strip=16, size=(2176, 1440), strip_gap=2.5,
 
 def image_name(i):
     return f"IMG_{i:04d}"
+
+
+class BAProblem(NamedTuple):
+    """A synthetic bundle-adjustment graph, tensors on one device:
+    truth and perturbed start ([ned, NED→body quat] cameras, NED points),
+    observations (ba.bundle.BAObservations) and the intrinsics."""
+
+    cams_true: torch.Tensor
+    pts_true: torch.Tensor
+    cams0: torch.Tensor
+    pts0: torch.Tensor
+    obs: tuple
+    K: torch.Tensor
+    dist: torch.Tensor
+
+
+def make_ba_mission_graph(n_cam=2812, n_pt=1_354_000, obs_per_pt=3,
+                          px_noise=0.5, seed=0, device="cuda",
+                          dtype=torch.float32, observers="distinct"):
+    """The mission-scale BA graph of scripts_dev/ba_synth_scale.py, drawn
+    with torch on device: n_cam nadir cameras on a 30 m lawnmower grid at
+    60 m, n_pt ground points (±40 m around a random camera, ±8 m of
+    height), each seen by obs_per_pt cameras up to two grid steps from
+    that camera along its row (observations sorted by point), f = 2000
+    px, no distortion, uv noise px_noise px; the start perturbs cameras
+    by N(0, 1 m) and N(0, 0.01) per quaternion component, points by
+    N(0, 2 m). The defaults give 4,062,000 observations.
+
+    observers says how a point's cameras are drawn:
+
+    - "flat", as the script: each the flat index ±2 clipped to the grid,
+      which at a row's end wraps to the far end of the next row, 1,590 m
+      away at 60 m height. Under the start's ~1° attitude noise such rays
+      graze the image plane (camera z → 0, residuals of 1e8 px), and f32
+      LM accepts no first step in either package;
+    - "row": each the column ±2 clipped to the point's row. As in the
+      script, the draws repeat: 4% of the points are seen three times by
+      one camera, their depth unobservable, and LM's steps slide them
+      hundreds of metres along their rays;
+    - "distinct" (the default): obs_per_pt different cameras of the
+      row, each within two steps of the point's camera, as a chain of
+      matches sees each image once."""
+    from ..ba.bundle import BAObservations
+    from ..core.camera import project_ned_quat
+    from ..core.rotations import quat_from_ypr, quat_multiply
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float64) * std
+
+    side = math.ceil(math.sqrt(n_cam))
+    i = torch.arange(n_cam, device=dev, dtype=torch.float64)
+    cam_ned = torch.stack([(i % side) * 30.0, (i // side) * 30.0,
+                           torch.full_like(i, -60.0)], dim=1)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    q_nadir = quat_multiply(quat_from_ypr(zero, zero, zero),
+                            quat_from_ypr(zero, zero - math.pi / 2, zero))
+    cams = torch.cat([cam_ned, q_nadir.expand(n_cam, 4)], dim=1)
+    pt_cam = torch.randint(0, n_cam, (n_pt,), generator=gen, device=dev)
+    off = (torch.rand((n_pt, 3), generator=gen, device=dev,
+                      dtype=torch.float64) * 80.0 - 40.0)
+    pts = cam_ned[pt_cam] * cam_ned.new_tensor([1.0, 1.0, 0.0]) \
+        + off * off.new_tensor([1.0, 1.0, 0.2])
+    row, col = pt_cam // side * side, pt_cam % side
+    if observers == "distinct":
+        lo = (col - 2).clamp(min=0)
+        width = torch.minimum(col + 2, (n_cam - row).clamp(max=side) - 1) \
+            - lo + 1
+        if int(width.min()) < obs_per_pt:
+            raise ValueError("fewer cameras within two steps than "
+                             "obs_per_pt")
+        keys = torch.rand((n_pt, 5), generator=gen, device=dev)
+        keys[torch.arange(5, device=dev)[None, :] >= width[:, None]] = 2.0
+        near = (row + lo)[:, None] + keys.argsort(dim=1)[:, :obs_per_pt]
+    else:
+        step = torch.randint(-2, 3, (n_pt, obs_per_pt), generator=gen,
+                             device=dev)
+        near = (pt_cam[:, None] + step if observers == "flat" else
+                row[:, None] + (col[:, None] + step).clamp(0, side - 1))
+    cam_idx = near.clamp(0, n_cam - 1).reshape(-1)
+    pt_idx = torch.arange(n_pt, device=dev).repeat_interleave(obs_per_pt)
+    K = torch.tensor([[2000.0, 0, 1088], [0, 2000.0, 720], [0, 0, 1]],
+                     dtype=torch.float64, device=dev)
+    dist = torch.zeros(5, dtype=torch.float64, device=dev)
+    uv, _ = project_ned_quat(pts[pt_idx], cams[cam_idx, :3],
+                             cams[cam_idx, 3:7], K, dist)
+    uv = uv + normal(uv.shape, px_noise)
+    cams0 = cams + normal(cams.shape, 1.0) * cams.new_tensor(
+        [1, 1, 1, 0.01, 0.01, 0.01, 0.01])
+    pts0 = pts + normal(pts.shape, 2.0)
+    obs = BAObservations(cam_idx, pt_idx, uv.to(dtype),
+                         torch.ones(len(cam_idx), dtype=dtype, device=dev))
+    return BAProblem(cams.to(dtype), pts.to(dtype), cams0.to(dtype),
+                     pts0.to(dtype), obs, K.to(dtype), dist.to(dtype))
+
+
+def make_ba_grid_graph(n_cam=300, n_pt=6000, obs_per_pt=4, px_noise=0.3,
+                       seed=1, device="cuda", dtype=torch.float64):
+    """The aerial grid of scripts_dev/ba_f64_oracle.py (tests/test_ba.py's
+    synth_problem, vectorized), drawn with torch on device: n_cam cameras
+    on a 40 m grid at ~120 m, near-nadir attitudes (pitch −88°, N(0, 0.2)
+    rad yaw, N(0, 0.03) pitch and roll), n_pt points over the grid ±8 m in
+    height, each seen by its obs_per_pt nearest cameras where it lands in
+    the 1920×1440 frame (f = 1800 px); uv noise px_noise px; the start
+    perturbs positions by N(0, 1.5 m), attitudes by N(0, 0.01) rad ypr and
+    points by N(0, 3 m). Built in float64, returned in dtype."""
+    from ..ba.bundle import BAObservations
+    from ..core.camera import project_ned_quat
+    from ..core.rotations import quat_from_ypr, quat_multiply
+
+    dev = torch.device(device)
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f64) * std
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=f64) * (hi - lo) + lo
+
+    side = math.ceil(math.sqrt(n_cam))
+    i = torch.arange(n_cam, device=dev)
+    ned = torch.stack([(i // side).to(f64) * 40.0, (i % side).to(f64) * 40.0,
+                       -120.0 + normal((n_cam,), 2.0)], dim=1)
+    quats = quat_from_ypr(normal((n_cam,), 0.2),
+                          math.radians(-88) + normal((n_cam,), 0.03),
+                          normal((n_cam,), 0.03))
+    cams_true = torch.cat([ned, quats], dim=1)
+    span = side * 40.0
+    pts_true = torch.cat([uniform((n_pt, 2), -30.0, span + 30.0),
+                          uniform((n_pt, 1), -8.0, 8.0)], dim=1)
+    d = torch.cdist(pts_true[:, :2], ned[:, :2])
+    near = torch.topk(d, obs_per_pt, dim=1, largest=False).indices
+    pt_idx = torch.arange(n_pt, device=dev).repeat_interleave(obs_per_pt)
+    cam_idx = near.reshape(-1)
+    K = torch.tensor([[1800.0, 0, 960.0], [0, 1800.0, 720.0], [0, 0, 1.0]],
+                     dtype=f64, device=dev)
+    dist = torch.zeros(5, dtype=f64, device=dev)
+    pred, z = project_ned_quat(pts_true[pt_idx], cams_true[cam_idx, :3],
+                               cams_true[cam_idx, 3:7], K, dist)
+    keep = ((z > 0) & (pred[:, 0] >= 0) & (pred[:, 0] < 1920)
+            & (pred[:, 1] >= 0) & (pred[:, 1] < 1440))
+    uv = pred[keep] + normal((int(keep.sum()), 2), px_noise)
+    cams0 = cams_true.clone()
+    cams0[:, :3] += normal((n_cam, 3), 1.5)
+    dq = quat_from_ypr(*normal((3, n_cam), 0.01))
+    cams0[:, 3:7] = quat_multiply(cams0[:, 3:7], dq)
+    pts0 = pts_true + normal(pts_true.shape, 3.0)
+    obs = BAObservations(cam_idx[keep], pt_idx[keep], uv.to(dtype),
+                         torch.ones(len(uv), dtype=dtype, device=dev))
+    return BAProblem(cams_true.to(dtype), pts_true.to(dtype),
+                     cams0.to(dtype), pts0.to(dtype), obs, K.to(dtype),
+                     dist.to(dtype))
 
 
 def write_workspace(project_dir, mission, dets):

@@ -8,8 +8,10 @@ without the conftest:
 
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
-arithmetic in f32 or int32, and K2 rounds the same f32 products and sums
-one by one, so the comparisons are bit-exact.
+arithmetic in f32 or int32, K2 rounds the same f32 products and sums one
+by one, and K4 decodes, compares and gathers exactly, so the comparisons
+are bit-exact. Bundle adjustment on the card is held against the CPU
+within a stated tolerance (atomic sums).
 """
 
 import numpy as np
@@ -212,7 +214,7 @@ def test_detect_on_card_matches_cpu(cuda):
     from imageanalysis_tpu_torch.testing.synthetic import make_mission
 
     frames = make_mission(strips=1, per_strip=2, size=(320, 256),
-                          seed=11).frames
+                          seed=11, device="cpu").frames
     before = sift.BLUR_LAUNCHES
     on_card = sift.detect_finalize_batch(sift.detect_dispatch(
         frames.to(cuda), max_features=512, equalize=True))
@@ -223,3 +225,85 @@ def test_detect_on_card_matches_cpu(cuda):
         assert abs(len(kp_g) - len(kp_c)) <= 0.02 * len(kp_c)
         d = np.linalg.norm(kp_c[:, None] - kp_g[None], axis=-1).min(1)
         assert (d < 0.05).mean() >= 0.98
+
+
+def _k1_raw(rng, cuda, pairs, n, gated):
+    """K1's raw keys on planted int8 rows (gated: ~half the candidates
+    out), and a uv_b table."""
+    a, b = (t.to(cuda) for t in _planted(rng, pairs, n, n, n // 4))
+    gate = _gate(rng, cuda, pairs, n, n) if gated else ()
+    row_p, col_p = knn.knn_packed_raw(a, b, None, None, *gate)
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (pairs, n, 2))
+                            .astype(np.float32)).to(cuda)
+    return row_p, col_p, uv_b
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["int8", "gated"])
+def test_k4_bit_exact_vs_plain(cuda, rng, gated):
+    row_p, col_p, uv_b = _k1_raw(rng, cuda, 3, 512, gated)
+    before = knn.LAUNCHES["match_epilogue"]
+    got = knn.match_epilogue_raw(row_p, col_p, uv_b, 0.75)
+    assert knn.LAUNCHES["match_epilogue"] == before + 1
+    want = knn.match_epilogue_plain(row_p, col_p, uv_b, 0.75)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    # ungated, the planted rows pass the ratio and mutual tests; the random
+    # gate keeps some
+    assert int(got[1].sum()) > (0 if gated else 100)
+
+
+def test_k4_refuses_what_it_does_not_take(cuda, rng):
+    row_p, col_p, uv_b = _k1_raw(rng, cuda, 1, 128, False)
+    before = dict(knn.LAUNCHES)
+    with pytest.raises(ValueError):               # CPU and CUDA mixed
+        knn.match_epilogue_raw(row_p, col_p.cpu(), uv_b)
+    with pytest.raises(ValueError):               # int64 keys
+        knn.match_epilogue_raw(row_p.long(), col_p, uv_b)
+    with pytest.raises(ValueError):               # f64 coordinates
+        knn.match_epilogue_raw(row_p, col_p, uv_b.double())
+    with pytest.raises(ValueError):               # not contiguous
+        knn.match_epilogue_raw(torch.cat([row_p, row_p], -1)[..., ::2],
+                               col_p, uv_b)
+    assert knn.LAUNCHES == before
+
+
+def test_fused_arm_on_card_equals_unfused(cuda, rng, monkeypatch):
+    """match_pair_dense with IMGTPU_FUSED_EPILOGUE=1 takes K1 then K4 and
+    returns the unfused arm's outputs bit for bit."""
+    a, b = (t.to(cuda) for t in _planted(rng, 4, 512, 768, 200))
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (4, 768, 2))
+                            .astype(np.float32)).to(cuda)
+    n = torch.tensor([500, 512, 300, 64]), torch.tensor([768, 700, 512, 64])
+    monkeypatch.delenv("IMGTPU_FUSED_EPILOGUE", raising=False)
+    want = knn.match_pair_dense(a, b, *n, uv_b=uv_b)
+    monkeypatch.setenv("IMGTPU_FUSED_EPILOGUE", "1")
+    before = knn.LAUNCHES["match_epilogue"]
+    got = knn.match_pair_dense(a, b, *n, uv_b=uv_b)
+    assert knn.LAUNCHES["match_epilogue"] == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_bundle_solve_on_card_matches_cpu(cuda):
+    """The same grid graph solved on the card and on the CPU, f32. The
+    card's index_add_ sums with atomics in no fixed order, so the two
+    parts in the last bits and, along the weakly constrained gauge, a
+    little more: mre within 1%, cost history start within 1e-5."""
+    from imageanalysis_tpu_torch.ba import bundle
+    from imageanalysis_tpu_torch.testing.synthetic import make_ba_grid_graph
+
+    g = make_ba_grid_graph(n_cam=36, n_pt=1200, device="cpu",
+                           dtype=torch.float32)
+    cfg = bundle.BAConfig(max_iters=8, ftol=1e-6)
+    on_cpu = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist, cfg,
+                          verbose=False, device="cpu")
+    on_card = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist, cfg,
+                           verbose=False, device=cuda)
+    np.testing.assert_allclose(on_card.cost_history[0],
+                               on_cpu.cost_history[0], rtol=1e-5)
+    np.testing.assert_allclose(on_card.mre, on_cpu.mre, rtol=1e-2)
+    assert abs(on_card.iters - on_cpu.iters) <= 1
+    assert np.isfinite(on_card.pts).all() and on_card.mre < 0.5

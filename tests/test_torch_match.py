@@ -45,7 +45,8 @@ SIZE = (320, 240)
 def workspace(tmp_path_factory):
     """Workspaces of the mission to copy: all features, and at most 250
     an image."""
-    m = make_mission(strips=3, per_strip=2, size=SIZE, strip_gap=1.5, seed=3)
+    m = make_mission(strips=3, per_strip=2, size=SIZE, strip_gap=1.5, seed=3,
+                     device="cpu")
     dets = tsift.detect_finalize_batch(tsift.detect_dispatch(
         m.frames, max_features=512, equalize=True))
     base = tmp_path_factory.mktemp("ws")
@@ -112,7 +113,7 @@ def test_find_matches_smart_matches_reference(workspace, tmp_path,
     n_j = jmatcher.find_matches(jp, jmatcher.MatchConfig(**config),
                                 smart_state=js)
     n_t = tmatcher.find_matches(tp, tmatcher.MatchConfig(**config),
-                                smart_state=ts)
+                                smart_state=ts, device="cpu")
     assert abs(n_t - n_j) <= 0.02 * n_j
     grounds = np.concatenate(grounds)
     assert len(grounds) == 15
@@ -122,7 +123,7 @@ def test_find_matches_smart_matches_reference(workspace, tmp_path,
     moved = np.abs(grounds[8:]) <= 1.0
     assert moved.sum() >= 5 and np.all(moved | (grounds[8:] == 30.0))
     jsmart.requalify_pairs(jp, js)
-    tsmart.requalify_pairs(tp, ts)
+    tsmart.requalify_pairs(tp, ts, device="cpu")
     # the saved match files are what both packages compare
     for p, mgr in ((jp, JProject), (tp, TProject)):
         p.__init__(p.project_dir)
@@ -147,9 +148,11 @@ def test_store_path_smart_matches_reference(workspace, tmp_path):
     jp, tp = _copies(template, tmp_path)
     pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
     config = dict(strategy="smart", transform="none", store_scan=1)
-    for mod, sm, p in ((jmatcher, jsmart, jp), (tmatcher, tsmart, tp)):
+    for mod, sm, p, kw in ((jmatcher, jsmart, jp, {}),
+                           (tmatcher, tsmart, tp, {"device": "cpu"})):
         bm = mod.BatchMatcher(p, mod.MatchConfig(**config), use_store=True,
-                              smart_state=sm.SmartState(p.analysis_dir))
+                              smart_state=sm.SmartState(p.analysis_dir),
+                              **kw)
         assert bm.store is not None and bm.gated
         bm.match_pairs(pairs, progress=False) if mod is jmatcher \
             else bm.match_pairs(pairs)
@@ -170,7 +173,7 @@ def test_store_beyond_8192_rows_matches_reference(rng):
         desc[i, :n] = (base[i, :n] - 128).astype(np.int8)
     uv = rng.uniform(0, 4000, (3, npad, 2)).astype(np.float32)
     pairs = [(0, 1), (1, 2)]
-    store = DescriptorStore.from_numpy(desc, uv, counts)
+    store = DescriptorStore.from_numpy(desc, uv, counts, device="cpu")
     got = tmatcher.match_pairs_store(
         store, pairs, tmatcher.MatchConfig(transform="none", use_pallas=True),
         thresh=7.9)
@@ -259,7 +262,7 @@ def test_match_config_decides_the_arm_by_device(workspace, tmp_path):
     _, tp = _copies(template, tmp_path)
     cfg = tmatcher.MatchConfig(transform="none", compact_downloads=True,
                                store_scan=1)
-    bm = tmatcher.BatchMatcher(tp, cfg, use_store=True)
+    bm = tmatcher.BatchMatcher(tp, cfg, use_store=True, device="cpu")
     assert cfg.use_pallas is False and not bm.gated
     pairs = [(0, 1), (2, 3), (4, 5), (0, 2)]
     bm.match_pairs(pairs)

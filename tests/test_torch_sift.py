@@ -80,7 +80,7 @@ def detect_case():
     reference detector run once on each (one compile: JAX's
     detect_dispatch(equalize=True) is clahe then _detect_batch)."""
     frames = make_mission(strips=1, per_strip=1, size=(320, 256),
-                          seed=11).frames
+                          seed=11, device="cpu").frames
     frame = frames.numpy()
     eq = np.array(jclahe.clahe(jnp.asarray(frame)))
     per_octave, n_octaves = tsift._octave_plan(256, 320, 512, True)

@@ -47,7 +47,8 @@ B = 4
 @pytest.fixture(scope="module")
 def mission():
     """6 frames, 3 strips of 2, with their planted homographies."""
-    m = make_mission(strips=3, per_strip=2, size=SIZE, strip_gap=1.5, seed=3)
+    m = make_mission(strips=3, per_strip=2, size=SIZE, strip_gap=1.5, seed=3,
+                     device="cpu")
     pairs = [(i, j) for _, i, j in
              worklist.build_work_list(m.ned, use_distance=True)]
     return m.frames, pairs, m.H_ij
@@ -101,10 +102,10 @@ def test_slice_matches_reference_from_one_store(mission):
     desc, uv, counts = _store_arrays(dets)
     want = _jax_match(desc, uv, counts, pairs)
 
-    store = DescriptorStore.from_numpy(desc, uv, counts)
+    store = DescriptorStore.from_numpy(desc, uv, counts, device="cpu")
     # the per-image constructor builds the same resident state
     again = DescriptorStore.from_arrays([d[2] for d in dets],
-                                        [d[0] for d in dets])
+                                        [d[0] for d in dets], device="cpu")
     assert torch.equal(again.desc, store.desc)
     assert torch.equal(again.uv, store.uv)
     assert torch.equal(again.counts, store.counts)
@@ -140,7 +141,7 @@ def test_slice_recovers_planted_homographies(mission):
         assert np.isfinite(kp).all() and np.isfinite(meta).all()
         assert desc.dtype == np.float32 and desc.shape == (len(kp), 128)
     store = DescriptorStore.from_arrays([d[2] for d in dets],
-                                        [d[0] for d in dets])
+                                        [d[0] for d in dets], device="cpu")
     result = tmatcher.match_pairs_store(store, pairs, _config(), THRESH)
     n_in = n_all = 0
     for (i, j), m in result.items():

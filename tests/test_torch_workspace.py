@@ -42,7 +42,7 @@ def mission():
     homographies (0.3 px noise): dets[i] = (kp, meta, desc), matches
     {(i, j): (n, 2) int32}."""
     m = synthetic.make_mission(strips=2, per_strip=2, size=SIZE,
-                               strip_gap=1.0, seed=5)
+                               strip_gap=1.0, seed=5, device="cpu")
     rng = np.random.default_rng(7)
     kps = [list(rng.uniform(0, SIZE, (40, 2))) for _ in range(4)]
     matches = {}
@@ -217,7 +217,7 @@ def test_store_from_project_matches_reference(tmp_path, mission):
     want = JStore(jp)
     tp = tproject.ProjectMgr(root)
     tp.load_images_info()
-    got = TStore.from_project(tp)
+    got = TStore.from_project(tp, device="cpu")
     assert got.npad == want.npad and got.names == want.names
     np.testing.assert_array_equal(got.desc.numpy(), np.asarray(want.desc))
     np.testing.assert_array_equal(got.uv.numpy(), np.asarray(want.uv))
@@ -282,7 +282,7 @@ def test_smart_estimators_match_reference(tmp_path, mission):
     pj = [(jp.image_list[i], jp.image_list[j]) for i, j in PAIRS]
     pt = [(tp.image_list[i], tp.image_list[j]) for i, j in PAIRS]
     sj, aj = jsmart.pair_surface_stats_batched(jp, pj)
-    st, at = tsmart.pair_surface_stats_batched(tp, pt)
+    st, at = tsmart.pair_surface_stats_batched(tp, pt, device="cpu")
     for (mj, dj, bj), (mt, dt, bt) in zip(sj, st):
         assert abs(mj - mt) < 1e-3 and abs(dj - dt) < 1e-3
         assert bj == pytest.approx(bt, rel=1e-6)
@@ -296,9 +296,9 @@ def test_smart_estimators_match_reference(tmp_path, mission):
     state_j = jsmart.SmartState(jp.analysis_dir)
     state_t = tsmart.SmartState(tp.analysis_dir)
     jsmart.update_pairs_batched(jp, state_j, pj)
-    tsmart.update_pairs_batched(tp, state_t, pt)
+    tsmart.update_pairs_batched(tp, state_t, pt, device="cpu")
     assert jsmart.requalify_pairs(jp, state_j) == \
-        tsmart.requalify_pairs(tp, state_t)
+        tsmart.requalify_pairs(tp, state_t, device="cpu")
     assert state_t.data.keys() == state_j.data.keys()
     for name in state_j.data:
         for key in ("tri_surface_m", "yaw_error"):
