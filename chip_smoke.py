@@ -57,7 +57,18 @@ non-zero:
 14. mission-scale BA: the 2812-camera, 4,062,000-observation graph of
     scripts_dev/ba_synth_scale.py (testing/synthetic.py, on the card),
     bundle.solve twice (10 iterations), then f32 against f64 on the
-    300-camera graph of scripts_dev/ba_f64_oracle.py.
+    300-camera graph of scripts_dev/ba_f64_oracle.py;
+15. K1 and K4 anatomy: the probes P1–P6 (imageanalysis_tpu_torch/probes)
+    at their TPU probes' full shapes on bench.py's batch: every stage and
+    tile of the staged K1 (P3, P4, P6; int8 and bf16) against its plain
+    version on 2 of the 64 pairs and its full stage against K1 on all 64,
+    then K1's stage split; P5's mma.sync product + row sum (bit-exact on
+    integer values, within P5_REL_TOL on normal ones) and its TFLOP/s
+    beside torch.bmm and torch._int_mm; P1's one-hot gather (bit-exact
+    with its bf16 plain version, per-limb errors against f32); P2's
+    single-launch K1 + K4 against knn_match_fused on all 64 pairs. Each
+    probe is driven on its own, its counts set to 0 before and read
+    after.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -94,6 +105,9 @@ from imageanalysis_tpu_torch.match import (  # noqa: E402
     cleanup, groups, matcher, smart, worklist)
 from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
+from imageanalysis_tpu_torch import probes  # noqa: E402
+from imageanalysis_tpu_torch.probes import (  # noqa: E402
+    fused, knn_stages, mma)
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
     image_name, make_ba_grid_graph, make_ba_mission_graph, make_mission,
     write_workspace)
@@ -127,18 +141,7 @@ def log(*a):
 
 def time_ms(fn, reps, warmup=1):
     """Median milliseconds of fn() by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return probes.time_ms(fn, "cuda", reps, warmup)
 
 
 def bound(n_bytes, ops):
@@ -1196,6 +1199,326 @@ def run_mission_ba():
     return out, split
 
 
+PROBE_PLAIN_PAIRS = 2       # pairs of the 64 held against the plain versions
+P5_REL_TOL = 1e-5           # P5 on normal inputs: |kernel − plain| ≤ this
+                            # × max |plain| (f32 sums of 6144·K products in
+                            # another order)
+
+
+def reset_probe_launches():
+    for counts in (knn_stages.LAUNCHES, mma.LAUNCHES, fused.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def probe_launches():
+    return dict(**knn_stages.LAUNCHES, **mma.LAUNCHES, **fused.LAUNCHES)
+
+
+def drive(name, fn):
+    """Run one probe's sweep with the probe counts set to 0 just before
+    and read just after: (fn's result, {kernel: launches})."""
+    reset_probe_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in probe_launches().items() if v}
+    log(f"[probes] {name} launches: {counts}")
+    return out, counts
+
+
+def check_equal(name, got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} differs from its plain version: "
+                                 f"{int((g != w).sum())} values")
+
+
+def probe_inputs():
+    """bench.py's int8 batch (64 pairs × 6144, 1500 planted) and the same
+    rows as 0..255 bf16 with their f32 norms."""
+    args, _ = _bench_args()
+    a, b, _, uv_b = args
+    return a, b, uv_b, float_inputs(a, b, torch.bfloat16)
+
+
+def compare_stages(a, b, fargs):
+    """P3/P4/P6's kernel at bench's shape against its plain version on the
+    first pairs (every stage at K1's tile, the row minimum at every tile),
+    and its full stage against K1 on all 64 pairs."""
+    p = PROBE_PLAIN_PAIRS
+    for dtype, args in (("int8", (a, b, None, None)), ("bf16", fargs)):
+        sub = tuple(None if x is None else x[:p] for x in args)
+        tiles = knn_stages.TILES[args[0].dtype]
+        cases = [(s, knn_stages.K1_TILE) for s in range(len(
+            knn_stages.STAGES))] + [(knn_stages.ROW_MIN, t) for t in tiles]
+        for stage, tile in cases:
+            got = knn_stages.knn_probe_raw(*args, stage=stage, tile=tile)
+            want = knn_stages.knn_probe_plain(*sub, stage=stage, tile=tile)
+            check_equal(f"knn_probe {dtype} {knn_stages.STAGES[stage]} "
+                        f"{tile}", [g[:p] for g in got], want)
+        check_equal(f"knn_probe {dtype} full against K1",
+                    knn_stages.knn_probe_raw(*args),
+                    knn.knn_packed_raw(*args))
+        log(f"[probes] knn_probe {dtype}: {len(cases)} stage/tile cases "
+            f"bit-exact on {p} of 64 pairs; full stage = K1 on all 64")
+
+
+def stage_times(args, stages, reps=3):
+    return {knn_stages.STAGES[s]: time_ms(
+        lambda s=s: knn_stages.knn_probe_raw(*args, stage=s), reps)
+        for s in stages}
+
+
+def run_anatomy(a, b, fargs):
+    """P4, then P3 at bench's shape, each driven on its own over both
+    dtypes; K1's stage split from the two, with K1 timed in turns beside
+    the full stage (which must be within 5% of it)."""
+    inputs = {"int8": (a, b, None, None), "bf16": fargs}
+
+    def sweep(stages):
+        return lambda: {d: stage_times(args, stages)
+                        for d, args in inputs.items()}
+    p4, n4 = drive("P4", sweep(knn_stages.P4_STAGES.values()))
+    p3, n3 = drive("P3", sweep(knn_stages.P3_VARIANTS.values()))
+    out = {"launches": {"P4": n4, "P3": n3}}
+    for dtype, args in inputs.items():
+        k1 = [time_ms(lambda: knn.knn_packed_raw(*args), 3) for _ in "ab"]
+        full = [time_ms(lambda: knn_stages.knn_probe_raw(*args), 3)
+                for _ in "ab"]
+        t = {**p3[dtype], **p4[dtype], "full": float(np.mean(full))}
+        k1_ms = float(np.mean(k1))
+        split = {"product": t["row_min"],
+                 "d2_pack_top1": t["top1"] - t["row_min"],
+                 "top2": t["top2"] - t["top1"],
+                 "running_merge": t["top2"] - t["top2_tile"],
+                 "column": t["full"] - t["top2"]}
+        log(f"[anatomy] K1 {dtype} 64 x 6144, stages ms: "
+            + json.dumps({k: round(v, 3) for k, v in t.items()})
+            + f"; K1 itself {k1[0]:.3f} / {k1[1]:.3f} ms in turns with the "
+            f"full stage {full[0]:.3f} / {full[1]:.3f}")
+        log(f"[anatomy] K1 {dtype} split, ms: "
+            + json.dumps({k: round(v, 3) for k, v in split.items()})
+            + f" (product {100 * split['product'] / k1_ms:.1f}% of K1)")
+        if abs(t["full"] / k1_ms - 1.0) > 0.05:
+            raise AssertionError(f"{dtype}: the full stage takes "
+                                 f"{t['full']:.3f} ms, K1 {k1_ms:.3f}")
+        out[dtype] = t
+    out["knn_top2_ms"] = time_ms(lambda: knn.knn_top2(a, b), 3)
+    log(f"[anatomy] P3 v5: the port's knn_top2 (K1 + decode) "
+        f"{out['knn_top2_ms']:.3f} ms")
+    return out
+
+
+def run_tile_sweep(a, b, fargs):
+    """P6: the row-minimum stage over each dtype's seven tiles."""
+    def sweep():
+        res = {}
+        for dtype, args in (("int8", (a, b, None, None)), ("bf16", fargs)):
+            for (ta, tb, ic), tile in zip(knn_stages.P6_SWEEP,
+                                          knn_stages.TILES[args[0].dtype]):
+                ms = time_ms(lambda: knn_stages.knn_probe_raw(
+                    *args, stage=knn_stages.ROW_MIN, tile=tile), 3)
+                res[(dtype, tile)] = ms
+                log(f"[P6] {dtype} TPU ta={ta} tb={tb} ic={ic} -> card "
+                    f"tile {tile}: {ms:.3f} ms/batch "
+                    f"({64 / ms * 1e3:.0f} pairs/s)")
+        return res
+    return drive("P6", sweep)
+
+
+def run_mma(bt_int):
+    """P5: the mma.sync product + row sum: held against its plain version
+    (integer values bit-exact at every tile and K; normal values within
+    P5_REL_TOL), then its K and tile sweeps on one 6144 × 6144 matrix and
+    the batched product of bench's shape beside torch.bmm and
+    torch._int_mm."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    M = 6144
+    err = 0.0
+    for K in mma.K_SWEEP:
+        xi = torch.randint(-2, 3, (2, M, K), generator=gen,
+                           device="cuda").bfloat16()
+        yi = torch.randint(-2, 3, (2, M, K), generator=gen,
+                           device="cuda").bfloat16()
+        want = mma.mm_rowsum_plain(xi, yi)
+        for tile in mma.TILES:
+            for split in (1, 4):
+                check_equal(f"mm_rowsum K={K} {tile} split {split}",
+                            [mma.mm_rowsum_raw(xi, yi, tile, split)], [want])
+        x = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
+        y = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
+        got, want = mma.mm_rowsum_raw(x, y), mma.mm_rowsum_plain(x, y)
+        e = float((got - want).abs().max())
+        lim = P5_REL_TOL * float(want.abs().max())
+        if not e <= lim:
+            raise AssertionError(f"mm_rowsum K={K} normal inputs: {e} > "
+                                 f"{lim}")
+        err = max(err, e)
+    log(f"[P5] mm_rowsum bit-exact on integer values at K {mma.K_SWEEP} x "
+        f"tiles {mma.TILES}; normal values within {err:.3g} (limit "
+        f"{P5_REL_TOL} of the largest sum)")
+    xb = torch.randn((64, M, 128), generator=gen, device="cuda").bfloat16()
+    yb = torch.randn((64, M, 128), generator=gen, device="cuda").bfloat16()
+    xi, yi = xb.round().clamp(-2, 2), yb.round().clamp(-2, 2)
+    check_equal("mm_rowsum batch 64 (integer values)",
+                [mma.mm_rowsum_raw(xi, yi)[:2]],
+                [mma.mm_rowsum_plain(xi[:2], yi[:2])])
+    del xi, yi
+
+    def sweep():
+        res = {}
+        for K in mma.K_SWEEP:
+            x = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
+            y = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
+            ms = time_ms(lambda: mma.mm_rowsum_raw(x, y), 7)
+            lib = time_ms(lambda: torch.mm(x[0], y[0].T), 7)
+            f = 2 * M * M * K
+            log(f"[P5] mma.sync bf16 K={K} tile {mma.K_SWEEP_TILE}, one "
+                f"matrix: {ms:.4f} ms {f / ms / 1e9:.1f} TFLOP/s; torch.mm "
+                f"(product only) {lib:.4f} ms {f / lib / 1e9:.1f} TFLOP/s")
+        x = torch.randn((1, M, 128), generator=gen, device="cuda").bfloat16()
+        y = torch.randn((1, M, 128), generator=gen, device="cuda").bfloat16()
+        for tpu, tile in mma.P5_TILES.items():
+            ms = time_ms(lambda: mma.mm_rowsum_raw(x, y, tile), 7)
+            log(f"[P5] K=128 TPU (ta, tb)={tpu} -> card tile {tile}: "
+                f"{ms:.4f} ms {2 * M * M * 128 / ms / 1e9:.1f} TFLOP/s")
+        f = 2 * 64 * M * M * 128
+        for tile in mma.TILES:
+            ms = time_ms(lambda: mma.mm_rowsum_raw(xb, yb, tile), 3)
+            res[tile] = ms
+            log(f"[P5] batch 64 x {M} x {M} x 128 tile {tile}: {ms:.3f} ms "
+                f"{f / ms / 1e9:.1f} TFLOP/s")
+        return res
+    res, counts = drive("P5", sweep)
+    ybt = yb.transpose(1, 2)
+    bmm = time_ms(lambda: torch.bmm(xb, ybt), 3)
+    del ybt
+    a2 = torch.randn((M, 1024), generator=gen, device="cuda").bfloat16()
+    b2 = torch.randn((1024, M), generator=gen, device="cuda").bfloat16()
+    k1024 = time_ms(lambda: torch.mm(a2, b2).float().sum(1), 5)
+    f = 2 * 64 * M * M * 128
+    best = min(res, key=res.get)
+    log(f"[P5] batch 64 at bench's shape: mma.sync {res[best]:.3f} ms "
+        f"{f / res[best] / 1e9:.1f} TFLOP/s (tile {best}); torch.bmm bf16 "
+        f"(product only) {bmm:.3f} ms {f / bmm / 1e9:.1f} TFLOP/s; "
+        f"torch._int_mm (product only) {bt_int:.3f} ms {f / bt_int / 1e9:.1f}"
+        f" TOP/s; K=1024 control (torch.mm + row sum) {k1024:.3f} ms "
+        f"{2 * M * M * 1024 / k1024 / 1e9:.1f} TFLOP/s")
+    del a2, b2
+    plain = time_ms(lambda: mma.mm_rowsum_plain(xb, yb), 1)
+    r = {"max_abs_err": err, "ms": res[mma.K_SWEEP_TILE], "plain_ms": plain}
+    # A and B read once, the row sums written once; 2·M·N·K flops a matrix
+    return with_bound(r, 64 * (2 * M * 128 * 2 + M * 4), {"bf16": f},
+                      library_ms=bmm), counts
+
+
+def run_gather():
+    """P1: the one-hot gather of hi/mid/lo limbs (T = 128, N = 6144, the
+    script's seed): bit-exact with the plain "bf16" version; the per-limb
+    error against exact f32 is P1's answer."""
+    rng = np.random.default_rng(1)
+    T, N = 128, 6144
+    j = torch.from_numpy(rng.integers(0, N, (T,)).astype(np.int32)).cuda()
+    u = torch.from_numpy(rng.uniform(0, 4100, (N,)).astype(np.float32)).cuda()
+    vals = mma.limbs(u)
+    got = mma.onehot_gather_raw(j, vals)
+    check_equal("onehot_gather", [got],
+                [mma.onehot_gather_plain(j, vals, "bf16")])
+    exact = mma.onehot_gather_plain(j, vals, "f32")
+    limb_err = (got - exact).abs().amax(0).tolist()
+    rec = float(((got[:, 0] + got[:, 1]) + got[:, 2] - u[j.long()])
+                .abs().max())
+
+    def run():
+        return device_ms(lambda: mma.onehot_gather_raw(j, vals),
+                         "onehot_gather_kernel")
+    ms, counts = drive("P1", run)
+    r = {"max_abs_err": 0.0, "ms": ms,
+         "plain_ms": device_ms(lambda: mma.onehot_gather_plain(j, vals)),
+         "timed_by": "profiler device time"}
+    lib = device_ms(lambda: torch.index_select(vals, 1, j))
+    log(f"[P1] one-hot mma.sync gather T={T} N={N}: bit-exact with the "
+        f"bf16 plain version; per-limb max error against exact f32 (hi, "
+        f"mid, lo) {limb_err}; recombined max error {rec:.3g}; device "
+        f"time {ms:.4f} ms, plain {r['plain_ms']:.4f} ms, index_select "
+        f"{lib:.4f} ms")
+    # j, the limbs (bf16) and the output once; the one-hot product's flops
+    return with_bound(r, 4 * T + 2 * 3 * N + 12 * T,
+                      {"bf16": 2 * T * N * 3}, library_ms=lib), counts
+
+
+def run_fused(a, b, uv_b):
+    """P2: K1 + K4 in one launch on bench's workload; full, epi32 and t64
+    equal the port's knn_match_fused (two launches) on all 64 pairs, nopb
+    its bj and ok; noepi and nomain are timed only."""
+    want = knn.knn_match_fused(a, b, uv_b, 0.75)
+    for v, (c_bj, c_ok, c_pb) in fused.COMPARED.items():
+        got = fused.fused_probe_raw(a, b, uv_b, v)
+        pairs = [(got[0], want[0])] * c_bj + \
+            [(got[1].bool(), want[1])] * c_ok + [(got[2], want[2])] * c_pb
+        check_equal(f"knn_fused_probe {v} against knn_match_fused",
+                    [g for g, _ in pairs], [w for _, w in pairs])
+    p = PROBE_PLAIN_PAIRS
+    check_equal("knn_fused_probe full against its plain version",
+                [x[:p] for x in fused.fused_probe_raw(a, b, uv_b)],
+                fused.fused_probe_plain(a[:p], b[:p], uv_b[:p]))
+
+    def sweep():
+        return {v: time_ms(lambda: fused.fused_probe_raw(a, b, uv_b, v), 3)
+                for v in fused.VARIANTS}
+    res, counts = drive("P2", sweep)
+    two = [time_ms(lambda: knn.knn_match_fused(a, b, uv_b, 0.75), 3)
+           for _ in "ab"]
+    log("[P2] single launch, ms: " + json.dumps(
+        {k: round(v, 3) for k, v in res.items()}) + f"; K1 then K4 "
+        f"(knn_match_fused) {two[0]:.3f} / {two[1]:.3f} ms; full, epi32 "
+        f"and t64 equal to it on all {len(a)} pairs")
+    pairs, n = a.shape[:2]
+    r = {"max_abs_err": 0.0, "ms": res["full"],
+         "plain_ms": time_ms(lambda: fused.fused_probe_plain(a, b, uv_b), 1)}
+    # a, b and uv_b read once; bj, ok (int32) and pb written once
+    return with_bound(r, pairs * n * (2 * 128 + 8 + 4 + 4 + 8),
+                      {"int8": 2 * pairs * n * n * 128}), counts
+
+
+def run_probes():
+    """Phase 15: K1 and K4 anatomy — P1–P6 at their probes' full shapes,
+    each held against its plain version, each driven on its own."""
+    t0 = time.perf_counter()
+    a, b, uv_b, fargs = probe_inputs()
+    compare_stages(a, b, fargs)
+    bt = b[0].t()
+    int_mm = time_ms(lambda: torch._int_mm(a.reshape(-1, 128), bt), 3)
+    del bt
+    bmm = time_ms(lambda: torch.bmm(fargs[0], fargs[1].transpose(1, 2)), 3)
+    anatomy = run_anatomy(a, b, fargs)
+    p6, n6 = run_tile_sweep(a, b, fargs)
+    p5, n5 = run_mma(int_mm)
+    p1, n1 = run_gather()
+    p2, n2 = run_fused(a, b, uv_b)
+    pairs, n = BENCH_SHAPE
+    out = {"P5": (p5, n5), "P1": (p1, n1), "P2": (p2, n2)}
+    i8 = (a, b, None, None)
+    for name, args, stage, launches, lib in (
+            ("P4", i8, knn_stages.ROW_SUM, anatomy["launches"]["P4"],
+             int_mm),
+            ("P3", i8, knn_stages.ROW_MIN, anatomy["launches"]["P3"],
+             int_mm),
+            ("P6", fargs, knn_stages.ROW_MIN, n6, bmm)):
+        dtype = "int8" if args is i8 else "bf16"
+        ms = (p6[(dtype, knn_stages.K1_TILE)] if name == "P6"
+              else anatomy[dtype][knn_stages.STAGES[stage]])
+        # the plain version at the full 64 pairs, timed once
+        r = {"max_abs_err": 0.0, "ms": ms, "plain_ms": time_ms(
+            lambda: knn_stages.knn_probe_plain(*args, stage=stage), 1)}
+        out[name] = (with_bound(r, *k1_bound(pairs, n, 1 if args is i8
+                                             else 2, dtype),
+                                library_ms=lib), launches)
+    log(f"[probes] phase 15 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     device_info()
@@ -1224,6 +1547,7 @@ def main():
         rep_launches = run_repetitive(root)
     wide_launches = run_wide_store()
     run_mission_ba()
+    anatomy = run_probes()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
@@ -1253,6 +1577,22 @@ def main():
               "imageanalysis_tpu/ops/knn.py:253",
               fused_launches["match_epilogue"], k4["bench"]),
     ]
+    for p, name, source, replaces in (
+            ("P1", "onehot_gather_bf16", "mma_probe.cu",
+             "scripts_dev/epilogue_dot_probe.py:25"),
+            ("P2", "knn_fused_probe", "knn_fused_probe.cu",
+             "scripts_dev/fused_vmem_probe.py:26"),
+            ("P3", "knn_probe_p3_bisect", "knn_probe.cu",
+             "scripts_dev/knn_culprit_bisect.py:42"),
+            ("P4", "knn_probe_p4_stages", "knn_probe.cu",
+             "scripts_dev/knn_stage_cost.py:31"),
+            ("P5", "mm_rowsum_bf16", "mma_probe.cu",
+             "scripts_dev/matmul_shape_probe.py:33"),
+            ("P6", "knn_probe_p6_tiles", "knn_probe.cu",
+             "scripts_dev/knn_overhead_sweep.py:36")):
+        r, counts = anatomy[p]
+        kernels.append(entry(name, source, replaces, sum(counts.values()),
+                             r))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")

@@ -49,6 +49,17 @@ _SIGNATURES = {
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # row_p, col_p, uv_b, ratio2, best_j, ok, pb, n_pairs, n_a, n_b, stream
     "match_epilogue": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+    # probes (probes/): a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
+    # bf16, stage, ta, tb, stream
+    "knn_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
+    # epi_threads, do_main, do_epi, do_pb, stream
+    "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
+    # a, b, out, batch, M, N, K, bm, bn, n_split, stream
+    "mm_rowsum_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # j, vals, out, T, N, stream
+    "onehot_gather_bf16": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -1,17 +1,32 @@
 // Shared pieces of the 2-NN kernels (K1 in knn_packed.cu, K3 in
-// knn_wide.cu): tile constants, the spatial gate and the float-input
-// kernel that both compile in their own modes.
+// knn_wide.cu, the probes in knn_probe.cu and knn_fused_probe.cu): tile
+// constants, the spatial gate, K1's int8 block body and the float-input
+// kernel, each compiled in its own modes.
 //
-// The float kernel: one block owns TA = 64 rows of A of one pair, resident
-// in shared memory as f32 for the whole sweep over B; B streams through
-// shared memory in tiles of TB = 64 rows, 32 dims at a time. Each of the
-// 256 threads accumulates a 4 x 4 register tile of dots with f32 FMAs on
-// operands that were bf16-rounded (or f32) on the host side. For
-// integer-valued descriptors (OpenCV SIFT's and the int8 store's) every
-// product and partial sum is an integer below 2^24, so the dots are exact
-// whatever the order of the sums. The epilogue is written with
-// __fadd_rn/__fmul_rn so nvcc cannot contract it into FMAs: the plain
-// PyTorch version rounds each operation on its own.
+// Both bodies are templates over a STAGE and a block tile (TA A rows per
+// block, B streamed in tiles of TB rows; 256 threads in a 16 x 16 grid, so
+// each thread holds a TA/16 x TB/16 register tile of dots). K1 and K3 are
+// the full stage at TA = TB = 64; the probes of K1's anatomy compile the
+// earlier stages and other tiles from the same source, so the full stage
+// is K1 instruction for instruction:
+//   kRowSum    product + row sum (unsigned, wrapping: the TPU probe's int32
+//              sum; float dots, integers below 2^24, are converted first)
+//   kRowMin    product + row min of the raw dot
+//   kTop1      + d2, the packed key bits | j, row top-1
+//   kTop2Tile  + row top-2, restarted at every B tile (the last tile's)
+//   kTop2      + the running top-2 across B tiles
+//   kFull      + the column minimum by atomicMin: K1
+//
+// The float kernel: one block owns TA rows of A of one pair, resident in
+// shared memory as f32 for the whole sweep over B; B streams through
+// shared memory in tiles of TB rows, 32 dims at a time. Each thread
+// accumulates its register tile of dots with f32 FMAs on operands that
+// were bf16-rounded (or f32) on the host side. For integer-valued
+// descriptors (OpenCV SIFT's and the int8 store's) every product and
+// partial sum is an integer below 2^24, so the dots are exact whatever the
+// order of the sums. The epilogue is written with __fadd_rn/__fmul_rn so
+// nvcc cannot contract it into FMAs: the plain PyTorch version rounds each
+// operation on its own.
 
 #pragma once
 
@@ -24,13 +39,18 @@ constexpr int kDim = 128;
 constexpr int kTA = 64;             // A rows per block
 constexpr int kTB = 64;             // B rows per streamed tile
 constexpr int kKC = 32;             // dims per streamed B chunk (float path)
-constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 elements each
+constexpr int kThreads = 256;       // 16 x 16 threads
 constexpr int kKeyMax = 0x7FFFFFFF;
 constexpr int kIdxMask = 0x1FFF;    // packed keys hold indices < 8192
 constexpr int kGatedBits = kKeyMax & ~kIdxMask;
 constexpr long long kWideMax = 0x7FFFFFFFFFFFFFFFLL;
+constexpr int kWords = 32;          // 128 int8 = 32 int32 words per row
+constexpr int kLds8 = kWords + 1;   // padded shared row: conflict-free reads
 
 enum Mode { kPacked = 0, kPackedGated = 1, kWide = 2 };
+enum Stage {
+  kRowSum = 0, kRowMin = 1, kTop1 = 2, kTop2Tile = 3, kTop2 = 4, kFull = 5
+};
 
 // dx*dx + dy*dy > radius2 with every operation rounded on its own: an FMA
 // would move candidates that sit on the gate's boundary
@@ -59,7 +79,194 @@ __device__ __forceinline__ float to_f32(uint16_t h) {  // bf16 bits
   return __uint_as_float((unsigned)h << 16);
 }
 
-template <typename T, int MODE>
+__device__ __forceinline__ int row_norm(const int* row) {
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) s = __dp4a(row[k], row[k], s);
+  return s;
+}
+
+// Insert key rk into the ordered pair (k1 <= k2)
+template <typename K>
+__device__ __forceinline__ void insert2(K rk, K& k1, K& k2) {
+  if (rk < k1) { k2 = k1; k1 = rk; }
+  else if (rk < k2) { k2 = rk; }
+}
+
+// Merge the 16 partial lists of a row (lanes 0-15 / 16-31 of a warp) and
+// write them: top-2 keys, or for the stages before kTop2Tile one value
+// (sum, min or top-1) into both slots
+template <int STAGE>
+__device__ __forceinline__ void merge_row(int r1, int r2, int tx,
+                                          int* out) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    const int o1 = __shfl_xor_sync(0xffffffffu, r1, off);
+    if (STAGE == kRowSum) {
+      r1 = (int)((unsigned)r1 + (unsigned)o1);
+    } else if (STAGE <= kTop1) {
+      r1 = min(r1, o1);
+    } else {
+      const int o2 = __shfl_xor_sync(0xffffffffu, r2, off);
+      const int n2 = min(max(r1, o1), min(r2, o2));
+      r1 = min(r1, o1);
+      r2 = n2;
+    }
+  }
+  if (tx == 0) {
+    out[0] = r1;
+    out[1] = STAGE <= kTop1 ? r1 : r2;
+  }
+}
+
+// K1's int8 body for one block (blockIdx.x: A tile, blockIdx.y: pair).
+// Inputs (n_pairs, n, 32) int32 words of 128 int8; row_p (n_pairs, n_a, 2)
+// and col_p (n_pairs, n_b) int32, col_p pre-filled with 0x7FFFFFFF (read
+// and written by kFull only). A __device__ function so that the fused
+// probe can run its epilogue after it in the same launch.
+template <bool GATED, int STAGE, int TA, int TB>
+__device__ __forceinline__ void knn_i8_block(
+    const int* __restrict__ a, const int* __restrict__ b,
+    const float* __restrict__ uv_a, const float* __restrict__ pred_b,
+    float radius2, int* __restrict__ row_p, int* __restrict__ col_p,
+    int n_a, int n_b) {
+  static_assert(TA % 16 == 0 && TB % 16 == 0 && TA <= 128 && TB <= 128,
+                "tiles of 16..128 rows");
+  constexpr int RI = TA / 16;       // rows per thread: ty + 16 i
+  constexpr int RJ = TB / 16;       // cols per thread: tx + 16 j
+  constexpr bool kKeys = STAGE >= kTop1;
+  __shared__ int sa[TA * kLds8];
+  __shared__ int sb[TB * kLds8];
+  __shared__ int na2[TA];
+  __shared__ int nb2[TB];
+  __shared__ int colmin[TB];
+  __shared__ float sua[TA * 2];
+  __shared__ float spb[TB * 2];
+
+  const int pair = blockIdx.y;
+  const int a0 = blockIdx.x * TA;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int* A = a + ((size_t)pair * n_a + a0) * kWords;
+  const int* Bm = b + (size_t)pair * n_b * kWords;
+  int* colp = col_p + (size_t)pair * n_b;
+
+  for (int w = tid; w < TA * kWords; w += kThreads)
+    sa[(w / kWords) * kLds8 + (w % kWords)] = A[w];
+  if (GATED && tid < TA * 2)
+    sua[tid] = uv_a[((size_t)pair * n_a + a0) * 2 + tid];
+  __syncthreads();
+  if (kKeys && tid < TA) na2[tid] = row_norm(sa + tid * kLds8);
+
+  int r1[RI], r2[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    r1[i] = STAGE == kRowSum ? 0 : kKeyMax;
+    r2[i] = kKeyMax;
+  }
+
+  for (int b0 = 0; b0 < n_b; b0 += TB) {
+    __syncthreads();                // previous tile fully consumed
+    const int* Bt = Bm + (size_t)b0 * kWords;
+    for (int w = tid; w < TB * kWords; w += kThreads)
+      sb[(w / kWords) * kLds8 + (w % kWords)] = Bt[w];
+    if (STAGE == kFull && tid < TB) colmin[tid] = kKeyMax;
+    if (GATED && tid < TB * 2)
+      spb[tid] = pred_b[((size_t)pair * n_b + b0) * 2 + tid];
+    __syncthreads();
+    if (kKeys) {
+      if (tid < TB) nb2[tid] = row_norm(sb + tid * kLds8);
+      __syncthreads();
+    }
+
+    int acc[RI][RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) acc[i][j] = 0;
+#pragma unroll 8
+    for (int k = 0; k < kWords; ++k) {
+      int av[RI], bv[RJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) av[i] = sa[(ty + 16 * i) * kLds8 + k];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) bv[j] = sb[(tx + 16 * j) * kLds8 + k];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+    }
+
+    if constexpr (STAGE == kRowSum) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j)
+          r1[i] = (int)((unsigned)r1[i] + (unsigned)acc[i][j]);
+    } else if constexpr (STAGE == kRowMin) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) r1[i] = min(r1[i], acc[i][j]);
+    } else {
+      if (STAGE == kTop2Tile) {
+#pragma unroll
+        for (int i = 0; i < RI; ++i) r1[i] = r2[i] = kKeyMax;
+      }
+      int ck[RJ];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) ck[j] = kKeyMax;
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          const int col = tx + 16 * j;
+          const int d2 = na2[row] + nb2[col] - 2 * acc[i][j];
+          int bits = __float_as_int((float)d2) & ~kIdxMask;
+          if (GATED && gated_out(sua[2 * row], sua[2 * row + 1],
+                                 spb[2 * col], spb[2 * col + 1], radius2))
+            bits = kGatedBits;
+          const int rk = bits | (b0 + col);
+          if (STAGE == kTop1) r1[i] = min(r1[i], rk);
+          else insert2(rk, r1[i], r2[i]);
+          if (STAGE == kFull) ck[j] = min(ck[j], bits | (a0 + row));
+        }
+      }
+      if (STAGE == kFull) {
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) atomicMin(&colmin[tx + 16 * j], ck[j]);
+        __syncthreads();
+        if (tid < TB) atomicMin(&colp[b0 + tid], colmin[tid]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+    merge_row<STAGE>(r1[i], r2[i], tx,
+                     row_p + ((size_t)pair * n_a + a0 + ty + 16 * i) * 2);
+}
+
+template <bool GATED, int STAGE, int TA, int TB>
+__global__ void __launch_bounds__(kThreads)
+knn_i8_kernel(const int* __restrict__ a, const int* __restrict__ b,
+              const float* __restrict__ uv_a,
+              const float* __restrict__ pred_b, float radius2,
+              int* __restrict__ row_p, int* __restrict__ col_p, int n_a,
+              int n_b) {
+  knn_i8_block<GATED, STAGE, TA, TB>(a, b, uv_a, pred_b, radius2, row_p,
+                                     col_p, n_a, n_b);
+}
+
+// The float body. MODE kPacked and kPackedGated write packed keys (K1),
+// kWide 64-bit keys (K3); the stages before kFull exist for kPacked only
+// (the probe). kRowSum adds each dot as an int (exact for the integer-
+// valued descriptors the probe takes); kRowMin keeps the f32 minimum and
+// writes it as an int.
+template <typename T, int MODE, int STAGE = kFull, int TA = kTA,
+          int TB = kTB>
 __global__ void __launch_bounds__(kThreads)
 knn_float_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  const float* __restrict__ na2, const float* __restrict__ nb2,
@@ -68,92 +275,121 @@ knn_float_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  int* __restrict__ row_p, int* __restrict__ col_p,
                  long long* __restrict__ row_k, long long* __restrict__ col_k,
                  int n_a, int n_b) {
+  static_assert(TA % 16 == 0 && TB % 16 == 0, "tiles of 16-row multiples");
+  static_assert(MODE == kPacked || STAGE == kFull, "stages: kPacked only");
+  constexpr int RI = TA / 16;
+  constexpr int RJ = TB / 16;
+  constexpr bool kKeys = STAGE >= kTop1;
   constexpr int kLdsA = kDim + 1;   // padded rows: conflict-free reads
   constexpr int kLdsB = kKC + 1;
-  __shared__ float sa[kTA * kLdsA];
-  __shared__ float sb[kTB * kLdsB];
-  __shared__ float sna[kTA];
-  __shared__ float snb[kTB];
-  __shared__ float sua[kTA * 2];
-  __shared__ float spb[kTB * 2];
-  __shared__ int colmin[kTB];
-  __shared__ long long colmin_w[kTB];
+  __shared__ float sa[TA * kLdsA];
+  __shared__ float sb[TB * kLdsB];
+  __shared__ float sna[TA];
+  __shared__ float snb[TB];
+  __shared__ float sua[TA * 2];
+  __shared__ float spb[TB * 2];
+  __shared__ int colmin[TB];
+  __shared__ long long colmin_w[TB];
 
   const int pair = blockIdx.y;
-  const int a0 = blockIdx.x * kTA;
+  const int a0 = blockIdx.x * TA;
   const int tid = threadIdx.x;
   const int tx = tid & 15;          // column group: cols tx + 16 j
   const int ty = tid >> 4;          // row group: rows ty + 16 i
   const T* A = a + ((size_t)pair * n_a + a0) * kDim;
   const T* Bm = b + (size_t)pair * n_b * kDim;
 
-  for (int w = tid; w < kTA * kDim; w += kThreads)
+  for (int w = tid; w < TA * kDim; w += kThreads)
     sa[(w / kDim) * kLdsA + (w % kDim)] = to_f32(A[w]);
-  if (tid < kTA) sna[tid] = na2[(size_t)pair * n_a + a0 + tid];
-  if (MODE == kPackedGated && tid < kTA * 2)
+  if (kKeys && tid < TA) sna[tid] = na2[(size_t)pair * n_a + a0 + tid];
+  if (MODE == kPackedGated && tid < TA * 2)
     sua[tid] = uv_a[((size_t)pair * n_a + a0) * 2 + tid];
 
-  int r1[4], r2[4];
-  long long w1[4], w2[4];
+  int r1[RI], r2[RI];
+  long long w1[RI], w2[RI];
+  float fm[RI];                     // kRowMin: the f32 minimum
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r1[i] = r2[i] = kKeyMax;
+  for (int i = 0; i < RI; ++i) {
+    r1[i] = STAGE == kRowSum ? 0 : kKeyMax;
+    r2[i] = kKeyMax;
     w1[i] = w2[i] = kWideMax;
+    fm[i] = __int_as_float(0x7F800000);
   }
 
-  for (int b0 = 0; b0 < n_b; b0 += kTB) {
-    float acc[4][4];
+  for (int b0 = 0; b0 < n_b; b0 += TB) {
+    float acc[RI][RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < RJ; ++j) acc[i][j] = 0.f;
     const T* Bt = Bm + (size_t)b0 * kDim;
     for (int kc = 0; kc < kDim; kc += kKC) {
       __syncthreads();              // previous chunk fully consumed
-      for (int w = tid; w < kTB * kKC; w += kThreads)
+      for (int w = tid; w < TB * kKC; w += kThreads)
         sb[(w / kKC) * kLdsB + (w % kKC)] =
             to_f32(Bt[(size_t)(w / kKC) * kDim + kc + (w % kKC)]);
       if (kc == 0) {
-        if (tid < kTB) {
-          snb[tid] = nb2[(size_t)pair * n_b + b0 + tid];
+        if (tid < TB) {
+          if (kKeys) snb[tid] = nb2[(size_t)pair * n_b + b0 + tid];
           colmin[tid] = kKeyMax;
           colmin_w[tid] = kWideMax;
         }
-        if (MODE == kPackedGated && tid < kTB * 2)
+        if (MODE == kPackedGated && tid < TB * 2)
           spb[tid] = pred_b[((size_t)pair * n_b + b0) * 2 + tid];
       }
       __syncthreads();
 #pragma unroll 8
       for (int k = 0; k < kKC; ++k) {
-        float av[4], bv[4];
+        float av[RI], bv[RJ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = sa[(ty + 16 * i) * kLdsA + kc + k];
+        for (int i = 0; i < RI; ++i) av[i] = sa[(ty + 16 * i) * kLdsA + kc + k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * kLdsB + k];
+        for (int j = 0; j < RJ; ++j) bv[j] = sb[(tx + 16 * j) * kLdsB + k];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < RJ; ++j)
             acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
 
-    int ck[4] = {kKeyMax, kKeyMax, kKeyMax, kKeyMax};
-    long long cw[4] = {kWideMax, kWideMax, kWideMax, kWideMax};
+    if constexpr (STAGE == kRowSum) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j)
+          r1[i] = (int)((unsigned)r1[i] + (unsigned)__float2int_rz(acc[i][j]));
+      continue;
+    } else if constexpr (STAGE == kRowMin) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) fm[i] = fminf(fm[i], acc[i][j]);
+      continue;
+    }
+    if (STAGE == kTop2Tile) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i) r1[i] = r2[i] = kKeyMax;
+    }
+    int ck[RJ];
+    long long cw[RJ];
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      ck[j] = kKeyMax;
+      cw[j] = kWideMax;
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
       const int row = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         const int col = tx + 16 * j;
         // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain version
         float d2 = __fsub_rn(__fadd_rn(sna[row], snb[col]),
                              __fmul_rn(2.f, acc[i][j]));
         if (MODE == kWide) {
           d2 = __fadd_rn(d2, 0.f);  // -0 → +0: equal values tie on index
-          const long long rk = wide_key(d2, b0 + col);
-          if (rk < w1[i]) { w2[i] = w1[i]; w1[i] = rk; }
-          else if (rk < w2[i]) { w2[i] = rk; }
+          insert2(wide_key(d2, b0 + col), w1[i], w2[i]);
           const long long k2 = wide_key(d2, a0 + row);
           cw[j] = k2 < cw[j] ? k2 : cw[j];
         } else {
@@ -163,50 +399,56 @@ knn_float_kernel(const T* __restrict__ a, const T* __restrict__ b,
                         spb[2 * col + 1], radius2))
             bits = kGatedBits;
           const int rk = bits | (b0 + col);
-          if (rk < r1[i]) { r2[i] = r1[i]; r1[i] = rk; }
-          else if (rk < r2[i]) { r2[i] = rk; }
-          ck[j] = min(ck[j], bits | (a0 + row));
+          if (STAGE == kTop1) r1[i] = min(r1[i], rk);
+          else insert2(rk, r1[i], r2[i]);
+          if (STAGE == kFull) ck[j] = min(ck[j], bits | (a0 + row));
         }
       }
     }
+    if (STAGE == kFull) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (MODE == kWide) atomicMin(&colmin_w[tx + 16 * j], cw[j]);
-      else atomicMin(&colmin[tx + 16 * j], ck[j]);
-    }
-    __syncthreads();
-    if (tid < kTB) {
-      if (MODE == kWide)
-        atomicMin(&col_k[(size_t)pair * n_b + b0 + tid], colmin_w[tid]);
-      else
-        atomicMin(&col_p[(size_t)pair * n_b + b0 + tid], colmin[tid]);
+      for (int j = 0; j < RJ; ++j) {
+        if (MODE == kWide) atomicMin(&colmin_w[tx + 16 * j], cw[j]);
+        else atomicMin(&colmin[tx + 16 * j], ck[j]);
+      }
+      __syncthreads();
+      if (tid < TB) {
+        if (MODE == kWide)
+          atomicMin(&col_k[(size_t)pair * n_b + b0 + tid], colmin_w[tid]);
+        else
+          atomicMin(&col_p[(size_t)pair * n_b + b0 + tid], colmin[tid]);
+      }
     }
   }
 
-  // merge the 16 partial top-2 lists of each row (lanes 0-15 / 16-31)
+  // merge the 16 partial lists of each row (lanes 0-15 / 16-31)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
+    if (MODE == kWide) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      if (MODE == kWide) {
+      for (int off = 8; off > 0; off >>= 1) {
         const long long o1 = __shfl_xor_sync(0xffffffffu, w1[i], off);
         const long long o2 = __shfl_xor_sync(0xffffffffu, w2[i], off);
         const long long hi = w1[i] > o1 ? w1[i] : o1;
         const long long lo2 = w2[i] < o2 ? w2[i] : o2;
         w1[i] = w1[i] < o1 ? w1[i] : o1;
         w2[i] = hi < lo2 ? hi : lo2;
-      } else {
-        const int o1 = __shfl_xor_sync(0xffffffffu, r1[i], off);
-        const int o2 = __shfl_xor_sync(0xffffffffu, r2[i], off);
-        const int n2 = min(max(r1[i], o1), min(r2[i], o2));
-        r1[i] = min(r1[i], o1);
-        r2[i] = n2;
       }
-    }
-    if (tx == 0) {
-      const size_t r = ((size_t)pair * n_a + a0 + ty + 16 * i) * 2;
-      if (MODE == kWide) { row_k[r] = w1[i]; row_k[r + 1] = w2[i]; }
-      else { row_p[r] = r1[i]; row_p[r + 1] = r2[i]; }
+      if (tx == 0) {
+        const size_t r = ((size_t)pair * n_a + a0 + ty + 16 * i) * 2;
+        row_k[r] = w1[i];
+        row_k[r + 1] = w2[i];
+      }
+    } else {
+      if (STAGE == kRowMin) {
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          fm[i] = fminf(fm[i], __shfl_xor_sync(0xffffffffu, fm[i], off));
+        r1[i] = __float2int_rz(fm[i]);
+      }
+      merge_row<STAGE == kRowMin ? kTop1 : STAGE>(
+          r1[i], r2[i], tx,
+          row_p + ((size_t)pair * n_a + a0 + ty + 16 * i) * 2);
     }
   }
 }

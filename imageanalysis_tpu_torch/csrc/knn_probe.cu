@@ -1,0 +1,138 @@
+// Probes of K1's anatomy, for Hopper (sm_90a): K1 cut down stage by stage
+// and swept over block tiles, from K1's own source (knn_common.cuh).
+//
+// Replaces the TPU dev probes
+//   scripts_dev/knn_stage_cost.py:31      kernel       (P4: K1 by stage)
+//   scripts_dev/knn_culprit_bisect.py:42  kernel       (P3: K1 built up)
+//   scripts_dev/knn_overhead_sweep.py:36  kernel       (P6: product + row
+//                                                       min over tiles)
+// Each computed K1's 2-NN of a 64-pair batch of 6144 x 128 descriptors with
+// parts of the kernel switched off, to see where its time goes. Here the
+// parts are the Stage values of knn_common.cuh, compiled into K1's int8
+// body (__dp4a) and its float body (f32 FMAs on bf16 operands): product +
+// row sum, product + row min, + d2/pack/top-1, + top-2 restarted at every
+// B tile, + the running top-2, + the column atomicMin. The full stage is
+// not compiled here: it calls K1's own entry points (knn_packed.cu), so its
+// time is K1's time.
+//
+// What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
+// 618.5 G multiply-adds at bench's shape). The stages differ only in the
+// per-element epilogue after the dots, which is what they measure.
+//
+// Tiles: TA A rows per block x TB B rows per streamed shared-memory tile,
+// 256 threads. int8 at (32, 32), (32, 64), (64, 32), (64, 64) = K1,
+// (128, 64), (64, 128), (128, 128); bf16 at (16, 64), (32, 32), (32, 64),
+// (64, 32), (64, 64) = K1, (16, 128), (32, 128) (the float body keeps A as
+// f32 in shared memory: TA x TB beyond that passes the 48 KB of static
+// shared memory). Every stage at (64, 64), the row-min stage at every
+// tile; any other combination returns cudaErrorInvalidValue.
+
+#include "knn_common.cuh"
+
+extern "C" int knn_packed_i8(const void* a, const void* b, void* row_p,
+                             void* col_p, int n_pairs, int n_a, int n_b,
+                             void* stream);
+extern "C" int knn_packed_float(const void* a, const void* b, const void* na2,
+                                const void* nb2, const void* uv_a,
+                                const void* pred_b, float radius2,
+                                void* row_p, void* col_p, int n_pairs,
+                                int n_a, int n_b, int bf16, void* stream);
+
+namespace {
+
+using namespace knn;
+
+struct Args {
+  const void* a;
+  const void* b;
+  const void* na2;
+  const void* nb2;
+  void* row_p;
+  void* col_p;
+  int n_pairs, n_a, n_b;
+  cudaStream_t stream;
+};
+
+template <int STAGE, int TA, int TB>
+int launch_i8(const Args& x) {
+  dim3 grid(x.n_a / TA, x.n_pairs);
+  knn_i8_kernel<false, STAGE, TA, TB><<<grid, kThreads, 0, x.stream>>>(
+      (const int*)x.a, (const int*)x.b, nullptr, nullptr, 0.f,
+      (int*)x.row_p, (int*)x.col_p, x.n_a, x.n_b);
+  return (int)cudaGetLastError();
+}
+
+template <int STAGE, int TA, int TB>
+int launch_bf16(const Args& x) {
+  dim3 grid(x.n_a / TA, x.n_pairs);
+  knn_float_kernel<uint16_t, kPacked, STAGE, TA, TB>
+      <<<grid, kThreads, 0, x.stream>>>(
+          (const uint16_t*)x.a, (const uint16_t*)x.b, (const float*)x.na2,
+          (const float*)x.nb2, nullptr, nullptr, 0.f, (int*)x.row_p,
+          (int*)x.col_p, nullptr, nullptr, x.n_a, x.n_b);
+  return (int)cudaGetLastError();
+}
+
+template <int STAGE>
+int stage_at_k1_tile(const Args& x, bool bf16) {
+  return bf16 ? launch_bf16<STAGE, 64, 64>(x) : launch_i8<STAGE, 64, 64>(x);
+}
+
+int row_min_i8(const Args& x, int ta, int tb) {
+  if (ta == 32 && tb == 32) return launch_i8<kRowMin, 32, 32>(x);
+  if (ta == 32 && tb == 64) return launch_i8<kRowMin, 32, 64>(x);
+  if (ta == 64 && tb == 32) return launch_i8<kRowMin, 64, 32>(x);
+  if (ta == 64 && tb == 64) return launch_i8<kRowMin, 64, 64>(x);
+  if (ta == 128 && tb == 64) return launch_i8<kRowMin, 128, 64>(x);
+  if (ta == 64 && tb == 128) return launch_i8<kRowMin, 64, 128>(x);
+  if (ta == 128 && tb == 128) return launch_i8<kRowMin, 128, 128>(x);
+  return (int)cudaErrorInvalidValue;
+}
+
+int row_min_bf16(const Args& x, int ta, int tb) {
+  if (ta == 16 && tb == 64) return launch_bf16<kRowMin, 16, 64>(x);
+  if (ta == 32 && tb == 32) return launch_bf16<kRowMin, 32, 32>(x);
+  if (ta == 32 && tb == 64) return launch_bf16<kRowMin, 32, 64>(x);
+  if (ta == 64 && tb == 32) return launch_bf16<kRowMin, 64, 32>(x);
+  if (ta == 64 && tb == 64) return launch_bf16<kRowMin, 64, 64>(x);
+  if (ta == 16 && tb == 128) return launch_bf16<kRowMin, 16, 128>(x);
+  if (ta == 32 && tb == 128) return launch_bf16<kRowMin, 32, 128>(x);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// a, b (n_pairs, n_a | n_b, 128): int8 (bf16 == 0) or bf16 bits (bf16 !=
+// 0, integer-valued; na2, nb2 (n_pairs, n) f32 squared norms, read from
+// kTop1 on); row_p (n_pairs, n_a, 2) int32; col_p (n_pairs, n_b) int32
+// pre-filled with 0x7FFFFFFF, written by the full stage only. n_a a
+// multiple of ta, n_b of tb, both <= 8192. Returns the cudaError_t of the
+// launch.
+extern "C" int knn_probe(const void* a, const void* b, const void* na2,
+                         const void* nb2, void* row_p, void* col_p,
+                         int n_pairs, int n_a, int n_b, int bf16, int stage,
+                         int ta, int tb, void* stream) {
+  if (n_pairs <= 0 || n_pairs > 65535 || n_a <= 0 || n_b <= 0 ||
+      n_a > kIdxMask + 1 || n_b > kIdxMask + 1 || ta <= 0 || tb <= 0 ||
+      n_a % ta || n_b % tb)
+    return (int)cudaErrorInvalidValue;
+  const Args x{a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
+               (cudaStream_t)stream};
+  const bool k1_tile = ta == kTA && tb == kTB;
+  if (stage == kRowMin)
+    return bf16 ? row_min_bf16(x, ta, tb) : row_min_i8(x, ta, tb);
+  if (!k1_tile) return (int)cudaErrorInvalidValue;
+  switch (stage) {
+    case kRowSum: return stage_at_k1_tile<kRowSum>(x, bf16);
+    case kTop1: return stage_at_k1_tile<kTop1>(x, bf16);
+    case kTop2Tile: return stage_at_k1_tile<kTop2Tile>(x, bf16);
+    case kTop2: return stage_at_k1_tile<kTop2>(x, bf16);
+    case kFull:
+      return bf16 ? knn_packed_float(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                                     row_p, col_p, n_pairs, n_a, n_b, 1,
+                                     stream)
+                  : knn_packed_i8(a, b, row_p, col_p, n_pairs, n_a, n_b,
+                                  stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,196 @@
+"""K1's anatomy: the packed 2-NN cut down stage by stage (P3, P4, P6).
+
+Counterpart of three TPU dev probes, each a Pallas kernel that ran K1's
+work on a 64-pair batch of 6144 × 128 int8 descriptors with parts switched
+off: ``scripts_dev/knn_stage_cost.py:31`` (P4),
+``scripts_dev/knn_culprit_bisect.py:42`` (P3) and
+``scripts_dev/knn_overhead_sweep.py:36`` (P6). On the card the parts are
+the stages of ``csrc/knn_common.cuh``, compiled into K1's own int8 body
+(``__dp4a``) and float body (f32 FMAs on bf16 operands):
+
+====  =============  ===================================================
+ #    name           computes, per pair (row (B, n_a, 2), col (B, n_b))
+====  =============  ===================================================
+ 0    ``row_sum``    product; row sum of the dots modulo 2³² (both slots)
+ 1    ``row_min``    product; row minimum of the dots (both slots)
+ 2    ``top1``       + d2, key = bits(f32 d2) & ~0x1FFF | j; row top-1
+ 3    ``top2_tile``  + row top-2, restarted at every B tile of TB rows:
+                     the top-2 of the last tile
+ 4    ``top2``       + the running top-2 across B tiles (the row top-2)
+ 5    ``full``       + the column minimum by atomicMin: K1 itself (the
+                     kernel calls K1's entry points)
+====  =============  ===================================================
+
+``col`` is 0x7FFFFFFF everywhere below ``full``. Integer-valued
+descriptors (int8, or bf16 holding 0..255) make every dot an integer below
+2²⁴, so each stage's kernel and plain version agree bit for bit.
+
+How the TPU probes map onto the card. The TPU's grid tiles (ta A rows ×
+tb B rows per sequential grid step, ic an inner column chunk) have no
+counterpart on the card, whose blocks run in parallel: a block owns TA A
+rows and streams all of B through shared memory in tiles of TB rows, and
+its 256 threads each hold a TA/16 × TB/16 register tile. So:
+
+- P4 ``knn_stage_cost`` (ta 128, tb = n): stages 0, 1, 2, 3 → card stages
+  ``row_sum``, ``top1``, ``top2``, ``full`` at K1's tile (TA, TB) = (64,
+  64), int8 and bf16. (With tb = n the TPU's top-2 was the whole row's:
+  the card's running ``top2``.)
+- P3 ``knn_culprit_bisect`` (ta 256, tb = n): v0 → ``row_min``, v1 →
+  ``top1``, v2 → ``top2_tile``, v3 (+ the running r1/r2 merge in scratch)
+  → ``top2``, v4 (+ the column) → ``full``, at (64, 64); v5 (the
+  production ``knn_top2``) → the port's ``knn.knn_top2``. On the TPU v2
+  and v3 differed by the merge carried across grid steps in VMEM; on the
+  card the top-2 lives in registers across the B loop, so ``top2_tile``
+  only restarts it at every tile.
+- P6 ``knn_overhead_sweep`` (product + row min): each TPU (ta, tb, ic),
+  in the script's order of fatter steps, → a card tile of growing area
+  (A rows per block × B rows per shared tile), stage ``row_min``:
+
+  ==================  ===========  ============
+  TPU (ta, tb, ic)    card int8    card bf16
+  ==================  ===========  ============
+  (128, 6144, 0)      (32, 32)     (16, 64)
+  (256, 6144, 0)      (32, 64)     (32, 32)
+  (512, 2048, 0)      (64, 32)     (32, 64)
+  (512, 6144, 1024)   (64, 64) K1  (64, 32)
+  (1024, 6144, 1024)  (128, 64)    (64, 64) K1
+  (2048, 6144, 2048)  (64, 128)    (16, 128)
+  (6144, 6144, 2048)  (128, 128)   (32, 128)
+  ==================  ===========  ============
+
+  The float body keeps its A tile in shared memory as f32, so its tiles
+  stop at TA × TB within the 48 KB of static shared memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..ops import knn
+from . import check_device, check_launchable
+
+STAGES = ("row_sum", "row_min", "top1", "top2_tile", "top2", "full")
+ROW_SUM, ROW_MIN, TOP1, TOP2_TILE, TOP2, FULL = range(len(STAGES))
+K1_TILE = (64, 64)
+# P6's TPU sweep, in the script's order, and the card tile of each dtype
+P6_SWEEP = ((128, 6144, 0), (256, 6144, 0), (512, 2048, 0),
+            (512, 6144, 1024), (1024, 6144, 1024), (2048, 6144, 2048),
+            (6144, 6144, 2048))
+TILES = {
+    torch.int8: ((32, 32), (32, 64), (64, 32), (64, 64), (128, 64),
+                 (64, 128), (128, 128)),
+    torch.bfloat16: ((16, 64), (32, 32), (32, 64), (64, 32), (64, 64),
+                     (16, 128), (32, 128)),
+}
+# P4's stages and P3's variants → card stages
+P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
+P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
+
+# kernel launches (not plain-version calls), by descriptor type
+LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0}
+
+
+def _check(a, b, na2, nb2, stage, tile, name):
+    check_device((a, b), name)
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != 128 or b.shape[2] != 128):
+        raise ValueError(f"{name}: need (B, n_a, 128) and (B, n_b, 128), "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in TILES:
+        raise ValueError(f"{name}: takes int8 or bf16 descriptors, got "
+                         f"{a.dtype} and {b.dtype}")
+    if stage not in range(len(STAGES)):
+        raise ValueError(f"{name}: no stage {stage}")
+    if tuple(tile) not in TILES[a.dtype] or (stage != ROW_MIN
+                                             and tuple(tile) != K1_TILE):
+        raise ValueError(f"{name}: no tile {tuple(tile)} for stage "
+                         f"{STAGES[stage]} of {a.dtype} (row_min takes "
+                         f"{TILES[a.dtype]}, the others {K1_TILE})")
+    ta, tb = tile
+    n_a, n_b = a.shape[1], b.shape[1]
+    if n_a % ta or n_b % tb or max(n_a, n_b) > 8192:
+        raise ValueError(f"{name}: n_a={n_a}, n_b={n_b} must be multiples "
+                         f"of the tile {tuple(tile)} and at most 8192")
+    if a.dtype == torch.bfloat16 and stage >= TOP1 and (
+            na2 is None or nb2 is None or na2.shape != a.shape[:2]
+            or nb2.shape != b.shape[:2] or na2.dtype != torch.float32
+            or nb2.dtype != torch.float32):
+        raise ValueError(f"{name}: bf16 stages from top1 on need f32 "
+                         "squared norms na2 (B, n_a) and nb2 (B, n_b)")
+
+
+def _wrap32(x):
+    """int64 → the int32 with the same low 32 bits."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
+    """Plain version of the probe kernel: K1 up to ``stage`` (see the
+    module docstring). a (B, n_a, 128), b (B, n_b, 128) int8, or bf16
+    with integer values and, from ``top1`` on, the f32 squared norms na2
+    (B, n_a), nb2 (B, n_b) of the unrounded descriptors. tile = (TA, TB)
+    only matters to ``top2_tile`` (its last tile is b's last TB rows).
+    Returns (row (B, n_a, 2) int32, col (B, n_b) int32). Loops over pairs,
+    so the (n_a, n_b) temporaries stay one pair's size."""
+    _check(a, b, na2, nb2, stage, tile, "knn_probe_plain")
+    if stage == FULL:
+        return knn.knn_packed_plain(a, b, na2, nb2)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    jb = torch.arange(n_b, dtype=torch.int32, device=dev)[None, :]
+    for p in range(B):
+        x, y = a[p].float(), b[p].float()
+        dot = x @ y.T                   # integers below 2^24: exact
+        if stage == ROW_SUM:
+            v = _wrap32(dot.long().sum(1))
+        elif stage == ROW_MIN:
+            v = dot.amin(1).int()
+        else:
+            if a.dtype == torch.int8:
+                d2 = ((x * x).sum(-1)[:, None] + (y * y).sum(-1)[None, :]
+                      - 2.0 * dot).int().float()
+            else:
+                d2 = (na2[p][:, None] + nb2[p][None, :] - 2.0 * dot) \
+                    .clamp_min(0.0)
+            keys = (d2.view(torch.int32) & ~knn._IDX_MASK) | jb
+            if stage == TOP1:
+                v = keys.amin(1)
+            else:
+                if stage == TOP2_TILE:
+                    keys = keys[:, n_b - tile[1]:]
+                row[p] = torch.topk(keys, 2, dim=1, largest=False).values
+                continue
+        row[p] = v[:, None].expand(-1, 2)
+    return row, col
+
+
+def knn_probe_raw(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
+    """The probe kernel (csrc/knn_probe.cu) on a CUDA tensor, its plain
+    version on a CPU tensor; raises on any other device. Arguments and
+    result as knn_probe_plain. The full stage launches K1 through its own
+    C entry point, so it is K1 bit for bit and time for time."""
+    _check(a, b, na2, nb2, stage, tile, "knn_probe_raw")
+    if a.device.type == "cpu":
+        return knn_probe_plain(a, b, na2, nb2, stage, tile)
+    bf16 = a.dtype == torch.bfloat16
+    keys = bf16 and stage >= TOP1
+    check_launchable((a, b) + ((na2, nb2) if keys else ()), "knn_probe_raw")
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_probe(
+            a.data_ptr(), b.data_ptr(), na2.data_ptr() if keys else None,
+            nb2.data_ptr() if keys else None, row.data_ptr(), col.data_ptr(),
+            B, n_a, n_b, int(bf16), stage, tile[0], tile[1],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_probe")
+    LAUNCHES["knn_probe_bf16" if bf16 else "knn_probe_i8"] += 1
+    return row, col

@@ -10,8 +10,11 @@ Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
 arithmetic in f32 or int32, K2 rounds the same f32 products and sums one
 by one, and K4 decodes, compares and gathers exactly, so the comparisons
-are bit-exact. Bundle adjustment on the card is held against the CPU
-within a stated tolerance (atomic sums).
+are bit-exact. So are the probes of imageanalysis_tpu_torch/probes on
+integer-valued inputs (the staged K1, P2's single-launch K1 + K4, P5's
+mma.sync row sums, P1's one-hot gather of bf16 values). Bundle adjustment
+on the card is held against the CPU within a stated tolerance (atomic
+sums).
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 
 from imageanalysis_tpu_torch.features import sift
 from imageanalysis_tpu_torch.ops import knn
+from imageanalysis_tpu_torch.probes import fused, knn_stages, mma
 
 pytestmark = pytest.mark.cuda
 
@@ -307,3 +311,121 @@ def test_bundle_solve_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(on_card.mre, on_cpu.mre, rtol=1e-2)
     assert abs(on_card.iters - on_cpu.iters) <= 1
     assert np.isfinite(on_card.pts).all() and on_card.mre < 0.5
+
+
+def _probe_inputs(rng, cuda, dtype):
+    a, b = (t.to(cuda) for t in _planted(rng, 3, 256, 512, 64))
+    return (a, b, None, None) if dtype == torch.int8 else \
+        _float_inputs(a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_knn_probe_stages_bit_exact_vs_plain(cuda, rng, dtype):
+    """Every stage at K1's tile and the row minimum at every tile."""
+    args = _probe_inputs(rng, cuda, dtype)
+    cases = [(s, knn_stages.K1_TILE) for s in range(len(knn_stages.STAGES))]
+    cases += [(knn_stages.ROW_MIN, t) for t in knn_stages.TILES[dtype]]
+    key = "knn_probe_i8" if dtype == torch.int8 else "knn_probe_bf16"
+    before = knn_stages.LAUNCHES[key]
+    for stage, tile in cases:
+        got = knn_stages.knn_probe_raw(*args, stage=stage, tile=tile)
+        want = knn_stages.knn_probe_plain(*args, stage=stage, tile=tile)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (stage, tile)
+    assert knn_stages.LAUNCHES[key] == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_knn_probe_full_stage_is_k1(cuda, rng, dtype):
+    args = _probe_inputs(rng, cuda, dtype)
+    got = knn_stages.knn_probe_raw(*args)
+    want = knn.knn_packed_raw(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", ["full", "nopb", "epi32", "t64"])
+def test_fused_probe_equals_knn_match_fused(cuda, rng, variant):
+    """P2's single launch against K1 then K4, twice in a row (the
+    completion counters reset themselves)."""
+    a, b = (t.to(cuda) for t in _planted(rng, 3, 512, 512, 128))
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (3, 512, 2))
+                            .astype(np.float32)).to(cuda)
+    want = knn.knn_match_fused(a, b, uv_b, 0.75)
+    before = fused.LAUNCHES["knn_fused_probe"]
+    c_bj, c_ok, c_pb = fused.COMPARED[variant]
+    for _ in range(2):
+        got = fused.fused_probe_raw(a, b, uv_b, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].bool(), want[1])
+        if c_pb:
+            assert torch.equal(got[2], want[2])
+    assert fused.LAUNCHES["knn_fused_probe"] == before + 2
+    assert int(want[1].sum()) > 300
+
+
+def test_mm_rowsum_bit_exact_on_integers(cuda):
+    """Integer values in [-2, 2]: every sum below 2^24 is exact in any
+    order, at every tile and split; normal values within 1e-5 of the
+    largest sum."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = mma.LAUNCHES["mm_rowsum"]
+    n = 0
+    for K in mma.K_SWEEP:
+        x = torch.randint(-2, 3, (2, 256, K), generator=gen,
+                          device=cuda).bfloat16()
+        y = torch.randint(-2, 3, (2, 512, K), generator=gen,
+                          device=cuda).bfloat16()
+        want = mma.mm_rowsum_plain(x, y)
+        for tile in mma.TILES:
+            for split in (1, 3):
+                got = mma.mm_rowsum_raw(x, y, tile, split)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (K, tile, split)
+                n += 1
+    x = torch.randn((1, 512, 128), generator=gen, device=cuda).bfloat16()
+    y = torch.randn((1, 1024, 128), generator=gen, device=cuda).bfloat16()
+    want = mma.mm_rowsum_plain(x, y)
+    got = mma.mm_rowsum_raw(x, y)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert mma.LAUNCHES["mm_rowsum"] == before + n + 1
+
+
+def test_onehot_gather_bit_exact_vs_bf16_plain(cuda, rng):
+    u = torch.from_numpy(rng.uniform(0, 4100, 1024).astype(np.float32))
+    vals = mma.limbs(u.to(cuda))
+    vals[2] += 1e-3                 # lo no longer bf16-exact
+    j = torch.from_numpy(rng.integers(0, 1024, 64).astype(np.int32))
+    before = mma.LAUNCHES["onehot_gather"]
+    got = mma.onehot_gather_raw(j.to(cuda), vals)
+    assert mma.LAUNCHES["onehot_gather"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, mma.onehot_gather_plain(j.to(cuda), vals, "bf16"))
+    exact = mma.onehot_gather_plain(j.to(cuda), vals, "f32")
+    assert torch.equal(got[:, :2], exact[:, :2])
+    assert not torch.equal(got[:, 2], exact[:, 2])
+    with pytest.raises(ValueError, match="bf16"):
+        mma.onehot_gather_raw(j.to(cuda), vals, "f32")
+
+
+def test_probes_refuse_what_they_do_not_take(cuda):
+    a = torch.zeros((1, 128, 128), dtype=torch.int8, device=cuda)
+    before = (dict(knn_stages.LAUNCHES), dict(mma.LAUNCHES),
+              dict(fused.LAUNCHES))
+    with pytest.raises(ValueError):               # no such tile for top1
+        knn_stages.knn_probe_raw(a, a, stage=knn_stages.TOP1, tile=(32, 32))
+    with pytest.raises(ValueError):               # CPU and CUDA mixed
+        knn_stages.knn_probe_raw(a, a.cpu())
+    with pytest.raises(ValueError):               # K not a multiple of 64
+        x = torch.zeros((1, 128, 96), dtype=torch.bfloat16, device=cuda)
+        mma.mm_rowsum_raw(x, x)
+    with pytest.raises(ValueError):               # n not a multiple of 128
+        fused.fused_probe_raw(a[:, :64], a[:, :64],
+                              torch.zeros((1, 64, 2), device=cuda))
+    assert (dict(knn_stages.LAUNCHES), dict(mma.LAUNCHES),
+            dict(fused.LAUNCHES)) == before
