@@ -12,13 +12,18 @@ non-zero:
 2. build: the CUDA kernels of imageanalysis_tpu_torch/csrc into build/;
 3. K2 (Gaussian blur) against blur_plain at every (H, W, taps) of octaves
    0 and 1 of a batch of two 2176×1440 frames: bit-exact, median times;
-4. K1 (packed 2-NN) against knn_packed_plain: int8 at the store's shape
-   (256 pairs × 4096) and at bench.py's (64 pairs × 6144); bf16, f32 and
-   gated (int8 and bf16, ~half the candidates gated out) at the store's
-   shape. Integer-valued descriptors throughout, so all bit-exact;
+4. K1 (packed 2-NN) against knn_packed_plain: int8 and bf16 at the
+   store's shape (256 pairs × 4096) and at bench.py's (64 pairs × 6144);
+   f32 and gated (int8 and bf16, ~half the candidates gated out) at the
+   store's shape. Integer-valued descriptors throughout, so all
+   bit-exact. The bf16 modes (the tensor-core body) are timed in turns
+   against the FFMA body they replaced, and at bench's shape against
+   P5's product + row sum (the difference: the key epilogue); each mode
+   beside one library product of its type (torch._int_mm, torch.bmm);
 5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240: int8 store
-   rows cast to bf16 (bit-exact) and random f32 descriptors (indices
-   equal modulo ties, values within 2⁻²⁰ of the norms);
+   rows cast to bf16 (bit-exact; in turns against the FFMA body) and
+   random descriptors (indices equal modulo ties; values within 2⁻²⁰ of
+   the norms in f32, TC_REL_TOL in bf16);
 6. bench.py's match workload (64 pairs of 6144 int8 descriptors, 1500
    planted matches each) through the port's match_pair_batch: pairs/s;
 7. Step 3a's device path on a 64-frame 2176×1440 synthetic mission:
@@ -60,10 +65,11 @@ non-zero:
     300-camera graph of scripts_dev/ba_f64_oracle.py;
 15. K1 and K4 anatomy: the probes P1–P6 (imageanalysis_tpu_torch/probes)
     at their TPU probes' full shapes on bench.py's batch: every stage and
-    tile of the staged K1 (P3, P4, P6; int8 and bf16) against its plain
-    version on 2 of the 64 pairs and its full stage against K1 on all 64,
-    then K1's stage split; P5's mma.sync product + row sum (bit-exact on
-    integer values, within P5_REL_TOL on normal ones) and its TFLOP/s
+    tile of the staged K1 (P3, P4, P6; int8 and bf16, the bf16 stages on
+    the FFMA body) against its plain version on 2 of the 64 pairs and its
+    full stage against K1 on all 64, then the stage split; P5's mma.sync
+    product + row sum (bit-exact on integer values, within P5_REL_TOL on
+    normal ones) and its TFLOP/s
     beside torch.bmm and torch._int_mm; P1's one-hot gather (bit-exact
     with its bf16 plain version, per-limb errors against f32); P2's
     single-launch K1 + K4 against knn_match_fused on all 64 pairs. Each
@@ -132,6 +138,10 @@ BENCH_SHAPE = (64, 6144)    # bench.py's pairs × rows
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 GATE_FLOPS = 5              # dx, dy, dx², dy², the sum: per gated candidate
+# random bf16 on the tensor cores against the plain f32 product: both dots
+# within 128·2⁻²⁴ of Σ|a_k b_k| ≤ (|a|² + |b|²)/2, so d2 within this × (max
+# |a|² + max |b|²)
+TC_REL_TOL = 2.0 ** -16
 FUSED = "IMGTPU_FUSED_EPILOGUE"
 
 
@@ -339,8 +349,32 @@ def product_only(name, fn):
     return t
 
 
+def in_turns(new, old, reps=3):
+    """Median ms of two versions of one function in turns (new, old, old,
+    new): ([new, new], [old, old])."""
+    t = {new: [], old: []}
+    for fn in (new, old, old, new):
+        t[fn].append(time_ms(fn, reps))
+    return t[new], t[old]
+
+
+def vs_ffma(r, name, new, old, check):
+    """The tensor-core body (new) against the FFMA body it replaced (old),
+    in turns; old's outputs must equal check (the kernel's, bit-exact)."""
+    if not all(torch.equal(g, w) for g, w in zip(old(), check)):
+        raise AssertionError(f"{name}: the FFMA body differs")
+    t_new, t_old = in_turns(new, old)
+    r["ms"] = float(np.mean(t_new))
+    r["ffma_ms"] = float(np.mean(t_old))
+    log(f"[{name}] in turns: tensor cores {t_new[0]:.3f} / {t_new[1]:.3f} "
+        f"ms, FFMA body {t_old[0]:.3f} / {t_old[1]:.3f} ms "
+        f"({r['ffma_ms'] / r['ms']:.2f}x)")
+
+
 def check_knn():
-    """K1 in every mode; returns {mode: measurements}."""
+    """K1 in every mode; returns {mode: measurements}. bf16 modes are also
+    timed against the FFMA body they replaced (knn_stages.ffma_bf16_raw)
+    in turns, and at bench's shape against P5's product + row sum."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
@@ -351,15 +385,38 @@ def check_knn():
         log(f"[K1] int8 {name} {pairs} pairs x {n}: bit-exact; kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        # all A rows against one pair's B rows: the batch's products in
+        # one call (the output alone is 9.7 GB of int32 at bench's shape,
+        # 17.2 GB at the store's)
+        bt = b[0].t()
+        r["product_only_ms"] = product_only(
+            f"K1 int8 torch._int_mm {pairs}x{n} x {n}",
+            lambda: torch._int_mm(a.reshape(-1, 128), bt))
+        del bt
         out[f"i8_{name}"] = r
         if name == "bench":
-            # all A rows against one pair's B rows: the batch's products in
-            # one call (the output alone is 9.7 GB of int32)
-            bt = b[0].t()
-            out["i8_product_ms"] = product_only(
-                "K1 int8 torch._int_mm 64x6144 x 6144",
-                lambda: torch._int_mm(a.reshape(-1, 128), bt))
+            fargs = float_inputs(a, b, torch.bfloat16)
+            r = compare_keys("K1 bf16 bench", knn.knn_packed_raw,
+                             knn.knn_packed_plain, fargs, plain_reps=1)
+            vs_ffma(r, "K1 bf16 64 x 6144",
+                    lambda: knn.knn_packed_raw(*fargs),
+                    lambda: knn_stages.ffma_bf16_raw(*fargs),
+                    knn.knn_packed_raw(*fargs))
+            with_bound(r, *k1_bound(pairs, n, 2, "bf16"))
+            bt = fargs[1].transpose(1, 2)
+            r["product_only_ms"] = product_only(
+                "K1 bf16 torch.bmm 64 x 6144 x 6144",
+                lambda: torch.bmm(fargs[0], bt))
             del bt
+            p5 = time_ms(lambda: mma.mm_rowsum_raw(fargs[0], fargs[1]), 3)
+            log(f"[K1] bf16 bench {pairs} pairs x {n}: bit-exact; kernel "
+                f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']}); P5 mma.sync "
+                f"product + row sum {p5:.3f} ms; new K1 bf16 - P5 = "
+                f"{r['ms'] - p5:.3f} ms (the key epilogue on the tensor-core "
+                f"body, {100 * (r['ms'] - p5) / r['ms']:.1f}% of K1)")
+            out["bf16_bench"] = r
+            del fargs
     pairs, n = STORE_SHAPE
     a, b = planted_descriptors(gen, pairs, n, n // 4)
     for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
@@ -367,17 +424,26 @@ def check_knn():
         args = float_inputs(a, b, dtype)
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, args)
+        if mode == "bf16":
+            vs_ffma(r, f"K1 bf16 {pairs} x {n}",
+                    lambda: knn.knn_packed_raw(*args),
+                    lambda: knn_stages.ffma_bf16_raw(*args),
+                    knn.knn_packed_raw(*args))
         with_bound(r, *k1_bound(pairs, n, eb, mode))
         log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact; kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        # the product alone, in the mode's type (f32: TF32 off, the
+        # package's setting, so full f32 as the kernel)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: the f32 yardstick would not "
+                                 "be an f32 product")
+        bt = args[1].transpose(1, 2)
+        r["product_only_ms"] = product_only(
+            f"K1 {mode} torch.bmm {pairs} x {n} x {n}",
+            lambda: torch.bmm(args[0], bt))
+        del bt
         out[mode] = r
-        if mode == "bf16":
-            bt = args[1].transpose(1, 2)
-            out["bf16_product_ms"] = product_only(
-                "K1 bf16 torch.bmm 256 x 4096 x 4096",
-                lambda: torch.bmm(args[0], bt))
-            del bt
         del args
     # a prior that gates out about half the candidates: positions in a
     # 1000 px square, radius 400 px
@@ -389,14 +455,23 @@ def check_knn():
     for mode, args, eb, peak in (
             ("gated_i8", (a, b, None, None), 1, "int8"),
             ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16")):
+        gargs = (*args, uv_a, pred, radius2)
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
-                         knn.knn_packed_plain,
-                         (*args, uv_a, pred, radius2))
+                         knn.knn_packed_plain, gargs)
+        if mode == "gated_bf16":
+            vs_ffma(r, f"K1 gated bf16 {pairs} x {n}",
+                    lambda: knn.knn_packed_raw(*gargs),
+                    lambda: knn_stages.ffma_bf16_raw(*gargs),
+                    knn.knn_packed_raw(*gargs))
+            r["product_only_ms"] = out["bf16"]["product_only_ms"]
+        else:
+            r["product_only_ms"] = out["i8_store"]["product_only_ms"]
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=True))
         log(f"[K1] {mode} {pairs} pairs x {n}, {100 * frac:.1f}% of the "
             f"candidates gated out: bit-exact; kernel {r['ms']:.3f} ms, "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}); product only (ungated, same shape) "
+            f"{r['product_only_ms']} ms")
         out[mode] = r
     return out
 
@@ -409,7 +484,7 @@ def ties_only(q, cand, gi, wi, tol):
         dg = ((q[bad] - cand[gi[bad].long()]) ** 2).sum(-1)
         dw = ((q[bad] - cand[wi[bad].long()]) ** 2).sum(-1)
         if float((dg - dw).abs().max()) > tol:
-            raise AssertionError("K3 f32 indices differ beyond ties")
+            raise AssertionError("K3 indices differ beyond ties")
     return len(bad)
 
 
@@ -422,6 +497,9 @@ def check_wide():
     args = (a.bfloat16(), b.bfloat16(), knn._sq_norms(a), knn._sq_norms(b))
     r = compare_keys("K3 bf16", knn.knn_wide_raw, knn.knn_wide_plain, args,
                      reps=3, plain_reps=1)
+    vs_ffma(r, f"K3 bf16 {pairs} x {n}", lambda: knn.knn_wide_raw(*args),
+            lambda: knn_stages.ffma_bf16_raw(*args, wide=True),
+            knn.knn_wide_raw(*args))
     # descriptors and norms read once; row keys (16 B) and column keys
     # (8 B) written once
     with_bound(r, pairs * n * (2 * 128 * 2 + 8 + 24),
@@ -430,33 +508,43 @@ def check_wide():
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
     bt = args[1].transpose(1, 2)
-    r["product_ms"] = product_only("K3 bf16 torch.bmm 64 x 10240 x 10240",
-                                   lambda: torch.bmm(args[0], bt))
+    r["product_only_ms"] = product_only(
+        "K3 bf16 torch.bmm 64 x 10240 x 10240", lambda: torch.bmm(args[0], bt))
     del args, bt
-    # random floats: the kernel's FMA order differs from cuBLAS's
+    # random floats: the kernel's summation order differs from cuBLAS's;
+    # f32 on FFMA within 2^-20 of the norms, bf16 on the tensor cores
+    # (other order and internal rounding of each 16-product step) within
+    # TC_REL_TOL
     fa = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
     fb = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
     fb[:, :1000] = fa[:, :1000] + torch.randn((8, 1000, 128), generator=gen,
                                               device="cuda") * 2
-    na, nb = knn._sq_norms(fa), knn._sq_norms(fb)
-    got = [knn._decode_wide(k) for k in knn.knn_wide_raw(fa, fb, na, nb)]
-    want = [knn._decode_wide(k) for k in knn.knn_wide_plain(fa, fb, na, nb)]
-    torch.cuda.synchronize()
-    atol = 2.0 ** -20 * float(na.max() + nb.max())
-    err = max(float((g[0] - w[0]).abs().max()) for g, w in zip(got, want))
-    if err > atol:
-        raise AssertionError(f"K3 f32 values differ by {err} > {atol}")
-    n_diff = 0
-    for p in range(8):
-        # rows: both picks of each A row among B's; columns: A's pick
-        for c in (0, 1):
-            n_diff += ties_only(fa[p], fb[p], got[0][1][p][:, c],
-                                want[0][1][p][:, c], 2 * atol)
-        n_diff += ties_only(fb[p], fa[p], got[1][1][p], want[1][1][p],
-                            2 * atol)
-    log(f"[K3] f32 random 8 pairs x {n}: values within {err:.3g} "
-        f"(bound {atol:.3g}); {n_diff} indices differ, all on ties")
-    r["f32_max_abs_err"] = err
+    for dtype, rel in ((torch.float32, 2.0 ** -20),
+                       (torch.bfloat16, TC_REL_TOL)):
+        xa, xb = fa.to(dtype), fb.to(dtype)
+        na, nb = knn._sq_norms(xa), knn._sq_norms(xb)
+        got = [knn._decode_wide(k) for k in knn.knn_wide_raw(xa, xb, na, nb)]
+        want = [knn._decode_wide(k)
+                for k in knn.knn_wide_plain(xa, xb, na, nb)]
+        torch.cuda.synchronize()
+        atol = rel * float(na.max() + nb.max())
+        err = max(float((g[0] - w[0]).abs().max()) for g, w in zip(got, want))
+        mode = str(dtype)[6:]
+        if err > atol:
+            raise AssertionError(f"K3 {mode} values differ by {err} > {atol}")
+        n_diff = 0
+        xa, xb = xa.float(), xb.float()
+        for p in range(8):
+            # rows: both picks of each A row among B's; columns: A's pick
+            for c in (0, 1):
+                n_diff += ties_only(xa[p], xb[p], got[0][1][p][:, c],
+                                    want[0][1][p][:, c], 2 * atol)
+            n_diff += ties_only(xb[p], xa[p], got[1][1][p], want[1][1][p],
+                                2 * atol)
+        log(f"[K3] {mode} random 8 pairs x {n}: values within {err:.3g} "
+            f"(bound {atol:.3g}); {n_diff} indices differ, all on ties")
+        r[f"{mode}_random_max_abs_err"] = err
+        del xa, xb
     return r
 
 
@@ -1272,8 +1360,10 @@ def stage_times(args, stages, reps=3):
 
 def run_anatomy(a, b, fargs):
     """P4, then P3 at bench's shape, each driven on its own over both
-    dtypes; K1's stage split from the two, with K1 timed in turns beside
-    the full stage (which must be within 5% of it)."""
+    dtypes; the stage split from the two, with K1 timed in turns beside
+    the full stage. int8: the full stage is K1 and must take within 5% of
+    its time; bf16: the stages are the FFMA body's, K1 the tensor-core
+    body's, and the split is the FFMA body's."""
     inputs = {"int8": (a, b, None, None), "bf16": fargs}
 
     def sweep(stages):
@@ -1293,14 +1383,16 @@ def run_anatomy(a, b, fargs):
                  "top2": t["top2"] - t["top1"],
                  "running_merge": t["top2"] - t["top2_tile"],
                  "column": t["full"] - t["top2"]}
-        log(f"[anatomy] K1 {dtype} 64 x 6144, stages ms: "
+        body = "" if dtype == "int8" else " (FFMA body)"
+        log(f"[anatomy] K1 {dtype}{body} 64 x 6144, stages ms: "
             + json.dumps({k: round(v, 3) for k, v in t.items()})
             + f"; K1 itself {k1[0]:.3f} / {k1[1]:.3f} ms in turns with the "
             f"full stage {full[0]:.3f} / {full[1]:.3f}")
-        log(f"[anatomy] K1 {dtype} split, ms: "
+        log(f"[anatomy] K1 {dtype}{body} split, ms: "
             + json.dumps({k: round(v, 3) for k, v in split.items()})
-            + f" (product {100 * split['product'] / k1_ms:.1f}% of K1)")
-        if abs(t["full"] / k1_ms - 1.0) > 0.05:
+            + f" (product {100 * split['product'] / t['full']:.1f}% of the "
+            f"full stage)")
+        if dtype == "int8" and abs(t["full"] / k1_ms - 1.0) > 0.05:
             raise AssertionError(f"{dtype}: the full stage takes "
                                  f"{t['full']:.3f} ms, K1 {k1_ms:.3f}")
         out[dtype] = t
@@ -1556,7 +1648,9 @@ def main():
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    timed_by=r.get("timed_by", "CUDA events, median"))
+                    timed_by=r.get("timed_by", "CUDA events, median"),
+                    **{k: r[k] for k in ("product_only_ms", "ffma_ms")
+                       if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [

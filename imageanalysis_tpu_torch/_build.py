@@ -52,6 +52,10 @@ _SIGNATURES = {
     # probes (probes/): a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
     # bf16, stage, ta, tb, stream
     "knn_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,
+    # n_pairs, n_a, n_b, wide, stream
+    "knn_ffma_bf16": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _P],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
     # epi_threads, do_main, do_epi, do_pb, stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

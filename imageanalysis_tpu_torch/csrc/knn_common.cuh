@@ -1,14 +1,28 @@
 // Shared pieces of the 2-NN kernels (K1 in knn_packed.cu, K3 in
 // knn_wide.cu, the probes in knn_probe.cu and knn_fused_probe.cu): tile
-// constants, the spatial gate, K1's int8 block body and the float-input
-// kernel, each compiled in its own modes.
+// constants, the spatial gate, the keys, and three bodies, each compiled
+// in its own modes:
+//   knn_i8_block       int8 descriptors (K1), __dp4a
+//   knn_float_kernel   f32 descriptors (K1 f32, K3 f32), f32 FMAs; also
+//                      bf16 for the probes of K1's anatomy (knn_probe.cu)
+//   knn_bf16_tc_kernel bf16 descriptors (K1 bf16 and gated bf16, K3 bf16),
+//                      mma.sync on the tensor cores (knn_tc.cuh, included
+//                      at the end of this file)
 //
-// Both bodies are templates over a STAGE and a block tile (TA A rows per
-// block, B streamed in tiles of TB rows; 256 threads in a 16 x 16 grid, so
-// each thread holds a TA/16 x TB/16 register tile of dots). K1 and K3 are
-// the full stage at TA = TB = 64; the probes of K1's anatomy compile the
-// earlier stages and other tiles from the same source, so the full stage
-// is K1 instruction for instruction:
+// What bounds them on the H100: the product. An int8 pair of 6144 rows is
+// 9.7 G multiply-adds over 1.6 MB; the card's int8 and bf16 rates are only
+// reached on the tensor cores, which the int8 body does not use yet (100
+// TOP/s of __dp4a). The f32 body's bound is the CUDA cores' 67 TFLOP/s of
+// f32 FMA; tensor cores would need a 3 x bf16 split, which is not
+// bit-exact with the plain version. The bf16 body takes the tensor cores
+// and keeps the same key epilogue (knn_tc.cuh).
+//
+// The int8 and f32 bodies are templates over a STAGE and a block tile (TA
+// A rows per block, B streamed in tiles of TB rows; 256 threads in a 16 x
+// 16 grid, so each thread holds a TA/16 x TB/16 register tile of dots). K1
+// int8, K1 f32 and K3 f32 are the full stage at TA = TB = 64; the probes
+// of K1's anatomy compile the earlier stages and other tiles from the same
+// source, so the int8 full stage is K1 instruction for instruction:
 //   kRowSum    product + row sum (unsigned, wrapping: the TPU probe's int32
 //              sum; float dots, integers below 2^24, are converted first)
 //   kRowMin    product + row min of the raw dot
@@ -20,13 +34,15 @@
 // The float kernel: one block owns TA rows of A of one pair, resident in
 // shared memory as f32 for the whole sweep over B; B streams through
 // shared memory in tiles of TB rows, 32 dims at a time. Each thread
-// accumulates its register tile of dots with f32 FMAs on operands that
-// were bf16-rounded (or f32) on the host side. For integer-valued
+// accumulates its register tile of dots with f32 FMAs. For integer-valued
 // descriptors (OpenCV SIFT's and the int8 store's) every product and
 // partial sum is an integer below 2^24, so the dots are exact whatever the
 // order of the sums. The epilogue is written with __fadd_rn/__fmul_rn so
 // nvcc cannot contract it into FMAs: the plain PyTorch version rounds each
-// operation on its own.
+// operation on its own. Its bf16 instantiations (operands widened to f32
+// in shared memory) are the probes' and the timing yardstick of the
+// tensor-core body (knn_ffma_bf16 in knn_probe.cu); K1 and K3 no longer
+// launch them.
 
 #pragma once
 
@@ -460,3 +476,5 @@ inline bool bad_shape(int n_pairs, int n_a, int n_b, int max_rows) {
 }
 
 }  // namespace knn
+
+#include "knn_tc.cuh"

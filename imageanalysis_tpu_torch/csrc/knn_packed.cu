@@ -20,22 +20,26 @@
 // the order of the reductions and the tiling, given bit-exact d2 — which
 // integer-valued descriptors give in every mode.
 //
-// What bounds it on the H100: arithmetic. A 4096 x 4096 pair is 2.1 G
+// What bounds it on the H100: the product. A 4096 x 4096 pair is 2.1 G
 // multiply-adds over 1-4 MB of descriptors, so memory is no limit; the
-// limit is the issue rate of __dp4a (int8, 4 MACs per instruction) or of
-// f32 FMAs fed from shared memory (float modes), and of the per-element
-// key epilogue (convert, mask, gate, or, two compares).
-//
-// Design: one block owns TA = 64 rows of A of one pair in shared memory
-// and streams B through shared memory in tiles of TB = 64 rows, so each
-// value read from shared memory feeds 4 dot products per thread (a 4 x 4
-// register tile per thread). Row top-2 keys stay in registers for the
-// whole sweep over B and are merged across the 16 threads of a row by
-// warp shuffles at the end; the column minimum of each tile is reduced in
-// shared memory and leaves the block by one global atomicMin per column.
-// Both bodies live in knn_common.cuh: the float one is shared with K3, and
-// both are the full stage of the probes of K1's anatomy (knn_probe.cu).
-// Tensor cores (mma.sync / wgmma, s8 and bf16) are the next step.
+// limit is the rate of the product and of the per-element key epilogue
+// (convert, mask, gate, or, two compares). Each mode has its body
+// (knn_common.cuh):
+// - bf16, plain and gated: knn_tc.cuh's tensor-core body. mma.sync
+//   m16n8k16 on the bf16 operands as they are, a 128-row A tile resident
+//   in shared memory, B tiles of 128 rows through a two-stage cp.async
+//   ring, the key epilogue on the accumulator fragments. Before it, the
+//   FFMA body's product was 93% of this mode's time (26.8 TFLOP/s).
+// - int8: the __dp4a body (4 MACs an instruction, 100 TOP/s at bench's
+//   shape): one block owns 64 A rows in shared memory and streams B in
+//   tiles of 64 rows, each thread a 4 x 4 register tile of dots. The
+//   tensor cores (mma.sync s8 m16n8k32) are its next step.
+// - f32: the FFMA body, at most the CUDA cores' 67 TFLOP/s; exact f32
+//   dots, as the plain version's.
+// In every body the row top-2 keys stay in registers for the whole sweep
+// over B and are merged across the threads of a row by warp shuffles at
+// the end; each B tile's column minimum is reduced in shared memory and
+// leaves the block by one global atomicMin per column.
 
 #include "knn_common.cuh"
 
@@ -57,25 +61,33 @@ int launch_i8(const void* a, const void* b, const void* uv_a,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// bf16 descriptors: the tensor-core body; f32: the FFMA body
 int launch_float(const void* a, const void* b, const void* na2,
                  const void* nb2, const void* uv_a, const void* pred_b,
                  float radius2, void* row_p, void* col_p, int n_pairs,
-                 int n_a, int n_b, void* stream) {
+                 int n_a, int n_b, bool bf16, void* stream) {
   if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(n_a / kTA, n_pairs);
   cudaStream_t s = (cudaStream_t)stream;
+  if (bf16 && uv_a)
+    return launch_bf16_tc<kPackedGated>(a, b, na2, nb2, uv_a, pred_b,
+                                        radius2, row_p, col_p, nullptr,
+                                        nullptr, n_pairs, n_a, n_b, s);
+  if (bf16)
+    return launch_bf16_tc<kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                                   row_p, col_p, nullptr, nullptr, n_pairs,
+                                   n_a, n_b, s);
+  dim3 grid(n_a / kTA, n_pairs);
   if (uv_a)
-    knn_float_kernel<T, kPackedGated><<<grid, kThreads, 0, s>>>(
-        (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
-        (const float*)uv_a, (const float*)pred_b, radius2, (int*)row_p,
-        (int*)col_p, nullptr, nullptr, n_a, n_b);
+    knn_float_kernel<float, kPackedGated><<<grid, kThreads, 0, s>>>(
+        (const float*)a, (const float*)b, (const float*)na2,
+        (const float*)nb2, (const float*)uv_a, (const float*)pred_b, radius2,
+        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
   else
-    knn_float_kernel<T, kPacked><<<grid, kThreads, 0, s>>>(
-        (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
-        nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p, nullptr, nullptr,
-        n_a, n_b);
+    knn_float_kernel<float, kPacked><<<grid, kThreads, 0, s>>>(
+        (const float*)a, (const float*)b, (const float*)na2,
+        (const float*)nb2, nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p,
+        nullptr, nullptr, n_a, n_b);
   return (int)cudaGetLastError();
 }
 
@@ -111,9 +123,6 @@ extern "C" int knn_packed_float(const void* a, const void* b, const void* na2,
                                 const void* pred_b, float radius2,
                                 void* row_p, void* col_p, int n_pairs,
                                 int n_a, int n_b, int bf16, void* stream) {
-  if (bf16)
-    return launch_float<uint16_t>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                  row_p, col_p, n_pairs, n_a, n_b, stream);
-  return launch_float<float>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                             col_p, n_pairs, n_a, n_b, stream);
+  return launch_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p,
+                      n_pairs, n_a, n_b, bf16 != 0, stream);
 }

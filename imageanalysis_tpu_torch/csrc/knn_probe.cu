@@ -11,9 +11,14 @@
 // parts are the Stage values of knn_common.cuh, compiled into K1's int8
 // body (__dp4a) and its float body (f32 FMAs on bf16 operands): product +
 // row sum, product + row min, + d2/pack/top-1, + top-2 restarted at every
-// B tile, + the running top-2, + the column atomicMin. The full stage is
-// not compiled here: it calls K1's own entry points (knn_packed.cu), so its
-// time is K1's time.
+// B tile, + the running top-2, + the column atomicMin. The int8 full stage
+// is not compiled here: it calls K1's own entry point (knn_packed.cu), so
+// its time is K1's time. The bf16 stages, the full one included, stay on
+// the FFMA float body although K1's bf16 modes now run the tensor-core
+// body (knn_tc.cuh): one body across the bf16 anatomy keeps its stage
+// differences meaningful, and the old K1 bf16 is timed in the same run as
+// the new one. knn_ffma_bf16 launches that FFMA body in K1's and K3's
+// bf16 modes (plain, gated, wide) as the redesign's yardstick.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
@@ -22,21 +27,16 @@
 // Tiles: TA A rows per block x TB B rows per streamed shared-memory tile,
 // 256 threads. int8 at (32, 32), (32, 64), (64, 32), (64, 64) = K1,
 // (128, 64), (64, 128), (128, 128); bf16 at (16, 64), (32, 32), (32, 64),
-// (64, 32), (64, 64) = K1, (16, 128), (32, 128) (the float body keeps A as
-// f32 in shared memory: TA x TB beyond that passes the 48 KB of static
-// shared memory). Every stage at (64, 64), the row-min stage at every
-// tile; any other combination returns cudaErrorInvalidValue.
+// (64, 32), (64, 64) = the FFMA K1's, (16, 128), (32, 128) (the float
+// body keeps A as f32 in shared memory: TA x TB beyond that passes the 48
+// KB of static shared memory). Every stage at (64, 64), the row-min stage
+// at every tile; any other combination returns cudaErrorInvalidValue.
 
 #include "knn_common.cuh"
 
 extern "C" int knn_packed_i8(const void* a, const void* b, void* row_p,
                              void* col_p, int n_pairs, int n_a, int n_b,
                              void* stream);
-extern "C" int knn_packed_float(const void* a, const void* b, const void* na2,
-                                const void* nb2, const void* uv_a,
-                                const void* pred_b, float radius2,
-                                void* row_p, void* col_p, int n_pairs,
-                                int n_a, int n_b, int bf16, void* stream);
 
 namespace {
 
@@ -128,11 +128,42 @@ extern "C" int knn_probe(const void* a, const void* b, const void* na2,
     case kTop2Tile: return stage_at_k1_tile<kTop2Tile>(x, bf16);
     case kTop2: return stage_at_k1_tile<kTop2>(x, bf16);
     case kFull:
-      return bf16 ? knn_packed_float(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                                     row_p, col_p, n_pairs, n_a, n_b, 1,
-                                     stream)
+      return bf16 ? launch_bf16<kFull, kTA, kTB>(x)
                   : knn_packed_i8(a, b, row_p, col_p, n_pairs, n_a, n_b,
                                   stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The FFMA float body (knn_float_kernel) on bf16 bits in K1's modes (wide
+// == 0: packed keys into row_p / col_p, gated when uv_a != NULL) or K3's
+// (wide != 0: 64-bit keys into row_k / col_k): what K1 and K3 launched for
+// bf16 before the tensor-core body. Arguments as knn_packed_float and
+// knn_wide. Returns the cudaError_t of the launch.
+extern "C" int knn_ffma_bf16(const void* a, const void* b, const void* na2,
+                             const void* nb2, const void* uv_a,
+                             const void* pred_b, float radius2, void* row_p,
+                             void* col_p, void* row_k, void* col_k,
+                             int n_pairs, int n_a, int n_b, int wide,
+                             void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, wide ? 1 << 30 : kIdxMask + 1))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n_a / kTA, n_pairs);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint16_t* pa = (const uint16_t*)a;
+  const uint16_t* pb = (const uint16_t*)b;
+  if (wide)
+    knn_float_kernel<uint16_t, kWide><<<grid, kThreads, 0, s>>>(
+        pa, pb, (const float*)na2, (const float*)nb2, nullptr, nullptr, 0.f,
+        nullptr, nullptr, (long long*)row_k, (long long*)col_k, n_a, n_b);
+  else if (uv_a)
+    knn_float_kernel<uint16_t, kPackedGated><<<grid, kThreads, 0, s>>>(
+        pa, pb, (const float*)na2, (const float*)nb2, (const float*)uv_a,
+        (const float*)pred_b, radius2, (int*)row_p, (int*)col_p, nullptr,
+        nullptr, n_a, n_b);
+  else
+    knn_float_kernel<uint16_t, kPacked><<<grid, kThreads, 0, s>>>(
+        pa, pb, (const float*)na2, (const float*)nb2, nullptr, nullptr, 0.f,
+        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
+  return (int)cudaGetLastError();
 }

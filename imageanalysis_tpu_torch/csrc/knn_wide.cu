@@ -18,17 +18,20 @@
 // second index on an exact tie may differ from the Pallas merge; only the
 // two values and the best index are used downstream.
 //
-// What bounds it on the H100: f32 FMA issue from shared memory, as K1's
-// float modes: 64 pairs of 10240 x 10240 x 128 are 8.6e11 multiply-adds
-// over 168 MB (bf16) of descriptors.
+// What bounds it on the H100: the product, 64 pairs of 10240 x 10240 x
+// 128 are 8.6e11 multiply-adds over 168 MB (bf16) of descriptors, and the
+// 64-bit key epilogue, twice K1's key registers and shuffles.
 //
 // Design: the TPU kernel carries its running state across a sequential
-// grid; here blocks run in any order. A block owns 64 A rows for the whole
-// sweep over B and keeps their row top-2 as 64-bit keys in registers,
-// merged across the 16 threads of a row by warp shuffles; the column
-// minimum leaves the block by a 64-bit atomicMin on the key, which is
-// order-independent. The body is knn_common.cuh's float kernel in its wide
-// mode; there is no 8192 limit.
+// grid; here blocks run in any order. A block owns a tile of A rows for
+// the whole sweep over B and keeps their row top-2 as 64-bit keys in
+// registers, merged across the threads of a row by warp shuffles; the
+// column minimum leaves the block by a 64-bit atomicMin on the key, which
+// is order-independent. There is no 8192 limit. bf16 inputs (every
+// store beyond 8192 rows) run knn_tc.cuh's tensor-core body: mma.sync
+// m16n8k16 on 128-row tiles with a two-stage cp.async ring of B tiles
+// (its FFMA predecessor spent 93% of its time in the product); f32 inputs
+// run knn_common.cuh's FFMA body, at most the CUDA cores' 67 TFLOP/s.
 
 #include "knn_common.cuh"
 
@@ -43,17 +46,15 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
                         void* stream) {
   using namespace knn;
   if (bad_shape(n_pairs, n_a, n_b, 1 << 30)) return (int)cudaErrorInvalidValue;
-  dim3 grid(n_a / kTA, n_pairs);
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    knn_float_kernel<uint16_t, kWide><<<grid, kThreads, 0, s>>>(
-        (const uint16_t*)a, (const uint16_t*)b, (const float*)na2,
-        (const float*)nb2, nullptr, nullptr, 0.f, nullptr, nullptr,
-        (long long*)row_k, (long long*)col_k, n_a, n_b);
-  else
-    knn_float_kernel<float, kWide><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)na2,
-        (const float*)nb2, nullptr, nullptr, 0.f, nullptr, nullptr,
-        (long long*)row_k, (long long*)col_k, n_a, n_b);
+    return launch_bf16_tc<kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                                 nullptr, nullptr, row_k, col_k, n_pairs, n_a,
+                                 n_b, s);
+  dim3 grid(n_a / kTA, n_pairs);
+  knn_float_kernel<float, kWide><<<grid, kThreads, 0, s>>>(
+      (const float*)a, (const float*)b, (const float*)na2, (const float*)nb2,
+      nullptr, nullptr, 0.f, nullptr, nullptr, (long long*)row_k,
+      (long long*)col_k, n_a, n_b);
   return (int)cudaGetLastError();
 }

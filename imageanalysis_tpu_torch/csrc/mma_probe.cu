@@ -1,5 +1,5 @@
 // Tensor-core probes, for Hopper (sm_90a): mma.sync m16n8k16 bf16 -> f32
-// through inline PTX.
+// through inline PTX (mma_sync.cuh, shared with K1/K3's bf16 body).
 //
 // mm_rowsum replaces scripts_dev/matmul_shape_probe.py:33 (mm_kernel, P5):
 // the descriptor product's rate against K. For each matrix of a batch,
@@ -33,32 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
+
+using mma_sync::ldmatrix_x4;
+using mma_sync::mma_bf16;
 
 constexpr int kThreads = 256;
 constexpr int kKC = 64;             // dims per shared-memory chunk
 constexpr int kLds = kKC + 8;       // padded row: 144 B
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1,
-                                            unsigned& r2, unsigned& r3,
-                                            const uint16_t* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, unsigned a0, unsigned a1,
-                                         unsigned a2, unsigned a3,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads)

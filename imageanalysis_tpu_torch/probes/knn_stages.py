@@ -17,8 +17,9 @@ the stages of ``csrc/knn_common.cuh``, compiled into K1's own int8 body
  3    ``top2_tile``  + row top-2, restarted at every B tile of TB rows:
                      the top-2 of the last tile
  4    ``top2``       + the running top-2 across B tiles (the row top-2)
- 5    ``full``       + the column minimum by atomicMin: K1 itself (the
-                     kernel calls K1's entry points)
+ 5    ``full``       + the column minimum by atomicMin: int8, K1 itself
+                     (the kernel calls K1's entry point); bf16, the FFMA
+                     body's K1 (bit for bit the tensor-core K1's result)
 ====  =============  ===================================================
 
 ``col`` is 0x7FFFFFFF everywhere below ``full``. Integer-valued
@@ -60,6 +61,12 @@ its 256 threads each hold a TA/16 × TB/16 register tile. So:
 
   The float body keeps its A tile in shared memory as f32, so its tiles
   stop at TA × TB within the 48 KB of static shared memory.
+
+K1's and K3's bf16 modes now run a tensor-core body (``csrc/knn_tc.cuh``);
+the bf16 stages here, ``full`` included, stay on the FFMA float body, so
+the bf16 anatomy is one body's. ``ffma_bf16_raw`` launches that FFMA body
+in K1's and K3's bf16 modes (plain, gated, wide): the yardstick the
+tensor-core body is timed against.
 """
 
 from __future__ import annotations
@@ -88,7 +95,7 @@ P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
 P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 
 # kernel launches (not plain-version calls), by descriptor type
-LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0}
+LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0}
 
 
 def _check(a, b, na2, nb2, stage, tile, name):
@@ -171,8 +178,9 @@ def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
 def knn_probe_raw(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
     """The probe kernel (csrc/knn_probe.cu) on a CUDA tensor, its plain
     version on a CPU tensor; raises on any other device. Arguments and
-    result as knn_probe_plain. The full stage launches K1 through its own
-    C entry point, so it is K1 bit for bit and time for time."""
+    result as knn_probe_plain. The int8 full stage launches K1 through
+    its own C entry point, so it is K1 bit for bit and time for time; the
+    bf16 full stage is the FFMA body's K1, equal to K1's result."""
     _check(a, b, na2, nb2, stage, tile, "knn_probe_raw")
     if a.device.type == "cpu":
         return knn_probe_plain(a, b, na2, nb2, stage, tile)
@@ -193,4 +201,56 @@ def knn_probe_raw(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_probe")
     LAUNCHES["knn_probe_bf16" if bf16 else "knn_probe_i8"] += 1
+    return row, col
+
+
+def ffma_bf16_plain(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
+                    wide=False):
+    """Plain version of the FFMA bf16 body: K1's (knn_packed_plain, gated
+    when uv_a is given) or, with wide=True, K3's (knn_wide_plain)."""
+    if wide:
+        return knn.knn_wide_plain(a, b, na2, nb2)
+    return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
+
+
+def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
+                  wide=False):
+    """The FFMA float body on bf16 descriptors in K1's modes (row_p, col_p
+    int32) or, with wide=True, K3's (row_k, col_k int64): what K1 and K3
+    launched for bf16 before the tensor-core body. Arguments and result as
+    knn.knn_packed_raw / knn.knn_wide_raw; a CPU tensor takes
+    ffma_bf16_plain, any other device raises."""
+    name = "ffma_bf16_raw"
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: takes bf16 descriptors, got {a.dtype}")
+    if wide:
+        knn._check_wide(a, b, na2, nb2, name)
+        if uv_a is not None:
+            raise ValueError(f"{name}: the wide mode has no gate")
+    else:
+        knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
+        if uv_a is not None:
+            knn._check_gate(uv_a, pred_b, a, b, name)
+    if a.device.type == "cpu":
+        return ffma_bf16_plain(a, b, na2, nb2, uv_a, pred_b, radius2, wide)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
+    dev = a.device
+    lib = _build.load()
+    kt, kmax = (torch.int64, knn._WIDE_MAX) if wide else \
+        (torch.int32, knn._KEY_MAX)
+    row = torch.empty((B, n_a, 2), dtype=kt, device=dev)
+    col = torch.full((B, n_b), kmax, dtype=kt, device=dev)
+    ptrs = ((None, None, row.data_ptr(), col.data_ptr()) if wide else
+            (row.data_ptr(), col.data_ptr(), None, None))
+    gated = uv_a is not None
+    with torch.cuda.device(dev):
+        err = lib.knn_ffma_bf16(
+            a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
+            knn._ptr(uv_a), knn._ptr(pred_b), radius2 if gated else 0.0,
+            *ptrs, B, n_a, n_b, int(wide),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_ffma_bf16")
+    LAUNCHES["knn_ffma_bf16"] += 1
     return row, col

@@ -8,11 +8,13 @@ without the conftest:
 
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
-arithmetic in f32 or int32, K2 rounds the same f32 products and sums one
-by one, and K4 decodes, compares and gathers exactly, so the comparisons
-are bit-exact. So are the probes of imageanalysis_tpu_torch/probes on
-integer-valued inputs (the staged K1, P2's single-launch K1 + K4, P5's
-mma.sync row sums, P1's one-hot gather of bf16 values). Bundle adjustment
+arithmetic in f32 or int32 (the bf16 modes on the tensor cores too; on
+random bf16 they hold a stated tolerance), K2 rounds the same f32
+products and sums one by one, and K4 decodes, compares and gathers
+exactly, so the comparisons are bit-exact. So are the probes of
+imageanalysis_tpu_torch/probes on integer-valued inputs (the staged K1,
+the FFMA bf16 body, P2's single-launch K1 + K4, P5's mma.sync row sums,
+P1's one-hot gather of bf16 values). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -44,12 +46,18 @@ def rng():
     return np.random.default_rng(42)
 
 
-def _planted(rng, pairs, n_a, n_b, n_planted):
+def _planted(rng, pairs, n_a, n_b, n_planted, dup=False):
+    """int8 rows (value − 128 of 0..99), B's first n_planted rows near A's.
+    dup: every odd row of A and of B repeats the row before it, so rows,
+    columns and both top-2 slots tie on d2 (the lowest index must win)."""
     a = rng.integers(0, 100, (pairs, n_a, 128))
     b = rng.integers(0, 100, (pairs, n_b, 128))
     b[:, :n_planted] = np.clip(
         a[:, :n_planted] + rng.integers(-4, 5, (pairs, n_planted, 128)), 0,
         255)
+    if dup:
+        a[:, 1::2] = a[:, ::2]
+        b[:, 1::2] = b[:, ::2]
     return (torch.from_numpy((a - 128).astype(np.int8)),
             torch.from_numpy((b - 128).astype(np.int8)))
 
@@ -92,20 +100,36 @@ def _float_inputs(a, b, dtype):
             (bf * bf).sum(-1))
 
 
-def _gate(rng, cuda, pairs, n_a, n_b):
+def _gate(rng, cuda, pairs, n_a, n_b, on_radius=False):
     """uv_a and a prediction that lands ~half the candidates inside a
-    200 px gate."""
-    uv_a = torch.from_numpy(rng.uniform(0, 1000, (pairs, n_a, 2))
-                            .astype(np.float32)).to(cuda)
-    pred = torch.from_numpy(rng.uniform(0, 1000, (pairs, n_b, 2))
-                            .astype(np.float32)).to(cuda)
-    return uv_a, pred, 200.0 ** 2
+    200 px gate. on_radius: integer positions, and B row j < n_a/2 sits
+    exactly on the gate's radius from A row j (dx, dy = 120, 160: the
+    distance² is 40000 = radius² in f32), which the gate keeps."""
+    uv_a = rng.uniform(0, 1000, (pairs, n_a, 2))
+    pred = rng.uniform(0, 1000, (pairs, n_b, 2))
+    if on_radius:
+        uv_a, pred = np.round(uv_a), np.round(pred)
+        m = min(n_a, n_b) // 2
+        pred[:, :m] = uv_a[:, :m] + np.array([120.0, 160.0])
+    return (torch.from_numpy(uv_a.astype(np.float32)).to(cuda),
+            torch.from_numpy(pred.astype(np.float32)).to(cuda), 200.0 ** 2)
 
 
+# (n_a, n_b, dup) of the float modes' card cases: 64-row and 192-row A
+# (the bf16 body's 64-row blocks), n_b = 8192, a last B tile of 64 rows
+# (704, 8256), duplicate rows
+_K1_CASES = {"512x768": (512, 768, False), "64x8192": (64, 8192, False),
+             "192x704": (192, 704, False), "dup": (256, 704, True)}
+_K3_CASES = {"256x8448": (2, 256, 8448, False),
+             "8256": (2, 8256, 8256, False), "dup": (2, 192, 8256, True)}
+
+
+@pytest.mark.parametrize("case", list(_K1_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_k1_float_modes_bit_exact_vs_plain(cuda, rng, dtype):
-    a, b = (t.to(cuda) for t in _planted(rng, 3, 512, 768, 50))
+def test_k1_float_modes_bit_exact_vs_plain(cuda, rng, dtype, case):
+    n_a, n_b, dup = _K1_CASES[case]
+    a, b = (t.to(cuda) for t in _planted(rng, 3, n_a, n_b, 50, dup))
     args = _float_inputs(a, b, dtype)
     key = "knn_packed_bf16" if dtype == torch.bfloat16 else "knn_packed_f32"
     before = knn.LAUNCHES[key]
@@ -117,14 +141,17 @@ def test_k1_float_modes_bit_exact_vs_plain(cuda, rng, dtype):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("case", ["512x768", "192x704_dup_on_radius"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
                                    torch.float32],
                          ids=["int8", "bf16", "f32"])
-def test_k1_gated_bit_exact_vs_plain(cuda, rng, dtype):
-    a, b = (t.to(cuda) for t in _planted(rng, 3, 512, 768, 50))
+def test_k1_gated_bit_exact_vs_plain(cuda, rng, dtype, case):
+    n_a, n_b, edge = (512, 768, False) if case == "512x768" else \
+        (192, 704, True)
+    a, b = (t.to(cuda) for t in _planted(rng, 3, n_a, n_b, 50, edge))
     args = (a, b, None, None) if dtype == torch.int8 else \
         _float_inputs(a, b, dtype)
-    gate = _gate(rng, cuda, 3, 512, 768)
+    gate = _gate(rng, cuda, 3, n_a, n_b, on_radius=edge)
     before = knn.LAUNCHES["knn_packed_gated"]
     got = knn.knn_packed_raw(*args, *gate)
     assert knn.LAUNCHES["knn_packed_gated"] == before + 1
@@ -136,15 +163,101 @@ def test_k1_gated_bit_exact_vs_plain(cuda, rng, dtype):
     assert not torch.equal(got[0], knn.knn_packed_raw(*args)[0])
 
 
+@pytest.mark.parametrize("case", list(_K3_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_k3_bit_exact_vs_plain(cuda, rng, dtype):
-    a, b = (t.to(cuda) for t in _planted(rng, 2, 256, 8448, 100))
+def test_k3_bit_exact_vs_plain(cuda, rng, dtype, case):
+    pairs, n_a, n_b, dup = _K3_CASES[case]
+    a, b = (t.to(cuda) for t in _planted(rng, pairs, n_a, n_b, 100, dup))
     args = _float_inputs(a, b, dtype)
     before = knn.LAUNCHES["knn_wide"]
     got = knn.knn_wide_raw(*args)
     assert knn.LAUNCHES["knn_wide"] == before + 1
     want = knn.knn_wide_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# random bf16 descriptors: the tensor cores sum each dot's 128 products in
+# another order (and with other internal rounding) than cuBLAS's f32 product
+# in the plain version; both f32 dots lie within 128·2⁻²⁴ of Σ|a_k b_k| ≤
+# (|a|² + |b|²)/2, so d2 values agree within 2⁻¹⁶ (max |a|² + max |b|²),
+# plus, for K1's packed keys, one step of their 10 mantissa bits
+_TC_REL = 2.0 ** -16
+
+
+def _exact_d2(x, y, i, j):
+    """f64 squared distances of rows x[i] and y[j] (index tensors)."""
+    return ((x[i.long()].double() - y[j.long()].double()) ** 2).sum(-1)
+
+
+def _near(got, want, x, y, tol, packed, name):
+    """Row keys (B, n, 2) or column keys (B, m) of a kernel against its
+    plain version on rows x (the keys' side) and candidates y: decoded
+    values within tol (+ a key's truncation for packed), indices different
+    only where their exact d2 tie within twice that; gated-out keys equal.
+    Returns the largest value difference."""
+    if packed:
+        gv, gi, wv, wi = (*knn._decode_packed(got, got)[:2],
+                          *knn._decode_packed(want, want)[:2])
+        gated = (want & ~knn._IDX_MASK) == knn._GATED_BITS
+        assert torch.equal(got[gated], want[gated]), name
+    else:
+        gv, gi = knn._decode_wide(got)
+        wv, wi = knn._decode_wide(want)
+        gated = torch.zeros_like(want, dtype=torch.bool)
+    lim = tol + (2.0 ** -10 * wv.abs() if packed else torch.zeros_like(wv))
+    err = (gv - wv).abs().masked_fill(gated, 0.0)
+    assert bool(((err <= lim) | gated).all()), (name, float(err.max()))
+    for p in range(got.shape[0]):
+        rows = torch.arange(got.shape[1], device=got.device)
+        if got.dim() == 3:
+            rows = rows[:, None].expand(-1, 2)
+        bad = (gi[p] != wi[p]) & ~gated[p]
+        if bool(bad.any()):
+            dg = _exact_d2(x[p], y[p], rows[bad], gi[p][bad])
+            dw = _exact_d2(x[p], y[p], rows[bad], wi[p][bad])
+            assert bool(((dg - dw).abs() <= 2 * lim[p][bad]).all()), name
+    return float(err.max())
+
+
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3"])
+def test_bf16_tensor_cores_within_tolerance_on_random(cuda, rng, mode):
+    """Non-integer bf16 descriptors: values within the stated tolerance,
+    indices different only on ties."""
+    pairs, n_a, n_b = 2, 192, 704
+    a = torch.from_numpy(rng.normal(0, 0.1, (pairs, n_a, 128))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    b = torch.from_numpy(rng.normal(0, 0.1, (pairs, n_b, 128))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    b[:, :64] = (a[:, :64].float() + 0.01).bfloat16()
+    na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+    tol = _TC_REL * float(na2.max() + nb2.max())
+    gate = _gate(rng, cuda, pairs, n_a, n_b) if mode == "k1_gated" else ()
+    if mode == "k3":
+        got = knn.knn_wide_raw(a, b, na2, nb2)
+        want = knn.knn_wide_plain(a, b, na2, nb2)
+    else:
+        got = knn.knn_packed_raw(a, b, na2, nb2, *gate)
+        want = knn.knn_packed_plain(a, b, na2, nb2, *gate)
+    torch.cuda.synchronize()
+    packed = mode != "k3"
+    _near(got[0], want[0], a, b, tol, packed, "rows")
+    _near(got[1], want[1], b, a, tol, packed, "columns")
+
+
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3"])
+def test_ffma_yardstick_bit_exact_vs_plain(cuda, rng, mode):
+    """The FFMA bf16 body that K1 and K3 launched before the tensor cores,
+    kept as their yardstick, still equals the plain versions."""
+    a, b = (t.to(cuda) for t in _planted(rng, 2, 192, 704, 50))
+    args = _float_inputs(a, b, torch.bfloat16)
+    gate = _gate(rng, cuda, 2, 192, 704) if mode == "k1_gated" else ()
+    before = knn_stages.LAUNCHES["knn_ffma_bf16"]
+    got = knn_stages.ffma_bf16_raw(*args, *gate, wide=mode == "k3")
+    assert knn_stages.LAUNCHES["knn_ffma_bf16"] == before + 1
+    want = knn_stages.ffma_bf16_plain(*args, *gate, wide=mode == "k3")
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

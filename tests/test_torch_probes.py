@@ -289,6 +289,34 @@ def test_full_stage_is_k1_and_stages_build_up():
     assert torch.equal(last, tail + (N - 64))
 
 
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3"])
+def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
+    """The FFMA bf16 body's wrapper on a CPU tensor is K1's (gated) or
+    K3's plain version, which test_torch_knn holds against the reference;
+    it refuses int8 and a gate in K3's mode."""
+    ai, bi, _, _ = _int8_pairs(61)
+    a, b = (_t(x).float() + 128.0 for x in (ai, bi))
+    args = (a.bfloat16(), b.bfloat16(), (a * a).sum(-1), (b * b).sum(-1))
+    rng = np.random.default_rng(62)
+    gate = (torch.from_numpy(rng.uniform(0, 100, (PAIRS, N, 2))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 100, (PAIRS, N, 2))
+                             .astype(np.float32)), 900.0)
+    gate = gate if mode == "k1_gated" else ()
+    before = dict(knn_stages.LAUNCHES)
+    got = knn_stages.ffma_bf16_raw(*args, *gate, wide=mode == "k3")
+    want = (tknn.knn_wide_plain(*args) if mode == "k3"
+            else tknn.knn_packed_plain(*args, *gate))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    with pytest.raises(ValueError, match="bf16"):
+        knn_stages.ffma_bf16_raw(_t(ai), _t(bi), *args[2:])
+    with pytest.raises(ValueError, match="gate"):
+        knn_stages.ffma_bf16_raw(*args, args[2][..., None].expand(
+            -1, -1, 2).contiguous(), args[3][..., None].expand(
+            -1, -1, 2).contiguous(), 1.0, wide=True)
+    assert dict(knn_stages.LAUNCHES) == before
+
+
 def test_probe_wrappers_refuse_what_they_do_not_take():
     """Other devices, tiles, stages and precisions raise; nothing runs."""
     before = (dict(knn_stages.LAUNCHES), dict(mma.LAUNCHES),
