@@ -15,11 +15,13 @@ non-zero:
 4. K1 (packed 2-NN) against knn_packed_plain: int8 and bf16 at the
    store's shape (256 pairs × 4096) and at bench.py's (64 pairs × 6144);
    f32 and gated (int8 and bf16, ~half the candidates gated out) at the
-   store's shape. Integer-valued descriptors throughout, so all
-   bit-exact. The bf16 modes (the tensor-core body) are timed in turns
-   against the FFMA body they replaced, and at bench's shape against
-   P5's product + row sum (the difference: the key epilogue); each mode
-   beside one library product of its type (torch._int_mm, torch.bmm);
+   store's shape. Integer-valued descriptors throughout (int8 over the
+   full −128..127 at both shapes too), so all bit-exact. The int8 and
+   bf16 modes (the tensor-core body) are timed in turns against the
+   bodies they replaced (__dp4a, FFMA), and split into the body's
+   product (its product-only stage, held against its plain version) and
+   the key epilogue (the rest); each mode beside one library product of
+   its type (torch._int_mm, torch.bmm);
 5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240: int8 store
    rows cast to bf16 (bit-exact; in turns against the FFMA body) and
    random descriptors (indices equal modulo ties; values within 2⁻²⁰ of
@@ -65,8 +67,8 @@ non-zero:
     300-camera graph of scripts_dev/ba_f64_oracle.py;
 15. K1 and K4 anatomy: the probes P1–P6 (imageanalysis_tpu_torch/probes)
     at their TPU probes' full shapes on bench.py's batch: every stage and
-    tile of the staged K1 (P3, P4, P6; int8 and bf16, the bf16 stages on
-    the FFMA body) against its plain version on 2 of the 64 pairs and its
+    tile of the staged K1 (P3, P4, P6; int8 and bf16, on the __dp4a and
+    FFMA bodies) against its plain version on 2 of the 64 pairs and its
     full stage against K1 on all 64, then the stage split; P5's mma.sync
     product + row sum (bit-exact on integer values, within P5_REL_TOL on
     normal ones) and its TFLOP/s
@@ -217,7 +219,8 @@ def build():
     t0 = time.perf_counter()
     _build.load()
     usage = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln
+             or "spill" in ln]
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc "
         f"{_build.build_seconds:.1f} s) into {_build.BUILD_DIR}")
     for ln in usage:
@@ -358,63 +361,109 @@ def in_turns(new, old, reps=3):
     return t[new], t[old]
 
 
-def vs_ffma(r, name, new, old, check):
-    """The tensor-core body (new) against the FFMA body it replaced (old),
-    in turns; old's outputs must equal check (the kernel's, bit-exact)."""
-    if not all(torch.equal(g, w) for g, w in zip(old(), check)):
-        raise AssertionError(f"{name}: the FFMA body differs")
+def vs_old_body(r, name, new, old, body):
+    """The tensor-core body (new) against the body it replaced (old: the
+    "ffma" or "dp4a" body) in turns; old's outputs must equal new's. Sets
+    r["ms"] and r[body + "_ms"]."""
+    if not all(torch.equal(g, w) for g, w in zip(old(), new())):
+        raise AssertionError(f"{name}: the {body} body differs")
     t_new, t_old = in_turns(new, old)
     r["ms"] = float(np.mean(t_new))
-    r["ffma_ms"] = float(np.mean(t_old))
+    r[f"{body}_ms"] = float(np.mean(t_old))
     log(f"[{name}] in turns: tensor cores {t_new[0]:.3f} / {t_new[1]:.3f} "
-        f"ms, FFMA body {t_old[0]:.3f} / {t_old[1]:.3f} ms "
-        f"({r['ffma_ms'] / r['ms']:.2f}x)")
+        f"ms, {body} body {t_old[0]:.3f} / {t_old[1]:.3f} ms "
+        f"({r[f'{body}_ms'] / r['ms']:.2f}x)")
+
+
+def product_split(r, name, a, b, product_ms=None):
+    """K1's time on the tensor-core body split into the body's product
+    (its product-only stage: product + row sum, held bit-exact against
+    knn_probe_plain(stage=ROW_SUM) on the first pairs, or product_ms of
+    the same shape and type) and the key epilogue (the rest)."""
+    if product_ms is None:
+        p = PROBE_PLAIN_PAIRS
+        check_equal(f"{name} product-only stage",
+                    [x[:p] for x in knn_stages.tc_row_sum_raw(a, b)],
+                    knn_stages.knn_probe_plain(a[:p], b[:p],
+                                               stage=knn_stages.ROW_SUM))
+        product_ms = time_ms(lambda: knn_stages.tc_row_sum_raw(a, b), 3)
+    r["tc_product_ms"] = product_ms
+    epi = r["ms"] - product_ms
+    log(f"[{name}] tensor-core body split: product + row sum "
+        f"{product_ms:.3f} ms, key epilogue {epi:.3f} ms "
+        f"({100 * epi / r['ms']:.1f}% of K1)")
+
+
+def full_range_descriptors(gen, pairs, n, n_planted):
+    """int8 pairs over the whole −128..127 (SIFT values 0..255 − 128), the
+    first n_planted B rows near A's, row 1 of each A all −128 and row 2
+    all 127 (B rows 3 and 4 likewise)."""
+    a = torch.randint(-128, 128, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    b = torch.randint(-128, 128, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    noise = torch.randint(-4, 5, (pairs, n_planted, 128), generator=gen,
+                          device="cuda", dtype=torch.int16)
+    b[:, :n_planted] = (a[:, :n_planted] + noise).clamp(-128, 127)
+    a[:, 1], a[:, 2] = -128, 127
+    b[:, 3], b[:, 4] = -128, 127
+    return a.to(torch.int8), b.to(torch.int8)
 
 
 def check_knn():
-    """K1 in every mode; returns {mode: measurements}. bf16 modes are also
-    timed against the FFMA body they replaced (knn_stages.ffma_bf16_raw)
-    in turns, and at bench's shape against P5's product + row sum."""
+    """K1 in every mode; returns {mode: measurements}. The int8 and bf16
+    modes (the tensor-core body) are also timed in turns against the
+    bodies they replaced (knn_stages.dp4a_i8_raw, ffma_bf16_raw) and
+    split into the body's product and the key epilogue."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
         a, b = planted_descriptors(gen, pairs, n, n // 4)
         r = compare_keys("K1 int8", knn.knn_packed_raw, knn.knn_packed_plain,
                          (a, b))
+        fa, fb = full_range_descriptors(gen, pairs, n, n // 4)
+        compare_keys("K1 int8 full range", knn.knn_packed_raw,
+                     knn.knn_packed_plain, (fa, fb), reps=1, plain_reps=1)
+        del fa, fb
+        vs_old_body(r, f"K1 int8 {pairs} x {n}",
+                    lambda: knn.knn_packed_raw(a, b),
+                    lambda: knn_stages.dp4a_i8_raw(a, b), "dp4a")
+        product_split(r, f"K1 int8 {pairs} x {n}", a, b)
         with_bound(r, *k1_bound(pairs, n, 1, "int8"))
-        log(f"[K1] int8 {name} {pairs} pairs x {n}: bit-exact; kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        log(f"[K1] int8 {name} {pairs} pairs x {n}: bit-exact (planted "
+            f"rows and the full -128..127); kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
         # all A rows against one pair's B rows: the batch's products in
-        # one call (the output alone is 9.7 GB of int32 at bench's shape,
-        # 17.2 GB at the store's)
+        # one call. Its int32 output alone, 4·pairs·n² bytes (9.7 GB at
+        # bench's shape, 17.2 GB at the store's), takes this long at
+        # 3.35 TB/s: the call is bound by its output, not its products
         bt = b[0].t()
         r["product_only_ms"] = product_only(
             f"K1 int8 torch._int_mm {pairs}x{n} x {n}",
             lambda: torch._int_mm(a.reshape(-1, 128), bt))
         del bt
+        out_ms = 1e3 * 4 * pairs * n * n / HBM_BYTES_PER_S
+        log(f"[K1] int8 {name}: torch._int_mm's int32 output alone takes "
+            f"{out_ms:.3f} ms at 3.35 TB/s")
         out[f"i8_{name}"] = r
         if name == "bench":
             fargs = float_inputs(a, b, torch.bfloat16)
             r = compare_keys("K1 bf16 bench", knn.knn_packed_raw,
                              knn.knn_packed_plain, fargs, plain_reps=1)
-            vs_ffma(r, "K1 bf16 64 x 6144",
-                    lambda: knn.knn_packed_raw(*fargs),
-                    lambda: knn_stages.ffma_bf16_raw(*fargs),
-                    knn.knn_packed_raw(*fargs))
+            vs_old_body(r, f"K1 bf16 {pairs} x {n}",
+                        lambda: knn.knn_packed_raw(*fargs),
+                        lambda: knn_stages.ffma_bf16_raw(*fargs), "ffma")
+            product_split(r, f"K1 bf16 {pairs} x {n}", fargs[0], fargs[1])
             with_bound(r, *k1_bound(pairs, n, 2, "bf16"))
             bt = fargs[1].transpose(1, 2)
             r["product_only_ms"] = product_only(
-                "K1 bf16 torch.bmm 64 x 6144 x 6144",
+                f"K1 bf16 torch.bmm {pairs} x {n} x {n}",
                 lambda: torch.bmm(fargs[0], bt))
             del bt
-            p5 = time_ms(lambda: mma.mm_rowsum_raw(fargs[0], fargs[1]), 3)
             log(f"[K1] bf16 bench {pairs} pairs x {n}: bit-exact; kernel "
                 f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.3f} ms ({r['bound_by']}); P5 mma.sync "
-                f"product + row sum {p5:.3f} ms; new K1 bf16 - P5 = "
-                f"{r['ms'] - p5:.3f} ms (the key epilogue on the tensor-core "
-                f"body, {100 * (r['ms'] - p5) / r['ms']:.1f}% of K1)")
+                f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
             out["bf16_bench"] = r
             del fargs
     pairs, n = STORE_SHAPE
@@ -425,10 +474,10 @@ def check_knn():
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, args)
         if mode == "bf16":
-            vs_ffma(r, f"K1 bf16 {pairs} x {n}",
-                    lambda: knn.knn_packed_raw(*args),
-                    lambda: knn_stages.ffma_bf16_raw(*args),
-                    knn.knn_packed_raw(*args))
+            vs_old_body(r, f"K1 bf16 {pairs} x {n}",
+                        lambda: knn.knn_packed_raw(*args),
+                        lambda: knn_stages.ffma_bf16_raw(*args), "ffma")
+            product_split(r, f"K1 bf16 {pairs} x {n}", args[0], args[1])
         with_bound(r, *k1_bound(pairs, n, eb, mode))
         log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact; kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -452,20 +501,23 @@ def check_knn():
     radius2 = 400.0 ** 2
     d = uv_a[0, :, None, :] - pred[0, None, :, :]
     frac = float(((d * d).sum(-1) > radius2).float().mean())
-    for mode, args, eb, peak in (
-            ("gated_i8", (a, b, None, None), 1, "int8"),
-            ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16")):
-        gargs = (*args, uv_a, pred, radius2)
+    gate = (uv_a, pred, radius2)
+    for mode, args, eb, peak, old_raw, body, ungated in (
+            ("gated_i8", (a, b, None, None), 1, "int8",
+             knn_stages.dp4a_i8_raw, "dp4a", "i8_store"),
+            ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16",
+             knn_stages.ffma_bf16_raw, "ffma", "bf16")):
+        gargs = (*args, *gate)
+        old_args = (a, b, *gate) if body == "dp4a" else gargs
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, gargs)
-        if mode == "gated_bf16":
-            vs_ffma(r, f"K1 gated bf16 {pairs} x {n}",
+        vs_old_body(r, f"K1 {mode} {pairs} x {n}",
                     lambda: knn.knn_packed_raw(*gargs),
-                    lambda: knn_stages.ffma_bf16_raw(*gargs),
-                    knn.knn_packed_raw(*gargs))
-            r["product_only_ms"] = out["bf16"]["product_only_ms"]
-        else:
-            r["product_only_ms"] = out["i8_store"]["product_only_ms"]
+                    lambda: old_raw(*old_args), body)
+        # the gate is epilogue: the product is the ungated mode's
+        product_split(r, f"K1 {mode} {pairs} x {n}", None, None,
+                      out[ungated]["tc_product_ms"])
+        r["product_only_ms"] = out[ungated]["product_only_ms"]
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=True))
         log(f"[K1] {mode} {pairs} pairs x {n}, {100 * frac:.1f}% of the "
             f"candidates gated out: bit-exact; kernel {r['ms']:.3f} ms, "
@@ -497,9 +549,8 @@ def check_wide():
     args = (a.bfloat16(), b.bfloat16(), knn._sq_norms(a), knn._sq_norms(b))
     r = compare_keys("K3 bf16", knn.knn_wide_raw, knn.knn_wide_plain, args,
                      reps=3, plain_reps=1)
-    vs_ffma(r, f"K3 bf16 {pairs} x {n}", lambda: knn.knn_wide_raw(*args),
-            lambda: knn_stages.ffma_bf16_raw(*args, wide=True),
-            knn.knn_wide_raw(*args))
+    vs_old_body(r, f"K3 bf16 {pairs} x {n}", lambda: knn.knn_wide_raw(*args),
+                lambda: knn_stages.ffma_bf16_raw(*args, wide=True), "ffma")
     # descriptors and norms read once; row keys (16 B) and column keys
     # (8 B) written once
     with_bound(r, pairs * n * (2 * 128 * 2 + 8 + 24),
@@ -1361,9 +1412,9 @@ def stage_times(args, stages, reps=3):
 def run_anatomy(a, b, fargs):
     """P4, then P3 at bench's shape, each driven on its own over both
     dtypes; the stage split from the two, with K1 timed in turns beside
-    the full stage. int8: the full stage is K1 and must take within 5% of
-    its time; bf16: the stages are the FFMA body's, K1 the tensor-core
-    body's, and the split is the FFMA body's."""
+    the full stage. The stages are the __dp4a (int8) and FFMA (bf16)
+    bodies', K1 the tensor-core body's, so the split is the old body's
+    (phase 4 splits the tensor-core body)."""
     inputs = {"int8": (a, b, None, None), "bf16": fargs}
 
     def sweep(stages):
@@ -1377,24 +1428,20 @@ def run_anatomy(a, b, fargs):
         full = [time_ms(lambda: knn_stages.knn_probe_raw(*args), 3)
                 for _ in "ab"]
         t = {**p3[dtype], **p4[dtype], "full": float(np.mean(full))}
-        k1_ms = float(np.mean(k1))
         split = {"product": t["row_min"],
                  "d2_pack_top1": t["top1"] - t["row_min"],
                  "top2": t["top2"] - t["top1"],
                  "running_merge": t["top2"] - t["top2_tile"],
                  "column": t["full"] - t["top2"]}
-        body = "" if dtype == "int8" else " (FFMA body)"
+        body = " (__dp4a body)" if dtype == "int8" else " (FFMA body)"
         log(f"[anatomy] K1 {dtype}{body} 64 x 6144, stages ms: "
             + json.dumps({k: round(v, 3) for k, v in t.items()})
-            + f"; K1 itself {k1[0]:.3f} / {k1[1]:.3f} ms in turns with the "
-            f"full stage {full[0]:.3f} / {full[1]:.3f}")
+            + f"; K1 itself (tensor cores) {k1[0]:.3f} / {k1[1]:.3f} ms in "
+            f"turns with the full stage {full[0]:.3f} / {full[1]:.3f}")
         log(f"[anatomy] K1 {dtype}{body} split, ms: "
             + json.dumps({k: round(v, 3) for k, v in split.items()})
             + f" (product {100 * split['product'] / t['full']:.1f}% of the "
             f"full stage)")
-        if dtype == "int8" and abs(t["full"] / k1_ms - 1.0) > 0.05:
-            raise AssertionError(f"{dtype}: the full stage takes "
-                                 f"{t['full']:.3f} ms, K1 {k1_ms:.3f}")
         out[dtype] = t
     out["knn_top2_ms"] = time_ms(lambda: knn.knn_top2(a, b), 3)
     log(f"[anatomy] P3 v5: the port's knn_top2 (K1 + decode) "
@@ -1649,7 +1696,8 @@ def main():
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     timed_by=r.get("timed_by", "CUDA events, median"),
-                    **{k: r[k] for k in ("product_only_ms", "ffma_ms")
+                    **{k: r[k] for k in ("product_only_ms", "ffma_ms",
+                                         "dp4a_ms", "tc_product_ms")
                        if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"

@@ -35,10 +35,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name → argtypes of every C entry point
 _SIGNATURES = {
-    # a, b, row_p, col_p, n_pairs, n_a, n_b, stream
-    "knn_packed_i8": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a, n_b, stream
-    "knn_packed_i8_gated": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # a, b, na2, nb2 (f32 scratch), row_p, col_p, n_pairs, n_a, n_b,
+    # stream
+    "knn_packed_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
+    # n_b, stream
+    "knn_packed_i8_gated": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
+                            _P],
     # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
     # n_b, bf16, stream
     "knn_packed_float": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
@@ -56,6 +59,10 @@ _SIGNATURES = {
     # n_pairs, n_a, n_b, wide, stream
     "knn_ffma_bf16": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                       _I, _P],
+    # a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a, n_b, stream
+    "knn_dp4a_i8": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # a, b, row_p, n_pairs, n_a, n_b, bf16, stream
+    "knn_tc_row_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
     # epi_threads, do_main, do_epi, do_pb, stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -2,34 +2,39 @@
 // knn_wide.cu, the probes in knn_probe.cu and knn_fused_probe.cu): tile
 // constants, the spatial gate, the keys, and three bodies, each compiled
 // in its own modes:
-//   knn_i8_block       int8 descriptors (K1), __dp4a
+//   knn_tc_kernel      bf16 and int8 descriptors (K1 bf16, gated bf16,
+//                      int8 and gated int8; K3 bf16), mma.sync on the
+//                      tensor cores (knn_tc.cuh, included at the end of
+//                      this file)
 //   knn_float_kernel   f32 descriptors (K1 f32, K3 f32), f32 FMAs; also
-//                      bf16 for the probes of K1's anatomy (knn_probe.cu)
-//   knn_bf16_tc_kernel bf16 descriptors (K1 bf16 and gated bf16, K3 bf16),
-//                      mma.sync on the tensor cores (knn_tc.cuh, included
-//                      at the end of this file)
+//                      bf16 for the probes of K1's anatomy and as the
+//                      tensor-core body's bf16 yardstick (knn_probe.cu)
+//   knn_i8_block       int8 descriptors, __dp4a: the probes' int8 anatomy
+//                      (knn_probe.cu, knn_fused_probe.cu) and the
+//                      tensor-core body's int8 yardstick; K1 no longer
+//                      launches it
 //
 // What bounds them on the H100: the product. An int8 pair of 6144 rows is
 // 9.7 G multiply-adds over 1.6 MB; the card's int8 and bf16 rates are only
-// reached on the tensor cores, which the int8 body does not use yet (100
-// TOP/s of __dp4a). The f32 body's bound is the CUDA cores' 67 TFLOP/s of
-// f32 FMA; tensor cores would need a 3 x bf16 split, which is not
-// bit-exact with the plain version. The bf16 body takes the tensor cores
-// and keeps the same key epilogue (knn_tc.cuh).
+// reached on the tensor cores, which the __dp4a body does not use (100
+// TOP/s). The f32 body's bound is the CUDA cores' 67 TFLOP/s of f32 FMA;
+// tensor cores would need a 3 x bf16 split, which is not bit-exact with
+// the plain version. The tensor-core body keeps the same key epilogue.
 //
-// The int8 and f32 bodies are templates over a STAGE and a block tile (TA
-// A rows per block, B streamed in tiles of TB rows; 256 threads in a 16 x
-// 16 grid, so each thread holds a TA/16 x TB/16 register tile of dots). K1
-// int8, K1 f32 and K3 f32 are the full stage at TA = TB = 64; the probes
-// of K1's anatomy compile the earlier stages and other tiles from the same
-// source, so the int8 full stage is K1 instruction for instruction:
+// The __dp4a and f32 bodies are templates over a STAGE and a block tile
+// (TA A rows per block, B streamed in tiles of TB rows; 256 threads in a
+// 16 x 16 grid, so each thread holds a TA/16 x TB/16 register tile of
+// dots). Their full stage at TA = TB = 64 is K1's result bit for bit (K1
+// f32 and K3 f32 launch it); the probes of K1's anatomy compile the
+// earlier stages and other tiles from the same source, so each dtype's
+// stages are one body's:
 //   kRowSum    product + row sum (unsigned, wrapping: the TPU probe's int32
 //              sum; float dots, integers below 2^24, are converted first)
 //   kRowMin    product + row min of the raw dot
 //   kTop1      + d2, the packed key bits | j, row top-1
 //   kTop2Tile  + row top-2, restarted at every B tile (the last tile's)
 //   kTop2      + the running top-2 across B tiles
-//   kFull      + the column minimum by atomicMin: K1
+//   kFull      + the column minimum by atomicMin: K1's result
 //
 // The float kernel: one block owns TA rows of A of one pair, resident in
 // shared memory as f32 for the whole sweep over B; B streams through
@@ -63,7 +68,9 @@ constexpr long long kWideMax = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int kWords = 32;          // 128 int8 = 32 int32 words per row
 constexpr int kLds8 = kWords + 1;   // padded shared row: conflict-free reads
 
-enum Mode { kPacked = 0, kPackedGated = 1, kWide = 2 };
+// kProductRowSum: the tensor-core body's product with a wrapping row sum
+// in place of the keys (the probes' product-only stage)
+enum Mode { kPacked = 0, kPackedGated = 1, kWide = 2, kProductRowSum = 3 };
 enum Stage {
   kRowSum = 0, kRowMin = 1, kTop1 = 2, kTop2Tile = 3, kTop2 = 4, kFull = 5
 };
@@ -135,7 +142,8 @@ __device__ __forceinline__ void merge_row(int r1, int r2, int tx,
   }
 }
 
-// K1's int8 body for one block (blockIdx.x: A tile, blockIdx.y: pair).
+// The __dp4a int8 body for one block (blockIdx.x: A tile, blockIdx.y:
+// pair); its full stage is K1's int8 result.
 // Inputs (n_pairs, n, 32) int32 words of 128 int8; row_p (n_pairs, n_a, 2)
 // and col_p (n_pairs, n_b) int32, col_p pre-filled with 0x7FFFFFFF (read
 // and written by kFull only). A __device__ function so that the fused

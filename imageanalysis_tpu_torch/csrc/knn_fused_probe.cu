@@ -3,7 +3,8 @@
 // Replaces the TPU dev probe scripts_dev/fused_vmem_probe.py:26 (kern in
 // make): the packed int8 2-NN of one pair and its match epilogue in one
 // kernel, with parts switched off, at n = 6144, d = 128. Per pair p:
-//   main (K1's int8 body, knn_common.cuh): row_p, col_p as K1 writes them;
+//   main (the __dp4a int8 body, knn_common.cuh): row_p, col_p equal to
+//        K1's;
 //        with do_pb, pb[p, i] = uv_b[p, j] for the row's best j, gathered
 //        by the block that owns row i once its sweep over B is done
 //   epi  (K4 at ratio 0.75, ratio2 = 0.5625 as the TPU probe hard-codes):

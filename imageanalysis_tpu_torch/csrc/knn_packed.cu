@@ -25,15 +25,16 @@
 // limit is the rate of the product and of the per-element key epilogue
 // (convert, mask, gate, or, two compares). Each mode has its body
 // (knn_common.cuh):
-// - bf16, plain and gated: knn_tc.cuh's tensor-core body. mma.sync
-//   m16n8k16 on the bf16 operands as they are, a 128-row A tile resident
-//   in shared memory, B tiles of 128 rows through a two-stage cp.async
-//   ring, the key epilogue on the accumulator fragments. Before it, the
-//   FFMA body's product was 93% of this mode's time (26.8 TFLOP/s).
-// - int8: the __dp4a body (4 MACs an instruction, 100 TOP/s at bench's
-//   shape): one block owns 64 A rows in shared memory and streams B in
-//   tiles of 64 rows, each thread a 4 x 4 register tile of dots. The
-//   tensor cores (mma.sync s8 m16n8k32) are its next step.
+// - bf16 and int8, plain and gated: knn_tc.cuh's tensor-core body.
+//   mma.sync (bf16 m16n8k16 with f32 sums, s8 m16n8k32 with exact s32
+//   sums) on the operands as they are, a 128-row A tile resident in shared
+//   memory, B tiles of 128 rows through a two-stage cp.async ring, the key
+//   epilogue on the accumulator fragments. Before it, the product was 93%
+//   of the FFMA body's bf16 time (26.8 TFLOP/s) and 86% of the __dp4a
+//   body's int8 time (100 TOP/s). int8 takes its squared norms from a
+//   pre-pass (row_norms_i8_kernel) into f32 scratch of the caller's (exact:
+//   at most 128 x 128^2 = 2^21), as the float modes take theirs from the
+//   caller.
 // - f32: the FFMA body, at most the CUDA cores' 67 TFLOP/s; exact f32
 //   dots, as the plain version's.
 // In every body the row top-2 keys stay in registers for the whole sweep
@@ -47,18 +48,50 @@ namespace {
 
 using namespace knn;
 
-template <bool GATED>
-int launch_i8(const void* a, const void* b, const void* uv_a,
-              const void* pred_b, float radius2, void* row_p, void* col_p,
-              int n_pairs, int n_a, int n_b, void* stream) {
+// Squared norms of int8 rows of 128 values, summed in int32 and written
+// as f32 (exact): 8 threads a row, 16 bytes each, so a warp reads 4 whole
+// rows (512 contiguous bytes)
+__global__ void __launch_bounds__(256)
+row_norms_i8_kernel(const int4* __restrict__ x, float* __restrict__ out,
+                    long long rows) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long r = t >> 3;
+  int s = 0;
+  if (r < rows) {
+    const int4 v = x[t];
+    s = __dp4a(v.x, v.x, s);
+    s = __dp4a(v.y, v.y, s);
+    s = __dp4a(v.z, v.z, s);
+    s = __dp4a(v.w, v.w, s);
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (r < rows && (t & 7) == 0) out[r] = (float)s;
+}
+
+int launch_row_norms_i8(const void* x, void* out, long long rows,
+                        cudaStream_t stream) {
+  row_norms_i8_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0,
+                        stream>>>((const int4*)x, (float*)out, rows);
+  return (int)cudaGetLastError();
+}
+
+// int8: the norms pre-pass into na2 / nb2, then the tensor-core body
+template <int MODE>
+int launch_i8(const void* a, const void* b, void* na2, void* nb2,
+              const void* uv_a, const void* pred_b, float radius2,
+              void* row_p, void* col_p, int n_pairs, int n_a, int n_b,
+              void* stream) {
   if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(n_a / kTA, n_pairs);
-  knn_i8_kernel<GATED, kFull, kTA, kTB>
-      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)a, (const int*)b, (const float*)uv_a, (const float*)pred_b,
-      radius2, (int*)row_p, (int*)col_p, n_a, n_b);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s);
+  if (e == 0) e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s);
+  if (e != 0) return e;
+  return launch_tc<int8_t, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                 row_p, col_p, nullptr, nullptr, n_pairs,
+                                 n_a, n_b, s);
 }
 
 // bf16 descriptors: the tensor-core body; f32: the FFMA body
@@ -70,13 +103,13 @@ int launch_float(const void* a, const void* b, const void* na2,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16 && uv_a)
-    return launch_bf16_tc<kPackedGated>(a, b, na2, nb2, uv_a, pred_b,
-                                        radius2, row_p, col_p, nullptr,
-                                        nullptr, n_pairs, n_a, n_b, s);
+    return launch_tc<uint16_t, kPackedGated>(a, b, na2, nb2, uv_a, pred_b,
+                                             radius2, row_p, col_p, nullptr,
+                                             nullptr, n_pairs, n_a, n_b, s);
   if (bf16)
-    return launch_bf16_tc<kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                                   row_p, col_p, nullptr, nullptr, n_pairs,
-                                   n_a, n_b, s);
+    return launch_tc<uint16_t, kPacked>(a, b, na2, nb2, nullptr, nullptr,
+                                        0.f, row_p, col_p, nullptr, nullptr,
+                                        n_pairs, n_a, n_b, s);
   dim3 grid(n_a / kTA, n_pairs);
   if (uv_a)
     knn_float_kernel<float, kPackedGated><<<grid, kThreads, 0, s>>>(
@@ -99,21 +132,23 @@ int launch_float(const void* a, const void* b, const void* na2,
 // entry points take uv_a (n_pairs, n_a, 2) and pred_b (n_pairs, n_b, 2)
 // f32. Each returns the cudaError_t of its launch.
 
-// int8 descriptors (value - 128), 4-byte aligned; norms computed inside
-extern "C" int knn_packed_i8(const void* a, const void* b, void* row_p,
-                             void* col_p, int n_pairs, int n_a, int n_b,
-                             void* stream) {
-  return launch_i8<false>(a, b, nullptr, nullptr, 0.f, row_p, col_p, n_pairs,
-                          n_a, n_b, stream);
+// int8 descriptors (value - 128), 16-byte aligned; na2 (n_pairs, n_a)
+// and nb2 (n_pairs, n_b) f32 scratch, which the first two launches fill
+// with the rows' squared norms
+extern "C" int knn_packed_i8(const void* a, const void* b, void* na2,
+                             void* nb2, void* row_p, void* col_p,
+                             int n_pairs, int n_a, int n_b, void* stream) {
+  return launch_i8<kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
+                            col_p, n_pairs, n_a, n_b, stream);
 }
 
-extern "C" int knn_packed_i8_gated(const void* a, const void* b,
-                                   const void* uv_a, const void* pred_b,
-                                   float radius2, void* row_p, void* col_p,
-                                   int n_pairs, int n_a, int n_b,
-                                   void* stream) {
-  return launch_i8<true>(a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs,
-                         n_a, n_b, stream);
+extern "C" int knn_packed_i8_gated(const void* a, const void* b, void* na2,
+                                   void* nb2, const void* uv_a,
+                                   const void* pred_b, float radius2,
+                                   void* row_p, void* col_p, int n_pairs,
+                                   int n_a, int n_b, void* stream) {
+  return launch_i8<kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                 row_p, col_p, n_pairs, n_a, n_b, stream);
 }
 
 // bf16 (bf16 != 0) or f32 descriptors with their f32 squared norms na2

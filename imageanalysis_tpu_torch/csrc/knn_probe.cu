@@ -1,5 +1,6 @@
 // Probes of K1's anatomy, for Hopper (sm_90a): K1 cut down stage by stage
-// and swept over block tiles, from K1's own source (knn_common.cuh).
+// and swept over block tiles, from the bodies K1 ran before its tensor-core
+// body (knn_common.cuh).
 //
 // Replaces the TPU dev probes
 //   scripts_dev/knn_stage_cost.py:31      kernel       (P4: K1 by stage)
@@ -8,17 +9,18 @@
 //                                                       min over tiles)
 // Each computed K1's 2-NN of a 64-pair batch of 6144 x 128 descriptors with
 // parts of the kernel switched off, to see where its time goes. Here the
-// parts are the Stage values of knn_common.cuh, compiled into K1's int8
+// parts are the Stage values of knn_common.cuh, compiled into its int8
 // body (__dp4a) and its float body (f32 FMAs on bf16 operands): product +
 // row sum, product + row min, + d2/pack/top-1, + top-2 restarted at every
-// B tile, + the running top-2, + the column atomicMin. The int8 full stage
-// is not compiled here: it calls K1's own entry point (knn_packed.cu), so
-// its time is K1's time. The bf16 stages, the full one included, stay on
-// the FFMA float body although K1's bf16 modes now run the tensor-core
-// body (knn_tc.cuh): one body across the bf16 anatomy keeps its stage
-// differences meaningful, and the old K1 bf16 is timed in the same run as
-// the new one. knn_ffma_bf16 launches that FFMA body in K1's and K3's
-// bf16 modes (plain, gated, wide) as the redesign's yardstick.
+// B tile, + the running top-2, + the column atomicMin. K1's bf16 and int8
+// modes now run the tensor-core body (knn_tc.cuh); the stages, the full
+// ones included, stay on the bodies K1 ran before it, so each dtype's
+// anatomy is one body's and its stage differences stay meaningful. Their
+// full stages equal K1's result bit for bit. knn_dp4a_i8 (K1's int8
+// modes, plain and gated) and knn_ffma_bf16 (K1's and K3's bf16 modes:
+// plain, gated, wide) launch those bodies as the tensor-core body's
+// yardsticks, and knn_tc_row_sum the tensor-core body's own product-only
+// stage (product + wrapping row sum, kRowSum's result) in either type.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
@@ -33,10 +35,6 @@
 // at every tile; any other combination returns cudaErrorInvalidValue.
 
 #include "knn_common.cuh"
-
-extern "C" int knn_packed_i8(const void* a, const void* b, void* row_p,
-                             void* col_p, int n_pairs, int n_a, int n_b,
-                             void* stream);
 
 namespace {
 
@@ -127,10 +125,7 @@ extern "C" int knn_probe(const void* a, const void* b, const void* na2,
     case kTop1: return stage_at_k1_tile<kTop1>(x, bf16);
     case kTop2Tile: return stage_at_k1_tile<kTop2Tile>(x, bf16);
     case kTop2: return stage_at_k1_tile<kTop2>(x, bf16);
-    case kFull:
-      return bf16 ? launch_bf16<kFull, kTA, kTB>(x)
-                  : knn_packed_i8(a, b, row_p, col_p, n_pairs, n_a, n_b,
-                                  stream);
+    case kFull: return stage_at_k1_tile<kFull>(x, bf16);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -166,4 +161,47 @@ extern "C" int knn_ffma_bf16(const void* a, const void* b, const void* na2,
         pa, pb, (const float*)na2, (const float*)nb2, nullptr, nullptr, 0.f,
         (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
   return (int)cudaGetLastError();
+}
+
+// The __dp4a int8 body in K1's int8 modes (gated when uv_a != NULL): what
+// K1 launched for int8 before the tensor-core body. Arguments as
+// knn_packed_i8_gated, without the norms' scratch. Returns the
+// cudaError_t of the launch.
+extern "C" int knn_dp4a_i8(const void* a, const void* b, const void* uv_a,
+                           const void* pred_b, float radius2, void* row_p,
+                           void* col_p, int n_pairs, int n_a, int n_b,
+                           void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(n_a / kTA, n_pairs);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (uv_a)
+    knn_i8_kernel<true, kFull, kTA, kTB><<<grid, kThreads, 0, s>>>(
+        (const int*)a, (const int*)b, (const float*)uv_a,
+        (const float*)pred_b, radius2, (int*)row_p, (int*)col_p, n_a, n_b);
+  else
+    knn_i8_kernel<false, kFull, kTA, kTB><<<grid, kThreads, 0, s>>>(
+        (const int*)a, (const int*)b, nullptr, nullptr, 0.f, (int*)row_p,
+        (int*)col_p, n_a, n_b);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core body's product-only stage (kProductRowSum): row_p
+// (n_pairs, n_a, 2) int32 gets each A row's wrapping sum of its dots with
+// all n_b B rows in both slots. a, b int8 (bf16 == 0) or integer-valued
+// bf16 bits (bf16 != 0), 16-byte aligned; n_a and n_b multiples of 64, at
+// most 8192. Returns the cudaError_t of the launch.
+extern "C" int knn_tc_row_sum(const void* a, const void* b, void* row_p,
+                              int n_pairs, int n_a, int n_b, int bf16,
+                              void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_tc<uint16_t, kProductRowSum>(
+        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
+        nullptr, nullptr, n_pairs, n_a, n_b, s);
+  return launch_tc<int8_t, kProductRowSum>(
+      a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr, nullptr,
+      nullptr, n_pairs, n_a, n_b, s);
 }

@@ -1,32 +1,51 @@
-// K1's and K3's bf16 body on the tensor cores, for Hopper (sm_90a).
-// Included at the end of knn_common.cuh, whose constants, gate and keys it
-// uses; K1 (knn_packed.cu) launches it in its bf16 modes, plain
-// (kPacked) and gated (kPackedGated), K3 (knn_wide.cu) in its bf16 mode
-// (kWide). f32 inputs stay on knn_common.cuh's FFMA body.
+// K1's and K3's body on the tensor cores, for Hopper (sm_90a), over the
+// operand type T: bf16 bits (uint16_t) or int8 (int8_t). Included at the
+// end of knn_common.cuh, whose constants, gate and keys it uses; K1
+// (knn_packed.cu) launches it in its bf16 and int8 modes, plain (kPacked)
+// and gated (kPackedGated), K3 (knn_wide.cu) in its bf16 mode (kWide).
+// f32 inputs stay on knn_common.cuh's FFMA body. A fourth mode,
+// kProductRowSum, is the body's product with a wrapping row sum in place
+// of the key epilogue: the probes' product-only stage (knn_probe.cu).
 //
-// Replaces, for bf16 descriptors:
-//   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, bf16 dot)
+// Replaces, for bf16 and int8 descriptors:
+//   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, bf16 and
+//                                                         int8 dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, bf16 dot)
 //
-// What bounds it on the H100: the product, 2 n_a n_b 128 flops a pair, at
-// the tensor cores' rate, and the per-element key epilogue (d2, pack or
-// 64-bit key, gate, row top-2, column minimum) on the CUDA cores, which
-// costs about as many issue slots as the mma.sync instructions. The FFMA
-// body it replaces spent 93% of its time in the product (26.8 TFLOP/s of
-// f32 FMAs on operands widened in shared memory).
+// What bounds it on the H100: the product, 2 n_a n_b 128 operations a
+// pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8),
+// and the per-element key epilogue (d2, pack or 64-bit key, gate, row
+// top-2, column minimum) on the CUDA cores, which costs about as many
+// issue slots as the mma.sync instructions. The bodies it replaced spent
+// 93% (FFMA on bf16, 26.8 TFLOP/s) and 86% (__dp4a on int8, 100 TOP/s)
+// of their time in the product.
+//
+// What the type decides:
+//                  bf16                       int8
+//   row pitch      272 B (17 x 16 B)          144 B (9 x 16 B)
+//   mma.sync       m16n8k16, 8 k-steps        m16n8k32, 4 k-steps
+//   accumulator    f32                        s32 (exact)
+//   norms          f32, from the caller       f32, K1's pre-pass (exact)
+//   d2             (na + nb) - 2 acc in f32   (na - 2 acc) + nb in f32, acc
+//                  with __fadd_rn/__fmul_rn,  made f32 by the 1.5 x 2^23
+//                  clamped at 0               trick: every step an integer
+//                                             below 2^24, so exact
+// Both are 32-byte k-steps with the same fragment bytes (mma_sync.cuh),
+// so one ldmatrix.x4 addressing, in bytes, feeds both.
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
-//   multiple of 64), resident in shared memory as bf16 for the whole
-//   sweep over B; B streams through a ring of kStages tiles of kBN = 128
-//   rows, each filled by cp.async.cg (16 B a thread) while the tile before
-//   it is multiplied: the copy of tile t + 1 overlaps the mma.sync of
-//   tile t. Rows are padded to 272 B (17 x 16 B), so ldmatrix.x4 reads
-//   them without bank conflicts. ~107 KB of dynamic shared memory: two
-//   blocks share an SM, so one block's epilogue overlaps the other's
-//   products.
-// - 8 warps, each a 32 x (kBN / WN) tile of m16n8k16 bf16 -> f32
-//   accumulators (mma_sync.cuh), no widening of the operands.
+//   multiple of 64), resident in shared memory for the whole sweep over
+//   B; B streams through a ring of kStages tiles of kBN = 128 rows, each
+//   filled by cp.async.cg (16 B a thread) while the tile before it is
+//   multiplied: the copy of tile t + 1 overlaps the mma.sync of tile t.
+//   Rows are padded to an odd number of 16-byte units, so ldmatrix.x4
+//   reads them without bank conflicts. ~107 KB (bf16) or ~60 KB (int8) of
+//   dynamic shared memory: two blocks share an SM (__launch_bounds__(256,
+//   2), at most 128 registers), so one block's epilogue overlaps the
+//   other's products.
+// - 8 warps, each a 32 x (kBN / WN) tile of mma.sync accumulators
+//   (mma_sync.cuh), no widening of the operands.
 // - The epilogue runs on the accumulator fragment: a thread holds rows g
 //   and g + 8 (g = lane / 4) of each m16 tile and columns 2q, 2q + 1
 //   (q = lane % 4) of each n8 tile. Row top-2 keys stay in registers for
@@ -39,12 +58,14 @@
 //   builds its 64-bit keys only for the shuffles: a thread meets its
 //   columns and rows in increasing index order, so a strict < on the
 //   value already keeps the lowest index among equal values.
-// - d2, the packing and the gate are knn_common.cuh's float body's,
+// - bf16: d2, the packing and the gate are knn_common.cuh's float body's,
 //   operation for operation (__fadd_rn/__fmul_rn: no FMA contraction).
+//   int8: the __dp4a body's integer d2, as the plain version computes it.
 //   Every key is unique (its index is in it), so for integer-valued
 //   descriptors (bf16 products of integers <= 255 are exact and 128 x
-//   255^2 < 2^24 keeps every f32 partial sum exact) the result equals the
-//   plain versions bit for bit, whatever the order of the reductions.
+//   255^2 < 2^24 keeps every f32 partial sum exact; int8 sums are exact
+//   in int32) the result equals the plain versions bit for bit, whatever
+//   the order of the reductions.
 // - A last B tile of 64 rows (n_b an odd multiple of 64) skips the n8
 //   tiles beyond n_b in its epilogue, warp by warp; their products read
 //   stale shared memory and are never used.
@@ -59,16 +80,36 @@ namespace knn {
 namespace tc {
 
 constexpr int kBN = 128;            // B rows per streamed tile
-constexpr int kLds = kDim + 8;      // padded bf16 row: 272 B = 17 x 16 B
-constexpr int kChunks = kDim / 8;   // 16-byte chunks per row
 constexpr int kStages = 2;          // B tiles in the ring
 
-template <int BM>
+// What the operand type decides: the accumulator type and the bytes of a
+// row
+template <typename T>
+struct Op;
+template <>
+struct Op<uint16_t> {               // bf16 bits
+  using Acc = float;
+  static constexpr int kRowBytes = kDim * 2;
+};
+template <>
+struct Op<int8_t> {
+  using Acc = int;
+  static constexpr int kRowBytes = kDim;
+};
+// a padded shared row: 272 B (bf16) or 144 B (int8), an odd number of
+// 16-byte units
+template <typename T>
+constexpr int kPitch = Op<T>::kRowBytes + 16;
+template <typename T>
+constexpr int kChunks = Op<T>::kRowBytes / 16;   // 16-byte chunks per row
+
+template <typename T, int BM>
 struct Smem {
-  uint16_t a[BM * kLds];            // the block's A rows, resident
-  uint16_t b[kStages][kBN * kLds];  // the ring of B tiles
+  unsigned char a[BM * kPitch<T>];             // the block's A rows
+  unsigned char b[kStages][kBN * kPitch<T>];   // the ring of B tiles
   float nb2[kStages][kBN];
   float pb[kStages][kBN * 2];       // the gate's predicted positions
+  float ua[BM * 2];                 // the gate's A positions
   long long colmin_w[kBN];          // the tile's column minimum (K3)
   int colmin[kBN];                  // (K1)
 };
@@ -89,20 +130,30 @@ __device__ __forceinline__ void merge2(K o1, K o2, K& k1, K& k2) {
   k2 = n2;
 }
 
+__device__ __forceinline__ int wrap_add(int x, int y) {
+  return (int)((unsigned)x + (unsigned)y);
+}
+
+// a dot as an int: f32 dots of integer-valued bf16 are integers below 2^24
+__device__ __forceinline__ int dot_int(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int dot_int(int x) { return x; }
+
 // cp.async of B rows b0 .. b0 + rows - 1 of one pair (and their norms and
 // gate positions) into ring stage `stage`
-template <int MODE, int BM>
-__device__ __forceinline__ void load_b(Smem<BM>& s, int stage,
-                                       const uint16_t* Bm, const float* nbp,
+template <typename T, int MODE, int BM>
+__device__ __forceinline__ void load_b(Smem<T, BM>& s, int stage,
+                                       const unsigned char* Bm,
+                                       const float* nbp,
                                        const float* pbp, int b0, int rows,
                                        int tid) {
-  const uint16_t* Bt = Bm + (size_t)b0 * kDim;
-  for (int w = tid; w < rows * kChunks; w += kThreads) {
-    const int r = w / kChunks, c = (w % kChunks) * 8;
-    mma_sync::cp_async16(&s.b[stage][r * kLds + c],
-                         Bt + (size_t)r * kDim + c);
+  constexpr int kRow = Op<T>::kRowBytes;
+  const unsigned char* Bt = Bm + (size_t)b0 * kRow;
+  for (int w = tid; w < rows * kChunks<T>; w += kThreads) {
+    const int r = w / kChunks<T>, c = (w % kChunks<T>) * 16;
+    mma_sync::cp_async16(&s.b[stage][r * kPitch<T> + c],
+                         Bt + (size_t)r * kRow + c);
   }
-  if (tid < rows / 4)
+  if (MODE != kProductRowSum && tid < rows / 4)
     mma_sync::cp_async16(&s.nb2[stage][4 * tid], nbp + b0 + 4 * tid);
   if constexpr (MODE == kPackedGated) {
     if (tid < rows / 2)
@@ -111,23 +162,38 @@ __device__ __forceinline__ void load_b(Smem<BM>& s, int stage,
   }
 }
 
+// c += a . b for one 32-byte k-step of the operand type
+__device__ __forceinline__ void mma(float* c, const unsigned* a, unsigned b0,
+                                    unsigned b1) {
+  mma_sync::mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
+}
+__device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
+                                    unsigned b1) {
+  mma_sync::mma_s8(c, a[0], a[1], a[2], a[3], b0, b1);
+}
+
 // One block: BM A rows (blockIdx.x) of one pair (blockIdx.y) against all
 // n_b B rows. Outputs as knn_float_kernel's full stage: K1's row_p /
 // col_p (col_p pre-filled with 0x7FFFFFFF) or K3's row_k / col_k
-// (pre-filled with INT64_MAX).
-template <int MODE, int BM>
+// (pre-filled with INT64_MAX); kProductRowSum writes each row's wrapping
+// sum of its dots into both slots of row_p and leaves col_p alone.
+template <typename T, int MODE, int BM>
 __global__ void __launch_bounds__(kThreads, 2)
-knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
-                   const uint16_t* __restrict__ b,
-                   const float* __restrict__ na2,
-                   const float* __restrict__ nb2,
-                   const float* __restrict__ uv_a,
-                   const float* __restrict__ pred_b, float radius2,
-                   int* __restrict__ row_p, int* __restrict__ col_p,
-                   long long* __restrict__ row_k,
-                   long long* __restrict__ col_k, int n_a, int n_b) {
+knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
+              const float* __restrict__ na2,
+              const float* __restrict__ nb2,
+              const float* __restrict__ uv_a,
+              const float* __restrict__ pred_b, float radius2,
+              int* __restrict__ row_p, int* __restrict__ col_p,
+              long long* __restrict__ row_k, long long* __restrict__ col_k,
+              int n_a, int n_b) {
+  using Acc = typename Op<T>::Acc;
   using K = Key<MODE>;
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   constexpr bool kGated = MODE == kPackedGated;
+  constexpr bool kSum = MODE == kProductRowSum;
+  constexpr int kRow = Op<T>::kRowBytes;
+  constexpr int kLd = kPitch<T>;
   constexpr int WM = BM / 32;       // warps along M: 32 rows each
   constexpr int WN = 8 / WM;        // warps along N
   constexpr int WCOLS = kBN / WN;   // B rows (output columns) per warp
@@ -135,8 +201,9 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
   constexpr int NT = WCOLS / 8;     // n8 tiles per warp
   static_assert(BM == 64 || BM == 128, "A tiles of 64 or 128 rows");
   static_assert(kThreads == 256 && NT % 2 == 0, "8 warps, n8 tiles in pairs");
+  static_assert(MODE != kWide || !kInt8, "K3 takes bf16 only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<BM>& s = *reinterpret_cast<Smem<BM>*>(smem_raw);
+  Smem<T, BM>& s = *reinterpret_cast<Smem<T, BM>*>(smem_raw);
 
   const int pair = blockIdx.y;
   const int a0 = blockIdx.x * BM;
@@ -147,28 +214,34 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
   const int q = lane & 3;           // fragment column pair
   const int wm = (warp % WM) * 32;  // the warp's rows within the block
   const int wn = (warp / WM) * WCOLS;
-  const uint16_t* A = a + ((size_t)pair * n_a + a0) * kDim;
-  const uint16_t* Bm = b + (size_t)pair * n_b * kDim;
-  const float* nbp = nb2 + (size_t)pair * n_b;
+  const unsigned char* A = reinterpret_cast<const unsigned char*>(a) +
+                           ((size_t)pair * n_a + a0) * kRow;
+  const unsigned char* Bm = reinterpret_cast<const unsigned char*>(b) +
+                            (size_t)pair * n_b * kRow;
+  const float* nbp = kSum ? nullptr : nb2 + (size_t)pair * n_b;
   const float* pbp = kGated ? pred_b + (size_t)pair * n_b * 2 : nullptr;
   const int n_tiles = (n_b + kBN - 1) / kBN;
 
   // the A tile travels with the first B tiles' copy group
-  for (int w = tid; w < BM * kChunks; w += kThreads) {
-    const int r = w / kChunks, c = (w % kChunks) * 8;
-    mma_sync::cp_async16(&s.a[r * kLds + c], A + (size_t)r * kDim + c);
+  for (int w = tid; w < BM * kChunks<T>; w += kThreads) {
+    const int r = w / kChunks<T>, c = (w % kChunks<T>) * 16;
+    mma_sync::cp_async16(&s.a[r * kLd + c], A + (size_t)r * kRow + c);
   }
+  if (kGated && tid < BM / 2)
+    mma_sync::cp_async16(&s.ua[4 * tid],
+                         uv_a + ((size_t)pair * n_a + a0) * 2 + 4 * tid);
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_tiles)
-      load_b<MODE>(s, st, Bm, nbp, pbp, st * kBN, min(kBN, n_b - st * kBN),
-                   tid);
+      load_b<T, MODE>(s, st, Bm, nbp, pbp, st * kBN,
+                      min(kBN, n_b - st * kBN), tid);
     mma_sync::cp_async_commit();
   }
 
   // the row top-2 of this thread's columns: K1's packed keys; K3's values
-  // and indices (v1 <= v2), made into 64-bit keys at the end
-  float na[MT][2], ux[MT][2], uy[MT][2];
+  // and indices (v1 <= v2), made into 64-bit keys at the end; the row sum
+  // (in r1) of kProductRowSum
+  float na[MT][2];
   int r1[MT][2], r2[MT][2];
   float v1[MT][2], v2[MT][2];
 #pragma unroll
@@ -176,10 +249,8 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t row = (size_t)pair * n_a + a0 + wm + mt * 16 + h * 8 + g;
-      na[mt][h] = na2[row];
-      ux[mt][h] = kGated ? uv_a[2 * row] : 0.f;
-      uy[mt][h] = kGated ? uv_a[2 * row + 1] : 0.f;
-      r1[mt][h] = r2[mt][h] = MODE == kWide ? -1 : kKeyMax;
+      na[mt][h] = kSum ? 0.f : na2[row];
+      r1[mt][h] = r2[mt][h] = kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
       v1[mt][h] = v2[mt][h] = __int_as_float(0x7F800000);
     }
   if (tid < kBN) {
@@ -190,57 +261,66 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
   for (int t = 0; t < n_tiles; ++t) {
     const int next = t + kStages - 1;
     if (next < n_tiles)             // its stage was consumed at t - 1
-      load_b<MODE>(s, next % kStages, Bm, nbp, pbp, next * kBN,
-                   min(kBN, n_b - next * kBN), tid);
+      load_b<T, MODE>(s, next % kStages, Bm, nbp, pbp, next * kBN,
+                      min(kBN, n_b - next * kBN), tid);
     mma_sync::cp_async_commit();
     mma_sync::cp_async_wait<kStages - 1>();   // tile t (and A) arrived
     __syncthreads();
     const int st = t % kStages;
     const int b0 = t * kBN;
     const int n_valid = min(kBN, n_b - b0);
-    const uint16_t* sb = s.b[st];
+    const unsigned char* sb = s.b[st];
 
-    float acc[MT][NT][4];
+    Acc acc[MT][NT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = Acc(0);
+    // 32-byte k-steps: 16 bf16 or 32 int8 values each
 #pragma unroll
-    for (int kk = 0; kk < kDim; kk += 16) {
+    for (int kb = 0; kb < kRow; kb += 32) {
       unsigned af[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
         mma_sync::ldmatrix_x4(af[mt][0], af[mt][1], af[mt][2], af[mt][3],
-                              s.a + (wm + mt * 16 + (lane & 15)) * kLds +
-                                  kk + (lane >> 4) * 8);
+                              s.a + (wm + mt * 16 + (lane & 15)) * kLd +
+                                  kb + (lane >> 4) * 16);
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {
-        unsigned b0r, b1r, b2r, b3r;  // (nt, k 0-7), (nt, k 8-15), nt + 1
+        unsigned b0r, b1r, b2r, b3r;  // (nt, bytes 0-15), (nt, 16-31), nt + 1
         mma_sync::ldmatrix_x4(
             b0r, b1r, b2r, b3r,
-            sb + (wn + nt * 8 + (lane >> 4) * 8 + (lane & 7)) * kLds + kk +
-                ((lane >> 3) & 1) * 8);
+            sb + (wn + nt * 8 + (lane >> 4) * 8 + (lane & 7)) * kLd + kb +
+                ((lane >> 3) & 1) * 16);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_sync::mma_bf16(acc[mt][nt], af[mt][0], af[mt][1], af[mt][2],
-                             af[mt][3], b0r, b1r);
-          mma_sync::mma_bf16(acc[mt][nt + 1], af[mt][0], af[mt][1],
-                             af[mt][2], af[mt][3], b2r, b3r);
+          mma(acc[mt][nt], af[mt], b0r, b1r);
+          mma(acc[mt][nt + 1], af[mt], b2r, b3r);
         }
       }
     }
 
     const float* snb = s.nb2[st];
     const float* spb = s.pb[st];
+    // the gate's A positions, read here and not held through the product
+    float ux[MT][2], uy[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + mt * 16 + h * 8 + g;
+        ux[mt][h] = kGated ? s.ua[2 * r] : 0.f;
+        uy[mt][h] = kGated ? s.ua[2 * r + 1] : 0.f;
+      }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (wn + nt * 8 >= n_valid) continue;   // beyond n_b: warp-uniform
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = wn + nt * 8 + 2 * q + e;
-        const float nbv = snb[c];
+        const float nbv = kSum ? 0.f : snb[c];
         const float px = kGated ? spb[2 * c] : 0.f;
         const float py = kGated ? spb[2 * c + 1] : 0.f;
         int ck = kKeyMax;           // K1: the column's key
@@ -251,12 +331,16 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = a0 + wm + mt * 16 + h * 8 + g;
-            // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain
-            // version; c0, c1 are row g, c2, c3 row g + 8
-            float d2 = __fsub_rn(__fadd_rn(na[mt][h], nbv),
-                                 __fmul_rn(2.f, acc[mt][nt][2 * h + e]));
-            if constexpr (MODE == kWide) {
-              d2 = __fadd_rn(d2, 0.f);  // -0 → +0: equal values tie on index
+            // c0, c1 are row g, c2, c3 row g + 8
+            const Acc dot = acc[mt][nt][2 * h + e];
+            if constexpr (kSum) {
+              r1[mt][h] = wrap_add(r1[mt][h], dot_int(dot));
+            } else if constexpr (MODE == kWide) {
+              // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain
+              // version; -0 → +0: equal values tie on index
+              const float d2 = __fadd_rn(
+                  __fsub_rn(__fadd_rn(na[mt][h], nbv), __fmul_rn(2.f, dot)),
+                  0.f);
               // a thread meets its columns, and its rows, in increasing
               // index order, so a strict < on the value keeps the lowest
               // index among equal values: the 64-bit keys' order
@@ -274,7 +358,23 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
                 ci = row;
               }
             } else {
-              int bits = __float_as_int(fmaxf(d2, 0.f)) & ~kIdxMask;
+              int bits;
+              if constexpr (kInt8) {
+                // |dot| <= 2^21, so the f32 with the bits of 1.5 x 2^23 +
+                // dot, less 1.5 x 2^23, is float(dot) exactly (two
+                // full-rate operations where I2F issues at a quarter of
+                // the rate); na - 2 dot and d2 are integers below 2^24,
+                // exact in f32 in any order
+                const float dotf = __fsub_rn(
+                    __int_as_float(0x4B400000 + dot), 12582912.f);
+                const float d2 = __fadd_rn(
+                    __fmaf_rn(-2.f, dotf, na[mt][h]), nbv);
+                bits = __float_as_int(d2) & ~kIdxMask;
+              } else {
+                const float d2 = __fsub_rn(__fadd_rn(na[mt][h], nbv),
+                                           __fmul_rn(2.f, dot));
+                bits = __float_as_int(fmaxf(d2, 0.f)) & ~kIdxMask;
+              }
               if (kGated &&
                   gated_out(ux[mt][h], uy[mt][h], px, py, radius2))
                 bits = kGatedBits;
@@ -292,7 +392,7 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
           for (int off = 4; off < 32; off <<= 1)
             cw = kmin(cw, __shfl_xor_sync(0xffffffffu, cw, off));
           if (g == 0) atomicMin(&s.colmin_w[c], cw);
-        } else {
+        } else if constexpr (!kSum) {
 #pragma unroll
           for (int off = 4; off < 32; off <<= 1)
             ck = min(ck, __shfl_xor_sync(0xffffffffu, ck, off));
@@ -301,7 +401,7 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
       }
     }
     __syncthreads();                // tile t consumed; its columns complete
-    if (tid < n_valid) {
+    if (!kSum && tid < n_valid) {
       const size_t j = (size_t)pair * n_b + b0 + tid;
       if constexpr (MODE == kWide) {
         atomicMin(&col_k[j], s.colmin_w[tid]);
@@ -314,8 +414,8 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
   }
   mma_sync::cp_async_wait<0>();     // only empty groups remain
 
-  // row top-2 as keys, merged over the quad's lanes, then over the WN
-  // warps of a row in warp order through the (now free) ring
+  // row top-2 as keys (or row sums), merged over the quad's lanes, then
+  // over the WN warps of a row in warp order through the (now free) ring
   K k1[MT][2], k2[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -331,8 +431,12 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         const K o1 = __shfl_xor_sync(0xffffffffu, k1[mt][h], off);
-        const K o2 = __shfl_xor_sync(0xffffffffu, k2[mt][h], off);
-        merge2(o1, o2, k1[mt][h], k2[mt][h]);
+        if constexpr (kSum) {
+          k1[mt][h] = wrap_add(k1[mt][h], o1);
+        } else {
+          const K o2 = __shfl_xor_sync(0xffffffffu, k2[mt][h], off);
+          merge2(o1, o2, k1[mt][h], k2[mt][h]);
+        }
       }
     }
   K* red = reinterpret_cast<K*>(s.b[0]);    // [WN][BM][2]
@@ -350,59 +454,64 @@ knn_bf16_tc_kernel(const uint16_t* __restrict__ a,
   if (tid < BM) {
     K k1 = red[2 * tid], k2 = red[2 * tid + 1];
 #pragma unroll
-    for (int w = 1; w < WN; ++w)
-      merge2(red[2 * (w * BM + tid)], red[2 * (w * BM + tid) + 1], k1, k2);
+    for (int w = 1; w < WN; ++w) {
+      if constexpr (kSum)
+        k1 = wrap_add(k1, red[2 * (w * BM + tid)]);
+      else
+        merge2(red[2 * (w * BM + tid)], red[2 * (w * BM + tid) + 1], k1, k2);
+    }
     const size_t r = ((size_t)pair * n_a + a0 + tid) * 2;
     if constexpr (MODE == kWide) {
       row_k[r] = k1;
       row_k[r + 1] = k2;
     } else {
       row_p[r] = k1;
-      row_p[r + 1] = k2;
+      row_p[r + 1] = kSum ? k1 : k2;
     }
   }
 }
 
-template <int MODE, int BM>
+template <typename T, int MODE, int BM>
 int launch_tile(const void* a, const void* b, const void* na2,
                 const void* nb2, const void* uv_a, const void* pred_b,
                 float radius2, void* row_p, void* col_p, void* row_k,
                 void* col_k, int n_pairs, int n_a, int n_b,
                 cudaStream_t stream) {
-  constexpr int kSmem = (int)sizeof(Smem<BM>);
+  constexpr int kSmem = (int)sizeof(Smem<T, BM>);
   // above 48 KB only after this opt-in; a refusal is returned, never lost
   const cudaError_t e = cudaFuncSetAttribute(
-      knn_bf16_tc_kernel<MODE, BM>,
+      knn_tc_kernel<T, MODE, BM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n_a / BM, n_pairs);
-  knn_bf16_tc_kernel<MODE, BM><<<grid, kThreads, kSmem, stream>>>(
-      (const uint16_t*)a, (const uint16_t*)b, (const float*)na2,
-      (const float*)nb2, (const float*)uv_a, (const float*)pred_b, radius2,
-      (int*)row_p, (int*)col_p, (long long*)row_k, (long long*)col_k, n_a,
-      n_b);
+  knn_tc_kernel<T, MODE, BM><<<grid, kThreads, kSmem, stream>>>(
+      (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
+      (const float*)uv_a, (const float*)pred_b, radius2, (int*)row_p,
+      (int*)col_p, (long long*)row_k, (long long*)col_k, n_a, n_b);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
-// K1's or K3's bf16 mode on the tensor cores. a, b (n_pairs, n, 128) bf16
-// bits, na2, nb2 f32, uv_a, pred_b f32 for kPackedGated; n_a and n_b
-// multiples of 64 (the caller checks the shapes). Blocks of 128 A rows
-// where n_a allows, else 64. Returns the cudaError_t of the launch.
-template <int MODE>
-int launch_bf16_tc(const void* a, const void* b, const void* na2,
-                   const void* nb2, const void* uv_a, const void* pred_b,
-                   float radius2, void* row_p, void* col_p, void* row_k,
-                   void* col_k, int n_pairs, int n_a, int n_b,
-                   cudaStream_t stream) {
+// The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t). a, b
+// (n_pairs, n, 128) T; na2, nb2 the f32 squared norms (unused by
+// kProductRowSum); uv_a, pred_b f32 for kPackedGated;
+// n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of
+// 128 A rows where n_a allows, else 64. Returns the cudaError_t of the
+// launch.
+template <typename T, int MODE>
+int launch_tc(const void* a, const void* b, const void* na2,
+              const void* nb2, const void* uv_a, const void* pred_b,
+              float radius2, void* row_p, void* col_p, void* row_k,
+              void* col_k, int n_pairs, int n_a, int n_b,
+              cudaStream_t stream) {
   if (n_a % 128 == 0)
-    return tc::launch_tile<MODE, 128>(a, b, na2, nb2, uv_a, pred_b, radius2,
+    return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
+                                         radius2, row_p, col_p, row_k, col_k,
+                                         n_pairs, n_a, n_b, stream);
+  return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
                                       row_p, col_p, row_k, col_k, n_pairs,
                                       n_a, n_b, stream);
-  return tc::launch_tile<MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                   row_p, col_p, row_k, col_k, n_pairs, n_a,
-                                   n_b, stream);
 }
 
 }  // namespace knn

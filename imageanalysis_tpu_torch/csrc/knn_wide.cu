@@ -48,9 +48,9 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
   if (bad_shape(n_pairs, n_a, n_b, 1 << 30)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_bf16_tc<kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                                 nullptr, nullptr, row_k, col_k, n_pairs, n_a,
-                                 n_b, s);
+    return launch_tc<uint16_t, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                                      nullptr, nullptr, row_k, col_k, n_pairs,
+                                      n_a, n_b, s);
   dim3 grid(n_a / kTA, n_pairs);
   knn_float_kernel<float, kWide><<<grid, kThreads, 0, s>>>(
       (const float*)a, (const float*)b, (const float*)na2, (const float*)nb2,

@@ -270,17 +270,22 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
     col_p = torch.full((B, n_b), _KEY_MAX, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if desc_a.dtype == torch.int8:
+            # scratch for the squared norms, which the kernel's pre-pass
+            # writes
+            sa = torch.empty((B, n_a), dtype=torch.float32, device=dev)
+            sb = torch.empty((B, n_b), dtype=torch.float32, device=dev)
+            ptrs = (desc_a.data_ptr(), desc_b.data_ptr(), sa.data_ptr(),
+                    sb.data_ptr())
         if desc_a.dtype == torch.int8 and not gated:
             name = "knn_packed_i8"
-            err = lib.knn_packed_i8(desc_a.data_ptr(), desc_b.data_ptr(),
-                                    row_p.data_ptr(), col_p.data_ptr(), B,
-                                    n_a, n_b, stream)
+            err = lib.knn_packed_i8(*ptrs, row_p.data_ptr(),
+                                    col_p.data_ptr(), B, n_a, n_b, stream)
         elif desc_a.dtype == torch.int8:
             name = "knn_packed_i8_gated"
             err = lib.knn_packed_i8_gated(
-                desc_a.data_ptr(), desc_b.data_ptr(), uv_a.data_ptr(),
-                pred_b.data_ptr(), radius2, row_p.data_ptr(),
-                col_p.data_ptr(), B, n_a, n_b, stream)
+                *ptrs, uv_a.data_ptr(), pred_b.data_ptr(), radius2,
+                row_p.data_ptr(), col_p.data_ptr(), B, n_a, n_b, stream)
         else:
             name = "knn_packed_float"
             err = lib.knn_packed_float(

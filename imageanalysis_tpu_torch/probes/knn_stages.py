@@ -5,8 +5,9 @@ work on a 64-pair batch of 6144 × 128 int8 descriptors with parts switched
 off: ``scripts_dev/knn_stage_cost.py:31`` (P4),
 ``scripts_dev/knn_culprit_bisect.py:42`` (P3) and
 ``scripts_dev/knn_overhead_sweep.py:36`` (P6). On the card the parts are
-the stages of ``csrc/knn_common.cuh``, compiled into K1's own int8 body
-(``__dp4a``) and float body (f32 FMAs on bf16 operands):
+the stages of ``csrc/knn_common.cuh``, compiled into its int8 body
+(``__dp4a``) and float body (f32 FMAs on bf16 operands), the bodies K1
+ran before the tensor-core body:
 
 ====  =============  ===================================================
  #    name           computes, per pair (row (B, n_a, 2), col (B, n_b))
@@ -17,9 +18,9 @@ the stages of ``csrc/knn_common.cuh``, compiled into K1's own int8 body
  3    ``top2_tile``  + row top-2, restarted at every B tile of TB rows:
                      the top-2 of the last tile
  4    ``top2``       + the running top-2 across B tiles (the row top-2)
- 5    ``full``       + the column minimum by atomicMin: int8, K1 itself
-                     (the kernel calls K1's entry point); bf16, the FFMA
-                     body's K1 (bit for bit the tensor-core K1's result)
+ 5    ``full``       + the column minimum by atomicMin: the ``__dp4a``
+                     (int8) or FFMA (bf16) body's K1, bit for bit the
+                     tensor-core K1's result
 ====  =============  ===================================================
 
 ``col`` is 0x7FFFFFFF everywhere below ``full``. Integer-valued
@@ -62,11 +63,19 @@ its 256 threads each hold a TA/16 × TB/16 register tile. So:
   The float body keeps its A tile in shared memory as f32, so its tiles
   stop at TA × TB within the 48 KB of static shared memory.
 
-K1's and K3's bf16 modes now run a tensor-core body (``csrc/knn_tc.cuh``);
-the bf16 stages here, ``full`` included, stay on the FFMA float body, so
-the bf16 anatomy is one body's. ``ffma_bf16_raw`` launches that FFMA body
-in K1's and K3's bf16 modes (plain, gated, wide): the yardstick the
-tensor-core body is timed against.
+K1's bf16 and int8 modes and K3's bf16 mode now run a tensor-core body
+(``csrc/knn_tc.cuh``); the stages here, ``full`` included, stay on the
+bodies above, so each dtype's anatomy is one body's. Three more wrappers
+measure the tensor-core body:
+
+- ``dp4a_i8_raw``: the ``__dp4a`` body in K1's int8 modes (plain,
+  gated), and ``ffma_bf16_raw``: the FFMA body in K1's and K3's bf16
+  modes (plain, gated, wide). The yardsticks the tensor-core body is
+  timed against; their plain versions are K1's and K3's.
+- ``tc_row_sum_raw``: the tensor-core body's product with the
+  ``row_sum`` stage's wrapping row sum in place of the key epilogue, in
+  either type; its plain version is ``knn_probe_plain(stage=ROW_SUM)``.
+  K1's time less its time is the key epilogue's on that body.
 """
 
 from __future__ import annotations
@@ -95,7 +104,8 @@ P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
 P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 
 # kernel launches (not plain-version calls), by descriptor type
-LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0}
+LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
+            "knn_dp4a_i8": 0, "knn_tc_row_sum": 0}
 
 
 def _check(a, b, na2, nb2, stage, tile, name):
@@ -178,9 +188,8 @@ def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
 def knn_probe_raw(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
     """The probe kernel (csrc/knn_probe.cu) on a CUDA tensor, its plain
     version on a CPU tensor; raises on any other device. Arguments and
-    result as knn_probe_plain. The int8 full stage launches K1 through
-    its own C entry point, so it is K1 bit for bit and time for time; the
-    bf16 full stage is the FFMA body's K1, equal to K1's result."""
+    result as knn_probe_plain. The full stage is the __dp4a (int8) or
+    FFMA (bf16) body's K1, equal to K1's result bit for bit."""
     _check(a, b, na2, nb2, stage, tile, "knn_probe_raw")
     if a.device.type == "cpu":
         return knn_probe_plain(a, b, na2, nb2, stage, tile)
@@ -253,4 +262,69 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_ffma_bf16")
     LAUNCHES["knn_ffma_bf16"] += 1
+    return row, col
+
+
+def dp4a_i8_plain(a, b, uv_a=None, pred_b=None, radius2=None):
+    """Plain version of the __dp4a body: K1's int8 mode (gated when uv_a
+    is given), knn_packed_plain."""
+    return knn.knn_packed_plain(a, b, None, None, uv_a, pred_b, radius2)
+
+
+def dp4a_i8_raw(a, b, uv_a=None, pred_b=None, radius2=None):
+    """The __dp4a int8 body in K1's modes (row_p, col_p int32): what K1
+    launched for int8 before the tensor-core body. Arguments and result
+    as knn.knn_packed_raw on int8 descriptors; a CPU tensor takes
+    dp4a_i8_plain, any other device raises."""
+    name = "dp4a_i8_raw"
+    if a.dtype != torch.int8:
+        raise ValueError(f"{name}: takes int8 descriptors, got {a.dtype}")
+    knn._check_pair_batch(a, b, None, None, name, 1 << knn._IDX_BITS)
+    gated = uv_a is not None
+    if gated:
+        knn._check_gate(uv_a, pred_b, a, b, name)
+    if a.device.type == "cpu":
+        return dp4a_i8_plain(a, b, uv_a, pred_b, radius2)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    knn._check_launch((a, b, uv_a, pred_b), n_a, n_b, name)
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_dp4a_i8(
+            a.data_ptr(), b.data_ptr(), knn._ptr(uv_a), knn._ptr(pred_b),
+            radius2 if gated else 0.0, row.data_ptr(), col.data_ptr(), B,
+            n_a, n_b, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_dp4a_i8")
+    LAUNCHES["knn_dp4a_i8"] += 1
+    return row, col
+
+
+def tc_row_sum_raw(a, b):
+    """The tensor-core body's product-only stage on a CUDA tensor: a (B,
+    n_a, 128), b (B, n_b, 128) int8 or integer-valued bf16, n_a and n_b
+    multiples of 64 and at most 8192. Returns (row (B, n_a, 2) int32, each
+    A row's wrapping sum of its dots in both slots; col (B, n_b) int32,
+    0x7FFFFFFF): the result of knn_probe_plain(stage=ROW_SUM), which a CPU
+    tensor takes; any other device raises."""
+    name = "tc_row_sum_raw"
+    _check(a, b, None, None, ROW_SUM, K1_TILE, name)
+    if a.device.type == "cpu":
+        return knn_probe_plain(a, b, stage=ROW_SUM)
+    check_launchable((a, b), name)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_tc_row_sum(
+            a.data_ptr(), b.data_ptr(), row.data_ptr(), B, n_a, n_b,
+            int(a.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_tc_row_sum")
+    LAUNCHES["knn_tc_row_sum"] += 1
     return row, col

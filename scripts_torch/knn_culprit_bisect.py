@@ -6,7 +6,8 @@ scripts_dev/knn_culprit_bisect.py (P3), on the port's staged K1
   v1  + d2 (na2 + nb2 − 2ab) + bit pack + index or: row top-1
   v2  + second minimum: top-2, restarted at every B tile
   v3  + the running top-2 across B tiles
-  v4  + the column minimum: K1 (its own entry point)
+  v4  + the column minimum: K1's result on the __dp4a (int8) or FFMA
+      (bf16) body
   v5  the port's knn_top2 (K1 and the decode), for reference
 
 Usage (the card by default; bench's 64 pairs × 6144 × 128):

@@ -8,13 +8,14 @@ without the conftest:
 
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
-arithmetic in f32 or int32 (the bf16 modes on the tensor cores too; on
-random bf16 they hold a stated tolerance), K2 rounds the same f32
+arithmetic in f32 or int32 (the bf16 and int8 modes on the tensor cores
+too; on random bf16 they hold a stated tolerance), K2 rounds the same f32
 products and sums one by one, and K4 decodes, compares and gathers
 exactly, so the comparisons are bit-exact. So are the probes of
 imageanalysis_tpu_torch/probes on integer-valued inputs (the staged K1,
-the FFMA bf16 body, P2's single-launch K1 + K4, P5's mma.sync row sums,
-P1's one-hot gather of bf16 values). Bundle adjustment
+the FFMA bf16 and __dp4a int8 bodies, the tensor-core body's product-only
+stage, P2's single-launch K1 + K4, P5's mma.sync row sums, P1's one-hot
+gather of bf16 values). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -62,9 +63,37 @@ def _planted(rng, pairs, n_a, n_b, n_planted, dup=False):
             torch.from_numpy((b - 128).astype(np.int8)))
 
 
-@pytest.mark.parametrize("n_a,n_b", [(512, 768), (64, 8192)])
-def test_k1_bit_exact_vs_plain(cuda, rng, n_a, n_b):
-    a, b = (t.to(cuda) for t in _planted(rng, 3, n_a, n_b, 50))
+def _full_range(rng, pairs, n_a, n_b, n_planted):
+    """int8 rows over the whole −128..127 (SIFT values 0..255 − 128), B's
+    first n_planted rows near A's; A rows 1 and 2 all −128 and all 127, B
+    rows 3 and 4 too, so the largest d2 (128·255²) and the extreme norms
+    occur."""
+    a = rng.integers(0, 256, (pairs, n_a, 128))
+    b = rng.integers(0, 256, (pairs, n_b, 128))
+    b[:, :n_planted] = np.clip(
+        a[:, :n_planted] + rng.integers(-4, 5, (pairs, n_planted, 128)), 0,
+        255)
+    a[:, 1], a[:, 2] = 0, 255
+    b[:, 3], b[:, 4] = 0, 255
+    return (torch.from_numpy((a - 128).astype(np.int8)),
+            torch.from_numpy((b - 128).astype(np.int8)))
+
+
+# (n_a, n_b, dup) of K1's card cases: 64-row and 192-row A (the
+# tensor-core body's 64-row blocks), n_b = 8192, a last B tile of 64 rows
+# (704), duplicate rows
+_K1_CASES = {"512x768": (512, 768, False), "64x8192": (64, 8192, False),
+             "192x704": (192, 704, False), "dup": (256, 704, True)}
+
+
+@pytest.mark.parametrize("case", list(_K1_CASES) + ["full_range"])
+def test_k1_bit_exact_vs_plain(cuda, rng, case):
+    if case == "full_range":
+        a, b = _full_range(rng, 3, 192, 704, 50)
+    else:
+        n_a, n_b, dup = _K1_CASES[case]
+        a, b = _planted(rng, 3, n_a, n_b, 50, dup)
+    a, b = a.to(cuda), b.to(cuda)
     before = knn.LAUNCHES["knn_packed_i8"]
     got = knn.knn_packed_raw(a, b)
     assert knn.LAUNCHES["knn_packed_i8"] == before + 1
@@ -115,11 +144,6 @@ def _gate(rng, cuda, pairs, n_a, n_b, on_radius=False):
             torch.from_numpy(pred.astype(np.float32)).to(cuda), 200.0 ** 2)
 
 
-# (n_a, n_b, dup) of the float modes' card cases: 64-row and 192-row A
-# (the bf16 body's 64-row blocks), n_b = 8192, a last B tile of 64 rows
-# (704, 8256), duplicate rows
-_K1_CASES = {"512x768": (512, 768, False), "64x8192": (64, 8192, False),
-             "192x704": (192, 704, False), "dup": (256, 704, True)}
 _K3_CASES = {"256x8448": (2, 256, 8448, False),
              "8256": (2, 8256, 8256, False), "dup": (2, 192, 8256, True)}
 
@@ -247,17 +271,25 @@ def test_bf16_tensor_cores_within_tolerance_on_random(cuda, rng, mode):
     _near(got[1], want[1], b, a, tol, packed, "columns")
 
 
-@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3"])
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a",
+                                  "dp4a_gated"])
 def test_ffma_yardstick_bit_exact_vs_plain(cuda, rng, mode):
-    """The FFMA bf16 body that K1 and K3 launched before the tensor cores,
-    kept as their yardstick, still equals the plain versions."""
+    """The FFMA bf16 and __dp4a int8 bodies that K1 and K3 launched
+    before the tensor cores, kept as their yardsticks, still equal the
+    plain versions."""
     a, b = (t.to(cuda) for t in _planted(rng, 2, 192, 704, 50))
-    args = _float_inputs(a, b, torch.bfloat16)
-    gate = _gate(rng, cuda, 2, 192, 704) if mode == "k1_gated" else ()
-    before = knn_stages.LAUNCHES["knn_ffma_bf16"]
-    got = knn_stages.ffma_bf16_raw(*args, *gate, wide=mode == "k3")
-    assert knn_stages.LAUNCHES["knn_ffma_bf16"] == before + 1
-    want = knn_stages.ffma_bf16_plain(*args, *gate, wide=mode == "k3")
+    gate = _gate(rng, cuda, 2, 192, 704) if mode.endswith("gated") else ()
+    if mode.startswith("dp4a"):
+        key, raw, plain, args, kw = ("knn_dp4a_i8", knn_stages.dp4a_i8_raw,
+                                     knn_stages.dp4a_i8_plain, (a, b), {})
+    else:
+        key, raw, plain = ("knn_ffma_bf16", knn_stages.ffma_bf16_raw,
+                           knn_stages.ffma_bf16_plain)
+        args, kw = _float_inputs(a, b, torch.bfloat16), {"wide": mode == "k3"}
+    before = knn_stages.LAUNCHES[key]
+    got = raw(*args, *gate, **kw)
+    assert knn_stages.LAUNCHES[key] == before + 1
+    want = plain(*args, *gate, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -435,7 +467,10 @@ def _probe_inputs(rng, cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
                          ids=["int8", "bf16"])
 def test_knn_probe_stages_bit_exact_vs_plain(cuda, rng, dtype):
-    """Every stage at K1's tile and the row minimum at every tile."""
+    """Every stage at K1's tile and the row minimum at every tile; the
+    tensor-core body's product-only stage against the row-sum stage's
+    plain version, on full tiles and on 64-row A blocks with a last B
+    tile of 64 rows."""
     args = _probe_inputs(rng, cuda, dtype)
     cases = [(s, knn_stages.K1_TILE) for s in range(len(knn_stages.STAGES))]
     cases += [(knn_stages.ROW_MIN, t) for t in knn_stages.TILES[dtype]]
@@ -448,6 +483,17 @@ def test_knn_probe_stages_bit_exact_vs_plain(cuda, rng, dtype):
         for g, w in zip(got, want):
             assert torch.equal(g, w), (stage, tile)
     assert knn_stages.LAUNCHES[key] == before + len(cases)
+    a, b = (t.to(cuda) for t in _full_range(rng, 2, 192, 704, 50))
+    if dtype == torch.bfloat16:
+        a, b = (x.float() + 128.0 for x in (a, b))
+    before = knn_stages.LAUNCHES["knn_tc_row_sum"]
+    for x, y in ((args[0], args[1]), (a.to(dtype), b.to(dtype))):
+        got = knn_stages.tc_row_sum_raw(x, y)
+        want = knn_stages.knn_probe_plain(x, y, stage=knn_stages.ROW_SUM)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), x.shape
+    assert knn_stages.LAUNCHES["knn_tc_row_sum"] == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
@@ -534,6 +580,10 @@ def test_probes_refuse_what_they_do_not_take(cuda):
         knn_stages.knn_probe_raw(a, a, stage=knn_stages.TOP1, tile=(32, 32))
     with pytest.raises(ValueError):               # CPU and CUDA mixed
         knn_stages.knn_probe_raw(a, a.cpu())
+    with pytest.raises(ValueError):               # bf16 into the int8 body
+        knn_stages.dp4a_i8_raw(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError):               # not a multiple of 64
+        knn_stages.tc_row_sum_raw(a[:, :100].contiguous(), a)
     with pytest.raises(ValueError):               # K not a multiple of 64
         x = torch.zeros((1, 128, 96), dtype=torch.bfloat16, device=cuda)
         mma.mm_rowsum_raw(x, x)

@@ -104,16 +104,21 @@ def _reference_rows(pl, fn, ai, bi, with_col):
     return np.stack(rows), (np.stack(cols) if with_col else None)
 
 
-@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3, "tc_row_sum"])
 def test_p4_stage_plain_equals_reference(stage):
     """knn_stage_cost's stages (TA = 64, TB = n) against the port's
-    stages row_sum, top1, top2 and full."""
+    stages row_sum, top1, top2 and full; stage 0 also against the
+    tensor-core body's product-only stage (its wrapper on the CPU)."""
+    tc = stage == "tc_row_sum"
+    stage = 0 if tc else stage
     ns, pl = _load("knn_stage_cost.py", N_PAD=N, DIM=128, BATCH=PAIRS,
                    TA=TA, TB=N)
     ai, bi, _, _ = _int8_pairs(stage)
     row, col = _reference_rows(pl, ns["make"](stage), ai, bi, stage == 3)
-    got_row, got_col = knn_stages.knn_probe_plain(
-        _t(ai), _t(bi), stage=knn_stages.P4_STAGES[stage])
+    got_row, got_col = (knn_stages.tc_row_sum_raw(_t(ai), _t(bi)) if tc
+                        else knn_stages.knn_probe_plain(
+                            _t(ai), _t(bi),
+                            stage=knn_stages.P4_STAGES[stage]))
     np.testing.assert_array_equal(got_row.numpy(), row)
     if stage == 3:
         np.testing.assert_array_equal(got_col.numpy(), col)
@@ -289,11 +294,12 @@ def test_full_stage_is_k1_and_stages_build_up():
     assert torch.equal(last, tail + (N - 64))
 
 
-@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3"])
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a_gated"])
 def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
     """The FFMA bf16 body's wrapper on a CPU tensor is K1's (gated) or
     K3's plain version, which test_torch_knn holds against the reference;
-    it refuses int8 and a gate in K3's mode."""
+    it refuses int8 and a gate in K3's mode. The __dp4a int8 body's
+    wrapper is K1's gated int8 plain version."""
     ai, bi, _, _ = _int8_pairs(61)
     a, b = (_t(x).float() + 128.0 for x in (ai, bi))
     args = (a.bfloat16(), b.bfloat16(), (a * a).sum(-1), (b * b).sum(-1))
@@ -302,8 +308,16 @@ def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
                              .astype(np.float32)),
             torch.from_numpy(rng.uniform(0, 100, (PAIRS, N, 2))
                              .astype(np.float32)), 900.0)
-    gate = gate if mode == "k1_gated" else ()
     before = dict(knn_stages.LAUNCHES)
+    if mode == "dp4a_gated":
+        got = knn_stages.dp4a_i8_raw(_t(ai), _t(bi), *gate)
+        want = tknn.knn_packed_plain(_t(ai), _t(bi), None, None, *gate)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        with pytest.raises(ValueError, match="int8"):
+            knn_stages.dp4a_i8_raw(*args[:2])
+        assert dict(knn_stages.LAUNCHES) == before
+        return
+    gate = gate if mode == "k1_gated" else ()
     got = knn_stages.ffma_bf16_raw(*args, *gate, wide=mode == "k3")
     want = (tknn.knn_wide_plain(*args) if mode == "k3"
             else tknn.knn_packed_plain(*args, *gate))
