@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (imageanalysis_tpu_torch).
 
     python3 chip_smoke.py              # needs one CUDA card
-    python3 chip_smoke.py --profile    # + torch.profiler reruns of phases 8
-                                       #   and 13
+    python3 chip_smoke.py --profile    # + torch.profiler reruns of phases 7
+                                       #   (one detect batch), 8 and 13
 
 Phases, one printed line (or a few) each; any failure raises and exits
 non-zero:
@@ -11,21 +11,24 @@ non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of imageanalysis_tpu_torch/csrc into build/;
 3. K2 (Gaussian blur) against blur_plain at every (H, W, taps) of octaves
-   0 and 1 of a batch of two 2176×1440 frames: bit-exact, median times;
+   0 and 1 of a batch of two 2176×1440 frames: bit-exact, median times,
+   in turns against its first body (probes.blur.loop_blur_raw, whose
+   output must equal K2's);
 4. K1 (packed 2-NN) against knn_packed_plain: int8 and bf16 at the
    store's shape (256 pairs × 4096) and at bench.py's (64 pairs × 6144);
-   f32 and gated (int8 and bf16, ~half the candidates gated out) at the
-   store's shape. Integer-valued descriptors throughout (int8 over the
-   full −128..127 at both shapes too), so all bit-exact. The int8 and
-   bf16 modes (the tensor-core body) are timed in turns against the
-   bodies they replaced (__dp4a, FFMA), and split into the body's
-   product (its product-only stage, held against its plain version) and
-   the key epilogue (the rest); each mode beside one library product of
-   its type (torch._int_mm, torch.bmm);
+   f32 and gated (int8, bf16 and f32, ~half the candidates gated out) at
+   the store's shape. Integer-valued descriptors throughout (int8 over
+   the full −128..127 at both shapes too), so all bit-exact. Every mode
+   runs the tensor-core body (f32 as three bf16 planes); each is timed in
+   turns against the body it replaced (__dp4a, FFMA), and split into the
+   body's product (its product-only stage, held against its plain
+   version) and the key epilogue (the rest); each mode beside one library
+   product of its type (torch._int_mm, torch.bmm);
 5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240: int8 store
-   rows cast to bf16 (bit-exact; in turns against the FFMA body) and
-   random descriptors (indices equal modulo ties; values within 2⁻²⁰ of
-   the norms in f32, TC_REL_TOL in bf16);
+   rows cast to bf16 (bit-exact; in turns against the FFMA body) and to
+   f32 (bit-exact, on the FFMA body, beside torch.bmm f32), and random
+   descriptors (indices equal modulo ties; values within 2⁻²⁰ of the
+   norms in f32, TC_REL_TOL in bf16);
 6. bench.py's match workload (64 pairs of 6144 int8 descriptors, 1500
    planted matches each) through the port's match_pair_batch: pairs/s;
 7. Step 3a's device path on a 64-frame 2176×1440 synthetic mission:
@@ -88,6 +91,7 @@ is {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -114,8 +118,9 @@ from imageanalysis_tpu_torch.match import (  # noqa: E402
 from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
 from imageanalysis_tpu_torch import probes  # noqa: E402
+from imageanalysis_tpu_torch.probes import device_ms  # noqa: E402
 from imageanalysis_tpu_torch.probes import (  # noqa: E402
-    fused, knn_stages, mma)
+    blur, fused, knn_stages, mma)
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
     image_name, make_ba_grid_graph, make_ba_mission_graph, make_mission,
     write_workspace)
@@ -136,9 +141,12 @@ WIDE_IMAGES, WIDE_N, WIDE_PLANTED = 64, 10240, 2000
 STORE_SHAPE = (256, 4096)   # pairs × rows of the store's K1 batches
 BENCH_SHAPE = (64, 6144)    # bench.py's pairs × rows
 # the H100 SXM's device-memory rate and dense peaks (NVIDIA's data sheet,
-# at the 700 W limit), for the bounds in the kernels line
+# at the 700 W limit), for the bounds in the kernels line. "f32" counts an
+# FMA as two operations; an unfused FMUL or FADD is one instruction of one
+# lane: 132 SMs × 128 lanes × the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
+        "f32 unfused": 132 * 128 * 1.98e9}
 GATE_FLOPS = 5              # dx, dy, dx², dy², the sum: per gated candidate
 # random bf16 on the tensor cores against the plain f32 product: both dots
 # within 128·2⁻²⁴ of Σ|a_k b_k| ≤ (|a|² + |b|²)/2, so d2 within this × (max
@@ -168,28 +176,6 @@ def with_bound(r, n_bytes, ops, library_ms=None):
     r["bound_ms"], r["bound_by"] = bound(n_bytes, ops)
     r["library_ms"] = library_ms
     return r
-
-
-def device_ms(fn, kernel=None, reps=20):
-    """Device time per call of fn from torch.profiler: the CUDA kernels
-    whose name contains kernel (all of fn's kernels when None), summed
-    and divided by reps. For kernels of a few microseconds, where CUDA
-    events around a call would time the wrapper's host work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (kernel is None or kernel in e.key))
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time for {kernel}")
-    return us / reps / 1e3
 
 
 def reset_launches():
@@ -242,13 +228,14 @@ def blur_configs():
 
 
 def check_blur():
-    """K2 at every blur of octaves 0-1; the yardstick is one cuDNN conv2d
+    """K2 at every blur of octaves 0-1, in turns (new, old, new, old)
+    against its first body; the library yardstick is one cuDNN conv2d
     (TF32 off, the package's setting) with the 2-D outer-product taps on
     the reflect-padded input."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    ms = plain_ms = lib_ms = bound_ms = 0.0
+    ms = plain_ms = lib_ms = bound_ms = loop_ms = dev_ms = loop_dev_ms = 0.0
     err = 0.0
     by = set()
     for H, W, sigma in blur_configs():
@@ -256,13 +243,29 @@ def check_blur():
         taps = sift._gauss_kernel(sigma)
         got = sift._blur(x, sigma)
         want = sift.blur_plain(x, taps)
+        old = blur.loop_blur_raw(x, taps)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"K2 differs from blur_plain at {H}x{W} "
                                  f"taps {len(taps)}: max |diff| {e}")
+        if not torch.equal(old, got):
+            raise AssertionError(f"K2's first body differs at {H}x{W} taps "
+                                 f"{len(taps)}")
         err = max(err, e)
-        t_k = time_ms(lambda: sift._blur(x, sigma), 7)
+        del got, want, old
+        # in turns (new, old, new, old), on two measures: the median of
+        # 7 calls by CUDA events (the kernels line's ms, as PR 1-6 timed
+        # K2) and the profiler's device time, since a call on octave 1 is
+        # tens of microseconds, near the wrapper's own host time, which
+        # events around one call also count
+        t_k, t_o, d_k, d_o = [], [], [], []
+        for t, d, fn, kernel in (
+                (t_k, d_k, lambda: sift._blur(x, sigma), "gauss_blur_kernel"),
+                (t_o, d_o, lambda: blur.loop_blur_raw(x, taps),
+                 "gauss_blur_loop_kernel")) * 2:
+            t.append(time_ms(fn, 7))
+            d.append(device_ms(fn, kernel))
         t_p = time_ms(lambda: sift.blur_plain(x, taps), 3)
         r = len(taps) // 2
         xp = F.pad(x[:, None], (r, r, r, r), mode="reflect")
@@ -270,22 +273,38 @@ def check_blur():
         t_l = time_ms(lambda: F.conv2d(xp, w2), 3)
         del xp
         px = 2 * H * W
-        # each pass: len(taps) products and len(taps) − 1 sums per pixel
-        b, kind = bound(2 * 4 * px, {"f32": 2 * (2 * len(taps) - 1) * px})
+        # each pass: len(taps) products and len(taps) − 1 sums per pixel,
+        # each rounded on its own (no FMA)
+        b, kind = bound(2 * 4 * px,
+                        {"f32 unfused": 2 * (2 * len(taps) - 1) * px})
         by.add(kind)
-        ms += t_k
+        ms += float(np.mean(t_k))
+        loop_ms += float(np.mean(t_o))
+        dev_ms += float(np.mean(d_k))
+        loop_dev_ms += float(np.mean(d_o))
         plain_ms += t_p
         lib_ms += t_l
         bound_ms += b
         log(f"[K2] B=2 {H}x{W} taps {len(taps):2d}: bit-exact; kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms, conv2d {t_l:.3f} ms, bound "
-            f"{b:.3f} ms")
-    bound_by = by.pop() if len(by) == 1 else "bytes"
-    log(f"[K2] octaves 0-1 total: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, conv2d {lib_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({'/'.join(sorted(by | {bound_by}))})")
+            f"{t_k[0]:.3f} / {t_k[1]:.3f} ms (device {d_k[0]:.3f} / "
+            f"{d_k[1]:.3f}), first body {t_o[0]:.3f} / {t_o[1]:.3f} ms "
+            f"(device {d_o[0]:.3f} / {d_o[1]:.3f}) in turns, plain "
+            f"{t_p:.3f} ms, conv2d {t_l:.3f} ms, bound {b:.3f} ms ({kind})")
+    bound_by = "operations" if by == {"operations"} else "bytes"
+    log(f"[K2] octaves 0-1 total by CUDA events: kernel {ms:.3f} ms, first "
+        f"body {loop_ms:.3f} ms ({loop_ms / ms:.2f}x), plain "
+        f"{plain_ms:.3f} ms, conv2d {lib_ms:.3f} ms, bound {bound_ms:.3f} "
+        f"ms ({'/'.join(sorted(by))}; {100 * bound_ms / ms:.1f}% of it)")
+    log(f"[K2] octaves 0-1 total by profiler device time: kernel "
+        f"{dev_ms:.3f} ms, first body {loop_dev_ms:.3f} ms "
+        f"({loop_dev_ms / dev_ms:.2f}x; bound {100 * bound_ms / dev_ms:.1f}% "
+        f"of the kernel)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "loop_ms": loop_ms, "device_ms": dev_ms,
+            "loop_device_ms": loop_dev_ms,
+            "timed_by": "CUDA events, median of 7 (device_ms, "
+                        "loop_device_ms: profiler device time)"}
 
 
 def planted_descriptors(gen, pairs, n, n_planted):
@@ -329,14 +348,16 @@ def float_inputs(a, b, dtype):
 def k1_bound(pairs, n, elem_bytes, peak, gated=False):
     """K1's bound at pairs × n × n: descriptors, the float modes' f32
     norms and the gate's positions read once, row_p (8 B) and col_p (4 B)
-    written once; the 2·n·n·128 products at the mode's peak, plus the
-    gate's f32 arithmetic."""
+    written once; the 2·n·n·128 products at the mode's peak (f32: the six
+    bf16 products of its three-plane split on the tensor cores, the work
+    the kernel does), plus the gate's f32 arithmetic."""
     n_bytes = pairs * n * (2 * 128 * elem_bytes + 12
                            + (8 if elem_bytes > 1 else 0)
                            + (16 if gated else 0))
-    ops = {peak: 2 * pairs * n * n * 128}
+    product = 2 * pairs * n * n * 128
+    ops = {"bf16": 6 * product} if peak == "f32" else {peak: product}
     if gated:
-        ops["f32"] = GATE_FLOPS * pairs * n * n
+        ops["f32"] = ops.get("f32", 0) + GATE_FLOPS * pairs * n * n
     return n_bytes, ops
 
 
@@ -364,7 +385,7 @@ def in_turns(new, old, reps=3):
 def vs_old_body(r, name, new, old, body):
     """The tensor-core body (new) against the body it replaced (old: the
     "ffma" or "dp4a" body) in turns; old's outputs must equal new's. Sets
-    r["ms"] and r[body + "_ms"]."""
+    r["ms"] and r[body + "_ms"] (the means of the two turns)."""
     if not all(torch.equal(g, w) for g, w in zip(old(), new())):
         raise AssertionError(f"{name}: the {body} body differs")
     t_new, t_old = in_turns(new, old)
@@ -378,14 +399,14 @@ def vs_old_body(r, name, new, old, body):
 def product_split(r, name, a, b, product_ms=None):
     """K1's time on the tensor-core body split into the body's product
     (its product-only stage: product + row sum, held bit-exact against
-    knn_probe_plain(stage=ROW_SUM) on the first pairs, or product_ms of
-    the same shape and type) and the key epilogue (the rest)."""
+    tc_row_sum_plain on the first pairs, or product_ms of the same shape
+    and type) and the key epilogue (the rest). f32's stage includes its
+    split pre-pass."""
     if product_ms is None:
         p = PROBE_PLAIN_PAIRS
         check_equal(f"{name} product-only stage",
                     [x[:p] for x in knn_stages.tc_row_sum_raw(a, b)],
-                    knn_stages.knn_probe_plain(a[:p], b[:p],
-                                               stage=knn_stages.ROW_SUM))
+                    knn_stages.tc_row_sum_plain(a[:p], b[:p]))
         product_ms = time_ms(lambda: knn_stages.tc_row_sum_raw(a, b), 3)
     r["tc_product_ms"] = product_ms
     epi = r["ms"] - product_ms
@@ -411,10 +432,10 @@ def full_range_descriptors(gen, pairs, n, n_planted):
 
 
 def check_knn():
-    """K1 in every mode; returns {mode: measurements}. The int8 and bf16
-    modes (the tensor-core body) are also timed in turns against the
-    bodies they replaced (knn_stages.dp4a_i8_raw, ffma_bf16_raw) and
-    split into the body's product and the key epilogue."""
+    """K1 in every mode; returns {mode: measurements}. Every mode (the
+    tensor-core body) is also timed in turns against the body it replaced
+    (knn_stages.dp4a_i8_raw, ffma_bf16_raw, ffma_f32_raw) and split into
+    the body's product and the key epilogue."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
@@ -473,15 +494,22 @@ def check_knn():
         args = float_inputs(a, b, dtype)
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, args)
-        if mode == "bf16":
-            vs_old_body(r, f"K1 bf16 {pairs} x {n}",
-                        lambda: knn.knn_packed_raw(*args),
-                        lambda: knn_stages.ffma_bf16_raw(*args), "ffma")
-            product_split(r, f"K1 bf16 {pairs} x {n}", args[0], args[1])
+        old = (knn_stages.ffma_bf16_raw if mode == "bf16"
+               else knn_stages.ffma_f32_raw)
+        vs_old_body(r, f"K1 {mode} {pairs} x {n}",
+                    lambda: knn.knn_packed_raw(*args),
+                    lambda: old(*args), "ffma")
+        product_split(r, f"K1 {mode} {pairs} x {n}", args[0], args[1])
+        # f32: also the bound of its product on the CUDA cores (FFMA)
+        if mode == "f32":
+            r["ffma_bound_ms"] = bound(0, {"f32": 2 * pairs * n * n
+                                           * 128})[0]
         with_bound(r, *k1_bound(pairs, n, eb, mode))
         log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact; kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+            + (f" (six bf16 products); its product on the CUDA cores "
+               f"{r['ffma_bound_ms']:.3f} ms" if mode == "f32" else ""))
         # the product alone, in the mode's type (f32: TF32 off, the
         # package's setting, so full f32 as the kernel)
         if torch.backends.cuda.matmul.allow_tf32:
@@ -506,7 +534,9 @@ def check_knn():
             ("gated_i8", (a, b, None, None), 1, "int8",
              knn_stages.dp4a_i8_raw, "dp4a", "i8_store"),
             ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16",
-             knn_stages.ffma_bf16_raw, "ffma", "bf16")):
+             knn_stages.ffma_bf16_raw, "ffma", "bf16"),
+            ("gated_f32", float_inputs(a, b, torch.float32), 4, "f32",
+             knn_stages.ffma_f32_raw, "ffma", "f32")):
         gargs = (*args, *gate)
         old_args = (a, b, *gate) if body == "dp4a" else gargs
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
@@ -525,7 +555,83 @@ def check_knn():
             f"({r['bound_by']}); product only (ungated, same shape) "
             f"{r['product_only_ms']} ms")
         out[mode] = r
+    split_planes(gen, pairs, n, gate, out)
     return out
+
+
+def split_planes(gen, pairs, n, gate, out):
+    """K1 f32 and gated f32 at the main path's shape (BM = 128) on rows
+    whose mid and lo planes are not zero: integer rows of 256..360 (an
+    odd value has mid = ±1; dots stay below 128 · 360² < 2²⁴, so exact)
+    bit-exact, and random non-integer f32 (0..400, a quarter of B planted
+    near A) within 2⁻²⁰ of the norms, indices equal modulo ties. Sets
+    out[mode]["random_max_abs_err"]."""
+    a = torch.randint(256, 361, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    b = torch.randint(256, 361, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    noise = torch.randint(-4, 5, (pairs, n // 4, 128), generator=gen,
+                          device="cuda", dtype=torch.int16)
+    b[:, :n // 4] = (a[:, :n // 4] + noise).clamp(256, 360)
+    a, b = a.float(), b.float()
+    args = (a, b, (a * a).sum(-1), (b * b).sum(-1))
+    del noise
+    for mode, g in (("f32", ()), ("gated_f32", gate)):
+        check_equal(f"K1 {mode} on 256..360", knn.knn_packed_raw(*args, *g),
+                    knn.knn_packed_plain(*args, *g))
+    a = torch.rand((pairs, n, 128), generator=gen, device="cuda") * 400
+    b = torch.rand((pairs, n, 128), generator=gen, device="cuda") * 400
+    b[:, :n // 4] = a[:, :n // 4] + torch.randn(
+        (pairs, n // 4, 128), generator=gen, device="cuda") * 2
+    args = (a, b, knn._sq_norms(a), knn._sq_norms(b))
+    tol = 2.0 ** -20 * float(args[2].max() + args[3].max())
+    for mode, g in (("f32", ()), ("gated_f32", gate)):
+        got = knn.knn_packed_raw(*args, *g)
+        want = knn.knn_packed_plain(*args, *g)
+        e_row, s_row, d_row = near_packed(f"K1 {mode} rows", got[0],
+                                          want[0], a, b, tol)
+        e_col, s_col, d_col = near_packed(f"K1 {mode} columns", got[1],
+                                          want[1], b, a, tol)
+        e, step = max((e_row, s_row), (e_col, s_col))
+        out[mode]["random_max_abs_err"] = e
+        log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact on 256..360 (mid "
+            f"planes set); random f32 0..400 within 2^-20 of the norms "
+            f"({tol:.6g}) plus one step of a key's 10 mantissa bits: "
+            f"largest difference {e:.6g}, where one key step is "
+            f"{step:.6g}; {d_row + d_col} indices differ, all on ties")
+        del got, want
+
+
+def near_packed(name, got, want, x, y, tol):
+    """Packed keys (rows (P, n, 2) or columns (P, m)) of K1 against its
+    plain version on rows x (the keys' side) and candidates y: decoded
+    values within tol plus one step of a key's 10 mantissa bits, indices
+    different only where their exact d2 tie within twice that, gated-out
+    keys equal. Raises otherwise; returns (the largest value difference,
+    one step of the plain version's key where it occurs, the number of
+    indices that differ)."""
+    torch.cuda.synchronize()
+    gv, gi = knn._decode_packed(got, got)[:2]
+    wv, wi = knn._decode_packed(want, want)[:2]
+    gated = (want & ~knn._IDX_MASK) == knn._GATED_BITS
+    if not torch.equal(got[gated], want[gated]):
+        raise AssertionError(f"{name}: gated-out keys differ")
+    lim = tol + 2.0 ** -10 * wv.abs()
+    err = (gv - wv).abs().masked_fill(gated, 0.0)
+    if bool((err > lim).any()):
+        raise AssertionError(f"{name}: values differ by {float(err.max())}")
+    bad = tuple(torch.nonzero((gi != wi) & ~gated).t())
+    if len(bad[0]):
+        xi = x[bad[0], bad[1]].double()
+
+        def d2(j):
+            return ((xi - y[bad[0], j[bad].long()].double()) ** 2).sum(-1)
+
+        if bool(((d2(gi) - d2(wi)).abs() > 2 * lim[bad]).any()):
+            raise AssertionError(f"{name}: indices differ beyond ties")
+    w = float(wv.flatten()[int(err.argmax())])
+    step = 2.0 ** (math.floor(math.log2(w)) - 10) if w > 0 else 0.0
+    return float(err.max()), step, len(bad[0])
 
 
 def ties_only(q, cand, gi, wi, tol):
@@ -562,6 +668,21 @@ def check_wide():
     r["product_only_ms"] = product_only(
         "K3 bf16 torch.bmm 64 x 10240 x 10240", lambda: torch.bmm(args[0], bt))
     del args, bt
+    # f32 (the FFMA body, still K3's f32 mode): the same rows as f32
+    fargs = (a.float(), b.float(), knn._sq_norms(a), knn._sq_norms(b))
+    f = compare_keys("K3 f32", knn.knn_wide_raw, knn.knn_wide_plain, fargs,
+                     reps=3, plain_reps=1)
+    f_bound, f_by = bound(pairs * n * (2 * 128 * 4 + 8 + 24),
+                          {"f32": 2 * pairs * n * n * 128})
+    bt = fargs[1].transpose(1, 2)
+    f_lib = product_only("K3 f32 torch.bmm 64 x 10240 x 10240",
+                         lambda: torch.bmm(fargs[0], bt))
+    del fargs, bt
+    r.update(f32_ms=f["ms"], f32_plain_ms=f["plain_ms"], f32_bound_ms=f_bound,
+             f32_product_only_ms=f_lib)
+    log(f"[K3] f32 (int8 cast) {pairs} pairs x {n}: bit-exact; kernel "
+        f"{f['ms']:.3f} ms (FFMA body), plain {f['plain_ms']:.3f} ms, "
+        f"bound {f_bound:.3f} ms ({f_by}), torch.bmm f32 {f_lib} ms")
     # random floats: the kernel's summation order differs from cuBLAS's;
     # f32 on FFMA within 2^-20 of the norms, bf16 on the tensor cores
     # (other order and internal rounding of each 16-product step) within
@@ -738,6 +859,32 @@ def profile_summary(prof, wall):
         t = e.self_device_time_total / 1e6
         log(f"[profile]   {1e3 * t:9.3f} ms {100 * t / wall:5.1f}% of wall "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+def profile_detect(m):
+    """One detect batch (phase 7's first DETECT_BATCH frames) under
+    torch.profiler, after a warm batch: device busy share, kernels by
+    time and K2's share of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    frames = m.frames[:DETECT_BATCH]
+    detect(frames)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        detect(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"[detect] profiled batch of {len(frames)} frames:")
+    profile_summary(prof, wall)
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs)
+    k2 = [e for e in evs if "gauss_blur_kernel" in e.key]
+    t = sum(e.self_device_time_total for e in k2)
+    log(f"[detect] K2 {t / 1e3:.3f} ms in {sum(e.count for e in k2)} "
+        f"launches, {100 * t / busy:.1f}% of the device time")
 
 
 def run_smart_slice(m, dets, root, profile=False):
@@ -1668,6 +1815,8 @@ def main():
     k4 = check_epilogue()
     bench_pps = bench_workload()
     slice_launches, m, dets = run_slice()
+    if profile:
+        profile_detect(m)
     with tempfile.TemporaryDirectory() as root:
         smart_launches, smart_result, proj, state = run_smart_slice(
             m, dets, root, profile)
@@ -1697,15 +1846,22 @@ def main():
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     timed_by=r.get("timed_by", "CUDA events, median"),
                     **{k: r[k] for k in ("product_only_ms", "ffma_ms",
-                                         "dp4a_ms", "tc_product_ms")
+                                         "dp4a_ms", "tc_product_ms",
+                                         "ffma_bound_ms", "loop_ms",
+                                         "device_ms", "loop_device_ms",
+                                         "random_max_abs_err", "f32_ms",
+                                         "f32_plain_ms", "f32_bound_ms",
+                                         "f32_product_only_ms")
                        if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [
         entry("knn_packed_i8", "knn_packed.cu", k1_src,
               slice_launches["knn_packed_i8"], k1["i8_store"]),
-        entry("knn_packed_gated", "knn_packed.cu", k1_src,
-              smart_launches["knn_packed_gated"], k1["gated_i8"]),
+        dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
+                   smart_launches["knn_packed_gated"], k1["gated_i8"]),
+             **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
+                for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")}),
         entry("knn_packed_bf16", "knn_packed.cu", k1_src,
               rep_launches["knn_packed_bf16"], k1["bf16"]),
         entry("knn_packed_f32", "knn_packed.cu", k1_src,

@@ -42,14 +42,17 @@ _SIGNATURES = {
     # n_b, stream
     "knn_packed_i8_gated": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
                             _P],
-    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
-    # n_b, bf16, stream
-    "knn_packed_float": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
-                         _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, split_a,
+    # split_b (f32's bf16 planes), n_pairs, n_a, n_b, bf16, stream
+    "knn_packed_float": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I,
+                         _I, _I, _P],
+    # x, out, rows, stream
+    "split_bf16x3": [_P, _P, _I, _P],
     # a, b, na2, nb2, row_k, col_k, n_pairs, n_a, n_b, bf16, stream
     "knn_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # in, out, taps (host float*), n_img, H, W, radius, stream
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gauss_blur_loop_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # row_p, col_p, uv_b, ratio2, best_j, ok, pb, n_pairs, n_a, n_b, stream
     "match_epilogue": [_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     # probes (probes/): a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
@@ -59,10 +62,14 @@ _SIGNATURES = {
     # n_pairs, n_a, n_b, wide, stream
     "knn_ffma_bf16": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                       _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
+    # n_b, stream
+    "knn_ffma_f32": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a, n_b, stream
     "knn_dp4a_i8": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
-    # a, b, row_p, n_pairs, n_a, n_b, bf16, stream
-    "knn_tc_row_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, split_a, split_b, row_p, n_pairs, n_a, n_b, dtype (0 int8,
+    # 1 bf16, 2 f32), stream
+    "knn_tc_row_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
     # epi_threads, do_main, do_epi, do_pb, stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

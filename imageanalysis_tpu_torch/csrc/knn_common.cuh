@@ -2,13 +2,13 @@
 // knn_wide.cu, the probes in knn_probe.cu and knn_fused_probe.cu): tile
 // constants, the spatial gate, the keys, and three bodies, each compiled
 // in its own modes:
-//   knn_tc_kernel      bf16 and int8 descriptors (K1 bf16, gated bf16,
-//                      int8 and gated int8; K3 bf16), mma.sync on the
-//                      tensor cores (knn_tc.cuh, included at the end of
-//                      this file)
-//   knn_float_kernel   f32 descriptors (K1 f32, K3 f32), f32 FMAs; also
-//                      bf16 for the probes of K1's anatomy and as the
-//                      tensor-core body's bf16 yardstick (knn_probe.cu)
+//   knn_tc_kernel      every mode of K1 (bf16, int8 and f32 as three bf16
+//                      planes, each plain and gated) and K3 bf16, mma.sync
+//                      on the tensor cores (knn_tc.cuh, included at the
+//                      end of this file)
+//   knn_float_kernel   f32 descriptors (K3 f32), f32 FMAs; also the
+//                      tensor-core body's f32 and bf16 yardsticks and bf16
+//                      for the probes of K1's anatomy (knn_probe.cu)
 //   knn_i8_block       int8 descriptors, __dp4a: the probes' int8 anatomy
 //                      (knn_probe.cu, knn_fused_probe.cu) and the
 //                      tensor-core body's int8 yardstick; K1 no longer
@@ -18,14 +18,15 @@
 // 9.7 G multiply-adds over 1.6 MB; the card's int8 and bf16 rates are only
 // reached on the tensor cores, which the __dp4a body does not use (100
 // TOP/s). The f32 body's bound is the CUDA cores' 67 TFLOP/s of f32 FMA;
-// tensor cores would need a 3 x bf16 split, which is not bit-exact with
-// the plain version. The tensor-core body keeps the same key epilogue.
+// the tensor-core body reaches the tensor cores for f32 by a three-part
+// bf16 split, exact on integer-valued descriptors. The tensor-core body
+// keeps the same key epilogue.
 //
 // The __dp4a and f32 bodies are templates over a STAGE and a block tile
 // (TA A rows per block, B streamed in tiles of TB rows; 256 threads in a
 // 16 x 16 grid, so each thread holds a TA/16 x TB/16 register tile of
-// dots). Their full stage at TA = TB = 64 is K1's result bit for bit (K1
-// f32 and K3 f32 launch it); the probes of K1's anatomy compile the
+// dots). Their full stage at TA = TB = 64 is K1's result bit for bit (K3
+// f32 launches it); the probes of K1's anatomy compile the
 // earlier stages and other tiles from the same source, so each dtype's
 // stages are one body's:
 //   kRowSum    product + row sum (unsigned, wrapping: the TPU probe's int32
@@ -45,9 +46,9 @@
 // order of the sums. The epilogue is written with __fadd_rn/__fmul_rn so
 // nvcc cannot contract it into FMAs: the plain PyTorch version rounds each
 // operation on its own. Its bf16 instantiations (operands widened to f32
-// in shared memory) are the probes' and the timing yardstick of the
-// tensor-core body (knn_ffma_bf16 in knn_probe.cu); K1 and K3 no longer
-// launch them.
+// in shared memory) are the probes' and, with its f32 K1 modes, the timing
+// yardsticks of the tensor-core body (knn_ffma_bf16 and knn_ffma_f32 in
+// knn_probe.cu); of K1 and K3, only K3's f32 mode still launches it.
 
 #pragma once
 

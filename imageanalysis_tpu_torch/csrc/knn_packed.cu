@@ -23,9 +23,9 @@
 // What bounds it on the H100: the product. A 4096 x 4096 pair is 2.1 G
 // multiply-adds over 1-4 MB of descriptors, so memory is no limit; the
 // limit is the rate of the product and of the per-element key epilogue
-// (convert, mask, gate, or, two compares). Each mode has its body
-// (knn_common.cuh):
-// - bf16 and int8, plain and gated: knn_tc.cuh's tensor-core body.
+// (convert, mask, gate, or, two compares). Every mode, plain and gated,
+// runs knn_tc.cuh's tensor-core body (through knn_common.cuh):
+// - bf16 and int8:
 //   mma.sync (bf16 m16n8k16 with f32 sums, s8 m16n8k32 with exact s32
 //   sums) on the operands as they are, a 128-row A tile resident in shared
 //   memory, B tiles of 128 rows through a two-stage cp.async ring, the key
@@ -35,18 +35,57 @@
 //   pre-pass (row_norms_i8_kernel) into f32 scratch of the caller's (exact:
 //   at most 128 x 128^2 = 2^21), as the float modes take theirs from the
 //   caller.
-// - f32: the FFMA body, at most the CUDA cores' 67 TFLOP/s; exact f32
-//   dots, as the plain version's.
+// - f32 takes the same body on three bf16 planes of each operand (hi, mid,
+//   lo: the TPU kernel's own Precision.HIGHEST product is a multi-pass
+//   bf16 product too), six plane products a k-step: hi·hi into one f32
+//   accumulator, the five smaller products into a second, the two added
+//   once a B tile (why: the head of knn_tc.cuh). The planes come from a
+//   split pre-pass (split_bf16x3_kernel) into bf16 scratch of the
+//   caller's. Integer-valued descriptors give exact dots, so keys
+//   bit-exact with the plain version; other f32 within 2^-20 of the norms.
+//   Before it, the FFMA body (now the yardstick knn_ffma_f32 in
+//   knn_probe.cu) ran at 39% of the CUDA cores' 67 TFLOP/s.
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and
 // leaves the block by one global atomicMin per column.
+
+#include <cuda_bf16.h>
 
 #include "knn_common.cuh"
 
 namespace {
 
 using namespace knn;
+
+// f32 rows of 128 values → their three bf16 planes (hi, mid, lo; see the
+// head of knn_tc.cuh), row by row: out (rows, 3, 128) bf16 bits. One thread
+// a float4, so a warp reads one row's 512 bytes and writes each plane's
+// 256. Each difference is exact in f32 (__fsub_rn of a value and its own
+// rounding), each part rounded to nearest even as torch's .bfloat16().
+__global__ void __launch_bounds__(256)
+split_bf16x3_kernel(const float4* __restrict__ x, uint2* __restrict__ out,
+                    long long n4) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n4) return;
+  const float4 v = x[t];
+  const float f[4] = {v.x, v.y, v.z, v.w};
+  unsigned h[3][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(f[i]);
+    const float r1 = __fsub_rn(f[i], __bfloat162float(hi));
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+    const float r2 = __fsub_rn(r1, __bfloat162float(mid));
+    h[0][i] = __bfloat16_as_ushort(hi);
+    h[1][i] = __bfloat16_as_ushort(mid);
+    h[2][i] = __bfloat16_as_ushort(__float2bfloat16_rn(r2));
+  }
+  uint2* o = out + (t >> 5) * 96 + (t & 31);    // 32 float4 a row
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    o[32 * p] = make_uint2(h[p][0] | h[p][1] << 16, h[p][2] | h[p][3] << 16);
+}
 
 // Squared norms of int8 rows of 128 values, summed in int32 and written
 // as f32 (exact): 8 threads a row, 16 bytes each, so a warp reads 4 whole
@@ -94,11 +133,13 @@ int launch_i8(const void* a, const void* b, void* na2, void* nb2,
                                  n_a, n_b, s);
 }
 
-// bf16 descriptors: the tensor-core body; f32: the FFMA body
+// float descriptors: the tensor-core body, f32 after the split pre-pass
+// into split_a / split_b
 int launch_float(const void* a, const void* b, const void* na2,
                  const void* nb2, const void* uv_a, const void* pred_b,
-                 float radius2, void* row_p, void* col_p, int n_pairs,
-                 int n_a, int n_b, bool bf16, void* stream) {
+                 float radius2, void* row_p, void* col_p, void* split_a,
+                 void* split_b, int n_pairs, int n_a, int n_b, bool bf16,
+                 void* stream) {
   if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -110,21 +151,31 @@ int launch_float(const void* a, const void* b, const void* na2,
     return launch_tc<uint16_t, kPacked>(a, b, na2, nb2, nullptr, nullptr,
                                         0.f, row_p, col_p, nullptr, nullptr,
                                         n_pairs, n_a, n_b, s);
-  dim3 grid(n_a / kTA, n_pairs);
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
+  if (e != 0) return e;
   if (uv_a)
-    knn_float_kernel<float, kPackedGated><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)na2,
-        (const float*)nb2, (const float*)uv_a, (const float*)pred_b, radius2,
-        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
-  else
-    knn_float_kernel<float, kPacked><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)na2,
-        (const float*)nb2, nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p,
-        nullptr, nullptr, n_a, n_b);
-  return (int)cudaGetLastError();
+    return launch_tc<Bf16x3, kPackedGated>(split_a, split_b, na2, nb2, uv_a,
+                                           pred_b, radius2, row_p, col_p,
+                                           nullptr, nullptr, n_pairs, n_a,
+                                           n_b, s);
+  return launch_tc<Bf16x3, kPacked>(split_a, split_b, na2, nb2, nullptr,
+                                    nullptr, 0.f, row_p, col_p, nullptr,
+                                    nullptr, n_pairs, n_a, n_b, s);
 }
 
 }  // namespace
+
+// declared in knn_tc.cuh, for K1 f32 here and the product-only stage in
+// knn_probe.cu
+int knn::launch_split(const void* x, void* out, long long rows,
+                      cudaStream_t stream) {
+  const long long n4 = rows * (kDim / 4);
+  split_bf16x3_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      (const float4*)x, (uint2*)out, n4);
+  return (int)cudaGetLastError();
+}
+
 
 // Inputs (n_pairs, n_a, 128) and (n_pairs, n_b, 128), contiguous; row_p
 // (n_pairs, n_a, 2) int32; col_p (n_pairs, n_b) int32 pre-filled with
@@ -151,13 +202,26 @@ extern "C" int knn_packed_i8_gated(const void* a, const void* b, void* na2,
                                  row_p, col_p, n_pairs, n_a, n_b, stream);
 }
 
-// bf16 (bf16 != 0) or f32 descriptors with their f32 squared norms na2
-// (n_pairs, n_a) and nb2 (n_pairs, n_b); uv_a == NULL: no gate
+// bf16 (bf16 != 0) or f32 descriptors, 16-byte aligned, with their f32
+// squared norms na2 (n_pairs, n_a) and nb2 (n_pairs, n_b); uv_a == NULL:
+// no gate. f32: split_a (n_pairs, n_a, 3, 128) and split_b (n_pairs, n_b,
+// 3, 128) bf16 scratch, which the first two launches fill with the
+// operands' planes (unused for bf16)
 extern "C" int knn_packed_float(const void* a, const void* b, const void* na2,
                                 const void* nb2, const void* uv_a,
                                 const void* pred_b, float radius2,
-                                void* row_p, void* col_p, int n_pairs,
-                                int n_a, int n_b, int bf16, void* stream) {
+                                void* row_p, void* col_p, void* split_a,
+                                void* split_b, int n_pairs, int n_a, int n_b,
+                                int bf16, void* stream) {
   return launch_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p,
-                      n_pairs, n_a, n_b, bf16 != 0, stream);
+                      split_a, split_b, n_pairs, n_a, n_b, bf16 != 0, stream);
+}
+
+// The split pre-pass alone: x (rows, 128) f32, 16-byte aligned → out
+// (rows, 3, 128) bf16 bits, hi + mid + lo == x. Returns the cudaError_t
+// of the launch.
+extern "C" int split_bf16x3(const void* x, void* out, int rows,
+                            void* stream) {
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  return launch_split(x, out, rows, (cudaStream_t)stream);
 }

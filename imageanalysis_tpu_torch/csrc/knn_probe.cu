@@ -17,10 +17,11 @@
 // ones included, stay on the bodies K1 ran before it, so each dtype's
 // anatomy is one body's and its stage differences stay meaningful. Their
 // full stages equal K1's result bit for bit. knn_dp4a_i8 (K1's int8
-// modes, plain and gated) and knn_ffma_bf16 (K1's and K3's bf16 modes:
-// plain, gated, wide) launch those bodies as the tensor-core body's
-// yardsticks, and knn_tc_row_sum the tensor-core body's own product-only
-// stage (product + wrapping row sum, kRowSum's result) in either type.
+// modes, plain and gated), knn_ffma_bf16 (K1's and K3's bf16 modes:
+// plain, gated, wide) and knn_ffma_f32 (K1's f32 modes, plain and gated)
+// launch those bodies as the tensor-core body's yardsticks, and
+// knn_tc_row_sum the tensor-core body's own product-only stage (product +
+// wrapping row sum, kRowSum's result) in any of its types.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
@@ -186,22 +187,58 @@ extern "C" int knn_dp4a_i8(const void* a, const void* b, const void* uv_a,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core body's product-only stage (kProductRowSum): row_p
-// (n_pairs, n_a, 2) int32 gets each A row's wrapping sum of its dots with
-// all n_b B rows in both slots. a, b int8 (bf16 == 0) or integer-valued
-// bf16 bits (bf16 != 0), 16-byte aligned; n_a and n_b multiples of 64, at
-// most 8192. Returns the cudaError_t of the launch.
-extern "C" int knn_tc_row_sum(const void* a, const void* b, void* row_p,
-                              int n_pairs, int n_a, int n_b, int bf16,
-                              void* stream) {
+// The FFMA float body (knn_float_kernel) on f32 descriptors in K1's modes
+// (packed keys into row_p / col_p, gated when uv_a != NULL): what K1
+// launched for f32 before the tensor-core body. Arguments as
+// knn_packed_float without the split scratch. Returns the cudaError_t of
+// the launch.
+extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
+                            const void* nb2, const void* uv_a,
+                            const void* pred_b, float radius2, void* row_p,
+                            void* col_p, int n_pairs, int n_a, int n_b,
+                            void* stream) {
   if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
     return (int)cudaErrorInvalidValue;
+  dim3 grid(n_a / kTA, n_pairs);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
+  if (uv_a)
+    knn_float_kernel<float, kPackedGated><<<grid, kThreads, 0, s>>>(
+        (const float*)a, (const float*)b, (const float*)na2,
+        (const float*)nb2, (const float*)uv_a, (const float*)pred_b, radius2,
+        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
+  else
+    knn_float_kernel<float, kPacked><<<grid, kThreads, 0, s>>>(
+        (const float*)a, (const float*)b, (const float*)na2,
+        (const float*)nb2, nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p,
+        nullptr, nullptr, n_a, n_b);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core body's product-only stage (kProductRowSum): row_p
+// (n_pairs, n_a, 2) int32 gets each A row's wrapping sum of its dots with
+// all n_b B rows in both slots. a, b int8 (dtype 0), integer-valued bf16
+// bits (1) or integer-valued f32 (2, split first into split_a (n_pairs,
+// n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch, unused
+// otherwise), 16-byte aligned; n_a and n_b multiples of 64, at most 8192.
+// Returns the cudaError_t of the launch.
+extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
+                              void* split_b, void* row_p, int n_pairs,
+                              int n_a, int n_b, int dtype, void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1) || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
     return launch_tc<uint16_t, kProductRowSum>(
         a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
         nullptr, nullptr, n_pairs, n_a, n_b, s);
-  return launch_tc<int8_t, kProductRowSum>(
-      a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr, nullptr,
-      nullptr, n_pairs, n_a, n_b, s);
+  if (dtype == 0)
+    return launch_tc<int8_t, kProductRowSum>(
+        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
+        nullptr, nullptr, n_pairs, n_a, n_b, s);
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
+  if (e != 0) return e;
+  return launch_tc<Bf16x3, kProductRowSum>(
+      split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
+      nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
 }

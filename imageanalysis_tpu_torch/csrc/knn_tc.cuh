@@ -1,49 +1,77 @@
 // K1's and K3's body on the tensor cores, for Hopper (sm_90a), over the
-// operand type T: bf16 bits (uint16_t) or int8 (int8_t). Included at the
-// end of knn_common.cuh, whose constants, gate and keys it uses; K1
-// (knn_packed.cu) launches it in its bf16 and int8 modes, plain (kPacked)
-// and gated (kPackedGated), K3 (knn_wide.cu) in its bf16 mode (kWide).
-// f32 inputs stay on knn_common.cuh's FFMA body. A fourth mode,
-// kProductRowSum, is the body's product with a wrapping row sum in place
-// of the key epilogue: the probes' product-only stage (knn_probe.cu).
+// operand type T: bf16 bits (uint16_t), int8 (int8_t) or f32 split into
+// three bf16 planes (Bf16x3). Included at the end of knn_common.cuh, whose
+// constants, gate and keys it uses; K1 (knn_packed.cu) launches it in all
+// of its modes, plain (kPacked) and gated (kPackedGated), K3 (knn_wide.cu)
+// in its bf16 mode (kWide). K3's f32 mode stays on knn_common.cuh's FFMA
+// body. A fourth mode, kProductRowSum, is the body's product with a
+// wrapping row sum in place of the key epilogue: the probes' product-only
+// stage (knn_probe.cu).
 //
-// Replaces, for bf16 and int8 descriptors:
-//   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, bf16 and
-//                                                         int8 dot)
+// Replaces, for bf16, int8 and f32 descriptors:
+//   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, bf16 dot)
 //
 // What bounds it on the H100: the product, 2 n_a n_b 128 operations a
-// pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8),
-// and the per-element key epilogue (d2, pack or 64-bit key, gate, row
-// top-2, column minimum) on the CUDA cores, which costs about as many
-// issue slots as the mma.sync instructions. The bodies it replaced spent
-// 93% (FFMA on bf16, 26.8 TFLOP/s) and 86% (__dp4a on int8, 100 TOP/s)
-// of their time in the product.
+// pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8;
+// f32 takes six bf16 products), and the per-element key epilogue (d2,
+// pack or 64-bit key, gate, row top-2, column minimum) on the CUDA cores,
+// which costs about as many issue slots as the mma.sync instructions. The
+// bodies it replaced spent 93% (FFMA on bf16, 26.8 TFLOP/s) and 86%
+// (__dp4a on int8, 100 TOP/s) of their time in the product; the FFMA f32
+// body ran at 39% of the CUDA cores' 67 TFLOP/s.
 //
 // What the type decides:
-//                  bf16                       int8
-//   row pitch      272 B (17 x 16 B)          144 B (9 x 16 B)
-//   mma.sync       m16n8k16, 8 k-steps        m16n8k32, 4 k-steps
-//   accumulator    f32                        s32 (exact)
-//   norms          f32, from the caller       f32, K1's pre-pass (exact)
-//   d2             (na + nb) - 2 acc in f32   (na - 2 acc) + nb in f32, acc
-//                  with __fadd_rn/__fmul_rn,  made f32 by the 1.5 x 2^23
-//                  clamped at 0               trick: every step an integer
-//                                             below 2^24, so exact
-// Both are 32-byte k-steps with the same fragment bytes (mma_sync.cuh),
-// so one ldmatrix.x4 addressing, in bytes, feeds both.
+//                  bf16            int8              f32 (Bf16x3)
+//   row pitch      272 B           144 B             784 B (3 planes of
+//                  (17 x 16 B)     (9 x 16 B)        256 B, 49 x 16 B)
+//   B tile         128 rows        128 rows          64 rows
+//   mma.sync       m16n8k16,       m16n8k32,         m16n8k16, 8 k-steps
+//                  8 k-steps       4 k-steps         x 6 plane products
+//   accumulator    f32             s32 (exact)       f32
+//   norms          f32, caller's   f32, K1's         f32, caller's
+//                                  pre-pass (exact)
+//   d2             (na + nb) - 2 acc in f32 with     as bf16
+//                  __fadd_rn/__fmul_rn, clamped at
+//                  0 (int8: (na - 2 acc) + nb, acc
+//                  made f32 by the 1.5 x 2^23 trick,
+//                  every step an integer below 2^24)
+// All are 32-byte k-steps with the same fragment bytes (mma_sync.cuh), so
+// one ldmatrix.x4 addressing, in bytes, feeds them all.
+//
+// f32 on the tensor cores. The TPU kernel's f32 dot runs at
+// Precision.HIGHEST, a multi-pass bf16 product on the MXU; this is its
+// counterpart. A pre-pass (knn_packed.cu's split_bf16x3_kernel) writes each f32 value x as
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+// difference exact in f32, so x == hi + mid + lo for every finite f32 of
+// descriptor range; a row becomes its three planes side by side. The
+// product takes the six plane products of order >= 2^-16 and drops mid.lo,
+// lo.mid and lo.lo (order 2^-24 of |a||b|). hi.hi goes into one f32
+// accumulator, the five smaller ones (lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid) into a second, added to the first once a B tile: mma.sync's f32
+// sums may truncate each step to the larger addend's precision (they are
+// not specified to round to nearest), and in one accumulator every step of
+// the small products would cost up to an ulp of the whole dot, 48 steps a
+// dot where hi.hi alone takes 8; in their own accumulator they cost 2^-8
+// of that. Integer-valued descriptors below 2^8 have mid = lo = 0 and
+// every partial sum is an integer below 2^24, so the dots, and the keys,
+// are exact.
+// Three planes at BM = 128 with 128-row B tiles would not fit the 227 KB of
+// a block; 64-row B tiles do (~199 KB at BM = 128, ~150 KB at 64: one block
+// an SM), and keep as many mma.sync per ldmatrix as the bf16 body.
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
 //   multiple of 64), resident in shared memory for the whole sweep over
-//   B; B streams through a ring of kStages tiles of kBN = 128 rows, each
+//   B; B streams through a ring of kStages tiles of kBN rows, each
 //   filled by cp.async.cg (16 B a thread) while the tile before it is
 //   multiplied: the copy of tile t + 1 overlaps the mma.sync of tile t.
 //   Rows are padded to an odd number of 16-byte units, so ldmatrix.x4
 //   reads them without bank conflicts. ~107 KB (bf16) or ~60 KB (int8) of
 //   dynamic shared memory: two blocks share an SM (__launch_bounds__(256,
 //   2), at most 128 registers), so one block's epilogue overlaps the
-//   other's products.
+//   other's products; f32 (~199 KB) holds one block an SM, whose two
+//   accumulators may take up to 255 registers.
 // - 8 warps, each a 32 x (kBN / WN) tile of mma.sync accumulators
 //   (mma_sync.cuh), no widening of the operands.
 // - The epilogue runs on the accumulator fragment: a thread holds rows g
@@ -58,17 +86,17 @@
 //   builds its 64-bit keys only for the shuffles: a thread meets its
 //   columns and rows in increasing index order, so a strict < on the
 //   value already keeps the lowest index among equal values.
-// - bf16: d2, the packing and the gate are knn_common.cuh's float body's,
-//   operation for operation (__fadd_rn/__fmul_rn: no FMA contraction).
-//   int8: the __dp4a body's integer d2, as the plain version computes it.
+// - bf16 and f32: d2, the packing and the gate are knn_common.cuh's
+//   float body's, operation for operation (__fadd_rn/__fmul_rn: no FMA
+//   contraction). int8: the __dp4a body's integer d2, as the plain version computes it.
 //   Every key is unique (its index is in it), so for integer-valued
 //   descriptors (bf16 products of integers <= 255 are exact and 128 x
 //   255^2 < 2^24 keeps every f32 partial sum exact; int8 sums are exact
 //   in int32) the result equals the plain versions bit for bit, whatever
 //   the order of the reductions.
-// - A last B tile of 64 rows (n_b an odd multiple of 64) skips the n8
-//   tiles beyond n_b in its epilogue, warp by warp; their products read
-//   stale shared memory and are never used.
+// - A last B tile of 64 rows (n_b an odd multiple of 64, 128-row tiles)
+//   skips the n8 tiles beyond n_b in its epilogue, warp by warp; their
+//   products read stale shared memory and are never used.
 
 #pragma once
 
@@ -77,27 +105,44 @@
 #include "mma_sync.cuh"
 
 namespace knn {
+
+// f32 descriptors as three bf16 planes (hi, mid, lo) of 128 values a row
+struct Bf16x3 {};
+
 namespace tc {
 
-constexpr int kBN = 128;            // B rows per streamed tile
 constexpr int kStages = 2;          // B tiles in the ring
 
-// What the operand type decides: the accumulator type and the bytes of a
-// row
+// What the operand type decides: the accumulator type, the bytes of a row
+// (its planes side by side) and the B rows of a streamed tile
 template <typename T>
 struct Op;
 template <>
 struct Op<uint16_t> {               // bf16 bits
   using Acc = float;
+  static constexpr int kPlanes = 1;
   static constexpr int kRowBytes = kDim * 2;
+  static constexpr int kBN = 128;
+  static constexpr int kBlocks = 2;   // blocks an SM (launch bounds)
 };
 template <>
 struct Op<int8_t> {
   using Acc = int;
+  static constexpr int kPlanes = 1;
   static constexpr int kRowBytes = kDim;
+  static constexpr int kBN = 128;
+  static constexpr int kBlocks = 2;
 };
-// a padded shared row: 272 B (bf16) or 144 B (int8), an odd number of
-// 16-byte units
+template <>
+struct Op<Bf16x3> {
+  using Acc = float;
+  static constexpr int kPlanes = 3;
+  static constexpr int kRowBytes = 3 * kDim * 2;
+  static constexpr int kBN = 64;
+  static constexpr int kBlocks = 1;   // ~199 KB of shared memory a block
+};
+// a padded shared row: 272 B (bf16), 144 B (int8) or 784 B (f32), an odd
+// number of 16-byte units
 template <typename T>
 constexpr int kPitch = Op<T>::kRowBytes + 16;
 template <typename T>
@@ -105,6 +150,7 @@ constexpr int kChunks = Op<T>::kRowBytes / 16;   // 16-byte chunks per row
 
 template <typename T, int BM>
 struct Smem {
+  static constexpr int kBN = Op<T>::kBN;
   unsigned char a[BM * kPitch<T>];             // the block's A rows
   unsigned char b[kStages][kBN * kPitch<T>];   // the ring of B tiles
   float nb2[kStages][kBN];
@@ -162,6 +208,15 @@ __device__ __forceinline__ void load_b(Smem<T, BM>& s, int stage,
   }
 }
 
+// The six plane products of Bf16x3 (planes 0 hi, 1 mid, 2 lo), smallest
+// first: lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi
+__host__ __device__ constexpr int split_plane_a(int x) {
+  return x == 0 ? 2 : x == 2 || x == 3 ? 1 : 0;
+}
+__host__ __device__ constexpr int split_plane_b(int x) {
+  return x == 1 ? 2 : x == 2 || x == 4 ? 1 : 0;
+}
+
 // c += a . b for one 32-byte k-step of the operand type
 __device__ __forceinline__ void mma(float* c, const unsigned* a, unsigned b0,
                                     unsigned b1) {
@@ -178,7 +233,7 @@ __device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
 // (pre-filled with INT64_MAX); kProductRowSum writes each row's wrapping
 // sum of its dots into both slots of row_p and leaves col_p alone.
 template <typename T, int MODE, int BM>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Op<T>::kBlocks)
 knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
               const float* __restrict__ na2,
               const float* __restrict__ nb2,
@@ -190,10 +245,13 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   using Acc = typename Op<T>::Acc;
   using K = Key<MODE>;
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  constexpr bool kSplit = std::is_same<T, Bf16x3>::value;
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
   constexpr int kRow = Op<T>::kRowBytes;
   constexpr int kLd = kPitch<T>;
+  constexpr int kPlane = kRow / Op<T>::kPlanes;   // bytes of one plane
+  constexpr int kBN = Op<T>::kBN;
   constexpr int WM = BM / 32;       // warps along M: 32 rows each
   constexpr int WN = 8 / WM;        // warps along N
   constexpr int WCOLS = kBN / WN;   // B rows (output columns) per warp
@@ -201,7 +259,8 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr int NT = WCOLS / 8;     // n8 tiles per warp
   static_assert(BM == 64 || BM == 128, "A tiles of 64 or 128 rows");
   static_assert(kThreads == 256 && NT % 2 == 0, "8 warps, n8 tiles in pairs");
-  static_assert(MODE != kWide || !kInt8, "K3 takes bf16 only");
+  static_assert(MODE != kWide || std::is_same<T, uint16_t>::value,
+                "K3 takes bf16 only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T, BM>& s = *reinterpret_cast<Smem<T, BM>*>(smem_raw);
 
@@ -271,35 +330,82 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
     const int n_valid = min(kBN, n_b - b0);
     const unsigned char* sb = s.b[st];
 
+    // f32: hi.hi into acc, the five smaller products into acc_lo, added
+    // once a tile (see the head of this file)
     Acc acc[MT][NT][4];
+    float acc_lo[kSplit ? MT : 1][kSplit ? NT : 1][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = Acc(0);
-    // 32-byte k-steps: 16 bf16 or 32 int8 values each
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][nt][e] = Acc(0);
+          if constexpr (kSplit) acc_lo[mt][nt][e] = 0.f;
+        }
+    // 32-byte k-steps: 16 bf16 or 32 int8 values each, in every plane
 #pragma unroll
-    for (int kb = 0; kb < kRow; kb += 32) {
-      unsigned af[MT][4];
+    for (int kb = 0; kb < kPlane; kb += 32) {
+      constexpr int P = Op<T>::kPlanes;
+      unsigned af[MT][P][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
-        mma_sync::ldmatrix_x4(af[mt][0], af[mt][1], af[mt][2], af[mt][3],
-                              s.a + (wm + mt * 16 + (lane & 15)) * kLd +
-                                  kb + (lane >> 4) * 16);
 #pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        unsigned b0r, b1r, b2r, b3r;  // (nt, bytes 0-15), (nt, 16-31), nt + 1
+        for (int p = 0; p < P; ++p)
+          mma_sync::ldmatrix_x4(af[mt][p][0], af[mt][p][1], af[mt][p][2],
+                                af[mt][p][3],
+                                s.a + (wm + mt * 16 + (lane & 15)) * kLd +
+                                    p * kPlane + kb + (lane >> 4) * 16);
+      // per n8 pair and plane: (nt, bytes 0-15), (nt, 16-31), then nt + 1's
+      auto load_bf = [&](unsigned* r, int nt, int p) {
         mma_sync::ldmatrix_x4(
-            b0r, b1r, b2r, b3r,
-            sb + (wn + nt * 8 + (lane >> 4) * 8 + (lane & 7)) * kLd + kb +
-                ((lane >> 3) & 1) * 16);
+            r[0], r[1], r[2], r[3],
+            sb + (wn + nt * 8 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                p * kPlane + kb + ((lane >> 3) & 1) * 16);
+      };
+      if constexpr (kSplit) {
+        // all of the k-step's B fragments first, so that each of the six
+        // products has MT x NT independent accumulators to interleave
+        unsigned bf[NT / 2][P][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma(acc[mt][nt], af[mt], b0r, b1r);
-          mma(acc[mt][nt + 1], af[mt], b2r, b3r);
+        for (int nt = 0; nt < NT; nt += 2)
+#pragma unroll
+          for (int p = 0; p < P; ++p) load_bf(bf[nt / 2][p], nt, p);
+#pragma unroll
+        for (int x = 0; x < 6; ++x)
+#pragma unroll
+          for (int nt = 0; nt < NT; nt += 2)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const unsigned* fa = af[mt][split_plane_a(x)];
+              const unsigned* fb = bf[nt / 2][split_plane_b(x)];
+              float* c0 = x < 5 ? acc_lo[mt][nt] : acc[mt][nt];
+              float* c1 = x < 5 ? acc_lo[mt][nt + 1] : acc[mt][nt + 1];
+              mma(c0, fa, fb[0], fb[1]);
+              mma(c1, fa, fb[2], fb[3]);
+            }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          unsigned bf[4];
+          load_bf(bf, nt, 0);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(acc[mt][nt], af[mt][0], bf[0], bf[1]);
+            mma(acc[mt][nt + 1], af[mt][0], bf[2], bf[3]);
+          }
         }
       }
+    }
+
+    if constexpr (kSplit) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], acc_lo[mt][nt][e]);
     }
 
     const float* snb = s.nb2[st];
@@ -493,8 +599,15 @@ int launch_tile(const void* a, const void* b, const void* na2,
 
 }  // namespace tc
 
-// The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t). a, b
-// (n_pairs, n, 128) T; na2, nb2 the f32 squared norms (unused by
+// f32 rows → their three bf16 planes (the split pre-pass, knn_packed.cu):
+// x (rows, 128) f32, 16-byte aligned → out (rows, 3, 128) bf16 bits.
+// Returns the cudaError_t of the launch.
+int launch_split(const void* x, void* out, long long rows,
+                 cudaStream_t stream);
+
+// The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
+// the split rows of launch_split). a, b (n_pairs, n, 128) T; na2, nb2 the
+// f32 squared norms (unused by
 // kProductRowSum); uv_a, pred_b f32 for kPackedGated;
 // n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of
 // 128 A rows where n_a allows, else 64. Returns the cudaError_t of the

@@ -6,8 +6,8 @@ reference's:
 
 - a 2× bilinear upsample (cv2 firstOctave=-1);
 - a separable Gaussian pyramid; every blur is kernel K2
-  (``csrc/gauss_blur.cu``, both passes fused), whose plain version is
-  ``blur_plain``;
+  (``blur_raw``: ``csrc/gauss_blur.cu``, both passes fused), whose plain
+  version is ``blur_plain``;
 - difference-of-Gaussians, 26-neighbour extrema, a fixed top-k candidate
   list per level, a 3-step quadratic subpixel refine with contrast and
   edge rejection, and on-device twin removal;
@@ -78,36 +78,52 @@ def blur_plain(img, taps):
     return out
 
 
-def _blur(img, sigma):
-    """K2: separable Gaussian blur of img (B, H, W) f32 with reflect-101
-    borders. A CUDA tensor launches csrc/gauss_blur.cu; a CPU tensor takes
-    blur_plain; any other device raises."""
-    global BLUR_LAUNCHES
-    taps = _gauss_kernel(sigma)
+def check_blur(img, taps, name):
+    """Raise unless K2 takes img (B, H, W) f32 with taps (2r+1,): the
+    device (CPU: the plain version), r ≤ 15 and r < H, W, contiguity."""
     r = (len(taps) - 1) // 2
     if img.dim() != 3 or img.dtype != torch.float32:
-        raise ValueError(f"_blur: need (B, H, W) float32, got "
+        raise ValueError(f"{name}: need (B, H, W) float32, got "
                          f"{tuple(img.shape)} {img.dtype}")
-    dev = img.device
-    if dev.type == "cpu":
-        return blur_plain(img, taps)
-    if dev.type != "cuda":
-        raise ValueError(f"_blur: no kernel for device {dev}")
-    B, H, W = img.shape
+    if img.device.type == "cpu":
+        return
+    if img.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {img.device}")
+    _, H, W = img.shape
     if r > _BLUR_RMAX or r >= H or r >= W:
-        raise ValueError(f"_blur: radius {r} needs r <= {_BLUR_RMAX} and "
+        raise ValueError(f"{name}: radius {r} needs r <= {_BLUR_RMAX} and "
                          f"r < H, W (got {H}x{W})")
     if not img.is_contiguous():
-        raise ValueError("_blur: input must be contiguous")
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def blur_raw(img, taps):
+    """K2 with explicit taps (2r+1,) f32 numpy: separable blur of img (B,
+    H, W) f32 with reflect-101 borders. A CUDA tensor launches
+    csrc/gauss_blur.cu; a CPU tensor takes blur_plain; any other device
+    raises."""
+    global BLUR_LAUNCHES
+    check_blur(img, taps, "blur_raw")
+    if img.device.type == "cpu":
+        return blur_plain(img, taps)
+    B, H, W = img.shape
+    taps = np.ascontiguousarray(taps, dtype=np.float32)
     lib = _build.load()
     out = torch.empty_like(img)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(img.device):
         err = lib.gauss_blur_f32(
-            img.data_ptr(), out.data_ptr(), taps.ctypes.data, B, H, W, r,
-            torch.cuda.current_stream(dev).cuda_stream)
+            img.data_ptr(), out.data_ptr(), taps.ctypes.data, B, H, W,
+            (len(taps) - 1) // 2,
+            torch.cuda.current_stream(img.device).cuda_stream)
     _build.check(err, "gauss_blur_f32")
     BLUR_LAUNCHES += 1
     return out
+
+
+def _blur(img, sigma):
+    """K2: separable Gaussian blur of img (B, H, W) f32 with reflect-101
+    borders (blur_raw with the taps of sigma)."""
+    return blur_raw(img, _gauss_kernel(sigma))
 
 
 def _downsample2(x):

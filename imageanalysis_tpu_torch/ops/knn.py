@@ -9,7 +9,10 @@ pair dimension (the reference vmaps over pairs):
   kernel K1 and its wrapper (``csrc/knn_packed.cu`` on a CUDA tensor, the
   plain version on a CPU tensor): packed (f32 bits with the low 13 bits
   cleared) | index keys, row top-2 and column minimum, for int8, bf16 and
-  f32 descriptors, with or without the gate;
+  f32 descriptors, with or without the gate (f32 runs on the tensor
+  cores as three bf16 planes, see ``split_bf16x3_plain``);
+- ``split_bf16x3_plain`` / ``split_bf16x3_raw`` — K1 f32's pre-pass: each
+  f32 value as hi + mid + lo of three bf16 values, exactly;
 - ``knn_wide_plain`` / ``knn_wide_raw`` — the same for kernel K3
   (``csrc/knn_wide.cu``): unpacked 64-bit (value, index) keys, any size;
 - ``knn_top2`` — the reference's dispatch: K1 up to 8192 rows, K3 beyond
@@ -27,8 +30,9 @@ pair dimension (the reference vmaps over pairs):
 
 Packed keys are exact for int8 descriptors (d2 ≤ 128·255² < 2²³) and for
 integer-valued float descriptors (every product and partial sum of the
-dot is an integer below 2²⁴), and every key is unique, so each kernel and
-its plain version agree bit for bit there.
+dot is an integer below 2²⁴; f32's mid and lo planes are then 0), and
+every key is unique, so each kernel and its plain version agree bit for
+bit there.
 """
 
 from __future__ import annotations
@@ -51,10 +55,11 @@ _DIM = 128
 _WIDE_MAX = (1 << 63) - 1
 
 # kernel launches (not plain-version calls), by mode: K1 int8 ungated, K1
-# gated (any dtype), K1 bf16 and f32 ungated, K3, K4
+# gated (any dtype), K1 bf16 and f32 ungated, K3, K4; the split pre-pass
+# alone (K1 f32 launches it inside its own entry point)
 LAUNCHES = dict.fromkeys(("knn_packed_i8", "knn_packed_gated",
                           "knn_packed_bf16", "knn_packed_f32", "knn_wide",
-                          "match_epilogue"), 0)
+                          "match_epilogue", "split_bf16x3"), 0)
 
 
 def pad_descriptors(desc, n_pad):
@@ -288,12 +293,17 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
                 row_p.data_ptr(), col_p.data_ptr(), B, n_a, n_b, stream)
         else:
             name = "knn_packed_float"
+            bf16 = desc_a.dtype == torch.bfloat16
+            # f32: scratch for the operands' three bf16 planes, which the
+            # kernel's split pre-pass writes
+            sa, sb = (None, None) if bf16 else (
+                _split_scratch(desc_a), _split_scratch(desc_b))
             err = lib.knn_packed_float(
                 desc_a.data_ptr(), desc_b.data_ptr(), na2.data_ptr(),
                 nb2.data_ptr(), _ptr(uv_a), _ptr(pred_b),
                 radius2 if gated else 0.0, row_p.data_ptr(),
-                col_p.data_ptr(), B, n_a, n_b,
-                int(desc_a.dtype == torch.bfloat16), stream)
+                col_p.data_ptr(), _ptr(sa), _ptr(sb), B, n_a, n_b,
+                int(bf16), stream)
     _build.check(err, name)
     if gated:
         LAUNCHES["knn_packed_gated"] += 1
@@ -304,6 +314,51 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
     else:
         LAUNCHES["knn_packed_f32"] += 1
     return row_p, col_p
+
+
+def _split_scratch(x):
+    """Scratch for the three bf16 planes of f32 rows x (..., 128): (...,
+    3, 128) bf16."""
+    return torch.empty((*x.shape[:-1], 3, _DIM), dtype=torch.bfloat16,
+                       device=x.device)
+
+
+def split_bf16x3_plain(x):
+    """Plain version of K1 f32's pre-pass: f32 rows x (..., 128) → (...,
+    3, 128) bf16, the planes hi = bf16(x), mid = bf16(x − hi), lo = bf16(x
+    − hi − mid), each rounded to nearest even; every difference is exact
+    in f32, so hi + mid + lo == x for every finite f32 of descriptor
+    range."""
+    if x.dtype != torch.float32 or x.shape[-1] != _DIM:
+        raise ValueError(f"split_bf16x3: need (..., {_DIM}) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    hi = x.bfloat16()
+    r1 = x - hi.float()
+    mid = r1.bfloat16()
+    lo = (r1 - mid.float()).bfloat16()
+    return torch.stack((hi, mid, lo), dim=-2)
+
+
+def split_bf16x3_raw(x):
+    """K1 f32's split pre-pass on its own (see split_bf16x3_plain). A CUDA
+    tensor launches it (csrc/knn_packed.cu), contiguous and 16-byte
+    aligned; a CPU tensor takes split_bf16x3_plain; any other device
+    raises."""
+    if x.device.type == "cpu":
+        return split_bf16x3_plain(x)
+    if x.dtype != torch.float32 or x.shape[-1] != _DIM or x.numel() == 0:
+        raise ValueError(f"split_bf16x3: need (..., {_DIM}) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    rows = x.numel() // _DIM
+    _check_launch((x,), 0, 0, "split_bf16x3_raw")
+    out = _split_scratch(x)
+    with torch.cuda.device(x.device):
+        err = _build.load().split_bf16x3(
+            x.data_ptr(), out.data_ptr(), rows,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "split_bf16x3")
+    LAUNCHES["split_bf16x3"] += 1
+    return out
 
 
 def _decode_packed(row_p, col_p):

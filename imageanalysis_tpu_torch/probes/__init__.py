@@ -1,5 +1,5 @@
 """On-card probes of the 2-NN kernels: the counterparts of the TPU dev
-probes P1–P6 under ``scripts_dev/``.
+probes P1–P6 under ``scripts_dev/``; and K2's yardstick.
 
 The JAX package keeps these kernels inline in its dev scripts; the port
 keeps them here, so that the scripts in ``scripts_torch/``, the tests and
@@ -12,7 +12,9 @@ keeps them here, so that the scripts in ``scripts_torch/``, the tests and
   sum (P5 ``matmul_shape_probe``) and the one-hot gather (P1
   ``epilogue_dot_probe``), ``csrc/mma_probe.cu``;
 - ``fused`` — K1 and K4 in one launch, parts switched off (P2
-  ``fused_vmem_probe``), ``csrc/knn_fused_probe.cu``.
+  ``fused_vmem_probe``), ``csrc/knn_fused_probe.cu``;
+- ``blur`` — K2's first body, the yardstick its register-window body is
+  timed against (no TPU probe of its own), ``csrc/gauss_blur.cu``.
 
 Each module holds its kernels' wrappers and their plain PyTorch versions;
 a wrapper takes the plain version for a CPU tensor, launches its kernel
@@ -45,6 +47,33 @@ def time_ms(fn, device, reps=5, warmup=1):
             fn()
             times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
+
+
+def device_ms(fn, kernel=None, reps=20):
+    """Device time per call of fn from torch.profiler: the CUDA kernels
+    whose name contains kernel (all of fn's kernels when None), summed
+    and divided by reps. For kernels of tens of microseconds or less,
+    where CUDA events around one call would time the wrapper's host
+    work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    # a profile now and then comes back without device events: up to
+    # three tries
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and (kernel is None or kernel in e.key))
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError(f"the profiler saw no device time for {kernel}")
 
 
 def script_inputs(pairs, n, device, seed=0):

@@ -63,18 +63,20 @@ its 256 threads each hold a TA/16 × TB/16 register tile. So:
   The float body keeps its A tile in shared memory as f32, so its tiles
   stop at TA × TB within the 48 KB of static shared memory.
 
-K1's bf16 and int8 modes and K3's bf16 mode now run a tensor-core body
+Every mode of K1 and K3's bf16 mode now run a tensor-core body
 (``csrc/knn_tc.cuh``); the stages here, ``full`` included, stay on the
-bodies above, so each dtype's anatomy is one body's. Three more wrappers
+bodies above, so each dtype's anatomy is one body's. More wrappers
 measure the tensor-core body:
 
 - ``dp4a_i8_raw``: the ``__dp4a`` body in K1's int8 modes (plain,
-  gated), and ``ffma_bf16_raw``: the FFMA body in K1's and K3's bf16
-  modes (plain, gated, wide). The yardsticks the tensor-core body is
-  timed against; their plain versions are K1's and K3's.
+  gated); ``ffma_bf16_raw``: the FFMA body in K1's and K3's bf16 modes
+  (plain, gated, wide); ``ffma_f32_raw``: the FFMA body in K1's f32 modes
+  (plain, gated). The yardsticks the tensor-core body is timed against;
+  their plain versions are K1's and K3's.
 - ``tc_row_sum_raw``: the tensor-core body's product with the
   ``row_sum`` stage's wrapping row sum in place of the key epilogue, in
-  either type; its plain version is ``knn_probe_plain(stage=ROW_SUM)``.
+  any of its types (int8, bf16, f32 as three bf16 planes); its plain
+  version is ``tc_row_sum_plain``, the ``row_sum`` stage's arithmetic.
   K1's time less its time is the key epilogue's on that body.
 """
 
@@ -105,7 +107,7 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
-            "knn_dp4a_i8": 0, "knn_tc_row_sum": 0}
+            "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0}
 
 
 def _check(a, b, na2, nb2, stage, tile, name):
@@ -142,6 +144,11 @@ def _wrap32(x):
     return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
 
 
+def _row_sum(dot):
+    """Each row's sum of its integer-valued dots modulo 2³², as int32."""
+    return _wrap32(dot.long().sum(1))
+
+
 def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
     """Plain version of the probe kernel: K1 up to ``stage`` (see the
     module docstring). a (B, n_a, 128), b (B, n_b, 128) int8, or bf16
@@ -163,7 +170,7 @@ def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
         x, y = a[p].float(), b[p].float()
         dot = x @ y.T                   # integers below 2^24: exact
         if stage == ROW_SUM:
-            v = _wrap32(dot.long().sum(1))
+            v = _row_sum(dot)
         elif stage == ROW_MIN:
             v = dot.amin(1).int()
         else:
@@ -265,6 +272,44 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
     return row, col
 
 
+def ffma_f32_plain(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None):
+    """Plain version of the FFMA f32 body: K1's (knn_packed_plain, gated
+    when uv_a is given)."""
+    return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
+
+
+def ffma_f32_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None):
+    """The FFMA float body on f32 descriptors in K1's modes (row_p, col_p
+    int32): what K1 launched for f32 before the tensor-core body.
+    Arguments and result as knn.knn_packed_raw; a CPU tensor takes
+    ffma_f32_plain, any other device raises."""
+    name = "ffma_f32_raw"
+    if a.dtype != torch.float32:
+        raise ValueError(f"{name}: takes f32 descriptors, got {a.dtype}")
+    knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
+    gated = uv_a is not None
+    if gated:
+        knn._check_gate(uv_a, pred_b, a, b, name)
+    if a.device.type == "cpu":
+        return ffma_f32_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_ffma_f32(
+            a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
+            knn._ptr(uv_a), knn._ptr(pred_b), radius2 if gated else 0.0,
+            row.data_ptr(), col.data_ptr(), B, n_a, n_b,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_ffma_f32")
+    LAUNCHES["knn_ffma_f32"] += 1
+    return row, col
+
+
 def dp4a_i8_plain(a, b, uv_a=None, pred_b=None, radius2=None):
     """Plain version of the __dp4a body: K1's int8 mode (gated when uv_a
     is given), knn_packed_plain."""
@@ -302,17 +347,45 @@ def dp4a_i8_raw(a, b, uv_a=None, pred_b=None, radius2=None):
     return row, col
 
 
+def _check_row_sum(a, b, name):
+    if a.dtype == torch.float32:
+        check_device((a, b), name)
+        if (a.dim() != 3 or b.dim() != 3 or b.dtype != a.dtype
+                or a.shape[0] != b.shape[0] or a.shape[2] != 128
+                or b.shape[2] != 128 or a.shape[1] % 64 or b.shape[1] % 64
+                or max(a.shape[1], b.shape[1]) > 8192):
+            raise ValueError(f"{name}: need f32 (B, n_a, 128) and (B, n_b, "
+                             "128), n_a and n_b multiples of 64 up to 8192, "
+                             f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    else:
+        _check(a, b, None, None, ROW_SUM, K1_TILE, name)
+
+
+def tc_row_sum_plain(a, b):
+    """Plain version of tc_row_sum_raw: knn_probe_plain's row_sum stage,
+    f32 descriptors included (integer-valued, so every dot is exact)."""
+    _check_row_sum(a, b, "tc_row_sum_plain")
+    if a.dtype != torch.float32:
+        return knn_probe_plain(a, b, stage=ROW_SUM)
+    B, n_a, _ = a.shape
+    row = torch.stack([_row_sum(a[p] @ b[p].T) for p in range(B)])
+    col = torch.full((B, b.shape[1]), knn._KEY_MAX, dtype=torch.int32,
+                     device=a.device)
+    return row[:, :, None].expand(-1, -1, 2).contiguous(), col
+
+
 def tc_row_sum_raw(a, b):
     """The tensor-core body's product-only stage on a CUDA tensor: a (B,
-    n_a, 128), b (B, n_b, 128) int8 or integer-valued bf16, n_a and n_b
-    multiples of 64 and at most 8192. Returns (row (B, n_a, 2) int32, each
-    A row's wrapping sum of its dots in both slots; col (B, n_b) int32,
-    0x7FFFFFFF): the result of knn_probe_plain(stage=ROW_SUM), which a CPU
-    tensor takes; any other device raises."""
+    n_a, 128), b (B, n_b, 128) int8 or integer-valued bf16 or f32 (split
+    into its three bf16 planes first, as K1 f32), n_a and n_b multiples of
+    64 and at most 8192. Returns (row (B, n_a, 2) int32, each A row's
+    wrapping sum of its dots in both slots; col (B, n_b) int32,
+    0x7FFFFFFF): the result of tc_row_sum_plain, which a CPU tensor takes;
+    any other device raises."""
     name = "tc_row_sum_raw"
-    _check(a, b, None, None, ROW_SUM, K1_TILE, name)
+    _check_row_sum(a, b, name)
     if a.device.type == "cpu":
-        return knn_probe_plain(a, b, stage=ROW_SUM)
+        return tc_row_sum_plain(a, b)
     check_launchable((a, b), name)
     B, n_a, _ = a.shape
     n_b = b.shape[1]
@@ -320,10 +393,14 @@ def tc_row_sum_raw(a, b):
     lib = _build.load()
     row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
     col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    f32 = a.dtype == torch.float32
+    sa, sb = ((knn._split_scratch(a), knn._split_scratch(b)) if f32
+              else (None, None))
+    dtype = 2 if f32 else int(a.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         err = lib.knn_tc_row_sum(
-            a.data_ptr(), b.data_ptr(), row.data_ptr(), B, n_a, n_b,
-            int(a.dtype == torch.bfloat16),
+            a.data_ptr(), b.data_ptr(), knn._ptr(sa), knn._ptr(sb),
+            row.data_ptr(), B, n_a, n_b, dtype,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_tc_row_sum")
     LAUNCHES["knn_tc_row_sum"] += 1

@@ -8,14 +8,15 @@ without the conftest:
 
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
-arithmetic in f32 or int32 (the bf16 and int8 modes on the tensor cores
-too; on random bf16 they hold a stated tolerance), K2 rounds the same f32
-products and sums one by one, and K4 decodes, compares and gathers
-exactly, so the comparisons are bit-exact. So are the probes of
-imageanalysis_tpu_torch/probes on integer-valued inputs (the staged K1,
-the FFMA bf16 and __dp4a int8 bodies, the tensor-core body's product-only
-stage, P2's single-launch K1 + K4, P5's mma.sync row sums, P1's one-hot
-gather of bf16 values). Bundle adjustment
+arithmetic in f32 or int32 (on the tensor cores too, f32 as three bf16
+planes; on random bf16 and f32 they hold a stated tolerance), K2 (at
+every radius, and its first body) rounds the same f32 products and sums
+one by one, and K4 decodes, compares and gathers exactly, so the
+comparisons are bit-exact. So are K1 f32's split pre-pass and the probes
+of imageanalysis_tpu_torch/probes on integer-valued inputs (the staged
+K1, the FFMA bf16 and f32 and __dp4a int8 bodies, the tensor-core body's
+product-only stage, P2's single-launch K1 + K4, P5's mma.sync row sums,
+P1's one-hot gather of bf16 values). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -26,7 +27,7 @@ import torch
 
 from imageanalysis_tpu_torch.features import sift
 from imageanalysis_tpu_torch.ops import knn
-from imageanalysis_tpu_torch.probes import fused, knn_stages, mma
+from imageanalysis_tpu_torch.probes import blur, fused, knn_stages, mma
 
 pytestmark = pytest.mark.cuda
 
@@ -271,17 +272,112 @@ def test_bf16_tensor_cores_within_tolerance_on_random(cuda, rng, mode):
     _near(got[1], want[1], b, a, tol, packed, "columns")
 
 
+# random f32 descriptors on the three-plane split: the dropped plane
+# products (mid·lo, lo·mid, lo·lo) are 2⁻²⁴ of Σ|a_k b_k|, and each f32
+# sum is rounded in another order than cuBLAS's f32 product; the values
+# hold 2⁻²⁰ (max |a|² + max |b|²), chip_smoke.py phase 5's f32 tolerance,
+# plus, for the packed keys, one step of their 10 mantissa bits
+_F32_REL = 2.0 ** -20
+
+
+@pytest.mark.parametrize("n_a", [192, 256])
+@pytest.mark.parametrize("mode", ["k1", "k1_gated"])
+def test_k1_f32_tensor_cores_within_tolerance_on_random(cuda, rng, mode,
+                                                        n_a):
+    """Non-integer f32 descriptors (SIFT-like, 0..400) on 64-row A blocks
+    (n_a 192) and 128-row blocks (n_a 256): values within the stated
+    tolerance, indices different only on ties."""
+    pairs, n_b = 2, 704
+    a = rng.uniform(0, 400, (pairs, n_a, 128))
+    b = rng.uniform(0, 400, (pairs, n_b, 128))
+    b[:, :64] = a[:, :64] + rng.normal(0, 2, (pairs, 64, 128))
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (a, b))
+    na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+    tol = _F32_REL * float(na2.max() + nb2.max())
+    gate = _gate(rng, cuda, pairs, n_a, n_b) if mode == "k1_gated" else ()
+    key = "knn_packed_gated" if gate else "knn_packed_f32"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_packed_raw(a, b, na2, nb2, *gate)
+    assert knn.LAUNCHES[key] == before + 1
+    want = knn.knn_packed_plain(a, b, na2, nb2, *gate)
+    torch.cuda.synchronize()
+    _near(got[0], want[0], a, b, tol, True, "rows")
+    _near(got[1], want[1], b, a, tol, True, "columns")
+
+
+@pytest.mark.parametrize("n_a", [192, 256])
+@pytest.mark.parametrize("gated", [False, True], ids=["k1", "k1_gated"])
+def test_k1_f32_bit_exact_with_mid_planes(cuda, rng, gated, n_a):
+    """Integer f32 rows of 261..360: an odd value above 256 is not one
+    bf16 value, so the mid planes are set, yet every dot stays below
+    128 · 360² < 2²⁴ and is exact; keys equal the plain version's bit for
+    bit on 64-row and 128-row A blocks."""
+    a, b = (t.to(cuda) for t in _planted(rng, 2, n_a, 704, 50))
+    af, bf = (x.float() + 128.0 + 261.0 for x in (a, b))
+    assert bool((af != af.bfloat16().float()).any())
+    args = (af, bf, (af * af).sum(-1), (bf * bf).sum(-1))
+    gate = _gate(rng, cuda, 2, n_a, 704) if gated else ()
+    got = knn.knn_packed_raw(*args, *gate)
+    want = knn.knn_packed_plain(*args, *gate)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_split_prepass_reconstructs_exactly(cuda, rng):
+    """K1 f32's pre-pass: its planes equal the plain split's bit for bit,
+    and hi + mid + lo == x exactly, over normal, uniform and integer
+    values (rows of any count)."""
+    x = np.concatenate([rng.normal(0, 100, (3, 64, 128)),
+                        rng.uniform(0, 512, (3, 64, 128)),
+                        rng.integers(0, 256, (3, 64, 128))], axis=1)
+    for t in (torch.from_numpy(x.astype(np.float32)),
+              torch.from_numpy(rng.normal(0, 1e-3, (5, 128))
+                               .astype(np.float32))):
+        t = t.to(cuda)
+        before = knn.LAUNCHES["split_bf16x3"]
+        got = knn.split_bf16x3_raw(t)
+        assert knn.LAUNCHES["split_bf16x3"] == before + 1
+        assert got.shape == (*t.shape[:-1], 3, 128)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, knn.split_bf16x3_plain(t))
+        rec = got.double().sum(-2)
+        assert torch.equal(rec, t.double())
+
+
+@pytest.mark.parametrize("lift", [0, 105], ids=["0_255", "105_360"])
+@pytest.mark.parametrize("n_a", [192, 256])
+def test_tc_row_sum_f32_bit_exact_vs_plain(cuda, rng, n_a, lift):
+    """The tensor-core body's product-only stage on f32 (split into three
+    planes), full-range integer values (0..255, or 105..360 where odd
+    values above 256 set the mid planes; dots stay exact below 2²⁴):
+    64-row and 128-row A blocks, 64-row B tiles."""
+    a, b = (t.to(cuda) for t in _full_range(rng, 2, n_a, 704, 50))
+    a, b = (x.float() + 128.0 + lift for x in (a, b))
+    before = knn_stages.LAUNCHES["knn_tc_row_sum"]
+    got = knn_stages.tc_row_sum_raw(a, b)
+    assert knn_stages.LAUNCHES["knn_tc_row_sum"] == before + 1
+    want = knn_stages.tc_row_sum_plain(a, b)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a",
-                                  "dp4a_gated"])
+                                  "dp4a_gated", "f32", "f32_gated"])
 def test_ffma_yardstick_bit_exact_vs_plain(cuda, rng, mode):
-    """The FFMA bf16 and __dp4a int8 bodies that K1 and K3 launched
-    before the tensor cores, kept as their yardsticks, still equal the
-    plain versions."""
+    """The FFMA bf16 and f32 and __dp4a int8 bodies that K1 and K3
+    launched before the tensor cores, kept as their yardsticks, still
+    equal the plain versions."""
     a, b = (t.to(cuda) for t in _planted(rng, 2, 192, 704, 50))
     gate = _gate(rng, cuda, 2, 192, 704) if mode.endswith("gated") else ()
     if mode.startswith("dp4a"):
         key, raw, plain, args, kw = ("knn_dp4a_i8", knn_stages.dp4a_i8_raw,
                                      knn_stages.dp4a_i8_plain, (a, b), {})
+    elif mode.startswith("f32"):
+        key, raw, plain, kw = ("knn_ffma_f32", knn_stages.ffma_f32_raw,
+                               knn_stages.ffma_f32_plain, {})
+        args = _float_inputs(a, b, torch.float32)
     else:
         key, raw, plain = ("knn_ffma_bf16", knn_stages.ffma_bf16_raw,
                            knn_stages.ffma_bf16_plain)
@@ -344,6 +440,44 @@ def test_k2_bit_exact_vs_plain(cuda, rng, shape):
         torch.cuda.synchronize()
         assert torch.equal(got, want), sigma
     assert sift.BLUR_LAUNCHES == before + len(_SIGMAS)
+
+
+def _taps(r):
+    """Gaussian taps of radius r (2r + 1 of them), f32 numpy."""
+    x = np.arange(-r, r + 1)
+    k = np.exp(-0.5 * (x / max(r / 3.0, 0.5)) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+@pytest.mark.parametrize("r", range(1, 16))
+def test_k2_bit_exact_vs_plain_at_every_radius(cuda, rng, r):
+    """One instantiation per radius: interior tiles (16-byte loads) and
+    border tiles, H and W no multiples of the 128 × 64 tile, an odd W
+    (reflected scalar loads only), B = 1 and 16, and r = min(H, W) − 1."""
+    taps = _taps(r)
+    before = sift.BLUR_LAUNCHES
+    shapes = ((1, 197, 300), (16, 70, 133), (2, r + 1, 4 * (r + 1)),
+              (1, 3 * r + 5, r + 1))
+    for shape in shapes:
+        img = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+        img = img.to(cuda)
+        got = sift.blur_raw(img, taps)
+        want = sift.blur_plain(img, taps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+    assert sift.BLUR_LAUNCHES == before + len(shapes)
+
+
+def test_k2_loop_yardstick_bit_exact_vs_plain(cuda, rng):
+    """K2's first body, kept as the yardstick, still equals blur_plain."""
+    img = torch.from_numpy(rng.uniform(0, 1, (3, 197, 300))
+                           .astype(np.float32)).to(cuda)
+    before = blur.LAUNCHES["gauss_blur_loop_f32"]
+    for r in (1, 10, 15):
+        got = blur.loop_blur_raw(img, _taps(r))
+        torch.cuda.synchronize()
+        assert torch.equal(got, sift.blur_plain(img, _taps(r))), r
+    assert blur.LAUNCHES["gauss_blur_loop_f32"] == before + 3
 
 
 def test_k2_refuses_what_it_does_not_take(cuda):

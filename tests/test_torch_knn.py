@@ -326,3 +326,23 @@ def test_k1_k3_random_floats_within_tolerance(rng):
                                    atol=atol)
         np.testing.assert_allclose(got[2], want[2], rtol=2.0 ** -9,
                                    atol=atol)
+
+
+def test_split_bf16x3_plain_reconstructs_exactly(rng):
+    """K1 f32's pre-pass, plain version: the three bf16 planes of seeded
+    f32 descriptors (uniform SIFT-like, normal, integer) add up to the
+    value exactly, hi is the value rounded to bf16, and |mid| ≤ 2⁻⁸ |x|,
+    |lo| ≤ 2⁻¹⁶ |x| (the orders the product relies on)."""
+    x = np.concatenate([rng.uniform(0, 512, (64, 128)),
+                        rng.normal(0, 100, (64, 128)),
+                        rng.integers(0, 256, (64, 128))]).astype(np.float32)
+    t = _t(x)
+    planes = tknn.split_bf16x3_plain(t)
+    assert planes.shape == (192, 3, 128) and planes.dtype == torch.bfloat16
+    hi, mid, lo = (planes[:, i].double() for i in range(3))
+    assert torch.equal(hi + mid + lo, t.double())
+    assert torch.equal(planes[:, 0], t.bfloat16())
+    ax = t.double().abs()
+    assert bool((mid.abs() <= 2.0 ** -8 * ax).all())
+    assert bool((lo.abs() <= 2.0 ** -16 * ax).all())
+    assert not bool((planes[128:, 1:] != 0).any())    # integers: hi only
