@@ -24,11 +24,13 @@ non-zero:
    body's product (its product-only stage, held against its plain
    version) and the key epilogue (the rest); each mode beside one library
    product of its type (torch._int_mm, torch.bmm);
-5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240: int8 store
-   rows cast to bf16 (bit-exact; in turns against the FFMA body) and to
-   f32 (bit-exact, on the FFMA body, beside torch.bmm f32), and random
-   descriptors (indices equal modulo ties; values within 2⁻²⁰ of the
-   norms in f32, TC_REL_TOL in bf16);
+5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240, both
+   modes on the tensor-core body (f32 as three bf16 planes): int8 store
+   rows cast to bf16 and to f32 (bit-exact; each in turns against the
+   FFMA body it replaced, split into the body's product and the key
+   epilogue, beside torch.bmm of its type), f32 rows of 256..360 (mid
+   planes set, bit-exact), and random descriptors (indices equal modulo
+   ties; values within 2⁻²⁰ of the norms in f32, TC_REL_TOL in bf16);
 6. bench.py's match workload (64 pairs of 6144 int8 descriptors, 1500
    planted matches each) through the port's match_pair_batch: pairs/s;
 7. Step 3a's device path on a 64-frame 2176×1440 synthetic mission:
@@ -48,8 +50,10 @@ non-zero:
    (printed beside the truth: the ungated retry's period-shifted
    matches pull some images' far off);
 10. wide store: 64 images × 10240 planted int8 descriptors through
-    match_pairs_store, which takes K3; ≥ 95% of the planted matches
-    survive in every pair;
+    match_pairs_store, which takes K3 bf16; then the same rows as f32
+    through match_pair_batch(bf16=False) in chunks of 8 pairs, which
+    takes K3 f32; ≥ 95% of the planted matches survive in every pair on
+    both paths, and K3 f32's keys on those rows equal K3 bf16's;
 11. K4 (match epilogue) against match_epilogue_plain on K1's raw keys of
     planted int8 rows: bench.py's 64 pairs × 6144, the store's 256 ×
     4096, ungated and gated; best_j, ok and pb bit-exact;
@@ -72,7 +76,10 @@ non-zero:
     at their TPU probes' full shapes on bench.py's batch: every stage and
     tile of the staged K1 (P3, P4, P6; int8 and bf16, on the __dp4a and
     FFMA bodies) against its plain version on 2 of the 64 pairs and its
-    full stage against K1 on all 64, then the stage split; P5's mma.sync
+    full stage against K1 on all 64, then the stage split; P6's sweep on
+    the tensor-core body (seven tiles a dtype, each bit-exact on all 64
+    pairs, timed in turns with the old body's mapped tile, with blocks an
+    SM and ptxas's registers and spills); P5's mma.sync
     product + row sum (bit-exact on integer values, within P5_REL_TOL on
     normal ones) and its TFLOP/s
     beside torch.bmm and torch._int_mm; P1's one-hot gather (bit-exact
@@ -397,11 +404,11 @@ def vs_old_body(r, name, new, old, body):
 
 
 def product_split(r, name, a, b, product_ms=None):
-    """K1's time on the tensor-core body split into the body's product
-    (its product-only stage: product + row sum, held bit-exact against
-    tc_row_sum_plain on the first pairs, or product_ms of the same shape
-    and type) and the key epilogue (the rest). f32's stage includes its
-    split pre-pass."""
+    """K1's or K3's time on the tensor-core body split into the body's
+    product (its product-only stage: product + row sum, held bit-exact
+    against tc_row_sum_plain on the first pairs, or product_ms of the
+    same shape and type) and the key epilogue (the rest). f32's stage
+    includes its split pre-pass."""
     if product_ms is None:
         p = PROBE_PLAIN_PAIRS
         check_equal(f"{name} product-only stage",
@@ -412,7 +419,7 @@ def product_split(r, name, a, b, product_ms=None):
     epi = r["ms"] - product_ms
     log(f"[{name}] tensor-core body split: product + row sum "
         f"{product_ms:.3f} ms, key epilogue {epi:.3f} ms "
-        f"({100 * epi / r['ms']:.1f}% of K1)")
+        f"({100 * epi / r['ms']:.1f}% of the kernel)")
 
 
 def full_range_descriptors(gen, pairs, n, n_planted):
@@ -647,45 +654,76 @@ def ties_only(q, cand, gi, wi, tol):
 
 
 def check_wide():
-    """K3 on int8 rows cast to bf16 (bit-exact) and on random f32 rows
-    (indices modulo ties)."""
+    """K3 in both modes at 64 pairs × 10240 on the tensor-core body: int8
+    store rows cast to bf16 and to f32, bit-exact, each in turns against
+    the FFMA body it replaced and split into product and key epilogue; f32
+    also on integer rows 256..360 (mid planes set, bit-exact) and, with
+    bf16, on random rows (indices modulo ties, values within a stated
+    tolerance). Returns {"bf16": measurements, "f32": measurements}."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     pairs, n = WIDE_IMAGES, WIDE_N
     a, b = planted_descriptors(gen, pairs, n, n // 5)
-    args = (a.bfloat16(), b.bfloat16(), knn._sq_norms(a), knn._sq_norms(b))
-    r = compare_keys("K3 bf16", knn.knn_wide_raw, knn.knn_wide_plain, args,
-                     reps=3, plain_reps=1)
-    vs_old_body(r, f"K3 bf16 {pairs} x {n}", lambda: knn.knn_wide_raw(*args),
-                lambda: knn_stages.ffma_bf16_raw(*args, wide=True), "ffma")
-    # descriptors and norms read once; row keys (16 B) and column keys
-    # (8 B) written once
-    with_bound(r, pairs * n * (2 * 128 * 2 + 8 + 24),
-               {"bf16": 2 * pairs * n * n * 128})
-    log(f"[K3] bf16 (int8 cast) {pairs} pairs x {n}: bit-exact; kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
-    bt = args[1].transpose(1, 2)
-    r["product_only_ms"] = product_only(
-        "K3 bf16 torch.bmm 64 x 10240 x 10240", lambda: torch.bmm(args[0], bt))
-    del args, bt
-    # f32 (the FFMA body, still K3's f32 mode): the same rows as f32
-    fargs = (a.float(), b.float(), knn._sq_norms(a), knn._sq_norms(b))
-    f = compare_keys("K3 f32", knn.knn_wide_raw, knn.knn_wide_plain, fargs,
-                     reps=3, plain_reps=1)
-    f_bound, f_by = bound(pairs * n * (2 * 128 * 4 + 8 + 24),
-                          {"f32": 2 * pairs * n * n * 128})
-    bt = fargs[1].transpose(1, 2)
-    f_lib = product_only("K3 f32 torch.bmm 64 x 10240 x 10240",
-                         lambda: torch.bmm(fargs[0], bt))
-    del fargs, bt
-    r.update(f32_ms=f["ms"], f32_plain_ms=f["plain_ms"], f32_bound_ms=f_bound,
-             f32_product_only_ms=f_lib)
-    log(f"[K3] f32 (int8 cast) {pairs} pairs x {n}: bit-exact; kernel "
-        f"{f['ms']:.3f} ms (FFMA body), plain {f['plain_ms']:.3f} ms, "
-        f"bound {f_bound:.3f} ms ({f_by}), torch.bmm f32 {f_lib} ms")
+    na, nb = knn._sq_norms(a), knn._sq_norms(b)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 yardstick would not be "
+                             "an f32 product")
+    product = 2 * pairs * n * n * 128
+    out = {}
+    for mode, dtype, eb, old in (
+            ("bf16", torch.bfloat16, 2, knn_stages.ffma_bf16_raw),
+            ("f32", torch.float32, 4, knn_stages.ffma_f32_raw)):
+        args = (a.to(dtype), b.to(dtype), na, nb)
+        name = f"K3 {mode} {pairs} x {n}"
+        r = compare_keys(f"K3 {mode}", knn.knn_wide_raw, knn.knn_wide_plain,
+                         args, reps=3, plain_reps=1)
+        vs_old_body(r, name, lambda: knn.knn_wide_raw(*args),
+                    lambda: old(*args, wide=True), "ffma")
+        product_split(r, name, args[0], args[1])
+        # descriptors and norms read once; row keys (16 B) and column keys
+        # (8 B) written once; f32: the six bf16 products of its split, the
+        # work the kernel does, and beside it the product on the CUDA
+        # cores
+        with_bound(r, pairs * n * (2 * 128 * eb + 8 + 24),
+                   {"bf16": (6 if mode == "f32" else 1) * product})
+        if mode == "f32":
+            r["ffma_bound_ms"] = bound(0, {"f32": product})[0]
+        # ptxas's (registers, spill stores, spill loads) of the mode's two
+        # instantiations (BM 128 and 64); empty if built before this run
+        r["registers"] = {k: v for k, v in _build.tc_kernel_usage().items()
+                          if k.startswith(f"{mode} 2 ")}
+        log(f"[K3] {mode} ptxas: {r['registers']}")
+        bt = args[1].transpose(1, 2)
+        r["product_only_ms"] = product_only(
+            f"K3 {mode} torch.bmm {pairs} x {n} x {n}",
+            lambda: torch.bmm(args[0], bt))
+        del bt, args
+        log(f"[K3] {mode} (int8 cast) {pairs} pairs x {n}: bit-exact; kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
+            + (f" (six bf16 products); its product on the CUDA cores "
+               f"{r['ffma_bound_ms']:.3f} ms" if mode == "f32" else ""))
+        out[mode] = r
+    del a, b, na, nb
+    # f32 rows whose mid planes are set: integers 256..360 (an odd value
+    # has mid = ±1; every dot stays below 128 · 360² < 2²⁴, exact), a fifth
+    # of B planted near A
+    a = torch.randint(256, 361, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    b = torch.randint(256, 361, (pairs, n, 128), generator=gen,
+                      device="cuda", dtype=torch.int16)
+    b[:, :n // 5] = (a[:, :n // 5] + torch.randint(
+        -4, 5, (pairs, n // 5, 128), generator=gen, device="cuda",
+        dtype=torch.int16)).clamp(256, 360)
+    a, b = a.float(), b.float()
+    args = (a, b, (a * a).sum(-1), (b * b).sum(-1))
+    check_equal("K3 f32 on 256..360", knn.knn_wide_raw(*args),
+                knn.knn_wide_plain(*args))
+    log(f"[K3] f32 {pairs} pairs x {n} on 256..360 (mid planes set): "
+        "bit-exact")
+    del a, b, args
     # random floats: the kernel's summation order differs from cuBLAS's;
-    # f32 on FFMA within 2^-20 of the norms, bf16 on the tensor cores
-    # (other order and internal rounding of each 16-product step) within
+    # f32 on the three-plane split within 2^-20 of the norms, bf16 (other
+    # order and internal rounding of each 16-product step) within
     # TC_REL_TOL
     fa = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
     fb = torch.rand((8, n, 128), generator=gen, device="cuda") * 400
@@ -715,9 +753,10 @@ def check_wide():
                                 2 * atol)
         log(f"[K3] {mode} random 8 pairs x {n}: values within {err:.3g} "
             f"(bound {atol:.3g}); {n_diff} indices differ, all on ties")
-        r[f"{mode}_random_max_abs_err"] = err
+        out["f32" if dtype == torch.float32 else "bf16"][
+            "random_max_abs_err"] = err
         del xa, xb
-    return r
+    return out
 
 
 def bench_workload(steps=16):
@@ -1064,7 +1103,6 @@ def run_wide_store():
             + torch.tensor([25.0, -40.0], device=dev)
     store = DescriptorStore((base - 128).to(torch.int8), uv,
                             torch.full((n_img,), n, dtype=torch.int32))
-    del base
     pairs = [(k - 1, k) for k in range(1, n_img)]
     config = matcher.MatchConfig(n_hyp=512, store_scan=1)
     reset_launches()
@@ -1087,6 +1125,63 @@ def run_wide_store():
     if min(kept) < 0.95 * P:
         raise AssertionError(f"wide store kept {min(kept)} < 95% of {P} "
                              "planted matches")
+    del store
+    f32_launches = run_wide_f32(base, uv, pairs, config)
+    return {"knn_wide": launches["knn_wide"],
+            "knn_wide_f32": f32_launches["knn_wide_f32"]}
+
+
+def run_wide_f32(base, uv, pairs, config, chunk=8):
+    """Phase 10b: the wide store's rows as f32 descriptors (their 0..255
+    values) through match_pair_batch(bf16=False), f32 matching as
+    MatchConfig(bf16=False) runs it, chunk pairs at a time: K3's f32
+    mode. ≥ 95% of the planted matches survive in every pair; then K3
+    f32's keys on those rows equal K3 bf16's bit for bit (integer rows:
+    both products exact)."""
+    dev = base.device
+    n = base.shape[1]
+    P = WIDE_PLANTED
+    desc = base.float()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kept = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(pairs), chunk):
+        ia = torch.tensor([i for i, _ in pairs[s:s + chunk]], device=dev)
+        ib = torch.tensor([j for _, j in pairs[s:s + chunk]], device=dev)
+        counts = torch.full((len(ia),), n, dtype=torch.int32, device=dev)
+        best_j, ok = matcher.match_pair_batch(
+            desc[ia], desc[ib], uv[ia], uv[ib], counts, counts, gen,
+            ratio=config.ratio, thresh=7.9, n_hyp=config.n_hyp, bf16=False)
+        planted = torch.arange(P, device=dev)
+        kept += ((ok[:, P:2 * P] & (best_j[:, P:2 * P] == planted))
+                 .sum(1).tolist())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[wide] f32 (bf16=False) {len(pairs)} pairs x {n} through "
+        f"match_pair_batch in chunks of {chunk}: {dt:.3f} s = "
+        f"{len(pairs) / dt:.1f} pairs/s; planted kept min {min(kept)} mean "
+        f"{np.mean(kept):.1f} of {P}; launches: {launches}")
+    if launches["knn_wide_f32"] == 0 or launches["knn_wide"] != 0:
+        raise AssertionError(f"f32 matching did not take K3 f32: {launches}")
+    if min(kept) < 0.95 * P:
+        raise AssertionError(f"f32 wide matching kept {min(kept)} < 95% of "
+                             f"{P} planted matches")
+    for s in range(0, len(pairs), chunk):
+        ia = torch.tensor([i for i, _ in pairs[s:s + chunk]], device=dev)
+        ib = torch.tensor([j for _, j in pairs[s:s + chunk]], device=dev)
+        a, b = desc[ia], desc[ib]
+        na, nb = knn._sq_norms(a), knn._sq_norms(b)
+        f32 = knn.knn_wide_raw(a, b, na, nb)
+        bf16 = knn.knn_wide_raw(a.bfloat16(), b.bfloat16(), na, nb)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(f32, bf16)):
+            raise AssertionError(f"K3 f32's keys differ from K3 bf16's on "
+                                 f"pairs {s}..{s + len(ia) - 1}")
+    log(f"[wide] K3 f32's keys equal K3 bf16's bit for bit on all "
+        f"{len(pairs)} pairs")
     return launches
 
 
@@ -1486,6 +1581,7 @@ def run_mission_ba():
 
 
 PROBE_PLAIN_PAIRS = 2       # pairs of the 64 held against the plain versions
+ROW_MIN_MODE = 4            # kProductRowMin (csrc/knn_common.cuh)
 P5_REL_TOL = 1e-5           # P5 on normal inputs: |kernel − plain| ≤ this
                             # × max |plain| (f32 sums of 6144·K products in
                             # another order)
@@ -1597,18 +1693,58 @@ def run_anatomy(a, b, fargs):
 
 
 def run_tile_sweep(a, b, fargs):
-    """P6: the row-minimum stage over each dtype's seven tiles."""
+    """P6 on the tensor-core body: product + row min at each tile of
+    knn_stages.TC_TILES, int8 and bf16, each held bit-exact against
+    tc_row_min_plain on all 64 pairs, then timed in turns with the old
+    bodies' row_min stage at the TPU sweep point's old tile, with its
+    blocks an SM (occupancy calculator) and ptxas's registers and spills;
+    then both bodies at K1's tile in turns. Returns ({(dtype, tile):
+    measurements, (dtype, "k1"): (tc ms, old ms)}, launches)."""
+    inputs = {"int8": ((a, b), (a, b, None, None)),
+              "bf16": (fargs[:2], fargs)}
+    for dtype, (tc_args, _) in inputs.items():
+        want = knn_stages.tc_row_min_plain(*tc_args)
+        for tile in knn_stages.TC_TILES:
+            check_equal(f"tc_row_min {dtype} {tile}",
+                        knn_stages.tc_row_min_raw(*tc_args, tile), want)
+        del want
+    log(f"[P6] tc_row_min bit-exact with tc_row_min_plain on all {len(a)} pairs "
+        f"at every tile {knn_stages.TC_TILES}, int8 and bf16")
+    usage = _build.tc_kernel_usage()
+
     def sweep():
         res = {}
-        for dtype, args in (("int8", (a, b, None, None)), ("bf16", fargs)):
-            for (ta, tb, ic), tile in zip(knn_stages.P6_SWEEP,
-                                          knn_stages.TILES[args[0].dtype]):
-                ms = time_ms(lambda: knn_stages.knn_probe_raw(
-                    *args, stage=knn_stages.ROW_MIN, tile=tile), 3)
-                res[(dtype, tile)] = ms
-                log(f"[P6] {dtype} TPU ta={ta} tb={tb} ic={ic} -> card "
-                    f"tile {tile}: {ms:.3f} ms/batch "
-                    f"({64 / ms * 1e3:.0f} pairs/s)")
+        for dtype, (tc_args, old_args) in inputs.items():
+            dt = tc_args[0].dtype
+            for (ta, tb, ic), tile, old_tile in zip(
+                    knn_stages.P6_SWEEP, knn_stages.TC_TILES,
+                    knn_stages.TILES[dt]):
+                new, old = in_turns(
+                    lambda: knn_stages.tc_row_min_raw(*tc_args, tile),
+                    lambda: knn_stages.knn_probe_raw(
+                        *old_args, stage=knn_stages.ROW_MIN,
+                        tile=old_tile))
+                regs = usage.get(f"{dtype} {ROW_MIN_MODE} "
+                                 + " ".join(map(str, tile)))
+                r = {"ms": float(np.mean(new)), "old_ms": float(np.mean(old)),
+                     "old_tile": old_tile, "registers": regs,
+                     "blocks_per_sm": knn_stages.tc_row_min_blocks(dt, tile)}
+                res[(dtype, tile)] = r
+                log(f"[P6] {dtype} TPU ta={ta} tb={tb} ic={ic} -> tensor "
+                    f"cores {tile}: {new[0]:.3f} / {new[1]:.3f} ms, "
+                    f"{r['blocks_per_sm']} blocks an SM, ptxas (registers, "
+                    f"spill stores, spill loads) {regs}; old body "
+                    f"{old_tile}: {old[0]:.3f} / {old[1]:.3f} ms "
+                    f"({r['old_ms'] / r['ms']:.2f}x)")
+            new, old = in_turns(
+                lambda: knn_stages.tc_row_min_raw(*tc_args),
+                lambda: knn_stages.knn_probe_raw(*old_args,
+                                                 stage=knn_stages.ROW_MIN))
+            res[(dtype, "k1")] = (float(np.mean(new)), float(np.mean(old)))
+            log(f"[P6] {dtype} at K1's tiles, in turns: tensor cores "
+                f"{knn_stages.K1_TC_TILE} {new[0]:.3f} / {new[1]:.3f} ms, "
+                f"old body {knn_stages.K1_TILE} {old[0]:.3f} / "
+                f"{old[1]:.3f} ms")
         return res
     return drive("P6", sweep)
 
@@ -1786,21 +1922,28 @@ def run_probes():
     pairs, n = BENCH_SHAPE
     out = {"P5": (p5, n5), "P1": (p1, n1), "P2": (p2, n2)}
     i8 = (a, b, None, None)
-    for name, args, stage, launches, lib in (
-            ("P4", i8, knn_stages.ROW_SUM, anatomy["launches"]["P4"],
-             int_mm),
-            ("P3", i8, knn_stages.ROW_MIN, anatomy["launches"]["P3"],
-             int_mm),
-            ("P6", fargs, knn_stages.ROW_MIN, n6, bmm)):
-        dtype = "int8" if args is i8 else "bf16"
-        ms = (p6[(dtype, knn_stages.K1_TILE)] if name == "P6"
-              else anatomy[dtype][knn_stages.STAGES[stage]])
+    for name, args, stage, launches in (
+            ("P4", i8, knn_stages.ROW_SUM, anatomy["launches"]["P4"]),
+            ("P3", i8, knn_stages.ROW_MIN, anatomy["launches"]["P3"])):
         # the plain version at the full 64 pairs, timed once
-        r = {"max_abs_err": 0.0, "ms": ms, "plain_ms": time_ms(
-            lambda: knn_stages.knn_probe_plain(*args, stage=stage), 1)}
-        out[name] = (with_bound(r, *k1_bound(pairs, n, 1 if args is i8
-                                             else 2, dtype),
-                                library_ms=lib), launches)
+        r = {"max_abs_err": 0.0,
+             "ms": anatomy["int8"][knn_stages.STAGES[stage]],
+             "plain_ms": time_ms(lambda: knn_stages.knn_probe_plain(
+                 *args, stage=stage), 1)}
+        out[name] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
+                                library_ms=int_mm), launches)
+    # P6: the tensor-core body at K1's tile, bf16 (its int8 beside it),
+    # with the old bodies at theirs
+    (ms, ffma), (ms8, dp4a) = p6[("bf16", "k1")], p6[("int8", "k1")]
+    r = {"max_abs_err": 0.0, "ms": ms, "ffma_ms": ffma, "int8_ms": ms8,
+         "int8_dp4a_ms": dp4a,
+         "int8_bound_ms": bound(*k1_bound(pairs, n, 1, "int8"))[0],
+         "int8_library_ms": int_mm,
+         "plain_ms": time_ms(lambda: knn_stages.tc_row_min_plain(
+             *fargs[:2]), 1)}
+    out["P6"] = (with_bound(r, *k1_bound(pairs, n, 2, "bf16"),
+                            library_ms=bmm),
+                 {"knn_tc_row_min": n6.get("knn_tc_row_min", 0)})
     log(f"[probes] phase 15 in {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -1849,9 +1992,9 @@ def main():
                                          "dp4a_ms", "tc_product_ms",
                                          "ffma_bound_ms", "loop_ms",
                                          "device_ms", "loop_device_ms",
-                                         "random_max_abs_err", "f32_ms",
-                                         "f32_plain_ms", "f32_bound_ms",
-                                         "f32_product_only_ms")
+                                         "random_max_abs_err", "int8_ms",
+                                         "int8_dp4a_ms", "int8_bound_ms",
+                                         "int8_library_ms")
                        if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
@@ -1867,7 +2010,10 @@ def main():
         entry("knn_packed_f32", "knn_packed.cu", k1_src,
               rep_launches["knn_packed_f32"], k1["f32"]),
         entry("knn_wide", "knn_wide.cu", "imageanalysis_tpu/ops/knn.py:407",
-              wide_launches["knn_wide"], k3),
+              wide_launches["knn_wide"], k3["bf16"]),
+        entry("knn_wide_f32", "knn_wide.cu",
+              "imageanalysis_tpu/ops/knn.py:407",
+              wide_launches["knn_wide_f32"], k3["f32"]),
         entry("gauss_blur_f32", "gauss_blur.cu",
               "imageanalysis_tpu/features/sift_tpu.py:67",
               slice_launches["gauss_blur_f32"], k2),
@@ -1886,7 +2032,7 @@ def main():
              "scripts_dev/knn_stage_cost.py:31"),
             ("P5", "mm_rowsum_bf16", "mma_probe.cu",
              "scripts_dev/matmul_shape_probe.py:33"),
-            ("P6", "knn_probe_p6_tiles", "knn_probe.cu",
+            ("P6", "knn_tc_row_min", "knn_probe.cu",
              "scripts_dev/knn_overhead_sweep.py:36")):
         r, counts = anatomy[p]
         kernels.append(entry(name, source, replaces, sum(counts.values()),

@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,8 +49,9 @@ _SIGNATURES = {
                          _I, _I, _P],
     # x, out, rows, stream
     "split_bf16x3": [_P, _P, _I, _P],
-    # a, b, na2, nb2, row_k, col_k, n_pairs, n_a, n_b, bf16, stream
-    "knn_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, na2, nb2, row_k, col_k, split_a, split_b (f32's bf16 planes),
+    # n_pairs, n_a, n_b, bf16, stream
+    "knn_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # in, out, taps (host float*), n_img, H, W, radius, stream
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gauss_blur_loop_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -62,14 +64,19 @@ _SIGNATURES = {
     # n_pairs, n_a, n_b, wide, stream
     "knn_ffma_bf16": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                       _I, _P],
-    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
-    # n_b, stream
-    "knn_ffma_f32": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,
+    # n_pairs, n_a, n_b, wide, stream
+    "knn_ffma_f32": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _P],
     # a, b, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a, n_b, stream
     "knn_dp4a_i8": [_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # a, b, split_a, split_b, row_p, n_pairs, n_a, n_b, dtype (0 int8,
     # 1 bf16, 2 f32), stream
     "knn_tc_row_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, row_p, n_pairs, n_a, n_b, bf16, bm, bn, stages, stream
+    "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bf16, bm, bn, stages
+    "knn_tc_row_min_blocks": [_I, _I, _I, _I],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
     # epi_threads, do_main, do_epi, do_pb, stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -157,6 +164,48 @@ def load():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def ptxas_usage(log=None):
+    """ptxas's report (-Xptxas -v) of each kernel in log (default: the
+    last build's): {mangled name: (registers, spill stores, spill loads)
+    in bytes for the spills}. Empty when the library was already built."""
+    usage, spills, cur = {}, {}, None
+    for ln in (build_log if log is None else log).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur:
+            spills[cur] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            usage[cur] = (int(m.group(1)), *spills.get(cur, (0, 0)))
+    return usage
+
+
+# knn_tc_kernel<T, MODE, BM, BN, STAGES> (csrc/knn_tc.cuh) as mangled: T
+# "t" bf16 bits, "a" int8, "NS_6Bf16x3E" f32's three bf16 planes; BN and
+# STAGES absent from builds whose kernel had no such parameters
+_TC_KERNEL = re.compile(r"knn_tc_kernelI(t|a|NS_6Bf16x3E)Li(\d+)ELi(\d+)E"
+                        r"(?:Li(\d+)ELi(\d+)E)?E")
+_TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32"}
+
+
+def tc_kernel_usage(usage=None):
+    """ptxas_usage() of the tensor-core body's instantiations, keyed
+    "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2")."""
+    out = {}
+    for name, u in (ptxas_usage() if usage is None else usage).items():
+        m = _TC_KERNEL.search(name)
+        if m:
+            key = [_TC_TYPES[m.group(1)], *(g for g in m.groups()[1:] if g)]
+            out[" ".join(key)] = u
+    return out
 
 
 def check(err, name):

@@ -3,12 +3,15 @@
 // constants, the spatial gate, the keys, and three bodies, each compiled
 // in its own modes:
 //   knn_tc_kernel      every mode of K1 (bf16, int8 and f32 as three bf16
-//                      planes, each plain and gated) and K3 bf16, mma.sync
-//                      on the tensor cores (knn_tc.cuh, included at the
-//                      end of this file)
-//   knn_float_kernel   f32 descriptors (K3 f32), f32 FMAs; also the
-//                      tensor-core body's f32 and bf16 yardsticks and bf16
-//                      for the probes of K1's anatomy (knn_probe.cu)
+//                      planes, each plain and gated) and of K3 (bf16,
+//                      f32), mma.sync on the tensor cores (knn_tc.cuh,
+//                      included at the end of this file); P6's row-min
+//                      sweep
+//   knn_float_kernel   f32 FMAs on bf16 or f32 descriptors: the
+//                      tensor-core body's f32 and bf16 yardsticks (K1's
+//                      modes and K3's) and bf16 for the probes of K1's
+//                      anatomy (knn_probe.cu); K1 and K3 no longer launch
+//                      it
 //   knn_i8_block       int8 descriptors, __dp4a: the probes' int8 anatomy
 //                      (knn_probe.cu, knn_fused_probe.cu) and the
 //                      tensor-core body's int8 yardstick; K1 no longer
@@ -25,8 +28,8 @@
 // The __dp4a and f32 bodies are templates over a STAGE and a block tile
 // (TA A rows per block, B streamed in tiles of TB rows; 256 threads in a
 // 16 x 16 grid, so each thread holds a TA/16 x TB/16 register tile of
-// dots). Their full stage at TA = TB = 64 is K1's result bit for bit (K3
-// f32 launches it); the probes of K1's anatomy compile the
+// dots). Their full stage at TA = TB = 64 is K1's result bit for bit (its
+// kWide mode K3's); the probes of K1's anatomy compile the
 // earlier stages and other tiles from the same source, so each dtype's
 // stages are one body's:
 //   kRowSum    product + row sum (unsigned, wrapping: the TPU probe's int32
@@ -48,7 +51,7 @@
 // operation on its own. Its bf16 instantiations (operands widened to f32
 // in shared memory) are the probes' and, with its f32 K1 modes, the timing
 // yardsticks of the tensor-core body (knn_ffma_bf16 and knn_ffma_f32 in
-// knn_probe.cu); of K1 and K3, only K3's f32 mode still launches it.
+// knn_probe.cu, each in K1's modes and K3's).
 
 #pragma once
 
@@ -69,9 +72,17 @@ constexpr long long kWideMax = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int kWords = 32;          // 128 int8 = 32 int32 words per row
 constexpr int kLds8 = kWords + 1;   // padded shared row: conflict-free reads
 
-// kProductRowSum: the tensor-core body's product with a wrapping row sum
-// in place of the keys (the probes' product-only stage)
-enum Mode { kPacked = 0, kPackedGated = 1, kWide = 2, kProductRowSum = 3 };
+// kProductRowSum and kProductRowMin: the tensor-core body's product with
+// a wrapping row sum (the probes' product-only stage) or the row minimum
+// of the dots (P6) in place of the keys
+enum Mode {
+  kPacked = 0, kPackedGated = 1, kWide = 2, kProductRowSum = 3,
+  kProductRowMin = 4
+};
+// the modes that compute keys (K1's and K3's), not the probes' reductions
+__host__ __device__ constexpr bool keyed(int mode) {
+  return mode == kPacked || mode == kPackedGated || mode == kWide;
+}
 enum Stage {
   kRowSum = 0, kRowMin = 1, kTop1 = 2, kTop2Tile = 3, kTop2 = 4, kFull = 5
 };

@@ -1,6 +1,7 @@
 // Probes of K1's anatomy, for Hopper (sm_90a): K1 cut down stage by stage
-// and swept over block tiles, from the bodies K1 ran before its tensor-core
-// body (knn_common.cuh).
+// and swept over block tiles, on the bodies K1 ran before its tensor-core
+// body (knn_common.cuh) and, for P6's sweep, on the tensor-core body
+// itself (knn_tc.cuh).
 //
 // Replaces the TPU dev probes
 //   scripts_dev/knn_stage_cost.py:31      kernel       (P4: K1 by stage)
@@ -12,28 +13,32 @@
 // parts are the Stage values of knn_common.cuh, compiled into its int8
 // body (__dp4a) and its float body (f32 FMAs on bf16 operands): product +
 // row sum, product + row min, + d2/pack/top-1, + top-2 restarted at every
-// B tile, + the running top-2, + the column atomicMin. K1's bf16 and int8
-// modes now run the tensor-core body (knn_tc.cuh); the stages, the full
-// ones included, stay on the bodies K1 ran before it, so each dtype's
-// anatomy is one body's and its stage differences stay meaningful. Their
-// full stages equal K1's result bit for bit. knn_dp4a_i8 (K1's int8
-// modes, plain and gated), knn_ffma_bf16 (K1's and K3's bf16 modes:
-// plain, gated, wide) and knn_ffma_f32 (K1's f32 modes, plain and gated)
-// launch those bodies as the tensor-core body's yardsticks, and
-// knn_tc_row_sum the tensor-core body's own product-only stage (product +
-// wrapping row sum, kRowSum's result) in any of its types.
+// B tile, + the running top-2, + the column atomicMin. K1 now runs the
+// tensor-core body (knn_tc.cuh); the stages, the full ones included, stay
+// on the bodies K1 ran before it, so each dtype's anatomy is one body's
+// and its stage differences stay meaningful. Their full stages equal K1's
+// result bit for bit. knn_dp4a_i8 (K1's int8 modes, plain and gated),
+// knn_ffma_bf16 (K1's and K3's bf16 modes: plain, gated, wide) and
+// knn_ffma_f32 (K1's and K3's f32 modes: plain, gated, wide) launch those
+// bodies as the tensor-core body's yardsticks. On the tensor-core body:
+// knn_tc_row_sum, its product-only stage (product + wrapping row sum,
+// kRowSum's result) in any of its types, and knn_tc_row_min, P6's product
+// + row min (kRowMin's result) at each tile of P6's sweep.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
 // per-element epilogue after the dots, which is what they measure.
 //
-// Tiles: TA A rows per block x TB B rows per streamed shared-memory tile,
-// 256 threads. int8 at (32, 32), (32, 64), (64, 32), (64, 64) = K1,
-// (128, 64), (64, 128), (128, 128); bf16 at (16, 64), (32, 32), (32, 64),
-// (64, 32), (64, 64) = the FFMA K1's, (16, 128), (32, 128) (the float
-// body keeps A as f32 in shared memory: TA x TB beyond that passes the 48
-// KB of static shared memory). Every stage at (64, 64), the row-min stage
-// at every tile; any other combination returns cudaErrorInvalidValue.
+// Tiles of the old bodies: TA A rows per block x TB B rows per streamed
+// shared-memory tile, 256 threads. int8 at (32, 32), (32, 64), (64, 32),
+// (64, 64) = K1, (128, 64), (64, 128), (128, 128); bf16 at (16, 64), (32,
+// 32), (32, 64), (64, 32), (64, 64) = the FFMA K1's, (16, 128), (32, 128)
+// (the float body keeps A as f32 in shared memory: TA x TB beyond that
+// passes the 48 KB of static shared memory). Every stage at (64, 64), the
+// row-min stage at every tile; any other combination returns
+// cudaErrorInvalidValue. Tiles of the tensor-core body, (BM, BN, ring
+// stages), int8 and bf16 alike: (64, 64, 2), (128, 64, 2), (64, 128, 2),
+// (128, 128, 2) = K1, (128, 128, 3), (256, 64, 2), (256, 128, 2).
 
 #include "knn_common.cuh"
 
@@ -188,29 +193,36 @@ extern "C" int knn_dp4a_i8(const void* a, const void* b, const void* uv_a,
 }
 
 // The FFMA float body (knn_float_kernel) on f32 descriptors in K1's modes
-// (packed keys into row_p / col_p, gated when uv_a != NULL): what K1
+// (wide == 0: packed keys into row_p / col_p, gated when uv_a != NULL) or
+// K3's (wide != 0: 64-bit keys into row_k / col_k): what K1 and K3
 // launched for f32 before the tensor-core body. Arguments as
-// knn_packed_float without the split scratch. Returns the cudaError_t of
-// the launch.
+// knn_packed_float and knn_wide without the split scratch. Returns the
+// cudaError_t of the launch.
 extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
                             const void* nb2, const void* uv_a,
                             const void* pred_b, float radius2, void* row_p,
-                            void* col_p, int n_pairs, int n_a, int n_b,
+                            void* col_p, void* row_k, void* col_k,
+                            int n_pairs, int n_a, int n_b, int wide,
                             void* stream) {
-  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1))
+  if (bad_shape(n_pairs, n_a, n_b, wide ? 1 << 30 : kIdxMask + 1))
     return (int)cudaErrorInvalidValue;
   dim3 grid(n_a / kTA, n_pairs);
   cudaStream_t s = (cudaStream_t)stream;
-  if (uv_a)
+  const float* pa = (const float*)a;
+  const float* pb = (const float*)b;
+  if (wide)
+    knn_float_kernel<float, kWide><<<grid, kThreads, 0, s>>>(
+        pa, pb, (const float*)na2, (const float*)nb2, nullptr, nullptr, 0.f,
+        nullptr, nullptr, (long long*)row_k, (long long*)col_k, n_a, n_b);
+  else if (uv_a)
     knn_float_kernel<float, kPackedGated><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)na2,
-        (const float*)nb2, (const float*)uv_a, (const float*)pred_b, radius2,
-        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
+        pa, pb, (const float*)na2, (const float*)nb2, (const float*)uv_a,
+        (const float*)pred_b, radius2, (int*)row_p, (int*)col_p, nullptr,
+        nullptr, n_a, n_b);
   else
     knn_float_kernel<float, kPacked><<<grid, kThreads, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)na2,
-        (const float*)nb2, nullptr, nullptr, 0.f, (int*)row_p, (int*)col_p,
-        nullptr, nullptr, n_a, n_b);
+        pa, pb, (const float*)na2, (const float*)nb2, nullptr, nullptr, 0.f,
+        (int*)row_p, (int*)col_p, nullptr, nullptr, n_a, n_b);
   return (int)cudaGetLastError();
 }
 
@@ -219,12 +231,12 @@ extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
 // all n_b B rows in both slots. a, b int8 (dtype 0), integer-valued bf16
 // bits (1) or integer-valued f32 (2, split first into split_a (n_pairs,
 // n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch, unused
-// otherwise), 16-byte aligned; n_a and n_b multiples of 64, at most 8192.
-// Returns the cudaError_t of the launch.
+// otherwise), 16-byte aligned; n_a and n_b multiples of 64, of any size
+// (K1's and K3's shapes). Returns the cudaError_t of the launch.
 extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
                               void* split_b, void* row_p, int n_pairs,
                               int n_a, int n_b, int dtype, void* stream) {
-  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1) || dtype < 0 || dtype > 2)
+  if (bad_shape(n_pairs, n_a, n_b, 1 << 30) || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
@@ -241,4 +253,66 @@ extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
   return launch_tc<Bf16x3, kProductRowSum>(
       split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
       nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
+}
+
+namespace {
+
+struct RowMinArgs {
+  const void* a;
+  const void* b;
+  void* row_p;
+  int n_pairs, n_a, n_b;
+  cudaStream_t stream;
+};
+
+// one tile of P6's sweep: its launch, or (x == NULL) its blocks an SM
+template <typename T, int BM, int BN, int STAGES>
+int row_min_tile(const RowMinArgs* x) {
+  if (!x) return tc::tile_blocks_per_sm<T, kProductRowMin, BM, BN, STAGES>();
+  return tc::launch_tile<T, kProductRowMin, BM, BN, STAGES>(
+      x->a, x->b, nullptr, nullptr, nullptr, nullptr, 0.f, x->row_p, nullptr,
+      nullptr, nullptr, x->n_pairs, x->n_a, x->n_b, x->stream);
+}
+
+template <typename T>
+int row_min_tc(const RowMinArgs* x, int bm, int bn, int stages) {
+  if (bm == 64 && bn == 64 && stages == 2)
+    return row_min_tile<T, 64, 64, 2>(x);
+  if (bm == 128 && bn == 64 && stages == 2)
+    return row_min_tile<T, 128, 64, 2>(x);
+  if (bm == 64 && bn == 128 && stages == 2)
+    return row_min_tile<T, 64, 128, 2>(x);
+  if (bm == 128 && bn == 128 && stages == 2)
+    return row_min_tile<T, 128, 128, 2>(x);
+  if (bm == 128 && bn == 128 && stages == 3)
+    return row_min_tile<T, 128, 128, 3>(x);
+  if (bm == 256 && bn == 64 && stages == 2)
+    return row_min_tile<T, 256, 64, 2>(x);
+  if (bm == 256 && bn == 128 && stages == 2)
+    return row_min_tile<T, 256, 128, 2>(x);
+  return x ? (int)cudaErrorInvalidValue : -(int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// P6 on the tensor-core body (kProductRowMin) at tile (bm, bn, stages) of
+// the sweep above: row_p (n_pairs, n_a, 2) int32 gets each A row's minimum
+// dot with all n_b B rows, as an int, in both slots. a, b int8 (bf16 == 0)
+// or integer-valued bf16 bits (bf16 != 0), 16-byte aligned; n_a a
+// multiple of bm, n_b of 64. Returns the cudaError_t of the launch.
+extern "C" int knn_tc_row_min(const void* a, const void* b, void* row_p,
+                              int n_pairs, int n_a, int n_b, int bf16,
+                              int bm, int bn, int stages, void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, 1 << 30) || bm <= 0 || n_a % bm)
+    return (int)cudaErrorInvalidValue;
+  const RowMinArgs x{a, b, row_p, n_pairs, n_a, n_b, (cudaStream_t)stream};
+  return bf16 ? row_min_tc<uint16_t>(&x, bm, bn, stages)
+              : row_min_tc<int8_t>(&x, bm, bn, stages);
+}
+
+// Blocks of knn_tc_row_min's tile (bm, bn, stages) resident on one SM
+// (the occupancy calculator's count); a negative cudaError_t on failure
+extern "C" int knn_tc_row_min_blocks(int bf16, int bm, int bn, int stages) {
+  return bf16 ? row_min_tc<uint16_t>(nullptr, bm, bn, stages)
+              : row_min_tc<int8_t>(nullptr, bm, bn, stages);
 }

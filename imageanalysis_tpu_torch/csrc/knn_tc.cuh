@@ -3,14 +3,16 @@
 // three bf16 planes (Bf16x3). Included at the end of knn_common.cuh, whose
 // constants, gate and keys it uses; K1 (knn_packed.cu) launches it in all
 // of its modes, plain (kPacked) and gated (kPackedGated), K3 (knn_wide.cu)
-// in its bf16 mode (kWide). K3's f32 mode stays on knn_common.cuh's FFMA
-// body. A fourth mode, kProductRowSum, is the body's product with a
-// wrapping row sum in place of the key epilogue: the probes' product-only
-// stage (knn_probe.cu).
+// in both of its modes, bf16 and f32 (kWide). Two more modes are the
+// body's product with a reduction in place of the key epilogue, for the
+// probes (knn_probe.cu): kProductRowSum, a wrapping row sum (the
+// product-only stage), and kProductRowMin, the row minimum of the dots
+// (P6's kernel, swept over tiles).
 //
 // Replaces, for bf16, int8 and f32 descriptors:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
-//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, bf16 dot)
+//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, every dot)
+//   scripts_dev/knn_overhead_sweep.py:36 kernel          (P6, row min)
 //
 // What bounds it on the H100: the product, 2 n_a n_b 128 operations a
 // pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8;
@@ -58,21 +60,28 @@
 // are exact.
 // Three planes at BM = 128 with 128-row B tiles would not fit the 227 KB of
 // a block; 64-row B tiles do (~199 KB at BM = 128, ~150 KB at 64: one block
-// an SM), and keep as many mma.sync per ldmatrix as the bf16 body.
+// an SM), and keep as many mma.sync per ldmatrix as the bf16 body. K1 and
+// K3 take the same f32 body; K3's keys are 64-bit (kWide).
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
 //   multiple of 64), resident in shared memory for the whole sweep over
-//   B; B streams through a ring of kStages tiles of kBN rows, each
-//   filled by cp.async.cg (16 B a thread) while the tile before it is
-//   multiplied: the copy of tile t + 1 overlaps the mma.sync of tile t.
+//   B; B streams through a ring of STAGES (2) tiles of BN rows (the
+//   type's kBN), each filled by cp.async.cg (16 B a thread) while the
+//   tile before it is multiplied: the copy of tile t + 1 overlaps the
+//   mma.sync of tile t.
+//   BM, BN and STAGES are template parameters whose defaults are K1's and
+//   K3's tiles; P6 sweeps others (BM 64-256, BN 64 or 128, 2 or 3 stages)
+//   in kProductRowMin. Blocks an SM (the launch bounds) follow from the
+//   tile: two where two fit the SM's shared memory and a warp's
+//   accumulators stay at 32 x 64 (at most 128 registers), else one.
 //   Rows are padded to an odd number of 16-byte units, so ldmatrix.x4
 //   reads them without bank conflicts. ~107 KB (bf16) or ~60 KB (int8) of
 //   dynamic shared memory: two blocks share an SM (__launch_bounds__(256,
 //   2), at most 128 registers), so one block's epilogue overlaps the
 //   other's products; f32 (~199 KB) holds one block an SM, whose two
 //   accumulators may take up to 255 registers.
-// - 8 warps, each a 32 x (kBN / WN) tile of mma.sync accumulators
+// - 8 warps, each a 32 x (BN / WN) tile of mma.sync accumulators
 //   (mma_sync.cuh), no widening of the operands.
 // - The epilogue runs on the accumulator fragment: a thread holds rows g
 //   and g + 8 (g = lane / 4) of each m16 tile and columns 2q, 2q + 1
@@ -111,10 +120,11 @@ struct Bf16x3 {};
 
 namespace tc {
 
-constexpr int kStages = 2;          // B tiles in the ring
+constexpr int kStages = 2;          // B tiles in the ring (the default)
 
 // What the operand type decides: the accumulator type, the bytes of a row
-// (its planes side by side) and the B rows of a streamed tile
+// (its planes side by side) and the B rows of a streamed tile (the
+// default BN)
 template <typename T>
 struct Op;
 template <>
@@ -123,7 +133,6 @@ struct Op<uint16_t> {               // bf16 bits
   static constexpr int kPlanes = 1;
   static constexpr int kRowBytes = kDim * 2;
   static constexpr int kBN = 128;
-  static constexpr int kBlocks = 2;   // blocks an SM (launch bounds)
 };
 template <>
 struct Op<int8_t> {
@@ -131,7 +140,6 @@ struct Op<int8_t> {
   static constexpr int kPlanes = 1;
   static constexpr int kRowBytes = kDim;
   static constexpr int kBN = 128;
-  static constexpr int kBlocks = 2;
 };
 template <>
 struct Op<Bf16x3> {
@@ -139,7 +147,6 @@ struct Op<Bf16x3> {
   static constexpr int kPlanes = 3;
   static constexpr int kRowBytes = 3 * kDim * 2;
   static constexpr int kBN = 64;
-  static constexpr int kBlocks = 1;   // ~199 KB of shared memory a block
 };
 // a padded shared row: 272 B (bf16), 144 B (int8) or 784 B (f32), an odd
 // number of 16-byte units
@@ -148,17 +155,27 @@ constexpr int kPitch = Op<T>::kRowBytes + 16;
 template <typename T>
 constexpr int kChunks = Op<T>::kRowBytes / 16;   // 16-byte chunks per row
 
-template <typename T, int BM>
+template <typename T, int BM, int BN, int STAGES>
 struct Smem {
-  static constexpr int kBN = Op<T>::kBN;
   unsigned char a[BM * kPitch<T>];             // the block's A rows
-  unsigned char b[kStages][kBN * kPitch<T>];   // the ring of B tiles
-  float nb2[kStages][kBN];
-  float pb[kStages][kBN * 2];       // the gate's predicted positions
+  unsigned char b[STAGES][BN * kPitch<T>];     // the ring of B tiles
+  float nb2[STAGES][BN];
+  float pb[STAGES][BN * 2];         // the gate's predicted positions
   float ua[BM * 2];                 // the gate's A positions
-  long long colmin_w[kBN];          // the tile's column minimum (K3)
-  int colmin[kBN];                  // (K1)
+  long long colmin_w[BN];           // the tile's column minimum (K3)
+  int colmin[BN];                   // (K1)
 };
+
+// Blocks an SM for a tile (its launch bounds): two where two fit the SM's
+// 228 KB of shared memory (1 KB of it reserved a block) and a warp's
+// accumulators are at most 32 x 64 (K1's bf16 and int8 tiles: 128
+// registers), else one (up to 255 registers; f32's ~199 KB)
+template <typename T, int BM, int BN, int STAGES>
+constexpr int kBlocksPerSm =
+    2 * ((int)sizeof(Smem<T, BM, BN, STAGES>) + 1024) <= 233472 &&
+            BN / (8 / (BM / 32)) <= 64
+        ? 2
+        : 1;
 
 template <int MODE>
 using Key = typename std::conditional<MODE == kWide, long long, int>::type;
@@ -186,8 +203,9 @@ __device__ __forceinline__ int dot_int(int x) { return x; }
 
 // cp.async of B rows b0 .. b0 + rows - 1 of one pair (and their norms and
 // gate positions) into ring stage `stage`
-template <typename T, int MODE, int BM>
-__device__ __forceinline__ void load_b(Smem<T, BM>& s, int stage,
+template <typename T, int MODE, int BM, int BN, int STAGES>
+__device__ __forceinline__ void load_b(Smem<T, BM, BN, STAGES>& s,
+                                       int stage,
                                        const unsigned char* Bm,
                                        const float* nbp,
                                        const float* pbp, int b0, int rows,
@@ -199,7 +217,7 @@ __device__ __forceinline__ void load_b(Smem<T, BM>& s, int stage,
     mma_sync::cp_async16(&s.b[stage][r * kPitch<T> + c],
                          Bt + (size_t)r * kRow + c);
   }
-  if (MODE != kProductRowSum && tid < rows / 4)
+  if (keyed(MODE) && tid < rows / 4)
     mma_sync::cp_async16(&s.nb2[stage][4 * tid], nbp + b0 + 4 * tid);
   if constexpr (MODE == kPackedGated) {
     if (tid < rows / 2)
@@ -231,9 +249,12 @@ __device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
 // n_b B rows. Outputs as knn_float_kernel's full stage: K1's row_p /
 // col_p (col_p pre-filled with 0x7FFFFFFF) or K3's row_k / col_k
 // (pre-filled with INT64_MAX); kProductRowSum writes each row's wrapping
-// sum of its dots into both slots of row_p and leaves col_p alone.
-template <typename T, int MODE, int BM>
-__global__ void __launch_bounds__(kThreads, Op<T>::kBlocks)
+// sum of its dots, kProductRowMin its minimum dot (as an int), into both
+// slots of row_p, and both leave col_p alone.
+template <typename T, int MODE, int BM, int BN = Op<T>::kBN,
+          int STAGES = kStages>
+__global__ void __launch_bounds__(kThreads,
+                                  kBlocksPerSm<T, BM, BN, STAGES>)
 knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
               const float* __restrict__ na2,
               const float* __restrict__ nb2,
@@ -248,21 +269,25 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr bool kSplit = std::is_same<T, Bf16x3>::value;
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
+  constexpr bool kMin = MODE == kProductRowMin;
+  constexpr bool kKeys = keyed(MODE);
   constexpr int kRow = Op<T>::kRowBytes;
   constexpr int kLd = kPitch<T>;
   constexpr int kPlane = kRow / Op<T>::kPlanes;   // bytes of one plane
-  constexpr int kBN = Op<T>::kBN;
+  constexpr int kBN = BN;
   constexpr int WM = BM / 32;       // warps along M: 32 rows each
   constexpr int WN = 8 / WM;        // warps along N
   constexpr int WCOLS = kBN / WN;   // B rows (output columns) per warp
   constexpr int MT = 2;             // m16 tiles per warp
   constexpr int NT = WCOLS / 8;     // n8 tiles per warp
-  static_assert(BM == 64 || BM == 128, "A tiles of 64 or 128 rows");
+  static_assert(BM == 64 || BM == 128 || BM == 256,
+                "A tiles of 64, 128 or 256 rows");
   static_assert(kThreads == 256 && NT % 2 == 0, "8 warps, n8 tiles in pairs");
-  static_assert(MODE != kWide || std::is_same<T, uint16_t>::value,
-                "K3 takes bf16 only");
+  static_assert(BN % 64 == 0 && STAGES >= 2, "B tiles of 64-row multiples");
+  static_assert(MODE != kWide || !kInt8, "K3 takes bf16 or f32");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, BM>& s = *reinterpret_cast<Smem<T, BM>*>(smem_raw);
+  Smem<T, BM, BN, STAGES>& s =
+      *reinterpret_cast<Smem<T, BM, BN, STAGES>*>(smem_raw);
 
   const int pair = blockIdx.y;
   const int a0 = blockIdx.x * BM;
@@ -277,7 +302,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
                            ((size_t)pair * n_a + a0) * kRow;
   const unsigned char* Bm = reinterpret_cast<const unsigned char*>(b) +
                             (size_t)pair * n_b * kRow;
-  const float* nbp = kSum ? nullptr : nb2 + (size_t)pair * n_b;
+  const float* nbp = kKeys ? nb2 + (size_t)pair * n_b : nullptr;
   const float* pbp = kGated ? pred_b + (size_t)pair * n_b * 2 : nullptr;
   const int n_tiles = (n_b + kBN - 1) / kBN;
 
@@ -290,7 +315,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
     mma_sync::cp_async16(&s.ua[4 * tid],
                          uv_a + ((size_t)pair * n_a + a0) * 2 + 4 * tid);
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < STAGES - 1; ++st) {
     if (st < n_tiles)
       load_b<T, MODE>(s, st, Bm, nbp, pbp, st * kBN,
                       min(kBN, n_b - st * kBN), tid);
@@ -299,7 +324,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
   // the row top-2 of this thread's columns: K1's packed keys; K3's values
   // and indices (v1 <= v2), made into 64-bit keys at the end; the row sum
-  // (in r1) of kProductRowSum
+  // or minimum (in r1) of the probes' modes
   float na[MT][2];
   int r1[MT][2], r2[MT][2];
   float v1[MT][2], v2[MT][2];
@@ -308,7 +333,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t row = (size_t)pair * n_a + a0 + wm + mt * 16 + h * 8 + g;
-      na[mt][h] = kSum ? 0.f : na2[row];
+      na[mt][h] = kKeys ? na2[row] : 0.f;
       r1[mt][h] = r2[mt][h] = kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
       v1[mt][h] = v2[mt][h] = __int_as_float(0x7F800000);
     }
@@ -318,14 +343,14 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int next = t + kStages - 1;
+    const int next = t + STAGES - 1;
     if (next < n_tiles)             // its stage was consumed at t - 1
-      load_b<T, MODE>(s, next % kStages, Bm, nbp, pbp, next * kBN,
+      load_b<T, MODE>(s, next % STAGES, Bm, nbp, pbp, next * kBN,
                       min(kBN, n_b - next * kBN), tid);
     mma_sync::cp_async_commit();
-    mma_sync::cp_async_wait<kStages - 1>();   // tile t (and A) arrived
+    mma_sync::cp_async_wait<STAGES - 1>();   // tile t (and A) arrived
     __syncthreads();
-    const int st = t % kStages;
+    const int st = t % STAGES;
     const int b0 = t * kBN;
     const int n_valid = min(kBN, n_b - b0);
     const unsigned char* sb = s.b[st];
@@ -426,7 +451,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = wn + nt * 8 + 2 * q + e;
-        const float nbv = kSum ? 0.f : snb[c];
+        const float nbv = kKeys ? snb[c] : 0.f;
         const float px = kGated ? spb[2 * c] : 0.f;
         const float py = kGated ? spb[2 * c + 1] : 0.f;
         int ck = kKeyMax;           // K1: the column's key
@@ -441,6 +466,10 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
             const Acc dot = acc[mt][nt][2 * h + e];
             if constexpr (kSum) {
               r1[mt][h] = wrap_add(r1[mt][h], dot_int(dot));
+            } else if constexpr (kMin) {
+              // truncation is monotone: the minimum of the truncated dots
+              // is the truncated minimum (the FFMA body's kRowMin)
+              r1[mt][h] = min(r1[mt][h], dot_int(dot));
             } else if constexpr (MODE == kWide) {
               // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain
               // version; -0 → +0: equal values tie on index
@@ -498,7 +527,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
           for (int off = 4; off < 32; off <<= 1)
             cw = kmin(cw, __shfl_xor_sync(0xffffffffu, cw, off));
           if (g == 0) atomicMin(&s.colmin_w[c], cw);
-        } else if constexpr (!kSum) {
+        } else if constexpr (kKeys) {
 #pragma unroll
           for (int off = 4; off < 32; off <<= 1)
             ck = min(ck, __shfl_xor_sync(0xffffffffu, ck, off));
@@ -507,7 +536,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
       }
     }
     __syncthreads();                // tile t consumed; its columns complete
-    if (!kSum && tid < n_valid) {
+    if (kKeys && tid < n_valid) {
       const size_t j = (size_t)pair * n_b + b0 + tid;
       if constexpr (MODE == kWide) {
         atomicMin(&col_k[j], s.colmin_w[tid]);
@@ -520,8 +549,9 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   mma_sync::cp_async_wait<0>();     // only empty groups remain
 
-  // row top-2 as keys (or row sums), merged over the quad's lanes, then
-  // over the WN warps of a row in warp order through the (now free) ring
+  // row top-2 as keys (or row sums or minima), merged over the quad's
+  // lanes, then over the WN warps of a row in warp order through the (now
+  // free) ring
   K k1[MT][2], k2[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -539,6 +569,8 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const K o1 = __shfl_xor_sync(0xffffffffu, k1[mt][h], off);
         if constexpr (kSum) {
           k1[mt][h] = wrap_add(k1[mt][h], o1);
+        } else if constexpr (kMin) {
+          k1[mt][h] = min(k1[mt][h], o1);
         } else {
           const K o2 = __shfl_xor_sync(0xffffffffu, k2[mt][h], off);
           merge2(o1, o2, k1[mt][h], k2[mt][h]);
@@ -563,6 +595,8 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int w = 1; w < WN; ++w) {
       if constexpr (kSum)
         k1 = wrap_add(k1, red[2 * (w * BM + tid)]);
+      else if constexpr (kMin)
+        k1 = min(k1, red[2 * (w * BM + tid)]);
       else
         merge2(red[2 * (w * BM + tid)], red[2 * (w * BM + tid) + 1], k1, k2);
     }
@@ -572,29 +606,50 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
       row_k[r + 1] = k2;
     } else {
       row_p[r] = k1;
-      row_p[r + 1] = kSum ? k1 : k2;
+      row_p[r + 1] = kKeys ? k2 : k1;
     }
   }
 }
 
-template <typename T, int MODE, int BM>
+// The kernel's dynamic shared memory: above 48 KB only after this opt-in
+template <typename T, int MODE, int BM, int BN, int STAGES>
+cudaError_t opt_in_smem() {
+  return cudaFuncSetAttribute(knn_tc_kernel<T, MODE, BM, BN, STAGES>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem<T, BM, BN, STAGES>));
+}
+
+template <typename T, int MODE, int BM, int BN = Op<T>::kBN,
+          int STAGES = kStages>
 int launch_tile(const void* a, const void* b, const void* na2,
                 const void* nb2, const void* uv_a, const void* pred_b,
                 float radius2, void* row_p, void* col_p, void* row_k,
                 void* col_k, int n_pairs, int n_a, int n_b,
                 cudaStream_t stream) {
-  constexpr int kSmem = (int)sizeof(Smem<T, BM>);
-  // above 48 KB only after this opt-in; a refusal is returned, never lost
-  const cudaError_t e = cudaFuncSetAttribute(
-      knn_tc_kernel<T, MODE, BM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  constexpr int kSmem = (int)sizeof(Smem<T, BM, BN, STAGES>);
+  // a refusal is returned, never lost
+  const cudaError_t e = opt_in_smem<T, MODE, BM, BN, STAGES>();
   if (e != cudaSuccess) return (int)e;
   dim3 grid(n_a / BM, n_pairs);
-  knn_tc_kernel<T, MODE, BM><<<grid, kThreads, kSmem, stream>>>(
+  knn_tc_kernel<T, MODE, BM, BN, STAGES><<<grid, kThreads, kSmem, stream>>>(
       (const T*)a, (const T*)b, (const float*)na2, (const float*)nb2,
       (const float*)uv_a, (const float*)pred_b, radius2, (int*)row_p,
       (int*)col_p, (long long*)row_k, (long long*)col_k, n_a, n_b);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the tile that can be resident on one SM at once, as the
+// occupancy calculator counts them after the shared-memory opt-in; a
+// negative cudaError_t where a call fails
+template <typename T, int MODE, int BM, int BN, int STAGES>
+int tile_blocks_per_sm() {
+  cudaError_t e = opt_in_smem<T, MODE, BM, BN, STAGES>();
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, knn_tc_kernel<T, MODE, BM, BN, STAGES>, kThreads,
+        (int)sizeof(Smem<T, BM, BN, STAGES>));
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace tc
@@ -607,11 +662,10 @@ int launch_split(const void* x, void* out, long long rows,
 
 // The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
 // the split rows of launch_split). a, b (n_pairs, n, 128) T; na2, nb2 the
-// f32 squared norms (unused by
-// kProductRowSum); uv_a, pred_b f32 for kPackedGated;
-// n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of
-// 128 A rows where n_a allows, else 64. Returns the cudaError_t of the
-// launch.
+// f32 squared norms (unused by the probes' modes); uv_a, pred_b f32 for
+// kPackedGated; n_a and n_b multiples of 64 (the caller checks the
+// shapes). Blocks of 128 A rows where n_a allows, else 64, and the type's
+// B tiles in a ring of two. Returns the cudaError_t of the launch.
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,

@@ -19,31 +19,45 @@
 // two values and the best index are used downstream.
 //
 // What bounds it on the H100: the product, 64 pairs of 10240 x 10240 x
-// 128 are 8.6e11 multiply-adds over 168 MB (bf16) of descriptors, and the
-// 64-bit key epilogue, twice K1's key registers and shuffles.
+// 128 are 8.6e11 multiply-adds over 168 MB (bf16) or 336 MB (f32) of
+// descriptors, at the tensor cores' bf16 rate (1.7 ms); f32 takes six bf16
+// products (10.4 ms), where the CUDA cores' f32 FMA would take 25.6 ms.
+// Then the 64-bit key epilogue, twice K1's key registers and shuffles.
 //
 // Design: the TPU kernel carries its running state across a sequential
-// grid; here blocks run in any order. A block owns a tile of A rows for
-// the whole sweep over B and keeps their row top-2 as 64-bit keys in
-// registers, merged across the threads of a row by warp shuffles; the
-// column minimum leaves the block by a 64-bit atomicMin on the key, which
-// is order-independent. There is no 8192 limit. bf16 inputs (every
-// store beyond 8192 rows) run knn_tc.cuh's tensor-core body: mma.sync
-// m16n8k16 on 128-row tiles with a two-stage cp.async ring of B tiles
-// (its FFMA predecessor spent 93% of its time in the product); f32 inputs
-// run knn_common.cuh's FFMA body, at most the CUDA cores' 67 TFLOP/s.
+// grid; here blocks run in any order. Both modes run knn_tc.cuh's
+// tensor-core body (kWide): mma.sync m16n8k16 with a two-stage cp.async
+// ring of B tiles. A block owns a tile of A rows for the whole sweep over
+// B and keeps their row top-2 as f32 values and int indices in
+// registers, made into 64-bit keys for the merges across the threads of
+// a row; the column minimum leaves the block by a 64-bit atomicMin on the
+// key, which is order-independent. There is no 8192 limit.
+// - bf16 (every store beyond 8192 rows): the operands as they are, 128-row
+//   B tiles; its FFMA predecessor spent 93% of its time in the product.
+// - f32: the TPU kernel's f32 dot runs at Precision.HIGHEST, a multi-pass
+//   bf16 product; here a pre-pass (knn_packed.cu's split_bf16x3_kernel)
+//   writes each operand as three bf16 planes into the caller's scratch and
+//   the body takes six plane products a k-step, hi.hi in one f32
+//   accumulator and the five smaller ones in a second (why: the head of
+//   knn_tc.cuh), on 64-row B tiles (~199 KB of shared memory, one block an
+//   SM). Integer-valued descriptors give exact dots, so keys equal the
+//   plain version's bit for bit; other f32 within 2^-20 of the norms. Its
+//   FFMA predecessor (knn_probe.cu's knn_ffma_f32, kept as the yardstick)
+//   ran at 39% of the CUDA cores' 67 TFLOP/s.
 
 #include "knn_common.cuh"
 
 // a (n_pairs, n_a, 128) and b (n_pairs, n_b, 128): bf16 (bf16 != 0) or
-// f32, contiguous; na2 (n_pairs, n_a), nb2 (n_pairs, n_b) f32; row_k
-// (n_pairs, n_a, 2) int64; col_k (n_pairs, n_b) int64 pre-filled with
-// INT64_MAX. n_a and n_b are multiples of 64. Returns the cudaError_t of
-// the launch.
+// f32, contiguous and 16-byte aligned; na2 (n_pairs, n_a), nb2 (n_pairs,
+// n_b) f32; row_k (n_pairs, n_a, 2) int64; col_k (n_pairs, n_b) int64
+// pre-filled with INT64_MAX. f32: split_a (n_pairs, n_a, 3, 128) and
+// split_b (n_pairs, n_b, 3, 128) bf16 scratch, which the first two
+// launches fill with the operands' planes (unused for bf16). n_a and n_b
+// are multiples of 64. Returns the cudaError_t of the launch.
 extern "C" int knn_wide(const void* a, const void* b, const void* na2,
                         const void* nb2, void* row_k, void* col_k,
-                        int n_pairs, int n_a, int n_b, int bf16,
-                        void* stream) {
+                        void* split_a, void* split_b, int n_pairs, int n_a,
+                        int n_b, int bf16, void* stream) {
   using namespace knn;
   if (bad_shape(n_pairs, n_a, n_b, 1 << 30)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -51,10 +65,10 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
     return launch_tc<uint16_t, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
                                       nullptr, nullptr, row_k, col_k, n_pairs,
                                       n_a, n_b, s);
-  dim3 grid(n_a / kTA, n_pairs);
-  knn_float_kernel<float, kWide><<<grid, kThreads, 0, s>>>(
-      (const float*)a, (const float*)b, (const float*)na2, (const float*)nb2,
-      nullptr, nullptr, 0.f, nullptr, nullptr, (long long*)row_k,
-      (long long*)col_k, n_a, n_b);
-  return (int)cudaGetLastError();
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
+  if (e != 0) return e;
+  return launch_tc<Bf16x3, kWide>(split_a, split_b, na2, nb2, nullptr,
+                                  nullptr, 0.f, nullptr, nullptr, row_k,
+                                  col_k, n_pairs, n_a, n_b, s);
 }

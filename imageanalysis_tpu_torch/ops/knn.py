@@ -11,10 +11,12 @@ pair dimension (the reference vmaps over pairs):
   cleared) | index keys, row top-2 and column minimum, for int8, bf16 and
   f32 descriptors, with or without the gate (f32 runs on the tensor
   cores as three bf16 planes, see ``split_bf16x3_plain``);
-- ``split_bf16x3_plain`` / ``split_bf16x3_raw`` — K1 f32's pre-pass: each
-  f32 value as hi + mid + lo of three bf16 values, exactly;
+- ``split_bf16x3_plain`` / ``split_bf16x3_raw`` — the f32 modes'
+  pre-pass: each f32 value as hi + mid + lo of three bf16 values,
+  exactly;
 - ``knn_wide_plain`` / ``knn_wide_raw`` — the same for kernel K3
-  (``csrc/knn_wide.cu``): unpacked 64-bit (value, index) keys, any size;
+  (``csrc/knn_wide.cu``): unpacked 64-bit (value, index) keys, any size,
+  bf16 and f32 (f32 on the tensor cores as three bf16 planes, as K1's);
 - ``knn_top2`` — the reference's dispatch: K1 up to 8192 rows, K3 beyond
   (int8 cast to bf16; no gate there), decoded;
 - ``match_epilogue_plain`` / ``match_epilogue_raw`` — the plain version of
@@ -55,11 +57,13 @@ _DIM = 128
 _WIDE_MAX = (1 << 63) - 1
 
 # kernel launches (not plain-version calls), by mode: K1 int8 ungated, K1
-# gated (any dtype), K1 bf16 and f32 ungated, K3, K4; the split pre-pass
-# alone (K1 f32 launches it inside its own entry point)
+# gated (any dtype), K1 bf16 and f32 ungated, K3 bf16 and f32, K4; the
+# split pre-pass alone (K1 f32 and K3 f32 launch it inside their own entry
+# points)
 LAUNCHES = dict.fromkeys(("knn_packed_i8", "knn_packed_gated",
                           "knn_packed_bf16", "knn_packed_f32", "knn_wide",
-                          "match_epilogue", "split_bf16x3"), 0)
+                          "knn_wide_f32", "match_epilogue", "split_bf16x3"),
+                         0)
 
 
 def pad_descriptors(desc, n_pad):
@@ -324,8 +328,8 @@ def _split_scratch(x):
 
 
 def split_bf16x3_plain(x):
-    """Plain version of K1 f32's pre-pass: f32 rows x (..., 128) → (...,
-    3, 128) bf16, the planes hi = bf16(x), mid = bf16(x − hi), lo = bf16(x
+    """Plain version of the f32 modes' pre-pass (K1's and K3's): f32 rows
+    x (..., 128) → (..., 3, 128) bf16, the planes hi = bf16(x), mid = bf16(x − hi), lo = bf16(x
     − hi − mid), each rounded to nearest even; every difference is exact
     in f32, so hi + mid + lo == x for every finite f32 of descriptor
     range."""
@@ -340,8 +344,8 @@ def split_bf16x3_plain(x):
 
 
 def split_bf16x3_raw(x):
-    """K1 f32's split pre-pass on its own (see split_bf16x3_plain). A CUDA
-    tensor launches it (csrc/knn_packed.cu), contiguous and 16-byte
+    """The f32 modes' split pre-pass on its own (see split_bf16x3_plain).
+    A CUDA tensor launches it (csrc/knn_packed.cu), contiguous and 16-byte
     aligned; a CPU tensor takes split_bf16x3_plain; any other device
     raises."""
     if x.device.type == "cpu":
@@ -406,9 +410,10 @@ def knn_wide_plain(desc_a, desc_b, na2, nb2):
 
 def knn_wide_raw(desc_a, desc_b, na2, nb2):
     """K3: wide-key 2-NN of a batch of pairs (see knn_wide_plain). A CUDA
-    tensor launches csrc/knn_wide.cu; a CPU tensor takes knn_wide_plain;
-    any other device raises. On CUDA, n_a and n_b must be multiples of
-    64."""
+    tensor launches csrc/knn_wide.cu (f32: the split pre-pass, then the
+    tensor-core body on three bf16 planes, counted as knn_wide_f32; bf16
+    as knn_wide); a CPU tensor takes knn_wide_plain; any other device
+    raises. On CUDA, n_a and n_b must be multiples of 64."""
     _check_wide(desc_a, desc_b, na2, nb2, "knn_wide_raw")
     dev = desc_a.device
     if dev.type == "cpu":
@@ -419,14 +424,19 @@ def knn_wide_raw(desc_a, desc_b, na2, nb2):
     lib = _build.load()
     row_k = torch.empty((B, n_a, 2), dtype=torch.int64, device=dev)
     col_k = torch.full((B, n_b), _WIDE_MAX, dtype=torch.int64, device=dev)
+    bf16 = desc_a.dtype == torch.bfloat16
+    # f32: scratch for the operands' three bf16 planes, which the kernel's
+    # split pre-pass writes
+    sa, sb = (None, None) if bf16 else (
+        _split_scratch(desc_a), _split_scratch(desc_b))
     with torch.cuda.device(dev):
         err = lib.knn_wide(desc_a.data_ptr(), desc_b.data_ptr(),
                            na2.data_ptr(), nb2.data_ptr(), row_k.data_ptr(),
-                           col_k.data_ptr(), B, n_a, n_b,
-                           int(desc_a.dtype == torch.bfloat16),
+                           col_k.data_ptr(), _ptr(sa), _ptr(sb), B, n_a, n_b,
+                           int(bf16),
                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_wide")
-    LAUNCHES["knn_wide"] += 1
+    LAUNCHES["knn_wide" if bf16 else "knn_wide_f32"] += 1
     return row_k, col_k
 
 

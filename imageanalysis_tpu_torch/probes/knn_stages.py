@@ -63,21 +63,32 @@ its 256 threads each hold a TA/16 × TB/16 register tile. So:
   The float body keeps its A tile in shared memory as f32, so its tiles
   stop at TA × TB within the 48 KB of static shared memory.
 
-Every mode of K1 and K3's bf16 mode now run a tensor-core body
+  P6 also runs on the tensor-core body K1 runs now (``tc_row_min_raw``),
+  whose tile is (BM A rows per block, BN B rows per streamed tile, ring
+  stages), ``TC_TILES``, int8 and bf16 alike, again one to one onto the
+  TPU sweep: (64, 64, 2), (128, 64, 2), (64, 128, 2), (128, 128, 2) =
+  K1's, (128, 128, 3), (256, 64, 2), (256, 128, 2). The old bodies' sweep
+  stays as its yardstick (and P3's v0 is its ``row_min``).
+
+Every mode of K1 and K3 now runs a tensor-core body
 (``csrc/knn_tc.cuh``); the stages here, ``full`` included, stay on the
 bodies above, so each dtype's anatomy is one body's. More wrappers
 measure the tensor-core body:
 
 - ``dp4a_i8_raw``: the ``__dp4a`` body in K1's int8 modes (plain,
   gated); ``ffma_bf16_raw``: the FFMA body in K1's and K3's bf16 modes
-  (plain, gated, wide); ``ffma_f32_raw``: the FFMA body in K1's f32 modes
-  (plain, gated). The yardsticks the tensor-core body is timed against;
-  their plain versions are K1's and K3's.
+  (plain, gated, wide); ``ffma_f32_raw``: the FFMA body in K1's and K3's
+  f32 modes (plain, gated, wide). The yardsticks the tensor-core body is
+  timed against; their plain versions are K1's and K3's.
 - ``tc_row_sum_raw``: the tensor-core body's product with the
   ``row_sum`` stage's wrapping row sum in place of the key epilogue, in
-  any of its types (int8, bf16, f32 as three bf16 planes); its plain
-  version is ``tc_row_sum_plain``, the ``row_sum`` stage's arithmetic.
-  K1's time less its time is the key epilogue's on that body.
+  any of its types (int8, bf16, f32 as three bf16 planes) and at any
+  size (K1's and K3's); its plain version is ``tc_row_sum_plain``, the
+  ``row_sum`` stage's arithmetic. K1's or K3's time less its time is the
+  key epilogue's on that body.
+- ``tc_row_min_raw``: the tensor-core body's product with the
+  ``row_min`` stage's row minimum in place of the key epilogue (P6), at
+  any tile of ``TC_TILES``; its plain version is ``tc_row_min_plain``.
 """
 
 from __future__ import annotations
@@ -101,13 +112,19 @@ TILES = {
     torch.bfloat16: ((16, 64), (32, 32), (32, 64), (64, 32), (64, 64),
                      (16, 128), (32, 128)),
 }
+# P6 on the tensor-core body: (BM, BN, ring stages) of each P6_SWEEP point,
+# int8 and bf16 alike; K1's tile is the fourth
+TC_TILES = ((64, 64, 2), (128, 64, 2), (64, 128, 2), (128, 128, 2),
+            (128, 128, 3), (256, 64, 2), (256, 128, 2))
+K1_TC_TILE = (128, 128, 2)
 # P4's stages and P3's variants → card stages
 P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
 P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
-            "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0}
+            "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
+            "knn_tc_row_min": 0}
 
 
 def _check(a, b, na2, nb2, stage, tile, name):
@@ -236,9 +253,17 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
     launched for bf16 before the tensor-core body. Arguments and result as
     knn.knn_packed_raw / knn.knn_wide_raw; a CPU tensor takes
     ffma_bf16_plain, any other device raises."""
-    name = "ffma_bf16_raw"
-    if a.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: takes bf16 descriptors, got {a.dtype}")
+    return _ffma_raw(a, b, na2, nb2, uv_a, pred_b, radius2, wide,
+                     torch.bfloat16, "ffma_bf16_raw", "knn_ffma_bf16",
+                     ffma_bf16_plain)
+
+
+def _ffma_raw(a, b, na2, nb2, uv_a, pred_b, radius2, wide, dtype, name,
+              entry, plain):
+    """The FFMA body's wrapper for one descriptor type: checks, the plain
+    version on a CPU tensor, else C entry point `entry`."""
+    if a.dtype != dtype:
+        raise ValueError(f"{name}: takes {dtype} descriptors, got {a.dtype}")
     if wide:
         knn._check_wide(a, b, na2, nb2, name)
         if uv_a is not None:
@@ -248,7 +273,7 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
         if uv_a is not None:
             knn._check_gate(uv_a, pred_b, a, b, name)
     if a.device.type == "cpu":
-        return ffma_bf16_plain(a, b, na2, nb2, uv_a, pred_b, radius2, wide)
+        return plain(a, b, na2, nb2, uv_a, pred_b, radius2, wide)
     B, n_a, _ = a.shape
     n_b = b.shape[1]
     knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
@@ -262,52 +287,35 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
             (row.data_ptr(), col.data_ptr(), None, None))
     gated = uv_a is not None
     with torch.cuda.device(dev):
-        err = lib.knn_ffma_bf16(
+        err = getattr(lib, entry)(
             a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
             knn._ptr(uv_a), knn._ptr(pred_b), radius2 if gated else 0.0,
             *ptrs, B, n_a, n_b, int(wide),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "knn_ffma_bf16")
-    LAUNCHES["knn_ffma_bf16"] += 1
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
     return row, col
 
 
-def ffma_f32_plain(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None):
+def ffma_f32_plain(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
+                   wide=False):
     """Plain version of the FFMA f32 body: K1's (knn_packed_plain, gated
-    when uv_a is given)."""
+    when uv_a is given) or, with wide=True, K3's (knn_wide_plain)."""
+    if wide:
+        return knn.knn_wide_plain(a, b, na2, nb2)
     return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
 
 
-def ffma_f32_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None):
+def ffma_f32_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
+                 wide=False):
     """The FFMA float body on f32 descriptors in K1's modes (row_p, col_p
-    int32): what K1 launched for f32 before the tensor-core body.
-    Arguments and result as knn.knn_packed_raw; a CPU tensor takes
+    int32) or, with wide=True, K3's (row_k, col_k int64): what K1 and K3
+    launched for f32 before the tensor-core body. Arguments and result as
+    knn.knn_packed_raw / knn.knn_wide_raw; a CPU tensor takes
     ffma_f32_plain, any other device raises."""
-    name = "ffma_f32_raw"
-    if a.dtype != torch.float32:
-        raise ValueError(f"{name}: takes f32 descriptors, got {a.dtype}")
-    knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
-    gated = uv_a is not None
-    if gated:
-        knn._check_gate(uv_a, pred_b, a, b, name)
-    if a.device.type == "cpu":
-        return ffma_f32_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
-    B, n_a, _ = a.shape
-    n_b = b.shape[1]
-    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
-    dev = a.device
-    lib = _build.load()
-    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
-    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.knn_ffma_f32(
-            a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
-            knn._ptr(uv_a), knn._ptr(pred_b), radius2 if gated else 0.0,
-            row.data_ptr(), col.data_ptr(), B, n_a, n_b,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "knn_ffma_f32")
-    LAUNCHES["knn_ffma_f32"] += 1
-    return row, col
+    return _ffma_raw(a, b, na2, nb2, uv_a, pred_b, radius2, wide,
+                     torch.float32, "ffma_f32_raw", "knn_ffma_f32",
+                     ffma_f32_plain)
 
 
 def dp4a_i8_plain(a, b, uv_a=None, pred_b=None, radius2=None):
@@ -347,43 +355,55 @@ def dp4a_i8_raw(a, b, uv_a=None, pred_b=None, radius2=None):
     return row, col
 
 
-def _check_row_sum(a, b, name):
-    if a.dtype == torch.float32:
-        check_device((a, b), name)
-        if (a.dim() != 3 or b.dim() != 3 or b.dtype != a.dtype
-                or a.shape[0] != b.shape[0] or a.shape[2] != 128
-                or b.shape[2] != 128 or a.shape[1] % 64 or b.shape[1] % 64
-                or max(a.shape[1], b.shape[1]) > 8192):
-            raise ValueError(f"{name}: need f32 (B, n_a, 128) and (B, n_b, "
-                             "128), n_a and n_b multiples of 64 up to 8192, "
-                             f"got {tuple(a.shape)} and {tuple(b.shape)}")
-    else:
-        _check(a, b, None, None, ROW_SUM, K1_TILE, name)
+def _check_tc(a, b, name, dtypes, bm=64):
+    """Shapes and types the tensor-core body's probe stages take: (B, n_a,
+    128) and (B, n_b, 128) of one type in dtypes, n_a a multiple of bm and
+    n_b of 64, on one device (CPU or CUDA)."""
+    check_device((a, b), name)
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]
+            or a.shape[2] != 128 or b.shape[2] != 128
+            or a.dtype != b.dtype or a.dtype not in dtypes
+            or a.shape[1] % bm or b.shape[1] % 64):
+        raise ValueError(f"{name}: need (B, n_a, 128) and (B, n_b, 128) of "
+                         f"one of {dtypes}, n_a a multiple of {bm} and n_b "
+                         f"of 64, got {tuple(a.shape)} {a.dtype} and "
+                         f"{tuple(b.shape)} {b.dtype}")
 
 
-def tc_row_sum_plain(a, b):
-    """Plain version of tc_row_sum_raw: knn_probe_plain's row_sum stage,
-    f32 descriptors included (integer-valued, so every dot is exact)."""
-    _check_row_sum(a, b, "tc_row_sum_plain")
-    if a.dtype != torch.float32:
-        return knn_probe_plain(a, b, stage=ROW_SUM)
+_ROW_SUM_TYPES = (torch.int8, torch.bfloat16, torch.float32)
+_ROW_MIN_TYPES = (torch.int8, torch.bfloat16)
+
+
+def _probe_rows(a, b, reduce):
+    """(row (B, n_a, 2) int32 with reduce(dots) of each A row in both
+    slots, col (B, n_b) int32 0x7FFFFFFF); the dots in f32, exact for
+    integer-valued descriptors. Loops over pairs."""
     B, n_a, _ = a.shape
-    row = torch.stack([_row_sum(a[p] @ b[p].T) for p in range(B)])
+    row = torch.stack([reduce(a[p].float() @ b[p].float().T)
+                       for p in range(B)])
     col = torch.full((B, b.shape[1]), knn._KEY_MAX, dtype=torch.int32,
                      device=a.device)
     return row[:, :, None].expand(-1, -1, 2).contiguous(), col
 
 
+def tc_row_sum_plain(a, b):
+    """Plain version of tc_row_sum_raw: the row_sum stage's arithmetic
+    (knn_probe_plain's), at any size and for f32 descriptors too
+    (integer-valued, so every dot is exact)."""
+    _check_tc(a, b, "tc_row_sum_plain", _ROW_SUM_TYPES)
+    return _probe_rows(a, b, _row_sum)
+
+
 def tc_row_sum_raw(a, b):
     """The tensor-core body's product-only stage on a CUDA tensor: a (B,
     n_a, 128), b (B, n_b, 128) int8 or integer-valued bf16 or f32 (split
-    into its three bf16 planes first, as K1 f32), n_a and n_b multiples of
-    64 and at most 8192. Returns (row (B, n_a, 2) int32, each A row's
-    wrapping sum of its dots in both slots; col (B, n_b) int32,
-    0x7FFFFFFF): the result of tc_row_sum_plain, which a CPU tensor takes;
-    any other device raises."""
+    into its three bf16 planes first, as K1's and K3's f32 modes), n_a
+    and n_b multiples of 64, of any size. Returns (row (B, n_a, 2) int32,
+    each A row's wrapping sum of its dots in both slots; col (B, n_b)
+    int32, 0x7FFFFFFF): the result of tc_row_sum_plain, which a CPU
+    tensor takes; any other device raises."""
     name = "tc_row_sum_raw"
-    _check_row_sum(a, b, name)
+    _check_tc(a, b, name, _ROW_SUM_TYPES)
     if a.device.type == "cpu":
         return tc_row_sum_plain(a, b)
     check_launchable((a, b), name)
@@ -405,3 +425,65 @@ def tc_row_sum_raw(a, b):
     _build.check(err, "knn_tc_row_sum")
     LAUNCHES["knn_tc_row_sum"] += 1
     return row, col
+
+
+def _check_tc_tile(tile, name):
+    if tuple(tile) not in TC_TILES:
+        raise ValueError(f"{name}: no tile {tuple(tile)}; the tensor-core "
+                         f"body's sweep is {TC_TILES}")
+    return tuple(tile)
+
+
+def tc_row_min_plain(a, b, tile=K1_TC_TILE):
+    """Plain version of tc_row_min_raw: the row_min stage's arithmetic
+    (knn_probe_plain's), each A row's minimum dot as an int in both slots
+    of row, col 0x7FFFFFFF. The tile only sets the shapes taken (n_a a
+    multiple of its BM)."""
+    name = "tc_row_min_plain"
+    bm = _check_tc_tile(tile, name)[0]
+    _check_tc(a, b, name, _ROW_MIN_TYPES, bm)
+    return _probe_rows(a, b, lambda dot: dot.amin(1).int())
+
+
+def tc_row_min_raw(a, b, tile=K1_TC_TILE):
+    """P6 on the tensor-core body: its product with the row minimum of the
+    dots in place of the key epilogue, at tile (BM, BN, ring stages) of
+    TC_TILES. a (B, n_a, 128), b (B, n_b, 128) int8 or integer-valued
+    bf16, n_a a multiple of BM, n_b of 64. A CUDA tensor launches
+    csrc/knn_probe.cu's knn_tc_row_min; a CPU tensor takes
+    tc_row_min_plain; any other device raises, and so does a tile outside
+    TC_TILES (ValueError). Result as tc_row_min_plain."""
+    name = "tc_row_min_raw"
+    bm, bn, stages = _check_tc_tile(tile, name)
+    _check_tc(a, b, name, _ROW_MIN_TYPES, bm)
+    if a.device.type == "cpu":
+        return tc_row_min_plain(a, b, tile)
+    check_launchable((a, b), name)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_tc_row_min(
+            a.data_ptr(), b.data_ptr(), row.data_ptr(), B, n_a, n_b,
+            int(a.dtype == torch.bfloat16), bm, bn, stages,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_tc_row_min")
+    LAUNCHES["knn_tc_row_min"] += 1
+    return row, col
+
+
+def tc_row_min_blocks(dtype, tile):
+    """Blocks of tc_row_min_raw's kernel at tile that one SM of the
+    current card holds at once (the CUDA occupancy calculator's count,
+    after the kernel's shared-memory opt-in); dtype torch.int8 or
+    torch.bfloat16. Needs a card."""
+    bm, bn, stages = _check_tc_tile(tile, "tc_row_min_blocks")
+    if dtype not in _ROW_MIN_TYPES:
+        raise ValueError(f"tc_row_min_blocks: no kernel for {dtype}")
+    n = _build.load().knn_tc_row_min_blocks(int(dtype == torch.bfloat16),
+                                            bm, bn, stages)
+    _build.check(max(0, -n), "knn_tc_row_min_blocks")
+    return n

@@ -1,5 +1,7 @@
-"""Time K1's int8 and bf16 modes (plain and gated) and K3 bf16 at the
-main path's shapes, from the package under ROOT, and print one JSON line.
+"""Time K1's int8, bf16 and f32 modes (plain and gated) and K3's bf16
+and f32 modes at the main path's shapes, from the package under ROOT,
+and print one JSON line with the registers and spills ptxas reports for
+the tensor-core body's instantiations of that copy.
 
 Run it once per copy of the package, each in its own process, in turns
 (old, new, new, old), to compare two versions of the 2-NN kernels on one
@@ -8,11 +10,15 @@ card; each copy builds its kernels into ROOT/build/:
     python3 scripts_torch/knn_versions.py [ROOT]     # default: this repo
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
-value − 128 of 0..99, a quarter planted; bf16 as 0..255 with f32 norms),
-the gated modes at the store's shape with ~65% of the candidates gated
-out, K3 at 64 × 10240. Times: median of CUDA events after warm-up.
+value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
+norms), f32 and the gated modes at the store's shape with ~65% of the
+candidates gated out, K3 at 64 × 10240. Times: median of CUDA events
+after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
+stores, spill loads], read with this checkout's _build.tc_kernel_usage
+from the copy's build log (empty when its library was already built).
 """
 
+import importlib.util
 import json
 import os
 import sys
@@ -36,9 +42,19 @@ def planted(gen, pairs, n):
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
 
-def as_bf16(a, b):
+def as_float(a, b, dtype=torch.bfloat16):
     af, bf = a.float() + 128, b.float() + 128
-    return af.bfloat16(), bf.bfloat16(), (af * af).sum(-1), (bf * bf).sum(-1)
+    return af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1)
+
+
+def own_build_module():
+    """This checkout's _build.py (stdlib only), for its log parsers."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "imageanalysis_tpu_torch", "_build.py")
+    spec = importlib.util.spec_from_file_location("own_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main():
@@ -54,10 +70,12 @@ def main():
     out = {}
     for name, pairs, n in (("store", 256, 4096), ("bench", 64, 6144)):
         a, b = planted(gen, pairs, n)
-        f = as_bf16(a, b)
+        f = as_float(a, b)
         out[f"i8_{name}"] = t(lambda: knn.knn_packed_raw(a, b))
         out[f"bf16_{name}"] = t(lambda: knn.knn_packed_raw(*f))
         if name == "store":
+            f32 = as_float(a, b, torch.float32)
+            out["f32"] = t(lambda: knn.knn_packed_raw(*f32), 3)
             gate = (torch.rand((pairs, n, 2), generator=gen, device="cuda")
                     * 1000,
                     torch.rand((pairs, n, 2), generator=gen, device="cuda")
@@ -65,13 +83,20 @@ def main():
             out["gated_i8"] = t(lambda: knn.knn_packed_raw(a, b, None, None,
                                                            *gate))
             out["gated_bf16"] = t(lambda: knn.knn_packed_raw(*f, *gate))
-            del gate
+            out["gated_f32"] = t(lambda: knn.knn_packed_raw(*f32, *gate), 3)
+            del gate, f32
         del a, b, f
-    f = as_bf16(*planted(gen, 64, 10240))
+    a, b = planted(gen, 64, 10240)
+    f = as_float(a, b)
     out["k3_bf16"] = t(lambda: knn.knn_wide_raw(*f), 3)
+    del f
+    f = as_float(a, b, torch.float32)
+    out["k3_f32"] = t(lambda: knn.knn_wide_raw(*f), 3)
+    own = own_build_module()
+    regs = own.tc_kernel_usage(own.ptxas_usage(_build.build_log))
     print(json.dumps({"root": ROOT, "device": torch.cuda.get_device_name(0),
-                      "ms": {k: round(v, 4) for k, v in out.items()}}),
-          flush=True)
+                      "ms": {k: round(v, 4) for k, v in out.items()},
+                      "tc_registers": regs}), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,11 +12,12 @@ arithmetic in f32 or int32 (on the tensor cores too, f32 as three bf16
 planes; on random bf16 and f32 they hold a stated tolerance), K2 (at
 every radius, and its first body) rounds the same f32 products and sums
 one by one, and K4 decodes, compares and gathers exactly, so the
-comparisons are bit-exact. So are K1 f32's split pre-pass and the probes
-of imageanalysis_tpu_torch/probes on integer-valued inputs (the staged
-K1, the FFMA bf16 and f32 and __dp4a int8 bodies, the tensor-core body's
-product-only stage, P2's single-launch K1 + K4, P5's mma.sync row sums,
-P1's one-hot gather of bf16 values). Bundle adjustment
+comparisons are bit-exact. So are the f32 modes' split pre-pass and the
+probes of imageanalysis_tpu_torch/probes on integer-valued inputs (the
+staged K1, the FFMA bf16 and f32 and __dp4a int8 bodies, the tensor-core
+body's product-only stage and its row minimum at every tile of P6's
+sweep, P2's single-launch K1 + K4, P5's mma.sync row sums, P1's one-hot
+gather of bf16 values). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from imageanalysis_tpu_torch.features import sift
+from imageanalysis_tpu_torch.match import matcher
 from imageanalysis_tpu_torch.ops import knn
 from imageanalysis_tpu_torch.probes import blur, fused, knn_stages, mma
 
@@ -195,9 +197,10 @@ def test_k3_bit_exact_vs_plain(cuda, rng, dtype, case):
     pairs, n_a, n_b, dup = _K3_CASES[case]
     a, b = (t.to(cuda) for t in _planted(rng, pairs, n_a, n_b, 100, dup))
     args = _float_inputs(a, b, dtype)
-    before = knn.LAUNCHES["knn_wide"]
+    key = "knn_wide" if dtype == torch.bfloat16 else "knn_wide_f32"
+    before = knn.LAUNCHES[key]
     got = knn.knn_wide_raw(*args)
-    assert knn.LAUNCHES["knn_wide"] == before + 1
+    assert knn.LAUNCHES[key] == before + 1
     want = knn.knn_wide_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -324,6 +327,48 @@ def test_k1_f32_bit_exact_with_mid_planes(cuda, rng, gated, n_a):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n_a", [192, 256])
+@pytest.mark.parametrize("lift", [0, 261], ids=["0_255", "261_360"])
+def test_k3_f32_tensor_cores_bit_exact_vs_plain(cuda, rng, lift, n_a):
+    """K3 f32 on the tensor cores (three bf16 planes), n_b = 8256 beyond
+    K1's 8192: integer rows of 0..255, and of 261..360 where odd values
+    set the mid planes (every dot stays below 128 · 360² < 2²⁴, exact),
+    with duplicate rows so that values tie and the lowest index must win;
+    64-row (n_a 192) and 128-row (n_a 256) A blocks. Keys equal the plain
+    version's bit for bit, and the launch counts as K3 f32's."""
+    a, b = (t.to(cuda) for t in _planted(rng, 2, n_a, 8256, 100, dup=True))
+    af, bf = (x.float() + 128.0 + lift for x in (a, b))
+    assert lift == 0 or bool((af != af.bfloat16().float()).any())
+    args = (af, bf, (af * af).sum(-1), (bf * bf).sum(-1))
+    before = dict(knn.LAUNCHES)
+    got = knn.knn_wide_raw(*args)
+    assert knn.LAUNCHES["knn_wide_f32"] == before["knn_wide_f32"] + 1
+    assert knn.LAUNCHES["knn_wide"] == before["knn_wide"]
+    want = knn.knn_wide_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_a", [192, 256])
+def test_k3_f32_tensor_cores_within_tolerance_on_random(cuda, rng, n_a):
+    """Non-integer f32 descriptors (SIFT-like, 0..400, some B rows planted
+    near A's) on 64-row and 128-row A blocks: values within 2⁻²⁰ of the
+    norms, indices different only on ties."""
+    pairs, n_b = 2, 8256
+    a = rng.uniform(0, 400, (pairs, n_a, 128))
+    b = rng.uniform(0, 400, (pairs, n_b, 128))
+    b[:, :64] = a[:, :64] + rng.normal(0, 2, (pairs, 64, 128))
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (a, b))
+    na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+    tol = _F32_REL * float(na2.max() + nb2.max())
+    got = knn.knn_wide_raw(a, b, na2, nb2)
+    want = knn.knn_wide_plain(a, b, na2, nb2)
+    torch.cuda.synchronize()
+    _near(got[0], want[0], a, b, tol, False, "rows")
+    _near(got[1], want[1], b, a, tol, False, "columns")
+
+
 def test_split_prepass_reconstructs_exactly(cuda, rng):
     """K1 f32's pre-pass: its planes equal the plain split's bit for bit,
     and hi + mid + lo == x exactly, over normal, uniform and integer
@@ -364,20 +409,22 @@ def test_tc_row_sum_f32_bit_exact_vs_plain(cuda, rng, n_a, lift):
 
 
 @pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a",
-                                  "dp4a_gated", "f32", "f32_gated"])
+                                  "dp4a_gated", "f32", "f32_gated",
+                                  "k3_f32"])
 def test_ffma_yardstick_bit_exact_vs_plain(cuda, rng, mode):
     """The FFMA bf16 and f32 and __dp4a int8 bodies that K1 and K3
     launched before the tensor cores, kept as their yardsticks, still
-    equal the plain versions."""
+    equal the plain versions (K3's in its bf16 and f32 modes)."""
     a, b = (t.to(cuda) for t in _planted(rng, 2, 192, 704, 50))
     gate = _gate(rng, cuda, 2, 192, 704) if mode.endswith("gated") else ()
     if mode.startswith("dp4a"):
         key, raw, plain, args, kw = ("knn_dp4a_i8", knn_stages.dp4a_i8_raw,
                                      knn_stages.dp4a_i8_plain, (a, b), {})
-    elif mode.startswith("f32"):
-        key, raw, plain, kw = ("knn_ffma_f32", knn_stages.ffma_f32_raw,
-                               knn_stages.ffma_f32_plain, {})
+    elif "f32" in mode:
+        key, raw, plain = ("knn_ffma_f32", knn_stages.ffma_f32_raw,
+                           knn_stages.ffma_f32_plain)
         args = _float_inputs(a, b, torch.float32)
+        kw = {"wide": mode == "k3_f32"}
     else:
         key, raw, plain = ("knn_ffma_bf16", knn_stages.ffma_bf16_raw,
                            knn_stages.ffma_bf16_plain)
@@ -406,6 +453,30 @@ def test_knn_top2_dispatch_on_card(cuda, rng):
     with pytest.raises(NotImplementedError):
         knn.knn_top2(b.to(cuda), b.to(cuda), gate_uv_a=uv, gate_pred_b=uv,
                      gate_radius=5.0)
+
+
+def test_match_pair_batch_f32_beyond_8192_takes_k3_f32(cuda, rng):
+    """f32 matching (bf16=False) of float descriptors beyond 8192 rows
+    launches K3 f32, not K3 bf16, and its matches equal the CPU's."""
+    a, b = _planted(rng, 1, 256, 8448, 100)
+    fa, fb = (x.float() + 128.0 for x in (a, b))
+    uv = torch.from_numpy(rng.uniform(0, 4000, (1, 8448, 2))
+                          .astype(np.float32))
+    b_uv = uv.clone()
+    b_uv[:, :100] = uv[:, :100] + torch.tensor([25.0, -40.0])
+    n = torch.tensor([256]), torch.tensor([8448])
+    pick = torch.from_numpy(rng.integers(0, 100, (1, 512, 4)))
+    args = (fa, fb, uv[:, :256].contiguous(), b_uv, *n)
+    before = dict(knn.LAUNCHES)
+    got = matcher.match_pair_batch(*(x.to(cuda) for x in args), bf16=False,
+                                   pick=pick.to(cuda))
+    assert knn.LAUNCHES["knn_wide_f32"] == before["knn_wide_f32"] + 1
+    assert knn.LAUNCHES["knn_wide"] == before["knn_wide"]
+    want = matcher.match_pair_batch(*args, bf16=False, pick=pick,
+                                    use_pallas=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[1].sum()) >= 95
 
 
 def test_match_pair_dense_takes_the_kernels_on_card(cuda, rng):
@@ -632,6 +703,31 @@ def test_knn_probe_stages_bit_exact_vs_plain(cuda, rng, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
                          ids=["int8", "bf16"])
+def test_tc_row_min_bit_exact_vs_plain_at_every_tile(cuda, rng, dtype):
+    """P6 on the tensor-core body at every tile of its sweep (64- to
+    256-row A blocks, 64- and 128-row B tiles, rings of 2 and 3), on full
+    range integer rows with n_b an odd multiple of 64 (a last B tile of 64
+    rows at BN = 128): row minima equal the plain version's, and the old
+    row_min stage's, bit for bit."""
+    a, b = (t.to(cuda) for t in _full_range(rng, 2, 512, 704, 50))
+    if dtype == torch.bfloat16:
+        a, b = ((x.float() + 128.0).bfloat16() for x in (a, b))
+    want = knn_stages.tc_row_min_plain(a, b)
+    old = knn_stages.knn_probe_plain(a, b, stage=knn_stages.ROW_MIN)
+    assert all(torch.equal(w, o) for w, o in zip(want, old))
+    before = knn_stages.LAUNCHES["knn_tc_row_min"]
+    for tile in knn_stages.TC_TILES:
+        got = knn_stages.tc_row_min_raw(a, b, tile)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tile
+        assert knn_stages.tc_row_min_blocks(dtype, tile) >= 1
+    assert knn_stages.LAUNCHES["knn_tc_row_min"] == before + len(
+        knn_stages.TC_TILES)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
 def test_knn_probe_full_stage_is_k1(cuda, rng, dtype):
     args = _probe_inputs(rng, cuda, dtype)
     got = knn_stages.knn_probe_raw(*args)
@@ -718,6 +814,10 @@ def test_probes_refuse_what_they_do_not_take(cuda):
         knn_stages.dp4a_i8_raw(a.bfloat16(), a.bfloat16())
     with pytest.raises(ValueError):               # not a multiple of 64
         knn_stages.tc_row_sum_raw(a[:, :100].contiguous(), a)
+    with pytest.raises(ValueError):               # a tile off the sweep
+        knn_stages.tc_row_min_raw(a, a, (128, 128, 4))
+    with pytest.raises(ValueError):               # n_a not a multiple of BM
+        knn_stages.tc_row_min_raw(a, a, (256, 64, 2))
     with pytest.raises(ValueError):               # K not a multiple of 64
         x = torch.zeros((1, 128, 96), dtype=torch.bfloat16, device=cuda)
         mma.mm_rowsum_raw(x, x)

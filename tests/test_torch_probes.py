@@ -143,12 +143,14 @@ def test_p3_variant_plain_equals_reference(variant):
         np.testing.assert_array_equal(got_col.numpy(), col)
 
 
+@pytest.mark.parametrize("body", ["old", "tc"])
 @pytest.mark.parametrize("dtype,ic", [("int8", 0), ("int8", 128),
                                       ("bf16", 0), ("bf16", 128)])
-def test_p6_plain_equals_reference(dtype, ic):
+def test_p6_plain_equals_reference(dtype, ic, body):
     """knn_overhead_sweep's product + row min (ta 64, tb n, with and
-    without an inner column chunk) against the port's row_min stage, on
-    int8 rows and on 0..255 rows in bf16."""
+    without an inner column chunk) against the port's row_min stage (the
+    old bodies' plain version) and tc_row_min_plain (the tensor-core
+    body's, at K1's tile), on int8 rows and on 0..255 rows in bf16."""
     ns, pl = _load("knn_overhead_sweep.py", N_PAD=N, DIM=128, BATCH=PAIRS)
     ai, bi, a8, b8 = _int8_pairs(20 + ic)
     if dtype == "int8":
@@ -164,8 +166,12 @@ def test_p6_plain_equals_reference(dtype, ic):
     tx, ty = _t(x), _t(y)
     if dtype == "bf16":
         tx, ty = tx.bfloat16(), ty.bfloat16()
-    row, _ = knn_stages.knn_probe_plain(tx, ty, stage=knn_stages.ROW_MIN,
-                                        tile=(64, 64))
+    if body == "old":
+        row, col = knn_stages.knn_probe_plain(
+            tx, ty, stage=knn_stages.ROW_MIN, tile=(64, 64))
+    else:
+        row, col = knn_stages.tc_row_min_plain(tx, ty)
+    assert (col == tknn._KEY_MAX).all()
     np.testing.assert_array_equal(row[..., 0].float().numpy(), want)
     np.testing.assert_array_equal(row[..., 1], row[..., 0])
 
@@ -294,12 +300,14 @@ def test_full_stage_is_k1_and_stages_build_up():
     assert torch.equal(last, tail + (N - 64))
 
 
-@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a_gated"])
+@pytest.mark.parametrize("mode", ["k1", "k1_gated", "k3", "dp4a_gated",
+                                  "k3_f32"])
 def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
     """The FFMA bf16 body's wrapper on a CPU tensor is K1's (gated) or
     K3's plain version, which test_torch_knn holds against the reference;
     it refuses int8 and a gate in K3's mode. The __dp4a int8 body's
-    wrapper is K1's gated int8 plain version."""
+    wrapper is K1's gated int8 plain version; the FFMA f32 body's in K3's
+    mode is K3's f32 plain version, and it refuses bf16."""
     ai, bi, _, _ = _int8_pairs(61)
     a, b = (_t(x).float() + 128.0 for x in (ai, bi))
     args = (a.bfloat16(), b.bfloat16(), (a * a).sum(-1), (b * b).sum(-1))
@@ -317,6 +325,16 @@ def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
             knn_stages.dp4a_i8_raw(*args[:2])
         assert dict(knn_stages.LAUNCHES) == before
         return
+    if mode == "k3_f32":
+        fargs = (a, b, *args[2:])
+        got = knn_stages.ffma_f32_raw(*fargs, wide=True)
+        want = tknn.knn_wide_plain(*fargs)
+        assert got[0].dtype == torch.int64
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        with pytest.raises(ValueError, match="float32"):
+            knn_stages.ffma_f32_raw(*args, wide=True)
+        assert dict(knn_stages.LAUNCHES) == before
+        return
     gate = gate if mode == "k1_gated" else ()
     got = knn_stages.ffma_bf16_raw(*args, *gate, wide=mode == "k3")
     want = (tknn.knn_wide_plain(*args) if mode == "k3"
@@ -328,6 +346,41 @@ def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
         knn_stages.ffma_bf16_raw(*args, args[2][..., None].expand(
             -1, -1, 2).contiguous(), args[3][..., None].expand(
             -1, -1, 2).contiguous(), 1.0, wide=True)
+    assert dict(knn_stages.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_tc_row_min_wrapper_rules(dtype):
+    """tc_row_min_raw: a CPU tensor takes tc_row_min_plain (the old
+    row_min stage's result at every tile of the sweep); any other device,
+    a tile off the sweep, n_a off the tile's BM, f32 and mixed types
+    raise ValueError; nothing is launched."""
+    ai, bi, _, _ = _int8_pairs(70)
+    a, b = _t(ai), _t(bi)
+    if dtype == torch.bfloat16:
+        a, b = ((x.float() + 128.0).bfloat16() for x in (a, b))
+    want = knn_stages.knn_probe_plain(a, b, stage=knn_stages.ROW_MIN)
+    before = dict(knn_stages.LAUNCHES)
+    assert len(knn_stages.TC_TILES) == len(knn_stages.P6_SWEEP)
+    assert knn_stages.K1_TC_TILE in knn_stages.TC_TILES
+    for tile in knn_stages.TC_TILES:
+        got = knn_stages.tc_row_min_raw(a, b, tile)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), tile
+    m = torch.empty((1, 256, 128), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        knn_stages.tc_row_min_raw(m, m)
+    for tile in ((64, 64), (64, 64, 4), (32, 128, 2)):
+        with pytest.raises(ValueError, match="tile"):
+            knn_stages.tc_row_min_raw(a, b, tile)
+        with pytest.raises(ValueError, match="tile"):
+            knn_stages.tc_row_min_plain(a, b, tile)
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.tc_row_min_raw(a[:, :192], b, (128, 64, 2))
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.tc_row_min_raw(a.float(), b.float())
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.tc_row_min_raw(a, b.float())
     assert dict(knn_stages.LAUNCHES) == before
 
 
