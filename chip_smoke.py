@@ -75,18 +75,21 @@ non-zero:
 15. K1 and K4 anatomy: the probes P1–P6 (imageanalysis_tpu_torch/probes)
     at their TPU probes' full shapes on bench.py's batch: every stage and
     tile of the staged K1 (P3, P4, P6; int8 and bf16, on the __dp4a and
-    FFMA bodies) against its plain version on 2 of the 64 pairs and its
-    full stage against K1 on all 64, then the stage split; P6's sweep on
-    the tensor-core body (seven tiles a dtype, each bit-exact on all 64
-    pairs, timed in turns with the old body's mapped tile, with blocks an
-    SM and ptxas's registers and spills); P5's mma.sync
-    product + row sum (bit-exact on integer values, within P5_REL_TOL on
-    normal ones) and its TFLOP/s
-    beside torch.bmm and torch._int_mm; P1's one-hot gather (bit-exact
-    with its bf16 plain version, per-limb errors against f32); P2's
-    single-launch K1 + K4 against knn_match_fused on all 64 pairs. Each
-    probe is driven on its own, its counts set to 0 before and read
-    after.
+    FFMA bodies) and P3's stages on the tensor-core body (tc_stage)
+    against their plain versions on 2 of the 64 pairs and the full stages
+    against K1 on all 64; P4 on the old bodies; P3 on the tensor-core
+    body, each variant in turns with the old bodies', and both bodies'
+    stage splits; P6's sweep on the tensor-core body (seven tiles a
+    dtype, each bit-exact on all 64 pairs, timed in turns with the old
+    body's mapped tile, with blocks an SM and ptxas's registers and
+    spills); P5's mma.sync product + row sum (bit-exact on integer
+    values, within P5_REL_TOL on normal ones) and its TFLOP/s beside
+    torch.bmm and torch._int_mm; P1's one-hot gather in one launch and
+    its first body (both bit-exact with the bf16 plain version, per-limb
+    errors against f32; in turns, kernel and whole-call device time and
+    CUDA events, beside index_select); P2's single-launch K1 + K4 against
+    knn_match_fused on all 64 pairs. Each probe is driven on its own, its
+    counts set to 0 before and read after.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -1627,7 +1630,8 @@ def probe_inputs():
 def compare_stages(a, b, fargs):
     """P3/P4/P6's kernel at bench's shape against its plain version on the
     first pairs (every stage at K1's tile, the row minimum at every tile),
-    and its full stage against K1 on all 64 pairs."""
+    and its full stage against K1 on all 64 pairs; P3's stages on the
+    tensor-core body (tc_stage) the same way."""
     p = PROBE_PLAIN_PAIRS
     for dtype, args in (("int8", (a, b, None, None)), ("bf16", fargs)):
         sub = tuple(None if x is None else x[:p] for x in args)
@@ -1644,6 +1648,17 @@ def compare_stages(a, b, fargs):
                     knn.knn_packed_raw(*args))
         log(f"[probes] knn_probe {dtype}: {len(cases)} stage/tile cases "
             f"bit-exact on {p} of 64 pairs; full stage = K1 on all 64")
+        for stage in knn_stages.P3_VARIANTS.values():
+            got = knn_stages.tc_stage_raw(*args, stage=stage)
+            want = knn_stages.tc_stage_plain(*sub, stage=stage)
+            check_equal(f"tc_stage {dtype} {knn_stages.STAGES[stage]}",
+                        [g[:p] for g in got], want)
+        check_equal(f"tc_stage {dtype} full against K1",
+                    knn_stages.tc_stage_raw(*args),
+                    knn.knn_packed_raw(*args))
+        log(f"[probes] tc_stage {dtype}: P3's "
+            f"{len(knn_stages.P3_VARIANTS)} stages on the tensor-core body "
+            f"bit-exact on {p} of 64 pairs; full = K1 on all 64")
 
 
 def stage_times(args, stages, reps=3):
@@ -1652,40 +1667,80 @@ def stage_times(args, stages, reps=3):
         for s in stages}
 
 
-def run_anatomy(a, b, fargs):
-    """P4, then P3 at bench's shape, each driven on its own over both
-    dtypes; the stage split from the two, with K1 timed in turns beside
-    the full stage. The stages are the __dp4a (int8) and FFMA (bf16)
-    bodies', K1 the tensor-core body's, so the split is the old body's
-    (phase 4 splits the tensor-core body)."""
-    inputs = {"int8": (a, b, None, None), "bf16": fargs}
+def stage_split(t):
+    """K1's time split by P3's variants: product = v0, then what each
+    variant adds (running_merge: v3 − v2, the top-2 kept across tiles)."""
+    return {"product": t["row_min"],
+            "d2_pack_top1": t["top1"] - t["row_min"],
+            "top2": t["top2"] - t["top1"],
+            "running_merge": t["top2"] - t["top2_tile"],
+            "column": t["full"] - t["top2"]}
 
-    def sweep(stages):
-        return lambda: {d: stage_times(args, stages)
-                        for d, args in inputs.items()}
-    p4, n4 = drive("P4", sweep(knn_stages.P4_STAGES.values()))
-    p3, n3 = drive("P3", sweep(knn_stages.P3_VARIANTS.values()))
-    out = {"launches": {"P4": n4, "P3": n3}}
+
+def run_anatomy(a, b, fargs, library):
+    """P4 on the old bodies; then P3 at bench's shape on the tensor-core
+    body (tc_stage, the body K1 runs), each variant in turns with the old
+    bodies' (__dp4a for int8, FFMA for bf16; knn_probe), over both dtypes,
+    both in one drive whose tc_stage launches are P3's. Logs each body's
+    stage split, each variant beside its bound and one library product
+    (library: {dtype: ms}), and whether the tensor-core times rise
+    variant by variant."""
+    inputs = {"int8": (a, b, None, None), "bf16": fargs}
+    variants = {v: knn_stages.STAGES[s]
+                for v, s in knn_stages.P3_VARIANTS.items()}
+
+    def p4_sweep():
+        return {d: stage_times(args, knn_stages.P4_STAGES.values())
+                for d, args in inputs.items()}
+
+    def p3_sweep():
+        res = {}
+        for d, args in inputs.items():
+            res[d] = {}
+            for s in knn_stages.P3_VARIANTS.values():
+                new, old = in_turns(
+                    lambda s=s: knn_stages.tc_stage_raw(*args, stage=s),
+                    lambda s=s: knn_stages.knn_probe_raw(*args, stage=s))
+                res[d][knn_stages.STAGES[s]] = (new, old)
+        return res
+    p4, n4 = drive("P4", p4_sweep)
+    p3, n3 = drive("P3", p3_sweep)
+    out = {"launches": {"P4": n4,
+                        "P3": {"knn_tc_stage": n3.get("knn_tc_stage", 0)}}}
+    pairs, n = BENCH_SHAPE
     for dtype, args in inputs.items():
+        tc = {k: float(np.mean(v[0])) for k, v in p3[dtype].items()}
+        old = {k: float(np.mean(v[1])) for k, v in p3[dtype].items()}
+        old_body = "__dp4a" if dtype == "int8" else "FFMA"
+        bnd = bound(*(k1_bound(pairs, n, 1, "int8") if dtype == "int8"
+                      else k1_bound(pairs, n, 2, "bf16")))[0]
+        for v, name in variants.items():
+            (t1, t2), (o1, o2) = p3[dtype][name]
+            log(f"[anatomy] P3 {dtype} v{v} {name}: tensor cores {t1:.3f} / "
+                f"{t2:.3f} ms, {old_body} body {o1:.3f} / {o2:.3f} ms "
+                f"(in turns); bound {bnd:.3f} ms, "
+                f"{'torch._int_mm' if dtype == 'int8' else 'torch.bmm'} "
+                f"(product only) {library[dtype]:.3f} ms")
+        chain = [tc[variants[v]] for v in sorted(variants)]
+        rises = all(y >= x * 0.97 for x, y in zip(chain, chain[1:]))
+        log(f"[anatomy] K1 {dtype} on the tensor cores, P3 v0..v4 ms "
+            f"{[round(x, 3) for x in chain]}: "
+            + ("each variant within 3% of the one before or above it" if
+               rises else "a variant runs more than 3% faster than the "
+               "one before it"))
         k1 = [time_ms(lambda: knn.knn_packed_raw(*args), 3) for _ in "ab"]
-        full = [time_ms(lambda: knn_stages.knn_probe_raw(*args), 3)
-                for _ in "ab"]
-        t = {**p3[dtype], **p4[dtype], "full": float(np.mean(full))}
-        split = {"product": t["row_min"],
-                 "d2_pack_top1": t["top1"] - t["row_min"],
-                 "top2": t["top2"] - t["top1"],
-                 "running_merge": t["top2"] - t["top2_tile"],
-                 "column": t["full"] - t["top2"]}
-        body = " (__dp4a body)" if dtype == "int8" else " (FFMA body)"
-        log(f"[anatomy] K1 {dtype}{body} 64 x 6144, stages ms: "
-            + json.dumps({k: round(v, 3) for k, v in t.items()})
-            + f"; K1 itself (tensor cores) {k1[0]:.3f} / {k1[1]:.3f} ms in "
-            f"turns with the full stage {full[0]:.3f} / {full[1]:.3f}")
-        log(f"[anatomy] K1 {dtype}{body} split, ms: "
-            + json.dumps({k: round(v, 3) for k, v in split.items()})
-            + f" (product {100 * split['product'] / t['full']:.1f}% of the "
-            f"full stage)")
-        out[dtype] = t
+        log(f"[anatomy] K1 {dtype} 64 x 6144 split, ms, tensor-core body: "
+            + json.dumps({k: round(x, 3) for k, x in stage_split(tc).items()})
+            + f" (product {100 * tc['row_min'] / tc['full']:.1f}% of K1); "
+            f"{old_body} body, in turns: "
+            + json.dumps({k: round(x, 3)
+                          for k, x in stage_split(old).items()})
+            + f" (product {100 * old['row_min'] / old['full']:.1f}%); K1 "
+            f"itself {k1[0]:.3f} / {k1[1]:.3f} ms")
+        log(f"[anatomy] P4 {dtype} ({old_body} body) stages ms: "
+            + json.dumps({k: round(x, 3) for k, x in p4[dtype].items()}))
+        out[dtype] = {"tc": tc, "old": old, "p4": p4[dtype],
+                      "bound_ms": bnd, "library_ms": library[dtype]}
     out["knn_top2_ms"] = time_ms(lambda: knn.knn_top2(a, b), 3)
     log(f"[anatomy] P3 v5: the port's knn_top2 (K1 + decode) "
         f"{out['knn_top2_ms']:.3f} ms")
@@ -1837,37 +1892,72 @@ def run_mma(bt_int):
 
 def run_gather():
     """P1: the one-hot gather of hi/mid/lo limbs (T = 128, N = 6144, the
-    script's seed): bit-exact with the plain "bf16" version; the per-limb
-    error against exact f32 is P1's answer."""
+    script's seed): the one-launch kernel and its first body (v0) each
+    bit-exact with the plain "bf16" version; the per-limb error against
+    exact f32 is P1's answer. Timed in turns (new, v0, v0, new): the
+    kernel's profiler device time, the whole call's (every kernel one
+    call launches) and CUDA events around one call; index_select beside."""
     rng = np.random.default_rng(1)
     T, N = 128, 6144
     j = torch.from_numpy(rng.integers(0, N, (T,)).astype(np.int32)).cuda()
     u = torch.from_numpy(rng.uniform(0, 4100, (N,)).astype(np.float32)).cuda()
     vals = mma.limbs(u)
+    want = mma.onehot_gather_plain(j, vals, "bf16")
     got = mma.onehot_gather_raw(j, vals)
-    check_equal("onehot_gather", [got],
-                [mma.onehot_gather_plain(j, vals, "bf16")])
+    check_equal("onehot_gather", [got], [want])
+    check_equal("onehot_gather_v0", [mma.onehot_gather_v0_raw(j, vals)],
+                [want])
     exact = mma.onehot_gather_plain(j, vals, "f32")
     limb_err = (got - exact).abs().amax(0).tolist()
     rec = float(((got[:, 0] + got[:, 1]) + got[:, 2] - u[j.long()])
                 .abs().max())
+    calls = {"new": lambda: mma.onehot_gather_raw(j, vals),
+             "v0": lambda: mma.onehot_gather_v0_raw(j, vals)}
+    kernel = {"new": "onehot_gather_kernel", "v0": "onehot_gather_v0_kernel"}
 
     def run():
-        return device_ms(lambda: mma.onehot_gather_raw(j, vals),
-                         "onehot_gather_kernel")
-    ms, counts = drive("P1", run)
-    r = {"max_abs_err": 0.0, "ms": ms,
+        t = {k: {"kernel": [], "call": [], "events": [], "kernels": 0}
+             for k in calls}
+        for k in ("new", "v0", "v0", "new"):
+            per = probes.device_kernels(calls[k])
+            t[k]["kernel"].append(sum(x for name, x in per.items()
+                                      if kernel[k] in name))
+            t[k]["call"].append(sum(per.values()))
+            t[k]["kernels"] = len(per)
+            t[k]["events"].append(time_ms(calls[k], 20))
+        return t
+    t, counts = drive("P1", run)
+    if t["new"]["kernels"] != 1:
+        raise AssertionError(f"onehot_gather_raw launched "
+                             f"{t['new']['kernels']} kernels a call")
+    lib = device_ms(lambda: torch.index_select(vals, 1, j))
+    mean = {k: {m: float(np.mean(v[m])) for m in ("kernel", "call", "events")}
+            for k, v in t.items()}
+    r = {"max_abs_err": 0.0, "ms": mean["new"]["kernel"],
+         "call_device_ms": mean["new"]["call"],
+         "event_ms": mean["new"]["events"],
+         "was_ms": mean["v0"]["kernel"],
+         "was_call_device_ms": mean["v0"]["call"],
+         "was_event_ms": mean["v0"]["events"],
+         "was_kernels_a_call": t["v0"]["kernels"],
          "plain_ms": device_ms(lambda: mma.onehot_gather_plain(j, vals)),
          "timed_by": "profiler device time"}
-    lib = device_ms(lambda: torch.index_select(vals, 1, j))
-    log(f"[P1] one-hot mma.sync gather T={T} N={N}: bit-exact with the "
-        f"bf16 plain version; per-limb max error against exact f32 (hi, "
-        f"mid, lo) {limb_err}; recombined max error {rec:.3g}; device "
-        f"time {ms:.4f} ms, plain {r['plain_ms']:.4f} ms, index_select "
-        f"{lib:.4f} ms")
-    # j, the limbs (bf16) and the output once; the one-hot product's flops
-    return with_bound(r, 4 * T + 2 * 3 * N + 12 * T,
-                      {"bf16": 2 * T * N * 3}, library_ms=lib), counts
+
+    def pair(k, m):
+        return f"{t[k][m][0]:.4f} / {t[k][m][1]:.4f}"
+    log(f"[P1] one-hot mma.sync gather T={T} N={N}: both bodies bit-exact "
+        f"with the bf16 plain version; per-limb max error against exact "
+        f"f32 (hi, mid, lo) {limb_err}; recombined max error {rec:.3g}")
+    log(f"[P1] in turns, ms: kernel device time {pair('new', 'kernel')} "
+        f"(v0 {pair('v0', 'kernel')}); whole call device time, "
+        f"{t['new']['kernels']} kernel(s) {pair('new', 'call')} (v0, "
+        f"{t['v0']['kernels']} kernels, {pair('v0', 'call')}); CUDA events "
+        f"{pair('new', 'events')} (v0 {pair('v0', 'events')}); plain "
+        f"{r['plain_ms']:.4f}, index_select {lib:.4f} (device time)")
+    # j, the f32 limbs and the output once; the one-hot product's flops
+    return (with_bound(r, 4 * T + 4 * 3 * N + 12 * T,
+                       {"bf16": 2 * T * N * 3}, library_ms=lib),
+            {"onehot_gather": counts.get("onehot_gather", 0)})
 
 
 def run_fused(a, b, uv_b):
@@ -1914,7 +2004,7 @@ def run_probes():
     int_mm = time_ms(lambda: torch._int_mm(a.reshape(-1, 128), bt), 3)
     del bt
     bmm = time_ms(lambda: torch.bmm(fargs[0], fargs[1].transpose(1, 2)), 3)
-    anatomy = run_anatomy(a, b, fargs)
+    anatomy = run_anatomy(a, b, fargs, {"int8": int_mm, "bf16": bmm})
     p6, n6 = run_tile_sweep(a, b, fargs)
     p5, n5 = run_mma(int_mm)
     p1, n1 = run_gather()
@@ -1922,16 +2012,26 @@ def run_probes():
     pairs, n = BENCH_SHAPE
     out = {"P5": (p5, n5), "P1": (p1, n1), "P2": (p2, n2)}
     i8 = (a, b, None, None)
-    for name, args, stage, launches in (
-            ("P4", i8, knn_stages.ROW_SUM, anatomy["launches"]["P4"]),
-            ("P3", i8, knn_stages.ROW_MIN, anatomy["launches"]["P3"])):
-        # the plain version at the full 64 pairs, timed once
-        r = {"max_abs_err": 0.0,
-             "ms": anatomy["int8"][knn_stages.STAGES[stage]],
-             "plain_ms": time_ms(lambda: knn_stages.knn_probe_plain(
-                 *args, stage=stage), 1)}
-        out[name] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
-                                library_ms=int_mm), launches)
+    # P4: stage 0 on the old __dp4a body; the plain version at the full
+    # 64 pairs, timed once
+    r = {"max_abs_err": 0.0, "ms": anatomy["int8"]["p4"]["row_sum"],
+         "plain_ms": time_ms(lambda: knn_stages.knn_probe_plain(
+             *i8, stage=knn_stages.ROW_SUM), 1)}
+    out["P4"] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
+                            library_ms=int_mm), anatomy["launches"]["P4"])
+    # P3: v0 on the tensor-core body, int8, the old body's as "was"; every
+    # variant of both dtypes beside its bound and library product
+    r = {"max_abs_err": 0.0, "ms": anatomy["int8"]["tc"]["row_min"],
+         "was_ms": anatomy["int8"]["old"]["row_min"],
+         "plain_ms": time_ms(lambda: knn_stages.tc_stage_plain(
+             *i8, stage=knn_stages.ROW_MIN), 1),
+         "variants": {d: {"ms": anatomy[d]["tc"],
+                          "was_ms": anatomy[d]["old"],
+                          "bound_ms": anatomy[d]["bound_ms"],
+                          "library_ms": anatomy[d]["library_ms"]}
+                      for d in ("int8", "bf16")}}
+    out["P3"] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
+                            library_ms=int_mm), anatomy["launches"]["P3"])
     # P6: the tensor-core body at K1's tile, bf16 (its int8 beside it),
     # with the old bodies at theirs
     (ms, ffma), (ms8, dp4a) = p6[("bf16", "k1")], p6[("int8", "k1")]
@@ -1994,7 +2094,11 @@ def main():
                                          "device_ms", "loop_device_ms",
                                          "random_max_abs_err", "int8_ms",
                                          "int8_dp4a_ms", "int8_bound_ms",
-                                         "int8_library_ms")
+                                         "int8_library_ms", "was_ms",
+                                         "call_device_ms", "event_ms",
+                                         "was_call_device_ms",
+                                         "was_event_ms",
+                                         "was_kernels_a_call", "variants")
                        if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
@@ -2026,7 +2130,7 @@ def main():
              "scripts_dev/epilogue_dot_probe.py:25"),
             ("P2", "knn_fused_probe", "knn_fused_probe.cu",
              "scripts_dev/fused_vmem_probe.py:26"),
-            ("P3", "knn_probe_p3_bisect", "knn_probe.cu",
+            ("P3", "knn_tc_stage", "knn_probe.cu",
              "scripts_dev/knn_culprit_bisect.py:42"),
             ("P4", "knn_probe_p4_stages", "knn_probe.cu",
              "scripts_dev/knn_stage_cost.py:31"),

@@ -77,14 +77,18 @@ _SIGNATURES = {
     "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # bf16, bm, bn, stages
     "knn_tc_row_min_blocks": [_I, _I, _I, _I],
+    # a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b, dtype (0 int8,
+    # 1 bf16), stage, stream
+    "knn_tc_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
     # epi_threads, do_main, do_epi, do_pb, stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P],
     # a, b, out, batch, M, N, K, bm, bn, n_split, stream
     "mm_rowsum_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # j, vals, out, T, N, stream
+    # j, vals (f32; v0: bf16), out, T, N, stream
     "onehot_gather_bf16": [_P, _P, _P, _I, _I, _P],
+    "onehot_gather_bf16_v0": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -206,6 +210,23 @@ def tc_kernel_usage(usage=None):
             key = [_TC_TYPES[m.group(1)], *(g for g in m.groups()[1:] if g)]
             out[" ".join(key)] = u
     return out
+
+
+def sass(lib=None):
+    """{mangled kernel name: its SASS lines} of the built library (default:
+    this package's), from cuobjdump beside nvcc. Needs the CUDA toolkit."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("cuobjdump not found: needs the CUDA toolkit")
+    out = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         lib or build()], check=True, capture_output=True, text=True).stdout
+    kernels = {}
+    for part in out.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        kernels[name.strip()] = [ln.strip() for ln in body.splitlines()
+                                 if "/*" in ln and ";" in ln]
+    return kernels
 
 
 def check(err, name):

@@ -6,7 +6,7 @@
 //                      planes, each plain and gated) and of K3 (bf16,
 //                      f32), mma.sync on the tensor cores (knn_tc.cuh,
 //                      included at the end of this file); P6's row-min
-//                      sweep
+//                      sweep and P3's stages
 //   knn_float_kernel   f32 FMAs on bf16 or f32 descriptors: the
 //                      tensor-core body's f32 and bf16 yardsticks (K1's
 //                      modes and K3's) and bf16 for the probes of K1's
@@ -74,14 +74,28 @@ constexpr int kLds8 = kWords + 1;   // padded shared row: conflict-free reads
 
 // kProductRowSum and kProductRowMin: the tensor-core body's product with
 // a wrapping row sum (the probes' product-only stage) or the row minimum
-// of the dots (P6) in place of the keys
+// of the dots (P6) in place of the keys. kProductTop1, kProductTop2Tile
+// and kProductTop2: kPacked's d2 and keys with only part of its epilogue
+// (P3's stages on the tensor-core body): the row top-1; the row top-2
+// restarted at every B tile (the last tile's); the running row top-2. The
+// three leave the column minimum out and col_p alone.
 enum Mode {
   kPacked = 0, kPackedGated = 1, kWide = 2, kProductRowSum = 3,
-  kProductRowMin = 4
+  kProductRowMin = 4, kProductTop1 = 5, kProductTop2Tile = 6,
+  kProductTop2 = 7
 };
 // the modes that compute keys (K1's and K3's), not the probes' reductions
 __host__ __device__ constexpr bool keyed(int mode) {
   return mode == kPacked || mode == kPackedGated || mode == kWide;
+}
+// the probes' modes with K1's packed row keys, and no column
+__host__ __device__ constexpr bool row_keyed(int mode) {
+  return mode == kProductTop1 || mode == kProductTop2Tile ||
+         mode == kProductTop2;
+}
+// the modes that read the squared norms
+__host__ __device__ constexpr bool normed(int mode) {
+  return keyed(mode) || row_keyed(mode);
 }
 enum Stage {
   kRowSum = 0, kRowMin = 1, kTop1 = 2, kTop2Tile = 3, kTop2 = 4, kFull = 5

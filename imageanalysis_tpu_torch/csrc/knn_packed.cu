@@ -109,13 +109,6 @@ row_norms_i8_kernel(const int4* __restrict__ x, float* __restrict__ out,
   if (r < rows && (t & 7) == 0) out[r] = (float)s;
 }
 
-int launch_row_norms_i8(const void* x, void* out, long long rows,
-                        cudaStream_t stream) {
-  row_norms_i8_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0,
-                        stream>>>((const int4*)x, (float*)out, rows);
-  return (int)cudaGetLastError();
-}
-
 // int8: the norms pre-pass into na2 / nb2, then the tensor-core body
 template <int MODE>
 int launch_i8(const void* a, const void* b, void* na2, void* nb2,
@@ -165,6 +158,15 @@ int launch_float(const void* a, const void* b, const void* na2,
 }
 
 }  // namespace
+
+// declared in knn_tc.cuh, for K1 int8 here and P3's stages in
+// knn_probe.cu
+int knn::launch_row_norms_i8(const void* x, void* out, long long rows,
+                             cudaStream_t stream) {
+  row_norms_i8_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0,
+                        stream>>>((const int4*)x, (float*)out, rows);
+  return (int)cudaGetLastError();
+}
 
 // declared in knn_tc.cuh, for K1 f32 here and the product-only stage in
 // knn_probe.cu

@@ -1,7 +1,7 @@
 // Probes of K1's anatomy, for Hopper (sm_90a): K1 cut down stage by stage
 // and swept over block tiles, on the bodies K1 ran before its tensor-core
-// body (knn_common.cuh) and, for P6's sweep, on the tensor-core body
-// itself (knn_tc.cuh).
+// body (knn_common.cuh) and, for P3's stages and P6's sweep, on the
+// tensor-core body itself (knn_tc.cuh).
 //
 // Replaces the TPU dev probes
 //   scripts_dev/knn_stage_cost.py:31      kernel       (P4: K1 by stage)
@@ -13,21 +13,28 @@
 // parts are the Stage values of knn_common.cuh, compiled into its int8
 // body (__dp4a) and its float body (f32 FMAs on bf16 operands): product +
 // row sum, product + row min, + d2/pack/top-1, + top-2 restarted at every
-// B tile, + the running top-2, + the column atomicMin. K1 now runs the
-// tensor-core body (knn_tc.cuh); the stages, the full ones included, stay
-// on the bodies K1 ran before it, so each dtype's anatomy is one body's
-// and its stage differences stay meaningful. Their full stages equal K1's
-// result bit for bit. knn_dp4a_i8 (K1's int8 modes, plain and gated),
-// knn_ffma_bf16 (K1's and K3's bf16 modes: plain, gated, wide) and
-// knn_ffma_f32 (K1's and K3's f32 modes: plain, gated, wide) launch those
-// bodies as the tensor-core body's yardsticks. On the tensor-core body:
+// B tile, + the running top-2, + the column atomicMin. knn_probe runs them
+// on the bodies K1 ran before its tensor-core body (knn_tc.cuh), so each
+// dtype's anatomy there is one body's; knn_tc_stage runs P3's five (row
+// min on) on the tensor-core body K1 runs now, at K1's tile (its modes
+// kProductRowMin, kProductTop1, kProductTop2Tile, kProductTop2 and
+// kPacked, K1 itself), the old bodies' anatomy kept as its yardstick. The full stages equal K1's result bit for bit.
+// knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
+// K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
+// modes: plain, gated, wide) launch the old bodies as the tensor-core
+// body's yardsticks. On the tensor-core body:
 // knn_tc_row_sum, its product-only stage (product + wrapping row sum,
 // kRowSum's result) in any of its types, and knn_tc_row_min, P6's product
 // + row min (kRowMin's result) at each tile of P6's sweep.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
-// per-element epilogue after the dots, which is what they measure.
+// per-element epilogue after the dots, which is what they measure. On the
+// tensor-core body the product is cheap (a third of int8 K1), so the
+// stages split the key epilogue itself: d2 + pack + top-1, the second
+// key, the running merge, the column. A stage computes only what it writes
+// (nvcc drops the rest), so each is a cut of K1's work, not K1 with
+// outputs switched off.
 //
 // Tiles of the old bodies: TA A rows per block x TB B rows per streamed
 // shared-memory tile, 256 threads. int8 at (32, 32), (32, 64), (64, 32),
@@ -315,4 +322,77 @@ extern "C" int knn_tc_row_min(const void* a, const void* b, void* row_p,
 extern "C" int knn_tc_row_min_blocks(int bf16, int bm, int bn, int stages) {
   return bf16 ? row_min_tc<uint16_t>(nullptr, bm, bn, stages)
               : row_min_tc<int8_t>(nullptr, bm, bn, stages);
+}
+
+namespace {
+
+// one of P3's stages on the tensor-core body at K1's tile (128, 128, 2)
+template <typename T, int MODE>
+int tc_stage_launch(const Args& x) {
+  return tc::launch_tile<T, MODE, 128>(
+      x.a, x.b, x.na2, x.nb2, nullptr, nullptr, 0.f, x.row_p, x.col_p,
+      nullptr, nullptr, x.n_pairs, x.n_a, x.n_b, x.stream);
+}
+
+template <typename T>
+int tc_stage(const Args& x, int stage) {
+  switch (stage) {
+    case kRowMin: return tc_stage_launch<T, kProductRowMin>(x);
+    case kTop1: return tc_stage_launch<T, kProductTop1>(x);
+    case kTop2Tile: return tc_stage_launch<T, kProductTop2Tile>(x);
+    case kTop2: return tc_stage_launch<T, kProductTop2>(x);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// K1's own entry points (knn_packed.cu): the full stage launches K1's code,
+// not a second instantiation of it here
+extern "C" int knn_packed_i8(const void* a, const void* b, void* na2,
+                             void* nb2, void* row_p, void* col_p,
+                             int n_pairs, int n_a, int n_b, void* stream);
+extern "C" int knn_packed_float(const void* a, const void* b,
+                                const void* na2, const void* nb2,
+                                const void* uv_a, const void* pred_b,
+                                float radius2, void* row_p, void* col_p,
+                                void* split_a, void* split_b, int n_pairs,
+                                int n_a, int n_b, int bf16, void* stream);
+
+// P3: K1 up to `stage` (a Stage of knn_common.cuh: row_min .. full) on
+// the tensor-core body at K1's tile (128, 128, 2): row_min the product
+// with the row minimum of the dots (kProductRowMin), top1, top2_tile and
+// top2 K1's packed keys with part of its epilogue (kProductTop1,
+// kProductTop2Tile, kProductTop2), full K1 itself (kPacked, through K1's
+// entry points). a, b (n_pairs, n_a | n_b, 128) int8 (dtype 0) or
+// integer-valued bf16 bits (1), 16-byte aligned; na2, nb2 (n_pairs, n) f32:
+// bf16's squared norms from top1 on, int8's scratch, which the norms
+// pre-pass of K1 fills first from top1 on (as K1 int8 does); row_p
+// (n_pairs, n_a, 2) int32; col_p (n_pairs, n_b) int32 pre-filled with
+// 0x7FFFFFFF, written by full only. n_a a multiple of 128, n_b of 64,
+// both <= 8192. Returns the cudaError_t of the first failed launch.
+extern "C" int knn_tc_stage(const void* a, const void* b, void* na2,
+                            void* nb2, void* row_p, void* col_p, int n_pairs,
+                            int n_a, int n_b, int dtype, int stage,
+                            void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1) || n_a % 128 ||
+      dtype < 0 || dtype > 1 || stage < kRowMin || stage > kFull)
+    return (int)cudaErrorInvalidValue;
+  if (stage == kFull)
+    return dtype == 1
+               ? knn_packed_float(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                                  row_p, col_p, nullptr, nullptr, n_pairs,
+                                  n_a, n_b, 1, stream)
+               : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
+                               n_b, stream);
+  const Args x{a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
+               (cudaStream_t)stream};
+  if (dtype == 1) return tc_stage<uint16_t>(x, stage);
+  if (stage >= kTop1) {
+    int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, x.stream);
+    if (e == 0)
+      e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, x.stream);
+    if (e != 0) return e;
+  }
+  return tc_stage<int8_t>(x, stage);
 }

@@ -3,16 +3,20 @@
 // three bf16 planes (Bf16x3). Included at the end of knn_common.cuh, whose
 // constants, gate and keys it uses; K1 (knn_packed.cu) launches it in all
 // of its modes, plain (kPacked) and gated (kPackedGated), K3 (knn_wide.cu)
-// in both of its modes, bf16 and f32 (kWide). Two more modes are the
-// body's product with a reduction in place of the key epilogue, for the
-// probes (knn_probe.cu): kProductRowSum, a wrapping row sum (the
-// product-only stage), and kProductRowMin, the row minimum of the dots
-// (P6's kernel, swept over tiles).
+// in both of its modes, bf16 and f32 (kWide). The probes' modes
+// (knn_probe.cu) cut its epilogue down: kProductRowSum, a wrapping row sum
+// in place of the keys (the product-only stage); kProductRowMin, the row
+// minimum of the dots (P6's kernel, swept over tiles); and K1's packed d2
+// and keys with the row top-1 only (kProductTop1), the row top-2 of the
+// last B tile (kProductTop2Tile: restarted at every tile) or the running
+// row top-2 (kProductTop2), each without the column minimum: with
+// kProductRowMin and kPacked, P3's five stages on this body.
 //
 // Replaces, for bf16, int8 and f32 descriptors:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, every dot)
 //   scripts_dev/knn_overhead_sweep.py:36 kernel          (P6, row min)
+//   scripts_dev/knn_culprit_bisect.py:42 kernel          (P3, K1 built up)
 //
 // What bounds it on the H100: the product, 2 n_a n_b 128 operations a
 // pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8;
@@ -217,7 +221,7 @@ __device__ __forceinline__ void load_b(Smem<T, BM, BN, STAGES>& s,
     mma_sync::cp_async16(&s.b[stage][r * kPitch<T> + c],
                          Bt + (size_t)r * kRow + c);
   }
-  if (keyed(MODE) && tid < rows / 4)
+  if (normed(MODE) && tid < rows / 4)
     mma_sync::cp_async16(&s.nb2[stage][4 * tid], nbp + b0 + 4 * tid);
   if constexpr (MODE == kPackedGated) {
     if (tid < rows / 2)
@@ -249,8 +253,10 @@ __device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
 // n_b B rows. Outputs as knn_float_kernel's full stage: K1's row_p /
 // col_p (col_p pre-filled with 0x7FFFFFFF) or K3's row_k / col_k
 // (pre-filled with INT64_MAX); kProductRowSum writes each row's wrapping
-// sum of its dots, kProductRowMin its minimum dot (as an int), into both
-// slots of row_p, and both leave col_p alone.
+// sum of its dots, kProductRowMin its minimum dot (as an int) and
+// kProductTop1 its smallest key into both slots of row_p, kProductTop2Tile
+// and kProductTop2 their two smallest keys; the probes' modes leave col_p
+// alone.
 template <typename T, int MODE, int BM, int BN = Op<T>::kBN,
           int STAGES = kStages>
 __global__ void __launch_bounds__(kThreads,
@@ -271,6 +277,11 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   constexpr bool kSum = MODE == kProductRowSum;
   constexpr bool kMin = MODE == kProductRowMin;
   constexpr bool kKeys = keyed(MODE);
+  constexpr bool kNorms = normed(MODE);
+  constexpr bool kFirst = MODE == kProductTop1;       // the key top-1 only
+  constexpr bool kRestart = MODE == kProductTop2Tile; // top-2 a B tile
+  constexpr bool kOneKey = kMin || kFirst;    // one value a row, by min
+  constexpr bool kTwoKeys = (kKeys || row_keyed(MODE)) && !kFirst;
   constexpr int kRow = Op<T>::kRowBytes;
   constexpr int kLd = kPitch<T>;
   constexpr int kPlane = kRow / Op<T>::kPlanes;   // bytes of one plane
@@ -302,7 +313,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
                            ((size_t)pair * n_a + a0) * kRow;
   const unsigned char* Bm = reinterpret_cast<const unsigned char*>(b) +
                             (size_t)pair * n_b * kRow;
-  const float* nbp = kKeys ? nb2 + (size_t)pair * n_b : nullptr;
+  const float* nbp = kNorms ? nb2 + (size_t)pair * n_b : nullptr;
   const float* pbp = kGated ? pred_b + (size_t)pair * n_b * 2 : nullptr;
   const int n_tiles = (n_b + kBN - 1) / kBN;
 
@@ -333,7 +344,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t row = (size_t)pair * n_a + a0 + wm + mt * 16 + h * 8 + g;
-      na[mt][h] = kKeys ? na2[row] : 0.f;
+      na[mt][h] = kNorms ? na2[row] : 0.f;
       r1[mt][h] = r2[mt][h] = kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
       v1[mt][h] = v2[mt][h] = __int_as_float(0x7F800000);
     }
@@ -444,6 +455,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const int r = wm + mt * 16 + h * 8 + g;
         ux[mt][h] = kGated ? s.ua[2 * r] : 0.f;
         uy[mt][h] = kGated ? s.ua[2 * r + 1] : 0.f;
+        if (kRestart) r1[mt][h] = r2[mt][h] = kKeyMax;
       }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -451,7 +463,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = wn + nt * 8 + 2 * q + e;
-        const float nbv = kKeys ? snb[c] : 0.f;
+        const float nbv = kNorms ? snb[c] : 0.f;
         const float px = kGated ? spb[2 * c] : 0.f;
         const float py = kGated ? spb[2 * c + 1] : 0.f;
         int ck = kKeyMax;           // K1: the column's key
@@ -515,9 +527,9 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 bits = kGatedBits;
               // insert2 on unique keys, as min/max
               const int rk = bits | (b0 + c);
-              r2[mt][h] = min(r2[mt][h], max(r1[mt][h], rk));
+              if (!kFirst) r2[mt][h] = min(r2[mt][h], max(r1[mt][h], rk));
               r1[mt][h] = min(r1[mt][h], rk);
-              ck = min(ck, bits | row);
+              if (kKeys) ck = min(ck, bits | row);
             }
           }
         // the column over the warp's 32 rows: the lanes of one q
@@ -569,7 +581,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
         const K o1 = __shfl_xor_sync(0xffffffffu, k1[mt][h], off);
         if constexpr (kSum) {
           k1[mt][h] = wrap_add(k1[mt][h], o1);
-        } else if constexpr (kMin) {
+        } else if constexpr (kOneKey) {
           k1[mt][h] = min(k1[mt][h], o1);
         } else {
           const K o2 = __shfl_xor_sync(0xffffffffu, k2[mt][h], off);
@@ -595,7 +607,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int w = 1; w < WN; ++w) {
       if constexpr (kSum)
         k1 = wrap_add(k1, red[2 * (w * BM + tid)]);
-      else if constexpr (kMin)
+      else if constexpr (kOneKey)
         k1 = min(k1, red[2 * (w * BM + tid)]);
       else
         merge2(red[2 * (w * BM + tid)], red[2 * (w * BM + tid) + 1], k1, k2);
@@ -606,7 +618,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
       row_k[r + 1] = k2;
     } else {
       row_p[r] = k1;
-      row_p[r + 1] = kKeys ? k2 : k1;
+      row_p[r + 1] = kTwoKeys ? k2 : k1;
     }
   }
 }
@@ -660,12 +672,19 @@ int tile_blocks_per_sm() {
 int launch_split(const void* x, void* out, long long rows,
                  cudaStream_t stream);
 
+// Squared norms of int8 rows (K1 int8's pre-pass, knn_packed.cu): x (rows,
+// 128) int8, 16-byte aligned → out (rows) f32, exact. Returns the
+// cudaError_t of the launch.
+int launch_row_norms_i8(const void* x, void* out, long long rows,
+                        cudaStream_t stream);
+
 // The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
 // the split rows of launch_split). a, b (n_pairs, n, 128) T; na2, nb2 the
-// f32 squared norms (unused by the probes' modes); uv_a, pred_b f32 for
-// kPackedGated; n_a and n_b multiples of 64 (the caller checks the
-// shapes). Blocks of 128 A rows where n_a allows, else 64, and the type's
-// B tiles in a ring of two. Returns the cudaError_t of the launch.
+// f32 squared norms (unused by kProductRowSum and kProductRowMin); uv_a,
+// pred_b f32 for kPackedGated; n_a and n_b multiples of 64 (the caller
+// checks the shapes). Blocks of 128 A rows where n_a allows, else 64, and
+// the type's B tiles in a ring of two. Returns the cudaError_t of the
+// launch.
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,

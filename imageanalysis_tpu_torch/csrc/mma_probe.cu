@@ -20,15 +20,44 @@
 // loads synchronously, with no cp.async or TMA pipeline and no wgmma.
 //
 // onehot_gather replaces scripts_dev/epilogue_dot_probe.py:25 (kern, P1):
-//   out[t, c] = sum_n [j[t] == n] vals[c, n]   j (T) int32, vals (3, N) bf16
-// the one-hot gather the TPU's match epilogue ran on its matrix unit. The
-// one-hot A fragments are built in registers from j and never stored; B
-// is vals^T, its 3 columns padded to the mma's 8 with zeros. Each warp owns
-// 16 rows of T and a 512-column range of N; the range's partial sums, one
-// value and zeros, are added into out with atomicAdd, exact in any order.
-// The products are exact (1.0 x a bf16 value), so out is vals[:, j]
-// rounded to bf16 first: the question the TPU probe asked. What bounds it:
-// launch latency (36 KB of inputs).
+//   out[t, c] = sum_n [j[t] == n] vals[c, n]   j (T) int32, vals (3, N) f32
+// the one-hot gather the TPU's match epilogue ran on its matrix unit, at
+// DEFAULT precision: the operands rounded to bf16 (nearest even) and
+// multiplied exactly. The one-hot dot stays on the tensor cores, since it
+// is the probe's subject: does the matrix unit's one-hot product return
+// bf16 rows exactly? (a direct gather would give the same numbers and
+// answer nothing). What bounds it: latency (37 KB of inputs, 4.7 MFLOP);
+// its (T / 16) x (N / 16) mma.sync, and the instructions that build their
+// one-hot operands, are the work. Design, so that one short launch does it
+// all:
+// - f32 vals are rounded in registers (cvt.rn.bf16x2.f32), as the TPU's
+//   matrix unit rounds them: no conversion launch before it;
+// - the work is spread over many SMs: a thread-block cluster of
+//   kGatherCluster (8) blocks owns a 16-row group of T (T = 128: 64
+//   blocks), block rank r the r-th eighth of N's k-steps of 16 columns,
+//   its kGatherWarps (8) warps runs of kGatherSteps (6) k-steps. A warp
+//   issues all of a run's loads (16 bytes a lane) before its first
+//   mma.sync. The lanes of a quad (q = lane % 4) load 4 consecutive values
+//   of a limb: b0 and b1 of mma.sync's B fragment hold k pairs 2q and
+//   8 + 2q, so a k-step's 16 columns are taken in the order 4q, 4q + 1,
+//   4q + 2, 4q + 3, and the one-hot A fragment is built in that order (the
+//   product is unchanged);
+// - the one-hot A fragment of a run is zero but for the k-step that holds
+//   a row's j: a lane finds that step and its two non-zero registers once a
+//   run, and selects them or zero at each step (a compare and two selects a
+//   row; a compare-and-select per fragment value was ~3x the instructions,
+//   and the kernel was issue-bound on the 8 SMs of one block a row group);
+// - the warps' 16 x 8 accumulators are summed in shared memory in warp
+//   order; the blocks' sums meet in rank 0's shared memory by st.async with
+//   an mbarrier's byte count (no cluster-wide memory fence: cluster.sync()
+//   costs a GPU-scope membar and an L1 invalidation), and rank 0 adds them
+//   in rank order and writes each output once: no atomics, no zero-fill.
+// Every product is 1.0 x a bf16 value or an exact zero, so any order of
+// the sums is exact: out is vals[:, j] rounded to bf16 first.
+// onehot_gather_v0 is the first body, kept as the yardstick: bf16 vals
+// rounded by the caller, a warp a 512-column range of one 16-row group (a
+// serial chain of 32 loads and mma.sync), its partial sums added into a
+// zero-filled out with atomicAdd.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,27 +193,27 @@ int launch_mm(const void* a, const void* b, void* out, int batch, int M,
   return (int)cudaGetLastError();
 }
 
-constexpr int kGatherCols = 512;    // N columns per warp
-constexpr int kGatherWarps = 4;     // 16 rows each
+constexpr int kV0Cols = 512;        // v0: N columns per warp
+constexpr int kV0Warps = 4;         // v0: 16 rows each
 
 __device__ __forceinline__ unsigned onehot2(int j, int k) {
   return (j == k ? 0x3F80u : 0u) | (j == k + 1 ? 0x3F800000u : 0u);
 }
 
-__global__ void __launch_bounds__(kGatherWarps * 32)
-onehot_gather_kernel(const int* __restrict__ j,
-                     const uint16_t* __restrict__ vals,
-                     float* __restrict__ out, int T, int N) {
+__global__ void __launch_bounds__(kV0Warps * 32)
+onehot_gather_v0_kernel(const int* __restrict__ j,
+                        const uint16_t* __restrict__ vals,
+                        float* __restrict__ out, int T, int N) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * kGatherWarps + warp) * 16;
+  const int row0 = (blockIdx.x * kV0Warps + warp) * 16;
   if (row0 >= T) return;
   const int g = lane >> 2;          // fragment row; B column
   const int q = (lane & 3) * 2;     // fragment column pair
   const int ja = j[row0 + g];
   const int jb = j[row0 + g + 8];
-  const int k_begin = blockIdx.y * kGatherCols;
-  const int k_end = min(N, k_begin + kGatherCols);
+  const int k_begin = blockIdx.y * kV0Cols;
+  const int k_end = min(N, k_begin + kV0Cols);
   float c[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k0 = k_begin; k0 < k_end; k0 += 16) {
     const int k = k0 + q;
@@ -208,6 +237,130 @@ onehot_gather_kernel(const int* __restrict__ j,
     atomicAdd(out + (size_t)(row0 + g) * 3 + q + 1, c[1]);
     atomicAdd(out + (size_t)(row0 + g + 8) * 3 + q + 1, c[3]);
   }
+}
+
+constexpr int kGatherCluster = 8;   // blocks a 16-row group
+constexpr int kGatherWarps = 8;    // warps a block
+constexpr int kGatherSteps = 6;     // k-steps of 16 columns in a warp's run
+
+// bf16x2 of (lo, hi), each rounded to nearest even; lo in the low half
+__device__ __forceinline__ unsigned bf16x2_rn(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One row's one-hot A registers for the run of k-steps from column k0, in
+// the column order above: the step that holds j (-1: none), and the
+// registers' values there (lo: columns 4q, 4q + 1; hi: 4q + 2, 4q + 3)
+struct OneHot {
+  int step;
+  unsigned lo, hi;
+};
+__device__ __forceinline__ OneHot onehot_run(int j, int k0, int q) {
+  const int e = j - k0 - 4 * q;     // 16 step + r, r in 0..3 on a hit
+  const int r = e & 15;
+  const unsigned one = 0x3F80u << (16 * (r & 1));   // bf16 1.0, low or high
+  return {e >= 0 && r < 4 ? e >> 4 : -1, r < 2 ? one : 0u,
+          r >= 2 ? one : 0u};
+}
+
+__global__ void __cluster_dims__(kGatherCluster, 1, 1)
+__launch_bounds__(kGatherWarps * 32, 1)
+onehot_gather_kernel(const int* __restrict__ j,
+                     const float* __restrict__ vals,
+                     float* __restrict__ out, int N) {
+  __shared__ __align__(8) unsigned long long bar;   // rank 0's
+  __shared__ float red[kGatherWarps][48];
+  __shared__ float parts[kGatherCluster][48];       // rank 0's
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  if (rank == 0 && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(smem_u32(&bar)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // waited on before the sums travel: rank 0's barrier is then initialised
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x / kGatherCluster) * 16;
+  const int g = lane >> 2;          // fragment row; B column (the limb)
+  const int q = lane & 3;
+  const int S = N / 16;             // k-steps
+  const int s_end = (int)((long long)(rank + 1) * S / kGatherCluster);
+  const int ja = j[row0 + g];
+  const int jb = j[row0 + g + 8];
+  const float* v = vals + (size_t)(g < 3 ? g : 0) * N + 4 * q;
+  float c[2][4] = {};               // two chains of mma.sync
+  for (int s0 = (int)((long long)rank * S / kGatherCluster) +
+                warp * kGatherSteps;
+       s0 < s_end; s0 += kGatherWarps * kGatherSteps) {
+    const OneHot ha = onehot_run(ja, 16 * s0, q);
+    const OneHot hb = onehot_run(jb, 16 * s0, q);
+    float4 x[kGatherSteps];
+#pragma unroll
+    for (int s = 0; s < kGatherSteps; ++s)
+      x[s] = g < 3 && s0 + s < s_end
+                 ? *reinterpret_cast<const float4*>(v + 16 * (s0 + s))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kGatherSteps; ++s)
+      if (s0 + s < s_end)           // warp-uniform
+        mma_bf16(c[s & 1], ha.step == s ? ha.lo : 0u,
+                 hb.step == s ? hb.lo : 0u, ha.step == s ? ha.hi : 0u,
+                 hb.step == s ? hb.hi : 0u, bf16x2_rn(x[s].x, x[s].y),
+                 bf16x2_rn(x[s].z, x[s].w));
+  }
+  // c0, c1: row g, columns 2q, 2q + 1; c2, c3: row g + 8
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (2 * q + e < 3) {
+      red[warp][3 * g + 2 * q + e] = c[0][e] + c[1][e];
+      red[warp][3 * (g + 8) + 2 * q + e] = c[0][2 + e] + c[1][2 + e];
+    }
+  __syncthreads();
+  float sum = 0.f;
+  if (threadIdx.x < 48) {
+#pragma unroll
+    for (int w = 0; w < kGatherWarps; ++w) sum += red[w][threadIdx.x];
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x >= 48) return;
+  if (rank != 0) {
+    // into rank 0's parts[rank], counted by its barrier's bytes
+    unsigned dst, rbar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n"
+                 : "=r"(dst) : "r"(smem_u32(&parts[rank][threadIdx.x])));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n"
+                 : "=r"(rbar) : "r"(smem_u32(&bar)));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
+        "%1, [%2];\n"
+        :: "r"(dst), "r"(__float_as_uint(sum)), "r"(rbar) : "memory");
+    return;
+  }
+  if (threadIdx.x == 0)
+    asm volatile(
+        "{\n .reg .b64 st;\n"
+        " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+        :: "r"(smem_u32(&bar)), "r"((kGatherCluster - 1) * 48 * 4)
+        : "memory");
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(&bar)) : "memory");
+#pragma unroll
+  for (int r = 1; r < kGatherCluster; ++r) sum += parts[r][threadIdx.x];
+  out[(size_t)row0 * 3 + threadIdx.x] = sum;
 }
 
 }  // namespace
@@ -234,15 +387,28 @@ extern "C" int mm_rowsum_bf16(const void* a, const void* b, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// j (T) int32 in [0, N); vals (3, N) bf16 bits; out (T, 3) f32,
-// zero-filled. T a multiple of 16, N a multiple of 16.
+// j (T) int32 in [0, N); vals (3, N) f32, 16-byte aligned; out (T, 3)
+// f32, every value written. T a multiple of 16, N a multiple of 16.
+// Returns the cudaError_t of the launch.
 extern "C" int onehot_gather_bf16(const void* j, const void* vals, void* out,
                                   int T, int N, void* stream) {
   if (T <= 0 || N <= 0 || T % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  const int rows_per_block = kGatherWarps * 16;
+  onehot_gather_kernel<<<T / 16 * kGatherCluster, kGatherWarps * 32, 0,
+                         (cudaStream_t)stream>>>(
+      (const int*)j, (const float*)vals, (float*)out, N);
+  return (int)cudaGetLastError();
+}
+
+// The first body: j as above; vals (3, N) bf16 bits; out (T, 3) f32,
+// zero-filled. T a multiple of 16, N a multiple of 16.
+extern "C" int onehot_gather_bf16_v0(const void* j, const void* vals,
+                                     void* out, int T, int N, void* stream) {
+  if (T <= 0 || N <= 0 || T % 16 || N % 16) return (int)cudaErrorInvalidValue;
+  const int rows_per_block = kV0Warps * 16;
   dim3 grid((T + rows_per_block - 1) / rows_per_block,
-            (N + kGatherCols - 1) / kGatherCols);
-  onehot_gather_kernel<<<grid, kGatherWarps * 32, 0, (cudaStream_t)stream>>>(
+            (N + kV0Cols - 1) / kV0Cols);
+  onehot_gather_v0_kernel<<<grid, kV0Warps * 32, 0,
+                            (cudaStream_t)stream>>>(
       (const int*)j, (const uint16_t*)vals, (float*)out, T, N);
   return (int)cudaGetLastError();
 }

@@ -49,12 +49,11 @@ def time_ms(fn, device, reps=5, warmup=1):
     return float(np.median(times))
 
 
-def device_ms(fn, kernel=None, reps=20):
-    """Device time per call of fn from torch.profiler: the CUDA kernels
-    whose name contains kernel (all of fn's kernels when None), summed
-    and divided by reps. For kernels of tens of microseconds or less,
-    where CUDA events around one call would time the wrapper's host
-    work."""
+def device_kernels(fn, reps=20):
+    """{CUDA kernel name: device milliseconds per call of fn}, from
+    torch.profiler over reps calls: every kernel fn launches, each timed
+    per launch it recorded (a profile may miss some) times its launches a
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -68,12 +67,26 @@ def device_ms(fn, kernel=None, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and (kernel is None or kernel in e.key))
-        if us > 0:
-            return us / reps / 1e3
-    raise AssertionError(f"the profiler saw no device time for {kernel}")
+        ms = {e.key: e.self_device_time_total / e.count / 1e3
+              * max(1, round(e.count / reps))
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+        if ms:
+            return ms
+    raise AssertionError("the profiler saw no device time")
+
+
+def device_ms(fn, kernel=None, reps=20):
+    """Device time per call of fn from torch.profiler: the CUDA kernels
+    whose name contains kernel (all of fn's kernels when None), summed.
+    For kernels of tens of microseconds or less, where CUDA events around
+    one call would time the wrapper's host work."""
+    ms = [t for k, t in device_kernels(fn, reps).items()
+          if kernel is None or kernel in k]
+    if not ms:
+        raise AssertionError(f"the profiler saw no device time for {kernel}")
+    return sum(ms)
 
 
 def script_inputs(pairs, n, device, seed=0):

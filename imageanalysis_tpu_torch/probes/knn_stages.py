@@ -89,6 +89,14 @@ measure the tensor-core body:
 - ``tc_row_min_raw``: the tensor-core body's product with the
   ``row_min`` stage's row minimum in place of the key epilogue (P6), at
   any tile of ``TC_TILES``; its plain version is ``tc_row_min_plain``.
+- ``tc_stage_raw``: P3's stages (v0–v4 through ``P3_VARIANTS``,
+  ``row_min`` to ``full``) on the tensor-core body K1 runs now, at K1's
+  tile (128, 128, 2), int8 and bf16, the old bodies' stages
+  (``knn_probe_raw``) kept as its yardstick. ``row_min`` is the body's
+  row-min mode, ``top1``, ``top2_tile`` and ``top2`` K1's keys with part
+  of its epilogue, ``full`` K1 itself. Its plain version
+  ``tc_stage_plain`` is ``knn_probe_plain``'s arithmetic with the body's
+  128-row B tile (``top2_tile``: the last, possibly half, tile).
 """
 
 from __future__ import annotations
@@ -124,7 +132,10 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
-            "knn_tc_row_min": 0}
+            "knn_tc_row_min": 0, "knn_tc_stage": 0}
+# the tensor-core body's B tile (int8 and bf16) and A rows a block, at
+# which tc_stage_raw runs every stage
+TC_BN, TC_BM = 128, 128
 
 
 def _check(a, b, na2, nb2, stage, tile, name):
@@ -148,6 +159,10 @@ def _check(a, b, na2, nb2, stage, tile, name):
     if n_a % ta or n_b % tb or max(n_a, n_b) > 8192:
         raise ValueError(f"{name}: n_a={n_a}, n_b={n_b} must be multiples "
                          f"of the tile {tuple(tile)} and at most 8192")
+    _check_norms(a, b, na2, nb2, stage, name)
+
+
+def _check_norms(a, b, na2, nb2, stage, name):
     if a.dtype == torch.bfloat16 and stage >= TOP1 and (
             na2 is None or nb2 is None or na2.shape != a.shape[:2]
             or nb2.shape != b.shape[:2] or na2.dtype != torch.float32
@@ -175,6 +190,13 @@ def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
     Returns (row (B, n_a, 2) int32, col (B, n_b) int32). Loops over pairs,
     so the (n_a, n_b) temporaries stay one pair's size."""
     _check(a, b, na2, nb2, stage, tile, "knn_probe_plain")
+    return _stages_plain(a, b, na2, nb2, stage, tile[1])
+
+
+def _stages_plain(a, b, na2, nb2, stage, tb):
+    """The stages' arithmetic; top2_tile keeps the last B tile of tb rows,
+    columns ⌊(n_b − 1) / tb⌋·tb … n_b − 1 (a partial tile where tb does
+    not divide n_b)."""
     if stage == FULL:
         return knn.knn_packed_plain(a, b, na2, nb2)
     B, n_a, _ = a.shape
@@ -202,7 +224,7 @@ def knn_probe_plain(a, b, na2=None, nb2=None, stage=FULL, tile=K1_TILE):
                 v = keys.amin(1)
             else:
                 if stage == TOP2_TILE:
-                    keys = keys[:, n_b - tile[1]:]
+                    keys = keys[:, (n_b - 1) // tb * tb:]
                 row[p] = torch.topk(keys, 2, dim=1, largest=False).values
                 continue
         row[p] = v[:, None].expand(-1, 2)
@@ -487,3 +509,60 @@ def tc_row_min_blocks(dtype, tile):
                                             bm, bn, stages)
     _build.check(max(0, -n), "knn_tc_row_min_blocks")
     return n
+
+
+def _check_tc_stage(a, b, na2, nb2, stage, name):
+    _check_tc(a, b, name, _ROW_MIN_TYPES, TC_BM)
+    if max(a.shape[1], b.shape[1]) > 8192:
+        raise ValueError(f"{name}: n_a={a.shape[1]}, n_b={b.shape[1]} must "
+                         "be at most 8192")
+    if stage not in P3_VARIANTS.values():
+        raise ValueError(f"{name}: no stage {stage} (P3's are "
+                         f"{sorted(P3_VARIANTS.values())})")
+    _check_norms(a, b, na2, nb2, stage, name)
+
+
+def tc_stage_plain(a, b, na2=None, nb2=None, stage=FULL):
+    """Plain version of tc_stage_raw: knn_probe_plain's arithmetic with the
+    tensor-core body's B tile of TC_BN rows, so top2_tile is the top-2 of
+    columns ⌊(n_b − 1) / 128⌋·128 … n_b − 1 (half a tile where n_b is an
+    odd multiple of 64). Arguments and result as knn_probe_plain; n_a a
+    multiple of 128, n_b of 64."""
+    _check_tc_stage(a, b, na2, nb2, stage, "tc_stage_plain")
+    return _stages_plain(a, b, na2, nb2, stage, TC_BN)
+
+
+def tc_stage_raw(a, b, na2=None, nb2=None, stage=FULL):
+    """P3's stages (row_min .. full) on the tensor-core body K1 runs, at
+    K1's tile (128, 128, 2): csrc/knn_probe.cu's knn_tc_stage on a CUDA
+    tensor, tc_stage_plain on a CPU tensor; any other device raises. a
+    (B, n_a, 128), b (B, n_b, 128) int8, or bf16 with integer values and,
+    from top1 on, their f32 squared norms na2 (B, n_a), nb2 (B, n_b); n_a
+    a multiple of 128, n_b of 64, both at most 8192. int8 from top1 on
+    runs K1's norm pre-pass first (two more launches, as K1); full is K1
+    itself. Result as tc_stage_plain."""
+    name = "tc_stage_raw"
+    _check_tc_stage(a, b, na2, nb2, stage, name)
+    if a.device.type == "cpu":
+        return tc_stage_plain(a, b, na2, nb2, stage)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    bf16 = a.dtype == torch.bfloat16
+    if stage == ROW_MIN:
+        na2 = nb2 = None
+    elif not bf16:                  # scratch for the norm pre-pass
+        na2 = torch.empty((B, n_a), dtype=torch.float32, device=dev)
+        nb2 = torch.empty((B, n_b), dtype=torch.float32, device=dev)
+    check_launchable((a, b, na2, nb2), name)
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_tc_stage(
+            a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
+            row.data_ptr(), col.data_ptr(), B, n_a, n_b, int(bf16), stage,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_tc_stage")
+    LAUNCHES["knn_tc_stage"] += 1
+    return row, col

@@ -20,6 +20,10 @@ the one-hot gather (P1), both ``mma.sync`` m16n8k16 bf16 → f32
   them to bf16, nearest even, first (what the TPU's matrix unit and the
   card's ``mma.sync`` do). The card kernel computes ``"bf16"`` only.
   ``limbs`` splits values into the hi/mid/lo limbs the TPU probe gathered.
+  ``onehot_gather_raw`` launches one kernel on f32 vals, rounding them in
+  registers; ``onehot_gather_v0_raw`` is the first body, kept as its
+  yardstick (bf16 vals rounded and out zero-filled by the wrapper: three
+  launches a call).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ P5_TILES = {(128, 6144): (64, 128), (256, 2048): (128, 128),
             (512, 1024): (128, 64), (512, 512): (64, 64)}
 PRECISIONS = ("f32", "bf16")
 
-LAUNCHES = {"mm_rowsum": 0, "onehot_gather": 0}
+LAUNCHES = {"mm_rowsum": 0, "onehot_gather": 0, "onehot_gather_v0": 0}
 
 
 def _check_mm(a, b, name):
@@ -127,30 +131,61 @@ def onehot_gather_plain(j, vals, precision="bf16"):
     return v[:, j.long()].T.contiguous()
 
 
-def onehot_gather_raw(j, vals, precision="bf16"):
-    """The mma.sync one-hot gather on a CUDA tensor (precision "bf16"
-    only: the wrapper rounds vals to bf16, nearest even), the plain
-    version on a CPU tensor; raises on any other device. j (T,) in [0, N)
-    with T a multiple of 16; vals (3, N) f32 with N a multiple of 16."""
-    dev = _check_gather(j, vals, precision, "onehot_gather_raw")
+def _check_gather_launch(j, vals, precision, name):
+    """onehot_gather_plain's checks, then the kernels' own: "bf16" only,
+    vals (3, N), T and N multiples of 16."""
+    dev = _check_gather(j, vals, precision, name)
     if dev.type == "cpu":
-        return onehot_gather_plain(j, vals, precision)
+        return dev
     if precision != "bf16":
-        raise ValueError("onehot_gather_raw: the tensor cores take bf16 "
-                         "operands; precision='f32' is the plain version's")
+        raise ValueError(f"{name}: the tensor cores take bf16 operands; "
+                         "precision='f32' is the plain version's")
     T, (C, N) = j.shape[0], vals.shape
     if C != 3 or T % 16 or N % 16:
-        raise ValueError(f"onehot_gather_raw: need vals (3, N), N and T "
-                         f"multiples of 16, got T={T}, vals {(C, N)}")
-    jj = j.to(torch.int32).contiguous()
-    vb = vals.bfloat16().contiguous()
-    check_launchable((jj, vb), "onehot_gather_raw")
+        raise ValueError(f"{name}: need vals (3, N), N and T multiples of "
+                         f"16, got T={T}, vals {(C, N)}")
+    return dev
+
+
+def _launch_gather(entry, j, vals, out, key):
+    check_launchable((j, vals), entry)
     lib = _build.load()
-    out = torch.zeros((T, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.onehot_gather_bf16(
-            jj.data_ptr(), vb.data_ptr(), out.data_ptr(), T, N,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "onehot_gather_bf16")
-    LAUNCHES["onehot_gather"] += 1
+    with torch.cuda.device(out.device):
+        err = getattr(lib, entry)(
+            j.data_ptr(), vals.data_ptr(), out.data_ptr(), j.shape[0],
+            vals.shape[1], torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[key] += 1
     return out
+
+
+def onehot_gather_raw(j, vals, precision="bf16"):
+    """The mma.sync one-hot gather on a CUDA tensor (precision "bf16"
+    only: the kernel rounds the f32 vals to bf16, nearest even, in
+    registers), the plain version on a CPU tensor; raises on any other
+    device. j (T,) int32 in [0, N) with T a multiple of 16; vals (3, N)
+    f32 with N a multiple of 16, contiguous. One launch a call."""
+    dev = _check_gather_launch(j, vals, precision, "onehot_gather_raw")
+    if dev.type == "cpu":
+        return onehot_gather_plain(j, vals, precision)
+    if j.dtype != torch.int32:
+        raise ValueError("onehot_gather_raw: j must be int32 on the card")
+    out = torch.empty((j.shape[0], 3), dtype=torch.float32, device=dev)
+    return _launch_gather("onehot_gather_bf16", j, vals, out,
+                          "onehot_gather")
+
+
+def onehot_gather_v0_raw(j, vals, precision="bf16"):
+    """The first body of the one-hot gather, the new kernel's yardstick:
+    the wrapper rounds vals to bf16 and zero-fills out (two more
+    launches), the kernel adds warps' partial sums into it with
+    atomicAdd. Arguments, result and devices as onehot_gather_raw (j may
+    be int64: the wrapper converts it)."""
+    dev = _check_gather_launch(j, vals, precision, "onehot_gather_v0_raw")
+    if dev.type == "cpu":
+        return onehot_gather_plain(j, vals, precision)
+    out = torch.zeros((j.shape[0], 3), dtype=torch.float32, device=dev)
+    return _launch_gather("onehot_gather_bf16_v0",
+                          j.to(torch.int32).contiguous(),
+                          vals.bfloat16().contiguous(), out,
+                          "onehot_gather_v0")

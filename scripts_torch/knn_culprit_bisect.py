@@ -6,13 +6,17 @@ scripts_dev/knn_culprit_bisect.py (P3), on the port's staged K1
   v1  + d2 (na2 + nb2 − 2ab) + bit pack + index or: row top-1
   v2  + second minimum: top-2, restarted at every B tile
   v3  + the running top-2 across B tiles
-  v4  + the column minimum: K1's result on the __dp4a (int8) or FFMA
-      (bf16) body
+  v4  + the column minimum: K1's result
   v5  the port's knn_top2 (K1 and the decode), for reference
+
+--body tc (the default) runs v0–v4 on the tensor-core body K1 runs
+(tc_stage_raw, K1's tile), --body old on the bodies K1 ran before it
+(knn_probe_raw: __dp4a for int8, FFMA for bf16).
 
 Usage (the card by default; bench's 64 pairs × 6144 × 128):
     python scripts_torch/knn_culprit_bisect.py [--dtype int8|bf16]
-        [--pairs 64] [--n 6144] [--steps 16] [--device cuda|cpu]
+        [--body tc|old] [--pairs 64] [--n 6144] [--steps 16]
+        [--device cuda|cpu]
 """
 
 import argparse
@@ -30,6 +34,7 @@ from imageanalysis_tpu_torch.probes import (  # noqa: E402
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("int8", "bf16"), default="int8")
+    ap.add_argument("--body", choices=("tc", "old"), default="tc")
     ap.add_argument("--pairs", type=int, default=64)
     ap.add_argument("--n", type=int, default=6144)
     ap.add_argument("--steps", type=int, default=16)
@@ -44,9 +49,10 @@ def main():
         print(f"{name:12s} {ms:8.2f} ms/batch  "
               f"{args.pairs / ms * 1e3:8.0f} pairs/s")
 
+    stage_raw = (knn_stages.tc_stage_raw if args.body == "tc"
+                 else knn_stages.knn_probe_raw)
     for v, s in knn_stages.P3_VARIANTS.items():
-        bench(f"v{v}", lambda s=s: knn_stages.knn_probe_raw(*inputs,
-                                                            stage=s))
+        bench(f"v{v}", lambda s=s: stage_raw(*inputs, stage=s))
     if args.dtype == "int8":
         bench("v5 prod", lambda: knn.knn_top2(*i8))
     else:

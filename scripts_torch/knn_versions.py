@@ -16,8 +16,12 @@ candidates gated out, K3 at 64 × 10240. Times: median of CUDA events
 after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
+SASS: the same keys → the first 12 hex digits of the sha256 of each
+tensor-core instantiation's machine code (cuobjdump -sass of the copy's
+library), so two copies' kernels can be seen to be the same code.
 """
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -55,6 +59,14 @@ def own_build_module():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def sass_digests(own):
+    """{"type mode BM BN STAGES": sha256[:12] of its SASS} for the
+    tensor-core body's instantiations in the copy's library."""
+    return own.tc_kernel_usage({
+        name: hashlib.sha256("\n".join(lines).encode()).hexdigest()[:12]
+        for name, lines in own.sass(_build.build()).items()})
 
 
 def main():
@@ -96,7 +108,8 @@ def main():
     regs = own.tc_kernel_usage(own.ptxas_usage(_build.build_log))
     print(json.dumps({"root": ROOT, "device": torch.cuda.get_device_name(0),
                       "ms": {k: round(v, 4) for k, v in out.items()},
-                      "tc_registers": regs}), flush=True)
+                      "tc_registers": regs, "tc_sass": sass_digests(own)}),
+          flush=True)
 
 
 if __name__ == "__main__":

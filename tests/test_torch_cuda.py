@@ -16,8 +16,8 @@ comparisons are bit-exact. So are the f32 modes' split pre-pass and the
 probes of imageanalysis_tpu_torch/probes on integer-valued inputs (the
 staged K1, the FFMA bf16 and f32 and __dp4a int8 bodies, the tensor-core
 body's product-only stage and its row minimum at every tile of P6's
-sweep, P2's single-launch K1 + K4, P5's mma.sync row sums, P1's one-hot
-gather of bf16 values). Bundle adjustment
+sweep, P3's stages on it, P2's single-launch K1 + K4, P5's mma.sync row
+sums, P1's one-hot gather of bf16 values and its first body). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -29,7 +29,8 @@ import torch
 from imageanalysis_tpu_torch.features import sift
 from imageanalysis_tpu_torch.match import matcher
 from imageanalysis_tpu_torch.ops import knn
-from imageanalysis_tpu_torch.probes import blur, fused, knn_stages, mma
+from imageanalysis_tpu_torch.probes import (blur, device_kernels, fused,
+                                            knn_stages, mma)
 
 pytestmark = pytest.mark.cuda
 
@@ -785,21 +786,75 @@ def test_mm_rowsum_bit_exact_on_integers(cuda):
     assert mma.LAUNCHES["mm_rowsum"] == before + n + 1
 
 
-def test_onehot_gather_bit_exact_vs_bf16_plain(cuda, rng):
-    u = torch.from_numpy(rng.uniform(0, 4100, 1024).astype(np.float32))
+@pytest.mark.parametrize("T,N", [(16, 1024), (128, 1024), (16, 6144),
+                                 (128, 6144)])
+def test_onehot_gather_bit_exact_vs_bf16_plain(cuda, rng, T, N):
+    """The one-launch kernel (f32 vals rounded in registers) and the v0
+    yardstick both equal the bf16 plain version: on limbs with lo not
+    bf16-exact, and on values whose f32 → bf16 rounding is a tie (low 16
+    bits 0x8000, both parities of the bit kept), which nearest even
+    settles."""
+    u = torch.from_numpy(rng.uniform(0, 4100, N).astype(np.float32))
     vals = mma.limbs(u.to(cuda))
     vals[2] += 1e-3                 # lo no longer bf16-exact
-    j = torch.from_numpy(rng.integers(0, 1024, 64).astype(np.int32))
-    before = mma.LAUNCHES["onehot_gather"]
-    got = mma.onehot_gather_raw(j.to(cuda), vals)
-    assert mma.LAUNCHES["onehot_gather"] == before + 1
-    torch.cuda.synchronize()
-    assert torch.equal(got, mma.onehot_gather_plain(j.to(cuda), vals, "bf16"))
-    exact = mma.onehot_gather_plain(j.to(cuda), vals, "f32")
-    assert torch.equal(got[:, :2], exact[:, :2])
+    ties = (vals.view(torch.int32) & ~0xFFFF) | 0x8000
+    vals[:, ::2] = ties[:, ::2].view(torch.float32)
+    assert (ties[:, ::2] & 0x10000).any() and not (
+        ties[:, ::2] & 0x10000).all()
+    j = torch.from_numpy(rng.integers(0, N, T).astype(np.int32)).to(cuda)
+    j[0], j[1] = 0, N - 1
+    want = mma.onehot_gather_plain(j, vals, "bf16")
+    for gather, key in ((mma.onehot_gather_raw, "onehot_gather"),
+                        (mma.onehot_gather_v0_raw, "onehot_gather_v0")):
+        before = dict(mma.LAUNCHES)
+        got = gather(j, vals)
+        torch.cuda.synchronize()
+        assert mma.LAUNCHES == dict(before, **{key: before[key] + 1})
+        assert torch.equal(got, want), key
+        with pytest.raises(ValueError, match="bf16"):
+            gather(j, vals, "f32")
+    exact = mma.onehot_gather_plain(j, vals, "f32")
+    odd = j % 2 == 1                # not ties: hi and mid are bf16-exact
+    assert torch.equal(got[odd, :2], exact[odd, :2])
     assert not torch.equal(got[:, 2], exact[:, 2])
-    with pytest.raises(ValueError, match="bf16"):
-        mma.onehot_gather_raw(j.to(cuda), vals, "f32")
+    # one kernel a call: the profiler sees onehot_gather_kernel alone
+    names = list(device_kernels(lambda: mma.onehot_gather_raw(j, vals)))
+    assert len(names) == 1 and "onehot_gather_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_tc_stages_bit_exact_vs_plain(cuda, rng, dtype):
+    """P3's stages on the tensor-core body (tc_stage_raw, K1's tile)
+    equal tc_stage_plain for every stage: n_b = 704, an odd multiple of
+    64, so top2_tile is the top-2 of the last, half-full, 128-row tile;
+    duplicate rows, so the lowest index wins every tie; full equals K1
+    (knn_packed_raw); one launch counted a call."""
+    before = knn_stages.LAUNCHES["knn_tc_stage"]
+    n = 0
+    for dup in (False, True):
+        a, b = (t.to(cuda) for t in _planted(rng, 2, 256, 704, 64, dup))
+        args = (a, b, None, None) if dtype == torch.int8 else \
+            _float_inputs(a, b, torch.bfloat16)
+        for stage in knn_stages.P3_VARIANTS.values():
+            got = knn_stages.tc_stage_raw(*args, stage=stage)
+            want = knn_stages.tc_stage_plain(*args, stage=stage)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (dup, knn_stages.STAGES[stage])
+            n += 1
+        # the last tile's top-2 is K1's on B rows 640..703 alone
+        tail = knn_stages.tc_stage_raw(*args, stage=knn_stages.TOP2_TILE)
+        cut = (args[1][:, 640:].contiguous(), args[2],
+               None if args[3] is None else args[3][:, 640:].contiguous())
+        assert torch.equal(tail[0],
+                           knn.knn_packed_raw(args[0], *cut)[0] + 640)
+        got = knn_stages.tc_stage_raw(*args)
+        want = knn.knn_packed_raw(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        n += 2
+    assert knn_stages.LAUNCHES["knn_tc_stage"] == before + n
 
 
 def test_probes_refuse_what_they_do_not_take(cuda):
@@ -818,6 +873,12 @@ def test_probes_refuse_what_they_do_not_take(cuda):
         knn_stages.tc_row_min_raw(a, a, (128, 128, 4))
     with pytest.raises(ValueError):               # n_a not a multiple of BM
         knn_stages.tc_row_min_raw(a, a, (256, 64, 2))
+    with pytest.raises(ValueError):               # n_a not a multiple of 128
+        knn_stages.tc_stage_raw(a[:, :64].contiguous(), a)
+    with pytest.raises(ValueError):               # j int64 on the card
+        mma.onehot_gather_raw(torch.zeros(16, dtype=torch.int64,
+                                          device=cuda),
+                              torch.zeros((3, 64), device=cuda))
     with pytest.raises(ValueError):               # K not a multiple of 64
         x = torch.zeros((1, 128, 96), dtype=torch.bfloat16, device=cuda)
         mma.mm_rowsum_raw(x, x)

@@ -124,20 +124,26 @@ def test_p4_stage_plain_equals_reference(stage):
         np.testing.assert_array_equal(got_col.numpy(), col)
 
 
+@pytest.mark.parametrize("body", ["old", "tc"])
 @pytest.mark.parametrize("variant", [0, 1, 2, 3, 4])
-def test_p3_variant_plain_equals_reference(variant):
-    """knn_culprit_bisect's v0–v4 against the port's stages. v0 and v1
-    run with one B tile (TB = n); v2–v4 with four (TB = 64, the card's
-    B tile), so v2's restarted top-2 is the last tile's and v3's running
+def test_p3_variant_plain_equals_reference(variant, body):
+    """knn_culprit_bisect's v0–v4 against the port's stages: the old
+    bodies' (knn_probe_plain at their B tile of 64 rows) and the
+    tensor-core body's (tc_stage_plain, B tiles of 128). v0 and v1 run
+    with one B tile (TB = n); v2–v4 with the card body's B tile (TB = 64
+    or 128), so v2's restarted top-2 is the last tile's and v3's running
     merge is the whole row's."""
-    tb = N if variant < 2 else 64
+    tb = N if variant < 2 else {"old": 64, "tc": knn_stages.TC_BN}[body]
     ns, pl = _load("knn_culprit_bisect.py", N_PAD=N, DIM=128, BATCH=PAIRS,
                    TA=TA, TB=tb)
     ai, bi, _, _ = _int8_pairs(10 + variant)
     row, col = _reference_rows(pl, ns["make"](variant), ai, bi,
                                variant == 4)
-    got_row, got_col = knn_stages.knn_probe_plain(
-        _t(ai), _t(bi), stage=knn_stages.P3_VARIANTS[variant], tile=(64, 64))
+    stage = knn_stages.P3_VARIANTS[variant]
+    got_row, got_col = (
+        knn_stages.knn_probe_plain(_t(ai), _t(bi), stage=stage,
+                                   tile=(64, 64)) if body == "old"
+        else knn_stages.tc_stage_plain(_t(ai), _t(bi), stage=stage))
     np.testing.assert_array_equal(got_row.numpy(), row)
     if variant == 4:
         np.testing.assert_array_equal(got_col.numpy(), col)
@@ -411,10 +417,42 @@ def test_probe_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="precision"):
         mma.onehot_gather_raw(torch.zeros(16, dtype=torch.int32),
                               torch.zeros((3, 64)), "f16")
+    j16, v64 = torch.arange(16, dtype=torch.int32), torch.rand((3, 64))
+    for gather in (mma.onehot_gather_raw, mma.onehot_gather_v0_raw):
+        assert torch.equal(gather(j16, v64), mma.onehot_gather_plain(j16,
+                                                                     v64))
+        with pytest.raises(ValueError, match="precision"):
+            gather(j16, v64, "f16")
+        with pytest.raises(ValueError, match="meta"):
+            gather(j16.to("meta"), v64.to("meta"))
+        with pytest.raises(ValueError, match="f32"):
+            gather(j16, v64.bfloat16())
+    # tc_stage_raw: the plain version on the CPU (top2_tile's last tile
+    # is half a tile at n_b = 192); n_a off 128, f32, row_sum and stage 6
+    # (not P3's), bf16 without norms and the meta device raise
+    x8 = torch.from_numpy(np.random.default_rng(71).integers(
+        -128, 128, (1, 128, 128)).astype(np.int8))
+    y8 = torch.from_numpy(np.random.default_rng(72).integers(
+        -128, 128, (1, 192, 128)).astype(np.int8))
+    for stage in knn_stages.P3_VARIANTS.values():
+        got = knn_stages.tc_stage_raw(x8, y8, stage=stage)
+        want = knn_stages.tc_stage_plain(x8, y8, stage=stage)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    tail, _ = knn_stages.tc_stage_plain(x8, y8, stage=knn_stages.TOP2_TILE)
+    assert torch.equal(tail, tknn.knn_packed_plain(
+        x8, y8[:, 128:].contiguous())[0] + 128)
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.tc_stage_raw(c8[:, :64], c8)
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.tc_stage_raw(c8.float(), c8.float())
+    for stage in (knn_stages.ROW_SUM, 6):
+        with pytest.raises(ValueError, match="stage"):
+            knn_stages.tc_stage_raw(c8, c8, stage=stage)
+    with pytest.raises(ValueError, match="norms"):
+        knn_stages.tc_stage_raw(c8.bfloat16(), c8.bfloat16(),
+                                stage=knn_stages.TOP1)
     with pytest.raises(ValueError, match="meta"):
-        mma.onehot_gather_raw(torch.zeros(16, dtype=torch.int32,
-                                          device="meta"),
-                              torch.zeros((3, 64), device="meta"))
+        knn_stages.tc_stage_raw(m8, m8)
     uv = torch.zeros((1, 128, 2))
     with pytest.raises(ValueError, match="variant"):
         fused.fused_probe_raw(c8, c8, uv, "half")
