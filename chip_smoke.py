@@ -75,16 +75,19 @@ non-zero:
 15. K1 and K4 anatomy: the probes P1–P6 (imageanalysis_tpu_torch/probes)
     at their TPU probes' full shapes on bench.py's batch: every stage and
     tile of the staged K1 (P3, P4, P6; int8 and bf16, on the __dp4a and
-    FFMA bodies) and P3's stages on the tensor-core body (tc_stage)
-    against their plain versions on 2 of the 64 pairs and the full stages
-    against K1 on all 64; P4 on the old bodies; P3 on the tensor-core
-    body, each variant in turns with the old bodies', and both bodies'
-    stage splits; P6's sweep on the tensor-core body (seven tiles a
-    dtype, each bit-exact on all 64 pairs, timed in turns with the old
-    body's mapped tile, with blocks an SM and ptxas's registers and
-    spills); P5's mma.sync product + row sum (bit-exact on integer
-    values, within P5_REL_TOL on normal ones) and its TFLOP/s beside
-    torch.bmm and torch._int_mm; P1's one-hot gather in one launch and
+    FFMA bodies) and P3's and P4's stages on the tensor-core body
+    (tc_stage, tc_row_sum) against their plain versions on 2 of the 64
+    pairs and the full stages against K1 on all 64; P4 and P3 on the
+    tensor-core body, each stage or variant in turns with the old
+    bodies', and both bodies' stage splits; P6's sweep on the
+    tensor-core body (seven tiles a dtype, each bit-exact on all 64
+    pairs, timed in turns with the old body's mapped tile, with blocks
+    an SM and ptxas's registers and spills); P5's wgmma product + row
+    sum fed by TMA (bit-exact on integer values at every K, tile and
+    split, within P5_REL_TOL on normal ones; its K and tile sweeps, each
+    tile's plan, registers and spills; in turns with its mma.sync first
+    body by device time) beside torch.bmm and torch._int_mm; P1's
+    one-hot gather in one launch and
     its first body (both bit-exact with the bf16 plain version, per-limb
     errors against f32; in turns, kernel and whole-call device time and
     CUDA events, beside index_select); P2's single-launch K1 + K4 against
@@ -1585,6 +1588,7 @@ def run_mission_ba():
 
 PROBE_PLAIN_PAIRS = 2       # pairs of the 64 held against the plain versions
 ROW_MIN_MODE = 4            # kProductRowMin (csrc/knn_common.cuh)
+WG_KERNEL = "mm_rowsum_wg_kernel"   # P5's kernel, by its profiler name
 P5_REL_TOL = 1e-5           # P5 on normal inputs: |kernel − plain| ≤ this
                             # × max |plain| (f32 sums of 6144·K products in
                             # another order)
@@ -1659,12 +1663,17 @@ def compare_stages(a, b, fargs):
         log(f"[probes] tc_stage {dtype}: P3's "
             f"{len(knn_stages.P3_VARIANTS)} stages on the tensor-core body "
             f"bit-exact on {p} of 64 pairs; full = K1 on all 64")
-
-
-def stage_times(args, stages, reps=3):
-    return {knn_stages.STAGES[s]: time_ms(
-        lambda s=s: knn_stages.knn_probe_raw(*args, stage=s), reps)
-        for s in stages}
+        for stage in knn_stages.P4_TC_STAGES:
+            got = knn_stages.p4_stage_raw(*args, stage=stage)
+            want = knn_stages.p4_stage_plain(*sub, stage=stage)
+            check_equal(f"P4 {dtype} stage {stage} on the tensor cores",
+                        [g[:p] for g in got], want)
+        check_equal(f"P4 {dtype} stage 3 against K1",
+                    knn_stages.p4_stage_raw(*args, stage=3),
+                    knn.knn_packed_raw(*args))
+        log(f"[probes] P4 {dtype}: its 4 stages on the tensor-core body "
+            f"(row_sum by tc_row_sum, top1, top2 and full by tc_stage) "
+            f"bit-exact on {p} of 64 pairs; stage 3 = K1 on all 64")
 
 
 def stage_split(t):
@@ -1678,20 +1687,21 @@ def stage_split(t):
 
 
 def run_anatomy(a, b, fargs, library):
-    """P4 on the old bodies; then P3 at bench's shape on the tensor-core
-    body (tc_stage, the body K1 runs), each variant in turns with the old
-    bodies' (__dp4a for int8, FFMA for bf16; knn_probe), over both dtypes,
-    both in one drive whose tc_stage launches are P3's. Logs each body's
-    stage split, each variant beside its bound and one library product
-    (library: {dtype: ms}), and whether the tensor-core times rise
-    variant by variant."""
+    """P4 and P3 at bench's shape on the tensor-core body (the body K1
+    runs: tc_row_sum and tc_stage), each stage or variant in turns with
+    the old bodies' (__dp4a for int8, FFMA for bf16; knn_probe), over both
+    dtypes, each in its own drive. Logs each body's stage split, each
+    variant beside its bound and one library product (library: {dtype:
+    ms}), and whether the tensor-core times rise variant by variant."""
     inputs = {"int8": (a, b, None, None), "bf16": fargs}
     variants = {v: knn_stages.STAGES[s]
                 for v, s in knn_stages.P3_VARIANTS.items()}
 
     def p4_sweep():
-        return {d: stage_times(args, knn_stages.P4_STAGES.values())
-                for d, args in inputs.items()}
+        return {d: {s: in_turns(
+            lambda s=s: knn_stages.p4_stage_raw(*args, stage=s),
+            lambda s=s: knn_stages.p4_stage_raw(*args, stage=s, body="old"))
+            for s in knn_stages.P4_TC_STAGES} for d, args in inputs.items()}
 
     def p3_sweep():
         res = {}
@@ -1705,7 +1715,8 @@ def run_anatomy(a, b, fargs, library):
         return res
     p4, n4 = drive("P4", p4_sweep)
     p3, n3 = drive("P3", p3_sweep)
-    out = {"launches": {"P4": n4,
+    tc_keys = ("knn_tc_row_sum", "knn_tc_stage")
+    out = {"launches": {"P4": {k: n4.get(k, 0) for k in tc_keys},
                         "P3": {"knn_tc_stage": n3.get("knn_tc_stage", 0)}}}
     pairs, n = BENCH_SHAPE
     for dtype, args in inputs.items():
@@ -1737,9 +1748,21 @@ def run_anatomy(a, b, fargs, library):
                           for k, x in stage_split(old).items()})
             + f" (product {100 * old['row_min'] / old['full']:.1f}%); K1 "
             f"itself {k1[0]:.3f} / {k1[1]:.3f} ms")
-        log(f"[anatomy] P4 {dtype} ({old_body} body) stages ms: "
-            + json.dumps({k: round(x, 3) for k, x in p4[dtype].items()}))
-        out[dtype] = {"tc": tc, "old": old, "p4": p4[dtype],
+        p4tc = {s: float(np.mean(v[0])) for s, v in p4[dtype].items()}
+        p4old = {s: float(np.mean(v[1])) for s, v in p4[dtype].items()}
+        for s, ((t1, t2), (o1, o2)) in p4[dtype].items():
+            log(f"[anatomy] P4 {dtype} stage {s} "
+                f"({knn_stages.STAGES[knn_stages.P4_STAGES[s]]}): tensor "
+                f"cores {t1:.3f} / {t2:.3f} ms, {old_body} body {o1:.3f} / "
+                f"{o2:.3f} ms (in turns; {p4old[s] / p4tc[s]:.2f}x)")
+        for body, t in (("tensor-core", p4tc), (old_body, p4old)):
+            log(f"[anatomy] P4 {dtype} split, {body} body, ms: "
+                + json.dumps({"product_row_sum": round(t[0], 3),
+                              "d2_pack_top1": round(t[1] - t[0], 3),
+                              "top2": round(t[2] - t[1], 3),
+                              "column": round(t[3] - t[2], 3)})
+                + f"; full {t[3]:.3f}")
+        out[dtype] = {"tc": tc, "old": old, "p4_tc": p4tc, "p4_old": p4old,
                       "bound_ms": bnd, "library_ms": library[dtype]}
     out["knn_top2_ms"] = time_ms(lambda: knn.knn_top2(a, b), 3)
     log(f"[anatomy] P3 v5: the port's knn_top2 (K1 + decode) "
@@ -1805,11 +1828,14 @@ def run_tile_sweep(a, b, fargs):
 
 
 def run_mma(bt_int):
-    """P5: the mma.sync product + row sum: held against its plain version
-    (integer values bit-exact at every tile and K; normal values within
-    P5_REL_TOL), then its K and tile sweeps on one 6144 × 6144 matrix and
-    the batched product of bench's shape beside torch.bmm and
-    torch._int_mm."""
+    """P5: the wgmma product + row sum held against its plain version
+    (integer values bit-exact at every K, tile and split; normal values
+    within P5_REL_TOL), and its first body (v0) likewise at its tiles;
+    then one 6144 x 6144 matrix's K and tile sweeps (the kernel's profiler
+    device time: CUDA events around one call of ~10 µs of work time the
+    wrapper), each tile at bench's batch, and the batch in turns with v0,
+    beside torch.bmm and torch._int_mm, with each tile's plan (ring
+    stages, K passes, blocks an SM) and ptxas's registers and spills."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     M = 6144
     err = 0.0
@@ -1819,75 +1845,116 @@ def run_mma(bt_int):
         yi = torch.randint(-2, 3, (2, M, K), generator=gen,
                            device="cuda").bfloat16()
         want = mma.mm_rowsum_plain(xi, yi)
-        for tile in mma.TILES:
-            for split in (1, 4):
-                check_equal(f"mm_rowsum K={K} {tile} split {split}",
-                            [mma.mm_rowsum_raw(xi, yi, tile, split)], [want])
+        for raw, tiles in ((mma.mm_rowsum_raw, mma.TILES),
+                           (mma.mm_rowsum_v0_raw, mma.V0_TILES)):
+            for tile in tiles:
+                for split in (1, 4):
+                    check_equal(f"{raw.__name__} K={K} {tile} split {split}",
+                                [raw(xi, yi, tile, split)], [want])
         x = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
         y = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
-        got, want = mma.mm_rowsum_raw(x, y), mma.mm_rowsum_plain(x, y)
-        e = float((got - want).abs().max())
+        want = mma.mm_rowsum_plain(x, y)
         lim = P5_REL_TOL * float(want.abs().max())
-        if not e <= lim:
-            raise AssertionError(f"mm_rowsum K={K} normal inputs: {e} > "
-                                 f"{lim}")
-        err = max(err, e)
-    log(f"[P5] mm_rowsum bit-exact on integer values at K {mma.K_SWEEP} x "
-        f"tiles {mma.TILES}; normal values within {err:.3g} (limit "
+        for raw in (mma.mm_rowsum_raw, mma.mm_rowsum_v0_raw):
+            e = float((raw(x, y) - want).abs().max())
+            if not e <= lim:
+                raise AssertionError(f"{raw.__name__} K={K} normal inputs: "
+                                     f"{e} > {lim}")
+            if raw is mma.mm_rowsum_raw:
+                err = max(err, e)
+    log(f"[P5] wgmma mm_rowsum bit-exact on integer values at K "
+        f"{mma.K_SWEEP} x tiles {mma.TILES} x split (1, 4), v0 at its tiles "
+        f"{mma.V0_TILES}; normal values within {err:.3g} (limit "
         f"{P5_REL_TOL} of the largest sum)")
     xb = torch.randn((64, M, 128), generator=gen, device="cuda").bfloat16()
     yb = torch.randn((64, M, 128), generator=gen, device="cuda").bfloat16()
     xi, yi = xb.round().clamp(-2, 2), yb.round().clamp(-2, 2)
-    check_equal("mm_rowsum batch 64 (integer values)",
-                [mma.mm_rowsum_raw(xi, yi)[:2]],
-                [mma.mm_rowsum_plain(xi[:2], yi[:2])])
+    want = mma.mm_rowsum_plain(xi[:2], yi[:2])
+    for raw in (mma.mm_rowsum_raw, mma.mm_rowsum_v0_raw):
+        check_equal(f"{raw.__name__} batch 64 (integer values)",
+                    [raw(xi, yi)[:2]], [want])
     del xi, yi
+    usage = _build.wg_kernel_usage()
+    peak = PEAK["bf16"]
 
     def sweep():
-        res = {}
+        res = {"k": {}, "tile": {}, "batch": {}}
         for K in mma.K_SWEEP:
             x = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
             y = torch.randn((1, M, K), generator=gen, device="cuda").bfloat16()
-            ms = time_ms(lambda: mma.mm_rowsum_raw(x, y), 7)
-            lib = time_ms(lambda: torch.mm(x[0], y[0].T), 7)
+            ms = device_ms(lambda: mma.mm_rowsum_raw(x, y), WG_KERNEL)
+            lib = device_ms(lambda: torch.mm(x[0], y[0].T))
             f = 2 * M * M * K
-            log(f"[P5] mma.sync bf16 K={K} tile {mma.K_SWEEP_TILE}, one "
-                f"matrix: {ms:.4f} ms {f / ms / 1e9:.1f} TFLOP/s; torch.mm "
-                f"(product only) {lib:.4f} ms {f / lib / 1e9:.1f} TFLOP/s")
+            res["k"][K] = ms
+            log(f"[P5] wgmma K={K} tile {mma.DEFAULT_TILE}, one matrix "
+                f"(split {mma.wg_split(1, M, M, mma.DEFAULT_TILE, 'cuda')}, "
+                f"plan {mma.wg_plan(mma.DEFAULT_TILE, K)}): {ms:.4f} ms "
+                f"{f / ms / 1e9:.1f} TFLOP/s, {f / peak / ms * 1e5:.1f}% "
+                f"of the bound (device time); torch.mm (product only) "
+                f"{lib:.4f} ms {f / lib / 1e9:.1f} TFLOP/s")
         x = torch.randn((1, M, 128), generator=gen, device="cuda").bfloat16()
         y = torch.randn((1, M, 128), generator=gen, device="cuda").bfloat16()
+        f = 2 * M * M * 128
         for tpu, tile in mma.P5_TILES.items():
-            ms = time_ms(lambda: mma.mm_rowsum_raw(x, y, tile), 7)
-            log(f"[P5] K=128 TPU (ta, tb)={tpu} -> card tile {tile}: "
-                f"{ms:.4f} ms {2 * M * M * 128 / ms / 1e9:.1f} TFLOP/s")
+            ms = device_ms(lambda: mma.mm_rowsum_raw(x, y, tile), WG_KERNEL)
+            res["tile"][tile] = ms
+            log(f"[P5] K=128 TPU (ta, tb)={tpu} -> tile {tile}, one matrix: "
+                f"{ms:.4f} ms {f / ms / 1e9:.1f} TFLOP/s, "
+                f"{f / peak / ms * 1e5:.1f}% of the bound")
         f = 2 * 64 * M * M * 128
         for tile in mma.TILES:
-            ms = time_ms(lambda: mma.mm_rowsum_raw(xb, yb, tile), 3)
-            res[tile] = ms
+            ms = device_ms(lambda: mma.mm_rowsum_raw(xb, yb, tile),
+                           WG_KERNEL, 5)
+            res["batch"][tile] = ms
             log(f"[P5] batch 64 x {M} x {M} x 128 tile {tile}: {ms:.3f} ms "
-                f"{f / ms / 1e9:.1f} TFLOP/s")
+                f"{f / ms / 1e9:.1f} TFLOP/s, {f / peak / ms * 1e5:.1f}% of "
+                f"the bound (device time); plan {mma.wg_plan(tile, 128)}, "
+                f"ptxas (registers, "
+                f"spill stores, spill loads) {usage.get(tile)}")
+        calls = {WG_KERNEL: lambda: mma.mm_rowsum_raw(xb, yb),
+                 "mm_rowsum_kernel": lambda: mma.mm_rowsum_v0_raw(xb, yb)}
+        res["turns"] = {k: [] for k in calls}
+        for k in (WG_KERNEL, "mm_rowsum_kernel", "mm_rowsum_kernel",
+                  WG_KERNEL):
+            res["turns"][k].append(device_ms(calls[k], k, 5))
+        res["events"] = in_turns(*calls.values())
         return res
     res, counts = drive("P5", sweep)
+    (n1, n2), (o1, o2) = res["turns"].values()
+    ev, was_ev = (float(np.mean(t)) for t in res["events"])
     ybt = yb.transpose(1, 2)
     bmm = time_ms(lambda: torch.bmm(xb, ybt), 3)
     del ybt
     a2 = torch.randn((M, 1024), generator=gen, device="cuda").bfloat16()
     b2 = torch.randn((1024, M), generator=gen, device="cuda").bfloat16()
     k1024 = time_ms(lambda: torch.mm(a2, b2).float().sum(1), 5)
-    f = 2 * 64 * M * M * 128
-    best = min(res, key=res.get)
-    log(f"[P5] batch 64 at bench's shape: mma.sync {res[best]:.3f} ms "
-        f"{f / res[best] / 1e9:.1f} TFLOP/s (tile {best}); torch.bmm bf16 "
-        f"(product only) {bmm:.3f} ms {f / bmm / 1e9:.1f} TFLOP/s; "
-        f"torch._int_mm (product only) {bt_int:.3f} ms {f / bt_int / 1e9:.1f}"
-        f" TOP/s; K=1024 control (torch.mm + row sum) {k1024:.3f} ms "
-        f"{2 * M * M * 1024 / k1024 / 1e9:.1f} TFLOP/s")
     del a2, b2
+    f = 2 * 64 * M * M * 128
+    ms, was = float(np.mean([n1, n2])), float(np.mean([o1, o2]))
+    one, per_flop = res["k"][128], res["k"][512] / 4 / res["k"][128]
+    log(f"[P5] batch 64 at bench's shape, in turns, device time: wgmma "
+        f"{mma.DEFAULT_TILE} {n1:.3f} / {n2:.3f} ms ({f / ms / 1e9:.1f} "
+        f"TFLOP/s, {f / peak / ms * 1e5:.1f}% of the bound), v0 "
+        f"{mma.V0_K_SWEEP_TILE} {o1:.3f} / {o2:.3f} ms ({was / ms:.2f}x); "
+        f"CUDA events around a call {ev:.3f} ms, v0 {was_ev:.3f}; "
+        f"one matrix at K=128 {one:.4f} ms = {64 * one / ms:.2f}x the "
+        f"batch's per matrix; K=512 {per_flop:.3f}x K=128's time a flop; "
+        f"torch.bmm bf16 (product only) {bmm:.3f} ms "
+        f"{f / bmm / 1e9:.1f} TFLOP/s; torch._int_mm (product only) "
+        f"{bt_int:.3f} ms {f / bt_int / 1e9:.1f} TOP/s; K=1024 control "
+        f"(torch.mm + row sum) {k1024:.3f} ms "
+        f"{2 * M * M * 1024 / k1024 / 1e9:.1f} TFLOP/s")
     plain = time_ms(lambda: mma.mm_rowsum_plain(xb, yb), 1)
-    r = {"max_abs_err": err, "ms": res[mma.K_SWEEP_TILE], "plain_ms": plain}
+    r = {"max_abs_err": err, "ms": ms, "was_ms": was, "event_ms": ev,
+         "was_event_ms": was_ev, "was_tile": mma.V0_K_SWEEP_TILE,
+         "plain_ms": plain, "timed_by": "profiler device time",
+         "sweep": {"k_ms": res["k"],
+                   "tile_ms": {str(t): v for t, v in res["tile"].items()},
+                   "batch_ms": {str(t): v for t, v in res["batch"].items()}}}
     # A and B read once, the row sums written once; 2·M·N·K flops a matrix
-    return with_bound(r, 64 * (2 * M * 128 * 2 + M * 4), {"bf16": f},
-                      library_ms=bmm), counts
+    return (with_bound(r, 64 * (2 * M * 128 * 2 + M * 4), {"bf16": f},
+                       library_ms=bmm),
+            {"mm_rowsum_wg": counts.get("mm_rowsum_wg", 0)})
 
 
 def run_gather():
@@ -2012,11 +2079,18 @@ def run_probes():
     pairs, n = BENCH_SHAPE
     out = {"P5": (p5, n5), "P1": (p1, n1), "P2": (p2, n2)}
     i8 = (a, b, None, None)
-    # P4: stage 0 on the old __dp4a body; the plain version at the full
-    # 64 pairs, timed once
-    r = {"max_abs_err": 0.0, "ms": anatomy["int8"]["p4"]["row_sum"],
-         "plain_ms": time_ms(lambda: knn_stages.knn_probe_plain(
-             *i8, stage=knn_stages.ROW_SUM), 1)}
+    # P4: stage 0 int8 on the tensor-core body (tc_row_sum), the old
+    # __dp4a body's as "was"; every stage of both dtypes on both bodies;
+    # the plain version at the full 64 pairs, timed once
+    r = {"max_abs_err": 0.0, "ms": anatomy["int8"]["p4_tc"][0],
+         "was_ms": anatomy["int8"]["p4_old"][0],
+         "plain_ms": time_ms(lambda: knn_stages.p4_stage_plain(
+             *i8, stage=0), 1),
+         "stages": {d: {"ms": anatomy[d]["p4_tc"],
+                        "was_ms": anatomy[d]["p4_old"],
+                        "bound_ms": anatomy[d]["bound_ms"],
+                        "library_ms": anatomy[d]["library_ms"]}
+                    for d in ("int8", "bf16")}}
     out["P4"] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
                             library_ms=int_mm), anatomy["launches"]["P4"])
     # P3: v0 on the tensor-core body, int8, the old body's as "was"; every
@@ -2098,7 +2172,9 @@ def main():
                                          "call_device_ms", "event_ms",
                                          "was_call_device_ms",
                                          "was_event_ms",
-                                         "was_kernels_a_call", "variants")
+                                         "was_kernels_a_call", "variants",
+                                         "stages", "was_tile",
+                                         "sweep")
                        if k in r})
 
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
@@ -2132,9 +2208,9 @@ def main():
              "scripts_dev/fused_vmem_probe.py:26"),
             ("P3", "knn_tc_stage", "knn_probe.cu",
              "scripts_dev/knn_culprit_bisect.py:42"),
-            ("P4", "knn_probe_p4_stages", "knn_probe.cu",
+            ("P4", "knn_tc_p4_stages", "knn_probe.cu",
              "scripts_dev/knn_stage_cost.py:31"),
-            ("P5", "mm_rowsum_bf16", "mma_probe.cu",
+            ("P5", "mm_rowsum_bf16_wg", "mma_probe.cu",
              "scripts_dev/matmul_shape_probe.py:33"),
             ("P6", "knn_tc_row_min", "knn_probe.cu",
              "scripts_dev/knn_overhead_sweep.py:36")):

@@ -13,6 +13,7 @@ takes every pointer, the stream included, as ``void*``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
@@ -85,7 +86,10 @@ _SIGNATURES = {
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _P],
     # a, b, out, batch, M, N, K, bm, bn, n_split, stream
+    "mm_rowsum_bf16_wg": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mm_rowsum_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bm, bn, K, plan (int[5])
+    "mm_rowsum_wg_plan": [_I, _I, _I, _P],
     # j, vals (f32; v0: bf16), out, T, N, stream
     "onehot_gather_bf16": [_P, _P, _P, _I, _I, _P],
     "onehot_gather_bf16_v0": [_P, _P, _P, _I, _I, _P],
@@ -210,6 +214,35 @@ def tc_kernel_usage(usage=None):
             key = [_TC_TYPES[m.group(1)], *(g for g in m.groups()[1:] if g)]
             out[" ".join(key)] = u
     return out
+
+
+# mm_rowsum_wg_kernel<BM, BN> (csrc/mma_probe.cu) as mangled
+_WG_KERNEL = re.compile(r"mm_rowsum_wg_kernelILi(\d+)ELi(\d+)E")
+
+
+def wg_kernel_usage(usage=None):
+    """ptxas_usage() of P5's wgmma kernel's instantiations, keyed by their
+    tile (BM, BN)."""
+    out = {}
+    for name, u in (ptxas_usage() if usage is None else usage).items():
+        m = _WG_KERNEL.search(name)
+        if m:
+            out[(int(m.group(1)), int(m.group(2)))] = u
+    return out
+
+
+def opcode_counts(lines):
+    """Opcode counts of one kernel's SASS lines (sass()'s, e.g. "/*0a30*/
+    @P0 IMNMX R1, ..."), the predicate and the opcode's suffixes dropped
+    (HGMMA.64x128x16.F32.BF16 counts as HGMMA)."""
+    c = collections.Counter()
+    for ln in lines:
+        words = ln.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            c[words[0].split(".")[0]] += 1
+    return c
 
 
 def sass(lib=None):

@@ -1,23 +1,61 @@
-// Tensor-core probes, for Hopper (sm_90a): mma.sync m16n8k16 bf16 -> f32
-// through inline PTX (mma_sync.cuh, shared with K1/K3's bf16 body).
+// Tensor-core probes, for Hopper (sm_90a), through inline PTX: P5's
+// product + row sum on wgmma fed by TMA (hopper.cuh), its first body and
+// P1's one-hot gather on mma.sync m16n8k16 bf16 -> f32 (mma_sync.cuh,
+// shared with K1/K3's bf16 body).
 //
-// mm_rowsum replaces scripts_dev/matmul_shape_probe.py:33 (mm_kernel, P5):
-// the descriptor product's rate against K. For each matrix of a batch,
+// mm_rowsum_wg replaces scripts_dev/matmul_shape_probe.py:33 (mm_kernel,
+// P5): the descriptor product's rate against K and tile. For each matrix
+// of a batch,
 //   out[m] = sum_n sum_k a[m, k] b[n, k]       a (M, K), b (N, K) bf16
 // with f32 accumulation: the product K1 and K3 compute, with the
-// cheapest epilogue (a row sum) in place of their keys. Design: a block
-// owns BM rows of A and sweeps a range of BN-row tiles of B; A and B come
-// through shared memory 64 dims at a time (rows padded to 144 B, 16-byte
-// aligned, so ldmatrix reads without bank conflicts); 8 warps each own a
-// (BM / WM) x (BN / WN) tile of m16n8 accumulators fed by ldmatrix.x4. After
-// each B tile a thread adds its accumulators into its rows' sums; the
-// quads' lanes and then the warps of a row are summed in a fixed order,
-// and a block stores its rows' sums, or adds them with atomicAdd where the
-// B range is split over several blocks (n_split > 1, for a batch too small
-// to fill the card). Integer-valued inputs whose sums stay below 2^24
-// give exact sums in any order. What bounds it: the tensor cores (2 M N K
-// flops a matrix) when the tiles stream from L2; this simple version
-// loads synchronously, with no cp.async or TMA pipeline and no wgmma.
+// cheapest epilogue (a row sum) in place of their keys. Every one of the
+// 2 M N K products runs on the tensor cores: the probe's subject is the
+// product's rate at the descriptor shape.
+// What bounds it on the H100 (bench's batch, 64 x 6144 x 6144 x 128):
+// - the tensor cores: 618.5 GFLOP at 989 TFLOP/s, 0.625 ms;
+// - not HBM: A and B are read once, 201 MB, 0.06 ms;
+// - the L2 -> SM feed: every block reads all of its matrix's B (1.57 MB
+//   at K = 128). At BM = 128 A rows a block that is 48 reads a matrix,
+//   4.83 GB for the batch, 7.7 TB/s from L2 at the bound; at BM = 256,
+//   2.42 GB, 3.9 TB/s. (A cluster of two blocks along M with TMA
+//   multicast of each B tile would halve it again; not done here.)
+// Design (hopper.cuh's head has the layouts):
+// - warp specialisation: 384 threads, warpgroups 0 and 1 consumers, 2 the
+//   producer, whose one thread issues every TMA load; setmaxnreg gives
+//   the producer's registers (40) to the consumers (232). Shared memory
+//   is sized so that one block holds an SM (the register move needs it);
+// - A resident, B streamed: the block's BM rows of A, in 64-dim chunks of
+//   BM x 128 bytes, stay in shared memory while all of B's BN-row tiles
+//   stream past in a ring of one-chunk stages (BN x 128 bytes), each with
+//   a full and an empty mbarrier. Where A's K does not fit beside four
+//   stages (K = 512 at BM = 256), K is cut into passes: A's chunks of a
+//   pass are loaded, all of B streams past with the same chunks, and the
+//   next pass reloads A once both consumers are done with it;
+// - each consumer warpgroup owns BM / 2 rows, in m64 halves, and issues
+//   wgmma.m64nWNk16 (WN = min(BN, 128)) from both operands in shared
+//   memory, 4 k-steps a chunk; one group in flight, a stage released one
+//   stage late. Shared memory feeds the tensor cores 96 bytes a clock at
+//   their rate (of the SM's 128); A from registers (64) was no faster
+//   (scripts_torch/mm_rowsum_designs.py keeps that design): under this
+//   load the card runs at its power limit;
+// - the row sum: the accumulators are never zeroed between tiles (scale-d
+//   on throughout), so each holds its column slot's sum over every B
+//   tile and pass; once at the end a thread adds its accumulators into
+//   its two rows of each half, the quad's lanes are added by shuffles in
+//   a fixed order, and lane 0 of the quad stores its rows' sums, or adds
+//   them with atomicAdd where B's tiles are split over several blocks
+//   (n_split > 1, to fill the card with one matrix);
+// - TMA maps: 2-D over a (B M, K) and b (B N, K), 128-byte swizzle, boxes
+//   of 64 dims x BM (A) or BN (B) rows; M and N are multiples of BM and
+//   BN, so a box never crosses matrices. cuTensorMapEncodeTiled is
+//   fetched at run time by cudaGetDriverEntryPointByVersion (the library
+//   is not linked against libcuda).
+// Integer-valued inputs whose sums stay below 2^24 give exact sums in any
+// order.
+// mm_rowsum_v0 is the first body, kept as the yardstick: 8 warps of
+// mma.sync fed by ldmatrix from A and B tiles loaded synchronously (no
+// cp.async, TMA or wgmma), rows padded to 144 B; a thread adds its
+// accumulators into its rows' sums after each B tile.
 //
 // onehot_gather replaces scripts_dev/epilogue_dot_probe.py:25 (kern, P1):
 //   out[t, c] = sum_n [j[t] == n] vals[c, n]   j (T) int32, vals (3, N) f32
@@ -62,6 +100,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -191,6 +230,264 @@ int launch_mm(const void* a, const void* b, void* out, int batch, int M,
   mm_rowsum_kernel<BM, BN><<<grid, kThreads, 0, s>>>(
       (const uint16_t*)a, (const uint16_t*)b, (float*)out, M, N, K, n_split);
   return (int)cudaGetLastError();
+}
+
+constexpr int kWgThreads = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int kWgMaxStages = 16;
+constexpr int kWgSmem = 232448;     // the most a block may hold (227 KB)
+constexpr int kWgChunk = 128;       // bytes of a row's 64-dim chunk
+
+// Shared memory of a (bm, bn) block at K: A's chunks a pass, the ring's
+// stages, and the dynamic bytes (with 1024 of alignment slack). Stages
+// fill what A leaves, at most kWgMaxStages: always more than half of the
+// SM, so one block holds it (setmaxnreg counts on that).
+struct WgPlan {
+  int stages, passes, chunks, smem;
+};
+
+WgPlan wg_plan(int bm, int bn, int K) {
+  const int kc = K / 64, a_chunk = bm * kWgChunk, stage = bn * kWgChunk;
+  const int budget = kWgSmem - 1024 - 1024;   // slack; static barriers
+  const int most = (budget - 4 * stage) / a_chunk;
+  if (kc <= 0 || most <= 0) return {0, 0, 0, 0};
+  const int passes = (kc + most - 1) / most;
+  const int chunks = (kc + passes - 1) / passes;
+  int stages = (budget - chunks * a_chunk) / stage;
+  if (stages > kWgMaxStages) stages = kWgMaxStages;
+  return {stages, passes, chunks, 1024 + chunks * a_chunk + stages * stage};
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mm_rowsum_wg_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb,
+                    float* __restrict__ out, int M, int N, int kc,
+                    int chunks, int stages, int n_split) {
+  using namespace hopper;
+  constexpr int MH = BM / 128;      // m64 halves a consumer warpgroup
+  constexpr int WN = BN > 128 ? 128 : BN;   // wgmma's N
+  constexpr int NJ = BN / WN;       // wgmma columns blocks a B stage
+  constexpr int A_CHUNK = BM * kWgChunk, STAGE = BN * kWgChunk;
+  extern __shared__ uint8_t raw[];
+  __shared__ __align__(8) uint64_t full[kWgMaxStages];
+  __shared__ __align__(8) uint64_t empty[kWgMaxStages];
+  __shared__ __align__(8) uint64_t a_full, a_empty;
+  const uint32_t base = smem_u32(raw);
+  uint8_t* sa = raw + (((base + 1023u) & ~1023u) - base);
+  uint8_t* sb = sa + chunks * A_CHUNK;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);      // one arrival a consumer warpgroup
+    }
+    mbar_init(&a_full, 1);
+    mbar_init(&a_empty, 2);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int mat = blockIdx.z;
+  const int m0 = blockIdx.x * BM;
+  const int n_tiles = N / BN;
+  const int t_begin = (int)((long long)blockIdx.y * n_tiles / n_split);
+  const int t_end = (int)((long long)(blockIdx.y + 1) * n_tiles / n_split);
+  const int passes = (kc + chunks - 1) / chunks;
+
+  if (tid >= 256) {                 // the producer warpgroup
+    regs_dec<40>();
+    if (tid != 256) return;
+    tma_prefetch(&ta);
+    tma_prefetch(&tb);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int p = 0; p < passes; ++p) {
+      const int c0 = p * chunks, nc = min(chunks, kc - c0);
+      if (p > 0) mbar_wait(&a_empty, (p - 1) & 1);
+      mbar_expect_tx(&a_full, nc * A_CHUNK);
+      for (int c = 0; c < nc; ++c)
+        tma_load_2d(sa + c * A_CHUNK, &ta, &a_full, (c0 + c) * 64,
+                    mat * M + m0);
+      for (int t = t_begin; t < t_end; ++t)
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(&empty[s], ph ^ 1);
+          mbar_expect_tx(&full[s], STAGE);
+          tma_load_2d(sb + s * STAGE, &tb, &full[s], (c0 + c) * 64,
+                      mat * N + t * BN);
+          if (++s == stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int wg = tid >> 7;          // consumer warpgroup: rows wg BM / 2..
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const bool leader = (tid & 127) == 0;
+  float acc[MH][WN / 2];
+#pragma unroll
+  for (int h = 0; h < MH; ++h)
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[h][i] = 0.f;
+  int s = 0, held = -1;
+  uint32_t ph = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int nc = min(chunks, kc - p * chunks);
+    mbar_wait(&a_full, p & 1);
+    for (int t = t_begin; t < t_end; ++t)
+      for (int c = 0; c < nc; ++c) {
+        mbar_wait(&full[s], ph);
+#pragma unroll
+        for (int h = 0; h < MH; ++h)
+#pragma unroll
+          for (int i = 0; i < WN / 2; ++i) reg_fence(acc[h][i]);
+        wgmma_fence();
+        const uint8_t* at = sa + c * A_CHUNK + wg * (BM / 2) * kWgChunk;
+        const uint8_t* bt = sb + s * STAGE;
+#pragma unroll
+        for (int h = 0; h < MH; ++h)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint64_t da = desc_sw128(at + h * 64 * kWgChunk + kk * 32);
+              const uint64_t db = desc_sw128(bt + j * WN * kWgChunk + kk * 32);
+              if constexpr (WN == 128) wgmma_128(acc[h], da, db);
+              else wgmma_64(acc[h], da, db);
+            }
+        wgmma_commit();
+        wgmma_wait<1>();            // the stage before is read: release it
+#pragma unroll
+        for (int h = 0; h < MH; ++h)
+#pragma unroll
+          for (int i = 0; i < WN / 2; ++i) reg_fence(acc[h][i]);
+        if (held >= 0 && leader) mbar_arrive(&empty[held]);
+        held = s;
+        if (++s == stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < MH; ++h)
+#pragma unroll
+      for (int i = 0; i < WN / 2; ++i) reg_fence(acc[h][i]);
+    if (leader) {
+      mbar_arrive(&empty[held]);
+      mbar_arrive(&a_empty);        // this pass's A chunks are read
+    }
+    held = -1;
+  }
+
+  // the row sum: d[i] is row l / 4 + 8 ((i / 2) % 2) of the warp's 16
+#pragma unroll
+  for (int h = 0; h < MH; ++h) {
+    float r[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) r[(i >> 1) & 1] += acc[h][i];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r[e] += __shfl_xor_sync(0xffffffffu, r[e], 1);
+      r[e] += __shfl_xor_sync(0xffffffffu, r[e], 2);
+    }
+    if ((lane & 3) == 0) {
+      float* o = out + (size_t)mat * M + m0 + wg * (BM / 2) + h * 64 +
+                 warp * 16 + (lane >> 2);
+      if (n_split == 1) {
+        o[0] = r[0];
+        o[8] = r[1];
+      } else {
+        atomicAdd(o, r[0]);
+        atomicAdd(o + 8, r[1]);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched once at run time (null if absent)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a 2-D map over rows x K bf16 (row-major), boxes of 64 dims x box_rows,
+// 128-byte swizzle
+int encode_rows(CUtensorMap* map, const void* p, long long rows, int K,
+                int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(p), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+int launch_wg(const void* a, const void* b, void* out, int batch, int M,
+              int N, int K, int n_split, cudaStream_t s) {
+  const WgPlan pl = wg_plan(BM, BN, K);
+  if (M % BM || N % BN || n_split > N / BN || pl.stages < 2)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int err = encode_rows(&ta, a, (long long)batch * M, K, BM);
+  if (err == 0) err = encode_rows(&tb, b, (long long)batch * N, K, BN);
+  if (err) return err;
+  auto kernel = mm_rowsum_wg_kernel<BM, BN>;
+  static int smem_allowed = 0;      // the opt-in, raised as plans need
+  if (pl.smem > smem_allowed) {
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err) return err;
+    smem_allowed = pl.smem;
+  }
+  dim3 grid(M / BM, n_split, batch);
+  kernel<<<grid, kWgThreads, pl.smem, s>>>(ta, tb, (float*)out, M, N, K / 64,
+                                           pl.chunks, pl.stages, n_split);
+  return (int)cudaGetLastError();
+}
+
+const void* wg_kernel(int bm, int bn) {
+  if (bm == 128 && bn == 128)
+    return (const void*)mm_rowsum_wg_kernel<128, 128>;
+  if (bm == 256 && bn == 64) return (const void*)mm_rowsum_wg_kernel<256, 64>;
+  if (bm == 256 && bn == 128)
+    return (const void*)mm_rowsum_wg_kernel<256, 128>;
+  if (bm == 256 && bn == 256)
+    return (const void*)mm_rowsum_wg_kernel<256, 256>;
+  return nullptr;
 }
 
 constexpr int kV0Cols = 512;        // v0: N columns per warp
@@ -367,8 +664,53 @@ onehot_gather_kernel(const int* __restrict__ j,
 
 // a (batch, M, K), b (batch, N, K) bf16 bits, 16-byte aligned; out (batch,
 // M) f32, zero-filled when n_split > 1. K a multiple of 64; (bm, bn) one of
-// (64, 64), (64, 128), (128, 64), (128, 128) with M % bm = N % bn = 0;
-// 1 <= n_split <= N / bn. Returns the cudaError_t of the launch.
+// (128, 128), (256, 64), (256, 128), (256, 256) with M % bm = N % bn = 0;
+// 1 <= n_split <= N / bn. Returns the cudaError_t of the launch (that of
+// the tensor maps' encoding where it fails).
+extern "C" int mm_rowsum_bf16_wg(const void* a, const void* b, void* out,
+                                 int batch, int M, int N, int K, int bm,
+                                 int bn, int n_split, void* stream) {
+  if (batch <= 0 || batch > 65535 || M <= 0 || N <= 0 || K <= 0 ||
+      K % 64 || n_split <= 0 || n_split > 65535 ||
+      wg_kernel(bm, bn) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 128)
+    return launch_wg<128, 128>(a, b, out, batch, M, N, K, n_split, s);
+  if (bn == 64)
+    return launch_wg<256, 64>(a, b, out, batch, M, N, K, n_split, s);
+  if (bn == 128)
+    return launch_wg<256, 128>(a, b, out, batch, M, N, K, n_split, s);
+  return launch_wg<256, 256>(a, b, out, batch, M, N, K, n_split, s);
+}
+
+// mm_rowsum_bf16_wg's plan at (bm, bn, K) into plan[5]: ring stages, K
+// passes, 64-dim chunks of A a pass, dynamic shared bytes, and the blocks
+// an SM of the current card holds (the occupancy calculator's count).
+// Returns a cudaError_t.
+extern "C" int mm_rowsum_wg_plan(int bm, int bn, int K, int* plan) {
+  const void* kernel = wg_kernel(bm, bn);
+  if (kernel == nullptr || K <= 0 || K % 64)
+    return (int)cudaErrorInvalidValue;
+  const WgPlan pl = wg_plan(bm, bn, K);
+  if (pl.stages < 2) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  int blocks = 0;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kWgThreads, pl.smem);
+  plan[0] = pl.stages;
+  plan[1] = pl.passes;
+  plan[2] = pl.chunks;
+  plan[3] = pl.smem;
+  plan[4] = blocks;
+  return err;
+}
+
+// The first body: a, b, out and n_split as mm_rowsum_bf16_wg; K a multiple
+// of 64; (bm, bn) one of (64, 64), (64, 128), (128, 64), (128, 128) with
+// M % bm = N % bn = 0. Returns the cudaError_t of the launch.
 extern "C" int mm_rowsum_bf16(const void* a, const void* b, void* out,
                               int batch, int M, int N, int K, int bm,
                               int bn, int n_split, void* stream) {

@@ -34,9 +34,13 @@ rows and streams all of B through shared memory in tiles of TB rows, and
 its 256 threads each hold a TA/16 × TB/16 register tile. So:
 
 - P4 ``knn_stage_cost`` (ta 128, tb = n): stages 0, 1, 2, 3 → card stages
-  ``row_sum``, ``top1``, ``top2``, ``full`` at K1's tile (TA, TB) = (64,
-  64), int8 and bf16. (With tb = n the TPU's top-2 was the whole row's:
-  the card's running ``top2``.)
+  ``row_sum``, ``top1``, ``top2``, ``full``, int8 and bf16 (with tb = n
+  the TPU's top-2 was the whole row's: the card's running ``top2``). They
+  run on the tensor-core body K1 runs now, at K1's tile (128, 128, 2)
+  (``P4_TC_STAGES``, ``p4_stage_raw``): ``row_sum`` is
+  ``tc_row_sum_raw``, the others ``tc_stage_raw``'s; the old bodies'
+  stages at their K1 tile (TA, TB) = (64, 64) (``P4_STAGES``,
+  ``p4_stage_raw(body="old")``) stay as the yardstick.
 - P3 ``knn_culprit_bisect`` (ta 256, tb = n): v0 → ``row_min``, v1 →
   ``top1``, v2 → ``top2_tile``, v3 (+ the running r1/r2 merge in scratch)
   → ``top2``, v4 (+ the column) → ``full``, at (64, 64); v5 (the
@@ -125,8 +129,12 @@ TILES = {
 TC_TILES = ((64, 64, 2), (128, 64, 2), (64, 128, 2), (128, 128, 2),
             (128, 128, 3), (256, 64, 2), (256, 128, 2))
 K1_TC_TILE = (128, 128, 2)
-# P4's stages and P3's variants → card stages
+# P4's stages and P3's variants → card stages (the old bodies' P4)
 P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
+# P4 on the tensor-core body: TPU stage → (card stage, route)
+P4_TC_STAGES = {0: (ROW_SUM, "tc_row_sum"), 1: (TOP1, "tc_stage"),
+                2: (TOP2, "tc_stage"), 3: (FULL, "tc_stage")}
+P4_BODIES = ("tc", "old")
 P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 
 # kernel launches (not plain-version calls), by descriptor type
@@ -566,3 +574,39 @@ def tc_stage_raw(a, b, na2=None, nb2=None, stage=FULL):
     _build.check(err, "knn_tc_stage")
     LAUNCHES["knn_tc_stage"] += 1
     return row, col
+
+
+def _p4_route(stage, body, name):
+    if stage not in P4_STAGES or body not in P4_BODIES:
+        raise ValueError(f"{name}: no P4 stage {stage} on body {body!r} "
+                         f"(stages {sorted(P4_STAGES)}, bodies {P4_BODIES})")
+    return P4_TC_STAGES[stage] if body == "tc" else (P4_STAGES[stage], "old")
+
+
+def p4_stage_plain(a, b, na2=None, nb2=None, stage=3, body="tc"):
+    """Plain version of p4_stage_raw: the route's own plain version
+    (tc_row_sum_plain, tc_stage_plain or knn_probe_plain at K1_TILE)."""
+    card, route = _p4_route(stage, body, "p4_stage_plain")
+    if route == "tc_row_sum":
+        return tc_row_sum_plain(a, b)
+    if route == "tc_stage":
+        return tc_stage_plain(a, b, na2, nb2, card)
+    return knn_probe_plain(a, b, na2, nb2, card)
+
+
+def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
+    """P4's TPU stage ``stage`` (0 product + row sum, 1 + d2, pack and row
+    top-1, 2 + row top-2, 3 + the column: K1) on the tensor-core body
+    (body "tc", P4_TC_STAGES: tc_row_sum_raw for stage 0, tc_stage_raw
+    for the others) or on the old __dp4a / FFMA bodies (body "old",
+    P4_STAGES: knn_probe_raw at K1_TILE), as that route's wrapper takes
+    the device. a (B, n_a, 128), b (B, n_b, 128) int8, or bf16 with
+    integer values and, from stage 1 on, their f32 squared norms na2,
+    nb2; n_a a multiple of 128, n_b of 64. Result (row (B, n_a, 2), col
+    (B, n_b)) int32, equal on both bodies."""
+    card, route = _p4_route(stage, body, "p4_stage_raw")
+    if route == "tc_row_sum":
+        return tc_row_sum_raw(a, b)
+    if route == "tc_stage":
+        return tc_stage_raw(a, b, na2, nb2, card)
+    return knn_probe_raw(a, b, na2, nb2, card)

@@ -1,15 +1,21 @@
-"""Tensor-core yardsticks: the descriptor product with a row sum (P5) and
-the one-hot gather (P1), both ``mma.sync`` m16n8k16 bf16 → f32
+"""Tensor-core yardsticks: the descriptor product with a row sum (P5), on
+``wgmma`` fed by TMA, and the one-hot gather (P1) on ``mma.sync``
 (``csrc/mma_probe.cu``).
 
 - ``mm_rowsum_*`` — counterpart of ``scripts_dev/matmul_shape_probe.py:33``
   (``mm_kernel``): out[m] = Σₙ Σₖ a[m, k]·b[n, k] per matrix, f32
   accumulation, the product K1 and K3 compute with the cheapest epilogue.
-  The TPU probe swept K ∈ {128, 256, 512} at (ta, tb) = (128, 6144) and
-  (ta, tb) ∈ {(256, 2048), (512, 1024), (512, 512)} at K = 128; the card's
-  block tiles (BM A rows × BN B rows) take their places in that order:
-  (128, 6144) → (64, 128), (256, 2048) → (128, 128), (512, 1024) → (128,
-  64), (512, 512) → (64, 64); the K sweep runs at (128, 128). (For tb < n
+  ``mm_rowsum_raw`` launches the ``wgmma`` kernel: a producer warp's TMA
+  loads, two consumer warpgroups, the block's BM A rows resident while
+  B streams past in BN-row tiles (``TILES``). The TPU probe swept K ∈
+  {128, 256, 512} at (ta, tb) = (128, 6144) and (ta, tb) ∈ {(256,
+  2048), (512, 1024), (512, 512)} at K = 128; the card's block tiles (BM
+  A rows × BN B rows) take their places in the same order of growing
+  area (``P5_TILES``): (512, 512) → (128, 128), (256, 2048) → (256, 64),
+  (512, 1024) → (256, 128), (128, 6144) → (256, 256); the K sweep runs
+  at ``DEFAULT_TILE``. ``mm_rowsum_v0_raw`` is the first body (``mma.sync``
+  with synchronous tile loads), kept as the yardstick, at its own tiles
+  ``V0_TILES`` (``P5_V0_TILES`` its map of the TPU's points). (For tb < n
   the TPU kernel kept the last tile's sum, its output block being
   revisited; the card sums every column.)
 - ``onehot_gather_*`` — counterpart of ``scripts_dev/epilogue_dot_probe.py:25``
@@ -28,20 +34,31 @@ the one-hot gather (P1), both ``mma.sync`` m16n8k16 bf16 → f32
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from .. import _build
 from . import check_device, check_launchable
 
-TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+# (BM, BN) of the wgmma kernel, in order of growing area, and its default
+# (the fastest at bench's batch, PERF.md §6)
+TILES = ((128, 128), (256, 64), (256, 128), (256, 256))
+DEFAULT_TILE = (256, 256)
 K_SWEEP = (128, 256, 512)
-K_SWEEP_TILE = (128, 128)
 # matmul_shape_probe's (ta, tb) at K = 128 → the card's (BM, BN)
-P5_TILES = {(128, 6144): (64, 128), (256, 2048): (128, 128),
-            (512, 1024): (128, 64), (512, 512): (64, 64)}
+P5_TILES = {(512, 512): (128, 128), (256, 2048): (256, 64),
+            (512, 1024): (256, 128), (128, 6144): (256, 256)}
+# the first body's tiles, its K-sweep tile and its map of the TPU's points
+V0_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+V0_K_SWEEP_TILE = (128, 128)
+P5_V0_TILES = {(128, 6144): (64, 128), (256, 2048): (128, 128),
+               (512, 1024): (128, 64), (512, 512): (64, 64)}
 PRECISIONS = ("f32", "bf16")
 
-LAUNCHES = {"mm_rowsum": 0, "onehot_gather": 0, "onehot_gather_v0": 0}
+LAUNCHES = {"mm_rowsum_wg": 0, "mm_rowsum_v0": 0, "onehot_gather": 0,
+            "onehot_gather_v0": 0}
 
 
 def _check_mm(a, b, name):
@@ -63,42 +80,109 @@ def mm_rowsum_plain(a, b):
                         for p in range(a.shape[0])])
 
 
+def _check_mm_tile(a, b, tile, tiles, name):
+    M, N, K = a.shape[1], b.shape[1], a.shape[2]
+    if tuple(tile) not in tiles or M % tile[0] or N % tile[1] or K % 64:
+        raise ValueError(f"{name}: M={M}, N={N}, K={K} do not fit the tile "
+                         f"{tuple(tile)} (tiles {tiles}, K a multiple of "
+                         "64)")
+
+
+def best_split(blocks, n_tiles, sms, a_tiles):
+    """The split s of n_tiles B tiles over blocks that minimises waves ×
+    (B tiles a block + a_tiles, A's load counted in B tiles), waves =
+    ⌈blocks·s / sms⌉ for blocks that hold an SM each; the smallest s of a
+    tie."""
+    return min(range(1, n_tiles + 1),
+               key=lambda s: -(-blocks * s // sms) * (-(-n_tiles // s)
+                                                     + a_tiles))
+
+
+def wg_split(batch, m, n, tile, device):
+    """mm_rowsum_raw's default split of each block's B tiles: best_split
+    on the card's SMs, A's load BM / BN B tiles. 1 at bench's batch (1536
+    blocks of 256 rows); 5 for one 6144² matrix (24 blocks) on 132
+    SMs."""
+    return best_split(batch * (m // tile[0]), n // tile[1],
+                      _sms(torch.device(device)), tile[0] / tile[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_mm(entry, key, a, b, tile, n_split):
+    check_launchable((a, b), entry)
+    B, M, K = a.shape
+    lib = _build.load()
+    dev = a.device
+    out = (torch.empty if n_split == 1 else torch.zeros)(
+        (B, M), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), B, M, b.shape[1], K,
+            tile[0], tile[1], n_split,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[key] += 1
+    return out
+
+
+def mm_rowsum_raw(a, b, tile=DEFAULT_TILE, n_split=None):
+    """The wgmma kernel on a CUDA tensor, mm_rowsum_plain on a CPU tensor;
+    raises on any other device. a (B, M, K), b (B, N, K) bf16; tile (BM,
+    BN) one of TILES with M and N multiples of it and K a multiple of 64,
+    on either device (ValueError). n_split (default wg_split) splits each
+    block's B tiles over that many blocks, whose sums meet by atomicAdd
+    (order-free on integer values below 2²⁴, else within f32 rounding).
+    One launch a call, two where n_split > 1 (out's zero fill)."""
+    dev = _check_mm(a, b, "mm_rowsum_raw")
+    _check_mm_tile(a, b, tile, TILES, "mm_rowsum_raw")
+    if dev.type == "cpu":
+        return mm_rowsum_plain(a, b)
+    if n_split is None:
+        n_split = wg_split(a.shape[0], a.shape[1], b.shape[1], tile, dev)
+    return _launch_mm("mm_rowsum_bf16_wg", "mm_rowsum_wg", a, b, tile,
+                      n_split)
+
+
+def wg_plan(tile, K):
+    """The wgmma kernel's plan at tile (BM, BN) and K on the current card:
+    {"stages": B ring stages, "passes": K passes (A reloaded between
+    them), "chunks": 64-dim chunks of A a pass, "smem": dynamic shared
+    bytes, "blocks_per_sm": the occupancy calculator's count}. Needs a
+    card."""
+    plan = (ctypes.c_int * 5)()
+    _build.check(_build.load().mm_rowsum_wg_plan(tile[0], tile[1], K, plan),
+                 "mm_rowsum_wg_plan")
+    return dict(zip(("stages", "passes", "chunks", "smem", "blocks_per_sm"),
+                    plan))
+
+
 def default_split(batch, m, n, tile, device):
-    """Blocks along N per (matrix, A tile), so that the grid holds at
-    least two blocks per SM: 1 for a full batch, more for one matrix."""
+    """Blocks along N per (matrix, A tile) for mm_rowsum_v0_raw, so that
+    the grid holds at least two blocks per SM: 1 for a full batch, more
+    for one matrix."""
     blocks = batch * (m // tile[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(n // tile[1], -(-2 * sms // blocks)))
 
 
-def mm_rowsum_raw(a, b, tile=K_SWEEP_TILE, n_split=None):
-    """The mma.sync kernel on a CUDA tensor, mm_rowsum_plain on a CPU
-    tensor; raises on any other device. tile (BM, BN) one of TILES, M and
-    N multiples of it, K a multiple of 64. n_split (default
-    default_split) splits each block's B rows over that many blocks,
-    whose sums meet by atomicAdd (order-free on integer values below
-    2²⁴, else within f32 rounding)."""
-    dev = _check_mm(a, b, "mm_rowsum_raw")
+def mm_rowsum_v0_raw(a, b, tile=V0_K_SWEEP_TILE, n_split=None):
+    """The first body, mm_rowsum_raw's yardstick: mma.sync fed by
+    synchronous tile loads, on a CUDA tensor; mm_rowsum_plain on a CPU
+    tensor; raises on any other device. tile (BM, BN) one of V0_TILES, M
+    and N multiples of it, K a multiple of 64. n_split (default
+    default_split) as mm_rowsum_raw's."""
+    dev = _check_mm(a, b, "mm_rowsum_v0_raw")
     if dev.type == "cpu":
         return mm_rowsum_plain(a, b)
-    B, M, K = a.shape
-    N = b.shape[1]
-    if tuple(tile) not in TILES or M % tile[0] or N % tile[1] or K % 64:
-        raise ValueError(f"mm_rowsum_raw: M={M}, N={N}, K={K} do not fit "
-                         f"the tile {tuple(tile)} (tiles {TILES}, K a "
-                         "multiple of 64)")
-    check_launchable((a, b), "mm_rowsum_raw")
+    _check_mm_tile(a, b, tile, V0_TILES, "mm_rowsum_v0_raw")
     if n_split is None:
-        n_split = default_split(B, M, N, tile, dev)
-    lib = _build.load()
-    out = torch.zeros((B, M), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.mm_rowsum_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 B, M, N, K, tile[0], tile[1], n_split,
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mm_rowsum_bf16")
-    LAUNCHES["mm_rowsum"] += 1
-    return out
+        n_split = default_split(a.shape[0], a.shape[1], b.shape[1], tile,
+                                dev)
+    return _launch_mm("mm_rowsum_bf16", "mm_rowsum_v0", a, b, tile, n_split)
 
 
 def limbs(u):

@@ -1,16 +1,23 @@
-"""Count the machine instructions of the tensor-core body's
-instantiations (csrc/knn_tc.cuh's knn_tc_kernel) by opcode, from the
-SASS of the package's built library (cuobjdump): the product's
-(HMMA, IMMA, LDSM), the epilogue's (IMNMX or VIMNMX, FADD, FMUL, FFMA,
-FMNMX, LOP3, IADD3, SHFL, ATOMS, RED) and all of them. A probe mode that computes less than
-K1 shows here what nvcc dropped. Needs the CUDA toolkit:
+"""Count the machine instructions of the port's tensor-core kernels by
+opcode, from the SASS of the package's built library (cuobjdump):
+- the tensor-core 2-NN body's instantiations (csrc/knn_tc.cuh's
+  knn_tc_kernel) at K1's tile, by mode: the product's (HMMA, IMMA, LDSM),
+  the epilogue's (IMNMX or VIMNMX, FADD, FMUL, FFMA, FMNMX, LOP3, IADD3,
+  SHFL, ATOMS, RED) and all of them. A probe mode that computes less than
+  K1 shows here what nvcc dropped;
+- with the argument p5, P5's product + row sum (csrc/mma_probe.cu): the
+  wgmma kernel at each of its tiles (mm_rowsum_wg_kernel: HGMMA, the TMA
+  loads UTMALDG or UBLKCP, the mbarriers' SYNCS, WARPGROUP's fences and
+  waits, and no HMMA) and its first body (mm_rowsum_kernel, mma.sync).
+Needs the CUDA toolkit:
 
     python3 scripts_torch/tc_sass.py [MODE ...]    # default: 0 4 5 6 7
+    python3 scripts_torch/tc_sass.py p5
 """
 
-import collections
 import json
 import os
+import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -18,34 +25,36 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
 
-OPCODES = ("HMMA", "IMMA", "LDSM", "IMNMX", "VIMNMX", "FADD", "FMUL", "FFMA",
-           "FMNMX", "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
+OPCODES = ("HMMA", "IMMA", "LDSM", "HGMMA", "UTMALDG", "UBLKCP", "SYNCS",
+           "WARPGROUP", "IMNMX", "VIMNMX", "FADD", "FMUL", "FFMA", "FMNMX",
+           "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
+_MM = re.compile(r"mm_rowsum_(?:wg_)?kernelILi(\d+)ELi(\d+)E")
 
 
-def counts(lines):
-    """Opcode counts of one kernel's SASS lines ("/*0a30*/ @P0 IMNMX R1,
-    ..."), the predicate and the opcode's suffixes dropped."""
-    c = collections.Counter()
-    for ln in lines:
-        words = ln.split("*/", 1)[1].split()
-        if words and words[0].startswith("@"):
-            words = words[1:]
-        if words:
-            c[words[0].split(".")[0]] += 1
-    return c
+def line(kernel, c):
+    return json.dumps({"kernel": kernel, "total": sum(c.values()),
+                       **{op: c[op] for op in OPCODES}})
 
 
 def main():
-    modes = sys.argv[1:] or ["0", "4", "5", "6", "7"]
+    args = sys.argv[1:]
+    kernels = _build.sass()
+    if args == ["p5"]:
+        for name in sorted(kernels):
+            m = _MM.search(name)
+            if m:
+                body = "wgmma" if "wg_kernel" in name else "v0"
+                print(line(f"mm_rowsum {body} {m.group(1)} {m.group(2)}",
+                           _build.opcode_counts(kernels[name])))
+        return
+    modes = args or ["0", "4", "5", "6", "7"]
     per_key = _build.tc_kernel_usage({
-        name: counts(lines) for name, lines in _build.sass().items()})
+        name: _build.opcode_counts(lines) for name, lines in kernels.items()})
     for key in sorted(per_key):
         dtype, mode, *tile = key.split()
         if mode in modes and tile[:2] == ["128", "128"] and tile[2:] in (
                 [], ["2"]):
-            c = per_key[key]
-            print(json.dumps({"kernel": key, "total": sum(c.values()),
-                              **{op: c[op] for op in OPCODES}}))
+            print(line(key, per_key[key]))
 
 
 if __name__ == "__main__":

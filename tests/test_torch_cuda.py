@@ -16,8 +16,9 @@ comparisons are bit-exact. So are the f32 modes' split pre-pass and the
 probes of imageanalysis_tpu_torch/probes on integer-valued inputs (the
 staged K1, the FFMA bf16 and f32 and __dp4a int8 bodies, the tensor-core
 body's product-only stage and its row minimum at every tile of P6's
-sweep, P3's stages on it, P2's single-launch K1 + K4, P5's mma.sync row
-sums, P1's one-hot gather of bf16 values and its first body). Bundle adjustment
+sweep, P3's and P4's stages on it, P2's single-launch K1 + K4, P5's
+wgmma row sums and their mma.sync first body, P1's one-hot gather of bf16
+values and its first body). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums).
 """
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from imageanalysis_tpu_torch import _build
 from imageanalysis_tpu_torch.features import sift
 from imageanalysis_tpu_torch.match import matcher
 from imageanalysis_tpu_torch.ops import knn
@@ -760,11 +762,12 @@ def test_fused_probe_equals_knn_match_fused(cuda, rng, variant):
 
 
 def test_mm_rowsum_bit_exact_on_integers(cuda):
-    """Integer values in [-2, 2]: every sum below 2^24 is exact in any
+    """The first body (mm_rowsum_v0_raw), the wgmma kernel's yardstick:
+    integer values in [-2, 2], every sum below 2^24 is exact in any
     order, at every tile and split; normal values within 1e-5 of the
     largest sum."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    before = mma.LAUNCHES["mm_rowsum"]
+    before = mma.LAUNCHES["mm_rowsum_v0"]
     n = 0
     for K in mma.K_SWEEP:
         x = torch.randint(-2, 3, (2, 256, K), generator=gen,
@@ -772,18 +775,78 @@ def test_mm_rowsum_bit_exact_on_integers(cuda):
         y = torch.randint(-2, 3, (2, 512, K), generator=gen,
                           device=cuda).bfloat16()
         want = mma.mm_rowsum_plain(x, y)
-        for tile in mma.TILES:
+        for tile in mma.V0_TILES:
             for split in (1, 3):
-                got = mma.mm_rowsum_raw(x, y, tile, split)
+                got = mma.mm_rowsum_v0_raw(x, y, tile, split)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (K, tile, split)
                 n += 1
     x = torch.randn((1, 512, 128), generator=gen, device=cuda).bfloat16()
     y = torch.randn((1, 1024, 128), generator=gen, device=cuda).bfloat16()
     want = mma.mm_rowsum_plain(x, y)
-    got = mma.mm_rowsum_raw(x, y)
+    got = mma.mm_rowsum_v0_raw(x, y)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    assert mma.LAUNCHES["mm_rowsum"] == before + n + 1
+    assert mma.LAUNCHES["mm_rowsum_v0"] == before + n + 1
+
+
+def test_mm_rowsum_wgmma_bit_exact_on_integers(cuda):
+    """The wgmma kernel (mm_rowsum_raw): first one small matrix (1 x 256 x
+    256 x 64: one block, one chunk); then integer values in [-2, 2] at
+    every K of the sweep and K = 192 (three chunks; K = 512 takes two or
+    three passes of A at BM = 256), every tile and splits 1, 2 and 4 (N =
+    1024: 4 to 16 B tiles), every sum below 2^24, so exact in any order;
+    normal values within 1e-5 of the largest sum at bench's K; one launch
+    counted a call; one block an SM and a ring of at least 4 stages at
+    every tile."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = mma.LAUNCHES["mm_rowsum_wg"]
+    x = torch.randint(-2, 3, (1, 256, 64), generator=gen,
+                      device=cuda).bfloat16()
+    got = mma.mm_rowsum_raw(x, x, (256, 64), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mma.mm_rowsum_plain(x, x))
+    n = 1
+    for K in (*mma.K_SWEEP, 192):
+        x = torch.randint(-2, 3, (2, 512, K), generator=gen,
+                          device=cuda).bfloat16()
+        y = torch.randint(-2, 3, (2, 1024, K), generator=gen,
+                          device=cuda).bfloat16()
+        want = mma.mm_rowsum_plain(x, y)
+        for tile in mma.TILES:
+            for split in (1, 2, 4):
+                got = mma.mm_rowsum_raw(x, y, tile, split)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (K, tile, split)
+                n += 1
+    x = torch.randn((2, 512, 128), generator=gen, device=cuda).bfloat16()
+    y = torch.randn((2, 1024, 128), generator=gen, device=cuda).bfloat16()
+    want = mma.mm_rowsum_plain(x, y)
+    for tile in mma.TILES:
+        got = mma.mm_rowsum_raw(x, y, tile)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max()), tile
+        n += 1
+    assert mma.LAUNCHES["mm_rowsum_wg"] == before + n
+    for tile in mma.TILES:
+        plan = mma.wg_plan(tile, 512)
+        assert plan["blocks_per_sm"] == 1 and plan["stages"] >= 4, plan
+
+
+def test_mm_rowsum_wgmma_sass_is_hgmma_and_tma(cuda):
+    """Every instantiation of the wgmma kernel runs its products as HGMMA
+    (no mma.sync HMMA) and loads by TMA (UTMALDG), with mbarrier (SYNCS)
+    and warpgroup (WARPGROUP) instructions; the first body is HMMA."""
+    seen = 0
+    for name, lines in _build.sass().items():
+        c = _build.opcode_counts(lines)
+        if "mm_rowsum_wg_kernel" in name:
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, (
+                name, c)
+            assert c["SYNCS"] > 0 and c["WARPGROUP"] > 0, (name, c)
+            seen += 1
+        elif "mm_rowsum_kernel" in name:
+            assert c["HMMA"] > 0 and c["HGMMA"] == 0, (name, c)
+    assert seen == len(mma.TILES)
 
 
 @pytest.mark.parametrize("T,N", [(16, 1024), (128, 1024), (16, 6144),
@@ -820,6 +883,31 @@ def test_onehot_gather_bit_exact_vs_bf16_plain(cuda, rng, T, N):
     # one kernel a call: the profiler sees onehot_gather_kernel alone
     names = list(device_kernels(lambda: mma.onehot_gather_raw(j, vals)))
     assert len(names) == 1 and "onehot_gather_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_p4_tensor_core_route_equals_old_route(cuda, rng, dtype):
+    """P4's four stages on the tensor-core body (p4_stage_raw, body "tc":
+    tc_row_sum and tc_stage) equal the old bodies' (body "old") and
+    their plain versions on integer rows, and stage 3 equals K1
+    (knn_packed_raw); one tensor-core launch counted a stage."""
+    a, b = (t.to(cuda) for t in _planted(rng, 3, 256, 704, 64, True))
+    args = (a, b, None, None) if dtype == torch.int8 else \
+        _float_inputs(a, b, torch.bfloat16)
+    keys = ("knn_tc_row_sum", "knn_tc_stage")
+    before = {k: knn_stages.LAUNCHES[k] for k in keys}
+    for stage in knn_stages.P4_TC_STAGES:
+        got = knn_stages.p4_stage_raw(*args, stage=stage)
+        old = knn_stages.p4_stage_raw(*args, stage=stage, body="old")
+        want = knn_stages.p4_stage_plain(*args, stage=stage)
+        torch.cuda.synchronize()
+        for g, o, w in zip(got, old, want):
+            assert torch.equal(g, o) and torch.equal(g, w), stage
+    k1 = knn.knn_packed_raw(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, k1))
+    assert {k: knn_stages.LAUNCHES[k] - before[k] for k in keys} == {
+        "knn_tc_row_sum": 1, "knn_tc_stage": 3}
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],

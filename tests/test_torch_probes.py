@@ -107,7 +107,9 @@ def _reference_rows(pl, fn, ai, bi, with_col):
 @pytest.mark.parametrize("stage", [0, 1, 2, 3, "tc_row_sum"])
 def test_p4_stage_plain_equals_reference(stage):
     """knn_stage_cost's stages (TA = 64, TB = n) against the port's
-    stages row_sum, top1, top2 and full; stage 0 also against the
+    stages row_sum, top1, top2 and full on both routes: the old bodies'
+    (P4_STAGES, knn_probe_plain) and the tensor-core body's (P4_TC_STAGES:
+    tc_row_sum_plain, tc_stage_plain); stage 0 also against the
     tensor-core body's product-only stage (its wrapper on the CPU)."""
     tc = stage == "tc_row_sum"
     stage = 0 if tc else stage
@@ -115,13 +117,23 @@ def test_p4_stage_plain_equals_reference(stage):
                    TA=TA, TB=N)
     ai, bi, _, _ = _int8_pairs(stage)
     row, col = _reference_rows(pl, ns["make"](stage), ai, bi, stage == 3)
-    got_row, got_col = (knn_stages.tc_row_sum_raw(_t(ai), _t(bi)) if tc
-                        else knn_stages.knn_probe_plain(
-                            _t(ai), _t(bi),
-                            stage=knn_stages.P4_STAGES[stage]))
-    np.testing.assert_array_equal(got_row.numpy(), row)
-    if stage == 3:
-        np.testing.assert_array_equal(got_col.numpy(), col)
+    if tc:
+        routes = [knn_stages.tc_row_sum_raw(_t(ai), _t(bi))]
+    else:
+        routes = [knn_stages.knn_probe_plain(
+            _t(ai), _t(bi), stage=knn_stages.P4_STAGES[stage])] + [
+            knn_stages.p4_stage_plain(_t(ai), _t(bi), stage=stage,
+                                      body=body)
+            for body in knn_stages.P4_BODIES]
+        card, route = knn_stages.P4_TC_STAGES[stage]
+        want = (knn_stages.tc_row_sum_plain(_t(ai), _t(bi))
+                if route == "tc_row_sum" else knn_stages.tc_stage_plain(
+                    _t(ai), _t(bi), stage=card))
+        assert all(torch.equal(g, w) for g, w in zip(routes[1], want))
+    for got_row, got_col in routes:
+        np.testing.assert_array_equal(got_row.numpy(), row)
+        if stage == 3:
+            np.testing.assert_array_equal(got_col.numpy(), col)
 
 
 @pytest.mark.parametrize("body", ["old", "tc"])
@@ -217,6 +229,39 @@ def test_p5_plain_equals_reference(kind, K):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=1e-5 * np.abs(want).max())
+
+
+def test_p5_tiles_keep_the_tpu_points_order_of_area():
+    """The TPU probe's four (ta, tb) points land on the wgmma kernel's
+    four tiles in the same order of growing area (ties kept in order); the
+    first body keeps its own map onto its tiles; mm_rowsum_raw takes the
+    plain version on the CPU at each tile."""
+    def area(t):
+        return t[0] * t[1]
+    tpu = sorted(mma.P5_TILES, key=area)
+    assert [mma.P5_TILES[t] for t in tpu] == sorted(mma.TILES, key=area)
+    assert sorted(mma.P5_TILES.values()) == sorted(mma.TILES)
+    assert set(mma.P5_V0_TILES) == set(mma.P5_TILES)
+    assert sorted(mma.P5_V0_TILES.values()) == sorted(mma.V0_TILES)
+    assert mma.DEFAULT_TILE in mma.TILES
+    rng = np.random.default_rng(5)
+    x = _t(rng.integers(-2, 3, (2, 256, 64)).astype(np.float32)).bfloat16()
+    y = _t(rng.integers(-2, 3, (2, 512, 64)).astype(np.float32)).bfloat16()
+    want = mma.mm_rowsum_plain(x, y)
+    for tile in mma.TILES:
+        assert torch.equal(mma.mm_rowsum_raw(x, y, tile), want)
+
+
+@pytest.mark.parametrize("blocks,n_tiles,a_tiles,want", [
+    (1536, 48, 2, 1), (24, 48, 2, 5), (48, 48, 1, 8), (24, 24, 1, 5)])
+def test_p5_split_fills_the_card_by_waves(blocks, n_tiles, a_tiles, want):
+    """mm_rowsum_raw's default split on 132 SMs: none at bench's batch
+    (1536 blocks of (256, 128)); one matrix (24 or 48 A blocks) split so
+    that waves × (B tiles a block + A's load in B tiles) is least."""
+    assert mma.best_split(blocks, n_tiles, 132, a_tiles) == want
+    cost = [-(-blocks * s // 132) * (-(-n_tiles // s) + a_tiles)
+            for s in range(1, n_tiles + 1)]
+    assert cost[want - 1] == min(cost)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
@@ -414,6 +459,24 @@ def test_probe_wrappers_refuse_what_they_do_not_take():
         mma.mm_rowsum_raw(mb, mb)
     with pytest.raises(ValueError, match="bf16"):
         mma.mm_rowsum_raw(c8.float(), c8.float())
+    # the wgmma wrapper's rules hold on the CPU too: a tile of the first
+    # body only, K off 64, M off BM, a type other than bf16
+    x = torch.zeros((1, 256, 128), dtype=torch.bfloat16)
+    for tile in set(mma.V0_TILES) - set(mma.TILES):
+        with pytest.raises(ValueError, match="tile"):
+            mma.mm_rowsum_raw(x, x, tile)
+        assert torch.equal(mma.mm_rowsum_v0_raw(x, x, tile),
+                           mma.mm_rowsum_plain(x, x))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mma.mm_rowsum_raw(x[:, :, :96], x[:, :, :96])
+    with pytest.raises(ValueError, match="tile"):
+        mma.mm_rowsum_raw(x[:, :128], x, (256, 128))
+    with pytest.raises(ValueError, match="bf16"):
+        mma.mm_rowsum_raw(x.half(), x.half())
+    with pytest.raises(ValueError, match="P4 stage"):
+        knn_stages.p4_stage_raw(c8, c8, stage=4)
+    with pytest.raises(ValueError, match="P4 stage"):
+        knn_stages.p4_stage_raw(c8, c8, stage=0, body="dp4a")
     with pytest.raises(ValueError, match="precision"):
         mma.onehot_gather_raw(torch.zeros(16, dtype=torch.int32),
                               torch.zeros((3, 64)), "f16")
