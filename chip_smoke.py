@@ -90,9 +90,12 @@ non-zero:
     one-hot gather in one launch and
     its first body (both bit-exact with the bf16 plain version, per-limb
     errors against f32; in turns, kernel and whole-call device time and
-    CUDA events, beside index_select); P2's single-launch K1 + K4 against
-    knn_match_fused on all 64 pairs. Each probe is driven on its own, its
-    counts set to 0 before and read after.
+    CUDA events, beside index_select); P2's single-launch K1 + K4 on the
+    tensor-core body and on its __dp4a first body, each against
+    knn_match_fused on all 64 pairs, every variant in turns (device time
+    of a call and CUDA events; registers, spills and blocks an SM). Each
+    probe is driven on its own, its counts set to 0 before and read
+    after.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -2027,38 +2030,123 @@ def run_gather():
             {"onehot_gather": counts.get("onehot_gather", 0)})
 
 
+def fused_usage():
+    """ptxas's (registers, spill stores, spill loads) of P2's tensor-core
+    instantiations (kFused and its flags: modes 16-31), by "int8 MODE BM
+    BN STAGES"; empty when the library was already built."""
+    return {k: v for k, v in _build.tc_kernel_usage().items()
+            if 16 <= int(k.split()[1]) < 32}
+
+
 def run_fused(a, b, uv_b):
-    """P2: K1 + K4 in one launch on bench's workload; full, epi32 and t64
-    equal the port's knn_match_fused (two launches) on all 64 pairs, nopb
-    its bj and ok; noepi and nomain are timed only."""
+    """P2: K1 + K4 in one launch on bench's workload, on the tensor-core
+    body and on the old __dp4a body. full, nopb, epi32 and t64 on either
+    equal the port's knn_match_fused (two launches) on all 64 pairs (bj,
+    ok, and pb where COMPARED says so), every pair's counter back at 0
+    after each launch; full on the tensor cores equals its plain version on
+    the first pairs; noepi and nomain are timed only. Every variant in
+    turns with the old body's (tc, old, old, tc; full with knn_match_fused
+    between): the profiler's device time of every kernel a call launches,
+    and CUDA events. Logs the new instantiations' registers, spills and
+    blocks an SM."""
     want = knn.knn_match_fused(a, b, uv_b, 0.75)
-    for v, (c_bj, c_ok, c_pb) in fused.COMPARED.items():
-        got = fused.fused_probe_raw(a, b, uv_b, v)
-        pairs = [(got[0], want[0])] * c_bj + \
-            [(got[1].bool(), want[1])] * c_ok + [(got[2], want[2])] * c_pb
-        check_equal(f"knn_fused_probe {v} against knn_match_fused",
-                    [g for g, _ in pairs], [w for _, w in pairs])
+    for body in fused.BODIES:
+        for v, (c_bj, c_ok, c_pb) in fused.COMPARED.items():
+            got = fused.fused_probe_raw(a, b, uv_b, v, body)
+            pairs = [(got[0], want[0])] * c_bj + \
+                [(got[1].bool(), want[1])] * c_ok + [(got[2], want[2])] * c_pb
+            check_equal(f"knn_fused_probe {v} ({body} body) against "
+                        f"knn_match_fused", [g for g, _ in pairs],
+                        [w for _, w in pairs])
+            counter = fused._COUNTERS[(a.device, len(a))]
+            if int(counter.abs().sum()):
+                raise AssertionError(f"knn_fused_probe {v} ({body} body) "
+                                     f"left its counters at "
+                                     f"{counter.tolist()}")
     p = PROBE_PLAIN_PAIRS
     check_equal("knn_fused_probe full against its plain version",
                 [x[:p] for x in fused.fused_probe_raw(a, b, uv_b)],
                 fused.fused_probe_plain(a[:p], b[:p], uv_b[:p]))
+    usage = fused_usage()
+    blocks = {v: fused.fused_probe_blocks(v) for v in ("full", "t64")}
+    log(f"[P2] both bodies equal knn_match_fused on all {len(a)} pairs "
+        f"(full, nopb, epi32, t64), counters back at 0; tensor-core "
+        f"instantiations, ptxas (registers, spill stores, spill loads): "
+        f"{usage}; blocks an SM: {blocks}")
+    if any(r > 128 or st or ld for k, (r, st, ld) in usage.items()
+           if k.split()[2] == "128") or blocks["full"] != 2:
+        raise AssertionError(f"P2's tensor-core kernel at BM 128 must "
+                             f"hold two blocks an SM without spills: "
+                             f"{usage}, {blocks}")
+    extra = {"two_launch": lambda: knn.knn_match_fused(a, b, uv_b, 0.75),
+             "tc_noepi": lambda: fused.fused_probe_raw(a, b, uv_b, "noepi")}
 
     def sweep():
-        return {v: time_ms(lambda: fused.fused_probe_raw(a, b, uv_b, v), 3)
-                for v in fused.VARIANTS}
-    res, counts = drive("P2", sweep)
-    two = [time_ms(lambda: knn.knn_match_fused(a, b, uv_b, 0.75), 3)
-           for _ in "ab"]
-    log("[P2] single launch, ms: " + json.dumps(
-        {k: round(v, 3) for k, v in res.items()}) + f"; K1 then K4 "
-        f"(knn_match_fused) {two[0]:.3f} / {two[1]:.3f} ms; full, epi32 "
-        f"and t64 equal to it on all {len(a)} pairs")
+        t = {}
+        for v in fused.VARIANTS:
+            calls = {body: (lambda body=body: fused.fused_probe_raw(
+                a, b, uv_b, v, body)) for body in fused.BODIES}
+            order = ("tc", "old", "old", "tc")
+            if v == "full":     # with K1 then K4, and full less its tail
+                calls.update(extra)
+                order = ("tc", "tc_noepi", "two_launch", "old", "old",
+                         "two_launch", "tc_noepi", "tc")
+            t[v] = {k: {"device": [], "events": [], "kernels": []}
+                    for k in calls}
+            for k in order:
+                per = probes.device_kernels(calls[k])
+                t[v][k]["device"].append(sum(per.values()))
+                t[v][k]["kernels"].append(per)
+                t[v][k]["events"].append(time_ms(calls[k], 3))
+        return t
+    t, counts = drive("P2", sweep)
+    mean = {v: {k: {m: float(np.mean(x[m])) for m in ("device", "events")}
+                for k, x in tv.items()} for v, tv in t.items()}
+    for v, tv in t.items():
+        log(f"[P2] {v} in turns, ms, device time of a call / CUDA events: "
+            + "; ".join(f"{k} {x['device'][0]:.3f} / {x['device'][1]:.3f}, "
+                        f"{x['events'][0]:.3f} / {x['events'][1]:.3f}"
+                        for k, x in tv.items()))
+    kernels = {k: {name: float(np.mean([per.get(name, 0.0)
+                                        for per in x["kernels"]]))
+                   for name in x["kernels"][0]}
+               for k, x in t["full"].items()}
+    log(f"[P2] full, each kernel of a call, device ms, mean of the turns: "
+        f"{json.dumps(kernels)}")
+
+    def kernel_ms(k, name):
+        return sum(ms for kn, ms in kernels[k].items() if name in kn)
+    split = {"kernel_ms": kernel_ms("tc", "knn_tc_kernel"),
+             "noepi_kernel_ms": kernel_ms("tc_noepi", "knn_tc_kernel"),
+             "k1_ms": kernel_ms("two_launch", "knn_tc_kernel"),
+             "k4_ms": kernel_ms("two_launch", "match_epilogue_kernel"),
+             "was_kernel_ms": kernel_ms("old", "knn_fused_probe_kernel")}
+    full = mean["full"]
+    log(f"[P2] full: tensor cores {full['tc']['device']:.3f} ms against "
+        f"K1 then K4 {full['two_launch']['device']:.3f} "
+        f"({full['two_launch']['device'] / full['tc']['device']:.3f}x) and "
+        f"the old body {full['old']['device']:.3f} "
+        f"({full['old']['device'] / full['tc']['device']:.2f}x); kernels "
+        f"alone, ms: {json.dumps(split)}")
     pairs, n = a.shape[:2]
-    r = {"max_abs_err": 0.0, "ms": res["full"],
+    r = {"max_abs_err": 0.0, "ms": full["tc"]["device"],
+         "event_ms": full["tc"]["events"], "was_ms": full["old"]["device"],
+         "was_event_ms": full["old"]["events"],
+         "two_launch_ms": full["two_launch"]["device"],
+         "kernels_a_call": {k: len(x) for k, x in kernels.items()},
+         **split,
+         "variants": {v: {"ms": m["tc"]["device"],
+                          "was_ms": m["old"]["device"],
+                          "event_ms": m["tc"]["events"],
+                          "was_event_ms": m["old"]["events"]}
+                      for v, m in mean.items()},
+         "was_launches": counts.get("knn_fused_probe_v0", 0),
+         "timed_by": "profiler device time, every kernel of a call",
          "plain_ms": time_ms(lambda: fused.fused_probe_plain(a, b, uv_b), 1)}
     # a, b and uv_b read once; bj, ok (int32) and pb written once
-    return with_bound(r, pairs * n * (2 * 128 + 8 + 4 + 4 + 8),
-                      {"int8": 2 * pairs * n * n * 128}), counts
+    return (with_bound(r, pairs * n * (2 * 128 + 8 + 4 + 4 + 8),
+                       {"int8": 2 * pairs * n * n * 128}),
+            {"knn_fused_probe": counts.get("knn_fused_probe", 0)})
 
 
 def run_probes():
@@ -2173,6 +2261,10 @@ def main():
                                          "was_call_device_ms",
                                          "was_event_ms",
                                          "was_kernels_a_call", "variants",
+                                         "two_launch_ms", "kernels_a_call",
+                                         "was_launches", "kernel_ms",
+                                         "noepi_kernel_ms", "k1_ms",
+                                         "k4_ms", "was_kernel_ms",
                                          "stages", "was_tile",
                                          "sweep")
                        if k in r})

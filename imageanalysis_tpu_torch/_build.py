@@ -81,10 +81,13 @@ _SIGNATURES = {
     # a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b, dtype (0 int8,
     # 1 bf16), stage, stream
     "knn_tc_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, n_pairs, n, tile_a,
-    # epi_threads, do_main, do_epi, do_pb, stream
-    "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _P],
+    # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, norms, n_pairs, n,
+    # tile_a, epi_threads, do_main, do_epi, do_pb, body (1 tensor cores,
+    # 0 __dp4a), stream
+    "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P],
+    # tile_a
+    "knn_fused_probe_blocks": [_I],
     # a, b, out, batch, M, N, K, bm, bn, n_split, stream
     "mm_rowsum_bf16_wg": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mm_rowsum_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -6,16 +6,16 @@
 //                      planes, each plain and gated) and of K3 (bf16,
 //                      f32), mma.sync on the tensor cores (knn_tc.cuh,
 //                      included at the end of this file); P6's row-min
-//                      sweep and P3's stages
+//                      sweep, P3's stages and P2's single launch
 //   knn_float_kernel   f32 FMAs on bf16 or f32 descriptors: the
 //                      tensor-core body's f32 and bf16 yardsticks (K1's
 //                      modes and K3's) and bf16 for the probes of K1's
 //                      anatomy (knn_probe.cu); K1 and K3 no longer launch
 //                      it
 //   knn_i8_block       int8 descriptors, __dp4a: the probes' int8 anatomy
-//                      (knn_probe.cu, knn_fused_probe.cu) and the
-//                      tensor-core body's int8 yardstick; K1 no longer
-//                      launches it
+//                      (knn_probe.cu), the tensor-core body's int8
+//                      yardstick and P2's first body (knn_fused_probe.cu);
+//                      K1 no longer launches it
 //
 // What bounds them on the H100: the product. An int8 pair of 6144 rows is
 // 9.7 G multiply-adds over 1.6 MB; the card's int8 and bf16 rates are only
@@ -78,15 +78,27 @@ constexpr int kLds8 = kWords + 1;   // padded shared row: conflict-free reads
 // and kProductTop2: kPacked's d2 and keys with only part of its epilogue
 // (P3's stages on the tensor-core body): the row top-1; the row top-2
 // restarted at every B tile (the last tile's); the running row top-2. The
-// three leave the column minimum out and col_p alone.
+// three leave the column minimum out and col_p alone. kFused (P2,
+// knn_fused_probe.cu only): kPacked on int8 with a tail where the row
+// keys leave the block, the pb gather and K4's epilogue (knn_tc.cuh);
+// the TPU probe's variants are flags added to it.
 enum Mode {
   kPacked = 0, kPackedGated = 1, kWide = 2, kProductRowSum = 3,
   kProductRowMin = 4, kProductTop1 = 5, kProductTop2Tile = 6,
-  kProductTop2 = 7
+  kProductTop2 = 7, kFused = 16
 };
-// the modes that compute keys (K1's and K3's), not the probes' reductions
+enum FusedFlag {
+  kFusedNoPb = 1, kFusedNoEpi = 2, kFusedNoMain = 4,
+  kFusedEpiHalf = 8                 // the epilogue on half the block
+};
+__host__ __device__ constexpr bool fused(int mode) {
+  return (mode & ~15) == kFused;
+}
+// the modes that compute keys (K1's and K3's, P2's), not the probes'
+// reductions
 __host__ __device__ constexpr bool keyed(int mode) {
-  return mode == kPacked || mode == kPackedGated || mode == kWide;
+  return mode == kPacked || mode == kPackedGated || mode == kWide ||
+         fused(mode);
 }
 // the probes' modes with K1's packed row keys, and no column
 __host__ __device__ constexpr bool row_keyed(int mode) {

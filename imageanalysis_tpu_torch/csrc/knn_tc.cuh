@@ -10,13 +10,18 @@
 // and keys with the row top-1 only (kProductTop1), the row top-2 of the
 // last B tile (kProductTop2Tile: restarted at every tile) or the running
 // row top-2 (kProductTop2), each without the column minimum: with
-// kProductRowMin and kPacked, P3's five stages on this body.
+// kProductRowMin and kPacked, P3's five stages on this body. P2's single
+// launch of K1 + K4 (knn_fused_probe.cu) is kPacked on int8 with a tail
+// (kFused, below): where a row's keys leave the block, the thread that
+// stores them writes pb from the best index it holds, and the pair's last
+// block to finish runs K4's epilogue on every row of the pair.
 //
 // Replaces, for bf16, int8 and f32 descriptors:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, every dot)
 //   scripts_dev/knn_overhead_sweep.py:36 kernel          (P6, row min)
 //   scripts_dev/knn_culprit_bisect.py:42 kernel          (P3, K1 built up)
+//   scripts_dev/fused_vmem_probe.py:26 kern              (P2, K1 + K4)
 //
 // What bounds it on the H100: the product, 2 n_a n_b 128 operations a
 // pair, at the tensor cores' rate (989 TFLOP/s bf16, 1,979 TOP/s int8;
@@ -249,6 +254,80 @@ __device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
   mma_sync::mma_s8(c, a[0], a[1], a[2], a[3], b0, b1);
 }
 
+// blockIdx.y, read where it is used: pair-derived addresses that the
+// compiler would otherwise compute before the sweep over B and hold through
+// it spill at the 128-register bound (P2's pb gather: 8 bytes)
+__device__ __forceinline__ int ctaid_y() {
+  int y;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  return y;
+}
+
+// K4's epilogue over one pair's n rows at ratio 0.75 (ratio2 = 0.5625,
+// as the TPU probe hard-codes), by the last block of the pair to finish:
+// bj[i] = j, ok[i] = max(d1, 0) < 0.5625 * max(d2, 0) && j < n &&
+// col_p[j] & 0x1FFF == i (int32 0/1). row_p, col_p, bj and ok start at
+// the pair, counter is the pair's. The TPU ran the epilogue at grid step
+// n / tile_a, after every A tile: its grid was sequential. Here blocks run
+// in any order, and col_p is final only after the pair's last block. So
+// every block fences its writes (__threadfence), and one thread adds one
+// to the pair's counter; the block that sees gridDim.x - 1 is the pair's
+// last, reads row_p and col_p through L2 (__ldcg: another block's atomics
+// and stores, never a stale L1 line), runs the epilogue on EPI_THREADS
+// threads, then sets the counter back to 0 for the next launch. No
+// grid-wide barrier: 48 blocks x 64 pairs are more than can be resident
+// at once, and a cooperative grid.sync() would deadlock.
+template <int EPI_THREADS>
+__device__ __forceinline__ void last_block_epilogue(const int* row_p,
+                                                    const int* col_p,
+                                                    int* counter, int* bj,
+                                                    int* ok, int n) {
+  constexpr float kRatio2 = 0.5625f;
+  const int tid = threadIdx.x;
+  __shared__ bool last;
+  __threadfence();                  // row_p, col_p, pb before the count
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < EPI_THREADS) {
+    const int2* rows = reinterpret_cast<const int2*>(row_p);
+    for (int i = tid; i < n; i += EPI_THREADS) {
+      const int2 k = __ldcg(rows + i);
+      const int j = k.x & kIdxMask;
+      float d1 = __int_as_float(k.x & ~kIdxMask);
+      float d2 = __int_as_float(k.y & ~kIdxMask);
+      d1 = d1 < 0.0f ? 0.0f : d1;   // keeps a NaN, as K4
+      d2 = d2 < 0.0f ? 0.0f : d2;
+      bool good = d1 < __fmul_rn(kRatio2, d2);
+      good = good && j < n && (__ldcg(col_p + j) & kIdxMask) == i;
+      bj[i] = j;
+      ok[i] = good ? 1 : 0;
+    }
+  }
+  if (tid == 0) *counter = 0;       // ready for the next launch
+}
+
+// kFused's epilogue from the kernel's arguments: kFused carries its extra
+// pointers in those that int8 kPacked leaves unused, so that adding it
+// changes no other instantiation (their parameters, names and code stay):
+// the pairs' counters in uv_a, uv_b (n_pairs, n, 2) f32 in pred_b, pb
+// (n_pairs, n, 2) f32 in row_k, and bj then ok, one (2, n_pairs, n) int32
+// buffer, in col_k.
+template <int MODE>
+__device__ __forceinline__ void fused_epilogue(const int* row_p,
+                                               const int* col_p,
+                                               const float* uv_a,
+                                               long long* col_k, int n) {
+  const size_t base = (size_t)blockIdx.y * n;
+  int* bj = reinterpret_cast<int*>(col_k) + base;
+  last_block_epilogue<MODE & kFusedEpiHalf ? kThreads / 2 : kThreads>(
+      row_p + 2 * base, col_p + base,
+      const_cast<int*>(reinterpret_cast<const int*>(uv_a)) + blockIdx.y, bj,
+      bj + (size_t)gridDim.y * n, n);
+}
+
 // One block: BM A rows (blockIdx.x) of one pair (blockIdx.y) against all
 // n_b B rows. Outputs as knn_float_kernel's full stage: K1's row_p /
 // col_p (col_p pre-filled with 0x7FFFFFFF) or K3's row_k / col_k
@@ -256,7 +335,8 @@ __device__ __forceinline__ void mma(int* c, const unsigned* a, unsigned b0,
 // sum of its dots, kProductRowMin its minimum dot (as an int) and
 // kProductTop1 its smallest key into both slots of row_p, kProductTop2Tile
 // and kProductTop2 their two smallest keys; the probes' modes leave col_p
-// alone.
+// alone. kFused (n_a == n_b) writes K1's row_p and col_p, then (flags
+// off) pb and K4's bj and ok, through fused_epilogue's pointers.
 template <typename T, int MODE, int BM, int BN = Op<T>::kBN,
           int STAGES = kStages>
 __global__ void __launch_bounds__(kThreads,
@@ -296,6 +376,11 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   static_assert(kThreads == 256 && NT % 2 == 0, "8 warps, n8 tiles in pairs");
   static_assert(BN % 64 == 0 && STAGES >= 2, "B tiles of 64-row multiples");
   static_assert(MODE != kWide || !kInt8, "K3 takes bf16 or f32");
+  static_assert(!fused(MODE) || kInt8, "P2 takes int8");
+  if constexpr (fused(MODE) && (MODE & kFusedNoMain)) {
+    fused_epilogue<MODE>(row_p, col_p, uv_a, col_k, n_b);   // P2's nomain
+    return;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T, BM, BN, STAGES>& s =
       *reinterpret_cast<Smem<T, BM, BN, STAGES>*>(smem_raw);
@@ -619,8 +704,18 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
     } else {
       row_p[r] = k1;
       row_p[r + 1] = kTwoKeys ? k2 : k1;
+      // P2's pb from the best index this thread holds, not re-read from
+      // row_p: uv_b in pred_b, pb in row_k (fused_epilogue); int offsets,
+      // below 65535 x 8192
+      if constexpr (fused(MODE) && !(MODE & kFusedNoPb)) {
+        const int p = ctaid_y();
+        reinterpret_cast<float2*>(row_k)[p * n_a + a0 + tid] =
+            reinterpret_cast<const float2*>(pred_b)[p * n_b + (k1 & kIdxMask)];
+      }
     }
   }
+  if constexpr (fused(MODE) && !(MODE & kFusedNoEpi))
+    fused_epilogue<MODE>(row_p, col_p, uv_a, col_k, n_b);
 }
 
 // The kernel's dynamic shared memory: above 48 KB only after this opt-in

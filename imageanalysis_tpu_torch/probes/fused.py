@@ -11,6 +11,12 @@ counter. Returns (bj (B, n) int32, ok (B, n) int32 0/1, pb (B, n, 2) f32):
 with every part on they equal ``knn_match_fused(a, b, uv_b, 0.75)`` on
 int8 ungated inputs (ok as int32).
 
+Two bodies (``body``): ``"tc"``, the default, is the tensor-core body K1
+runs (``csrc/knn_tc.cuh``, mode ``kFused``: K1's norm pre-pass, then one
+kernel; the row's pb picked from its keys in registers); ``"old"`` is the
+first body on ``__dp4a`` (``knn_fused_probe_v0`` in ``LAUNCHES``), kept as
+its yardstick. Variants map to both alike; TA is the tensor-core body's BM.
+
 The TPU probe's cases, as card variants (TA A rows per block; the
 epilogue's rows per step):
 
@@ -22,7 +28,7 @@ variant     TPU (tile_a, tile_e, main, epi, pb)    card
 ``noepi``   (128, 64, on, off, on)                 bj, ok not written
 ``nomain``  (128, 64, off, on, on)                 K1 part skipped
 ``epi32``   (128, 32, on, on, on)                  epilogue on 128 threads
-``t64``     (64, 64, on, on, on)                   TA 64 (K1's tile)
+``t64``     (64, 64, on, on, on)                   TA 64
 ==========  =====================================  ==================
 
 ``noepi`` and ``nomain`` leave outputs undefined on the card (the TPU's
@@ -54,7 +60,9 @@ COMPARED = {"full": (True, True, True), "nopb": (True, True, False),
             "noepi": (False, False, False), "nomain": (False, False, False),
             "epi32": (True, True, True), "t64": (True, True, True)}
 
-LAUNCHES = {"knn_fused_probe": 0}
+# body → (the C entry's selector, its count in LAUNCHES)
+BODIES = {"tc": (1, "knn_fused_probe"), "old": (0, "knn_fused_probe_v0")}
+LAUNCHES = {count: 0 for _, count in BODIES.values()}
 # per-pair completion counters, by (device, pairs): zeroed once, and left
 # at zero by every launch that runs the epilogue
 _COUNTERS = {}
@@ -99,14 +107,17 @@ def fused_probe_plain(a, b, uv_b, variant="full"):
     return bj, ok, pb
 
 
-def fused_probe_raw(a, b, uv_b, variant="full"):
-    """The single-launch kernel on a CUDA tensor, fused_probe_plain on a
-    CPU tensor; raises on any other device."""
+def fused_probe_raw(a, b, uv_b, variant="full", body="tc"):
+    """The single-launch kernel (body "tc" or "old") on a CUDA tensor,
+    fused_probe_plain on a CPU tensor; raises on any other device."""
+    if body not in BODIES:
+        raise ValueError(f"fused_probe_raw: body is one of {sorted(BODIES)}")
     dev = _check(a, b, uv_b, variant, "fused_probe_raw")
     if dev.type == "cpu":
         return fused_probe_plain(a, b, uv_b, variant)
     check_launchable((a, b, uv_b), "fused_probe_raw")
     cfg = VARIANTS[variant]
+    selector, count = BODIES[body]
     B, n, _ = a.shape
     key = (dev, B)
     if key not in _COUNTERS:
@@ -114,16 +125,31 @@ def fused_probe_raw(a, b, uv_b, variant="full"):
     lib = _build.load()
     row_p = torch.empty((B, n, 2), dtype=torch.int32, device=dev)
     col_p = torch.full((B, n), knn._KEY_MAX, dtype=torch.int32, device=dev)
-    bj = torch.empty((B, n), dtype=torch.int32, device=dev)
-    ok = torch.empty((B, n), dtype=torch.int32, device=dev)
+    bj, ok = torch.empty((2, B, n), dtype=torch.int32, device=dev)
     pb = torch.empty((B, n, 2), dtype=torch.float32, device=dev)
+    # the tensor-core body's squared norms of a and b (K1's pre-pass)
+    norms = torch.empty((2, B, n) if body == "tc" else 0,
+                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.knn_fused_probe(
             a.data_ptr(), b.data_ptr(), uv_b.data_ptr(), row_p.data_ptr(),
             col_p.data_ptr(), _COUNTERS[key].data_ptr(), bj.data_ptr(),
-            ok.data_ptr(), pb.data_ptr(), B, n, cfg["tile_a"],
-            cfg["epi_threads"], int(cfg["main"]), int(cfg["epi"]),
-            int(cfg["pb"]), torch.cuda.current_stream(dev).cuda_stream)
+            ok.data_ptr(), pb.data_ptr(), norms.data_ptr(), B, n,
+            cfg["tile_a"], cfg["epi_threads"], int(cfg["main"]),
+            int(cfg["epi"]), int(cfg["pb"]), selector,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_fused_probe")
-    LAUNCHES["knn_fused_probe"] += 1
+    LAUNCHES[count] += 1
     return bj, ok, pb
+
+
+def fused_probe_blocks(variant="full"):
+    """Blocks of the tensor-core body's kernel at the variant's TA that one
+    SM of the current card holds at once (the CUDA occupancy calculator's
+    count, after the kernel's shared-memory opt-in). Needs a card."""
+    if variant not in VARIANTS:
+        raise ValueError(f"fused_probe_blocks: variant is one of "
+                         f"{sorted(VARIANTS)}")
+    n = _build.load().knn_fused_probe_blocks(VARIANTS[variant]["tile_a"])
+    _build.check(max(0, -n), "knn_fused_probe_blocks")
+    return n

@@ -4,10 +4,12 @@ kernel per variant to bisect a VMEM overflow; the port's single-launch
 kernel (imageanalysis_tpu_torch/probes/fused.py,
 csrc/knn_fused_probe.cu) runs every variant at bench's shape, holds the
 compared ones against knn_match_fused (K1, then K4) and times them.
+--body tc (the default) runs it on the tensor-core body K1 runs, --body
+old on its first body (__dp4a), the yardstick.
 
 Usage (the card by default; variants: full nopb noepi nomain epi32 t64):
-    python scripts_torch/fused_vmem_probe.py [variant ...] [--pairs 64]
-        [--n 6144] [--steps 16] [--device cuda|cpu]
+    python scripts_torch/fused_vmem_probe.py [variant ...] [--body tc|old]
+        [--pairs 64] [--n 6144] [--steps 16] [--device cuda|cpu]
 """
 
 import argparse
@@ -29,6 +31,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", metavar="variant",
                     help=f"any of {' '.join(fused.VARIANTS)} (default all)")
+    ap.add_argument("--body", choices=tuple(fused.BODIES), default="tc")
     ap.add_argument("--pairs", type=int, default=64)
     ap.add_argument("--n", type=int, default=6144)
     ap.add_argument("--steps", type=int, default=16)
@@ -45,22 +48,22 @@ def main():
     uv = torch.from_numpy(rng.uniform(0, 4000, (*shape[:2], 2))
                           .astype(np.float32))
     a, b, uv = a.to(dev), b.to(dev), uv.to(dev)
-    print(device_line(dev))
+    print(f"{device_line(dev)}; {args.body} body")
     want = knn.knn_match_fused(a, b, uv, fused.RATIO)
     ms = time_ms(lambda: knn.knn_match_fused(a, b, uv, fused.RATIO), dev,
                  args.steps)
     print(f"K1 then K4 (knn_match_fused): {ms:.3f} ms/batch")
     for v in args.variants or fused.VARIANTS:
         print("variant", v, fused.VARIANTS[v])
-        got = fused.fused_probe_raw(a, b, uv, v)
+        got = fused.fused_probe_raw(a, b, uv, v, args.body)
         c_bj, c_ok, c_pb = fused.COMPARED[v]
         same = ((not c_bj or torch.equal(got[0], want[0]))
                 and (not c_ok or torch.equal(got[1].bool(), want[1]))
                 and (not c_pb or torch.equal(got[2], want[2])))
         what = "+".join(n for n, c in zip(("bj", "ok", "pb"),
                                           (c_bj, c_ok, c_pb)) if c)
-        ms = time_ms(lambda: fused.fused_probe_raw(a, b, uv, v), dev,
-                     args.steps)
+        ms = time_ms(lambda: fused.fused_probe_raw(a, b, uv, v, args.body),
+                     dev, args.steps)
         verdict = (f"{what} {'EQUAL' if same else 'DIFFER'} to "
                    "knn_match_fused" if what else "outputs undefined, "
                    "timed only")

@@ -8,11 +8,16 @@ opcode, from the SASS of the package's built library (cuobjdump):
 - with the argument p5, P5's product + row sum (csrc/mma_probe.cu): the
   wgmma kernel at each of its tiles (mm_rowsum_wg_kernel: HGMMA, the TMA
   loads UTMALDG or UBLKCP, the mbarriers' SYNCS, WARPGROUP's fences and
-  waits, and no HMMA) and its first body (mm_rowsum_kernel, mma.sync).
+  waits, and no HMMA) and its first body (mm_rowsum_kernel, mma.sync);
+- with the argument p2, P2's single launch (csrc/knn_fused_probe.cu): the
+  tensor-core body's kFused instantiations (modes 16-31: IMMA, no IDP)
+  beside int8 K1's (mode 0), and its first body on __dp4a
+  (knn_fused_probe_kernel: IDP, the __dp4a instruction).
 Needs the CUDA toolkit:
 
     python3 scripts_torch/tc_sass.py [MODE ...]    # default: 0 4 5 6 7
     python3 scripts_torch/tc_sass.py p5
+    python3 scripts_torch/tc_sass.py p2
 """
 
 import json
@@ -25,10 +30,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
 
-OPCODES = ("HMMA", "IMMA", "LDSM", "HGMMA", "UTMALDG", "UBLKCP", "SYNCS",
-           "WARPGROUP", "IMNMX", "VIMNMX", "FADD", "FMUL", "FFMA", "FMNMX",
-           "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
+OPCODES = ("HMMA", "IMMA", "IDP", "LDSM", "HGMMA", "UTMALDG", "UBLKCP",
+           "SYNCS", "WARPGROUP", "IMNMX", "VIMNMX", "FADD", "FMUL", "FFMA",
+           "FMNMX", "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
 _MM = re.compile(r"mm_rowsum_(?:wg_)?kernelILi(\d+)ELi(\d+)E")
+_V0 = re.compile(r"knn_fused_probe_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E"
+                 r"Li(\d+)E")
 
 
 def line(kernel, c):
@@ -47,9 +54,21 @@ def main():
                 print(line(f"mm_rowsum {body} {m.group(1)} {m.group(2)}",
                            _build.opcode_counts(kernels[name])))
         return
-    modes = args or ["0", "4", "5", "6", "7"]
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines) for name, lines in kernels.items()})
+    if args == ["p2"]:
+        for key in sorted(per_key):
+            dtype, mode, *tile = key.split()
+            if dtype == "int8" and (16 <= int(mode) < 32 or (
+                    mode == "0" and tile[0] == "128")):
+                print(line(key, per_key[key]))
+        for name in sorted(kernels):
+            m = _V0.search(name)
+            if m:     # TA, main, epi, pb, epilogue threads
+                print(line("knn_fused_probe v0 " + " ".join(m.groups()),
+                           _build.opcode_counts(kernels[name])))
+        return
+    modes = args or ["0", "4", "5", "6", "7"]
     for key in sorted(per_key):
         dtype, mode, *tile = key.split()
         if mode in modes and tile[:2] == ["128", "128"] and tile[2:] in (

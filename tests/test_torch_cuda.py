@@ -740,25 +740,78 @@ def test_knn_probe_full_stage_is_k1(cuda, rng, dtype):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("variant", ["full", "nopb", "epi32", "t64"])
-def test_fused_probe_equals_knn_match_fused(cuda, rng, variant):
-    """P2's single launch against K1 then K4, twice in a row (the
-    completion counters reset themselves)."""
-    a, b = (t.to(cuda) for t in _planted(rng, 3, 512, 512, 128))
-    uv_b = torch.from_numpy(rng.uniform(0, 4000, (3, 512, 2))
-                            .astype(np.float32)).to(cuda)
+def _fused_twice(a, b, uv_b, variant, body):
+    """P2 (variant, body) against K1 then K4, twice in a row: equal each
+    time, the pairs' completion counters back at 0 after each launch, one
+    launch counted a call on the body's count. Returns K1 then K4's ok."""
     want = knn.knn_match_fused(a, b, uv_b, 0.75)
-    before = fused.LAUNCHES["knn_fused_probe"]
+    count = fused.BODIES[body][1]
+    before = fused.LAUNCHES[count]
     c_bj, c_ok, c_pb = fused.COMPARED[variant]
     for _ in range(2):
-        got = fused.fused_probe_raw(a, b, uv_b, variant)
+        got = fused.fused_probe_raw(a, b, uv_b, variant, body)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1].bool(), want[1])
         if c_pb:
             assert torch.equal(got[2], want[2])
-    assert fused.LAUNCHES["knn_fused_probe"] == before + 2
-    assert int(want[1].sum()) > 300
+        counter = fused._COUNTERS[(a.device, a.shape[0])]
+        assert int(counter.abs().sum()) == 0
+    assert fused.LAUNCHES[count] == before + 2
+    return want[1]
+
+
+@pytest.mark.parametrize("dup", [False, True], ids=["planted", "dup"])
+@pytest.mark.parametrize("body", list(fused.BODIES))
+@pytest.mark.parametrize("variant", ["full", "nopb", "epi32", "t64"])
+def test_fused_probe_equals_knn_match_fused(cuda, rng, variant, body, dup):
+    """P2's single launch on either body against K1 then K4, twice in a
+    row (the completion counters reset themselves). dup: every odd row of
+    A repeats the row before it (columns tie: the lower row keeps the
+    mutual match) and so does every odd B row beyond the planted ones
+    (rows tie on both top-2 slots); ties must fall to the lowest index."""
+    a, b = _planted(rng, 3, 512, 512, 128)
+    if dup:
+        a[:, 1::2] = a[:, ::2]
+        b[:, 129::2] = b[:, 128::2]
+    a, b = a.to(cuda), b.to(cuda)
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (3, 512, 2))
+                            .astype(np.float32)).to(cuda)
+    ok = _fused_twice(a, b, uv_b, variant, body)
+    assert int(ok.sum()) > (100 if dup else 300)
+
+
+@pytest.mark.parametrize("body", list(fused.BODIES))
+def test_fused_probe_t64_with_a_half_last_b_tile(cuda, rng, body):
+    """t64 at n = 576, an odd multiple of 64: the tensor-core body's last
+    B tile of 128 rows holds 64, so its keys and pb must skip the stale
+    rows behind them."""
+    a, b = (t.to(cuda) for t in _planted(rng, 2, 576, 576, 96))
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (2, 576, 2))
+                            .astype(np.float32)).to(cuda)
+    ok = _fused_twice(a, b, uv_b, "t64", body)
+    assert int(ok[:, :96].sum()) > 150
+
+
+def test_fused_probe_tc_sass_is_imma(cuda):
+    """P2's tensor-core instantiations (kFused, mode 16 and its flags)
+    run the product as IMMA (mma.sync s8), not as the old body's __dp4a
+    (IDP.4A, counted as IDP), which the old body's kernels show."""
+    per_key = _build.tc_kernel_usage({
+        name: _build.opcode_counts(lines)
+        for name, lines in _build.sass().items()})
+    keys = {k for k in per_key if k.startswith("int8 ")
+            and 16 <= int(k.split()[1]) < 32}
+    assert keys == {"int8 16 128 128 2", "int8 17 128 128 2",
+                    "int8 18 128 128 2", "int8 20 128 128 2",
+                    "int8 24 128 128 2", "int8 16 64 128 2"}, keys
+    for k in keys:
+        c = per_key[k]
+        assert c["IDP"] == 0, (k, c)
+        assert c["IMMA"] > 0 or k == "int8 20 128 128 2", (k, c)
+    old = [_build.opcode_counts(lines) for name, lines in
+           _build.sass().items() if "knn_fused_probe_kernel" in name]
+    assert old and any(c["IDP"] > 0 for c in old)
 
 
 def test_mm_rowsum_bit_exact_on_integers(cuda):
@@ -973,5 +1026,8 @@ def test_probes_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):               # n not a multiple of 128
         fused.fused_probe_raw(a[:, :64], a[:, :64],
                               torch.zeros((1, 64, 2), device=cuda))
+    with pytest.raises(ValueError):               # no such body
+        fused.fused_probe_raw(a, a, torch.zeros((1, 128, 2), device=cuda),
+                              body="dp4a")
     assert (dict(knn_stages.LAUNCHES), dict(mma.LAUNCHES),
             dict(fused.LAUNCHES)) == before

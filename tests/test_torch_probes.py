@@ -333,6 +333,24 @@ def test_p2_full_equals_knn_match_fused():
     assert torch.equal(got[2], want[2])
 
 
+def test_p2_bodies_take_the_plain_version_on_cpu():
+    """Either body routes a CPU tensor to fused_probe_plain, in every
+    variant, and launches nothing; an unknown body raises."""
+    ai, bi, _, _ = _int8_pairs(51)
+    a, b = _t(ai), _t(bi)
+    uv = _t(np.random.default_rng(51).uniform(0, 4000, (PAIRS, N, 2))
+            .astype(np.float32))
+    before = dict(fused.LAUNCHES)
+    for variant in fused.VARIANTS:
+        want = fused.fused_probe_plain(a, b, uv, variant)
+        for body in fused.BODIES:
+            got = fused.fused_probe_raw(a, b, uv, variant, body)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="body"):
+        fused.fused_probe_raw(a, b, uv, "full", "dp4a")
+    assert dict(fused.LAUNCHES) == before
+
+
 def test_full_stage_is_k1_and_stages_build_up():
     """The full stage is K1's plain version; the running top-2 is the
     full stage's rows; the top-1 its first key; the restarted top-2 the
