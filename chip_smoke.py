@@ -96,6 +96,20 @@ non-zero:
     of a call and CUDA events; registers, spills and blocks an SM). Each
     probe is driven on its own, its counts set to 0 before and read
     after.
+16. Steps 1→5 from JPEGs: the 64-frame mission of phases 7–8 written as a
+    project folder (testing/synthetic.write_mission: JPEGs encoded by
+    nvJPEG, pix4d.csv, the camera's DB entry), then
+    imageanalysis_tpu_torch.apps.process.main with
+    benchmarks/mission_bench.py's arguments; checks that STEP5 is
+    reached, every frame has features at 2176×1440, group 0 holds ≥ 90%
+    of the frames, BA's mre ≤ 1 px, the cameras lie within
+    tests/test_e2e_pipeline.py's 3 m of the truth and the median point
+    within phase 13's 1 m of the ground, models/ holds every render
+    output and 64 512×512 textures that nvJPEG reads back, K1 int8 and
+    K2 launched inside the run, neither PIL nor cv2 was imported, and a
+    second main skips every stage.
+    One line: the stage walls, nvJPEG's decode (gray, full size) and
+    encode ms per frame, the card's name and power limit.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -106,9 +120,13 @@ PyTorch call computes the same function, that call's time; the last line
 is {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import glob
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -124,10 +142,13 @@ if not os.path.isdir(os.path.join(os.path.dirname(os.path.abspath(__file__)),
              "imageanalysis_tpu_torch/ is not beside this script")
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
+from imageanalysis_tpu_torch.apps import process  # noqa: E402
 from imageanalysis_tpu_torch.ba import bundle  # noqa: E402
 from imageanalysis_tpu_torch.ba import setup as ba_setup  # noqa: E402
+from imageanalysis_tpu_torch.core import geodesy  # noqa: E402
 from imageanalysis_tpu_torch.core.rotations import quat_multiply  # noqa: E402
 from imageanalysis_tpu_torch.features import sift  # noqa: E402
+from imageanalysis_tpu_torch.io import jpeg  # noqa: E402
 from imageanalysis_tpu_torch.io.project import ProjectMgr  # noqa: E402
 from imageanalysis_tpu_torch.match import (  # noqa: E402
     cleanup, groups, matcher, smart, worklist)
@@ -138,8 +159,8 @@ from imageanalysis_tpu_torch.probes import device_ms  # noqa: E402
 from imageanalysis_tpu_torch.probes import (  # noqa: E402
     blur, fused, knn_stages, mma)
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
-    image_name, make_ba_grid_graph, make_ba_mission_graph, make_mission,
-    write_workspace)
+    CAMERA_KEY, REF_LLA, image_name, make_ba_grid_graph,
+    make_ba_mission_graph, make_mission, write_mission, write_workspace)
 
 FRAME = (2176, 1440)        # (W, H), benchmarks/mission_bench.py
 MAX_FEATURES = 4096
@@ -2210,9 +2231,121 @@ def run_probes():
     return out
 
 
+def run_process(root, smi):
+    """Phase 16: apps/process.py's Steps 1→5 on the card from a folder of
+    JPEGs (the 64-frame mission of phases 7–8, written by nvJPEG), with
+    benchmarks/mission_bench.py's arguments; then the same command again,
+    which must skip every stage. Returns the run's launches."""
+    W, H = FRAME
+    m = make_mission(strips=STRIPS, per_strip=PER_STRIP, size=FRAME, seed=0,
+                     device="cuda")
+    proj_dir = os.path.join(root, "mission")
+    db = os.path.join(root, "cameras")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = write_mission(proj_dir, m, db)
+    encode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    jpeg.decode_gray(paths[0], "cuda")               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in paths:
+        jpeg.decode_gray(p, "cuda")
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+
+    argv = [proj_dir, "--camera", CAMERA_KEY, "--camera-db", db,
+            "--scale", "1.0", "--ground", "0.0", "--batch-size", "32",
+            "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", str(MAX_FEATURES)]
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = process.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"process.main returned {rc}")
+
+    proj = ProjectMgr(proj_dir)
+    proj.load_images_info()
+    run_log = "".join(open(f).read() for f in glob.glob(
+        os.path.join(proj.analysis_dir, "messages-*")))
+    walls = {k: float(v) for k, v in
+             re.findall(r"stage wall: (\S+) ([\d.]+)s", run_log)}
+    mre = [float(v) for v in re.findall(r"BA finished: mre=([\d.]+)px",
+                                        run_log)]
+    counts, sizes = [], []
+    for im in proj.image_list:
+        im.load_features()
+        counts.append(0 if im.kp is None else len(im.kp))
+        sizes.append(im.get_size())
+    grps = groups.load(proj.analysis_dir)
+    lla = geodesy.ned2lla(m.ned, *REF_LLA)
+    truth = geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2],
+                            *proj.ned_reference_lla())
+    by_name = {image_name(i): i for i in range(len(m.ned))}
+    err = np.array([np.linalg.norm(np.asarray(im.get_camera_pose(
+        opt=im.has_opt_pose())[0]) - truth[by_name[im.name]])
+        for im in proj.image_list])
+    matches = proj.load_matches_grouped()
+    height = -np.median([mm[0][2] for mm in matches if mm[0] is not None])
+    models = proj.models_dir
+    files = os.listdir(models)
+    eggs = [f for f in files if f.endswith(".egg")]
+    texs = [f for f in files if f.endswith(".JPG")]
+    tex_shapes = {tuple(jpeg.decode_bgr(os.path.join(models, f), "cuda")
+                        .shape) for f in texs}
+
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc2 = process.main(argv)
+    again = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("Step ")]
+    again_launches = {k: v for k, v in read_launches().items() if v}
+
+    log(f"[process] {len(paths)} JPEGs {W}x{H}; main {wall:.3f} s; "
+        f"features/frame min {min(counts)}; groups "
+        f"{[len(g) for g in grps]}; BA mre {mre}; camera error vs truth "
+        f"median {np.median(err):.4f} max {err.max():.4f} m; median point "
+        f"{height:.4f} m above the ground; {len(eggs)} eggs, {len(texs)} "
+        f"textures {sorted(tex_shapes)}; launches {launches}")
+    log("[process] " + json.dumps({
+        "stage_wall_s": walls, "nvjpeg_decode_gray_ms_per_frame": decode_ms,
+        "nvjpeg_encode_ms_per_frame": encode_ms,
+        "frame": [W, H], "device": smi}))
+    log(f"[process] second main: rc {rc2}, stages run {again}, launches "
+        f"{again_launches}")
+    checks = {
+        "STEP5 reached": proj.state.check("STEP5"),
+        "features in every frame": len(counts) == len(paths)
+        and min(counts) > 0,
+        "frames 2176x1440": set(sizes) == {(W, H)},
+        "group 0 holds >= 90%": bool(grps)
+        and len(grps[0]) >= 0.9 * len(paths),
+        "BA mre <= 1 px": len(mre) == 1 and mre[0] <= 1.0,
+        "cameras within 3 m": err.max() < 3.0,
+        "median point within 1 m": abs(height) <= 1.0,
+        "render outputs": all(os.path.isfile(os.path.join(models, f))
+                              for f in ("surface.bin", "dummy.jpg",
+                                        "surface-global.ac", "direct.ac")),
+        ">= 63 eggs": len(eggs) >= len(paths) - 1,
+        "64 textures 512x512": len(texs) == len(paths)
+        and tex_shapes == {(512, 512, 3)},
+        "K1 int8 and K2 launched": launches["knn_packed_i8"] > 0
+        and launches["gauss_blur_f32"] > 0,
+        "resume skips every stage": rc2 == 0 and not again
+        and not again_launches,
+        "no PIL or cv2 imported": not {"PIL", "cv2"} & set(sys.modules),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 failed: {failed}")
+    return launches
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
-    device_info()
+    smi = device_info()
     build()
     k2 = check_blur()
     k1 = check_knn()
@@ -2241,6 +2374,8 @@ def main():
     wide_launches = run_wide_store()
     run_mission_ba()
     anatomy = run_probes()
+    with tempfile.TemporaryDirectory() as root:
+        run_process(root, smi)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",

@@ -10,8 +10,18 @@ by its path:
   ``core/transforms.py``     ← the same paths under ``imageanalysis_tpu/core``
 - ``io/logger.py``, ``io/props.py``, ``io/state.py``, ``io/camera_db.py``
   (less ``estimate_from_exif``), ``io/project.py`` (``ImageRecord``,
-  ``ProjectMgr``; the same on-disk workspace)
+  ``ProjectMgr``; the same on-disk workspace), ``io/pose.py`` (less
+  ``make_pix4d``, which needs EXIF)
                              ← the same paths under ``imageanalysis_tpu/io``
+- ``io/jpeg.py``             ← the reference's host image I/O: PIL's draft
+                               and cv2.imread in ``features/detect.py``,
+                               cv2.imread / resize / imwrite in
+                               ``render/build_map.py`` and
+                               ``testing/synthetic.py`` (nvJPEG on the card,
+                               ``csrc/jpeg_codec.cu``; PIL and cv2 on the
+                               CPU; cv2's two resizes in torch)
+- ``surface/srtm.py``        ← ``imageanalysis_tpu/surface/srtm.py`` (less
+                               ``download_tile``)
 - ``ops/knn.py``             ← ``imageanalysis_tpu/ops/knn.py`` (kernel K1,
                                ``csrc/knn_packed.cu``, in its int8, bf16, f32
                                and gated modes; kernel K3,
@@ -24,15 +34,22 @@ by its path:
 - ``features/sift.py``       ← ``imageanalysis_tpu/features/sift_tpu.py``
                                (kernel K2, ``csrc/gauss_blur.cu``) — the one
                                module whose name differs
+- ``features/detect.py``     ← ``imageanalysis_tpu/features/detect.py`` (the
+                               device backend; the OpenCV ones raise)
 - ``match/worklist.py``, ``match/store.py``, ``match/matcher.py``
   (``BatchMatcher``, ``find_matches``), ``match/smart.py``,
   ``match/cleanup.py``, ``match/groups.py``
                              ← the same paths under ``imageanalysis_tpu/match``
 - ``ba/bundle.py`` (less the calibration path), ``ba/setup.py``
                              ← the same paths under ``imageanalysis_tpu/ba``
+- ``render/build_map.py``, ``render/ac3d.py``
+                             ← the same paths under ``imageanalysis_tpu/render``
+- ``apps/process.py``        ← ``imageanalysis_tpu/apps/process.py`` (one
+                               process, Steps 1→5 on the default flags)
 - ``testing/synthetic.py``   ← part of ``imageanalysis_tpu/testing/synthetic.py``
                                (a mission generator that needs no OpenCV,
-                               a writer of its project workspace, and the
+                               writers of its project workspace and of its
+                               folder of JPEGs + pix4d.csv, and the
                                synthetic BA graphs of ``scripts_dev``)
 
 Conventions:

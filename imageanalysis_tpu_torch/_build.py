@@ -5,10 +5,13 @@ together, and one more ``nvcc`` links the objects into one shared library
 with a plain C interface under ``<repo>/build/``; the file name carries a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already built. No PyTorch headers are
-compiled, which keeps the build to seconds.
+compiled, which keeps the build to seconds. The library links nvJPEG
+(``csrc/jpeg_codec.cu``, the port's JPEG decode and encode).
 
-Every C entry point returns the ``cudaError_t`` of its launch (0 = ok) and
-takes every pointer, the stream included, as ``void*``.
+Every kernel's C entry point returns the ``cudaError_t`` of its launch
+(0 = ok); the nvJPEG entry points return 0, a positive
+``nvjpegStatus_t`` or a negated ``cudaError_t``. Every pointer, the
+stream included, is a ``void*``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.c_size_t
 # name → argtypes of every C entry point
 _SIGNATURES = {
     # a, b, na2, nb2 (f32 scratch), row_p, col_p, n_pairs, n_a, n_b,
@@ -96,7 +100,17 @@ _SIGNATURES = {
     # j, vals (f32; v0: bf16), out, T, N, stream
     "onehot_gather_bf16": [_P, _P, _P, _I, _I, _P],
     "onehot_gather_bf16_v0": [_P, _P, _P, _I, _I, _P],
+    # nvJPEG (jpeg_codec.cu): data, length, components, width, height
+    "jpeg_info": [_P, _S, _P, _P, _P],
+    # data, length, bgr, out, pitch, stream
+    "jpeg_decode": [_P, _S, _I, _P, _S, _P],
+    # bgr, width, height, pitch, quality, stream, length (size_t*)
+    "jpeg_encode": [_P, _I, _I, _S, _I, _P, _P],
+    # out, length (size_t*), stream
+    "jpeg_encode_fetch": [_P, _P, _P],
 }
+# libraries the shared library links against
+LINK_LIBS = ["-lnvjpeg"]
 
 _lib = None
 build_log = ""      # nvcc's output of the last build (ptxas resource usage)
@@ -128,7 +142,7 @@ def build():
     return its path. Raises RuntimeError when nvcc is missing or fails."""
     global build_log, build_seconds
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
@@ -154,7 +168,8 @@ def build():
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
         out = os.path.join(tmp, "lib.so")
-        proc = subprocess.run([nvcc, "-shared", "-o", out, *objs],
+        proc = subprocess.run([nvcc, "-shared", "-o", out, *objs,
+                               *LINK_LIBS],
                               capture_output=True, text=True)
         build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:

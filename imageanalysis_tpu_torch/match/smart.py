@@ -10,9 +10,7 @@ course with the GPS ground course to estimate a per-image heading bias
 the reference writes. The triangulation and similarity fits run batched
 on the device in one call per chunk (``_pair_stats_fused``).
 
-Not ported yet: ``update_srtm_elevations`` (needs ``surface/srtm.py``;
-write ``srtm_surface_m`` into the state directly), the per-pair
-estimators and the multi-host shard merge.
+Not ported yet: the per-pair estimators and the multi-host shard merge.
 """
 
 from __future__ import annotations
@@ -118,6 +116,17 @@ class SmartState:
 
     def get_yaw_error(self, name):
         return float(self.node(name).get("yaw_error", 0.0))
+
+    def update_srtm_elevations(self, proj, terrain):
+        """srtm_surface_m under each camera, from the terrain's host grid
+        (one batched query)."""
+        neds = np.array([image.get_camera_pose()[0]
+                         for image in proj.image_list], np.float32)
+        if len(neds) == 0:
+            return
+        elevs = np.asarray(terrain.interp_host(neds[:, 0], neds[:, 1]))
+        for image, e in zip(proj.image_list, np.atleast_1d(elevs)):
+            self.node(image.name)["srtm_surface_m"] = round(float(e), 1)
 
 
 # ---------------------------------------------------------------------------

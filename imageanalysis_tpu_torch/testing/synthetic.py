@@ -13,6 +13,12 @@ workspace (config.json, meta/*.json, cache/*.feat, cache/*.desc; no image
 files: ``ProjectMgr.load_images_info`` reads meta/ only) that both
 packages' ``find_matches`` can run on.
 
+``write_mission`` writes a mission as the folder a survey team hands to
+``apps/process.py``: the frames as 3-channel JPEGs at quality 95
+(``io/jpeg.encode_bgr``: nvJPEG for frames on the card), ``pix4d.csv``
+and the camera's DB entry; the counterpart of the reference's
+``SyntheticMission.generate`` (synthetic.py:138-250).
+
 ``make_ba_mission_graph`` and ``make_ba_grid_graph`` draw the synthetic
 bundle-adjustment graphs of ``scripts_dev/ba_synth_scale.py`` (the
 2812-camera mission) and ``scripts_dev/ba_f64_oracle.py`` (the f64
@@ -22,6 +28,7 @@ oracle's grid) with torch on the given device.
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -32,6 +39,7 @@ from ..core import geodesy
 from ..core.camera import BODY2CAM
 from ..core.rotations import matrix_to_quat, ypr_from_quat
 from ..features.sift import _gauss_kernel, blur_plain
+from ..io import jpeg
 
 REF_LLA = (44.97, -93.26, 0.0)       # the reference generator's NED origin
 R2D = 180.0 / math.pi
@@ -200,6 +208,51 @@ def make_mission(strips=4, per_strip=16, size=(2176, 1440), strip_gap=2.5,
 
 def image_name(i):
     return f"IMG_{i:04d}"
+
+
+CAMERA_KEY = "Synthetic_TestCam_none"   # write_mission's camera DB key
+
+
+def camera_config(mission):
+    """The mission camera's DB entry, in the reference's form
+    (synthetic.py:241-250): an 8 mm lens, no distortion."""
+    H, W = mission.frames.shape[1:]
+    fx = float(mission.K[0, 0])
+    return {
+        "make": "Synthetic", "model": "TestCam", "lens_model": "none",
+        "K": mission.K.ravel().tolist(), "dist_coeffs": [0.0] * 5,
+        "width_px": int(W), "height_px": int(H),
+        "focal_len_mm": 8.0, "ccd_width_mm": 8.0 * W / fx,
+        "ccd_height_mm": 8.0 * H / fx,
+    }
+
+
+def write_mission(project_dir, mission, db_dir, quality=95):
+    """Write the mission as a project folder: IMG_nnnn.jpg (each gray frame
+    as B = G = R, JPEG at quality, encoded on the frames' device),
+    pix4d.csv (lat, lon, alt and the aircraft's roll, pitch, yaw, in the
+    reference's format, synthetic.py:230-239) and the camera's DB entry
+    db_dir/<CAMERA_KEY>.json. Returns the image paths."""
+    from ..io import camera_db
+
+    os.makedirs(project_dir, exist_ok=True)
+    paths = []
+    for i, frame in enumerate(mission.frames):
+        paths.append(os.path.join(project_dir, image_name(i) + ".jpg"))
+        jpeg.encode_bgr(frame[..., None].expand(-1, -1, 3), paths[-1],
+                        quality)
+    lla = geodesy.ned2lla(mission.ned, *REF_LLA)
+    lines = ["File Name,Lat (decimal degrees),Lon (decimal degrees),"
+             "Alt (meters MSL),Roll (decimal degrees),"
+             "Pitch (decimal degrees),Yaw (decimal degrees)"]
+    for path, (lat, lon, alt), (y, p, r) in zip(paths, lla,
+                                                mission.aircraft_ypr):
+        lines.append(f"{os.path.basename(path)},{lat:.10f},{lon:.10f},"
+                     f"{alt:.2f},{r:.2f},{p:.2f},{y:.2f}")
+    with open(os.path.join(project_dir, "pix4d.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    camera_db.save(CAMERA_KEY, camera_config(mission), db_dir)
+    return paths
 
 
 class BAProblem(NamedTuple):

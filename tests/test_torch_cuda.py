@@ -20,8 +20,13 @@ sweep, P3's and P4's stages on it, P2's single-launch K1 + K4, P5's
 wgmma row sums and their mma.sync first body, P1's one-hot gather of bf16
 values and its first body). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
-sums).
+sums). nvJPEG's gray decode is held against PIL's on the JPEGs of
+tests/data/jpeg/ within a stated tolerance, and the pipeline runs Steps
+1→5 from JPEGs written on the card.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -1031,3 +1036,82 @@ def test_probes_refuse_what_they_do_not_take(cuda):
                               body="dp4a")
     assert (dict(knn_stages.LAUNCHES), dict(mma.LAUNCHES),
             dict(fused.LAUNCHES)) == before
+
+
+# --- nvJPEG (io/jpeg.py) and the pipeline from JPEGs ----------------------
+
+_JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "jpeg")
+# nvJPEG's luma against PIL's (libjpeg's) on the fixture: the two IDCTs
+# round differently; at scale 0.4 a box mean stands in for libjpeg's
+# DCT-domain reduction before the same resize
+GRAY_MAX_ERR, GRAY_MEAN_ERR = 4, 1.0
+
+
+@pytest.mark.parametrize("name", ["colour", "gray"])
+def test_nvjpeg_gray_matches_pil(cuda, name):
+    from imageanalysis_tpu_torch.features.detect import load_scaled_gray
+    from imageanalysis_tpu_torch.io import jpeg
+
+    want = np.load(os.path.join(_JPEG_DIR, "gray.npz"))
+    path = os.path.join(_JPEG_DIR, f"{name}.jpg")
+    full = jpeg.decode_gray(path, cuda)
+    scaled, size = load_scaled_gray(path, 0.4, cuda)
+    assert size == (full.shape[1], full.shape[0])
+    for got, key in ((full, "1.0"), (scaled, "0.4")):
+        w = want[f"{name}_{key}"]
+        assert got.device.type == "cuda" and tuple(got.shape) == w.shape
+        err = np.abs(got.cpu().numpy().astype(int) - w)
+        assert err.max() <= GRAY_MAX_ERR, (key, err.max())
+        assert err.mean() <= GRAY_MEAN_ERR, (key, err.mean())
+
+
+def test_nvjpeg_roundtrip_psnr(cuda, tmp_path):
+    from imageanalysis_tpu_torch.io import jpeg
+
+    bgr = jpeg.decode_bgr(os.path.join(_JPEG_DIR, "colour.jpg"), cuda)
+    assert bgr.shape == (298, 402, 3) and bgr.dtype == torch.uint8
+    path = str(tmp_path / "again.jpg")
+    jpeg.encode_bgr(bgr, path)
+    back = jpeg.decode_bgr(path, cuda)
+    mse = ((back.float() - bgr.float()) ** 2).mean().item()
+    assert 10 * np.log10(255.0 ** 2 / mse) >= 40.0
+    half = jpeg.decode_bgr(path, cuda, reduce=2)
+    assert half.shape == (149, 201, 3)
+    # a one-channel JPEG decodes to B = G = R
+    g = jpeg.decode_bgr(os.path.join(_JPEG_DIR, "gray.jpg"), cuda)
+    assert g.shape == (299, 401, 3)
+    assert torch.equal(g[..., 0], g[..., 2])
+
+
+def test_process_main_on_card(cuda, tmp_path, capsys):
+    """Steps 1→5 from a folder of four JPEGs written by nvJPEG."""
+    from imageanalysis_tpu_torch.apps import process
+    from imageanalysis_tpu_torch.io import jpeg
+    from imageanalysis_tpu_torch.testing.synthetic import (
+        CAMERA_KEY, make_mission, write_mission)
+
+    m = make_mission(strips=2, per_strip=2, size=(640, 480), strip_gap=1.5,
+                     seed=3, device=cuda)
+    proj_dir, db = str(tmp_path / "mission"), str(tmp_path / "db")
+    write_mission(proj_dir, m, db)
+    argv = [proj_dir, "--camera", CAMERA_KEY, "--camera-db", db,
+            "--scale", "1.0", "--ground", "0.0", "--batch-size", "4",
+            "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", "2048"]
+    before = sift.BLUR_LAUNCHES
+    assert process.main(argv) == 0
+    assert sift.BLUR_LAUNCHES > before
+    ia = os.path.join(proj_dir, "ImageAnalysis")
+    assert os.path.isfile(os.path.join(ia, "state", "STEP5"))
+    models = os.path.join(ia, "models")
+    texs = sorted(f for f in os.listdir(models) if f.endswith(".JPG"))
+    assert len(texs) == 4
+    tex = jpeg.decode_bgr(os.path.join(models, texs[0]), cuda)
+    assert tex.shape == (512, 512, 3)
+    for f in ("surface.bin", "dummy.jpg", "surface-global.ac", "direct.ac"):
+        assert os.path.isfile(os.path.join(models, f)), f
+    capsys.readouterr()
+    assert process.main(argv) == 0                # resume: every stage done
+    assert "Step " not in capsys.readouterr().out
+    assert not {"PIL", "cv2"} & set(sys.modules)  # the card path needs neither

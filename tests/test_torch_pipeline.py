@@ -28,13 +28,18 @@ from imageanalysis_tpu.ba import setup as jsetup
 from imageanalysis_tpu.io.project import ProjectMgr as JProject
 from imageanalysis_tpu.match import cleanup as jcleanup
 from imageanalysis_tpu.match import groups as jgroups
+from imageanalysis_tpu_torch.apps import process as tprocess
 from imageanalysis_tpu_torch.ba import bundle as tbundle
 from imageanalysis_tpu_torch.ba import setup as tsetup
 from imageanalysis_tpu_torch.core.camera import project_ned_quat
+from imageanalysis_tpu_torch.features import detect as tdetect
+from imageanalysis_tpu_torch.io import jpeg
 from imageanalysis_tpu_torch.io.project import ProjectMgr as TProject
 from imageanalysis_tpu_torch.match import cleanup as tcleanup
 from imageanalysis_tpu_torch.match import groups as tgroups
 from imageanalysis_tpu_torch.match import matcher, smart, store
+from imageanalysis_tpu_torch.render import build_map as tbuild_map
+from imageanalysis_tpu_torch.surface import srtm as tsrtm
 from imageanalysis_tpu_torch.testing import synthetic
 
 SIZE = (320, 240)
@@ -171,7 +176,11 @@ _ENTRY_POINTS = [
     tbundle.refit, tbundle.reweight_huber, tbundle.cull_outliers,
     tbundle.observations_on, synthetic.make_mission,
     synthetic.make_ground_texture, synthetic.make_tiled_texture,
-    synthetic.make_ba_mission_graph, synthetic.make_ba_grid_graph]
+    synthetic.make_ba_mission_graph, synthetic.make_ba_grid_graph,
+    jpeg.decode_gray, jpeg.decode_bgr, tdetect.load_scaled_gray,
+    tdetect.detect_project_features, tsrtm.Terrain.__init__,
+    tsrtm.project_terrain, tbuild_map.make_textures, tbuild_map.build,
+    tprocess.run, tprocess.main]
 
 
 @pytest.mark.parametrize("fn", _ENTRY_POINTS,

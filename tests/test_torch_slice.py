@@ -167,8 +167,16 @@ def test_port_imports_no_jax():
             "imageanalysis_tpu_torch.match.smart, "
             "imageanalysis_tpu_torch.io.project, "
             "imageanalysis_tpu_torch.core.camera, "
-            "imageanalysis_tpu_torch.testing.synthetic; "
+            "imageanalysis_tpu_torch.testing.synthetic, "
+            "imageanalysis_tpu_torch.io.jpeg, "
+            "imageanalysis_tpu_torch.io.pose, "
+            "imageanalysis_tpu_torch.surface.srtm, "
+            "imageanalysis_tpu_torch.features.detect, "
+            "imageanalysis_tpu_torch.render.build_map, "
+            "imageanalysis_tpu_torch.render.ac3d, "
+            "imageanalysis_tpu_torch.apps.process; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules; "
             "assert 'imageanalysis_tpu' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
