@@ -110,6 +110,26 @@ non-zero:
     second main skips every stage.
     One line: the stage walls, nvJPEG's decode (gray, full size) and
     encode ms per frame, the card's name and power limit.
+17. the rest of the user's command, on phase 16's mission: (a) the
+    frames tagged with EXIF and DJI XMP (write_mission(exif=True)), the
+    camera in the DB and no pose file, then process.main without
+    --camera, with --geotiff and --histogram: Step 1 finds the camera by
+    EXIF, pix4d.csv lies within its rounding of the truth, phase 16's
+    checks hold, mosaic.tif, gdalscript.sh and a histogram template for
+    every frame are written, K1 int8 and K2 launch inside the run; then
+    Steps 1–2 again with the camera absent from the DB (fx from EXIF
+    within 0.1%); (b) the card's composite against the same code on the
+    CPU from the same card-decoded frames (within one level on ≥ 99.9% of
+    the covered pixels), its wall and ms a frame, build_histograms' wall;
+    (c) --refresh STEP4 --cam-calibration from a focal length 3% low: f
+    moves ≥ 25% of the way back, k1 within 0.01 of 0, mre ≤ 1 px; (d)
+    the fundamental and essential filters at bench's batch on a
+    non-planar scene (≥ 90% of the planted matches kept, ≤ 5 others
+    passed, in every pair; ms a batch beside homography's; the batched
+    3×3 torch.linalg.svd), then find_matches with the host essential5
+    refilter (every along-track neighbour keeps ≥ 50 matches). Neither
+    PIL nor cv2 is imported. One line a part, with the card's name and
+    power limit.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -156,10 +176,12 @@ from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
 from imageanalysis_tpu_torch import probes  # noqa: E402
 from imageanalysis_tpu_torch.probes import device_ms  # noqa: E402
+from imageanalysis_tpu_torch.render import (  # noqa: E402
+    geotiff, histogram, texture)
 from imageanalysis_tpu_torch.probes import (  # noqa: E402
     blur, fused, knn_stages, mma)
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
-    CAMERA_KEY, REF_LLA, image_name, make_ba_grid_graph,
+    CAMERA_KEY, REF_LLA, camera_config, image_name, make_ba_grid_graph,
     make_ba_mission_graph, make_mission, write_mission, write_workspace)
 
 FRAME = (2176, 1440)        # (W, H), benchmarks/mission_bench.py
@@ -347,12 +369,12 @@ def check_blur():
 def planted_descriptors(gen, pairs, n, n_planted):
     """int8 descriptor pairs (value − 128 of 0..99) whose first n_planted
     B rows are A rows plus small noise."""
-    a = torch.randint(0, 100, (pairs, n, 128), generator=gen, device="cuda",
-                      dtype=torch.int16)
-    b = torch.randint(0, 100, (pairs, n, 128), generator=gen, device="cuda",
-                      dtype=torch.int16)
+    a = torch.randint(0, 100, (pairs, n, 128), generator=gen,
+                      device=gen.device, dtype=torch.int16)
+    b = torch.randint(0, 100, (pairs, n, 128), generator=gen,
+                      device=gen.device, dtype=torch.int16)
     noise = torch.randint(-4, 5, (pairs, n_planted, 128), generator=gen,
-                          device="cuda", dtype=torch.int16)
+                          device=gen.device, dtype=torch.int16)
     b[:, :n_planted] = (a[:, :n_planted] + noise).clamp(0, 255)
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
@@ -2231,6 +2253,32 @@ def run_probes():
     return out
 
 
+def mission_outcome(proj_dir, m):
+    """A finished run's workspace against the mission's truth: (proj, its
+    run log, the stage walls, each "BA finished" mre, the groups, each
+    camera's distance from its true position, the median point's height
+    above the ground)."""
+    proj = ProjectMgr(proj_dir)
+    proj.load_images_info()
+    run_log = "".join(open(f).read() for f in glob.glob(
+        os.path.join(proj.analysis_dir, "messages-*")))
+    walls = {k: float(v) for k, v in
+             re.findall(r"stage wall: (\S+) ([\d.]+)s", run_log)}
+    mre = [float(v) for v in re.findall(r"BA finished: mre=([\d.]+)px",
+                                        run_log)]
+    grps = groups.load(proj.analysis_dir)
+    lla = geodesy.ned2lla(m.ned, *REF_LLA)
+    truth = geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2],
+                            *proj.ned_reference_lla())
+    by_name = {image_name(i): i for i in range(len(m.ned))}
+    err = np.array([np.linalg.norm(np.asarray(im.get_camera_pose(
+        opt=im.has_opt_pose())[0]) - truth[by_name[im.name]])
+        for im in proj.image_list])
+    matches = proj.load_matches_grouped()
+    height = -np.median([mm[0][2] for mm in matches if mm[0] is not None])
+    return proj, run_log, walls, mre, grps, err, height
+
+
 def run_process(root, smi):
     """Phase 16: apps/process.py's Steps 1→5 on the card from a folder of
     JPEGs (the 64-frame mission of phases 7–8, written by nvJPEG), with
@@ -2265,29 +2313,13 @@ def run_process(root, smi):
     if rc != 0:
         raise AssertionError(f"process.main returned {rc}")
 
-    proj = ProjectMgr(proj_dir)
-    proj.load_images_info()
-    run_log = "".join(open(f).read() for f in glob.glob(
-        os.path.join(proj.analysis_dir, "messages-*")))
-    walls = {k: float(v) for k, v in
-             re.findall(r"stage wall: (\S+) ([\d.]+)s", run_log)}
-    mre = [float(v) for v in re.findall(r"BA finished: mre=([\d.]+)px",
-                                        run_log)]
+    proj, run_log, walls, mre, grps, err, height = mission_outcome(proj_dir,
+                                                                  m)
     counts, sizes = [], []
     for im in proj.image_list:
         im.load_features()
         counts.append(0 if im.kp is None else len(im.kp))
         sizes.append(im.get_size())
-    grps = groups.load(proj.analysis_dir)
-    lla = geodesy.ned2lla(m.ned, *REF_LLA)
-    truth = geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2],
-                            *proj.ned_reference_lla())
-    by_name = {image_name(i): i for i in range(len(m.ned))}
-    err = np.array([np.linalg.norm(np.asarray(im.get_camera_pose(
-        opt=im.has_opt_pose())[0]) - truth[by_name[im.name]])
-        for im in proj.image_list])
-    matches = proj.load_matches_grouped()
-    height = -np.median([mm[0][2] for mm in matches if mm[0] is not None])
     models = proj.models_dir
     files = os.listdir(models)
     eggs = [f for f in files if f.endswith(".egg")]
@@ -2343,6 +2375,287 @@ def run_process(root, smi):
     return launches
 
 
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pix4d_rows(path):
+    return [ln.split(",") for ln in open(path).read().splitlines()[1:]]
+
+
+def two_view_batch(gen, pairs, n, n_planted, K, dev="cuda"):
+    """bench.py's descriptor batch (planted_descriptors) with uv of a
+    non-planar two-view scene: the planted rows see points 80–160 m deep
+    from two cameras ~15 m and 4–8° apart, projected through K with
+    0.3 px noise; the other rows lie uniformly in the frame. Returns
+    (desc_a, desc_b, uv_a, uv_b)."""
+    rng = np.random.default_rng(17)
+    a, b = planted_descriptors(gen, pairs, n, n_planted)
+    W, H = 2 * K[0, 2], 2 * K[1, 2]
+    uv = rng.uniform(0, 1, (2, pairs, n, 2)) * [W, H]
+    for p in range(pairs):
+        depth = rng.uniform(80, 160, n_planted)
+        pix = np.c_[rng.uniform(0, W, n_planted), rng.uniform(0, H, n_planted)]
+        X = (np.c_[pix, np.ones(n_planted)] @ np.linalg.inv(K).T) \
+            * depth[:, None]
+        ang = np.radians(4.0 + 4.0 * p / pairs)
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        xb = (X @ R.T + [12.0, 8.0, 1.0]) @ K.T
+        uv[0, p, :n_planted] = pix
+        uv[1, p, :n_planted] = xb[:, :2] / xb[:, 2:] + rng.normal(
+            0, 0.3, (n_planted, 2))
+    uv_a, uv_b = (torch.from_numpy(u.astype(np.float32)).to(dev) for u in uv)
+    return a, b, uv_a, uv_b
+
+
+def run_transforms(proj_dir, smi, dev="cuda", pairs=BENCH_SHAPE[0],
+                   n=BENCH_SHAPE[1], n_planted=1500):
+    """Phase 17d: the device fundamental and essential filters at bench's
+    batch on a non-planar scene (the 8-point filters degenerate on flat
+    ground): in every pair ≥ 90% of the planted matches survive and ≤ 5
+    others pass; ms a batch beside homography's, and the batched 3×3
+    torch.linalg.svd the 8-point solves call. Then find_matches with the
+    host essential5 refilter on a copy of phase 17a's workspace (the
+    store path, the sequential work list): every along-track neighbour
+    keeps ≥ 50 matches."""
+    W, H = FRAME
+    fx = 1400.0 * W / 2176.0
+    K = np.array([[fx, 0, W / 2.0], [0, fx, H / 2.0], [0, 0, 1.0]])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, b, uv_a, uv_b = two_view_batch(gen, pairs, n, n_planted, K, dev)
+    counts = torch.full((pairs,), n, dtype=torch.int32, device=dev)
+    Kt = torch.from_numpy(K.astype(np.float32)).to(dev)
+    rows = torch.arange(n, device=dev)
+    out, ms = {}, {}
+    for t in ("homography", "fundamental", "essential"):
+        def batch():
+            return matcher.match_pair_batch(
+                a, b, uv_a, uv_b, counts, counts, gen, ratio=0.75,
+                thresh=3.0, transform=t, n_hyp=512, K=Kt)
+        best_j, ok = batch()
+        reps = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            batch()
+            _sync(dev)
+            reps.append(1e3 * (time.perf_counter() - t0))
+        ms[t] = float(np.median(reps))
+        planted = ok & (best_j == rows) & (rows < n_planted)
+        out[t] = (int(planted.sum(1).min()),
+                  int((ok & ~planted).sum(1).max()))
+    svd_in = torch.randn((pairs * 512, 3, 3), generator=gen, device=dev)
+    torch.linalg.svd(svd_in)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        torch.linalg.svd(svd_in)
+    _sync(dev)
+    svd_ms = 1e3 * (time.perf_counter() - t0) / 5
+
+    ws = os.path.join(os.path.dirname(proj_dir), "essential5")
+    shutil.copytree(proj_dir, ws)
+    for f in glob.glob(os.path.join(ws, "ImageAnalysis", "meta", "*.match")):
+        os.remove(f)
+    proj = ProjectMgr(ws)
+    proj.load_images_info()
+    t0 = time.perf_counter()
+    matcher.find_matches(proj, matcher.MatchConfig(transform="essential5",
+                                                   batch_size=32),
+                         use_distance=False, device=dev)
+    e5_s = time.perf_counter() - t0
+    il = proj.image_list
+    along = [len(il[i].match_list.get(il[i + 1].name, ()))
+             for i in range(len(il) - 1) if (i + 1) % PER_STRIP]
+    log(f"[process-17d] {pairs} pairs x {n} int8, {n_planted} planted on a "
+        f"non-planar scene; per transform (planted kept min, others passed "
+        f"max): {out}; ms/batch {ms}; torch.linalg.svd of {pairs * 512} "
+        f"3x3 f32 {svd_ms:.3f} ms (F calls it 3 times a batch, E 6); "
+        f"essential5 find_matches {e5_s:.2f} s, along-track neighbours min "
+        f"{min(along)} matches; {smi}")
+    checks = {f"{t} keeps >= 90% planted": out[t][0] >= 0.9 * n_planted
+              for t in ("fundamental", "essential")}
+    checks.update({f"{t} passes <= 5 others": out[t][1] <= 5
+                   for t in ("fundamental", "essential")})
+    checks["essential5 along-track >= 50"] = min(along) >= 50
+    return checks, dict(ms_per_batch=ms, svd_ms=svd_ms,
+                        essential5_find_matches_s=e5_s,
+                        along_track_min=min(along), kept=out)
+
+
+def run_process_extras(root, smi, dev="cuda", size=FRAME, strips=STRIPS,
+                       per_strip=PER_STRIP, max_features=MAX_FEATURES):
+    """Phase 17: the rest of the user's command on the mission of phase
+    16. (a) From EXIF: the frames tagged with EXIF and XMP, the camera in
+    the DB, no pose file; process.main without --camera, with --geotiff
+    and --histogram; then Steps 1–2 again with the camera absent from the
+    DB (estimate_from_exif). (b) The mosaic: the card's composite against
+    the same code on the CPU from the same card-decoded frames. (c)
+    --refresh STEP4 --cam-calibration from a focal length 3% low. (d)
+    run_transforms. Returns the launches of (a)'s run."""
+    W, H = size
+    m = make_mission(strips=strips, per_strip=per_strip, size=size, seed=0,
+                     device=dev)
+    proj_dir = os.path.join(root, "exif")
+    db = os.path.join(root, "cameras")
+    write_mission(proj_dir, m, db, exif=True)
+    base = ["--camera-db", db, "--scale", "1.0", "--ground", "0.0",
+            "--batch-size", "32", "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", str(max_features)]
+    checks = {}
+
+    # (a) Steps 1 → 5 from EXIF, with --geotiff and --histogram
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = process.main([proj_dir] + base + ["--geotiff", "--histogram"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    proj, run_log, walls, mre, grps, err, height = mission_outcome(proj_dir,
+                                                                  m)
+    truth = geodesy.ned2lla(m.ned, *REF_LLA)
+    rows = _pix4d_rows(os.path.join(proj_dir, "pix4d.csv"))
+    pose_err = np.zeros(4)
+    for row, (lat, lon, alt), (y, p, r) in zip(rows, truth,
+                                               m.aircraft_ypr):
+        v = [float(x) for x in row[1:]]
+        pose_err = np.maximum(pose_err, [
+            max(abs(v[0] - lat), abs(v[1] - lon)), abs(v[2] - alt),
+            max(abs(v[3] - r), abs(v[4] - p)),
+            abs((v[5] - y + 180.0) % 360.0 - 180.0)])
+    models = proj.models_dir
+    hists, templates = histogram.load(proj.analysis_dir)
+    cfg = camera_config(m)
+    checks.update({
+        "(a) rc 0, STEP5": rc == 0 and proj.state.check("STEP5"),
+        "(a) camera by EXIF from the DB": proj.detect_camera() == CAMERA_KEY
+        and "estimating from EXIF" not in run_log
+        and proj.camera.get("ccd_width_mm") == cfg["ccd_width_mm"],
+        "(a) pix4d.csv within its rounding": len(rows) == len(m.ned)
+        and pose_err[0] <= 1e-4 / 3600 + 1e-9 and pose_err[1] <= 0.01
+        and pose_err[2] <= 0.005 and pose_err[3] <= 0.005,
+        "(a) group 0 holds >= 90%": bool(grps)
+        and len(grps[0]) >= 0.9 * len(m.ned),
+        "(a) BA mre <= 1 px": len(mre) == 1 and mre[0] <= 1.0,
+        "(a) cameras within 3 m": err.max() < 3.0,
+        "(a) median point within 1 m": abs(height) <= 1.0,
+        "(a) mosaic.tif, gdalscript.sh": all(
+            os.path.isfile(os.path.join(models, f))
+            for f in ("mosaic.tif", "gdalscript.sh")),
+        "(a) a template for every frame": templates is not None
+        and sorted(templates) == sorted(im.name for im in proj.image_list),
+        "(a) K1 int8 and K2 launched": launches["knn_packed_i8"] > 0
+        and launches["gauss_blur_f32"] > 0,
+    })
+    log(f"[process-17a] {len(m.ned)} JPEGs {W}x{H} tagged with EXIF, no "
+        f"pose file, --geotiff --histogram: main {wall:.3f} s; camera "
+        f"{proj.camera.get('make')}_{proj.camera.get('model')}; pix4d.csv "
+        f"vs truth max: latlon {pose_err[0]:.2e} deg, alt {pose_err[1]:.3f} "
+        f"m, roll/pitch {pose_err[2]:.4f}, yaw {pose_err[3]:.4f} deg; groups "
+        f"{[len(g) for g in grps]}; BA mre {mre}; camera error max "
+        f"{err.max():.4f} m; median point {height:.4f} m; stage walls "
+        f"{walls}; launches {launches}; {smi}")
+
+    # (a') Steps 1–2 again, the camera absent from the DB
+    again = os.path.join(root, "exif_nodb")
+    shutil.copytree(proj_dir, again)
+    empty_db = os.path.join(root, "empty_db")
+    os.makedirs(empty_db)
+    argv = [again] + base
+    argv[2] = empty_db
+    rc2 = process.main(argv + ["--refresh", "STEP1", "--refresh", "STEP2"])
+    p2 = ProjectMgr(again)
+    log2 = "".join(open(f).read() for f in glob.glob(
+        os.path.join(p2.analysis_dir, "messages-*")))
+    fx_est = float(p2.camera.getlist("K")[0])
+    checks["(a) estimate_from_exif fx within 0.1%"] = (
+        rc2 == 0 and "estimating from EXIF" in log2
+        and abs(fx_est / m.K[0, 0] - 1.0) <= 1e-3)
+    log(f"[process-17a] camera absent from the DB: Steps 1-2 rc {rc2}, fx "
+        f"from EXIF {fx_est:.4f} against {m.K[0, 0]:.4f}; {smi}")
+
+    # (b) the card's mosaic against the CPU's from the same frames; Step
+    # 5's two new parts timed alone
+    names = grps[0]
+    _sync(dev)
+    t0 = time.perf_counter()
+    texture.build_histograms(proj, device=dev)
+    _sync(dev)
+    hist_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mosaic, extent = geotiff.composite(proj, names, resolution=0.25,
+                                       ground=0.0, device=dev)
+    _sync(dev)
+    comp_s = time.perf_counter() - t0
+    frames = {proj.image_path(im): jpeg.decode_bgr(proj.image_path(im),
+                                                   dev).cpu()
+              for im in proj.image_list if im.name in set(names)}
+    decode = jpeg.decode_bgr
+    jpeg.decode_bgr = lambda path, device="cuda", reduce=1: frames[path]
+    try:
+        t0 = time.perf_counter()
+        cpu_mosaic, cpu_extent = geotiff.composite(
+            proj, names, resolution=0.25, ground=0.0, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        jpeg.decode_bgr = decode
+    card = mosaic.cpu().numpy().astype(int)
+    host = cpu_mosaic.numpy().astype(int)
+    covered = (card > 0).any(-1) | (host > 0).any(-1)
+    within = (np.abs(card - host).max(-1) <= 1)[covered].mean()
+    checks["(b) card vs CPU within 1 level on >= 99.9%"] = (
+        extent == cpu_extent and within >= 0.999)
+    equal = float((card == host).all(-1)[covered].mean())
+    log(f"[process-17b] mosaic {card.shape[1]}x{card.shape[0]} at 0.25 m/px "
+        f"of {len(names)} frames: composite on the card {comp_s:.3f} s "
+        f"({1e3 * comp_s / len(names):.1f} ms/frame, decode included), on "
+        f"the CPU {cpu_s:.3f} s; covered {covered.mean():.4f}, within one "
+        f"level {within:.6f}, bit-equal {equal:.6f}; build_histograms "
+        f"{hist_s:.3f} s; Step 5 of (a) {walls.get('step5_render')} s; "
+        f"{smi}")
+
+    # (c) --cam-calibration from a focal length 3% low
+    K_true = float(m.K[0, 0])
+    K_low = list(proj.camera.getlist("K"))
+    K_low[0] = K_low[4] = 0.97 * K_true
+    proj.camera.setlist("K", K_low)
+    proj.save()
+    t0 = time.perf_counter()
+    rc3 = process.main([proj_dir] + base + ["--refresh", "STEP4",
+                                            "--cam-calibration"])
+    cal_s = time.perf_counter() - t0
+    proj, run_log, _, mre, _, err, _ = mission_outcome(proj_dir, m)
+    K_opt = proj.camera.getlist("K_opt")
+    d_opt = proj.camera.getlist("dist_coeffs_opt")
+    moved = (K_opt[0] - 0.97 * K_true) / (0.03 * K_true)
+    checks.update({
+        "(c) K_opt moved >= 25% back": rc3 == 0 and moved >= 0.25,
+        "(c) dist_coeffs_opt[0] within 0.01": abs(d_opt[0]) <= 0.01,
+        "(c) mre <= 1 px": mre[-1] <= 1.0,
+    })
+    log(f"[process-17c] --refresh STEP4 --cam-calibration from f "
+        f"{0.97 * K_true:.2f} (truth {K_true:.2f}): K_opt f {K_opt[0]:.3f} "
+        f"({100 * moved:.1f}% of the way back), dist_coeffs_opt "
+        f"{[round(float(x), 5) for x in d_opt]}, mre {mre[-1]:.4f} px, "
+        f"camera error max {err.max():.4f} m, {cal_s:.2f} s; {smi}")
+
+    # (d) the device transforms and the host essential5 refilter
+    more, numbers = run_transforms(proj_dir, smi, dev)
+    checks.update(more)
+    log("[process-17] " + json.dumps({
+        "main_s": wall, "stage_wall_s": walls, "composite_s": comp_s,
+        "composite_cpu_s": cpu_s, "histograms_s": hist_s,
+        "composite_ms_per_frame": 1e3 * comp_s / len(names),
+        "mosaic": [card.shape[1], card.shape[0]], "calibration_s": cal_s,
+        "K_opt_moved": moved, **numbers, "device": smi}))
+    checks["no PIL or cv2 imported"] = not {"PIL", "cv2"} & set(sys.modules)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 17 failed: {failed}")
+    return launches
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     smi = device_info()
@@ -2376,6 +2689,8 @@ def main():
     anatomy = run_probes()
     with tempfile.TemporaryDirectory() as root:
         run_process(root, smi)
+    with tempfile.TemporaryDirectory() as root:
+        run_process_extras(root, smi)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",

@@ -8,10 +8,10 @@ by its path:
 
 - ``core/rotations.py``, ``core/camera.py``, ``core/geodesy.py``,
   ``core/transforms.py``     ← the same paths under ``imageanalysis_tpu/core``
-- ``io/logger.py``, ``io/props.py``, ``io/state.py``, ``io/camera_db.py``
-  (less ``estimate_from_exif``), ``io/project.py`` (``ImageRecord``,
-  ``ProjectMgr``; the same on-disk workspace), ``io/pose.py`` (less
-  ``make_pix4d``, which needs EXIF)
+- ``io/logger.py``, ``io/props.py``, ``io/state.py``, ``io/camera_db.py``,
+  ``io/project.py`` (``ImageRecord``, ``ProjectMgr``; the same on-disk
+  workspace), ``io/pose.py``, ``io/exif.py`` (a host parser of the Exif
+  APP1 in place of PIL)
                              ← the same paths under ``imageanalysis_tpu/io``
 - ``io/jpeg.py``             ← the reference's host image I/O: PIL's draft
                                and cv2.imread in ``features/detect.py``,
@@ -28,7 +28,8 @@ by its path:
                                ``csrc/knn_wide.cu``; both share
                                ``csrc/knn_common.cuh``; kernel K4, the fused
                                match epilogue, ``csrc/match_epilogue.cu``)
-- ``ops/ransac.py``          ← ``imageanalysis_tpu/ops/ransac.py``
+- ``ops/ransac.py``, ``ops/essential5.py`` (host numpy, a copy)
+                             ← the same paths under ``imageanalysis_tpu/ops``
 - ``ops/clahe.py``           ← ``imageanalysis_tpu/ops/clahe.py``
 - ``ops/triangulate.py``     ← ``imageanalysis_tpu/ops/triangulate.py``
 - ``features/sift.py``       ← ``imageanalysis_tpu/features/sift_tpu.py``
@@ -40,16 +41,18 @@ by its path:
   (``BatchMatcher``, ``find_matches``), ``match/smart.py``,
   ``match/cleanup.py``, ``match/groups.py``
                              ← the same paths under ``imageanalysis_tpu/match``
-- ``ba/bundle.py`` (less the calibration path), ``ba/setup.py``
+- ``ba/bundle.py``, ``ba/setup.py``, ``ba/calibrate.py``
                              ← the same paths under ``imageanalysis_tpu/ba``
-- ``render/build_map.py``, ``render/ac3d.py``
+- ``render/build_map.py``, ``render/ac3d.py``, ``render/geotiff.py``,
+  ``render/histogram.py``, ``render/texture.py``
                              ← the same paths under ``imageanalysis_tpu/render``
 - ``apps/process.py``        ← ``imageanalysis_tpu/apps/process.py`` (one
-                               process, Steps 1→5 on the default flags)
+                               process, Steps 1→5; the OpenCV detectors and
+                               a run across hosts raise)
 - ``testing/synthetic.py``   ← part of ``imageanalysis_tpu/testing/synthetic.py``
                                (a mission generator that needs no OpenCV,
                                writers of its project workspace and of its
-                               folder of JPEGs + pix4d.csv, and the
+                               folder of JPEGs + pix4d.csv or EXIF, and the
                                synthetic BA graphs of ``scripts_dev``)
 
 Conventions:

@@ -13,12 +13,13 @@ same stages, state gating and workspace files:
   Step 5   surface/render outputs                      (state STEP5)
 
 Usage: ``python -m imageanalysis_tpu_torch.apps.process <image_dir>
---camera <key> --detector TPU [options]``; any stage can be redone with
+[--camera <key>] --detector TPU [options]``; any stage can be redone with
 ``--refresh STEPn``. It runs on the CUDA card; ``IMGTPU_PLATFORM=cpu``
-asks for the CPU. Not ported, and raising ``NotImplementedError``:
-``--geotiff``, ``--histogram``, ``--cam-calibration``, the fundamental and
-essential filters, the OpenCV detectors (``--detector SIFT|ORB``), a run
-across hosts, and Step 1 without ``--camera`` (it reads EXIF).
+asks for the CPU. Without ``--camera``, Step 1 finds the camera from the
+first image's EXIF (and estimates its config from EXIF when the DB lacks
+it); without a pose file, Step 2 writes ``pix4d.csv`` from the images'
+EXIF. Not ported, and raising ``NotImplementedError``: the OpenCV
+detectors (``--detector SIFT|ORB``) and a run across hosts.
 """
 
 from __future__ import annotations
@@ -28,16 +29,18 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..ba import bundle, setup as ba_setup
+from ..ba import bundle, calibrate, setup as ba_setup
 from ..features.detect import DetectorConfig, detect_project_features
 from ..io import camera_db, pose as pose_mod
 from ..io.logger import log
 from ..io.project import ProjectMgr
 from ..match import cleanup, groups as groups_mod, matcher, smart as smart_mod
-from ..render import build_map
+from ..render import build_map, geotiff
+from ..render.texture import build_histograms
 from ..surface import srtm
 
 
@@ -102,15 +105,6 @@ def build_parser():
     return p
 
 
-# ROADMAP.md queue 1 items of what the port does not run yet
-_NOT_PORTED = {
-    "geotiff": "--geotiff (render/geotiff.py, render/texture.py)",
-    "histogram": "--histogram (render/histogram.py, render/texture.py)",
-    "cam_calibration": "--cam-calibration (ba/calibrate.py, BA's "
-                       "calibration path)",
-}
-
-
 def _multi_host():
     """Whether the environment asks for a run across processes: the
     reference's JAX_COORDINATOR / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
@@ -119,21 +113,6 @@ def _multi_host():
                 and os.environ.get("JAX_NUM_PROCESSES") is not None
                 and os.environ.get("JAX_PROCESS_ID") is not None)
     return bool(explicit) or int(os.environ.get("WORLD_SIZE", "1")) > 1
-
-
-def _check_ported(args):
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"{what} is not ported (ROADMAP.md queue 1)")
-    if args.filter not in matcher._TRANSFORMS:
-        raise NotImplementedError(
-            f"--filter {args.filter} is not ported (ROADMAP.md queue 1: the "
-            f"other RANSAC transforms); use one of {matcher._TRANSFORMS}")
-    if _multi_host():
-        raise NotImplementedError(
-            "a run across hosts is not ported (ROADMAP.md queue 1: "
-            "parallel/sharded.py and parallel/multihost.py); run one process")
 
 
 def run(args, device="cuda") -> int:
@@ -154,7 +133,10 @@ def run(args, device="cuda") -> int:
 
 
 def _run(args, device) -> int:
-    _check_ported(args)
+    if _multi_host():
+        raise NotImplementedError(
+            "a run across hosts is not ported (ROADMAP.md queue 1: "
+            "parallel/sharded.py and parallel/multihost.py); run one process")
 
     # per-stage wall clocks in the run log, "stage wall: <name> <s>s"
     t_start = time.perf_counter()
@@ -174,22 +156,27 @@ def _run(args, device) -> int:
     # ---- Step 1: camera config ------------------------------------------
     if not proj.state.check("STEP1"):
         log("Step 1: setting up camera config")
-        if not args.camera:
-            raise NotImplementedError(
-                "finding the camera from EXIF is not ported (ROADMAP.md "
-                "queue 1: EXIF); pass --camera <key> (with --camera-db)")
-        cfg = camera_db.load(args.camera, db_dirs=args.camera_db)
+        cam_key = args.camera or proj.detect_camera()
+        cfg = (camera_db.load(cam_key, db_dirs=args.camera_db)
+               if cam_key else None)
         if cfg is None:
-            raise NotImplementedError(
-                f"camera '{args.camera}' is not in the camera DB, and "
-                "estimating it from EXIF is not ported (ROADMAP.md queue 1: "
-                "EXIF); add it under --camera-db")
+            files = proj.image_files()
+            if not files:
+                log("no images found in", args.project)
+                return 1
+            log("camera not in DB, estimating from EXIF:", cam_key)
+            cfg = camera_db.estimate_from_exif(
+                os.path.join(args.project, files[0]))
         cfg["mount"] = {"yaw_deg": args.yaw_deg, "pitch_deg": args.pitch_deg,
                         "roll_deg": args.roll_deg}
+        # a zero focal length (no EXIF FocalLength, no DB entry) would NaN
+        # every undistorted coordinate: fail here with the cause
         K = cfg.get("K") or []
         if len(K) < 5 or not (float(K[0]) > 0.0 and float(K[4]) > 0.0):
-            log(f"camera '{args.camera}' has no usable focal length "
-                f"(fx={K[0] if len(K) else 'missing'}); fix its DB entry")
+            log(f"camera '{cam_key}' has no usable focal length "
+                f"(fx={K[0] if len(K) else 'missing'}): the images carry no "
+                "EXIF FocalLength and the camera is not in the DB; pass "
+                "--camera <key> (with --camera-db)")
             return 1
         proj.set_camera_config(cfg)
         proj.save()
@@ -208,7 +195,15 @@ def _run(args, device) -> int:
             pose_mod.set_aircraft_poses(proj, meta_txt, order="ypr",
                                         max_angle=args.max_angle)
         else:
-            pose_mod.make_pix4d(args.project)
+            log("No pose file found, generating pix4d.csv from image EXIF")
+            pose_mod.make_pix4d(args.project,
+                                camera_make=proj.camera.get("make", ""),
+                                camera_model=proj.camera.get("model", ""),
+                                force_altitude=args.force_altitude,
+                                force_heading=args.force_heading,
+                                yaw_from_groundtrack=args.yaw_from_groundtrack)
+            pose_mod.set_aircraft_poses(proj, pix4d, order="rpy",
+                                        max_angle=args.max_angle)
         proj.load_images_info()
         proj.compute_ned_reference_lla()
         pose_mod.compute_camera_poses(proj)
@@ -333,8 +328,17 @@ def _run(args, device) -> int:
                 f" {len(pts0)} points) — check matching stage output")
             return 1
         model = proj.camera_model()
-        result = bundle.solve(cams0, pts0, obs, model.K, model.dist,
-                              bundle.BAConfig(), log_fn=log, device=device)
+        if args.cam_calibration:
+            result, K_opt, dist_opt = calibrate.solve_with_calibration(
+                cams0, pts0, obs, model.K, model.dist, log_fn=log,
+                device=device)
+            proj.camera.setlist("K_opt", np.asarray(K_opt).ravel())
+            proj.camera.setlist("dist_coeffs_opt", dist_opt)
+            proj.save()
+        else:
+            result = bundle.solve(cams0, pts0, obs, model.K, model.dist,
+                                  bundle.BAConfig(), log_fn=log,
+                                  device=device)
         # re-register onto the GPS solution
         new_cams, new_pts, _ = bundle.refit(result.cams, result.pts,
                                             cams0[:, :3], device=device)
@@ -366,6 +370,14 @@ def _run(args, device) -> int:
         matches = proj.load_matches_grouped()
         build_map.build(proj, matches, grps, group_index=args.group,
                         device=device)
+        if args.histogram:
+            build_histograms(proj, device=device)
+            log("histogram-matching tables built (explorer applies them "
+                "at texture load)")
+        if args.geotiff:
+            geotiff.build_geotiff(proj, grps[args.group] if grps else None,
+                                  resolution=args.geotiff_res,
+                                  ground=args.ground or 0.0, device=device)
         proj.state.update("STEP5")
     mark("step5_render")
     log(f"stage wall: TOTAL {time.perf_counter() - t_start:.2f}s")

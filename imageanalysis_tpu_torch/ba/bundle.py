@@ -1,8 +1,7 @@
 """Sparse bundle adjustment: matrix-free Schur-complement Levenberg–Marquardt.
 
-Port of ``imageanalysis_tpu/ba/bundle.py`` (Step 4 of ``apps/process.py``)
-less the calibration path (``lm_step_calib``, ``solve_global_calib``,
-``ba_cost_calib``; ROADMAP). What it computes is the reference's:
+Port of ``imageanalysis_tpu/ba/bundle.py`` (Step 4 of ``apps/process.py``).
+What it computes is the reference's:
 
 - residuals: the reprojection error of every observation through
   ``core/camera.py::project_ned_quat`` (distortion applied, raw uv);
@@ -20,6 +19,12 @@ less the calibration path (``lm_step_calib``, ``solve_global_calib``,
 - Levenberg–Marquardt damping λ·diag(H) with Nielsen's gain-ratio update;
   camera positions box-clamped to ±3 m horizontal / ±9 m vertical of the
   initial (GPS) positions after every step, quaternions renormalized.
+
+The calibration path (``solve_global_calib``, ``--cam-calibration``) adds
+the 8 shared intrinsics [f, cx, cy, k1, k2, p1, p2, k3] to the Schur
+system as a dense border block beside the 7-wide camera blocks, with a
+soft GPS position prior; its CG preconditions the camera blocks and the
+8×8 calibration block each by its own inverse.
 
 Layout: the reference keeps every observation-sized quantity strictly
 1-D, a TPU tiling limit; here they are tensors (n, 2, 7), (n, 2, 3) and
@@ -285,6 +290,248 @@ def ba_cost(cams, pts, obs, K, dist):
     wsum = obs.weight.sum().clamp_min(1.0)
     a = r.abs()
     return cost, a.sum() / (2.0 * wsum), a.max()
+
+
+# ---------------------------------------------------------------------------
+# Joint pose / point / global-calibration step: the 8 shared [f, cx, cy, k1,
+# k2, p1, p2, k3] join the camera-reduced (Schur) system as a border block
+# ---------------------------------------------------------------------------
+
+def _calib_K_dist(calib):
+    """(K (3, 3), dist (5,)) of a calibration vector [f, cx, cy, k1, k2, p1,
+    p2, k3], differentiable in it."""
+    zero, one = torch.zeros_like(calib[0]), torch.ones_like(calib[0])
+    K = torch.stack([torch.stack([calib[0], zero, calib[1]]),
+                     torch.stack([zero, calib[0], calib[2]]),
+                     torch.stack([zero, zero, one])])
+    return K, calib[3:8]
+
+
+def _per_obs_jacobians_calib(cams, pts, obs, calib):
+    """(Jc (n, 2, 7), Jp (n, 2, 3), Jk (n, 2, 8), r (n, 2)): one JVP of
+    the whole-batch residual per direction, 7 + 3 + 8 of them."""
+    c = cams[obs.cam_idx]
+    p = pts[obs.pt_idx]
+    uv, w = obs.uv, obs.weight
+
+    def F(c_, p_, k_):
+        K, dist = _calib_K_dist(k_)
+        pred, _ = project_ned_quat(p_, c_[:, :3], c_[:, 3:7], K, dist)
+        return (pred - uv) * w[:, None]
+
+    n = c.shape[0]
+    prim = (c, p, calib)
+    J = [c.new_empty((n, 2, x.shape[-1])) for x in prim]
+    r = None
+    for arg, x in enumerate(prim):
+        def f(x_, arg=arg):
+            return F(*(x_ if i == arg else y for i, y in enumerate(prim)))
+
+        for k in range(x.shape[-1]):
+            e = torch.zeros_like(x)
+            e[..., k] = 1.0
+            out, col = jvp(f, (x,), (e,))
+            J[arg][:, :, k] = col
+            if r is None:
+                r = out
+    return J[0], J[1], J[2], r
+
+
+def lm_step_calib(cams, pts, calib, obs, lam, gps_ned, gps_w, n_cam, n_pt,
+                  cg_iters=60, cg_tol=1e-3):
+    """One damped Gauss–Newton step over (cameras, points, the shared
+    calibration): the bordered Schur system by block-Jacobi PCG, stopped
+    at ‖r‖/‖b‖ ≤ cg_tol or after cg_iters (one device sync an iteration).
+    gps_ned (n_cam, 3) and gps_w (px²/m²) are the soft GPS position prior,
+    without which the focal length trades freely against the camera
+    heights; gps_w = 0 turns it off. Returns (Δcams (n_cam, 7), Δpts
+    (n_pt, 3), Δcalib (8,))."""
+    jac = lm_jacobians_calib(cams, pts, calib, obs, gps_ned, gps_w, n_cam,
+                             n_pt)
+    return lm_solve_calib(jac, obs.cam_idx, obs.pt_idx, lam, gps_w,
+                          cg_iters=cg_iters, cg_tol=cg_tol)
+
+
+class BACalibJacobians(NamedTuple):
+    """The λ-independent half of a calibration step: Jc (n, 2, 7), Jp
+    (n, 2, 3), Jk (n, 2, 8); gradients g_c (n_cam, 7), g_p (n_pt, 3),
+    g_k (8,) and blocks Hcc (n_cam, 7, 7), Hpp (n_pt, 3, 3), Hkk (8, 8),
+    the GPS prior included."""
+
+    Jc: torch.Tensor
+    Jp: torch.Tensor
+    Jk: torch.Tensor
+    g_c: torch.Tensor
+    g_p: torch.Tensor
+    g_k: torch.Tensor
+    Hcc: torch.Tensor
+    Hpp: torch.Tensor
+    Hkk: torch.Tensor
+
+
+def lm_jacobians_calib(cams, pts, calib, obs, gps_ned, gps_w, n_cam, n_pt):
+    """Jacobians, gradients and undamped blocks of a calibration step,
+    computed once per outer iteration and reused across λ retries."""
+    Jc, Jp, Jk, r = _per_obs_jacobians_calib(cams, pts, obs, calib)
+    g_c = _seg(_apply_T(Jc, r), obs.cam_idx, n_cam)
+    Hcc = _seg(_outer2(Jc), obs.cam_idx, n_cam)
+    # the GPS prior adds gps_w·(ned − gps) to the gradient and gps_w·I to
+    # the position block of each camera
+    g_c[:, :3] += gps_w * (cams[:, :3] - gps_ned)
+    for k in range(3):
+        Hcc[:, k, k] += gps_w
+    return BACalibJacobians(Jc, Jp, Jk, g_c,
+                            _seg(_apply_T(Jp, r), obs.pt_idx, n_pt),
+                            _apply_T(Jk, r).sum(0), Hcc,
+                            _seg(_outer2(Jp), obs.pt_idx, n_pt),
+                            _outer2(Jk).sum(0))
+
+
+def lm_solve_calib(jac, cam_idx, pt_idx, lam, gps_w, cg_iters=60,
+                   cg_tol=1e-3):
+    """The per-λ half of a calibration step: damp jac's blocks, solve the
+    bordered Schur system by PCG, back-substitute the points. Returns
+    (Δcams, Δpts, Δcalib)."""
+    Jc, Jp, Jk, g_c, g_p, g_k, Hcc, Hpp, Hkk = jac
+    n_cam, n_pt = g_c.shape[0], g_p.shape[0]
+    eye7 = torch.eye(7, dtype=g_c.dtype, device=g_c.device)
+    eye8 = torch.eye(8, dtype=g_c.dtype, device=g_c.device)
+    dc = torch.diagonal(Hcc, dim1=1, dim2=2)
+    dk = torch.diagonal(Hkk)
+    Hpp_inv = _hpp_inverse(Hpp, lam)
+
+    def obs_apply(v_c, v_k):  # (Jc·v_c[cam] + Jk·v_k): (n, 2)
+        return _matvec(Jc, v_c[cam_idx]) + Jk @ v_k
+
+    def obs_pt(y):
+        return _matvec(Jp, y[pt_idx])
+
+    def pt_T(u):
+        return _seg(_apply_T(Jp, u), pt_idx, n_pt)
+
+    def matvec(v_c, v_k):
+        u = obs_apply(v_c, v_k)
+        uz = u - obs_pt(_matvec(Hpp_inv, pt_T(u)))
+        out_c = _seg(_apply_T(Jc, uz), cam_idx, n_cam) + lam * dc * v_c \
+            + 1e-8 * v_c
+        out_c[:, :3] += gps_w * v_c[:, :3]
+        out_k = _apply_T(Jk, uz).sum(0) + lam * dk * v_k + 1e-8 * v_k
+        return out_c, out_k
+
+    z0 = obs_pt(_matvec(Hpp_inv, g_p))
+    b_c = -(g_c - _seg(_apply_T(Jc, z0), cam_idx, n_cam))
+    b_k = -(g_k - _apply_T(Jk, z0).sum(0))
+    Pc = torch.linalg.inv(Hcc + lam * torch.diag_embed(dc) + 1e-6 * eye7)
+    Pk = torch.linalg.inv(Hkk + lam * torch.diag(dk) + 1e-6 * eye8)
+
+    def precond(v_c, v_k):
+        return _matvec(Pc, v_c), Pk @ v_k
+
+    def dot(a, b):
+        return (a[0] * b[0]).sum() + (a[1] * b[1]).sum()
+
+    x = (torch.zeros_like(b_c), torch.zeros_like(b_k))
+    rr = (b_c, b_k)
+    p = precond(*rr)
+    rz = dot(rr, p)
+    b_norm = torch.sqrt(dot(rr, rr)) + 1e-30
+    it = 0
+    while it < cg_iters and bool(torch.sqrt(dot(rr, rr)) / b_norm > cg_tol):
+        Ap = matvec(*p)
+        alpha = rz / dot(p, Ap).clamp_min(1e-30)
+        x = (x[0] + alpha * p[0], x[1] + alpha * p[1])
+        rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+        zz = precond(*rr)
+        rz_new = dot(rr, zz)
+        beta = rz_new / rz.clamp_min(1e-30)
+        p = (zz[0] + beta * p[0], zz[1] + beta * p[1])
+        rz = rz_new
+        it += 1
+    d_cam, d_cal = x
+    dp = _matvec(Hpp_inv, -g_p - pt_T(obs_apply(d_cam, d_cal)))
+    return d_cam, dp, d_cal
+
+
+def ba_cost_calib(cams, pts, calib, obs, gps_ned=None, gps_w=0.0):
+    """ba_cost under the calibration vector calib, plus the GPS prior's
+    ½·gps_w·‖ned − gps‖² when gps_ned is given."""
+    K, dist = _calib_K_dist(calib)
+    cost, mre, mx = ba_cost(cams, pts, obs, K, dist)
+    if gps_ned is not None:
+        cost = cost + 0.5 * gps_w * ((cams[:, :3] - gps_ned) ** 2).sum()
+    return cost, mre, mx
+
+
+def solve_global_calib(cams0, pts0, obs, K0, dist0,
+                       config: BAConfig = BAConfig(), gps_sigma_m=2.0,
+                       verbose=True, log_fn=print, device="cuda"):
+    """The LM loop jointly over poses, points and the shared calibration,
+    in f32 on device, with the reference's λ rule (÷ lam_down on success,
+    × lam_up on failure). Returns (BAResult, K (3, 3), dist (5,)) as
+    numpy."""
+    dtype = torch.float32
+    cams, pts, obs, _, _ = _problem_on(cams0, pts0, obs, K0, dist0, device,
+                                       dtype)
+    K0 = np.asarray(K0, np.float64)
+    calib = _on(np.r_[0.5 * (K0[0, 0] + K0[1, 1]), K0[0, 2], K0[1, 2],
+                      np.asarray(dist0, np.float64)].astype(np.float32),
+                cams.device)
+    n_cam, n_pt = cams.shape[0], pts.shape[0]
+    gps_ned = cams[:, :3].clone()
+    box = torch.tensor([config.bound_horiz, config.bound_horiz,
+                        config.bound_vert], dtype=dtype, device=cams.device)
+    lo, hi = gps_ned - box, gps_ned + box
+    # px²/m²: σ m of GPS noise → 1/σ²
+    gps_w = 1.0 / gps_sigma_m ** 2 if gps_sigma_m else 0.0
+
+    lam = config.lam0
+    cost, mre, _ = ba_cost_calib(cams, pts, calib, obs, gps_ned, gps_w)
+    cost = float(cost)
+    history = [cost]
+    if verbose:
+        log_fn(f"BA+calib start: cost={cost:.4g} mre={float(mre):.3f}px")
+    it = 0
+    for it in range(config.max_iters):
+        accepted = False
+        jac = lm_jacobians_calib(cams, pts, calib, obs, gps_ned, gps_w,
+                                 n_cam, n_pt)
+        for _ in range(config.max_retries):
+            d_cam, d_pt, d_cal = lm_solve_calib(
+                jac, obs.cam_idx, obs.pt_idx, lam, gps_w,
+                cg_iters=config.cg_iters)
+            cams_new = cams + d_cam
+            ned = torch.clamp(cams_new[:, :3], lo, hi)
+            q = cams_new[:, 3:7]
+            q = q / torch.linalg.vector_norm(q, dim=-1,
+                                             keepdim=True).clamp_min(1e-12)
+            cams_new = torch.cat([ned, q], dim=1)
+            pts_new = pts + d_pt
+            calib_new = calib + d_cal
+            new_cost, new_mre, _ = ba_cost_calib(cams_new, pts_new,
+                                                 calib_new, obs, gps_ned,
+                                                 gps_w)
+            new_cost = float(new_cost)
+            if np.isfinite(new_cost) and new_cost < cost:
+                cams, pts, calib = cams_new, pts_new, calib_new
+                rel = 1.0 - new_cost / cost
+                cost = new_cost
+                lam = max(lam / config.lam_down, 1e-9)
+                accepted = True
+                history.append(cost)
+                if verbose:
+                    log_fn(f"  iter {it}: mre={float(new_mre):.3f}px "
+                           f"f={float(calib[0]):.2f} lam={lam:.1e}")
+                if rel < config.ftol:
+                    accepted = "converged"
+                break
+            lam = min(lam * config.lam_up, 1e6)
+        if accepted == "converged" or not accepted:
+            break
+    _, mre, _ = ba_cost_calib(cams, pts, calib, obs)
+    K, dist = _calib_K_dist(calib)
+    result = BAResult(cams.cpu().numpy(), pts.cpu().numpy(), float(mre),
+                      it + 1, history)
+    return result, K.cpu().numpy(), dist.cpu().numpy()
 
 
 class BAResult(NamedTuple):

@@ -3,8 +3,9 @@
 Port of ``imageanalysis_tpu/io/camera_db.py`` with the same JSON contract:
 row-major K (9 floats), 5 distortion coefficients [k1, k2, p1, p2, k3],
 ccd dims (mm), focal length (mm), image size (px), optional mount ypr.
-``to_model`` builds a torch ``CameraModel``. The EXIF estimator
-(``estimate_from_exif``) is not ported: it needs PIL.
+``to_model`` builds a torch ``CameraModel``; ``estimate_from_exif`` a
+starting config from a JPEG's EXIF (``io/exif``: the focal length, and
+the image size from the SOF marker).
 """
 
 from __future__ import annotations
@@ -62,6 +63,30 @@ def save(camera_key: str, cfg: dict, db_dir: str):
     os.makedirs(db_dir, exist_ok=True)
     with open(os.path.join(db_dir, camera_key + ".json"), "w") as f:
         json.dump(cfg, f, indent=4, sort_keys=True)
+
+
+def estimate_from_exif(image_file: str,
+                       ccd_width_mm: float | None = None) -> dict:
+    """A starting camera config from EXIF: fx = focal_mm · width_px /
+    ccd_width_mm (6.17 mm, a 1/2.3" sensor, by default), the principal
+    point at the centre, no distortion."""
+    from . import exif as exif_mod
+
+    width_px, height_px = exif_mod.jpeg_size(image_file)
+    focal_mm = exif_mod.focal_length_mm(image_file)
+    _, make, model, lens = exif_mod.get_camera_info(image_file)
+    if ccd_width_mm is None:
+        ccd_width_mm = 6.17
+    ccd_height_mm = ccd_width_mm * height_px / max(width_px, 1)
+    fx = focal_mm * width_px / ccd_width_mm if ccd_width_mm > 0 else 0.0
+    return config_from_dict({
+        "make": make, "model": model, "lens_model": lens or "unknown",
+        "focal_len_mm": focal_mm,
+        "ccd_width_mm": ccd_width_mm, "ccd_height_mm": ccd_height_mm,
+        "K": [fx, 0.0, width_px / 2.0, 0.0, fx, height_px / 2.0, 0.0, 0.0,
+              1.0],
+        "width_px": width_px, "height_px": height_px,
+    })
 
 
 def to_model(cfg: dict, optimized=False) -> CameraModel:

@@ -10,18 +10,23 @@ Port of ``imageanalysis_tpu/io/pose.py``:
 - ``compute_camera_poses`` (pose.py:101-121): camera quat = aircraft
   ned2body ⊗ mount body2cam, position = lla2ned of the aircraft.
 
+- ``make_pix4d`` (pose.py:123-205): pix4d.csv from each image's EXIF
+  and XMP (``io/exif``), the heading from the GPS ground track where the
+  images carry no yaw.
+
 Host-side Python; the attitude math runs in float32 through
-``core.rotations``, as the reference's does. ``make_pix4d`` reads EXIF,
-which the port cannot read yet: it raises.
+``core.rotations``, as the reference's does.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import re
 
 import numpy as np
 
+from . import exif
 from .logger import log
 from .project import ImageRecord, ProjectMgr
 from ..core import geodesy
@@ -102,13 +107,84 @@ def compute_camera_poses(proj: ProjectMgr):
         image.save_meta()
 
 
-def make_pix4d(image_dir, camera_make="", camera_model="",
+def make_pix4d(image_dir: str, camera_make="", camera_model="",
                force_altitude=None, force_heading=None,
                yaw_from_groundtrack=False):
-    """pix4d.csv from the images' EXIF (reference pose.py:123-177): needs
-    an EXIF reader, which the port does not have yet."""
-    raise NotImplementedError(
-        f"{image_dir} has no pix4d.csv or image-metadata.txt, and making "
-        "pix4d.csv from EXIF is not ported yet (ROADMAP.md queue 1, EXIF: "
-        "io/exif.py, make_pix4d); write the pose file, or run the "
-        "imageanalysis_tpu package's Step 2 once")
+    """Write image_dir/pix4d.csv from each image's EXIF/XMP pose; returns
+    its path.
+
+    Raises RuntimeError for Phantom 4 cameras without force_altitude (their
+    geotag altitude is wrong) and FileExistsError when pix4d.csv exists.
+    """
+    if (not force_altitude and camera_make == "DJI"
+            and camera_model in ("FC330", "FC6310", "FC6310S")):
+        raise RuntimeError(
+            "Phantom 4 altitude metadata is unreliable; rerun with "
+            "force_altitude=<true flight altitude MSL in meters>.")
+
+    files = sorted(f for f in os.listdir(image_dir)
+                   if f.lower().endswith((".jpg", ".jpeg")))
+    images = []
+    images_have_yaw = False
+    for fname in files:
+        lon_deg, lat_deg, alt_m, unixtime, yaw_deg, pitch_deg, roll_deg = \
+            exif.get_pose(os.path.join(image_dir, fname))
+        alt = force_altitude if force_altitude else alt_m
+        roll = roll_deg if roll_deg is not None else 0.0
+        if camera_make == "DJI" and camera_model == "FC7303":
+            pitch_deg = -90.0  # the Mavic Mini 2's gimbal looks down
+        pitch = pitch_deg if pitch_deg is not None else 0.0
+        if force_heading is not None:
+            yaw = force_heading
+        elif yaw_deg is not None:
+            images_have_yaw = True
+            yaw = yaw_deg
+        else:
+            yaw = 0.0
+        images.append([fname, lat_deg, lon_deg, alt, roll, pitch, yaw])
+
+    if (not force_heading and not images_have_yaw) or yaw_from_groundtrack:
+        log("estimating yaw from gps ground track")
+        _fill_yaw_from_groundtrack(images)
+
+    out = os.path.join(image_dir, "pix4d.csv")
+    if os.path.exists(out):
+        raise FileExistsError(f"{out} exists, please rename it and rerun.")
+    log("Creating pix4d image pose file:", out, "images:", len(files))
+    with open(out, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["File Name", "Lat (decimal degrees)",
+                    "Lon (decimal degrees)", "Alt (meters MSL)",
+                    "Roll (decimal degrees)", "Pitch (decimal degrees)",
+                    "Yaw (decimal degrees)"])
+        for name, lat, lon, alt, roll, pitch, yaw in images:
+            w.writerow([os.path.basename(name), "%.10f" % lat, "%.10f" % lon,
+                        "%.2f" % alt, "%.2f" % roll, "%.2f" % pitch,
+                        "%.2f" % yaw])
+    return out
+
+
+def _fill_yaw_from_groundtrack(images):
+    """Distance-weighted average heading of the legs into and out of each
+    image, in place (images rows: [name, lat, lon, alt, roll, pitch,
+    yaw])."""
+    n = len(images)
+    for i in range(n):
+        lat, lon = images[i][1], images[i][2]
+        hx = hy = 0.0
+        legs = []
+        if i > 0:
+            legs.append((lat, lon, images[i - 1][1], images[i - 1][2]))
+        if i < n - 1:
+            legs.append((images[i + 1][1], images[i + 1][2], lat, lon))
+        for la, lo, ref_la, ref_lo in legs:
+            ned = geodesy.lla2ned(la, lo, 0.0, ref_la, ref_lo, 0.0)
+            dist = float(np.hypot(ned[0], ned[1]))
+            if dist > 0:
+                hdg = np.arctan2(ned[1], ned[0])
+                hx += np.cos(hdg) * dist
+                hy += np.sin(hdg) * dist
+        avg = np.degrees(np.arctan2(hy, hx))
+        if avg < 0:
+            avg += 360.0
+        images[i][6] = float(avg)

@@ -17,8 +17,8 @@ workspace that one package writes loads in the other:
         smart.json                      /smart priors tree
 
 Host-side Python and numpy; attitude math runs in float32 through
-``core.rotations``, as the reference's does. ``detect_camera`` (EXIF, PIL)
-is not ported.
+``core.rotations``, as the reference's does. ``detect_camera`` reads the
+first image's EXIF through ``io/exif``.
 """
 
 from __future__ import annotations
@@ -260,6 +260,16 @@ class ProjectMgr:
     @property
     def camera(self) -> PropertyNode:
         return self.config.node("camera")
+
+    def detect_camera(self) -> str:
+        """Camera DB key from the first image's EXIF ("" without images)."""
+        from . import exif
+        files = self.image_files()
+        if not files:
+            return ""
+        key, _, _, _ = exif.get_camera_info(
+            os.path.join(self.project_dir, files[0]))
+        return key
 
     def set_camera_config(self, cfg: dict):
         self.camera.update(cfg)

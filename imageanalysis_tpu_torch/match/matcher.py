@@ -2,9 +2,13 @@
 
 Port of ``imageanalysis_tpu/match/matcher.py`` for one process. For a
 batch of pairs: exact mutual 2-NN (kernels K1/K3, or the CPU arm), the
-Lowe ratio test and homography RANSAC, as batched tensor work over a
+Lowe ratio test and a RANSAC filter (homography, fundamental or
+essential: ``MatchConfig.transform``), as batched tensor work over a
 leading pair dimension; then the host unpack into per-pair match arrays
-with the reference's ``min_pairs`` rule.
+with the reference's ``min_pairs`` rule. ``essential5`` filters on the
+host instead: the device keeps every ratio + mutual survivor, and the
+unpack refilters each pair by the 5-point essential RANSAC
+(``ops/essential5``) on K⁻¹-normalised points.
 
 - ``traditional`` (and its aliases) matches every pair ungated;
 - ``smart`` gates the 2-NN candidates to ``gate_radius_frac · hypot(w,
@@ -18,8 +22,7 @@ int8 ``DescriptorStore`` with device-side gathers. ``find_matches`` is
 Step 3a's matching stage over a project workspace. ``match_pairs_store``
 is the store path with the workspace lifted out.
 
-The fundamental/essential transforms and multi-host sharding are not
-ported (``NotImplementedError``).
+Multi-host sharding is not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from ..core.camera import ned_quat_to_rt
 from ..io.logger import log, qlog
-from ..ops import knn, ransac
+from ..ops import essential5, knn, ransac
 from . import worklist
 
 
@@ -55,7 +58,8 @@ class MatchConfig:
                  gate_radius_frac=0.2, compact_downloads=False, store_scan=4):
         self.strategy = strategy
         self.ratio = match_ratio if match_ratio is not None else ratio
-        self.transform = transform          # homography | none (ported)
+        # homography | fundamental | essential | essential5 | none
+        self.transform = transform
         self.min_pairs = min_pairs          # reference matcher.py:131 (25)
         self.filter_thresh = filter_thresh  # None → w^0.25
         self.batch_size = batch_size
@@ -73,31 +77,40 @@ class MatchConfig:
         self.store_scan = store_scan
 
 
-_TRANSFORMS = ("homography", "none")
+_TRANSFORMS = ("homography", "fundamental", "essential", "essential5",
+               "none")
 
 
 def _filter(best_j, ok, pb, uv_a, generator, thresh, transform, n_hyp,
-            pick=None):
-    """The geometric filter after the 2-NN: RANSAC inliers of ok."""
+            K=None, pick=None):
+    """The geometric filter after the 2-NN: RANSAC inliers of ok (K, the
+    (3, 3) intrinsics, for the essential matrix). "none" and the host
+    "essential5" keep ok as it is."""
     if transform not in _TRANSFORMS:
-        raise NotImplementedError(f"transform {transform!r} is not ported "
-                                  f"yet (have {_TRANSFORMS})")
+        raise ValueError(f"unknown transform {transform!r} (one of "
+                         f"{_TRANSFORMS})")
+    kw = dict(thresh=thresh, n_hyp=n_hyp, generator=generator, pick=pick)
     if transform == "homography":
-        res = ransac.ransac_homography(uv_a, pb, ok, thresh=thresh,
-                                       n_hyp=n_hyp, generator=generator,
-                                       pick=pick)
-        ok = ok & res.inliers & res.ok[:, None]
-    return best_j, ok
+        res = ransac.ransac_homography(uv_a, pb, ok, **kw)
+    elif transform == "fundamental":
+        res = ransac.ransac_fundamental(uv_a, pb, ok, **kw)
+    elif transform == "essential":
+        res = ransac.ransac_essential(uv_a, pb, ok, K, **kw)
+    else:
+        return best_j, ok
+    return best_j, ok & res.inliers & res.ok[:, None]
 
 
 def match_pair_batch(desc_a, desc_b, uv_a, uv_b, n_a, n_b, generator=None,
                      ratio=0.75, thresh=3.0, transform="homography",
-                     n_hyp=512, use_pallas=None, bf16=True, pick=None):
+                     n_hyp=512, use_pallas=None, bf16=True, pick=None,
+                     K=None):
     """Match a batch of image pairs end to end on the device.
 
     desc_a/desc_b (B, npad, 128) int8 or float; uv_a/uv_b (B, npad, 2)
     undistorted keypoints; n_a/n_b (B,) real counts; generator draws the
-    RANSAC minimal sets (pick (B, n_hyp, 4) replaces the draw). Returns
+    RANSAC minimal sets (pick (B, n_hyp, k) replaces the draw); K (3, 3)
+    the intrinsics, which transform="essential" needs. Returns
     (best_j (B, npad), ok (B, npad)) where ok marks ratio + mutual +
     RANSAC survivors."""
     best_j, ok, pb = knn.match_pair_dense(desc_a, desc_b, n_a, n_b,
@@ -105,7 +118,7 @@ def match_pair_batch(desc_a, desc_b, uv_a, uv_b, n_a, n_b, generator=None,
                                           use_pallas=use_pallas, bf16=bf16,
                                           uv_b=uv_b)
     return _filter(best_j, ok, pb, uv_a, generator, thresh, transform,
-                   n_hyp, pick)
+                   n_hyp, K, pick)
 
 
 def _pack(best_j, ok):
@@ -119,13 +132,13 @@ def _pack(best_j, ok):
 def match_pair_batch_packed(desc_a, desc_b, uv_a, uv_b, n_a, n_b,
                             generator=None, ratio=0.75, thresh=3.0,
                             transform="homography", n_hyp=512,
-                            use_pallas=None, bf16=True):
+                            use_pallas=None, bf16=True, K=None):
     """match_pair_batch packed into one (B, npad) int16 tensor: the best B
     index of each survivor, −1 elsewhere. npad must stay below 32768."""
     return _pack(*match_pair_batch(
         desc_a, desc_b, uv_a, uv_b, n_a, n_b, generator, ratio=ratio,
         thresh=thresh, transform=transform, n_hyp=n_hyp,
-        use_pallas=use_pallas, bf16=bf16))
+        use_pallas=use_pallas, bf16=bf16, K=K))
 
 
 def _predict_uv_in_a(uv_b, cam_a, cam_b, ground_z, K):
@@ -171,7 +184,7 @@ def match_pair_batch_gated(desc_a, desc_b, uv_a, uv_b, n_a, n_b, generator,
         use_pallas=use_pallas, bf16=bf16, gate_uv_a=uv_a, gate_pred_b=pred,
         gate_radius=gate_radius, uv_b=uv_b)
     return _pack(*_filter(best_j, ok, pb, uv_a, generator, thresh, transform,
-                          n_hyp))
+                          n_hyp, K))
 
 
 def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
@@ -211,7 +224,7 @@ def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
                 *args, K, cam_a[s, sl], cam_b[s, sl], ground_z[s, sl],
                 gate_radius=gate_radius, **kw)
         else:
-            packed = match_pair_batch_packed(*args, **kw)
+            packed = match_pair_batch_packed(*args, K=K, **kw)
         out[s, slots.to(dev)] = packed
     return out
 
@@ -319,6 +332,27 @@ class BatchMatcher:
         if image.uv_list is None:
             self.proj.undistort_image_keypoints(image)
 
+    def _post_filter(self, i1, i2, rows, cols):
+        """The host 5-point essential refilter of a pair's device
+        survivors (transform "essential5"): K⁻¹-normalised points,
+        threshold (thresh / f)², 128 hypotheses, the config's seed."""
+        if self.config.transform != "essential5" or len(rows) < 8:
+            return rows, cols
+        for im in (i1, i2):
+            if im.uv_list is None or im.kp is None:
+                self._prepare(im)
+        K = self.K.cpu().numpy().astype(np.float64)
+        Kinv = np.linalg.inv(K)
+        uv1 = i1.uv_list[rows]
+        uv2 = i2.uv_list[cols]
+        q1 = (np.c_[uv1, np.ones(len(uv1))] @ Kinv.T)[:, :2]
+        q2 = (np.c_[uv2, np.ones(len(uv2))] @ Kinv.T)[:, :2]
+        f = 0.5 * (K[0, 0] + K[1, 1])
+        _, inl, _ = essential5.ransac_essential_5pt(
+            q1, q2, thresh=(self.thresh / f) ** 2, n_hyp=128,
+            seed=self.config.seed)
+        return rows[inl], cols[inl]
+
     def _dispatch(self, desc_a, desc_b, uv_a, uv_b, n_a, n_b, bf16,
                   gate=None):
         """Launch one padded pair batch; returns the device tensor of
@@ -328,8 +362,8 @@ class BatchMatcher:
         cfg = self.config
         npad = desc_a.shape[1]
         kw = dict(ratio=cfg.ratio, thresh=self.thresh,
-                  transform=cfg.transform, n_hyp=cfg.n_hyp,
-                  use_pallas=cfg.use_pallas, bf16=bf16)
+                  transform=_device_transform(cfg.transform),
+                  n_hyp=cfg.n_hyp, use_pallas=cfg.use_pallas, bf16=bf16)
         args = (desc_a, desc_b, uv_a, uv_b, n_a, n_b, self.generator)
         if gate is not None and (npad <= 8192 or not cfg.use_pallas):
             cam_a, cam_b, gz = (self._tensor(x) for x in gate)
@@ -337,8 +371,8 @@ class BatchMatcher:
                 *args, self.K, cam_a, cam_b, gz,
                 gate_radius=float(self.gate_radius), **kw)
         if npad < 32768:
-            return match_pair_batch_packed(*args, **kw)
-        best_j, ok = match_pair_batch(*args, **kw)
+            return match_pair_batch_packed(*args, K=self.K, **kw)
+        best_j, ok = match_pair_batch(*args, K=self.K, **kw)
         return torch.where(ok, best_j, -1)
 
     def match_pairs(self, pairs, progress=True):
@@ -395,7 +429,7 @@ class BatchMatcher:
                 *(self._tensor(x) for x in (desc_a, desc_b, uv_a, uv_b, n_a,
                                             n_b)), cfg.bf16, gate=gate)
             n_matched += _store_unpack(images, chunk, packed.cpu().numpy(),
-                                       cfg.min_pairs)
+                                       cfg.min_pairs, self._post_filter)
         return n_matched
 
     def _match_pairs_store(self, pairs, gated=False):
@@ -408,16 +442,24 @@ class BatchMatcher:
             self.store, self.proj.image_list, pairs, cfg, self.thresh,
             self.generator, K=self.K,
             gate_arrays=self._pair_gate_arrays if gated_eff else None,
-            gate_radius=float(self.gate_radius))
+            gate_radius=float(self.gate_radius),
+            post_filter=self._post_filter)
+
+
+def _device_transform(transform):
+    """The transform the device runs: "essential5" filters on the host
+    after the unpack, so its device call keeps every 2-NN survivor."""
+    return "none" if transform == "essential5" else transform
 
 
 def _store_match(store, images, pairs, config, thresh, generator, K=None,
-                 gate_arrays=None, gate_radius=0.0):
+                 gate_arrays=None, gate_radius=0.0, post_filter=None):
     """The store path's loop: groups of S = config.store_scan sub-batches of
     B = max(batch_size, 256) pairs, padded with (0, 0) pairs. Each group's
     results download while the next group computes (the device runs
     asynchronously; the download of group k waits only for group k).
-    gate_arrays(chunk, n) → (cam_a, cam_b, ground_z) turns the gate on.
+    gate_arrays(chunk, n) → (cam_a, cam_b, ground_z) turns the gate on;
+    post_filter(i1, i2, rows, cols) refilters each pair on the host.
     Fills images[i].match_list; returns the number of matches kept."""
     B = max(config.batch_size, 256)
     S = max(int(config.store_scan), 1)
@@ -446,38 +488,46 @@ def _store_match(store, images, pairs, config, thresh, generator, K=None,
             store.desc, store.uv, store.counts,
             torch.from_numpy(idx[:, 0].reshape(S, B)),
             torch.from_numpy(idx[:, 1].reshape(S, B)), generator,
-            ratio=config.ratio, thresh=thresh, transform=config.transform,
+            ratio=config.ratio, thresh=thresh,
+            transform=_device_transform(config.transform),
             n_hyp=config.n_hyp, K=K, use_pallas=config.use_pallas, **gate)
         comp = (_compact_packed(packed.reshape(group, npad), len(chunk), cap)
                 if cap else None)
         if pending is not None:
             n_matched += _unpack_pending(images, pending, cap,
-                                         config.min_pairs)
+                                         config.min_pairs, post_filter)
         pending = (chunk, packed, comp)
     if pending is not None:
-        n_matched += _unpack_pending(images, pending, cap, config.min_pairs)
+        n_matched += _unpack_pending(images, pending, cap, config.min_pairs,
+                                     post_filter)
     return n_matched
 
 
-def _unpack_pending(images, pending, cap, min_pairs):
+def _unpack_pending(images, pending, cap, min_pairs, post_filter=None):
     chunk, packed, comp = pending
     if comp is not None:
         buf = comp.cpu().numpy()
         counts = buf[: len(buf) - cap][: len(chunk)]
         if int(counts.sum()) <= cap:
             return _store_unpack_compact(images, chunk, counts,
-                                         buf[len(buf) - cap:], min_pairs)
+                                         buf[len(buf) - cap:], min_pairs,
+                                         post_filter)
     packed = packed.cpu().numpy()
     return _store_unpack(images, chunk, packed.reshape(-1, packed.shape[-1]),
-                         min_pairs)
+                         min_pairs, post_filter)
 
 
-def match_pairs_store(store, pairs, config, thresh):
+def match_pairs_store(store, pairs, config, thresh, K=None):
     """Match every (i, j) of pairs against the resident store, ungated
     (BatchMatcher's store path without a workspace). config.use_pallas
     None decides by the store's device. thresh is the RANSAC tolerance in
-    px (the reference uses width^0.25). Returns {(i, j): (n, 2) int32 [row
-    in i, col in j]} for every pair."""
+    px (the reference uses width^0.25); K (3, 3) the intrinsics, which the
+    essential transform needs. "essential5" refilters with the workspace's
+    keypoints, which this path has not: it raises. Returns {(i, j): (n, 2)
+    int32 [row in i, col in j]} for every pair."""
+    if config.transform == "essential5":
+        raise ValueError("essential5 refilters on the host with a "
+                         "workspace's keypoints: use BatchMatcher")
     if config.use_pallas is None:
         config.use_pallas = store.desc.device.type == "cuda"
     images = [types.SimpleNamespace(name=str(i), match_list={},
@@ -485,13 +535,16 @@ def match_pairs_store(store, pairs, config, thresh):
               for i in range(store.desc.shape[0])]
     gen = torch.Generator(device=store.desc.device)
     gen.manual_seed(config.seed)
-    _store_match(store, images, pairs, config, thresh, gen)
+    _store_match(store, images, pairs, config, thresh, gen, K=K)
     return {(i, j): images[i].match_list[str(j)] for i, j in pairs}
 
 
-def _emit_pair(i1, i2, rows, cols, min_pairs):
+def _emit_pair(i1, i2, rows, cols, min_pairs, post_filter=None):
     """Record one pair's surviving matches in both directions as (n, 2)
-    int32 arrays; pairs under min_pairs record none."""
+    int32 arrays, after post_filter(i1, i2, rows, cols) when given; pairs
+    under min_pairs record none."""
+    if post_filter is not None:
+        rows, cols = post_filter(i1, i2, rows, cols)
     if len(rows) < min_pairs:
         rows = rows[:0]
         cols = cols[:0]
@@ -504,7 +557,7 @@ def _emit_pair(i1, i2, rows, cols, min_pairs):
     return len(fwd)
 
 
-def _store_unpack(images, chunk, packed, min_pairs):
+def _store_unpack(images, chunk, packed, min_pairs, post_filter=None):
     """Packed int (−1 = no match) (≥ len(chunk), npad) → match_list for
     each pair of chunk, by one whole-batch nonzero and a searchsorted
     split; rows past len(chunk) are padding."""
@@ -517,11 +570,12 @@ def _store_unpack(images, chunk, packed, min_pairs):
         n_matched += _emit_pair(images[i], images[j],
                                 rows_all[starts[bi]:starts[bi + 1]],
                                 cols_all[starts[bi]:starts[bi + 1]],
-                                min_pairs)
+                                min_pairs, post_filter)
     return n_matched
 
 
-def _store_unpack_compact(images, chunk, counts, entries, min_pairs):
+def _store_unpack_compact(images, chunk, counts, entries, min_pairs,
+                          post_filter=None):
     """Unpack a device-compacted [counts | entries] result
     (_compact_packed): entries are (row << 13 | col) in pair-major order,
     split by counts."""
@@ -535,7 +589,7 @@ def _store_unpack_compact(images, chunk, counts, entries, min_pairs):
         n_matched += _emit_pair(images[i], images[j],
                                 rows_all[starts[bi]:starts[bi + 1]],
                                 cols_all[starts[bi]:starts[bi + 1]],
-                                min_pairs)
+                                min_pairs, post_filter)
     return n_matched
 
 

@@ -1,18 +1,22 @@
-"""Batched-hypothesis homography RANSAC over a batch of pairs.
+"""Batched-hypothesis RANSAC over a batch of pairs: homography,
+fundamental, essential and 2-D similarity.
 
-Port of the homography path of ``imageanalysis_tpu/ops/ransac.py``: per
-pair, draw n_hyp minimal 4-point sets from a fixed, evenly spread subset
-of the valid points, solve them all in closed form, score them all on the
-subset, take the best, refine it twice by weighted DLT on every point, and
-report the final inliers. Every tensor carries a leading pair dimension B
-(the reference vmaps over pairs).
+Port of ``imageanalysis_tpu/ops/ransac.py``: per pair, draw n_hyp minimal
+sets (4 points for H, 8 for F, 12 for E) from a fixed, evenly spread
+subset of the valid points, solve them all at once, score them all on the
+subset, take the best, refine it twice on every point weighted by its
+inliers, and report the final inliers. F and E solve the (weighted)
+8-point system by inverse iteration and project onto rank 2 (F) or onto
+singular values (1, 1, 0) (E) by ``torch.linalg.svd`` of the 3×3
+matrices; they score by the symmetric epipolar distance. The similarity
+draws its 2-point sets from all valid points. Every tensor carries a
+leading pair dimension B (the reference vmaps over pairs).
 
 The reference's one-hot matmuls (a TPU gather workaround, bit-identical to
 gathers by its own docstrings) are ``searchsorted`` and gathers here, and
 its ``lax.scan`` refine is a loop. Randomness comes from a
 ``torch.Generator``; ``pick`` overrides the draw so tests can feed exactly
-the picks that ``jax.random`` draws. Fundamental, essential and
-similarity RANSAC are not ported yet.
+the picks that ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 
 class RansacResult(NamedTuple):
-    model: torch.Tensor      # (B, 3, 3)
+    model: torch.Tensor      # (B, 3, 3) H, F or E, or (B, 2, 3) similarity
     inliers: torch.Tensor    # (B, N) bool
     n_inliers: torch.Tensor  # (B,) int32
     ok: torch.Tensor         # (B,) bool — enough points and inliers
@@ -57,6 +61,18 @@ def _draw_picks(n_valid, m, n_hyp, k, generator):
     u = torch.rand((n_valid.shape[0], n_hyp, k), generator=generator,
                    device=n_valid.device)
     return torch.minimum((u * hi).long(), hi - 1)
+
+
+def _sample_indices(valid, ranks, n_hyp, k, generator):
+    """(B, n_hyp, k) point indices, uniform over each pair's valid entries
+    (the reference's _sample_indices): target rank ⌊u·n_valid⌋ + 1, found
+    by searchsorted on the ranks."""
+    B, n = valid.shape
+    n_valid = ranks[:, -1:]
+    u = torch.rand((B, n_hyp * k), generator=generator, device=valid.device)
+    tgt = torch.minimum((u * n_valid).int() + 1, n_valid.clamp(min=1))
+    idx = torch.searchsorted(ranks, tgt.contiguous())
+    return idx.clamp(max=n - 1).reshape(B, n_hyp, k)
 
 
 def _minimal_sets_from_subset(tab_a, tab_b, picks):
@@ -246,3 +262,159 @@ def ransac_homography(pts_a, pts_b, valid, thresh=3.0, n_hyp=512,
     n_inl = inl.sum(-1, dtype=torch.int32)
     ok = (valid.sum(-1) >= 4) & (n_inl >= 4)
     return RansacResult(H_full, inl, n_inl, ok)
+
+
+# ---------------------------------------------------------------------------
+# Fundamental / essential
+# ---------------------------------------------------------------------------
+
+def _fundamental_8pt(pa, pb, w=None):
+    """(Weighted) 8-point F with pb ~ F·pa, rank 2 enforced by SVD, for
+    pa/pb (..., k, 2) pre-normalized and w (..., k): (..., 3, 3)."""
+    lead = pa.shape[:-2]
+    x, y = pa[..., 0], pa[..., 1]
+    u, v = pb[..., 0], pb[..., 1]
+    one = torch.ones_like(x)
+    A = torch.stack([u * x, u * y, u, v * x, v * y, v, x, y, one], -1)
+    if w is not None:
+        A = A * w[..., None]
+    f = _smallest_eigvec(A.reshape(-1, *A.shape[-2:]))
+    U, S, Vt = torch.linalg.svd(f.reshape(-1, 3, 3))
+    S = torch.cat([S[:, :2], torch.zeros_like(S[:, 2:])], -1)
+    return ((U * S[:, None, :]) @ Vt).reshape(*lead, 3, 3)
+
+
+def _essential_project(E):
+    """E (..., 3, 3) onto singular values (1, 1, 0)."""
+    lead = E.shape[:-2]
+    U, _, Vt = torch.linalg.svd(E.reshape(-1, 3, 3))
+    s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    return ((U * s) @ Vt).reshape(*lead, 3, 3)
+
+
+def _epipolar_dist(F, pa, pb):
+    """Symmetric epipolar distance (the larger of the two point-line
+    distances) of pb ~ F·pa. F (..., 3, 3) broadcasts against pa/pb
+    (..., N, 2) → (..., N)."""
+    x, y = pa[..., 0], pa[..., 1]
+    u, v = pb[..., 0], pb[..., 1]
+
+    def f(i, j):
+        return F[..., i, j, None]
+
+    lb = [x * f(i, 0) + y * f(i, 1) + f(i, 2) for i in range(3)]
+    la = [u * f(0, j) + v * f(1, j) + f(2, j) for j in range(2)]
+    num = (u * lb[0] + v * lb[1] + lb[2]).abs()
+    db = num / torch.sqrt(lb[0] * lb[0] + lb[1] * lb[1]).clamp_min(1e-8)
+    da = num / torch.sqrt(la[0] * la[0] + la[1] * la[1]).clamp_min(1e-8)
+    return torch.maximum(da, db)
+
+
+def _epipolar_ransac(pa_n, pb_n, valid, t_norm, k, solve, n_hyp,
+                     refine_iters, score_points, generator, pick):
+    """The shared F/E loop on normalized points: draw, solve, score on the
+    subset, refine on every point. Returns (model, inliers)."""
+    B = pa_n.shape[0]
+    ranks = _valid_cumsum(valid)
+    sub, sub_ok = _score_subset(valid, ranks, score_points)
+    idx = sub[..., None].expand(-1, -1, 2)
+    pa_s = torch.gather(pa_n, 1, idx)
+    pb_s = torch.gather(pb_n, 1, idx)
+    if pick is None:
+        pick = _draw_picks(ranks[:, -1], sub.shape[1], n_hyp, k, generator)
+    ga, gb = _minimal_sets_from_subset(pa_s, pb_s, pick.long())
+    Ms = solve(ga, gb, None)                       # (B, n_hyp, 3, 3)
+    errs = _epipolar_dist(Ms, pa_s[:, None], pb_s[:, None])
+    scores = ((errs < t_norm[:, None, None]) & sub_ok[:, None, :]).sum(-1)
+    best = scores.argmax(-1)
+    M = Ms[torch.arange(B, device=Ms.device), best]
+    for _ in range(refine_iters):
+        e = _epipolar_dist(M, pa_n, pb_n)
+        w = ((e < t_norm[:, None]) & valid).to(pa_n.dtype)
+        M = solve(pa_n, pb_n, w)
+    inl = (_epipolar_dist(M, pa_n, pb_n) < t_norm[:, None]) & valid
+    return M, inl
+
+
+def ransac_fundamental(pts_a, pts_b, valid, thresh=3.0, n_hyp=512,
+                       refine_iters=2, score_points=512, generator=None,
+                       pick=None):
+    """RANSAC fundamental matrix pts_a → pts_b for a batch of pairs
+    (8-point hypotheses on Hartley-normalized points, symmetric epipolar
+    distance; cv2.findFundamentalMat(FM_RANSAC)'s role). pick (B, n_hyp,
+    8) subset indices replaces the draw. Returns RansacResult with model
+    (B, 3, 3) in pixels, unit Frobenius norm."""
+    pa_n, Ta = _normalize_2d(pts_a, valid)
+    pb_n, Tb = _normalize_2d(pts_b, valid)
+    F, inl = _epipolar_ransac(pa_n, pb_n, valid, thresh * Tb[:, 0, 0], 8,
+                              _fundamental_8pt, n_hyp, refine_iters,
+                              score_points, generator, pick)
+    F_full = Tb.transpose(-1, -2) @ F @ Ta
+    nrm = torch.linalg.matrix_norm(F_full)[:, None, None]
+    F_full = F_full / torch.where(nrm < 1e-12, 1.0, nrm)
+    n_inl = inl.sum(-1, dtype=torch.int32)
+    ok = (valid.sum(-1) >= 8) & (n_inl >= 8)
+    return RansacResult(F_full, inl, n_inl, ok)
+
+
+def ransac_essential(pts_a, pts_b, valid, K, thresh=1.0, n_hyp=512,
+                     refine_iters=2, score_points=512, generator=None,
+                     pick=None):
+    """RANSAC essential matrix for a batch of pairs sharing K (3, 3):
+    12-point hypotheses on K-normalized points (8-point system, projected
+    onto singular values (1, 1, 0)); thresh in px, divided by the mean
+    focal length. Like every 8-point variant it degenerates on planar
+    scenes. pick (B, n_hyp, 12) subset indices replaces the draw. Returns
+    RansacResult with model (B, 3, 3) in normalized coordinates."""
+    f = 0.5 * (K[0, 0] + K[1, 1])
+    c = K[:2, 2]
+    pa_n = (pts_a - c) / f
+    pb_n = (pts_b - c) / f
+
+    def solve(pa, pb, w):
+        return _essential_project(_fundamental_8pt(pa, pb, w))
+
+    t_norm = (thresh / f).expand(pts_a.shape[0])
+    E, inl = _epipolar_ransac(pa_n, pb_n, valid, t_norm, 12, solve, n_hyp,
+                              refine_iters, score_points, generator, pick)
+    n_inl = inl.sum(-1, dtype=torch.int32)
+    ok = (valid.sum(-1) >= 8) & (n_inl >= 8)
+    return RansacResult(E, inl, n_inl, ok)
+
+
+# ---------------------------------------------------------------------------
+# 2-D similarity
+# ---------------------------------------------------------------------------
+
+def ransac_similarity_2d(pts_a, pts_b, valid, thresh=3.0, n_hyp=256,
+                         refine_iters=2, generator=None, pick=None):
+    """RANSAC 2-D similarity pts_a → pts_b for a batch of pairs
+    (cv2.estimateAffinePartial2D's role): 2-point hypotheses drawn from
+    all valid points, transfer error in px. pick (B, n_hyp, 2) point
+    indices replaces the draw. Returns RansacResult with model (B, 2, 3)."""
+    from ..core.transforms import fit_similarity_2d
+
+    B = pts_a.shape[0]
+    if pick is None:
+        pick = _sample_indices(valid, _valid_cumsum(valid), n_hyp, 2,
+                               generator)
+    idx = pick.long().reshape(B, -1, 1).expand(-1, -1, 2)
+    ga = torch.gather(pts_a, 1, idx).reshape(B, n_hyp, 2, 2)
+    gb = torch.gather(pts_b, 1, idx).reshape(B, n_hyp, 2, 2)
+    As = fit_similarity_2d(ga, gb)                 # (B, n_hyp, 2, 3)
+
+    def err(A, pa, pb):
+        pred = pa @ A[..., :2].transpose(-1, -2) + A[..., None, :, 2]
+        return torch.linalg.vector_norm(pred - pb, dim=-1)
+
+    errs = err(As, pts_a[:, None], pts_b[:, None])
+    scores = ((errs < thresh) & valid[:, None, :]).sum(-1)
+    best = scores.argmax(-1)
+    A = As[torch.arange(B, device=As.device), best]
+    for _ in range(refine_iters):
+        w = ((err(A, pts_a, pts_b) < thresh) & valid).to(pts_a.dtype)
+        A = fit_similarity_2d(pts_a, pts_b, w)
+    inl = (err(A, pts_a, pts_b) < thresh) & valid
+    n_inl = inl.sum(-1, dtype=torch.int32)
+    ok = (valid.sum(-1) >= 2) & (n_inl >= 2)
+    return RansacResult(A, inl, n_inl, ok)

@@ -17,7 +17,9 @@ packages' ``find_matches`` can run on.
 ``apps/process.py``: the frames as 3-channel JPEGs at quality 95
 (``io/jpeg.encode_bgr``: nvJPEG for frames on the card), ``pix4d.csv``
 and the camera's DB entry; the counterpart of the reference's
-``SyntheticMission.generate`` (synthetic.py:138-250).
+``SyntheticMission.generate`` (synthetic.py:138-250). With ``exif=True``
+(test support the reference lacks) the poses go into each frame's EXIF
+and DJI-style XMP instead of ``pix4d.csv``, written by ``io/exif``.
 
 ``make_ba_mission_graph`` and ``make_ba_grid_graph`` draw the synthetic
 bundle-adjustment graphs of ``scripts_dev/ba_synth_scale.py`` (the
@@ -227,12 +229,55 @@ def camera_config(mission):
     }
 
 
-def write_mission(project_dir, mission, db_dir, quality=95):
+# the EXIF that write_mission(exif=True) writes: the camera's DB key
+# Synthetic_TestCam_none, a 1/2.3" sensor (estimate_from_exif's default
+# width) and capture times one second apart
+EXIF_MAKE, EXIF_MODEL, EXIF_LENS = "Synthetic", "TestCam", "none"
+EXIF_CCD_WIDTH_MM = 6.17
+EXIF_T0 = 1_700_000_000.0
+
+
+def xmp_segment(yaw, pitch, roll):
+    """A DJI-style XMP APP1 segment holding the gimbal's attitude."""
+    xmp = ('<x:xmpmeta xmlns:x="adobe:ns:meta/"><rdf:RDF xmlns:rdf='
+           '"http://www.w3.org/1999/02/22-rdf-syntax-ns#"><rdf:Description '
+           'rdf:about="" xmlns:drone-dji="http://www.dji.com/drone-dji/1.0/"'
+           f' drone-dji:GimbalYawDegree="{yaw:.6f}"'
+           f' drone-dji:GimbalPitchDegree="{pitch:.6f}"'
+           f' drone-dji:GimbalRollDegree="{roll:.6f}"/></rdf:RDF>'
+           '</x:xmpmeta>').encode()
+    payload = b"http://ns.adobe.com/xap/1.0/\x00" + xmp
+    return b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big") + payload
+
+
+def tag_frame(path, lla, ypr, fx, unixtime):
+    """Tag a JPEG as a drone's camera would: the XMP attitude ypr (yaw,
+    pitch, roll degrees) after SOI, then (through io/exif's writer) Make,
+    Model, LensModel, FocalLength (f_mm · width / EXIF_CCD_WIDTH_MM = fx),
+    GPS from lla and DateTime from unixtime."""
+    from ..io import exif
+
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path, "wb") as f:
+        f.write(data[:2] + xmp_segment(*ypr) + data[2:])
+    f_mm = fx * EXIF_CCD_WIDTH_MM / exif.jpeg_size(path)[0]
+    exif.write_segment(path, exif.exif_segment(
+        {exif.MAKE: (exif.ASCII, EXIF_MAKE.encode() + b"\0"),
+         exif.MODEL: (exif.ASCII, EXIF_MODEL.encode() + b"\0")},
+        {exif.FOCAL_LENGTH: (exif.RATIONAL, ((round(f_mm * 1e6), 10 ** 6),)),
+         exif.LENS_MODEL: (exif.ASCII, EXIF_LENS.encode() + b"\0")}, {}))
+    exif.write_geotag(path, lla[0], lla[1], lla[2], unixtime=unixtime)
+
+
+def write_mission(project_dir, mission, db_dir, quality=95, exif=False):
     """Write the mission as a project folder: IMG_nnnn.jpg (each gray frame
-    as B = G = R, JPEG at quality, encoded on the frames' device),
-    pix4d.csv (lat, lon, alt and the aircraft's roll, pitch, yaw, in the
-    reference's format, synthetic.py:230-239) and the camera's DB entry
-    db_dir/<CAMERA_KEY>.json. Returns the image paths."""
+    as B = G = R, JPEG at quality, encoded on the frames' device) and the
+    camera's DB entry db_dir/<CAMERA_KEY>.json; then either pix4d.csv (lat,
+    lon, alt and the aircraft's roll, pitch, yaw, in the reference's
+    format, synthetic.py:230-239) or, with exif=True, no pose file and the
+    same poses in each frame's EXIF and DJI-style XMP (tag_frame).
+    Returns the image paths."""
     from ..io import camera_db
 
     os.makedirs(project_dir, exist_ok=True)
@@ -242,6 +287,12 @@ def write_mission(project_dir, mission, db_dir, quality=95):
         jpeg.encode_bgr(frame[..., None].expand(-1, -1, 3), paths[-1],
                         quality)
     lla = geodesy.ned2lla(mission.ned, *REF_LLA)
+    camera_db.save(CAMERA_KEY, camera_config(mission), db_dir)
+    if exif:
+        for i, path in enumerate(paths):
+            tag_frame(path, lla[i], mission.aircraft_ypr[i],
+                      float(mission.K[0, 0]), EXIF_T0 + i)
+        return paths
     lines = ["File Name,Lat (decimal degrees),Lon (decimal degrees),"
              "Alt (meters MSL),Roll (decimal degrees),"
              "Pitch (decimal degrees),Yaw (decimal degrees)"]
@@ -251,7 +302,6 @@ def write_mission(project_dir, mission, db_dir, quality=95):
                      f"{alt:.2f},{r:.2f},{p:.2f},{y:.2f}")
     with open(os.path.join(project_dir, "pix4d.csv"), "w") as f:
         f.write("\n".join(lines) + "\n")
-    camera_db.save(CAMERA_KEY, camera_config(mission), db_dir)
     return paths
 
 

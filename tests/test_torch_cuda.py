@@ -22,7 +22,10 @@ values and its first body). Bundle adjustment
 on the card is held against the CPU within a stated tolerance (atomic
 sums). nvJPEG's gray decode is held against PIL's on the JPEGs of
 tests/data/jpeg/ within a stated tolerance, and the pipeline runs Steps
-1→5 from JPEGs written on the card.
+1→5 from JPEGs written on the card. EXIF written on the card reads back;
+the geotiff warp of one frame equals the CPU's bit for bit, and the
+fundamental and essential RANSAC on the card hold the CPU's results
+within a stated tolerance.
 """
 
 import os
@@ -1115,3 +1118,113 @@ def test_process_main_on_card(cuda, tmp_path, capsys):
     assert process.main(argv) == 0                # resume: every stage done
     assert "Step " not in capsys.readouterr().out
     assert not {"PIL", "cv2"} & set(sys.modules)  # the card path needs neither
+
+
+# --- the rest of apps/process.py: EXIF, the geotiff warp, F and E ---------
+
+def test_exif_round_trip_on_card(cuda, tmp_path):
+    """Frames encoded by nvJPEG and tagged by io/exif's writer read back
+    through its reader, make_pix4d and estimate_from_exif: the mission's
+    camera key and focal length, its positions within DMS's 1e-4
+    arcsecond and 0.01 m, its attitude within 0.005°; PIL and cv2 stay
+    unimported."""
+    from imageanalysis_tpu_torch.core import geodesy
+    from imageanalysis_tpu_torch.io import camera_db, exif, pose
+    from imageanalysis_tpu_torch.testing.synthetic import (
+        CAMERA_KEY, REF_LLA, make_mission, write_mission)
+
+    m = make_mission(strips=1, per_strip=3, size=(640, 480), seed=4,
+                     device=cuda)
+    d = str(tmp_path / "m")
+    paths = write_mission(d, m, str(tmp_path / "db"), exif=True)
+    assert exif.get_camera_info(paths[0])[0] == CAMERA_KEY
+    assert camera_db.estimate_from_exif(paths[0])["K"][0] == \
+        pytest.approx(m.K[0, 0], rel=1e-6)
+    lla = geodesy.ned2lla(m.ned, *REF_LLA)
+    rows = [ln.split(",") for ln in
+            open(pose.make_pix4d(d)).read().splitlines()[1:]]
+    for row, (lat, lon, alt), (y, p, r) in zip(rows, lla, m.aircraft_ypr):
+        v = [float(x) for x in row[1:]]
+        assert max(abs(v[0] - lat), abs(v[1] - lon)) <= 1e-4 / 3600 + 1e-9
+        assert abs(v[2] - alt) <= 0.01
+        assert max(abs(v[3] - r), abs(v[4] - p)) <= 0.005
+        assert abs((v[5] - y + 180.0) % 360.0 - 180.0) <= 0.005
+    assert not {"PIL", "cv2"} & set(sys.modules)
+
+
+def test_geotiff_warp_card_matches_cpu(cuda):
+    """One nvJPEG-decoded frame through the geotiff warp and feathering on
+    the card and, moved to the CPU, through the same code there: equal bit
+    for bit (float32 products, fmas as float64, IEEE division)."""
+    from imageanalysis_tpu_torch.io import jpeg
+    from imageanalysis_tpu_torch.render import geotiff
+
+    img = jpeg.decode_bgr(os.path.join(_JPEG_DIR, "colour.jpg"), cuda)
+    Hm = np.array([[1.6, 0.1, -280.0], [-0.05, 1.6, -250.0],
+                   [1e-4, -2e-4, 1.0]])
+    M = np.linalg.inv(np.linalg.inv(Hm))
+    canvas = (420, 480)
+    box = geotiff._frame_box(M, 402, 298, canvas, 52)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        warped, mask = geotiff.warp_frame(img.to(dev), M, box)
+        out[dev.type] = (warped.cpu(), mask.cpu(), geotiff.feather_mask(
+            mask, box, canvas, 50).cpu())
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, w)
+    assert float(out["cpu"][1].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["fundamental", "essential"])
+def test_ransac_epipolar_card_matches_cpu(cuda, rng, kind):
+    """ransac_fundamental and ransac_essential on CUDA tensors against
+    the CPU with the same draws: ok equal, masks equal on ≥ 99.5% of the
+    points, models within 5e-3 up to sign and scale (f32; cuSOLVER's 3×3
+    SVD against LAPACK's, the 8-point solves near-singular by
+    construction, as tests/test_torch_ransac.py states against the
+    reference)."""
+    from imageanalysis_tpu_torch.ops import ransac
+
+    K = np.array([[800.0, 0, 500], [0, 800, 400], [0, 0, 1]], np.float32)
+    B, N = 4, 700
+    pa = np.empty((B, N, 2), np.float32)
+    pb = np.empty_like(pa)
+    for b in range(B):
+        X = np.c_[rng.uniform(-50, 50, (N, 2)), rng.uniform(80, 160, N)]
+        a = 0.05 + 0.1 * b
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        xa, xb = X @ K.T, (X @ R.T + [10.0 + b, 2.0, 1.0]) @ K.T
+        pa[b] = xa[:, :2] / xa[:, 2:]
+        pb[b] = xb[:, :2] / xb[:, 2:] + rng.normal(0, 0.5, (N, 2))
+        out = rng.random(N) < 0.3
+        pb[b, out] = rng.uniform(0, 1000, (out.sum(), 2))
+    valid = rng.random((B, N)) < 0.8
+    k = 8 if kind == "fundamental" else 12
+    pick = torch.from_numpy(rng.integers(0, 512, (B, 256, k)))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(x).to(dev) for x in (pa, pb, valid)]
+        if kind == "essential":
+            args.append(torch.from_numpy(K).to(dev))
+        fn = getattr(ransac, f"ransac_{kind}")
+        res[dev.type] = fn(*args, thresh=2.0, n_hyp=256, pick=pick.to(dev))
+    g, w = res["cuda"], res["cpu"]
+    assert torch.equal(g.ok.cpu(), w.ok) and bool(w.ok.all())
+    assert (g.inliers.cpu() == w.inliers).float().mean(1).min() >= 0.995
+    for b, (gm, wm) in enumerate(zip(g.model.cpu().numpy(),
+                                     w.model.numpy())):
+        if kind == "fundamental":     # in the Hartley frame, entries O(1)
+            Ta, Tb = (_hartley(p[b][valid[b]]) for p in (pa, pb))
+            gm, wm = (np.linalg.inv(Tb).T @ x @ np.linalg.inv(Ta)
+                      for x in (gm, wm))
+        gm, wm = gm / np.linalg.norm(gm), wm / np.linalg.norm(wm)
+        gm = gm if (gm * wm).sum() > 0 else -gm
+        np.testing.assert_allclose(gm, wm, atol=5e-3)
+
+
+def _hartley(p):
+    p = p.astype(np.float64)
+    m = p.mean(0)
+    s = np.sqrt(2.0) / np.sqrt(((p - m) ** 2).sum(1).mean())
+    return np.array([[s, 0, -s * m[0]], [0, s, -s * m[1]], [0, 0, 1.0]])

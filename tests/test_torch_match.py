@@ -273,7 +273,18 @@ def test_match_config_decides_the_arm_by_device(workspace, tmp_path):
                                               use_pallas=False), 1.0)
     for p in pairs:
         np.testing.assert_array_equal(got[p], want[p])
-    with pytest.raises(NotImplementedError):
+    # the fundamental filter keeps a subset of the unfiltered survivors;
+    # an unknown transform raises, and so does essential5, whose host
+    # refilter needs a workspace
+    fund = tmatcher.match_pairs_store(
+        bm.store, pairs, tmatcher.MatchConfig(transform="fundamental",
+                                              use_pallas=False), 1.0)
+    for p in pairs:
+        assert set(map(tuple, fund[p])) <= set(map(tuple, want[p]))
+    with pytest.raises(ValueError, match="unknown transform"):
         tmatcher.match_pairs_store(
-            bm.store, pairs, tmatcher.MatchConfig(transform="fundamental"),
+            bm.store, pairs, tmatcher.MatchConfig(transform="affine"), 1.0)
+    with pytest.raises(ValueError, match="essential5"):
+        tmatcher.match_pairs_store(
+            bm.store, pairs, tmatcher.MatchConfig(transform="essential5"),
             1.0)

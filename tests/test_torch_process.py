@@ -23,8 +23,22 @@ The same inputs go through both packages on the CPU:
   BA mre within 10%, camera positions within 0.5 m of each other and
   within tests/test_e2e_pipeline.py's 3 m of the truth; a second run of
   the port skips every stage;
-- every flag the port does not run raises NotImplementedError, and the
-  card is never swapped for the CPU.
+- Step 5's ``--geotiff --histogram`` on that workspace in both packages:
+  the mosaics' size, extent and TIFF tags equal, their pixels within one
+  gray level on ≥ 99% of the covered pixels (mean |Δ| ≤ 0.25: the decode
+  is the same cv2 on the CPU, the warp and feathering bit-exact with
+  cv2's, so what differs is the f32 pose math under them), the
+  histograms within the ±1 level of cv2.resize against the port's
+  resize_linear, the templates likewise, and TextureManager.load_base
+  through the same tables within two levels (CLAHE on V and HSV → BGR,
+  tests/test_torch_render_extras.py; through each package's own tables
+  the ±1 of a histogram moves the lookup table by more where the
+  template is flat);
+- the whole command from EXIF: the pipeline's frames tagged by the
+  port's writer, no --camera and no pose file, reach STEP5 with the
+  cameras within 3 m of the truth;
+- the OpenCV detectors and a run across hosts raise
+  NotImplementedError, and the card is never swapped for the CPU.
 """
 
 import json
@@ -45,6 +59,8 @@ from imageanalysis_tpu.io import pose as jpose
 from imageanalysis_tpu.io import project as jproject
 from imageanalysis_tpu.match import smart as jsmart
 from imageanalysis_tpu.render import build_map as jbuild_map
+from imageanalysis_tpu.render import histogram as jhistogram
+from imageanalysis_tpu.render import texture as jtexture
 from imageanalysis_tpu.surface import srtm as jsrtm
 from imageanalysis_tpu.testing.synthetic import SyntheticMission
 from imageanalysis_tpu_torch.apps import process as tprocess
@@ -54,7 +70,9 @@ from imageanalysis_tpu_torch.io import pose as tpose
 from imageanalysis_tpu_torch.io import project as tproject
 from imageanalysis_tpu_torch.match import smart as tsmart
 from imageanalysis_tpu_torch.render import build_map as tbuild_map
+from imageanalysis_tpu_torch.render import texture as ttexture
 from imageanalysis_tpu_torch.surface import srtm as tsrtm
+from imageanalysis_tpu_torch.testing import synthetic as tsynthetic
 
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "jpeg")
@@ -208,11 +226,6 @@ def test_step2_matches_reference(tmp_path, monkeypatch, order, tiles):
     want = np.asarray(tj.intersect_vectors(ned[0], vec))
     got = tt.intersect_vectors(ned[0], vec).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
-
-
-def test_make_pix4d_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="EXIF"):
-        tpose.make_pix4d(str(tmp_path))
 
 
 # --- the detection load and the card's resize math ------------------------
@@ -422,6 +435,110 @@ def test_build_map_matches_reference(pipelines, tmp_path, monkeypatch):
             np.testing.assert_allclose(nt, nj, rtol=0, atol=2e-3)
 
 
+# --- Step 5's --geotiff and --histogram -------------------------------------
+
+def _tiff(path):
+    """(tags: the bytes before the pixel strip, (H, W, 3) BGR pixels)."""
+    data = open(path, "rb").read()
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    return data[:len(data) - img.size], img
+
+
+def _cdf_within_one_level(got, want):
+    """A histogram of an image within ±1 level of another's: each level's
+    cumulative share lies between the other's one level below and above."""
+    g = np.cumsum(got) / np.sum(got)
+    w = np.cumsum(want) / np.sum(want)
+    lo = np.r_[0.0, w[:-1]] - 1e-9
+    hi = np.r_[w[1:], 1.0] + 1e-9
+    return bool(((g >= lo) & (g <= hi)).all())
+
+
+def test_step5_geotiff_histogram_match_reference(pipelines, tmp_path):
+    """--refresh STEP5 --geotiff --geotiff-res 0.5 --histogram in both
+    packages, each on a copy of the reference's finished workspace."""
+    _, j_dir, _, db = pipelines
+    dirs = {}
+    for side, main, kw in (("j", jprocess.main, {}),
+                           ("t", tprocess.main, {"device": "cpu"})):
+        d = str(tmp_path / side)
+        shutil.copytree(j_dir, d)
+        assert main(_argv(d, db) + ["--refresh", "STEP5", "--geotiff",
+                                    "--geotiff-res", "0.5", "--histogram"],
+                    **kw) == 0
+        dirs[side] = d
+    (tags_j, mj), (tags_t, mt) = (
+        _tiff(os.path.join(_ia(dirs[s]), "models", "mosaic.tif"))
+        for s in ("j", "t"))
+    assert mt.shape == mj.shape and tags_t == tags_j
+    assert os.path.isfile(os.path.join(_ia(dirs["t"]), "models",
+                                       "gdalscript.sh"))
+    covered = (mj > 0).any(-1) | (mt > 0).any(-1)
+    diff = np.abs(mt.astype(int) - mj)[covered]
+    assert covered.mean() > 0.3
+    assert (diff.max(-1) <= 1).mean() >= 0.99 and diff.mean() <= 0.25
+    hj, tj = jhistogram.load(_ia(dirs["j"]))
+    ht, tt = jhistogram.load(_ia(dirs["t"]))
+    assert sorted(ht) == sorted(hj) == sorted(tt) == sorted(tj)
+    for name in hj:
+        for c in range(3):
+            assert ht[name][c].dtype == np.float32
+            assert ht[name][c].sum() == hj[name][c].sum()
+            assert _cdf_within_one_level(ht[name][c], hj[name][c])
+            q = np.r_[0.0, tj[name][c]]
+            assert ((tt[name][c] >= q[:-1] - 1e-6)
+                    & (tt[name][c] <= np.r_[q[2:], 1.0] + 1e-6)).all()
+    # a texture through the same tables (the reference's pickle in both)
+    shutil.copy(os.path.join(_ia(dirs["j"]), "histogram.pickle"),
+                os.path.join(_ia(dirs["t"]), "histogram.pickle"))
+    name = sorted(hj)[0]
+    want = jtexture.TextureManager(
+        jproject.ProjectMgr(dirs["j"])).load_base(name)
+    got = ttexture.TextureManager(tproject.ProjectMgr(dirs["t"]),
+                                  device="cpu").load_base(name)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy().astype(int) - want).max() <= 2
+
+
+def test_pipeline_from_exif(pipelines, tmp_path):
+    """The pipeline's frames, tagged by the port's writer from its
+    pix4d.csv (GPS, DateTime, the camera's Make/Model/Lens and focal
+    length, the attitude as DJI XMP), without the pose file and without
+    --camera: Step 1 finds Synthetic_TestCam_none by EXIF, Step 2 writes
+    pix4d.csv (its rows equal the original within its own rounding), and
+    the run reaches STEP5 with every camera within 3 m of the truth."""
+    m, j_dir, _, db = pipelines
+    d = str(tmp_path / "exif")
+    os.makedirs(d)
+    rows = [ln.split(",") for ln in
+            open(os.path.join(j_dir, "pix4d.csv")).read().splitlines()[1:]]
+    for i, row in enumerate(rows):
+        path = os.path.join(d, row[0])
+        shutil.copy(os.path.join(j_dir, row[0]), path)
+        lat, lon, alt, roll, pitch, yaw = (float(v) for v in row[1:])
+        tsynthetic.tag_frame(path, (lat, lon, alt), (yaw, pitch, roll),
+                             m.fx, 1.6e9 + i)
+    argv = _argv(d, db)
+    argv.remove("--camera")
+    argv.remove(CAMERA)
+    assert tprocess.main(argv, device="cpu") == 0
+    got = [ln.split(",") for ln in
+           open(os.path.join(d, "pix4d.csv")).read().splitlines()[1:]]
+    for a, b in zip(got, rows):
+        assert a[0] == b[0]
+        assert np.allclose([float(v) for v in a[1:3]],
+                           [float(v) for v in b[1:3]], atol=3e-8)
+        assert a[3:6] == b[3:6]
+        assert (float(a[6]) - float(b[6])) % 360.0 == 0.0
+    proj = tproject.ProjectMgr(d)
+    assert proj.camera.get("model") == "TestCam" and proj.state.check("STEP5")
+    proj.load_images_info()
+    truth = m.true_camera_ned(ref_lla=proj.ned_reference_lla())
+    for i, im in enumerate(proj.image_list):
+        ned = np.asarray(im.get_camera_pose(opt=True)[0])
+        assert np.linalg.norm(ned - truth[i]) < 3.0, (im.name, ned)
+
+
 # --- what the port does not run -------------------------------------------
 
 @pytest.fixture
@@ -438,27 +555,8 @@ def tiny_project(tmp_path):
     return str(d), db
 
 
-_NOT_PORTED = [["--geotiff"], ["--histogram"], ["--cam-calibration"],
-               ["--filter", "fundamental"], ["--filter", "essential"],
-               ["--filter", "essential5"]]
-
-
-@pytest.mark.parametrize("flags", _NOT_PORTED,
-                         ids=["-".join(f) for f in _NOT_PORTED])
-def test_unported_flag_raises(tiny_project, flags):
-    d, db = tiny_project
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tprocess.main([d, "--camera", CAMERA, "--camera-db", db] + flags,
-                      device="cpu")
-
-
 def test_unported_paths_raise(tiny_project, monkeypatch):
     d, db = tiny_project
-    with pytest.raises(NotImplementedError, match="--camera"):
-        tprocess.main([d], device="cpu")            # Step 1 from EXIF
-    with pytest.raises(NotImplementedError, match="EXIF"):
-        tprocess.main([d, "--camera", CAMERA, "--camera-db", db],
-                      device="cpu")                  # no pose file
     with open(os.path.join(d, "pix4d.csv"), "w") as f:
         f.write("File Name,Lat,Lon,Alt,Roll,Pitch,Yaw\n" + "".join(
             f"IMG_{i:04d}.jpg,44.97,{-93.26 + 1e-4 * i},100,0,0,0\n"
@@ -476,8 +574,9 @@ def test_main_needs_the_card_unless_the_cpu_is_asked(tiny_project,
     d, _ = tiny_project
     monkeypatch.delenv("IMGTPU_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="IMGTPU_PLATFORM=cpu"):
-        tprocess.main([d, "--geotiff"])
+        tprocess.main([d])
     monkeypatch.setenv("IMGTPU_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError):        # reached the CPU run
-        tprocess.main([d, "--geotiff"])
+        tprocess.main([d])

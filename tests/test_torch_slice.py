@@ -174,6 +174,13 @@ def test_port_imports_no_jax():
             "imageanalysis_tpu_torch.features.detect, "
             "imageanalysis_tpu_torch.render.build_map, "
             "imageanalysis_tpu_torch.render.ac3d, "
+            "imageanalysis_tpu_torch.render.geotiff, "
+            "imageanalysis_tpu_torch.render.histogram, "
+            "imageanalysis_tpu_torch.render.texture, "
+            "imageanalysis_tpu_torch.io.exif, "
+            "imageanalysis_tpu_torch.io.camera_db, "
+            "imageanalysis_tpu_torch.ops.essential5, "
+            "imageanalysis_tpu_torch.ba.calibrate, "
             "imageanalysis_tpu_torch.apps.process; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'cv2' not in sys.modules and 'PIL' not in sys.modules; "
