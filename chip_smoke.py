@@ -23,7 +23,10 @@ non-zero:
    turns against the body it replaced (__dp4a, FFMA), and split into the
    body's product (its product-only stage, held against its plain
    version) and the key epilogue (the rest); each mode beside one library
-   product of its type (torch._int_mm, torch.bmm);
+   product of its type (torch._int_mm, torch.bmm); at 256 values a row
+   (ORB's bits, −128/−127 in the store, and the full −128..127): int8 at
+   both shapes, bf16 at bench.py's, f32 at the store's, each bit-exact,
+   timed beside its bound and one library product;
 5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240, both
    modes on the tensor-core body (f32 as three bf16 planes): int8 store
    rows cast to bf16 and to f32 (bit-exact; each in turns against the
@@ -31,6 +34,8 @@ non-zero:
    epilogue, beside torch.bmm of its type), f32 rows of 256..360 (mid
    planes set, bit-exact), and random descriptors (indices equal modulo
    ties; values within 2⁻²⁰ of the norms in f32, TC_REL_TOL in bf16);
+   both modes at 256 values a row too (bit-exact on ORB's bits and the
+   full range, timed beside the bound and torch.bmm);
 6. bench.py's match workload (64 pairs of 6144 int8 descriptors, 1500
    planted matches each) through the port's match_pair_batch: pairs/s;
 7. Step 3a's device path on a 64-frame 2176×1440 synthetic mission:
@@ -130,6 +135,28 @@ non-zero:
     refilter (every along-track neighbour keeps ≥ 50 matches). Neither
     PIL nor cv2 is imported. One line a part, with the card's name and
     power limit.
+18. the stage scripts and the host detectors (after phase 17: it imports
+    cv2), on phase 16's mission written afresh: (a) the reference's
+    numbered workflow as CLI calls (apps/stages.py and apps/cull.py) with
+    --detector TPU and phase 16's arguments: create-project, set-camera,
+    set-poses, matching, clean, triangulate, groups, optimize, cull mre,
+    optimize --refine, render; phase 16's checks of the outcome, the
+    cameras after the first optimize within 0.05 m of phase 16's, K1 int8
+    and K2 launched; each stage's wall and the cull's count; (b) matching
+    --detector SIFT and ORB at the reference's defaults (scale 0.4, ORB's
+    10,000 features), each on a fresh copy: every along-track neighbour
+    keeps ≥ 50 matches, ≥ 95% of them on the planted homographies; ORB
+    runs K1 and K3 at 256 values a row (a second ORB run at another
+    setting where the defaults reach only one of them; one on a strip of
+    16 frames, the chunked path's K1 bf16 at 256); the host
+    detector's ms a frame; (c) process.main with no --detector flag (the
+    host SIFT at scale 0.4) and phase 16's other arguments: at phase 16's
+    4096 features a frame phase 16's checks; at every feature (~20,000 a
+    frame, the reference's default) the same but the cameras' 3 m, which
+    is printed (stray matches of low-overlap pairs linked into chains
+    pull BA's cameras up to ~4 m there, as the reference's BA does on the
+    same chains: ROADMAP.md queue 3). One line a part, with the card's
+    name and power limit.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -162,7 +189,7 @@ if not os.path.isdir(os.path.join(os.path.dirname(os.path.abspath(__file__)),
              "imageanalysis_tpu_torch/ is not beside this script")
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
-from imageanalysis_tpu_torch.apps import process  # noqa: E402
+from imageanalysis_tpu_torch.apps import cull, process, stages  # noqa: E402
 from imageanalysis_tpu_torch.ba import bundle  # noqa: E402
 from imageanalysis_tpu_torch.ba import setup as ba_setup  # noqa: E402
 from imageanalysis_tpu_torch.core import geodesy  # noqa: E402
@@ -404,16 +431,16 @@ def float_inputs(a, b, dtype):
     return (af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1))
 
 
-def k1_bound(pairs, n, elem_bytes, peak, gated=False):
+def k1_bound(pairs, n, elem_bytes, peak, gated=False, dim=128):
     """K1's bound at pairs × n × n: descriptors, the float modes' f32
     norms and the gate's positions read once, row_p (8 B) and col_p (4 B)
-    written once; the 2·n·n·128 products at the mode's peak (f32: the six
+    written once; the 2·n·n·dim products at the mode's peak (f32: the six
     bf16 products of its three-plane split on the tensor cores, the work
     the kernel does), plus the gate's f32 arithmetic."""
-    n_bytes = pairs * n * (2 * 128 * elem_bytes + 12
+    n_bytes = pairs * n * (2 * dim * elem_bytes + 12
                            + (8 if elem_bytes > 1 else 0)
                            + (16 if gated else 0))
-    product = 2 * pairs * n * n * 128
+    product = 2 * pairs * n * n * dim
     ops = {"bf16": 6 * product} if peak == "f32" else {peak: product}
     if gated:
         ops["f32"] = ops.get("f32", 0) + GATE_FLOPS * pairs * n * n
@@ -808,6 +835,84 @@ def check_wide():
         out["f32" if dtype == torch.float32 else "bf16"][
             "random_max_abs_err"] = err
         del xa, xb
+    return out
+
+
+def orb_rows(gen, pairs, n, full=False):
+    """int8 rows of 256 values, a quarter of B planted near A: ORB's bits
+    as the store holds them (−128/−127, 8 bits of a planted row flipped),
+    or with full=True the whole −128..127 with an all −128 and an all 127
+    row on each side (the largest d2, 256·255², and the extreme norms)."""
+    hi = 256 if full else 2
+    a = torch.randint(0, hi, (pairs, n, 256), generator=gen, device="cuda",
+                      dtype=torch.int16)
+    b = torch.randint(0, hi, (pairs, n, 256), generator=gen, device="cuda",
+                      dtype=torch.int16)
+    k = n // 4
+    b[:, :k] = a[:, :k]
+    b[:, :k, :8] = hi - 1 - b[:, :k, :8]
+    if full:
+        a[:, 1], a[:, 2] = 0, 255
+        b[:, 3], b[:, 4] = 0, 255
+    return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
+
+
+def check_knn_256():
+    """K1 (int8 at the store's and bench.py's shapes, bf16 at bench.py's,
+    f32 at the store's) and K3 (bf16 and f32 at 64 × 10240) at 256 values
+    a row: ORB's bits and the full −128..127, bit-exact against the plain
+    versions; times beside the bound and one library product of the same
+    operands. Returns {case: measurements}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for case, (pairs, n), dtype, eb, peak in (
+            ("i8_store", STORE_SHAPE, torch.int8, 1, "int8"),
+            ("i8_bench", BENCH_SHAPE, torch.int8, 1, "int8"),
+            ("bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
+            ("f32_store", STORE_SHAPE, torch.float32, 4, "f32")):
+        name = f"K1 {case} {pairs} x {n} at 256"
+        for full in (True, False):      # the timed rows last: ORB's bits
+            a, b = orb_rows(gen, pairs, n, full)
+            args = ((a, b) if dtype == torch.int8
+                    else float_inputs(a, b, dtype))
+            r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
+                             args, reps=5 if not full else 1,
+                             plain_reps=2 if not full else 1)
+        with_bound(r, *k1_bound(pairs, n, eb, peak, dim=256))
+        x, bt = args[0].reshape(-1, 256), args[1][0].t()
+        r["product_only_ms"] = product_only(
+            name, (lambda: torch._int_mm(x, bt)) if dtype == torch.int8
+            else (lambda: torch.bmm(args[0], args[1].transpose(1, 2))))
+        del x, bt, args, a, b
+        log(f"[K1] {case} {pairs} pairs x {n} at 256 values a row: bit-exact "
+            f"(ORB's bits and the full range); kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), product only {r['product_only_ms']} ms")
+        out[case] = r
+    pairs, n = WIDE_IMAGES, WIDE_N
+    for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
+                            ("f32", torch.float32, 4)):
+        name = f"K3 {mode} {pairs} x {n} at 256"
+        for full in (True, False):
+            args = float_inputs(*orb_rows(gen, pairs, n, full), dtype)
+            r = compare_keys(name, knn.knn_wide_raw, knn.knn_wide_plain,
+                             args, reps=3 if not full else 1, plain_reps=1)
+        product = 2 * pairs * n * n * 256
+        with_bound(r, pairs * n * (2 * 256 * eb + 8 + 24),
+                   {"bf16": (6 if mode == "f32" else 1) * product})
+        r["product_only_ms"] = product_only(
+            name, lambda: torch.bmm(args[0], args[1].transpose(1, 2)))
+        del args
+        log(f"[K3] {mode} {pairs} pairs x {n} at 256 values a row: "
+            f"bit-exact (ORB's bits and the full range); kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), product only "
+            f"{r['product_only_ms']} ms")
+        out[f"k3_{mode}"] = r
+    usage = {k: v for k, v in _build.tc_kernel_usage().items()
+             if "_d256" in k}
+    log(f"[K1/K3 at 256] ptxas (registers, spill stores, spill loads): "
+        f"{usage}")
     return out
 
 
@@ -2293,6 +2398,10 @@ def run_process(root, smi):
     t0 = time.perf_counter()
     paths = write_mission(proj_dir, m, db)
     encode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    argv = [proj_dir, "--camera", CAMERA_KEY, "--camera-db", db,
+            "--scale", "1.0", "--ground", "0.0", "--batch-size", "32",
+            "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", str(MAX_FEATURES)]
     jpeg.decode_gray(paths[0], "cuda")               # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2301,10 +2410,6 @@ def run_process(root, smi):
     torch.cuda.synchronize()
     decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
 
-    argv = [proj_dir, "--camera", CAMERA_KEY, "--camera-db", db,
-            "--scale", "1.0", "--ground", "0.0", "--batch-size", "32",
-            "--min-chain-len", "2", "--detector", "TPU",
-            "--max-features", str(MAX_FEATURES)]
     reset_launches()
     t0 = time.perf_counter()
     rc = process.main(argv)
@@ -2312,7 +2417,53 @@ def run_process(root, smi):
     launches = read_launches()
     if rc != 0:
         raise AssertionError(f"process.main returned {rc}")
+    checks, outcome = process_outcome(proj_dir, m, len(paths))
 
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc2 = process.main(argv)
+    again = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("Step ")]
+    again_launches = {k: v for k, v in read_launches().items() if v}
+
+    log(f"[process] {len(paths)} JPEGs {W}x{H}; main {wall:.3f} s; "
+        f"{outcome['summary']}; launches {launches}")
+    log("[process] " + json.dumps({
+        "stage_wall_s": outcome["walls"],
+        "nvjpeg_decode_gray_ms_per_frame": decode_ms,
+        "nvjpeg_encode_ms_per_frame": encode_ms,
+        "frame": [W, H], "device": smi}))
+    log(f"[process] second main: rc {rc2}, stages run {again}, launches "
+        f"{again_launches}")
+    checks.update({
+        "K1 int8 and K2 launched": launches["knn_packed_i8"] > 0
+        and launches["gauss_blur_f32"] > 0,
+        "resume skips every stage": rc2 == 0 and not again
+        and not again_launches,
+        "no PIL or cv2 imported": not {"PIL", "cv2"} & set(sys.modules),
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 failed: {failed}")
+    return launches, wall, outcome["cams"]
+
+
+def camera_positions(proj):
+    """{image name: its camera's NED position} of a workspace, optimized
+    where BA wrote one."""
+    return {im.name: np.asarray(im.get_camera_pose(opt=im.has_opt_pose())[0])
+            for im in proj.image_list}
+
+
+def process_outcome(proj_dir, m, n_frames, n_ba=1):
+    """Phase 16's checks of a finished run on the 64-frame mission (the
+    outcome, not the launches): STEP5, features in every 2176×1440 frame,
+    group 0 ≥ 90%, n_ba BA runs and the last one's mre ≤ 1 px, cameras
+    within 3 m of the truth, the median point within 1 m of the ground,
+    every render output and 64 textures of 512×512. Returns (checks, {the
+    stage walls, the cameras, a summary line})."""
+    W, H = FRAME
     proj, run_log, walls, mre, grps, err, height = mission_outcome(proj_dir,
                                                                   m)
     counts, sizes = [], []
@@ -2326,53 +2477,31 @@ def run_process(root, smi):
     texs = [f for f in files if f.endswith(".JPG")]
     tex_shapes = {tuple(jpeg.decode_bgr(os.path.join(models, f), "cuda")
                         .shape) for f in texs}
-
-    reset_launches()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc2 = process.main(argv)
-    again = [ln for ln in out.getvalue().splitlines()
-             if ln.startswith("Step ")]
-    again_launches = {k: v for k, v in read_launches().items() if v}
-
-    log(f"[process] {len(paths)} JPEGs {W}x{H}; main {wall:.3f} s; "
-        f"features/frame min {min(counts)}; groups "
-        f"{[len(g) for g in grps]}; BA mre {mre}; camera error vs truth "
-        f"median {np.median(err):.4f} max {err.max():.4f} m; median point "
-        f"{height:.4f} m above the ground; {len(eggs)} eggs, {len(texs)} "
-        f"textures {sorted(tex_shapes)}; launches {launches}")
-    log("[process] " + json.dumps({
-        "stage_wall_s": walls, "nvjpeg_decode_gray_ms_per_frame": decode_ms,
-        "nvjpeg_encode_ms_per_frame": encode_ms,
-        "frame": [W, H], "device": smi}))
-    log(f"[process] second main: rc {rc2}, stages run {again}, launches "
-        f"{again_launches}")
     checks = {
         "STEP5 reached": proj.state.check("STEP5"),
-        "features in every frame": len(counts) == len(paths)
+        "features in every frame": len(counts) == n_frames
         and min(counts) > 0,
         "frames 2176x1440": set(sizes) == {(W, H)},
         "group 0 holds >= 90%": bool(grps)
-        and len(grps[0]) >= 0.9 * len(paths),
-        "BA mre <= 1 px": len(mre) == 1 and mre[0] <= 1.0,
+        and len(grps[0]) >= 0.9 * n_frames,
+        "BA mre <= 1 px": len(mre) == n_ba and mre[-1] <= 1.0,
         "cameras within 3 m": err.max() < 3.0,
         "median point within 1 m": abs(height) <= 1.0,
         "render outputs": all(os.path.isfile(os.path.join(models, f))
                               for f in ("surface.bin", "dummy.jpg",
                                         "surface-global.ac", "direct.ac")),
-        ">= 63 eggs": len(eggs) >= len(paths) - 1,
-        "64 textures 512x512": len(texs) == len(paths)
+        ">= 63 eggs": len(eggs) >= n_frames - 1,
+        "64 textures 512x512": len(texs) == n_frames
         and tex_shapes == {(512, 512, 3)},
-        "K1 int8 and K2 launched": launches["knn_packed_i8"] > 0
-        and launches["gauss_blur_f32"] > 0,
-        "resume skips every stage": rc2 == 0 and not again
-        and not again_launches,
-        "no PIL or cv2 imported": not {"PIL", "cv2"} & set(sys.modules),
     }
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"phase 16 failed: {failed}")
-    return launches
+    summary = (f"features/frame min {min(counts)} mean "
+               f"{np.mean(counts):.0f}; groups {[len(g) for g in grps]}; "
+               f"BA mre {mre}; camera error vs truth median "
+               f"{np.median(err):.4f} max {err.max():.4f} m; median point "
+               f"{height:.4f} m above the ground; {len(eggs)} eggs, "
+               f"{len(texs)} textures {sorted(tex_shapes)}")
+    return checks, {"walls": walls, "cams": camera_positions(proj),
+                    "summary": summary, "run_log": run_log}
 
 
 def _sync(dev):
@@ -2656,6 +2785,239 @@ def run_process_extras(root, smi, dev="cuda", size=FRAME, strips=STRIPS,
     return launches
 
 
+
+def _fresh_copy(src, dst, db, frames=None):
+    """A copy of the mission's folder (JPEGs and pix4d.csv; the first
+    `frames` frames only, when given) through the stages before
+    matching."""
+    if frames is None:
+        shutil.copytree(src, dst)
+    else:
+        os.makedirs(dst)
+        with open(os.path.join(src, "pix4d.csv")) as f:
+            rows = f.read().splitlines()
+        with open(os.path.join(dst, "pix4d.csv"), "w") as f:
+            f.write("\n".join(rows[:frames + 1]) + "\n")
+        for i in range(frames):
+            shutil.copy(os.path.join(src, image_name(i) + ".jpg"), dst)
+    for argv in (["create-project", dst],
+                 ["set-camera", dst, "--camera", CAMERA_KEY, "--camera-db",
+                  db], ["set-poses", dst]):
+        if stages.main(argv) != 0:
+            raise AssertionError(f"stages {argv[0]} failed on {dst}")
+
+
+def host_matching(src, dst, db, m, detector, extra=(), frames=None):
+    """stages matching --detector detector (reference defaults plus extra)
+    on a fresh copy (of the first `frames` frames, when given: below 64
+    the matcher takes the chunked float path): the host detector's wall a
+    frame, the match wall, the launches, along-track neighbours' matches
+    and the agreement with the planted homographies."""
+    from imageanalysis_tpu_torch.features import detect as detect_mod
+
+    _fresh_copy(src, dst, db, frames)
+    detect_s = []
+    run_detect = detect_mod.detect_project_features
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        run_detect(*a, **k)
+        detect_s.append(time.perf_counter() - t0)
+
+    reset_launches()
+    detect_mod.detect_project_features = timed
+    try:
+        t0 = time.perf_counter()
+        rc = stages.main(["matching", dst, "--detector", detector, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        detect_mod.detect_project_features = run_detect
+    launches = {k: v for k, v in read_launches().items() if v}
+    proj = ProjectMgr(dst)
+    proj.load_images_info()
+    counts = []
+    for im in proj.image_list:
+        im.load_features()
+        im.load_descriptors()
+        im.load_matches()
+        counts.append(len(im.kp))
+    width = proj.image_list[0].des.shape[1]
+    names = [im.name for im in proj.image_list]
+    if names != [image_name(i) for i in range(frames or len(m.frames))]:
+        raise AssertionError(f"phase 18: unexpected images {names[:4]}")
+    pairs = [(i, j) for i, im in enumerate(proj.image_list)
+             for j in range(i + 1, len(names))
+             if len(im.match_list.get(names[j], ()))]
+    result = project_matches(proj, pairs)
+    thresh = float(FRAME[0]) ** 0.25
+    n_in, n_all = planted_agreement(result, [im.kp for im in proj.image_list],
+                                    m.H_ij, thresh)
+    along = [(s * PER_STRIP + k, s * PER_STRIP + k + 1)
+             for s in range(STRIPS) for k in range(PER_STRIP - 1)
+             if s * PER_STRIP + k + 1 < len(names)]
+    along_min = min(len(result.get(p, ())) for p in along)
+    r = {"rc": rc, "detect_ms_per_frame": 1e3 * sum(detect_s) / len(names),
+         "match_s": wall - sum(detect_s), "features_min": min(counts),
+         "features_max": max(counts), "width": width, "pairs": len(pairs),
+         "along_min": along_min, "n_in": n_in, "n_all": n_all,
+         "launches": launches}
+    log(f"[stages-18b] matching --detector {detector} {' '.join(extra)} on "
+        f"{len(names)} frames: "
+        f"{r['detect_ms_per_frame']:.1f} ms a frame on the host, match "
+        f"{r['match_s']:.3f} s; features/frame {min(counts)}..{max(counts)} "
+        f"x {width}; {len(pairs)} pairs with matches, along-track min "
+        f"{along_min}; {n_in}/{n_all} within {2 * thresh:.2f} px of the "
+        f"planted homographies; launches {launches}")
+    return r
+
+
+def run_stages(root, smi, p16_wall, p16_cams):
+    """Phase 18: the stage scripts and the host detectors on phase 16's
+    mission, written afresh. (a) The numbered workflow as CLI calls with
+    --detector TPU; (b) matching --detector SIFT and ORB at the
+    reference's defaults; (c) process.main with the default detector, at
+    4096 features a frame and at every feature. Returns the launches of
+    the 256-wide kernels over (b)'s ORB runs."""
+    W, H = FRAME
+    m = make_mission(strips=STRIPS, per_strip=PER_STRIP, size=FRAME, seed=0,
+                     device="cuda")
+    src, db = os.path.join(root, "mission"), os.path.join(root, "cameras")
+    write_mission(src, m, db)
+    n = len(m.frames)
+    checks = {}
+
+    # (a) the reference's numbered workflow as CLI calls
+    d = os.path.join(root, "staged")
+    shutil.copytree(src, d)
+    seq = [("create-project", []),
+           ("set-camera", ["--camera", CAMERA_KEY, "--camera-db", db]),
+           ("set-poses", []),
+           ("matching", ["--detector", "TPU", "--scale", "1.0",
+                         "--batch-size", "32", "--max-features",
+                         str(MAX_FEATURES)]),
+           ("clean", []), ("triangulate", ["--method", "ground",
+                                           "--ground", "0"]),
+           ("groups", ["--min-chain-len", "2"]), ("optimize", []),
+           ("cull mre", []), ("optimize", ["--refine"]), ("render", [])]
+    walls, cams = [], None
+    reset_launches()
+    for name, extra in seq:
+        t0 = time.perf_counter()
+        rc = (cull.main([d, "mre"]) if name == "cull mre"
+              else stages.main([name, d, *extra]))
+        torch.cuda.synchronize()
+        walls.append((" ".join([name, *extra[:1]]),
+                      round(time.perf_counter() - t0, 3)))
+        if rc != 0:
+            raise AssertionError(f"phase 18 (a): {name} returned {rc}")
+        if name == "optimize" and cams is None:
+            proj = ProjectMgr(d)
+            proj.load_images_info()
+            cams = camera_positions(proj)
+    launches = read_launches()
+    more, out = process_outcome(d, m, n, n_ba=2)
+    checks.update({f"(a) {k}": v for k, v in more.items()})
+    culled = [int(x) for x in re.findall(r"→ (\d+) observations marked",
+                                         out["run_log"])]
+    off = max(np.linalg.norm(cams[k] - p16_cams[k]) for k in p16_cams)
+    total = sum(w for _, w in walls)
+    checks.update({
+        "(a) cameras after optimize within 0.05 m of phase 16's": off <= 0.05,
+        "(a) cull mre ran": len(culled) == 1,
+        "(a) K1 int8 and K2 launched": launches["knn_packed_i8"] > 0
+        and launches["gauss_blur_f32"] > 0,
+    })
+    log(f"[stages-18a] {n} JPEGs {W}x{H}, 11 CLI calls in {total:.3f} s "
+        f"(phase 16's process.main {p16_wall:.3f} s); {out['summary']}; "
+        f"cull mre marked {culled}; cameras after the first optimize "
+        f"within {off:.4f} m of phase 16's; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+    log("[stages-18a] " + json.dumps({"stage_wall_s": walls,
+                                      "total_s": total,
+                                      "process_main_s": p16_wall,
+                                      "device": smi}))
+
+    # (b) the host detectors at the reference's defaults
+    runs = {"SIFT": [host_matching(src, os.path.join(root, "sift"), db, m,
+                                   "SIFT")]}
+    orb = [host_matching(src, os.path.join(root, "orb"), db, m, "ORB")]
+    # K1 at 256 up to 8192 rows a frame, K3 beyond: where the defaults
+    # reach only one of them, a second run reaches the other
+    if not orb[0]["launches"].get("knn_packed_i8_d256"):
+        orb.append(host_matching(src, os.path.join(root, "orb_k1"), db, m,
+                                 "ORB", ("--max-features", "8000")))
+    if not orb[0]["launches"].get("knn_wide_d256"):
+        orb.append(host_matching(src, os.path.join(root, "orb_k3"), db, m,
+                                 "ORB", ("--scale", "0.6")))
+    # one strip: the chunked float path, K1 bf16 at 256
+    orb.append(host_matching(src, os.path.join(root, "orb_strip"), db, m,
+                             "ORB", ("--max-features", "8000"),
+                             frames=PER_STRIP))
+    runs["ORB"] = orb
+    for det, rs in runs.items():
+        for i, r in enumerate(rs):
+            checks.update({
+                f"(b) {det} run {i} rc 0": r["rc"] == 0,
+                f"(b) {det} run {i} along-track >= 50": r["along_min"] >= 50,
+                f"(b) {det} run {i} >= 95% on the homographies":
+                    r["n_in"] >= 0.95 * r["n_all"] > 0,
+                f"(b) {det} run {i} width": r["width"] == (
+                    128 if det == "SIFT" else 256)})
+    d256 = {}
+    for r in orb:
+        for k, v in r["launches"].items():
+            if k.endswith("_d256"):
+                d256[k] = d256.get(k, 0) + v
+    # SIFT at the defaults finds ~20,000 features a frame: the store
+    # takes K3 beyond 8192 rows
+    checks["(b) SIFT ran K1 int8 or K3"] = bool(
+        runs["SIFT"][0]["launches"].get("knn_packed_i8")
+        or runs["SIFT"][0]["launches"].get("knn_wide"))
+    checks["(b) ORB ran K1 int8 at 256"] = bool(d256.get("knn_packed_i8_d256"))
+    checks["(b) ORB ran K3 at 256"] = bool(d256.get("knn_wide_d256"))
+    checks["(b) ORB on one strip ran K1 bf16 at 256"] = bool(
+        orb[-1]["launches"].get("knn_packed_bf16_d256"))
+    log("[stages-18b] " + json.dumps({
+        det: [{k: v for k, v in r.items() if k != "launches"} for r in rs]
+        for det, rs in runs.items()} | {"d256_launches": d256,
+                                        "device": smi}))
+
+    # (c) process.main with the default detector (host SIFT at scale 0.4)
+    # and phase 16's other arguments: at phase 16's 4096 features a frame
+    # with every check of phase 16; at the reference's every feature
+    # (~20,000 a frame) the same but the cameras' 3 m, which stray
+    # matches of low-overlap pairs linked into chains break there, as in
+    # the reference (ROADMAP.md queue 3): printed, not held
+    base = ["--camera", CAMERA_KEY, "--camera-db", db, "--ground", "0.0",
+            "--batch-size", "32", "--min-chain-len", "2"]
+    for tag, extra in (("4096", ["--max-features", str(MAX_FEATURES)]),
+                       ("defaults", [])):
+        d = os.path.join(root, f"default_{tag}")
+        shutil.copytree(src, d)
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = process.main([d, *base, *extra])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        more, out = process_outcome(d, m, n)
+        if tag == "defaults":
+            more.pop("cameras within 3 m")
+        checks.update({f"(c) {tag} {k}": v for k, v in more.items()})
+        checks[f"(c) {tag} rc 0"] = rc == 0
+        checks[f"(c) {tag} K1 int8 or K3 launched, K2 not"] = (
+            launches["knn_packed_i8"] + launches["knn_wide"] > 0
+            and launches["gauss_blur_f32"] == 0)
+        log(f"[stages-18c] process.main with the default detector (host "
+            f"SIFT, scale 0.4), {' '.join(extra) or 'every feature'}, "
+            f"phase 16's other arguments: {wall:.3f} s; {out['summary']}; "
+            f"stage walls {out['walls']}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 18 failed: {failed}")
+    return d256
+
 def main():
     profile = "--profile" in sys.argv[1:]
     smi = device_info()
@@ -2663,6 +3025,7 @@ def main():
     k2 = check_blur()
     k1 = check_knn()
     k3 = check_wide()
+    k256 = check_knn_256()
     k4 = check_epilogue()
     bench_pps = bench_workload()
     slice_launches, m, dets = run_slice()
@@ -2688,9 +3051,11 @@ def main():
     run_mission_ba()
     anatomy = run_probes()
     with tempfile.TemporaryDirectory() as root:
-        run_process(root, smi)
+        _, p16_wall, p16_cams = run_process(root, smi)
     with tempfile.TemporaryDirectory() as root:
         run_process_extras(root, smi)
+    with tempfile.TemporaryDirectory() as root:
+        d256 = run_stages(root, smi, p16_wall, p16_cams)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
@@ -2719,23 +3084,40 @@ def main():
                                          "sweep")
                        if k in r})
 
+    def at256(launch_key, *cases):
+        """The 256-wide instantiations' numbers (phases 4-5) and launches
+        (phase 18's ORB runs), as d256_* keys of their kernel's entry."""
+        out = {"d256_launches": d256.get(launch_key, 0)}
+        for case in cases:
+            tag = "d256" if len(cases) == 1 else f"d256_{case}"
+            out.update({f"{tag}_{k}": k256[case][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "product_only_ms")})
+        return out
+
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [
-        entry("knn_packed_i8", "knn_packed.cu", k1_src,
-              slice_launches["knn_packed_i8"], k1["i8_store"]),
+        dict(entry("knn_packed_i8", "knn_packed.cu", k1_src,
+                   slice_launches["knn_packed_i8"], k1["i8_store"]),
+             **at256("knn_packed_i8_d256", "i8_store", "i8_bench")),
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
                 for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")}),
-        entry("knn_packed_bf16", "knn_packed.cu", k1_src,
-              rep_launches["knn_packed_bf16"], k1["bf16"]),
-        entry("knn_packed_f32", "knn_packed.cu", k1_src,
-              rep_launches["knn_packed_f32"], k1["f32"]),
-        entry("knn_wide", "knn_wide.cu", "imageanalysis_tpu/ops/knn.py:407",
-              wide_launches["knn_wide"], k3["bf16"]),
-        entry("knn_wide_f32", "knn_wide.cu",
-              "imageanalysis_tpu/ops/knn.py:407",
-              wide_launches["knn_wide_f32"], k3["f32"]),
+        dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
+                   rep_launches["knn_packed_bf16"], k1["bf16"]),
+             **at256("knn_packed_bf16_d256", "bf16_bench")),
+        dict(entry("knn_packed_f32", "knn_packed.cu", k1_src,
+                   rep_launches["knn_packed_f32"], k1["f32"]),
+             **at256("knn_packed_f32_d256", "f32_store")),
+        dict(entry("knn_wide", "knn_wide.cu",
+                   "imageanalysis_tpu/ops/knn.py:407",
+                   wide_launches["knn_wide"], k3["bf16"]),
+             **at256("knn_wide_d256", "k3_bf16")),
+        dict(entry("knn_wide_f32", "knn_wide.cu",
+                   "imageanalysis_tpu/ops/knn.py:407",
+                   wide_launches["knn_wide_f32"], k3["f32"]),
+             **at256("knn_wide_f32_d256", "k3_f32")),
         entry("gauss_blur_f32", "gauss_blur.cu",
               "imageanalysis_tpu/features/sift_tpu.py:67",
               slice_launches["gauss_blur_f32"], k2),

@@ -41,22 +41,22 @@ _F = ctypes.c_float
 _S = ctypes.c_size_t
 # name → argtypes of every C entry point
 _SIGNATURES = {
-    # a, b, na2, nb2 (f32 scratch), row_p, col_p, n_pairs, n_a, n_b,
-    # stream
-    "knn_packed_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, na2, nb2 (f32 scratch), row_p, col_p, n_pairs, n_a, n_b, dim
+    # (128 or 256 values a row), stream
+    "knn_packed_i8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, n_pairs, n_a,
-    # n_b, stream
+    # n_b, dim, stream
     "knn_packed_i8_gated": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
-                            _P],
+                            _I, _P],
     # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, split_a,
-    # split_b (f32's bf16 planes), n_pairs, n_a, n_b, bf16, stream
+    # split_b (f32's bf16 planes), n_pairs, n_a, n_b, bf16, dim, stream
     "knn_packed_float": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I,
-                         _I, _I, _P],
-    # x, out, rows, stream
-    "split_bf16x3": [_P, _P, _I, _P],
+                         _I, _I, _I, _P],
+    # x, out, rows, dim, stream
+    "split_bf16x3": [_P, _P, _I, _I, _P],
     # a, b, na2, nb2, row_k, col_k, split_a, split_b (f32's bf16 planes),
-    # n_pairs, n_a, n_b, bf16, stream
-    "knn_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # n_pairs, n_a, n_b, bf16, dim, stream
+    "knn_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # in, out, taps (host float*), n_img, H, W, radius, stream
     "gauss_blur_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gauss_blur_loop_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -215,16 +215,21 @@ def ptxas_usage(log=None):
 
 
 # knn_tc_kernel<T, MODE, BM, BN, STAGES> (csrc/knn_tc.cuh) as mangled: T
-# "t" bf16 bits, "a" int8, "NS_6Bf16x3E" f32's three bf16 planes; BN and
-# STAGES absent from builds whose kernel had no such parameters
-_TC_KERNEL = re.compile(r"knn_tc_kernelI(t|a|NS_6Bf16x3E)Li(\d+)ELi(\d+)E"
+# "t" bf16 bits, "a" int8, "NS_6Bf16x3E" f32's three bf16 planes, each
+# also as D256<T> (rows of 256 values, "NS_4D256I...EE"); BN and STAGES
+# absent from builds whose kernel had no such parameters
+_TC_KERNEL = re.compile(r"knn_tc_kernelI(t|a|NS_6Bf16x3E|NS_4D256I(?:t|a|"
+                        r"NS_6Bf16x3E)EE)Li(\d+)ELi(\d+)E"
                         r"(?:Li(\d+)ELi(\d+)E)?E")
-_TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32"}
+_TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32",
+             "NS_4D256ItEE": "bf16_d256", "NS_4D256IaEE": "int8_d256",
+             "NS_4D256INS_6Bf16x3EEE": "f32_d256"}
 
 
 def tc_kernel_usage(usage=None):
     """ptxas_usage() of the tensor-core body's instantiations, keyed
-    "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2")."""
+    "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2"; at 256 values a
+    row the type is suffixed, e.g. "int8_d256 0 128 128 2")."""
     out = {}
     for name, u in (ptxas_usage() if usage is None else usage).items():
         m = _TC_KERNEL.search(name)
@@ -275,7 +280,11 @@ def sass(lib=None):
     kernels = {}
     for part in out.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
-        kernels[name.strip()] = [ln.strip() for ln in body.splitlines()
+        # whitespace collapsed: cuobjdump pads its columns to the widest
+        # instruction of the file, so a kernel's lines would change with
+        # what else is compiled beside it
+        kernels[name.strip()] = [" ".join(ln.split())
+                                 for ln in body.splitlines()
                                  if "/*" in ln and ";" in ln]
     return kernels
 

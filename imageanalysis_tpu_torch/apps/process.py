@@ -13,13 +13,15 @@ same stages, state gating and workspace files:
   Step 5   surface/render outputs                      (state STEP5)
 
 Usage: ``python -m imageanalysis_tpu_torch.apps.process <image_dir>
-[--camera <key>] --detector TPU [options]``; any stage can be redone with
-``--refresh STEPn``. It runs on the CUDA card; ``IMGTPU_PLATFORM=cpu``
-asks for the CPU. Without ``--camera``, Step 1 finds the camera from the
-first image's EXIF (and estimates its config from EXIF when the DB lacks
-it); without a pose file, Step 2 writes ``pix4d.csv`` from the images'
-EXIF. Not ported, and raising ``NotImplementedError``: the OpenCV
-detectors (``--detector SIFT|ORB``) and a run across hosts.
+[--camera <key>] [--detector SIFT|ORB|TPU] [options]``; any stage can be
+redone with ``--refresh STEPn``. It runs on the CUDA card;
+``IMGTPU_PLATFORM=cpu`` asks for the CPU. The default detector is the
+reference's, OpenCV's SIFT on the host (ORB likewise); ``TPU`` detects on
+the device. Matching runs on the device either way. Without ``--camera``,
+Step 1 finds the camera from the first image's EXIF (and estimates its
+config from EXIF when the DB lacks it); without a pose file, Step 2
+writes ``pix4d.csv`` from the images' EXIF. Not ported, and raising
+``NotImplementedError``: a run across hosts.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def build_parser():
     return p
 
 
-def _multi_host():
+def multi_host():
     """Whether the environment asks for a run across processes: the
     reference's JAX_COORDINATOR / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
     torch.distributed's WORLD_SIZE > 1."""
@@ -113,6 +115,24 @@ def _multi_host():
                 and os.environ.get("JAX_NUM_PROCESSES") is not None
                 and os.environ.get("JAX_PROCESS_ID") is not None)
     return bool(explicit) or int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
+MULTI_HOST_MSG = ("a run across hosts is not ported (ROADMAP.md queue 1: "
+                  "parallel/sharded.py and parallel/multihost.py); run one "
+                  "process")
+
+
+def main_device(device):
+    """The device a command line runs on: IMGTPU_PLATFORM (cpu or cuda) in
+    the environment, else device. The card is never swapped for the CPU:
+    without one, asking for it raises."""
+    dev = torch.device(os.environ.get("IMGTPU_PLATFORM") or device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the pipeline runs on cpu or cuda, not {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card (torch.cuda.is_available() is "
+                           "false); set IMGTPU_PLATFORM=cpu to run on the CPU")
+    return dev
 
 
 def run(args, device="cuda") -> int:
@@ -133,10 +153,8 @@ def run(args, device="cuda") -> int:
 
 
 def _run(args, device) -> int:
-    if _multi_host():
-        raise NotImplementedError(
-            "a run across hosts is not ported (ROADMAP.md queue 1: "
-            "parallel/sharded.py and parallel/multihost.py); run one process")
+    if multi_host():
+        raise NotImplementedError(MULTI_HOST_MSG)
 
     # per-stage wall clocks in the run log, "stage wall: <name> <s>s"
     t_start = time.perf_counter()
@@ -389,12 +407,7 @@ def main(argv=None, device="cuda"):
     """The command line's entry point: parse argv and run on device.
     IMGTPU_PLATFORM (cpu or cuda) in the environment overrides device. The
     card is never swapped for the CPU: without one, asking for it raises."""
-    dev = torch.device(os.environ.get("IMGTPU_PLATFORM") or device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the pipeline runs on cpu or cuda, not {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card (torch.cuda.is_available() is "
-                           "false); set IMGTPU_PLATFORM=cpu to run on the CPU")
+    dev = main_device(device)
     args = build_parser().parse_args(argv)
     return run(args, device=dev)
 

@@ -60,7 +60,7 @@
 
 namespace knn {
 
-constexpr int kDim = 128;
+constexpr int kDim = 128;          // values a row (K1 and K3: also 256)
 constexpr int kTA = 64;             // A rows per block
 constexpr int kTB = 64;             // B rows per streamed tile
 constexpr int kKC = 32;             // dims per streamed B chunk (float path)
@@ -520,6 +520,10 @@ inline bool bad_shape(int n_pairs, int n_a, int n_b, int max_rows) {
   return n_pairs <= 0 || n_a <= 0 || n_b <= 0 || n_a % kTA || n_b % kTB ||
          n_a > max_rows || n_b > max_rows || n_pairs > 65535;
 }
+
+// the descriptor widths of K1's and K3's entry points: 128 (SIFT) and 256
+// (ORB's bits)
+inline bool bad_dim(int dim) { return dim != 128 && dim != 256; }
 
 }  // namespace knn
 

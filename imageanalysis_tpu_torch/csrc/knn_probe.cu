@@ -351,13 +351,15 @@ int tc_stage(const Args& x, int stage) {
 // not a second instantiation of it here
 extern "C" int knn_packed_i8(const void* a, const void* b, void* na2,
                              void* nb2, void* row_p, void* col_p,
-                             int n_pairs, int n_a, int n_b, void* stream);
+                             int n_pairs, int n_a, int n_b, int dim,
+                             void* stream);
 extern "C" int knn_packed_float(const void* a, const void* b,
                                 const void* na2, const void* nb2,
                                 const void* uv_a, const void* pred_b,
                                 float radius2, void* row_p, void* col_p,
                                 void* split_a, void* split_b, int n_pairs,
-                                int n_a, int n_b, int bf16, void* stream);
+                                int n_a, int n_b, int bf16, int dim,
+                                void* stream);
 
 // P3: K1 up to `stage` (a Stage of knn_common.cuh: row_min .. full) on
 // the tensor-core body at K1's tile (128, 128, 2): row_min the product
@@ -382,9 +384,9 @@ extern "C" int knn_tc_stage(const void* a, const void* b, void* na2,
     return dtype == 1
                ? knn_packed_float(a, b, na2, nb2, nullptr, nullptr, 0.f,
                                   row_p, col_p, nullptr, nullptr, n_pairs,
-                                  n_a, n_b, 1, stream)
+                                  n_a, n_b, 1, kDim, stream)
                : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
-                               n_b, stream);
+                               n_b, kDim, stream);
   const Args x{a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
                (cudaStream_t)stream};
   if (dtype == 1) return tc_stage<uint16_t>(x, stage);

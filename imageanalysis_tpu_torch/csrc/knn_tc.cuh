@@ -72,6 +72,19 @@
 // an SM), and keep as many mma.sync per ldmatrix as the bf16 body. K1 and
 // K3 take the same f32 body; K3's keys are 64-bit (kWide).
 //
+// Rows of 256 values (ORB's 256 bits as 0/1, the int8 store's -128/-127):
+// the operand type D256<T> is T at twice the row, the same body with twice
+// the k-steps. Its rows are padded to an odd number of 16-byte units too
+// (int8 272 B, bf16 528 B, f32 1552 B). Exactness holds as at 128: int8
+// |dot| <= 256 x 128^2 = 2^22 (the 1.5 x 2^23 trick still lands in
+// [2^23, 2^24]) and d2 <= 256 x 255^2 < 2^24; integer-valued floats keep
+// every partial sum below 2^24. Tiles: int8 as at 128 (~108 KB, two
+// blocks an SM); bf16 at 128 x 128 in a ring of two (~204 KB, one block an
+// SM); f32 would need 194 KB for 128 A rows alone, so it takes 64 A rows
+// and one 64-row B tile (~196 KB, STAGES = 1: the copy of a tile does not
+// overlap the product of the one before, a simple tile kept for a mode
+// that only the chunked path below 64 images reaches).
+//
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
 //   multiple of 64), resident in shared memory for the whole sweep over
@@ -126,6 +139,18 @@ namespace knn {
 
 // f32 descriptors as three bf16 planes (hi, mid, lo) of 128 values a row
 struct Bf16x3 {};
+// T's rows at 256 values in place of 128 (the head of this file)
+template <typename T>
+struct D256 {};
+// the element type of an operand type: T of D256<T>
+template <typename T>
+struct Elem {
+  using type = T;
+};
+template <typename T>
+struct Elem<D256<T>> {
+  using type = T;
+};
 
 namespace tc {
 
@@ -157,8 +182,12 @@ struct Op<Bf16x3> {
   static constexpr int kRowBytes = 3 * kDim * 2;
   static constexpr int kBN = 64;
 };
+template <typename T>
+struct Op<D256<T>> : Op<T> {
+  static constexpr int kRowBytes = 2 * Op<T>::kRowBytes;
+};
 // a padded shared row: 272 B (bf16), 144 B (int8) or 784 B (f32), an odd
-// number of 16-byte units
+// number of 16-byte units (at 256 values: 528, 272 and 1552 B)
 template <typename T>
 constexpr int kPitch = Op<T>::kRowBytes + 16;
 template <typename T>
@@ -351,8 +380,8 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
               int n_a, int n_b) {
   using Acc = typename Op<T>::Acc;
   using K = Key<MODE>;
-  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
-  constexpr bool kSplit = std::is_same<T, Bf16x3>::value;
+  constexpr bool kInt8 = std::is_same<typename Elem<T>::type, int8_t>::value;
+  constexpr bool kSplit = std::is_same<typename Elem<T>::type, Bf16x3>::value;
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
   constexpr bool kMin = MODE == kProductRowMin;
@@ -374,7 +403,7 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
   static_assert(BM == 64 || BM == 128 || BM == 256,
                 "A tiles of 64, 128 or 256 rows");
   static_assert(kThreads == 256 && NT % 2 == 0, "8 warps, n8 tiles in pairs");
-  static_assert(BN % 64 == 0 && STAGES >= 2, "B tiles of 64-row multiples");
+  static_assert(BN % 64 == 0 && STAGES >= 1, "B tiles of 64-row multiples");
   static_assert(MODE != kWide || !kInt8, "K3 takes bf16 or f32");
   static_assert(!fused(MODE) || kInt8, "P2 takes int8");
   if constexpr (fused(MODE) && (MODE & kFusedNoMain)) {
@@ -592,8 +621,9 @@ knn_tc_kernel(const T* __restrict__ a, const T* __restrict__ b,
             } else {
               int bits;
               if constexpr (kInt8) {
-                // |dot| <= 2^21, so the f32 with the bits of 1.5 x 2^23 +
-                // dot, less 1.5 x 2^23, is float(dot) exactly (two
+                // |dot| <= 2^21 (2^22 at 256 values), so the f32 with the
+                // bits of 1.5 x 2^23 + dot, less 1.5 x 2^23, is float(dot)
+                // exactly (two
                 // full-rate operations where I2F issues at a quarter of
                 // the rate); na - 2 dot and d2 are integers below 2^24,
                 // exact in f32 in any order
@@ -762,37 +792,45 @@ int tile_blocks_per_sm() {
 }  // namespace tc
 
 // f32 rows → their three bf16 planes (the split pre-pass, knn_packed.cu):
-// x (rows, 128) f32, 16-byte aligned → out (rows, 3, 128) bf16 bits.
-// Returns the cudaError_t of the launch.
+// x (rows, dim) f32, 16-byte aligned → out (rows, 3, dim) bf16 bits; dim
+// 128 or 256. Returns the cudaError_t of the launch.
 int launch_split(const void* x, void* out, long long rows,
-                 cudaStream_t stream);
+                 cudaStream_t stream, int dim = kDim);
 
 // Squared norms of int8 rows (K1 int8's pre-pass, knn_packed.cu): x (rows,
-// 128) int8, 16-byte aligned → out (rows) f32, exact. Returns the
-// cudaError_t of the launch.
+// dim) int8, 16-byte aligned → out (rows) f32, exact; dim 128 or 256.
+// Returns the cudaError_t of the launch.
 int launch_row_norms_i8(const void* x, void* out, long long rows,
-                        cudaStream_t stream);
+                        cudaStream_t stream, int dim = kDim);
 
 // The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
-// the split rows of launch_split). a, b (n_pairs, n, 128) T; na2, nb2 the
-// f32 squared norms (unused by kProductRowSum and kProductRowMin); uv_a,
-// pred_b f32 for kPackedGated; n_a and n_b multiples of 64 (the caller
-// checks the shapes). Blocks of 128 A rows where n_a allows, else 64, and
-// the type's B tiles in a ring of two. Returns the cudaError_t of the
-// launch.
+// the split rows of launch_split; D256<T>: T at 256 values a row). a, b
+// (n_pairs, n, 128 or 256) T; na2, nb2 the f32 squared norms (unused by
+// kProductRowSum and kProductRowMin); uv_a, pred_b f32 for kPackedGated;
+// n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of 128
+// A rows where n_a allows, else 64, and the type's B tiles in a ring of
+// two; D256<Bf16x3> 64 A rows and one 64-row B tile (the head of this
+// file). Returns the cudaError_t of the launch.
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,
               float radius2, void* row_p, void* col_p, void* row_k,
               void* col_k, int n_pairs, int n_a, int n_b,
               cudaStream_t stream) {
-  if (n_a % 128 == 0)
-    return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
-                                         radius2, row_p, col_p, row_k, col_k,
-                                         n_pairs, n_a, n_b, stream);
-  return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                      row_p, col_p, row_k, col_k, n_pairs,
-                                      n_a, n_b, stream);
+  if constexpr (std::is_same<T, D256<Bf16x3>>::value) {
+    return tc::launch_tile<T, MODE, 64, 64, 1>(a, b, na2, nb2, uv_a, pred_b,
+                                               radius2, row_p, col_p, row_k,
+                                               col_k, n_pairs, n_a, n_b,
+                                               stream);
+  } else {
+    if (n_a % 128 == 0)
+      return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
+                                           radius2, row_p, col_p, row_k,
+                                           col_k, n_pairs, n_a, n_b, stream);
+    return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b,
+                                        radius2, row_p, col_p, row_k, col_k,
+                                        n_pairs, n_a, n_b, stream);
+  }
 }
 
 }  // namespace knn

@@ -3,7 +3,8 @@
 // Replaces imageanalysis_tpu/ops/knn.py::_knn_kernel, which the reference's
 // knn_top2 takes when max(n_a, n_b) > 8192 (beyond the 13 index bits of
 // K1's packed keys). Inputs are bf16 or f32 descriptors (the caller casts
-// int8 store rows to bf16, exactly) with f32 squared norms.
+// int8 store rows to bf16, exactly) of 128 or 256 values a row (ORB's
+// 10,000 features a frame reach it), with f32 squared norms.
 //
 // What it computes, for each pair p, A row i and B row j:
 //   d2 = |a_i|^2 + |b_j|^2 - 2 a_i.b_j      f32, NOT clamped at 0
@@ -47,28 +48,49 @@
 
 #include "knn_common.cuh"
 
-// a (n_pairs, n_a, 128) and b (n_pairs, n_b, 128): bf16 (bf16 != 0) or
-// f32, contiguous and 16-byte aligned; na2 (n_pairs, n_a), nb2 (n_pairs,
-// n_b) f32; row_k (n_pairs, n_a, 2) int64; col_k (n_pairs, n_b) int64
-// pre-filled with INT64_MAX. f32: split_a (n_pairs, n_a, 3, 128) and
-// split_b (n_pairs, n_b, 3, 128) bf16 scratch, which the first two
+namespace {
+
+// one width (H: bf16 bits, F: f32's planes)
+template <typename H, typename F>
+int launch_wide(const void* a, const void* b, const void* na2,
+                const void* nb2, void* row_k, void* col_k, void* split_a,
+                void* split_b, int n_pairs, int n_a, int n_b, bool bf16,
+                int dim, cudaStream_t s) {
+  using namespace knn;
+  if (bf16)
+    return launch_tc<H, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                               nullptr, nullptr, row_k, col_k, n_pairs, n_a,
+                               n_b, s);
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s, dim);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s, dim);
+  if (e != 0) return e;
+  return launch_tc<F, kWide>(split_a, split_b, na2, nb2, nullptr, nullptr,
+                             0.f, nullptr, nullptr, row_k, col_k, n_pairs,
+                             n_a, n_b, s);
+}
+
+}  // namespace
+
+// a (n_pairs, n_a, dim) and b (n_pairs, n_b, dim), dim 128 or 256: bf16
+// (bf16 != 0) or f32, contiguous and 16-byte aligned; na2 (n_pairs, n_a),
+// nb2 (n_pairs, n_b) f32; row_k (n_pairs, n_a, 2) int64; col_k (n_pairs,
+// n_b) int64 pre-filled with INT64_MAX. f32: split_a (n_pairs, n_a, 3, dim)
+// and split_b (n_pairs, n_b, 3, dim) bf16 scratch, which the first two
 // launches fill with the operands' planes (unused for bf16). n_a and n_b
 // are multiples of 64. Returns the cudaError_t of the launch.
 extern "C" int knn_wide(const void* a, const void* b, const void* na2,
                         const void* nb2, void* row_k, void* col_k,
                         void* split_a, void* split_b, int n_pairs, int n_a,
-                        int n_b, int bf16, void* stream) {
+                        int n_b, int bf16, int dim, void* stream) {
   using namespace knn;
-  if (bad_shape(n_pairs, n_a, n_b, 1 << 30)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n_pairs, n_a, n_b, 1 << 30) || bad_dim(dim))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_tc<uint16_t, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                                      nullptr, nullptr, row_k, col_k, n_pairs,
-                                      n_a, n_b, s);
-  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
-  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
-  if (e != 0) return e;
-  return launch_tc<Bf16x3, kWide>(split_a, split_b, na2, nb2, nullptr,
-                                  nullptr, 0.f, nullptr, nullptr, row_k,
-                                  col_k, n_pairs, n_a, n_b, s);
+  if (dim == 256)
+    return launch_wide<D256<uint16_t>, D256<Bf16x3>>(
+        a, b, na2, nb2, row_k, col_k, split_a, split_b, n_pairs, n_a, n_b,
+        bf16 != 0, dim, s);
+  return launch_wide<uint16_t, Bf16x3>(a, b, na2, nb2, row_k, col_k, split_a,
+                                       split_b, n_pairs, n_a, n_b, bf16 != 0,
+                                       dim, s);
 }

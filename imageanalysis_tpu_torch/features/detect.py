@@ -1,20 +1,30 @@
 """Feature detection front-end: the project's images → cached features.
 
-Port of ``imageanalysis_tpu/features/detect.py`` for its device backend
-(``backend="tpu"``, the name kept so that config.json's detector node
-reads alike in both packages): decode and scale each frame
-(``load_scaled_gray``, on ``io/jpeg``), then CLAHE and SIFT over batches
-of frames on the device (``features/sift.py``), keypoints rescaled to full
-resolution and cached as cache/<name>.feat and .desc.
+Port of ``imageanalysis_tpu/features/detect.py``, both backends (the names
+kept, so that config.json's detector node reads alike in both packages):
 
-Left out: the OpenCV backends (``backend="cv"``, ``--detector SIFT|ORB``),
-which raise, and the TPU link's workarounds (the transport codec, the
-automatic batch policy, the stall watchdog, the multi-host shard). Frames
-are decoded on the calling thread; overlapping decode with detection, as
-the reference's loader threads do, is not ported.
+- ``tpu`` — decode and scale each frame (``load_scaled_gray``, on
+  ``io/jpeg``), then CLAHE and SIFT over batches of frames on the device
+  (``features/sift.py``);
+- ``cv`` — the reference's default, OpenCV's SIFT or ORB on the host
+  (``--detector SIFT|ORB``): frames decoded and scaled by the reference's
+  host load (PIL's draft, cv2.resize) with cv2's CLAHE, on loader threads
+  ahead of the detection, as the reference runs them. ORB's 256-bit
+  descriptors are unpacked to 256 values of 0/1 (squared L2 on bits is the
+  Hamming distance), which the 2-NN kernels take at 256 values a row.
+  cv2 is imported inside this arm only; without it the arm raises
+  ImportError and names ``--detector TPU``.
+
+Either way keypoints are rescaled to full resolution and cached as
+cache/<name>.feat and .desc; matching runs on the card. Left out: the TPU
+link's workarounds (the transport codec, the automatic batch policy, the
+stall watchdog, the multi-host shard).
 """
 
 from __future__ import annotations
+
+import concurrent.futures as cf
+from collections import deque
 
 import numpy as np
 import torch
@@ -46,6 +56,18 @@ class DetectorConfig:
                       ("detector", "scale", "max_features", "equalize",
                        "backend", "device_batch")
                       if k in d})
+
+
+def _cv2(detector):
+    """cv2, for the host detectors; ImportError naming the device detector
+    where it is missing."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"--detector {detector} runs OpenCV on the host and cv2 is not "
+            "installed; use --detector TPU (SIFT on the device)") from e
+    return cv2
 
 
 def _load_scaled_gray_host(path, scale):
@@ -113,20 +135,100 @@ def load_scaled_gray(path, scale, device="cuda"):
     return gray, (full_w, full_h)
 
 
+def detect(gray, config: DetectorConfig):
+    """Detect on a scaled copy of a full-resolution (H, W) uint8 numpy
+    frame (cv2.resize to config.scale); keypoints rescaled to full
+    resolution. Returns detect_scaled's arrays."""
+    scale = config.scale
+    if scale != 1.0:
+        gray = _cv2(config.detector).resize(gray, (0, 0), fx=scale, fy=scale)
+    kp, kp_meta, des = detect_scaled(gray, config)
+    return kp / scale, kp_meta, des
+
+
+def detect_scaled(scaled, config: DetectorConfig):
+    """OpenCV's SIFT (config.max_features, 0 = all) or ORB (max_features
+    or 10000) on an already-scaled (H, W) uint8 numpy frame, on the host;
+    keypoints in scaled pixels. Returns numpy (kp (n, 2), kp_meta (n, 4)
+    [size, angle, response, octave], des (n, d) f32): d 128 for SIFT, 256
+    for ORB (its bits as 0/1). The device detector (backend "tpu") runs
+    batched: sift.detect_dispatch, as detect_project_features calls it."""
+    if config.backend == "tpu":
+        raise ValueError("detect_scaled runs the host detectors; the device "
+                         "detector runs batched (sift.detect_dispatch)")
+    cv2 = _cv2(config.detector)
+    if config.detector == "SIFT":
+        det = (cv2.SIFT_create(nfeatures=config.max_features)
+               if config.max_features else cv2.SIFT_create())
+    elif config.detector == "ORB":
+        det = cv2.ORB_create(config.max_features or 10000)
+    else:
+        raise ValueError(f"unknown detector {config.detector}")
+    kps, des = det.detectAndCompute(scaled, None)
+    kp = np.array([k.pt for k in kps], np.float32).reshape(-1, 2)
+    kp_meta = np.array([(k.size, k.angle, k.response, k.octave)
+                        for k in kps], np.float32).reshape(-1, 4)
+    if des is not None and config.detector == "ORB":
+        # squared L2 on 0/1 values is the Hamming distance of the bits
+        des = np.unpackbits(des, axis=1).astype(np.float32)
+    if des is None:
+        des = np.zeros((0, 128), np.float32)
+        kp = np.zeros((0, 2), np.float32)
+        kp_meta = np.zeros((0, 4), np.float32)
+    return kp, kp_meta, np.ascontiguousarray(des, dtype=np.float32)
+
+
+def _store(image, kp, kp_meta, des):
+    image.kp, image.kp_meta, image.des = kp, kp_meta, des
+    image.save_features()
+    image.save_descriptors()
+    image.save_meta()
+
+
+def _detect_host(proj, config, todo, check_size, prefetch=4):
+    """The cv backend over todo: loader threads decode, scale and
+    equalize prefetch · 2 frames ahead; the calling thread detects; two
+    writer threads cache the results."""
+    _cv2(config.detector)
+
+    def load(image):
+        scaled, full_size = _load_scaled_gray_host(proj.image_path(image),
+                                                   config.scale)
+        scaled = scaled.numpy()
+        if config.equalize:     # cv2's CLAHE, as the reference applies it
+            scaled = _cv2(config.detector).createCLAHE(
+                clipLimit=3.0, tileGridSize=(8, 8)).apply(scaled)
+        return image, scaled, full_size
+
+    with cf.ThreadPoolExecutor(max_workers=prefetch) as loaders, \
+            cf.ThreadPoolExecutor(max_workers=2) as writers:
+        window = deque(loaders.submit(load, im) for im in todo[:2 * prefetch])
+        rest = iter(todo[2 * prefetch:])
+        pending = []
+        while window:
+            image, scaled, (w, h) = window.popleft().result()
+            nxt = next(rest, None)
+            if nxt is not None:
+                window.append(loaders.submit(load, nxt))
+            qlog("Detecting features/descriptors for:", image.name)
+            check_size(image, w, h)
+            kp, kp_meta, des = detect_scaled(scaled, config)
+            pending.append(writers.submit(_store, image, kp / config.scale,
+                                          kp_meta, des))
+        for p in pending:
+            p.result()
+
+
 def detect_project_features(proj, config: DetectorConfig, use_cache=True,
                             batch_size=16, device="cuda"):
     """Detect (or load cached) features for every image in the project.
 
-    Frames go to the device in batches of config.device_batch (or
-    batch_size when that is 0), each one CLAHE + SIFT dispatch
-    (config.equalize: CLAHE on the device); keypoints are divided by
+    backend "tpu": frames go to the device in batches of
+    config.device_batch (or batch_size when that is 0), each one CLAHE +
+    SIFT dispatch (config.equalize: CLAHE on the device). backend "cv":
+    OpenCV on the host (_detect_host). Keypoints are divided by
     config.scale and cached with the descriptors and the image's full
     size, which must match the camera config's."""
-    if config.backend != "tpu":
-        raise NotImplementedError(
-            f"detector backend {config.backend!r} ({config.detector} on the "
-            "host's OpenCV) is not ported (ROADMAP.md queue 1: the cv "
-            "detector backends); use --detector TPU")
     todo = [im for im in proj.image_list
             if not (use_cache and im.load_features()
                     and im.load_descriptors())]
@@ -143,6 +245,9 @@ def detect_project_features(proj, config: DetectorConfig, use_cache=True,
                 f"{cam_w}x{cam_h} — fix the camera config vs image size "
                 f"issue (reference image.py:300-306)")
 
+    if config.backend != "tpu":
+        _detect_host(proj, config, todo, check_size)
+        return
     dbatch = config.device_batch or batch_size
     for s in range(0, len(todo), dbatch):
         batch = todo[s:s + dbatch]
@@ -157,8 +262,4 @@ def detect_project_features(proj, config: DetectorConfig, use_cache=True,
                                     equalize=config.equalize)
         for image, (kp, kp_meta, des) in zip(
                 batch, sift.detect_finalize_batch(outs)):
-            image.kp = kp / config.scale
-            image.kp_meta, image.des = kp_meta, des
-            image.save_features()
-            image.save_descriptors()
-            image.save_meta()
+            _store(image, kp / config.scale, kp_meta, des)

@@ -8,9 +8,14 @@ uv sets, project image 2's center into image 1, and compare the implied
 course with the GPS ground course to estimate a per-image heading bias
 (``yaw_error``). ``SmartState`` persists them as smart.json, the same file
 the reference writes. The triangulation and similarity fits run batched
-on the device in one call per chunk (``_pair_stats_fused``).
+on the device in one call per chunk (``_pair_stats_fused``); the per-pair
+estimators (``triangulate_pair``, ``estimate_surface_elevation``,
+``estimate_yaw_error``, ``update_pair``) run the same math on one pair.
+The reference's jit wrappers of the two-view triangulation and the
+similarity fit have no counterpart: PyTorch runs eagerly.
 
-Not ported yet: the per-pair estimators and the multi-host shard merge.
+Not ported yet: the multi-host shard merge (``save_shard``,
+``merge_shard_data``).
 """
 
 from __future__ import annotations
@@ -127,6 +132,80 @@ class SmartState:
         elevs = np.asarray(terrain.interp_host(neds[:, 0], neds[:, 1]))
         for image, e in zip(proj.image_list, np.atleast_1d(elevs)):
             self.node(image.name)["srtm_surface_m"] = round(float(e), 1)
+
+
+# ---------------------------------------------------------------------------
+# per-pair estimators
+# ---------------------------------------------------------------------------
+
+def _pair_uv(i1, i2):
+    """The matched keypoints of a pair, (uv1 (n, 2), uv2 (n, 2)) f32
+    numpy, features loaded where they are not; None for no matches."""
+    pairs = i1.match_list.get(i2.name, [])
+    if len(pairs) == 0:
+        return None
+    if i1.kp is None:
+        i1.load_features()
+    if i2.kp is None:
+        i2.load_features()
+    arr = np.asarray(pairs, np.int64).reshape(-1, 2)
+    return (np.asarray(i1.kp, np.float32)[arr[:, 0]],
+            np.asarray(i2.kp, np.float32)[arr[:, 1]])
+
+
+def triangulate_pair(proj, i1, i2, device="cuda"):
+    """Triangulate one pair's matches with the current poses → (N, 3) NED
+    numpy, or None without matches: the two-view DLT with Gauss–Newton
+    refinement on K⁻¹-normalized uv, on device."""
+    uv = _pair_uv(i1, i2)
+    if uv is None:
+        return None
+    K = proj.camera_model().K.to(device)
+    P = []
+    for im in (i1, i2):
+        ned, _, q = im.get_camera_pose()
+        R, t = ned_quat_to_rt(torch.tensor(ned, dtype=torch.float32),
+                              torch.tensor(q, dtype=torch.float32))
+        P.append(torch.cat([R, t[:, None]], dim=1).to(device))
+    n1, n2 = (pixels_to_normalized(torch.from_numpy(u).to(device), K)
+              for u in uv)
+    return triangulate_two_view(P[0], P[1], n1, n2).cpu().numpy()
+
+
+def estimate_surface_elevation(proj, i1, i2, device="cuda"):
+    """(avg_elev_m, std, baseline_m) for a pair; elevation is −down of
+    the triangulated points; (None, None, baseline) without matches."""
+    pts = triangulate_pair(proj, i1, i2, device)
+    ned1, _, _ = i1.get_camera_pose()
+    ned2, _, _ = i2.get_camera_pose()
+    dist_m = float(np.linalg.norm(np.asarray(ned2) - np.asarray(ned1)))
+    if pts is None:
+        return None, None, dist_m
+    return float(-np.mean(pts[:, 2])), float(np.std(pts[:, 2])), dist_m
+
+
+def estimate_yaw_error(proj, i1, i2, device="cuda"):
+    """(yaw_error_deg, dist_m, crs_aff, weight) of a pair from the
+    uv2→uv1 similarity of its matches (fit on device); None with fewer
+    than two matches or a zero baseline."""
+    uv = _pair_uv(i1, i2)
+    if uv is None or len(uv[0]) < 2:
+        return None
+    A = fit_similarity_2d(torch.from_numpy(uv[1]).to(device),
+                          torch.from_numpy(uv[0]).to(device))
+    return _yaw_from_affine(proj, i1, i2, A.cpu().numpy())
+
+
+def update_pair(proj, smart: SmartState, i1, i2, device="cuda"):
+    """Run both estimators for a freshly matched pair and record them.
+    Returns (avg_elev_m, std), None for both without matches."""
+    avg, std, dist_m = estimate_surface_elevation(proj, i1, i2, device)
+    if avg is not None:
+        smart.update_surface_pair(i1.name, i2.name, avg, std, dist_m)
+    res = estimate_yaw_error(proj, i1, i2, device)
+    if res is not None:
+        smart.update_yaw_pair(i1.name, i2.name, *res)
+    return avg, std
 
 
 # ---------------------------------------------------------------------------

@@ -30,11 +30,16 @@ pair dimension (the reference vmaps over pairs):
   but "0" (read at each call, default off, as the reference's switch) the
   kernel arm takes ``knn_match_fused`` where the reference does.
 
-Packed keys are exact for int8 descriptors (d2 ≤ 128·255² < 2²³) and for
+Descriptors are rows of 128 values (SIFT) or 256 (ORB's 256 bits as 0/1
+values, ``features/detect.py``): every kernel mode takes both widths, and
+each counts its launches at 256 under its name with ``_d256``.
+
+Packed keys are exact for int8 descriptors (d2 ≤ 256·255² < 2²⁴) and for
 integer-valued float descriptors (every product and partial sum of the
 dot is an integer below 2²⁴; f32's mid and lo planes are then 0), and
 every key is unique, so each kernel and its plain version agree bit for
-bit there.
+bit there. The packed key keeps 10 mantissa bits of d2 at either width,
+as the reference's.
 """
 
 from __future__ import annotations
@@ -53,17 +58,21 @@ _IDX_MASK = (1 << _IDX_BITS) - 1
 _KEY_MAX = 0x7FFFFFFF
 _GATED_BITS = _KEY_MAX & ~_IDX_MASK   # value bits of a gated-out candidate
 _TILE = 64         # the kernels take n_a and n_b in multiples of 64 rows
-_DIM = 128
+_DIMS = (128, 256)  # values a descriptor row: SIFT's, ORB's bits
 _WIDE_MAX = (1 << 63) - 1
 
 # kernel launches (not plain-version calls), by mode: K1 int8 ungated, K1
-# gated (any dtype), K1 bf16 and f32 ungated, K3 bf16 and f32, K4; the
-# split pre-pass alone (K1 f32 and K3 f32 launch it inside their own entry
-# points)
-LAUNCHES = dict.fromkeys(("knn_packed_i8", "knn_packed_gated",
-                          "knn_packed_bf16", "knn_packed_f32", "knn_wide",
-                          "knn_wide_f32", "match_epilogue", "split_bf16x3"),
-                         0)
+# gated (any dtype), K1 bf16 and f32 ungated, K3 bf16 and f32, each at 128
+# values a row and (suffix _d256) at 256; K4; the split pre-pass alone (K1
+# f32 and K3 f32 launch it inside their own entry points)
+_K13 = ("knn_packed_i8", "knn_packed_gated", "knn_packed_bf16",
+        "knn_packed_f32", "knn_wide", "knn_wide_f32")
+LAUNCHES = dict.fromkeys(_K13 + tuple(k + "_d256" for k in _K13)
+                         + ("match_epilogue", "split_bf16x3"), 0)
+
+
+def _count(name, dim):
+    LAUNCHES[name if dim == 128 else name + "_d256"] += 1
 
 
 def pad_descriptors(desc, n_pad):
@@ -158,9 +167,10 @@ def _check_pair_batch(desc_a, desc_b, na2, nb2, name, max_rows):
                          f"{desc_b.device}")
     if (desc_a.dim() != 3 or desc_b.dim() != 3
             or desc_a.shape[0] != desc_b.shape[0]
-            or desc_a.shape[2] != _DIM or desc_b.shape[2] != _DIM):
-        raise ValueError(f"{name}: need (B, n_a, {_DIM}) and (B, n_b, "
-                         f"{_DIM}), got {tuple(desc_a.shape)} and "
+            or desc_a.shape[2] not in _DIMS
+            or desc_b.shape[2] != desc_a.shape[2]):
+        raise ValueError(f"{name}: need (B, n_a, d) and (B, n_b, d) with d "
+                         f"128 or 256, got {tuple(desc_a.shape)} and "
                          f"{tuple(desc_b.shape)}")
     if desc_a.dtype != desc_b.dtype:
         raise ValueError(f"{name}: descriptors of {desc_a.dtype} and "
@@ -195,10 +205,10 @@ def knn_packed_plain(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
                      pred_b=None, radius2=None):
     """Plain version of K1 in every mode.
 
-    desc_a (B, n_a, 128), desc_b (B, n_b, 128): int8 (norms computed here,
-    exact) or bf16/f32 with the f32 squared norms na2 (B, n_a), nb2 (B,
-    n_b) of the unrounded descriptors. uv_a (B, n_a, 2), pred_b (B, n_b, 2)
-    f32 and radius2 turn the gate on. Returns raw packed keys: row_p (B,
+    desc_a (B, n_a, d), desc_b (B, n_b, d), d 128 or 256: int8 (norms
+    computed here, exact) or bf16/f32 with the f32 squared norms na2 (B,
+    n_a), nb2 (B, n_b) of the unrounded descriptors. uv_a (B, n_a, 2),
+    pred_b (B, n_b, 2) f32 and radius2 turn the gate on. Returns raw packed keys: row_p (B,
     n_a, 2) int32, the two smallest bits | j per A row, and col_p (B, n_b)
     int32, the smallest bits | i per B row, where bits = f32 bits of d2
     with the low 13 bits cleared, or 0x7FFFE000 for a gated-out candidate.
@@ -270,7 +280,7 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
     if dev.type == "cpu":
         return knn_packed_plain(desc_a, desc_b, na2, nb2, uv_a, pred_b,
                                 radius2)
-    B, n_a, _ = desc_a.shape
+    B, n_a, dim = desc_a.shape
     n_b = desc_b.shape[1]
     _check_launch((desc_a, desc_b, na2, nb2, uv_a, pred_b), n_a, n_b,
                   "knn_packed_raw")
@@ -289,12 +299,13 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
         if desc_a.dtype == torch.int8 and not gated:
             name = "knn_packed_i8"
             err = lib.knn_packed_i8(*ptrs, row_p.data_ptr(),
-                                    col_p.data_ptr(), B, n_a, n_b, stream)
+                                    col_p.data_ptr(), B, n_a, n_b, dim,
+                                    stream)
         elif desc_a.dtype == torch.int8:
             name = "knn_packed_i8_gated"
             err = lib.knn_packed_i8_gated(
                 *ptrs, uv_a.data_ptr(), pred_b.data_ptr(), radius2,
-                row_p.data_ptr(), col_p.data_ptr(), B, n_a, n_b, stream)
+                row_p.data_ptr(), col_p.data_ptr(), B, n_a, n_b, dim, stream)
         else:
             name = "knn_packed_float"
             bf16 = desc_a.dtype == torch.bfloat16
@@ -307,35 +318,39 @@ def knn_packed_raw(desc_a, desc_b, na2=None, nb2=None, uv_a=None,
                 nb2.data_ptr(), _ptr(uv_a), _ptr(pred_b),
                 radius2 if gated else 0.0, row_p.data_ptr(),
                 col_p.data_ptr(), _ptr(sa), _ptr(sb), B, n_a, n_b,
-                int(bf16), stream)
+                int(bf16), dim, stream)
     _build.check(err, name)
     if gated:
-        LAUNCHES["knn_packed_gated"] += 1
+        _count("knn_packed_gated", dim)
     elif desc_a.dtype == torch.int8:
-        LAUNCHES["knn_packed_i8"] += 1
+        _count("knn_packed_i8", dim)
     elif desc_a.dtype == torch.bfloat16:
-        LAUNCHES["knn_packed_bf16"] += 1
+        _count("knn_packed_bf16", dim)
     else:
-        LAUNCHES["knn_packed_f32"] += 1
+        _count("knn_packed_f32", dim)
     return row_p, col_p
 
 
 def _split_scratch(x):
-    """Scratch for the three bf16 planes of f32 rows x (..., 128): (...,
-    3, 128) bf16."""
-    return torch.empty((*x.shape[:-1], 3, _DIM), dtype=torch.bfloat16,
+    """Scratch for the three bf16 planes of f32 rows x (..., d): (...,
+    3, d) bf16."""
+    return torch.empty((*x.shape[:-1], 3, x.shape[-1]), dtype=torch.bfloat16,
                        device=x.device)
+
+
+def _check_split(x):
+    if x.dtype != torch.float32 or x.dim() == 0 or x.shape[-1] not in _DIMS:
+        raise ValueError(f"split_bf16x3: need (..., 128) or (..., 256) "
+                         f"float32, got {tuple(x.shape)} {x.dtype}")
 
 
 def split_bf16x3_plain(x):
     """Plain version of the f32 modes' pre-pass (K1's and K3's): f32 rows
-    x (..., 128) → (..., 3, 128) bf16, the planes hi = bf16(x), mid = bf16(x − hi), lo = bf16(x
-    − hi − mid), each rounded to nearest even; every difference is exact
-    in f32, so hi + mid + lo == x for every finite f32 of descriptor
-    range."""
-    if x.dtype != torch.float32 or x.shape[-1] != _DIM:
-        raise ValueError(f"split_bf16x3: need (..., {_DIM}) float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    x (..., d), d 128 or 256 → (..., 3, d) bf16, the planes hi = bf16(x),
+    mid = bf16(x − hi), lo = bf16(x − hi − mid), each rounded to nearest
+    even; every difference is exact in f32, so hi + mid + lo == x for every
+    finite f32 of descriptor range."""
+    _check_split(x)
     hi = x.bfloat16()
     r1 = x - hi.float()
     mid = r1.bfloat16()
@@ -350,15 +365,16 @@ def split_bf16x3_raw(x):
     raises."""
     if x.device.type == "cpu":
         return split_bf16x3_plain(x)
-    if x.dtype != torch.float32 or x.shape[-1] != _DIM or x.numel() == 0:
-        raise ValueError(f"split_bf16x3: need (..., {_DIM}) float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    rows = x.numel() // _DIM
+    _check_split(x)
+    if x.numel() == 0:
+        raise ValueError("split_bf16x3: no rows")
+    dim = x.shape[-1]
+    rows = x.numel() // dim
     _check_launch((x,), 0, 0, "split_bf16x3_raw")
     out = _split_scratch(x)
     with torch.cuda.device(x.device):
         err = _build.load().split_bf16x3(
-            x.data_ptr(), out.data_ptr(), rows,
+            x.data_ptr(), out.data_ptr(), rows, dim,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "split_bf16x3")
     LAUNCHES["split_bf16x3"] += 1
@@ -383,8 +399,9 @@ def _check_wide(desc_a, desc_b, na2, nb2, name):
 
 
 def knn_wide_plain(desc_a, desc_b, na2, nb2):
-    """Plain version of K3. desc_a (B, n_a, 128), desc_b (B, n_b, 128) bf16
-    or f32 with f32 squared norms na2 (B, n_a), nb2 (B, n_b).
+    """Plain version of K3. desc_a (B, n_a, d), desc_b (B, n_b, d), d 128
+    or 256, bf16 or f32 with f32 squared norms na2 (B, n_a), nb2 (B,
+    n_b).
 
     d2 = (‖a‖² + ‖b‖²) − 2 a·b in f32, not clamped. Returns int64 keys
     (orderable(d2) << 32) | index: row_k (B, n_a, 2), the two smallest per
@@ -418,7 +435,7 @@ def knn_wide_raw(desc_a, desc_b, na2, nb2):
     dev = desc_a.device
     if dev.type == "cpu":
         return knn_wide_plain(desc_a, desc_b, na2, nb2)
-    B, n_a, _ = desc_a.shape
+    B, n_a, dim = desc_a.shape
     n_b = desc_b.shape[1]
     _check_launch((desc_a, desc_b, na2, nb2), n_a, n_b, "knn_wide_raw")
     lib = _build.load()
@@ -433,10 +450,10 @@ def knn_wide_raw(desc_a, desc_b, na2, nb2):
         err = lib.knn_wide(desc_a.data_ptr(), desc_b.data_ptr(),
                            na2.data_ptr(), nb2.data_ptr(), row_k.data_ptr(),
                            col_k.data_ptr(), _ptr(sa), _ptr(sb), B, n_a, n_b,
-                           int(bf16),
+                           int(bf16), dim,
                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "knn_wide")
-    LAUNCHES["knn_wide" if bf16 else "knn_wide_f32"] += 1
+    _count("knn_wide" if bf16 else "knn_wide_f32", dim)
     return row_k, col_k
 
 
@@ -591,8 +608,8 @@ def match_epilogue_raw(row_p, col_p, uv_b, ratio=0.75):
 def knn_match_fused(desc_a, desc_b, uv_b, ratio=0.75, gate_uv_a=None,
                     gate_pred_b=None, gate_radius=0.0):
     """2-NN + ratio + mutual + uv pick in two launches: K1 in raw packed
-    mode, then K4. desc_a (B, n_a, 128), desc_b (B, n_b, 128) int8 or
-    float, n ≤ 8192; uv_b (B, n_b, 2). Float descriptors always run K1's
+    mode, then K4. desc_a (B, n_a, d), desc_b (B, n_b, d) int8 or float,
+    d 128 or 256, n ≤ 8192; uv_b (B, n_b, 2). Float descriptors always run K1's
     bf16 mode (norms from the unrounded values), whatever a caller's bf16
     says, as the reference's knn_match_fused. gate_* as knn_top2. Returns
     match_epilogue_raw's (best_j, ok, pb); the caller masks padded rows."""
@@ -622,7 +639,8 @@ def match_pair_dense(desc_a, desc_b, n_a, n_b, ratio=0.75, mutual=True,
                      gate_pred_b=None, gate_radius=0.0, uv_b=None):
     """Lowe ratio + mutual check over a batch of padded descriptor pairs.
 
-    desc_a (B, n_a_pad, 128), desc_b (B, n_b_pad, 128) int8 or float;
+    desc_a (B, n_a_pad, d), desc_b (B, n_b_pad, d) int8 or float, d 128
+    or 256;
     n_a, n_b (B,) real counts. The 2-NN arm follows kernel_arm: on the CPU
     use_pallas=True takes knn_top2 (the kernels' plain versions) and
     False or None knn_top2_ref; a CUDA tensor always takes the kernels.

@@ -288,12 +288,21 @@ def ffma_bf16_raw(a, b, na2, nb2, uv_a=None, pred_b=None, radius2=None,
                      ffma_bf16_plain)
 
 
+def _check_128(a, name):
+    """The replaced bodies take rows of 128 values only (K1 and K3 also
+    take 256)."""
+    if a.dim() != 3 or a.shape[2] != 128:
+        raise ValueError(f"{name}: takes (B, n, 128) descriptors, got "
+                         f"{tuple(a.shape)}")
+
+
 def _ffma_raw(a, b, na2, nb2, uv_a, pred_b, radius2, wide, dtype, name,
               entry, plain):
     """The FFMA body's wrapper for one descriptor type: checks, the plain
     version on a CPU tensor, else C entry point `entry`."""
     if a.dtype != dtype:
         raise ValueError(f"{name}: takes {dtype} descriptors, got {a.dtype}")
+    _check_128(a, name)
     if wide:
         knn._check_wide(a, b, na2, nb2, name)
         if uv_a is not None:
@@ -362,6 +371,7 @@ def dp4a_i8_raw(a, b, uv_a=None, pred_b=None, radius2=None):
     name = "dp4a_i8_raw"
     if a.dtype != torch.int8:
         raise ValueError(f"{name}: takes int8 descriptors, got {a.dtype}")
+    _check_128(a, name)
     knn._check_pair_batch(a, b, None, None, name, 1 << knn._IDX_BITS)
     gated = uv_a is not None
     if gated:

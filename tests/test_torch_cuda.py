@@ -1228,3 +1228,106 @@ def _hartley(p):
     m = p.mean(0)
     s = np.sqrt(2.0) / np.sqrt(((p - m) ** 2).sum(1).mean())
     return np.array([[s, 0, -s * m[0]], [0, s, -s * m[1]], [0, 0, 1.0]])
+
+
+# --- rows of 256 values (ORB's bits) ----------------------------------------
+
+def _rows256(rng, pairs, n_a, n_b, kind):
+    """int8 rows of 256 values, B's first quarter near A's: ORB's bits as
+    the store holds them (−128/−127, 8 bits flipped), or the full
+    −128..127 with an all −128 and an all 127 row on each side."""
+    hi = 2 if kind == "bits" else 256
+    a = rng.integers(0, hi, (pairs, n_a, 256))
+    b = rng.integers(0, hi, (pairs, n_b, 256))
+    k = min(n_a, n_b) // 4
+    b[:, :k] = a[:, :k]
+    b[:, :k, :8] = hi - 1 - b[:, :k, :8]
+    if kind != "bits":
+        a[:, 1], a[:, 2] = 0, 255
+        b[:, 3], b[:, 4] = 0, 255
+    return (torch.from_numpy((a - 128).astype(np.int8)),
+            torch.from_numpy((b - 128).astype(np.int8)))
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
+@pytest.mark.parametrize("kind", ["bits", "full_range"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
+                                   torch.float32],
+                         ids=["int8", "bf16", "f32"])
+def test_k1_256_bit_exact_vs_plain(cuda, rng, dtype, kind, gated):
+    """K1 in every mode at 256 values a row, 192 A rows (the 64-row
+    blocks) against 704 B rows (a last B tile of 64), counted under its
+    _d256 name."""
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, 192, 704, kind))
+    args = (a, b, None, None) if dtype == torch.int8 else \
+        _float_inputs(a, b, dtype)
+    gate = _gate(rng, cuda, 3, 192, 704) if gated else ()
+    key = ("knn_packed_gated" if gated else
+           {torch.int8: "knn_packed_i8", torch.bfloat16: "knn_packed_bf16",
+            torch.float32: "knn_packed_f32"}[dtype]) + "_d256"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_packed_raw(*args, *gate)
+    assert knn.LAUNCHES[key] == before + 1
+    want = knn.knn_packed_plain(*args, *gate)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["bits", "full_range"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k3_256_bit_exact_vs_plain(cuda, rng, dtype, kind):
+    """K3 at 256 values a row beyond 8192 B rows, both modes."""
+    a, b = (t.to(cuda) for t in _rows256(rng, 2, 192, 8256, kind))
+    args = _float_inputs(a, b, dtype)
+    key = ("knn_wide" if dtype == torch.bfloat16 else "knn_wide_f32") \
+        + "_d256"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_wide_raw(*args)
+    assert knn.LAUNCHES[key] == before + 1
+    want = knn.knn_wide_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# last in the file: it imports cv2, which the card path's tests above
+# check is not imported
+@pytest.mark.parametrize("detector", ["SIFT", "ORB"])
+def test_cv_detector_matching_stage_on_card(cuda, tmp_path, detector):
+    """The stage scripts on a four-frame mission written on the card, with
+    the host's OpenCV detector: matching runs the 2-NN kernels on the card
+    (the float path below 64 images: K1 bf16, or K3 bf16 beyond 8192
+    features, as ORB's ~9,900 a 640×480 frame; at 256 values a row for
+    ORB) and every along-track pair keeps matches."""
+    from imageanalysis_tpu_torch.apps import stages
+    from imageanalysis_tpu_torch.io.project import ProjectMgr
+    from imageanalysis_tpu_torch.testing.synthetic import (
+        CAMERA_KEY, image_name, make_mission, write_mission)
+
+    m = make_mission(strips=2, per_strip=2, size=(640, 480), strip_gap=1.5,
+                     seed=3, device=cuda)
+    d, db = str(tmp_path / "mission"), str(tmp_path / "db")
+    write_mission(d, m, db)
+    for argv in (["create-project", d],
+                 ["set-camera", d, "--camera", CAMERA_KEY, "--camera-db", db],
+                 ["set-poses", d]):
+        assert stages.main(argv) == 0
+    keys = [k + ("_d256" if detector == "ORB" else "")
+            for k in ("knn_packed_bf16", "knn_wide")]
+    before = sum(knn.LAUNCHES[k] for k in keys)
+    assert stages.main(["matching", d, "--detector", detector, "--scale",
+                        "1.0", "--batch-size", "4"]) == 0
+    assert sum(knn.LAUNCHES[k] for k in keys) > before
+    proj = ProjectMgr(d)
+    proj.load_images_info()
+    assert proj.state.check("STEP3a")
+    width = 128 if detector == "SIFT" else 256
+    for im in proj.image_list:
+        assert im.load_descriptors() and im.des.shape[1] == width
+        im.load_matches()
+    by = {im.name: im for im in proj.image_list}
+    for s in range(2):
+        a, b = by[image_name(2 * s)], by[image_name(2 * s + 1)]
+        assert len(a.match_list.get(b.name, ())) >= 50

@@ -3,7 +3,9 @@
 
 The same seeded numpy inputs go through the JAX package (its Pallas
 kernels in interpret mode, as tests/test_ops_knn.py runs them on the CPU)
-and through imageanalysis_tpu_torch. On integer-valued descriptors the
+and through imageanalysis_tpu_torch, at SIFT's 128 values a row and at
+ORB's 256 (its bits as int8 −128/−127 in the store, 0..255-valued floats
+on the chunked path). On integer-valued descriptors the
 distances are integer arithmetic in every mode, so the comparisons are
 bit-exact; on random float descriptors indices agree modulo ties and
 values within 2⁻⁹ relative (the packed keys' truncation plus f32
@@ -19,13 +21,26 @@ from imageanalysis_tpu.ops import knn as jknn
 from imageanalysis_tpu_torch.ops import knn as tknn
 
 
-def _planted(rng, n_a, n_b, n_planted):
+def _planted(rng, n_a, n_b, n_planted, dim=128):
     """int8 (value − 128) SIFT-like rows; B's first n_planted rows are A's
     plus small noise, so the 2-NN has true matches and near ties."""
-    a = rng.integers(0, 100, (n_a, 128))
-    b = rng.integers(0, 100, (n_b, 128))
+    a = rng.integers(0, 100, (n_a, dim))
+    b = rng.integers(0, 100, (n_b, dim))
     b[:n_planted] = np.clip(
-        a[:n_planted] + rng.integers(-4, 5, (n_planted, 128)), 0, 255)
+        a[:n_planted] + rng.integers(-4, 5, (n_planted, dim)), 0, 255)
+    return (a - 128).astype(np.int8), (b - 128).astype(np.int8)
+
+
+def _planted_bits(rng, n_a, n_b, n_planted):
+    """ORB-like rows: 256 bits as the store holds them (int8 −128/−127);
+    B's first n_planted rows are A's with 8 bits flipped. Distances are
+    small integers, so exact ties abound."""
+    a = rng.integers(0, 2, (n_a, 256))
+    b = rng.integers(0, 2, (n_b, 256))
+    b[:n_planted] = a[:n_planted]
+    flip = np.argsort(rng.random((n_planted, 256)), axis=1)[:, :8]
+    np.put_along_axis(b[:n_planted], flip,
+                      1 - np.take_along_axis(b[:n_planted], flip, 1), 1)
     return (a - 128).astype(np.int8), (b - 128).astype(np.int8)
 
 
@@ -41,8 +56,10 @@ def _jax_packed(a, b):
     return np.asarray(rp), np.asarray(cp)[0]
 
 
-def test_knn_packed_plain_bit_exact_vs_pallas(rng):
-    a, b = _planted(rng, 512, 768, 200)
+@pytest.mark.parametrize("dim", [128, 256])
+def test_knn_packed_plain_bit_exact_vs_pallas(rng, dim):
+    a, b = (_planted(rng, 512, 768, 200) if dim == 128
+            else _planted_bits(rng, 512, 768, 200))
     rp, cp = _jax_packed(a, b)
     trp, tcp = tknn.knn_packed_plain(_t(a)[None], _t(b)[None])
     np.testing.assert_array_equal(trp[0].numpy(), rp)
@@ -136,16 +153,22 @@ def test_k1_wrapper_rejects_unported_modes():
                       gate_radius=10.0)
     with pytest.raises(ValueError, match="bf16 or f32"):
         tknn.knn_wide_raw(big, big, None, None)
+    w = torch.zeros((1, 64, 192), dtype=torch.int8)    # neither 128 nor 256
+    with pytest.raises(ValueError, match="128 or 256"):
+        tknn.knn_packed_raw(w, w)
+    with pytest.raises(ValueError, match="128 or 256"):
+        tknn.knn_packed_raw(torch.zeros((1, 64, 128), dtype=torch.int8),
+                            torch.zeros((1, 64, 256), dtype=torch.int8))
 
 
 # ---------------------------------------------------------------------------
 # K1's float and gated modes, K3, and knn_top2's dispatch
 # ---------------------------------------------------------------------------
 
-def _planted_u8(rng, n_a, n_b, n_planted):
+def _planted_u8(rng, n_a, n_b, n_planted, dim=128):
     """Integer-valued 0..255 SIFT-like float32 rows (the chunked path's
     descriptors); B's first n_planted rows are A's plus small noise."""
-    a, b = _planted(rng, n_a, n_b, n_planted)
+    a, b = _planted(rng, n_a, n_b, n_planted, dim)
     return ((a.astype(np.int16) + 128).astype(np.float32),
             (b.astype(np.int16) + 128).astype(np.float32))
 
@@ -184,11 +207,12 @@ def _equal_modulo_ties(got, want, d_full, rtol=2.0 ** -9, atol=0.0):
     return len(rows)
 
 
+@pytest.mark.parametrize("dim", [128, 256])
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
-def test_k1_float_modes_bit_exact_vs_pallas(rng, bf16):
+def test_k1_float_modes_bit_exact_vs_pallas(rng, bf16, dim):
     """K1's bf16 and f32 modes (the chunked path's f32 descriptors) on
     integer-valued inputs: every decoded value and index bit-exact."""
-    a, b = _planted_u8(rng, 512, 1024, 256)
+    a, b = _planted_u8(rng, 512, 1024, 256, dim)
     want = _jax_top2(a, b, bf16=bf16)
     got = _port_top2(a, b, bf16=bf16)
     for g, w in zip(got, want):
@@ -279,15 +303,20 @@ def test_cpu_arm_gate_matches_reference(rng):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("dim", [128, 256])
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-def test_k3_bit_exact_vs_pallas(rng, dtype):
+def test_k3_bit_exact_vs_pallas(rng, dtype, dim):
     """K3 at (256, 8448): knn_top2's dispatch sends it beyond 8192 rows
     (int8 cast to bf16); the default tiles give a (2, 1) grid. Values,
     row_i[:, 0] and col_i bit-exact on integer inputs; row_i[:, 1] equal
     modulo ties (the Pallas merge and the 64-bit keys may name different
     second indices on an exact tie; only the two values and the best
-    index are used downstream)."""
-    a, b = _planted(rng, 256, 8448, 200)
+    index are used downstream). At 256 the rows are ORB's bits in int8,
+    or 0..255-valued floats."""
+    if dim == 256 and dtype == "int8":
+        a, b = _planted_bits(rng, 256, 8448, 200)
+    else:
+        a, b = _planted(rng, 256, 8448, 200, dim)
     bf16 = True
     if dtype == "bf16":
         a, b = ((x.astype(np.int16) + 128).astype(np.float32) for x in (a, b))

@@ -37,7 +37,8 @@ The same inputs go through both packages on the CPU:
 - the whole command from EXIF: the pipeline's frames tagged by the
   port's writer, no --camera and no pose file, reach STEP5 with the
   cameras within 3 m of the truth;
-- the OpenCV detectors and a run across hosts raise
+- the default detector (the host SIFT) runs Step 3a on the colour
+  fixture; a run across hosts and BA over a mesh of cards raise
   NotImplementedError, and the card is never swapped for the CPU.
 """
 
@@ -64,6 +65,7 @@ from imageanalysis_tpu.render import texture as jtexture
 from imageanalysis_tpu.surface import srtm as jsrtm
 from imageanalysis_tpu.testing.synthetic import SyntheticMission
 from imageanalysis_tpu_torch.apps import process as tprocess
+from imageanalysis_tpu_torch.apps import stages as tstages
 from imageanalysis_tpu_torch.features import detect as tdetect
 from imageanalysis_tpu_torch.io import jpeg
 from imageanalysis_tpu_torch.io import pose as tpose
@@ -556,17 +558,31 @@ def tiny_project(tmp_path):
 
 
 def test_unported_paths_raise(tiny_project, monkeypatch):
+    """The default detector (the reference's host SIFT) now runs: Step 3a
+    caches 128-value SIFT descriptors and a match list. A run across
+    hosts still raises, and so does the stage script's BA over a mesh of
+    two cards."""
     d, db = tiny_project
     with open(os.path.join(d, "pix4d.csv"), "w") as f:
         f.write("File Name,Lat,Lon,Alt,Roll,Pitch,Yaw\n" + "".join(
             f"IMG_{i:04d}.jpg,44.97,{-93.26 + 1e-4 * i},100,0,0,0\n"
             for i in range(2)))
-    with pytest.raises(NotImplementedError, match="--detector TPU"):
-        tprocess.main([d, "--camera", CAMERA, "--camera-db", db,
-                       "--ground", "0"], device="cpu")   # the cv backend
+    tprocess.main([d, "--camera", CAMERA, "--camera-db", db, "--ground", "0",
+                   "--scale", "1.0"], device="cpu")      # the cv backend
+    proj = tproject.ProjectMgr(d)
+    proj.load_images_info()
+    assert proj.state.check("STEP3a")
+    assert proj.config.node("detector").get("backend") == "cv"
+    for im in proj.image_list:
+        assert im.load_features() and im.load_descriptors()
+        assert len(im.kp) > 100 and im.des.shape == (len(im.kp), 128)
+        assert im.load_matches() and len(im.match_list) == 1
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="across hosts"):
         tprocess.main([d, "--detector", "TPU"], device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        tstages.main(["optimize", d, "--mesh", "2"], device="cpu")
 
 
 def test_main_needs_the_card_unless_the_cpu_is_asked(tiny_project,
