@@ -157,6 +157,29 @@ non-zero:
     pull BA's cameras up to ~4 m there, as the reference's BA does on the
     same chains: ROADMAP.md queue 3). One line a part, with the card's
     name and power limit.
+19. the pipeline across processes (imageanalysis_tpu_torch/parallel):
+    (a) phase 14's mission graph through parallel/sharded.solve_sharded
+    (the point-local sharded BA, BAConfig()) on a LocalMesh of 4 shards
+    of the card and over a process group of one rank on NCCL, each held
+    to phase 14's checks and its mre within 2% of phase 14's f32
+    bundle.solve; walls and collectives per LM iteration (count, bytes)
+    beside phase 14's warm solve; (b) two ranks sharing the card
+    (subprocesses of this script, gloo by the backend rule, MASTER_ADDR
+    127.0.0.1, a free port, WORLD_SIZE 2) run apps/process.py with
+    phase 16's arguments (but --batch-size 16: the ranks share the card's
+    memory) and --match-strategy smart on phase 16's mission written
+    afresh: phase 16's checks of the outcome, every image's match
+    lists equal to a one-process run's of the same command, smart.json's
+    yaw pairs equal to its (every rank's evidence merged), K1 int8 (plain
+    or gated) and K2 launched in each rank, models/ the same files with
+    each egg written once; each stage's wall per rank beside the
+    one-process run's, the backend each rank used; then stages optimize
+    --refine on the same two ranks, cameras within 0.05 m of the
+    one-process optimize --refine; (c) where the machine has two cards or
+    more, (b) again with one card a rank over NCCL, and (d) (a)'s mission
+    graph on a LocalMesh of distinct cards (2, and all of them), held to
+    (a)'s checks, its wall beside phase 14's. Each child has a timeout;
+    one that fails or times out fails the phase.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -201,6 +224,7 @@ from imageanalysis_tpu_torch.match import (  # noqa: E402
     cleanup, groups, matcher, smart, worklist)
 from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
+from imageanalysis_tpu_torch.parallel import multihost, sharded  # noqa: E402
 from imageanalysis_tpu_torch import probes  # noqa: E402
 from imageanalysis_tpu_torch.probes import device_ms  # noqa: E402
 from imageanalysis_tpu_torch.render import (  # noqa: E402
@@ -1679,6 +1703,7 @@ def run_mission_ba():
             res.cams, res.pts, g.obs, g.K, g.dist, dev, dtype))
         cost = res.cost_history[-1]
         out[run] = res
+        out[f"{run}_wall"] = wall
         log(f"[ba] {run} run ({str(dtype)[6:]}): {wall:.3f} s, "
             f"{len(res.cost_history) - 1} accepted steps, stop: {stop}; "
             f"cost {res.cost_history[0]:.6g} -> {cost:.6g} "
@@ -3018,7 +3043,307 @@ def run_stages(root, smi, p16_wall, p16_cams):
         raise AssertionError(f"phase 18 failed: {failed}")
     return d256
 
+P19_TIMEOUT_S = 420         # a phase 19 child's wall at most
+
+
+def _ba_checks(res, floor, mx, p14_mre):
+    """Phase 14's checks of a mission solve, and its mre within 2% of
+    phase 14's f32 bundle.solve."""
+    cfg = bundle.BAConfig()
+    return {"no stall": ba_stop(res, cfg) != "stalled",
+            "within 5% of the noise floor": res.cost_history[-1]
+            <= 1.05 * floor,
+            "no residual above 5 px": mx <= 5.0,
+            "finite points": bool(np.isfinite(res.pts).all()),
+            "mre within 2% of phase 14's": abs(res.mre - p14_mre)
+            <= 0.02 * p14_mre}
+
+
+def run_sharded_ba(smi, p14):
+    """Phase 19 (a): phase 14's mission graph through solve_sharded on a
+    LocalMesh of 4 shards of the card and over a process group of one
+    rank on NCCL; (d), where there are two cards or more, on a LocalMesh
+    of distinct cards (stages optimize --mesh 2 and --mesh all)."""
+    dev = torch.device("cuda")
+    g = make_ba_mission_graph(device=dev)
+    n_cam, n_pt, n_obs = len(g.cams0), len(g.pts0), len(g.obs.uv)
+    floor = 0.5 * 0.5 ** 2 * (2 * n_obs - 7 * n_cam - 3 * n_pt)
+    checks, rows = {}, {}
+
+    def solve(tag, mesh, part="a"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded.solve_sharded(g.cams0, g.pts0, g.obs, g.K, g.dist,
+                                    mesh, bundle.BAConfig(), verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, _, mx = bundle.ba_cost(*bundle._problem_on(
+            res.cams, res.pts, g.obs, g.K, g.dist, dev, torch.float32))
+        checks.update({f"({part}) {tag} {k}": v for k, v in _ba_checks(
+            res, floor, float(mx), p14["warm"].mre).items()})
+        calls, nbytes = mesh.stats["calls"], mesh.stats["bytes"]
+        rows[tag] = {"wall_s": wall, "iters": res.iters,
+                     "accepted": len(res.cost_history) - 1, "mre": res.mre,
+                     "cost_vs_floor": res.cost_history[-1] / floor,
+                     "max_residual_px": float(mx),
+                     "collectives_per_iter": calls / res.iters,
+                     "bytes_per_iter": nbytes / res.iters}
+        log(f"[parallel-19{part}] {tag}: {wall:.3f} s (phase 14's warm "
+            f"bundle.solve {p14['warm_wall']:.3f} s), {res.iters} LM "
+            f"iterations, stop {ba_stop(res, bundle.BAConfig())}, cost "
+            f"{res.cost_history[-1] / floor:.4f} of the noise floor, mre "
+            f"{res.mre:.4f} px (phase 14 {p14['warm'].mre:.4f}), max "
+            f"residual {float(mx):.3f} px; collectives {calls} "
+            f"({nbytes / 2**20:.2f} MiB), {calls / res.iters:.1f} and "
+            f"{nbytes / res.iters / 2**10:.1f} KiB per LM iteration; {smi}")
+
+    solve("LocalMesh of 4 shards on the card",
+          sharded.LocalMesh([dev] * 4))
+    backend = multihost.initialize(0, 1, "127.0.0.1", _free_port(), dev,
+                                   timeout_s=120)
+    try:
+        solve(f"a world of 1 on {backend}", sharded.ProcessMesh(dev))
+    finally:
+        multihost.shutdown()
+    checks["(a) the world of 1 took NCCL"] = backend == "nccl"
+    n_cards = torch.cuda.device_count()
+    for n in sorted({2, n_cards}) if n_cards >= 2 else ():
+        solve(f"LocalMesh of {n} cards", sharded.LocalMesh(
+            [torch.device("cuda", i) for i in range(n)]), part="d")
+    log("[parallel-19a] " + json.dumps({
+        "graph": [n_cam, n_pt, n_obs], "p14_warm_wall_s": p14["warm_wall"],
+        "runs": rows, "device": smi}))
+    return checks
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_child(cfg):
+    """A phase 19 rank (this script with --rank <json>): process.main or
+    stages.main on cfg's argv, its log to cfg's file; prints one line "P19
+    <json>" (rank, backend, device, launches, stage walls, eggs
+    written)."""
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cfg["cmd"] == "process":
+            rc = process.main(cfg["argv"])
+        else:
+            rc = stages.main(cfg["argv"])
+    text = buf.getvalue()
+    with open(cfg["log"], "w") as f:
+        f.write(text)
+    print("P19 " + json.dumps({
+        "rc": rc, "rank": multihost.rank(), "backend": multihost.backend(),
+        "device": f"cuda:{torch.cuda.current_device()}"
+        if torch.cuda.is_available() else "cpu",
+        "launches": read_launches(),
+        "walls": {k: float(v) for k, v in
+                  re.findall(r"stage wall: (\S+) ([\d.]+)s", text)},
+        "eggs_written": sum(int(n) for n in re.findall(
+            r"build_map: wrote (\d+) egg models", text))}), flush=True)
+    multihost.shutdown()
+    return 0 if rc == 0 else 1
+
+
+def launch_ranks(cmd, argv, logs, per_card):
+    """Two ranks of this script (--rank) running cmd with argv; each rank
+    on the card 0 (gloo by the backend rule) or, per_card, on a card of
+    its own (NCCL). Returns their JSON lines; a rank that fails or passes
+    P19_TIMEOUT_S fails the phase, and every rank is ended on return."""
+    port = str(_free_port())
+    procs = []
+    torch.cuda.empty_cache()        # the ranks share the card(s) with us
+    try:
+        for r in range(2):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                       WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE="2", IMGTPU_DIST_TIMEOUT="300")
+            if not per_card:
+                env["CUDA_VISIBLE_DEVICES"] = "0"
+            cfg = {"cmd": cmd, "argv": argv, "log": f"{logs}.rank{r}.log"}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank",
+                 json.dumps(cfg)], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + P19_TIMEOUT_S
+        outs = []
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 19: rank {r} of {cmd} passed "
+                                     f"{P19_TIMEOUT_S} s") from None
+            if p.returncode != 0:
+                raise AssertionError(f"phase 19: rank {r} of {cmd} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+            line = [ln for ln in out.splitlines() if ln.startswith("P19 ")]
+            if not line:
+                raise AssertionError(f"phase 19: rank {r} of {cmd} printed "
+                                     f"no result:\n{out[-4000:]}")
+            outs.append(json.loads(line[-1][4:]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _match_lists(proj_dir):
+    """{image: {other: its (n, 2) match array as bytes}} of a workspace."""
+    proj = ProjectMgr(proj_dir)
+    proj.load_images_info()
+    out = {}
+    for im in proj.image_list:
+        im.load_matches()
+        out[im.name] = {k: np.asarray(v, np.int32).tobytes()
+                        for k, v in im.match_list.items()}
+    return out
+
+
+def _yaw_pairs(proj_dir):
+    with open(os.path.join(proj_dir, "ImageAnalysis", "smart.json")) as f:
+        return {k: sorted(v.get("yaw_pairs", {}))
+                for k, v in json.load(f).items()}
+
+
+def run_ranks(root, smi, m, one, per_card):
+    """Phase 19 (b), or (c) with per_card: two ranks run process.main on a
+    fresh copy of the mission, then stages optimize --refine, held to the
+    one-process run `one`."""
+    tag = "(c)" if per_card else "(b)"
+    d = os.path.join(root, "ranks_nccl" if per_card else "ranks_gloo")
+    shutil.copytree(one["src"], d)
+    argv = [d, *one["args"]]
+    t0 = time.perf_counter()
+    ranks = launch_ranks("process", argv, os.path.join(root, "p19_process"),
+                         per_card)
+    wall = time.perf_counter() - t0
+    checks, outcome = process_outcome(d, m, len(m.frames))
+    checks = {f"{tag} {k}": v for k, v in checks.items()}
+    got = _match_lists(d)
+    diff = [n for n in one["matches"] if got.get(n) != one["matches"][n]]
+    yaw = _yaw_pairs(d)
+    models = sorted(os.listdir(os.path.join(d, "ImageAnalysis", "models")))
+    backends = [r["backend"] for r in ranks]
+    checks.update({
+        f"{tag} rc 0": all(r["rc"] == 0 for r in ranks),
+        f"{tag} backend": backends == ["nccl" if per_card else "gloo"] * 2,
+        f"{tag} match lists equal the one-process run's": not diff
+        and set(got) == set(one["matches"]),
+        f"{tag} yaw evidence of every rank": yaw == one["yaw"]
+        and sum(map(len, yaw.values())) > 0,
+        f"{tag} K1 int8 and K2 launched in each rank": all(
+            r["launches"]["knn_packed_i8"] + r["launches"]["knn_packed_gated"]
+            > 0 and r["launches"]["gauss_blur_f32"] > 0 for r in ranks),
+        f"{tag} models/ as the one-process run's": models == one["models"],
+        f"{tag} each egg written once": sum(r["eggs_written"] for r in ranks)
+        == one["eggs_written"],
+    })
+    t0 = time.perf_counter()
+    opt = launch_ranks("stages", ["optimize", d, "--refine"],
+                       os.path.join(root, "p19_optimize"), per_card)
+    opt_wall = time.perf_counter() - t0
+    proj = ProjectMgr(d)
+    proj.load_images_info()
+    cams = camera_positions(proj)
+    off = max(np.linalg.norm(cams[k] - one["opt_cams"][k])
+              for k in one["opt_cams"])
+    checks.update({
+        f"{tag} optimize --refine rc 0": all(r["rc"] == 0 for r in opt),
+        f"{tag} cameras within 0.05 m of the one-process optimize":
+        off <= 0.05})
+    launches = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
+    log(f"[parallel-19{tag[1]}] 2 ranks, backends {backends}, devices "
+        f"{[r['device'] for r in ranks]}: process.main {wall:.3f} s "
+        f"(one process {one['wall']:.3f} s); {outcome['summary']}; "
+        f"{len(diff)} images whose match lists differ; launches {launches}; "
+        f"optimize --refine {opt_wall:.3f} s (one process "
+        f"{one['opt_wall']:.3f} s), cameras within {off:.4f} m; {smi}")
+    log(f"[parallel-19{tag[1]}] " + json.dumps({
+        "stage_wall_s": {"one_process": one["walls"],
+                         **{f"rank{r['rank']}": r["walls"] for r in ranks}},
+        "process_wall_s": wall, "one_process_wall_s": one["wall"],
+        "optimize_wall_s": opt_wall, "one_optimize_wall_s": one["opt_wall"],
+        "backends": backends, "device": smi}))
+    return checks, [r["launches"] for r in ranks]
+
+
+def one_process_run(root):
+    """Phase 19 (b)'s yardstick: phase 16's mission written afresh, then
+    process.main with phase 16's arguments and --match-strategy smart and
+    stages optimize --refine in this process. Returns (checks, the
+    mission, what run_ranks holds the ranks to)."""
+    m = make_mission(strips=STRIPS, per_strip=PER_STRIP, size=FRAME, seed=0,
+                     device="cuda")
+    src, db = os.path.join(root, "mission"), os.path.join(root, "cameras")
+    write_mission(src, m, db)
+    # phase 16's arguments, but detection batches of DETECT_BATCH frames:
+    # two ranks share the card's memory (a batch of 32 frames takes ~32
+    # GiB a rank), and --match-strategy smart
+    args = ["--camera", CAMERA_KEY, "--camera-db", db, "--scale", "1.0",
+            "--ground", "0.0", "--batch-size", str(DETECT_BATCH),
+            "--min-chain-len", "2", "--detector", "TPU", "--max-features",
+            str(MAX_FEATURES), "--match-strategy", "smart"]
+    d = os.path.join(root, "one")
+    shutil.copytree(src, d)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = process.main([d, *args])
+    wall = time.perf_counter() - t0
+    checks, outcome = process_outcome(d, m, len(m.frames))
+    checks = {f"(b) one process: {k}": v for k, v in checks.items()}
+    checks["(b) one process: rc 0"] = rc == 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_opt = stages.main(["optimize", d, "--refine"])
+    opt_wall = time.perf_counter() - t0
+    checks["(b) one process: optimize rc 0"] = rc_opt == 0
+    proj = ProjectMgr(d)
+    proj.load_images_info()
+    one = {"src": src, "args": args, "matches": _match_lists(d),
+           "yaw": _yaw_pairs(d), "wall": wall, "opt_wall": opt_wall,
+           "walls": outcome["walls"], "opt_cams": camera_positions(proj),
+           "models": sorted(os.listdir(proj.models_dir)),
+           "eggs_written": sum(int(n) for n in re.findall(
+               r"build_map: wrote (\d+) egg models", buf.getvalue()))}
+    return checks, m, one
+
+
+def run_parallel(root, smi, p14):
+    """Phase 19: the pipeline across processes. Returns the launches of
+    each rank of (b)."""
+    t_phase = time.perf_counter()
+    checks = run_sharded_ba(smi, p14)
+    more, m, one = one_process_run(root)
+    checks.update(more)
+    more, launches = run_ranks(root, smi, m, one, per_card=False)
+    checks.update(more)
+    ran = ["(a)", "(b)"]
+    if torch.cuda.device_count() >= 2:
+        more, _ = run_ranks(root, smi, m, one, per_card=True)
+        checks.update(more)
+        ran += ["(c)", "(d)"]
+    log(f"[parallel] phase 19 in {time.perf_counter() - t_phase:.1f} s; "
+        f"ran {' and '.join(ran)} ({torch.cuda.device_count()} cards)")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 19 failed: {failed}")
+    return launches
+
+
 def main():
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_child(json.loads(sys.argv[2]))
     profile = "--profile" in sys.argv[1:]
     smi = device_info()
     build()
@@ -3048,7 +3373,7 @@ def main():
         del m, dets, proj
         rep_launches = run_repetitive(root)
     wide_launches = run_wide_store()
-    run_mission_ba()
+    p14, _ = run_mission_ba()
     anatomy = run_probes()
     with tempfile.TemporaryDirectory() as root:
         _, p16_wall, p16_cams = run_process(root, smi)
@@ -3056,6 +3381,8 @@ def main():
         run_process_extras(root, smi)
     with tempfile.TemporaryDirectory() as root:
         d256 = run_stages(root, smi, p16_wall, p16_cams)
+    with tempfile.TemporaryDirectory() as root:
+        p19 = run_parallel(root, smi, p14)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
@@ -3095,15 +3422,21 @@ def main():
                 "product_only_ms")})
         return out
 
+    def at19(key):
+        """Phase 19's launches of a kernel, rank by rank of (b)."""
+        return {"p19_launches": [r.get(key, 0) for r in p19]}
+
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [
         dict(entry("knn_packed_i8", "knn_packed.cu", k1_src,
                    slice_launches["knn_packed_i8"], k1["i8_store"]),
-             **at256("knn_packed_i8_d256", "i8_store", "i8_bench")),
+             **at256("knn_packed_i8_d256", "i8_store", "i8_bench"),
+             **at19("knn_packed_i8")),
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
-                for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")}),
+                for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
+             **at19("knn_packed_gated")),
         dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_bf16"], k1["bf16"]),
              **at256("knn_packed_bf16_d256", "bf16_bench")),
@@ -3118,9 +3451,10 @@ def main():
                    "imageanalysis_tpu/ops/knn.py:407",
                    wide_launches["knn_wide_f32"], k3["f32"]),
              **at256("knn_wide_f32_d256", "k3_f32")),
-        entry("gauss_blur_f32", "gauss_blur.cu",
-              "imageanalysis_tpu/features/sift_tpu.py:67",
-              slice_launches["gauss_blur_f32"], k2),
+        dict(entry("gauss_blur_f32", "gauss_blur.cu",
+                   "imageanalysis_tpu/features/sift_tpu.py:67",
+                   slice_launches["gauss_blur_f32"], k2),
+             **at19("gauss_blur_f32")),
         entry("match_epilogue", "match_epilogue.cu",
               "imageanalysis_tpu/ops/knn.py:253",
               fused_launches["match_epilogue"], k4["bench"]),

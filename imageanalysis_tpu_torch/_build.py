@@ -4,7 +4,11 @@ Every ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
 together, and one more ``nvcc`` links the objects into one shared library
 with a plain C interface under ``<repo>/build/``; the file name carries a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already built. No PyTorch headers are
+unchanged one loads the library already built. Processes that start
+together (the ranks of a run across processes, on a fresh checkout)
+build once: the first takes a file lock on the build directory and
+builds, the others wait for the lock and load its library. No PyTorch
+headers are
 compiled, which keeps the build to seconds. The library links nvJPEG
 (``csrc/jpeg_codec.cu``, the port's JPEG decode and encode).
 
@@ -17,7 +21,9 @@ stream included, is a ``void*``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -138,9 +144,9 @@ def _sources():
 
 
 def build():
-    """Compile csrc/*.cu into BUILD_DIR if the hashed library is missing;
-    return its path. Raises RuntimeError when nvcc is missing or fails."""
-    global build_log, build_seconds
+    """Compile csrc/*.cu into BUILD_DIR if the hashed library is missing
+    (one process at a time: _build_lock); return its path. Raises
+    RuntimeError when nvcc is missing or fails."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
@@ -149,12 +155,34 @@ def build():
     lib = os.path.join(BUILD_DIR, f"libimageanalysis_{h.hexdigest()[:16]}.so")
     if os.path.isfile(lib):
         return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _build_lock():
+        if not os.path.isfile(lib):     # else another process built it
+            _compile(srcs, lib)
+    return lib
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on BUILD_DIR/build.lock (flock: released when its
+    holder exits, however it exits)."""
+    with open(os.path.join(BUILD_DIR, "build.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(srcs, lib):
+    """nvcc every source into an object, all at once, and link them into
+    lib (atomically)."""
+    global build_log, build_seconds
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME, " + CUDA_DEFAULT + "): the "
             "CUDA kernels of imageanalysis_tpu_torch need the CUDA toolkit")
-    os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
@@ -176,7 +204,6 @@ def build():
             raise RuntimeError(f"nvcc link failed:\n{build_log}")
         os.replace(out, lib)
     build_seconds = time.perf_counter() - t0
-    return lib
 
 
 def load():

@@ -1,7 +1,7 @@
 """End-to-end pipeline: a folder of JPEGs and a pose file → models.
 
-Port of ``imageanalysis_tpu/apps/process.py`` for one process, with the
-same stages, state gating and workspace files:
+Port of ``imageanalysis_tpu/apps/process.py``, with the same stages,
+state gating and workspace files:
 
   Step 1   project creation + camera config            (state STEP1)
   Step 2   poses + NED reference + terrain priors      (state STEP2)
@@ -20,8 +20,15 @@ reference's, OpenCV's SIFT on the host (ORB likewise); ``TPU`` detects on
 the device. Matching runs on the device either way. Without ``--camera``,
 Step 1 finds the camera from the first image's EXIF (and estimates its
 config from EXIF when the DB lacks it); without a pose file, Step 2
-writes ``pix4d.csv`` from the images' EXIF. Not ported, and raising
-``NotImplementedError``: a run across hosts.
+writes ``pix4d.csv`` from the images' EXIF.
+
+The same command runs on several ranks (``torchrun --nproc-per-node N
+-m imageanalysis_tpu_torch.apps.process <dir> ...``, or the reference's
+JAX_COORDINATOR variables; parallel/multihost.py): rank 0 runs the host
+stages (Steps 1–2, 3b–3d, the write-backs), detection and matching split
+the images and pairs by rank, Step 4 is one BA sharded over the ranks
+(parallel/sharded.py; ``--cam-calibration`` stays on rank 0) and Step 5
+renders each rank's images.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from ..io import camera_db, pose as pose_mod
 from ..io.logger import log
 from ..io.project import ProjectMgr
 from ..match import cleanup, groups as groups_mod, matcher, smart as smart_mod
+from ..parallel import multihost, sharded
 from ..render import build_map, geotiff
 from ..render.texture import build_histograms
 from ..surface import srtm
@@ -107,21 +115,6 @@ def build_parser():
     return p
 
 
-def multi_host():
-    """Whether the environment asks for a run across processes: the
-    reference's JAX_COORDINATOR / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
-    torch.distributed's WORLD_SIZE > 1."""
-    explicit = (os.environ.get("JAX_COORDINATOR")
-                and os.environ.get("JAX_NUM_PROCESSES") is not None
-                and os.environ.get("JAX_PROCESS_ID") is not None)
-    return bool(explicit) or int(os.environ.get("WORLD_SIZE", "1")) > 1
-
-
-MULTI_HOST_MSG = ("a run across hosts is not ported (ROADMAP.md queue 1: "
-                  "parallel/sharded.py and parallel/multihost.py); run one "
-                  "process")
-
-
 def main_device(device):
     """The device a command line runs on: IMGTPU_PLATFORM (cpu or cuda) in
     the environment, else device. The card is never swapped for the CPU:
@@ -153,8 +146,13 @@ def run(args, device="cuda") -> int:
 
 
 def _run(args, device) -> int:
-    if multi_host():
-        raise NotImplementedError(MULTI_HOST_MSG)
+    # across processes: join the group before any work; host stages then
+    # run on rank 0, detection and matching split by rank, BA is sharded
+    # over the ranks and rendering split by image
+    multi = multihost.maybe_initialize_distributed(device)
+    if multi:
+        device = multihost.rank_device(device)
+    rank0 = multihost.is_rank0()
 
     # per-stage wall clocks in the run log, "stage wall: <name> <s>s"
     t_start = time.perf_counter()
@@ -167,11 +165,195 @@ def _run(args, device) -> int:
         log(f"stage wall: {name} {now - t_prev[0]:.2f}s")
         t_prev[0] = now
 
-    proj = ProjectMgr(args.project, create=True)
-    for step in args.refresh:
-        proj.state.clear(step)
+    # every rank branches on rank 0's reading of a STEP marker
+    def gate(step):
+        return multihost.agree(proj.state.check(step), step)
 
-    # ---- Step 1: camera config ------------------------------------------
+    proj = ProjectMgr(args.project, create=True)
+    if rank0:
+        for step in args.refresh:
+            proj.state.clear(step)
+    multihost.barrier("refresh")
+
+    # ---- Steps 1–2 on rank 0; the others read its files after -----------
+    rc = _step1(args, proj) if rank0 else 0
+    mark("step1_setup")
+    if rank0 and rc == 0:
+        _step2(args, proj, device)
+    if multihost.agree(rc != 0, "steps12"):
+        return rc or 1
+    if not rank0:
+        proj = ProjectMgr(args.project, create=True)
+        proj.load_images_info()
+    mark("step2_poses")
+
+    # ---- Step 3a: detection + matching ------------------------------------
+    def terrain_base():
+        """Step 3c's and 4's ground prior: the image's triangulated smart
+        surface, else the SRTM terrain under it."""
+        terrain = srtm.project_terrain(proj, device=device)
+        state = smart_mod.SmartState(proj.analysis_dir)
+
+        def base(image):
+            n = state.node(image.name)
+            if "tri_surface_m" in n:
+                return n["tri_surface_m"]
+            return terrain.base_elevation(image)
+        return base
+
+    if not gate("STEP3a"):
+        log("Step 3a: feature detection + pair matching")
+        det_cfg = DetectorConfig(
+            detector="SIFT" if args.detector == "TPU" else args.detector,
+            scale=args.scale, max_features=args.max_features,
+            backend="tpu" if args.detector == "TPU" else "cv")
+        proj.config.node("detector").update(det_cfg.to_dict())
+        detect_project_features(proj, det_cfg, batch_size=args.batch_size,
+                                device=device)
+        mark("step3a_detect")
+        mcfg = matcher.MatchConfig(strategy=args.match_strategy,
+                                   ratio=args.match_ratio,
+                                   transform=args.filter,
+                                   batch_size=args.batch_size)
+        proj.config.node("matcher").set("min_chain_len", args.min_chain_len)
+        smart_state = smart_mod.SmartState(proj.analysis_dir)
+        matcher.find_matches(proj, mcfg, smart_state=smart_state,
+                             use_distance=args.worklist == "full",
+                             device=device)
+        mark("step3a_match")
+        if rank0:
+            if args.match_strategy == "smart":
+                # fold the accumulated yaw-error estimates into the poses
+                body2cam = proj.get_body2cam()
+                n_fix = 0
+                for im in proj.image_list:
+                    err = smart_state.get_yaw_error(im.name)
+                    if abs(err) > 0.5:
+                        im.set_aircraft_yaw_error_estimate(err, body2cam)
+                        im.save_meta()
+                        n_fix += 1
+                if n_fix:
+                    log(f"applied yaw-error corrections to {n_fix} images")
+            # bad-geometry rejection with the final poses, on the merged
+            # match files
+            smart_mod.requalify_pairs(proj, smart_state, device=device)
+            proj.save()
+            proj.state.update("STEP3a")
+        multihost.barrier("step3a")
+        if not rank0:
+            proj.load_images_info()
+    mark("step3a_finish")
+
+    # ---- Steps 3b–3d on rank 0; the others wait at "steps3bcd" ------------
+    # the chains are carried in memory across 3b → 4; the saves are the
+    # resume checkpoints
+    matches = (_steps3bcd(args, proj, terrain_base, device, mark) if rank0
+               else None)
+    multihost.barrier("steps3bcd")
+    mark("step3d_groups")
+
+    # ---- Step 4: bundle adjustment ----------------------------------------
+    if not gate("STEP4"):
+        log("Step 4: sparse bundle adjustment")
+        if matches is None:
+            matches = proj.load_matches_grouped()
+        grps = groups_mod.load(proj.analysis_dir)
+        cams0, pts0, obs, cam_names, match_map = ba_setup.setup_from_matches(
+            proj, matches, group_images=grps[args.group] if grps else None,
+            min_chain_len=args.min_chain_len, optimized=args.refine)
+        if len(cam_names) < 2 or len(pts0) == 0:
+            log(f"Not enough structure to optimize ({len(cam_names)} cameras,"
+                f" {len(pts0)} points) — check matching stage output")
+            return 1
+        model = proj.camera_model()
+        result = None
+        if args.cam_calibration:
+            # the calibration's bordered Schur system runs on rank 0; the
+            # other ranks wait at "step4"
+            if rank0:
+                result, K_opt, dist_opt = calibrate.solve_with_calibration(
+                    cams0, pts0, obs, model.K, model.dist, log_fn=log,
+                    device=device)
+                proj.camera.setlist("K_opt", np.asarray(K_opt).ravel())
+                proj.camera.setlist("dist_coeffs_opt", dist_opt)
+                proj.save()
+        elif multi:
+            # every rank runs the one BA, sharded over the ranks
+            result = sharded.solve_sharded(
+                cams0, pts0, obs, model.K, model.dist,
+                sharded.ProcessMesh(device), bundle.BAConfig(),
+                verbose=rank0, log_fn=log)
+        else:
+            result = bundle.solve(cams0, pts0, obs, model.K, model.dist,
+                                  bundle.BAConfig(), log_fn=log,
+                                  device=device)
+        if rank0:
+            # re-register onto the GPS solution
+            new_cams, new_pts, _ = bundle.refit(result.cams, result.pts,
+                                                cams0[:, :3], device=device)
+            result = result._replace(cams=new_cams, pts=new_pts)
+            ba_setup.write_back(proj, matches, result, cam_names, match_map)
+            # re-triangulate the chains BA did not optimize (short chains,
+            # other groups) that touch an optimized camera, against the
+            # optimized poses: their pre-BA points reproject badly under
+            # them
+            active = set(int(mi) for mi in match_map)
+            by_name = {im.name: i for i, im in enumerate(proj.image_list)}
+            opt_imgs = {by_name[n] for n in cam_names if n in by_name}
+            stale = [mi for mi, mm in enumerate(matches)
+                     if mi not in active
+                     and any(o[0] in opt_imgs for o in mm[2:])]
+            if stale:
+                cleanup.triangulate_ground(proj, matches,
+                                           get_base_elev=terrain_base(),
+                                           subset=stale, optimized=True,
+                                           device=device)
+            proj.save_matches_grouped(matches)
+            log(f"BA finished: mre={result.mre:.3f}px over "
+                f"{len(cam_names)} cameras")
+            proj.state.update("STEP4")
+        multihost.barrier("step4")
+        if not rank0:
+            # rank 0's optimized poses, for the render stage
+            proj.load_images_info()
+    mark("step4_ba")
+
+    # ---- Step 5: render ---------------------------------------------------
+    if not gate("STEP5"):
+        if rank0:
+            log("Step 5: building surface/render outputs")
+        grps = groups_mod.load(proj.analysis_dir)
+        matches = proj.load_matches_grouped()
+        # each rank writes its images' eggs and textures (one rank: all of
+        # them); rank 0 also the surface and the AC3D models
+        group = (grps[args.group] if grps
+                 else [im.name for im in proj.image_list])
+        build_map.build(proj, matches, grps, group_index=args.group,
+                        only_images=multihost.process_shard(sorted(group)),
+                        global_outputs=rank0, device=device)
+        multihost.barrier("step5_render")
+        if rank0:
+            if args.histogram:
+                build_histograms(proj, device=device)
+                log("histogram-matching tables built (explorer applies "
+                    "them at texture load)")
+            if args.geotiff:
+                geotiff.build_geotiff(proj,
+                                      grps[args.group] if grps else None,
+                                      resolution=args.geotiff_res,
+                                      ground=args.ground or 0.0,
+                                      device=device)
+            proj.state.update("STEP5")
+    multihost.barrier("step5")
+    mark("step5_render")
+    log(f"stage wall: TOTAL {time.perf_counter() - t_start:.2f}s")
+    log("Pipeline complete.")
+    return 0
+
+
+def _step1(args, proj):
+    """Step 1, the camera config, unless its marker is set. Returns 0, or
+    1 when it finds no usable camera."""
     if not proj.state.check("STEP1"):
         log("Step 1: setting up camera config")
         cam_key = args.camera or proj.detect_camera()
@@ -199,9 +381,12 @@ def _run(args, device) -> int:
         proj.set_camera_config(cfg)
         proj.save()
         proj.state.update("STEP1")
-    mark("step1_setup")
+    return 0
 
-    # ---- Step 2: poses ----------------------------------------------------
+
+def _step2(args, proj, device):
+    """Step 2 (the poses, the NED reference and the terrain priors) unless
+    its marker is set; else the images' records."""
     if not proj.state.check("STEP2"):
         log("Step 2: setting aircraft/camera poses")
         pix4d = os.path.join(args.project, "pix4d.csv")
@@ -234,62 +419,13 @@ def _run(args, device) -> int:
         proj.state.update("STEP2")
     else:
         proj.load_images_info()
-    mark("step2_poses")
 
-    # ---- Step 3a: detection + matching ------------------------------------
-    def terrain_base():
-        """Step 3c's and 4's ground prior: the image's triangulated smart
-        surface, else the SRTM terrain under it."""
-        terrain = srtm.project_terrain(proj, device=device)
-        state = smart_mod.SmartState(proj.analysis_dir)
 
-        def base(image):
-            n = state.node(image.name)
-            if "tri_surface_m" in n:
-                return n["tri_surface_m"]
-            return terrain.base_elevation(image)
-        return base
-
-    if not proj.state.check("STEP3a"):
-        log("Step 3a: feature detection + pair matching")
-        det_cfg = DetectorConfig(
-            detector="SIFT" if args.detector == "TPU" else args.detector,
-            scale=args.scale, max_features=args.max_features,
-            backend="tpu" if args.detector == "TPU" else "cv")
-        proj.config.node("detector").update(det_cfg.to_dict())
-        detect_project_features(proj, det_cfg, batch_size=args.batch_size,
-                                device=device)
-        mark("step3a_detect")
-        mcfg = matcher.MatchConfig(strategy=args.match_strategy,
-                                   ratio=args.match_ratio,
-                                   transform=args.filter,
-                                   batch_size=args.batch_size)
-        proj.config.node("matcher").set("min_chain_len", args.min_chain_len)
-        smart_state = smart_mod.SmartState(proj.analysis_dir)
-        matcher.find_matches(proj, mcfg, smart_state=smart_state,
-                             use_distance=args.worklist == "full",
-                             device=device)
-        mark("step3a_match")
-        if args.match_strategy == "smart":
-            # fold the accumulated yaw-error estimates into the poses
-            body2cam = proj.get_body2cam()
-            n_fix = 0
-            for im in proj.image_list:
-                err = smart_state.get_yaw_error(im.name)
-                if abs(err) > 0.5:
-                    im.set_aircraft_yaw_error_estimate(err, body2cam)
-                    im.save_meta()
-                    n_fix += 1
-            if n_fix:
-                log(f"applied yaw-error corrections to {n_fix} images")
-        smart_mod.requalify_pairs(proj, smart_state, device=device)
-        proj.save()
-        proj.state.update("STEP3a")
-    mark("step3a_finish")
-
-    # ---- Step 3b: cleanup + linking ---------------------------------------
-    # the chains are carried in memory across 3b → 4; the saves are the
-    # resume checkpoints
+def _steps3bcd(args, proj, terrain_base, device, mark):
+    """Steps 3b (linking), 3c (the first triangulation) and 3d (groups),
+    each unless its marker is set; the chains stay in memory between
+    them. mark(name) logs a stage's wall. Returns the chains (None when
+    no step ran)."""
     matches = None
     if not proj.state.check("STEP3b"):
         log("Step 3b: linking matches into chains")
@@ -303,7 +439,6 @@ def _run(args, device) -> int:
         proj.state.update("STEP3b")
     mark("step3b_link")
 
-    # ---- Step 3c: initial triangulation -----------------------------------
     if not proj.state.check("STEP3c"):
         log("Step 3c: initial triangulation")
         if matches is None:
@@ -319,7 +454,6 @@ def _run(args, device) -> int:
         proj.state.update("STEP3c")
     mark("step3c_triangulate")
 
-    # ---- Step 3d: grouping ------------------------------------------------
     if not proj.state.check("STEP3d"):
         log("Step 3d: connectivity grouping")
         if matches is None:
@@ -330,77 +464,7 @@ def _run(args, device) -> int:
         proj.save_matches_grouped(matches)
         log("Groups:", [len(g) for g in grps])
         proj.state.update("STEP3d")
-    mark("step3d_groups")
-
-    # ---- Step 4: bundle adjustment ----------------------------------------
-    if not proj.state.check("STEP4"):
-        log("Step 4: sparse bundle adjustment")
-        if matches is None:
-            matches = proj.load_matches_grouped()
-        grps = groups_mod.load(proj.analysis_dir)
-        cams0, pts0, obs, cam_names, match_map = ba_setup.setup_from_matches(
-            proj, matches, group_images=grps[args.group] if grps else None,
-            min_chain_len=args.min_chain_len, optimized=args.refine)
-        if len(cam_names) < 2 or len(pts0) == 0:
-            log(f"Not enough structure to optimize ({len(cam_names)} cameras,"
-                f" {len(pts0)} points) — check matching stage output")
-            return 1
-        model = proj.camera_model()
-        if args.cam_calibration:
-            result, K_opt, dist_opt = calibrate.solve_with_calibration(
-                cams0, pts0, obs, model.K, model.dist, log_fn=log,
-                device=device)
-            proj.camera.setlist("K_opt", np.asarray(K_opt).ravel())
-            proj.camera.setlist("dist_coeffs_opt", dist_opt)
-            proj.save()
-        else:
-            result = bundle.solve(cams0, pts0, obs, model.K, model.dist,
-                                  bundle.BAConfig(), log_fn=log,
-                                  device=device)
-        # re-register onto the GPS solution
-        new_cams, new_pts, _ = bundle.refit(result.cams, result.pts,
-                                            cams0[:, :3], device=device)
-        result = result._replace(cams=new_cams, pts=new_pts)
-        ba_setup.write_back(proj, matches, result, cam_names, match_map)
-        # re-triangulate the chains BA did not optimize (short chains,
-        # other groups) that touch an optimized camera, against the
-        # optimized poses: their pre-BA points reproject badly under them
-        active = set(int(mi) for mi in match_map)
-        by_name = {im.name: i for i, im in enumerate(proj.image_list)}
-        opt_imgs = {by_name[n] for n in cam_names if n in by_name}
-        stale = [mi for mi, mm in enumerate(matches)
-                 if mi not in active and any(o[0] in opt_imgs for o in mm[2:])]
-        if stale:
-            cleanup.triangulate_ground(proj, matches,
-                                       get_base_elev=terrain_base(),
-                                       subset=stale, optimized=True,
-                                       device=device)
-        proj.save_matches_grouped(matches)
-        log(f"BA finished: mre={result.mre:.3f}px over "
-            f"{len(cam_names)} cameras")
-        proj.state.update("STEP4")
-    mark("step4_ba")
-
-    # ---- Step 5: render ---------------------------------------------------
-    if not proj.state.check("STEP5"):
-        log("Step 5: building surface/render outputs")
-        grps = groups_mod.load(proj.analysis_dir)
-        matches = proj.load_matches_grouped()
-        build_map.build(proj, matches, grps, group_index=args.group,
-                        device=device)
-        if args.histogram:
-            build_histograms(proj, device=device)
-            log("histogram-matching tables built (explorer applies them "
-                "at texture load)")
-        if args.geotiff:
-            geotiff.build_geotiff(proj, grps[args.group] if grps else None,
-                                  resolution=args.geotiff_res,
-                                  ground=args.ground or 0.0, device=device)
-        proj.state.update("STEP5")
-    mark("step5_render")
-    log(f"stage wall: TOTAL {time.perf_counter() - t_start:.2f}s")
-    log("Pipeline complete.")
-    return 0
+    return matches
 
 
 def main(argv=None, device="cuda"):

@@ -23,9 +23,13 @@ the driver picks up from there.
 Usage: ``python -m imageanalysis_tpu_torch.apps.stages <stage> <project>
 [options]``. It runs on the CUDA card; ``IMGTPU_PLATFORM=cpu`` asks for
 the CPU. ``matching`` defaults to the reference's host SIFT (``--detector
-SIFT|ORB|TPU``). ``optimize --mesh`` takes 0, 1 or ``all`` on a machine
-with one card (one ``bundle.solve``); a larger mesh, or a run across
-processes, raises NotImplementedError.
+SIFT|ORB|TPU``). ``optimize --mesh N`` shards BA over N cards of this
+process (parallel/sharded.py; ``all`` every card, 0 and 1 none); it
+needs N distinct cards. ``matching`` and ``optimize`` also run across
+processes, as apps/process.py does (``torchrun --nproc-per-node N -m
+imageanalysis_tpu_torch.apps.stages optimize <dir>``): matching split by
+rank and merged by rank 0, one BA sharded over the ranks, rank 0
+writing. The other stages run in one process.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ import numpy as np
 import torch
 
 from ..io.logger import log
-from .process import MULTI_HOST_MSG, main_device, multi_host
+from ..parallel import multihost
+from .process import main_device
 
 
 def _proj(path, create=False):
@@ -105,6 +110,8 @@ def cmd_matching(args, device):
     from ..match.matcher import MatchConfig, find_matches
     from ..match.smart import SmartState
 
+    if multihost.maybe_initialize_distributed(device):
+        device = multihost.rank_device(device)
     proj = _proj(args.project)
     det = DetectorConfig(detector=args.detector, scale=args.scale,
                          max_features=args.max_features,
@@ -115,7 +122,9 @@ def cmd_matching(args, device):
                       batch_size=args.batch_size)
     find_matches(proj, cfg, smart_state=SmartState(proj.analysis_dir),
                  device=device)
-    proj.state.update("STEP3a")
+    if multihost.is_rank0():
+        proj.state.update("STEP3a")
+    multihost.barrier("matching")
     return 0
 
 
@@ -228,11 +237,27 @@ def _mesh_size(mesh, device):
 def cmd_optimize(args, device):
     from ..ba import bundle, setup as ba_setup
     from ..match import groups as groups_mod
+    from ..parallel import sharded
 
-    if multi_host() or _mesh_size(args.mesh, device) > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: BA sharded over several cards is not "
-            "ported (ROADMAP.md queue 1 item 2); " + MULTI_HOST_MSG)
+    multi = multihost.maybe_initialize_distributed(device)
+    mesh = None
+    if multi:
+        # one shard a rank, whatever --mesh says
+        device = multihost.rank_device(device)
+        mesh = sharded.ProcessMesh(device)
+    else:
+        n_mesh = _mesh_size(args.mesh, device)
+        if n_mesh > 1:
+            n_cards = (torch.cuda.device_count() if device.type == "cuda"
+                       else 0)
+            if n_mesh > n_cards:
+                raise ValueError(
+                    f"--mesh {args.mesh} shards BA over {n_mesh} distinct "
+                    f"cards and this process has {n_cards}")
+            # the shards take turns on the host: the cards overlap only
+            # through asynchronous launches
+            mesh = sharded.LocalMesh(
+                [torch.device("cuda", i) for i in range(n_mesh)])
     proj = _proj(args.project)
     matches = proj.load_matches_grouped()
     grps = groups_mod.load(proj.analysis_dir)
@@ -241,15 +266,23 @@ def cmd_optimize(args, device):
         proj, matches, group_images=group_images, optimized=args.refine)
     model = proj.camera_model()
     cfg = bundle.BAConfig(ftol=args.ftol)
-    result = bundle.solve(cams0, pts0, obs, model.K, model.dist, cfg,
-                          log_fn=log, device=device)
-    new_cams, new_pts, _ = bundle.refit(result.cams, result.pts, cams0[:, :3],
-                                        device=device)
-    result = result._replace(cams=new_cams, pts=new_pts)
-    ba_setup.write_back(proj, matches, result, cam_names, match_map)
-    proj.save_matches_grouped(matches)
-    log(f"BA finished: mre={result.mre:.3f}px")
-    proj.state.update("STEP4")
+    if mesh is not None:
+        result = sharded.solve_sharded(cams0, pts0, obs, model.K, model.dist,
+                                       mesh, cfg,
+                                       verbose=multihost.is_rank0(),
+                                       log_fn=log)
+    else:
+        result = bundle.solve(cams0, pts0, obs, model.K, model.dist, cfg,
+                              log_fn=log, device=device)
+    if multihost.is_rank0():
+        new_cams, new_pts, _ = bundle.refit(result.cams, result.pts,
+                                            cams0[:, :3], device=device)
+        result = result._replace(cams=new_cams, pts=new_pts)
+        ba_setup.write_back(proj, matches, result, cam_names, match_map)
+        proj.save_matches_grouped(matches)
+        log(f"BA finished: mre={result.mre:.3f}px")
+        proj.state.update("STEP4")
+    multihost.barrier("optimize")
     return 0
 
 
@@ -311,9 +344,9 @@ def build_parser():
         sp.add_argument("--refine", action="store_true"),
         sp.add_argument("--ftol", type=float, default=1e-4),
         sp.add_argument("--mesh", default=0,
-                        help="shard BA over N devices, or 'all' for every "
-                             "device: 0, 1 or 'all' on one card run one "
-                             "solve; more is not ported")))
+                        help="shard BA over N cards of this process, or "
+                             "'all' for every card (0 and 1: one solve); "
+                             "across processes one shard a rank")))
     add("render", cmd_render, lambda sp:
         sp.add_argument("--group", type=int, default=0))
     return p

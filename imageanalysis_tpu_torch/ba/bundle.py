@@ -37,7 +37,7 @@ cost once per trial step, as the reference. Everything else runs on
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -84,6 +84,20 @@ class BAJacobians(NamedTuple):
     g_p: torch.Tensor
     Hcc: torch.Tensor
     Hpp: torch.Tensor
+
+
+class ShardReduce(NamedTuple):
+    """One shard's link to the others when lm_jacobians and lm_solve run
+    on every shard of an observation partition in lockstep
+    (parallel/sharded.py). sum(*tensors) returns each tensor summed over
+    every shard, on this shard's device, bitwise alike on every shard.
+    points_local: every point's observations lie on one shard (the
+    point-local partition), so point sums stay on the shard and the point
+    part of gᵀΔ is summed instead; False (observations split evenly,
+    every point global) sums the point blocks and products too."""
+
+    sum: Callable
+    points_local: bool = True
 
 
 def _on(x, device, dtype=None):
@@ -170,17 +184,25 @@ def _apply_T(J, r):
     return J[:, 0] * r[:, 0:1] + J[:, 1] * r[:, 1:2]
 
 
-def lm_jacobians(cams, pts, obs, K, dist, n_cam, n_pt):
+def lm_jacobians(cams, pts, obs, K, dist, n_cam, n_pt, reduce=None):
     """The λ-independent half of the LM step: per-observation jacobians,
     gradients and undamped normal-equation blocks, computed once per outer
     iteration and reused by lm_solve across λ retries (the ten JVPs are
     the costly part at mission scale). Tensors on one device; obs from
-    observations_on. Returns BAJacobians."""
+    observations_on. reduce (ShardReduce) runs it on one shard: the camera
+    blocks are summed over the shards in one call (with the point blocks
+    unless the points are shard-local; n_pt and obs.pt_idx are then the
+    shard's own). Returns BAJacobians."""
     Jc, Jp, r = _per_obs_jacobians(cams, pts, obs, K, dist)
     g_c = _seg(_apply_T(Jc, r), obs.cam_idx, n_cam)
     g_p = _seg(_apply_T(Jp, r), obs.pt_idx, n_pt)
     Hcc = _seg(_outer2(Jc), obs.cam_idx, n_cam)
     Hpp = _seg(_outer2(Jp), obs.pt_idx, n_pt)
+    if reduce is not None:
+        if reduce.points_local:
+            g_c, Hcc = reduce.sum(g_c, Hcc)
+        else:
+            g_c, Hcc, g_p, Hpp = reduce.sum(g_c, Hcc, g_p, Hpp)
     return BAJacobians(Jc, Jp, r, g_c, g_p, Hcc, Hpp)
 
 
@@ -209,13 +231,21 @@ def _matvec(M, v):
 
 
 def lm_solve(jac, cam_idx, pt_idx, lam, cg_iters=40, cg_tol=1e-3,
-             info=None):
+             info=None, reduce=None):
     """The per-λ half of the LM step: damp the blocks of jac, solve the
     camera-reduced (Schur) system by PCG, back-substitute the points.
     Returns (Δcams (n_cam, 7), Δpts (n_pt, 3), predicted decrease), the
     last a 0-dim tensor: −(gᵀΔ + ½‖JΔ‖²), exact whatever CG's tolerance.
     info (a dict, optional) receives the CG iterations run ("cg_iters")
-    and the final ‖r‖/‖b‖ ("cg_rel")."""
+    and the final ‖r‖/‖b‖ ("cg_rel").
+
+    reduce (ShardReduce) runs it on one shard of a partition, jac from
+    lm_jacobians with the same reduce: each product's camera sum (an
+    (n_cam, 7) tensor) is summed over the shards, the only collective of
+    a CG iteration when the points are shard-local; ‖JΔ‖² and the point
+    part of gᵀΔ are summed too. Everything that decides a branch (CG's
+    ‖r‖/‖b‖) derives from summed tensors by the same operations on every
+    shard. With shard-local points Δpts holds the shard's own points."""
     Jc, Jp, _, g_c, g_p, Hcc, Hpp = jac
     n_cam, n_pt = g_c.shape[0], g_p.shape[0]
     eye7 = torch.eye(7, dtype=g_c.dtype, device=g_c.device)
@@ -230,10 +260,14 @@ def lm_solve(jac, cam_idx, pt_idx, lam, cg_iters=40, cg_tol=1e-3,
         return _matvec(Jp, y[pt_idx])
 
     def cam_T(z):            # Σ_obs Jcᵀ z: (n_cam, 7)
-        return _seg(_apply_T(Jc, z), cam_idx, n_cam)
+        s = _seg(_apply_T(Jc, z), cam_idx, n_cam)
+        return s if reduce is None else reduce.sum(s)[0]
 
     def pt_T(u):             # Σ_obs Jpᵀ u: (n_pt, 3)
-        return _seg(_apply_T(Jp, u), pt_idx, n_pt)
+        s = _seg(_apply_T(Jp, u), pt_idx, n_pt)
+        if reduce is None or reduce.points_local:
+            return s
+        return reduce.sum(s)[0]
 
     def schur_matvec(v):
         y = _matvec(Hpp_inv, pt_T(obs_cam(v)))
@@ -270,8 +304,15 @@ def lm_solve(jac, cam_idx, pt_idx, lam, cg_iters=40, cg_tol=1e-3,
     u = obs_cam(x)
     dp = _matvec(Hpp_inv, -g_p - pt_T(u))
     j_delta = u + obs_pt(dp)
-    g_dot_d = dot(x, g_c) + dot(dp, g_p)
-    pred_dec = -(g_dot_d + 0.5 * dot(j_delta, j_delta))
+    g_dot_d_pt = dot(dp, g_p)
+    quad = dot(j_delta, j_delta)
+    if reduce is not None:
+        if reduce.points_local:
+            g_dot_d_pt, quad = reduce.sum(g_dot_d_pt, quad)
+        else:
+            quad, = reduce.sum(quad)
+    g_dot_d = dot(x, g_c) + g_dot_d_pt
+    pred_dec = -(g_dot_d + 0.5 * quad)
     return x, dp, pred_dec
 
 
@@ -658,13 +699,39 @@ def solve(cams0, pts0, obs, K, dist, config: BAConfig = BAConfig(),
     n_cam, n_pt = cams.shape[0], pts.shape[0]
     ned0 = (_on(bound_anchor, cams.device, dtype)
             if bound_anchor is not None else cams[:, :3])
+
+    def jac_fn(c, p):
+        return lm_jacobians(c, p, obs, K, dist, n_cam, n_pt)
+
+    def solve_fn(jac, lam):
+        return lm_solve(jac, obs.cam_idx, obs.pt_idx, lam,
+                        cg_iters=config.cg_iters, cg_tol=config.cg_tol)
+
+    def cost_fn(c, p):
+        return ba_cost(c, p, obs, K, dist)
+
+    return lm_loop(cams, pts, ned0, config, jac_fn, solve_fn, cost_fn,
+                   verbose=verbose, log_fn=log_fn)
+
+
+def lm_loop(cams, pts, ned0, config, jac_fn, solve_fn, cost_fn, verbose=True,
+            log_fn=print):
+    """The LM outer loop, driven from the host: jacobians once an outer
+    iteration, up to config.max_retries damped solves, the step accepted
+    when it lowers the cost. cams (n_cam, 7) and pts (n_pt, 3) tensors;
+    camera positions clamped to the box around ned0 (n_cam, 3).
+    jac_fn(cams, pts) → jac; solve_fn(jac, λ) → (Δcams, Δpts, predicted
+    decrease); cost_fn(cams, pts) → (cost, mre, max |r|), 0-dim tensors.
+    solve runs it on one device, parallel/sharded.py over a mesh. Returns
+    BAResult."""
     box = torch.tensor([config.bound_horiz, config.bound_horiz,
-                        config.bound_vert], dtype=dtype, device=cams.device)
+                        config.bound_vert], dtype=cams.dtype,
+                       device=cams.device)
     lo, hi = ned0 - box, ned0 + box
 
     lam = config.lam0
     nu = 2.0
-    cost, mre, mx = ba_cost(cams, pts, obs, K, dist)
+    cost, mre, mx = cost_fn(cams, pts)
     cost = float(cost)
     history = [cost]
     if verbose:
@@ -673,11 +740,9 @@ def solve(cams0, pts0, obs, K, dist, config: BAConfig = BAConfig(),
     it = 0
     for it in range(config.max_iters):
         accepted = False
-        jac = lm_jacobians(cams, pts, obs, K, dist, n_cam, n_pt)
+        jac = jac_fn(cams, pts)
         for _ in range(config.max_retries):
-            dc, dp, pred_dec = lm_solve(jac, obs.cam_idx, obs.pt_idx, lam,
-                                        cg_iters=config.cg_iters,
-                                        cg_tol=config.cg_tol)
+            dc, dp, pred_dec = solve_fn(jac, lam)
             cams_new = cams + dc
             ned = torch.clamp(cams_new[:, :3], lo, hi)
             q = cams_new[:, 3:7]
@@ -685,8 +750,7 @@ def solve(cams0, pts0, obs, K, dist, config: BAConfig = BAConfig(),
                                              keepdim=True).clamp_min(1e-12)
             cams_new = torch.cat([ned, q], dim=1)
             pts_new = pts + dp
-            new_cost, new_mre, new_mx = ba_cost(cams_new, pts_new, obs, K,
-                                                dist)
+            new_cost, new_mre, new_mx = cost_fn(cams_new, pts_new)
             new_cost = float(new_cost)
             if np.isfinite(new_cost) and new_cost < cost:
                 # Nielsen gain-ratio damping: actual against predicted
@@ -716,7 +780,7 @@ def solve(cams0, pts0, obs, K, dist, config: BAConfig = BAConfig(),
         if accepted == "converged" or not accepted:
             break
 
-    _, mre, _ = ba_cost(cams, pts, obs, K, dist)
+    _, mre, _ = cost_fn(cams, pts)
     return BAResult(cams.cpu().numpy(), pts.cpu().numpy(), float(mre), it + 1,
                     history)
 

@@ -16,9 +16,10 @@ kept, so that config.json's detector node reads alike in both packages):
   ImportError and names ``--detector TPU``.
 
 Either way keypoints are rescaled to full resolution and cached as
-cache/<name>.feat and .desc; matching runs on the card. Left out: the TPU
-link's workarounds (the transport codec, the automatic batch policy, the
-stall watchdog, the multi-host shard).
+cache/<name>.feat and .desc; matching runs on the card. Across ranks
+(parallel/multihost.py) each rank detects its slice of the images. Left
+out: the TPU link's workarounds (the transport codec, the automatic
+batch policy, the stall watchdog).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ import torch
 
 from . import sift
 from ..io import jpeg
-from ..io.logger import qlog
+from ..io.logger import log, qlog
+from ..io.props import PropertyNode
+from ..parallel import multihost
 
 
 class DetectorConfig:
@@ -228,12 +231,37 @@ def detect_project_features(proj, config: DetectorConfig, use_cache=True,
     SIFT dispatch (config.equalize: CLAHE on the device). backend "cv":
     OpenCV on the host (_detect_host). Keypoints are divided by
     config.scale and cached with the descriptors and the image's full
-    size, which must match the camera config's."""
-    todo = [im for im in proj.image_list
+    size, which must match the camera config's.
+
+    Across ranks each rank detects its contiguous slice of the image list
+    (the cache files are per image, on the shared filesystem), then waits
+    for the others, so that later stages can load any image's features.
+    The slice comes from the full image list, never from the images left
+    to detect, which ranks scanning the cache at different moments could
+    see differently."""
+    mine = proj.image_list
+    if multihost.world() > 1:
+        mine = multihost.process_shard(proj.image_list)
+        log(f"multi-host: rank {multihost.rank()} detecting "
+            f"{len(mine)}/{len(proj.image_list)} images")
+    todo = [im for im in mine
             if not (use_cache and im.load_features()
                     and im.load_descriptors())]
-    if not todo:
-        return
+    if todo:
+        _detect_todo(proj, config, todo, batch_size, device)
+    if multihost.world() > 1:
+        multihost.barrier("detect")
+        # the other ranks wrote their images' sizes into meta/: read them,
+        # so that a later save_meta of such an image here keeps its size
+        # (the reference's rank 0 drops them; ROADMAP.md queue 3)
+        own = {im.name for im in mine}
+        for im in proj.image_list:
+            if im.name not in own:
+                im.node = PropertyNode.load_json(im.meta_file)
+
+
+def _detect_todo(proj, config, todo, batch_size, device):
+    """detect_project_features's detection of the images in todo."""
     cam_w = int(proj.camera.get("width_px", 0))
     cam_h = int(proj.camera.get("height_px", 0))
 

@@ -1,6 +1,6 @@
 """The match engine: batched pair matching on the device.
 
-Port of ``imageanalysis_tpu/match/matcher.py`` for one process. For a
+Port of ``imageanalysis_tpu/match/matcher.py``. For a
 batch of pairs: exact mutual 2-NN (kernels K1/K3, or the CPU arm), the
 Lowe ratio test and a RANSAC filter (homography, fundamental or
 essential: ``MatchConfig.transform``), as batched tensor work over a
@@ -20,13 +20,17 @@ unpack refilters each pair by the 5-point essential RANSAC
 assembly of f32 descriptors (missions under 64 images) and the resident
 int8 ``DescriptorStore`` with device-side gathers. ``find_matches`` is
 Step 3a's matching stage over a project workspace. ``match_pairs_store``
-is the store path with the workspace lifted out.
-
-Multi-host sharding is not ported.
+is the store path with the workspace lifted out. Across ranks
+(parallel/multihost.py) each rank matches its slice of the work list,
+writes a shard, and rank 0 merges the shards into the per-image files.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
+import pickle
 import time
 import types
 
@@ -36,6 +40,7 @@ import torch
 from ..core.camera import ned_quat_to_rt
 from ..io.logger import log, qlog
 from ..ops import essential5, knn, ransac
+from ..parallel import multihost
 from . import worklist
 
 
@@ -197,7 +202,9 @@ def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
 
     idx_a/idx_b (S, B) image indices into the resident store arrays;
     gated=True takes cam_a/cam_b (S, B, 7) and ground_z (S, B) with K for
-    the smart gate. Returns (S, B, npad) packed int16. Padding slots
+    the smart gate. generator: a torch.Generator, or ransac.PairDraws
+    without keys, which each sub-batch keys by its pairs (a · n + b for
+    n stored images). Returns (S, B, npad) packed int16. Padding slots
     (0, 0) are not computed: their rows stay −1 (the reference computes
     them, for static shapes, and drops them in the host unpack)."""
     S, B = idx_a.shape
@@ -211,11 +218,14 @@ def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
             continue
         ia = idx_a[s, slots].to(dev).long()
         ib = idx_b[s, slots].to(dev).long()
+        gen = generator
+        if isinstance(generator, ransac.PairDraws) and generator.keys is None:
+            gen = generator.keyed(ia * store_desc.shape[0] + ib)
         args = (store_desc.index_select(0, ia),
                 store_desc.index_select(0, ib),
                 store_uv.index_select(0, ia), store_uv.index_select(0, ib),
                 store_counts.index_select(0, ia),
-                store_counts.index_select(0, ib), generator)
+                store_counts.index_select(0, ib), gen)
         kw = dict(ratio=ratio, thresh=thresh, transform=transform,
                   n_hyp=n_hyp, use_pallas=use_pallas, bf16=bf16)
         if gated:
@@ -266,8 +276,10 @@ class BatchMatcher:
 
     Two data paths: per-chunk host assembly (missions under 64 images) or
     a resident DescriptorStore with device-side gathers. Everything runs
-    on ``device``; one torch.Generator there, seeded from config.seed,
-    draws every RANSAC sample."""
+    on ``device``. RANSAC's samples are keyed by the pair
+    (ransac.PairDraws, seeded from config.seed), so a pair's matches do
+    not depend on the batch or the rank that matches it (the reference
+    draws per batch)."""
 
     def __init__(self, proj, config: MatchConfig, use_store=None,
                  smart_state=None, device="cuda"):
@@ -280,8 +292,7 @@ class BatchMatcher:
         # reference geometric-filter tolerance: w^0.25 px
         self.thresh = (config.filter_thresh if config.filter_thresh
                        else float(w) ** 0.25)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed)
+        self.draws = ransac.PairDraws(config.seed)
         if config.use_pallas is None:
             config.use_pallas = self.device.type == "cuda"
         self.smart = smart_state
@@ -353,18 +364,20 @@ class BatchMatcher:
             seed=self.config.seed)
         return rows[inl], cols[inl]
 
-    def _dispatch(self, desc_a, desc_b, uv_a, uv_b, n_a, n_b, bf16,
+    def _dispatch(self, desc_a, desc_b, uv_a, uv_b, n_a, n_b, bf16, keys,
                   gate=None):
-        """Launch one padded pair batch; returns the device tensor of
-        packed results (int16, or int32 at npad ≥ 32768). gate = (cam_a,
-        cam_b, ground_z) numpy arrays → the gated smart path, which needs
-        the packed-key kernel (npad ≤ 8192) on the kernel arm."""
+        """Launch one padded pair batch (keys: each slot's pair key for
+        its RANSAC draws); returns the device tensor of packed results
+        (int16, or int32 at npad ≥ 32768). gate = (cam_a, cam_b,
+        ground_z) numpy arrays → the gated smart path, which needs the
+        packed-key kernel (npad ≤ 8192) on the kernel arm."""
         cfg = self.config
         npad = desc_a.shape[1]
         kw = dict(ratio=cfg.ratio, thresh=self.thresh,
                   transform=_device_transform(cfg.transform),
                   n_hyp=cfg.n_hyp, use_pallas=cfg.use_pallas, bf16=bf16)
-        args = (desc_a, desc_b, uv_a, uv_b, n_a, n_b, self.generator)
+        args = (desc_a, desc_b, uv_a, uv_b, n_a, n_b,
+                self.draws.keyed(self._tensor(keys)))
         if gate is not None and (npad <= 8192 or not cfg.use_pallas):
             cam_a, cam_b, gz = (self._tensor(x) for x in gate)
             return match_pair_batch_gated(
@@ -425,9 +438,11 @@ class BatchMatcher:
                 uv_b[bi, :nb] = i2.uv_list
                 n_a[bi], n_b[bi] = na, nb
             gate = self._pair_gate_arrays(chunk, B) if gated else None
+            keys = np.full(B, -1, np.int64)
+            keys[: len(chunk)] = [i * len(images) + j for i, j in chunk]
             packed = self._dispatch(
                 *(self._tensor(x) for x in (desc_a, desc_b, uv_a, uv_b, n_a,
-                                            n_b)), cfg.bf16, gate=gate)
+                                            n_b)), cfg.bf16, keys, gate=gate)
             n_matched += _store_unpack(images, chunk, packed.cpu().numpy(),
                                        cfg.min_pairs, self._post_filter)
         return n_matched
@@ -440,7 +455,7 @@ class BatchMatcher:
         gated_eff = gated and (self.store.npad <= 8192 or not cfg.use_pallas)
         return _store_match(
             self.store, self.proj.image_list, pairs, cfg, self.thresh,
-            self.generator, K=self.K,
+            self.draws, K=self.K,
             gate_arrays=self._pair_gate_arrays if gated_eff else None,
             gate_radius=float(self.gate_radius),
             post_filter=self._post_filter)
@@ -523,8 +538,9 @@ def match_pairs_store(store, pairs, config, thresh, K=None):
     None decides by the store's device. thresh is the RANSAC tolerance in
     px (the reference uses width^0.25); K (3, 3) the intrinsics, which the
     essential transform needs. "essential5" refilters with the workspace's
-    keypoints, which this path has not: it raises. Returns {(i, j): (n, 2)
-    int32 [row in i, col in j]} for every pair."""
+    keypoints, which this path has not: it raises. RANSAC draws as
+    BatchMatcher does (ransac.PairDraws(config.seed), keyed by the pair).
+    Returns {(i, j): (n, 2) int32 [row in i, col in j]} for every pair."""
     if config.transform == "essential5":
         raise ValueError("essential5 refilters on the host with a "
                          "workspace's keypoints: use BatchMatcher")
@@ -533,9 +549,8 @@ def match_pairs_store(store, pairs, config, thresh, K=None):
     images = [types.SimpleNamespace(name=str(i), match_list={},
                                     matches_clean=True)
               for i in range(store.desc.shape[0])]
-    gen = torch.Generator(device=store.desc.device)
-    gen.manual_seed(config.seed)
-    _store_match(store, images, pairs, config, thresh, gen, K=K)
+    _store_match(store, images, pairs, config, thresh,
+                 ransac.PairDraws(config.seed), K=K)
     return {(i, j): images[i].match_list[str(j)] for i, j in pairs}
 
 
@@ -603,7 +618,10 @@ def find_matches(proj, config: MatchConfig | None = None, use_distance=True,
     smart_state (match.smart.SmartState) and strategy "smart", each chunk
     of matched pairs updates the surface and yaw priors that gate the
     later chunks; bad-geometry pairs are discarded afterwards by
-    smart.requalify_pairs. One process (multi-host is not ported)."""
+    smart.requalify_pairs. Across ranks each rank matches its contiguous
+    slice of the pairs (process_shard) and writes a shard, and rank 0
+    merges every rank's matches and smart evidence
+    (_merge_multihost_matches) while the others wait."""
     config = config or MatchConfig()
     poses = [im.get_camera_pose()[0] for im in proj.image_list]
     work = worklist.build_work_list(np.asarray(poses),
@@ -623,6 +641,15 @@ def find_matches(proj, config: MatchConfig | None = None, use_distance=True,
         todo.append((i, j))
     if len(todo) < len(work):
         log(f"Resuming: {len(work) - len(todo)} pairs already matched")
+
+    # across ranks: each matches its own contiguous slice of the pairs
+    # (independent of each other) and rank 0 merges the shards
+    n_proc = multihost.world()
+    if n_proc > 1:
+        mine = multihost.process_shard(todo)
+        log(f"multi-host: rank {multihost.rank()} matching "
+            f"{len(mine)}/{len(todo)} pairs")
+        todo = mine
 
     matcher = BatchMatcher(proj, config, smart_state=smart_state,
                            device=device)
@@ -648,13 +675,19 @@ def find_matches(proj, config: MatchConfig | None = None, use_distance=True,
                 [(proj.image_list[i], proj.image_list[j]) for i, j in chunk],
                 device=device)
         if time.time() - last_save > save_interval:
-            _save_all_matches(proj)
-            if smart_state is not None:
+            if n_proc > 1:
+                _save_rank_shard(proj)
+            else:
+                _save_all_matches(proj)
+            if smart_state is not None and multihost.is_rank0():
                 smart_state.save()
             last_save = time.time()
-    _save_all_matches(proj)
-    if smart_state is not None:
-        smart_state.save()
+    if n_proc > 1:
+        _merge_multihost_matches(proj, smart_state=smart_state)
+    else:
+        _save_all_matches(proj)
+        if smart_state is not None:
+            smart_state.save()
     dt = time.time() - t0
     if todo:
         log(f"Matched {len(todo)} pairs in {dt:.1f}s "
@@ -666,3 +699,64 @@ def _save_all_matches(proj):
     for im in proj.image_list:
         if not im.matches_clean:
             im.save_matches()
+
+
+def _shard_dir(proj):
+    d = os.path.join(proj.analysis_dir, "match_shards")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _save_rank_shard(proj):
+    """This rank's match lists as one pickle (atomically): each rank holds
+    only its own pairs, so the per-image .match files cannot be written
+    by every rank; rank 0 merges the shards at the end."""
+    data = {im.name: im.match_list for im in proj.image_list
+            if im.match_list}
+    path = os.path.join(_shard_dir(proj), f"rank{multihost.rank()}.pkl")
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(data, f)
+    os.replace(tmp, path)
+
+
+def _merge_multihost_matches(proj, smart_state=None):
+    """Write this rank's shard, wait for every rank, then rank 0 unions the
+    shards into the per-image .match files (the ranks' pairs are
+    disjoint, so a key-wise union is exact) and the ranks' smart evidence
+    into smart_state (SmartState.merge_shard_data), so that smart.json,
+    which the yaw correction reads, holds every rank's pairs. Every rank
+    waits until the merged files exist."""
+    rank = multihost.rank()
+    _save_rank_shard(proj)
+    if smart_state is not None:
+        smart_state.save_shard(os.path.join(_shard_dir(proj),
+                                            f"smart_rank{rank}.json"))
+    multihost.barrier("match_shards")
+    if rank == 0:
+        by_name = {im.name: im for im in proj.image_list}
+        for path in sorted(glob.glob(os.path.join(_shard_dir(proj),
+                                                  "rank*.pkl"))):
+            with open(path, "rb") as f:
+                data = pickle.load(f)
+            for name, ml in data.items():
+                im = by_name.get(name)
+                if im is None:
+                    continue
+                for other, idx_pairs in ml.items():
+                    if len(idx_pairs) or other not in im.match_list:
+                        im.match_list[other] = idx_pairs
+                im.matches_clean = False
+        _save_all_matches(proj)
+        for path in glob.glob(os.path.join(_shard_dir(proj), "rank*.pkl")):
+            os.remove(path)
+        if smart_state is not None:
+            for path in sorted(glob.glob(os.path.join(
+                    _shard_dir(proj), "smart_rank*.json"))):
+                if not path.endswith("smart_rank0.json"):
+                    # rank 0's evidence is smart_state's own
+                    with open(path) as f:
+                        smart_state.merge_shard_data(json.load(f))
+                os.remove(path)
+            smart_state.save()
+    multihost.barrier("match_merged")

@@ -12,10 +12,9 @@ on the device in one call per chunk (``_pair_stats_fused``); the per-pair
 estimators (``triangulate_pair``, ``estimate_surface_elevation``,
 ``estimate_yaw_error``, ``update_pair``) run the same math on one pair.
 The reference's jit wrappers of the two-view triangulation and the
-similarity fit have no counterpart: PyTorch runs eagerly.
-
-Not ported yet: the multi-host shard merge (``save_shard``,
-``merge_shard_data``).
+similarity fit have no counterpart: PyTorch runs eagerly. Across ranks
+(parallel/multihost.py) each rank's evidence goes to a shard file
+(``save_shard``) and rank 0 unions them (``merge_shard_data``).
 """
 
 from __future__ import annotations
@@ -121,6 +120,35 @@ class SmartState:
 
     def get_yaw_error(self, name):
         return float(self.node(name).get("yaw_error", 0.0))
+
+    # -- the shard merge of a run across ranks ----------------------------
+    def save_shard(self, path):
+        """Write this rank's state as a shard file (atomically)."""
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.data, f)
+        os.replace(tmp, path)
+
+    def merge_shard_data(self, other: dict):
+        """Union another rank's pairwise evidence into this state and
+        refresh the per-image means from the union. The ranks' pairs are
+        disjoint (the match work list is split by rank), so a key-wise
+        union of tri_surface_pairs and yaw_pairs is exact; the other keys
+        are taken where this state lacks them."""
+        touched = set()
+        for name, node in other.items():
+            mine = self.node(name)
+            for key in ("tri_surface_pairs", "yaw_pairs"):
+                if node.get(key):
+                    mine.setdefault(key, {}).update(node[key])
+                    touched.add(name)
+            for k, v in node.items():
+                if k not in ("tri_surface_pairs", "yaw_pairs",
+                             "tri_surface_m", "yaw_error") and k not in mine:
+                    mine[k] = v
+        for name in touched:
+            self._refresh_surface(name)
+            self._refresh_yaw(name)
 
     def update_srtm_elevations(self, proj, terrain):
         """srtm_surface_m under each camera, from the terrain's host grid

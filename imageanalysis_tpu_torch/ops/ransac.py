@@ -15,8 +15,9 @@ leading pair dimension B (the reference vmaps over pairs).
 The reference's one-hot matmuls (a TPU gather workaround, bit-identical to
 gathers by its own docstrings) are ``searchsorted`` and gathers here, and
 its ``lax.scan`` refine is a loop. Randomness comes from a
-``torch.Generator``; ``pick`` overrides the draw so tests can feed exactly
-the picks that ``jax.random`` draws.
+``torch.Generator``, or from ``PairDraws`` (draws keyed by the pair, the
+same whatever batch or rank carries it); ``pick`` overrides the draw so
+tests can feed exactly the picks that ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -55,11 +56,65 @@ def _score_subset(valid, ranks, max_points):
     return sub, t < n_valid
 
 
+def _as_int64(c):
+    """A 64-bit constant as a signed int64 value (two's complement)."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GAMMA = _as_int64(0x9E3779B97F4A7C15)
+_MIX1 = _as_int64(0xBF58476D1CE4E5B9)
+_MIX2 = _as_int64(0x94D049BB133111EB)
+
+
+def _shr(z, s):
+    """Logical right shift of int64 z by s."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z):
+    """splitmix64's finalizer on int64 tensors (products wrap mod 2⁶⁴)."""
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+class PairDraws:
+    """Uniform draws keyed by pair, in place of a torch.Generator: pair
+    b's draws are a function of (seed, keys[b]) and the draw's shape
+    only (splitmix64 of a per-pair state and a counter), so a pair draws
+    the same samples in any batch, on any rank and on either device.
+    keys None makes a factory: keyed(keys) gives the draws of a batch."""
+
+    def __init__(self, seed, keys=None):
+        self.seed = int(seed)
+        self.keys = keys
+
+    def keyed(self, keys):
+        return PairDraws(self.seed, keys)
+
+    def rand(self, shape, device):
+        """float32 in [0, 1), shape (B, ...) with B = len(keys)."""
+        keys = self.keys.to(device=device, dtype=torch.int64)
+        n = math.prod(shape[1:])
+        state = _mix64(keys * _GAMMA + _as_int64(
+            (self.seed * 0xD1B54A32D192ED03) % (1 << 64)))
+        ctr = torch.arange(1, n + 1, device=device, dtype=torch.int64)
+        z = _mix64(state[:, None] + ctr[None, :] * _GAMMA)
+        return (_shr(z, 40).float() / float(1 << 24)).reshape(shape)
+
+
+def _uniform(shape, generator, device):
+    """torch.rand(shape) from generator (a torch.Generator, None, or
+    PairDraws)."""
+    if isinstance(generator, PairDraws):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def _draw_picks(n_valid, m, n_hyp, k, generator):
     """(B, n_hyp, k) uniform indices in [0, max(min(n_valid, m), 1))."""
     hi = n_valid.clamp(max=m).clamp(min=1).long()[:, None, None]
-    u = torch.rand((n_valid.shape[0], n_hyp, k), generator=generator,
-                   device=n_valid.device)
+    u = _uniform((n_valid.shape[0], n_hyp, k), generator, n_valid.device)
     return torch.minimum((u * hi).long(), hi - 1)
 
 
@@ -69,7 +124,7 @@ def _sample_indices(valid, ranks, n_hyp, k, generator):
     by searchsorted on the ranks."""
     B, n = valid.shape
     n_valid = ranks[:, -1:]
-    u = torch.rand((B, n_hyp * k), generator=generator, device=valid.device)
+    u = _uniform((B, n_hyp * k), generator, valid.device)
     tgt = torch.minimum((u * n_valid).int() + 1, n_valid.clamp(min=1))
     idx = torch.searchsorted(ranks, tgt.contiguous())
     return idx.clamp(max=n - 1).reshape(B, n_hyp, k)

@@ -38,6 +38,7 @@ from imageanalysis_tpu_torch.ba import bundle as tb
 from imageanalysis_tpu_torch.testing.synthetic import (make_ba_grid_graph,
                                                        make_ba_mission_graph)
 from test_ba import DIST, K, synth_problem
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import torch
 from imageanalysis_tpu.ops import clahe as jclahe
 from imageanalysis_tpu_torch.features import sift as tsift
 from imageanalysis_tpu_torch.ops import clahe as tclahe
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape,smooth", [((256, 320), False),

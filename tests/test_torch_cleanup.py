@@ -28,6 +28,7 @@ from imageanalysis_tpu_torch.match import groups as tgroups
 from test_cleanup_chains import _Img, _make_proj
 from test_groups import _Img as _GroupImg
 from test_groups import _random_chains
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # NED→body quaternion of a nadir camera (pitch −90°): the generator's own

@@ -26,6 +26,7 @@ from imageanalysis_tpu_torch.core import geodesy as tgeo
 from imageanalysis_tpu_torch.core import rotations as trot
 from imageanalysis_tpu_torch.core import transforms as ttr
 from imageanalysis_tpu_torch.ops import triangulate as ttri
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, rtol=1e-5, atol=1e-5):

@@ -25,7 +25,10 @@ tests/data/jpeg/ within a stated tolerance, and the pipeline runs Steps
 1→5 from JPEGs written on the card. EXIF written on the card reads back;
 the geotiff warp of one frame equals the CPU's bit for bit, and the
 fundamental and essential RANSAC on the card hold the CPU's results
-within a stated tolerance.
+within a stated tolerance. The point-local sharded BA on a mesh of the
+card's shards and over a process group of one rank on NCCL holds
+bundle.solve's result within tests/test_parallel.py's tolerances; two
+ranks sharing the card get gloo, and NCCL forced on them raises.
 """
 
 import os
@@ -1222,6 +1225,164 @@ def test_ransac_epipolar_card_matches_cpu(cuda, rng, kind):
         gm = gm if (gm * wm).sum() > 0 else -gm
         np.testing.assert_allclose(gm, wm, atol=5e-3)
 
+
+
+# --- the sharded BA and the process group on the card ----------------------
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ba_grid(cuda):
+    from imageanalysis_tpu_torch.testing.synthetic import make_ba_grid_graph
+
+    return make_ba_grid_graph(n_cam=30, n_pt=600, device=cuda,
+                              dtype=torch.float32)
+
+
+def _close_to_one_solve(got, g, cuda):
+    """tests/test_parallel.py's tolerances against bundle.solve on the
+    same card: the shards sum in another order, the LM path wanders in the
+    gauge-flat valley."""
+    from imageanalysis_tpu_torch.ba import bundle
+
+    one = bundle.solve(g.cams0, g.pts0, g.obs, g.K, g.dist,
+                       bundle.BAConfig(max_iters=8), verbose=False,
+                       device=cuda)
+    np.testing.assert_allclose(got.mre, one.mre, rtol=0.02)
+    np.testing.assert_allclose(got.cams[:, :3], one.cams[:, :3], atol=0.3)
+    assert got.cost_history[-1] < got.cost_history[0]
+
+
+def test_pointlocal_solve_on_a_local_mesh_of_the_card(cuda):
+    """solve_sharded over two shards of one card (LocalMesh) against
+    bundle.solve there."""
+    from imageanalysis_tpu_torch.ba import bundle
+    from imageanalysis_tpu_torch.parallel import sharded
+
+    g = _ba_grid(cuda)
+    mesh = sharded.LocalMesh([cuda, cuda])
+    got = sharded.solve_sharded(g.cams0, g.pts0, g.obs, g.K, g.dist, mesh,
+                                bundle.BAConfig(max_iters=8), verbose=False)
+    _close_to_one_solve(got, g, cuda)
+    assert mesh.stats["calls"] > 8
+
+
+def test_pointlocal_solve_on_a_local_mesh_of_distinct_cards(cuda):
+    """solve_sharded over a LocalMesh of every card (stages optimize
+    --mesh all), each shard on a card of its own, against bundle.solve on
+    the first."""
+    from imageanalysis_tpu_torch.ba import bundle
+    from imageanalysis_tpu_torch.parallel import sharded
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    g = _ba_grid(cuda)
+    mesh = sharded.LocalMesh([torch.device("cuda", i) for i in range(n)])
+    got = sharded.solve_sharded(g.cams0, g.pts0, g.obs, g.K, g.dist, mesh,
+                                bundle.BAConfig(max_iters=8), verbose=False)
+    _close_to_one_solve(got, g, cuda)
+    assert [d.index for d in mesh.devices] == list(range(n))
+    assert mesh.stats["calls"] > 8
+
+
+def test_pair_draws_equal_on_cpu_and_card(cuda):
+    """A pair's RANSAC draws (int64 products wrapping mod 2⁶⁴) are the
+    same on the CPU and on the card."""
+    from imageanalysis_tpu_torch.ops.ransac import PairDraws
+
+    keys = torch.tensor([0, 1, 7, 8191 * 8192 + 5, 2**40 + 3])
+    for seed in (0, 42, 2**63 - 1):
+        d = PairDraws(seed).keyed(keys)
+        a = d.rand((5, 512, 4), "cpu")
+        b = d.rand((5, 512, 4), cuda).cpu()
+        assert torch.equal(a, b), seed
+
+
+def test_solve_sharded_over_a_world_of_one_on_nccl(cuda):
+    """A process group of one rank on NCCL (the backend rule's pick where
+    the rank has a card), and solve_sharded over it."""
+    from imageanalysis_tpu_torch.ba import bundle
+    from imageanalysis_tpu_torch.parallel import multihost, sharded
+
+    backend = multihost.initialize(0, 1, "127.0.0.1", _free_port(), "cuda",
+                                   timeout_s=60)
+    try:
+        assert backend == "nccl" and multihost.backend() == "nccl"
+        g = _ba_grid(cuda)
+        mesh = sharded.ProcessMesh(cuda)
+        got = sharded.solve_sharded(g.cams0, g.pts0, g.obs, g.K, g.dist,
+                                    mesh, bundle.BAConfig(max_iters=8),
+                                    verbose=False)
+    finally:
+        multihost.shutdown()
+    _close_to_one_solve(got, g, cuda)
+
+
+# two ranks on one card: their backend, and one all-reduce of a CUDA tensor
+_RANK = """
+import sys, torch
+from imageanalysis_tpu_torch.parallel import multihost
+backend = None if sys.argv[1] == "rule" else sys.argv[1]
+rank = int(sys.argv[2])
+got = multihost.initialize(rank, 2, "127.0.0.1", int(sys.argv[3]), "cuda",
+                           local_rank=0, backend=backend, timeout_s=30)
+t = torch.full((4,), float(rank + 1), device="cuda")
+torch.distributed.all_reduce(t)
+print("RANK", got, t.tolist(), flush=True)
+multihost.shutdown()
+"""
+
+
+def _two_ranks_on_one_card(backend):
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, backend,
+                               str(r), port], env=env, cwd=repo,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a rank hung")
+    return [p.returncode for p in procs], outs
+
+
+def test_backend_rule_gloo_for_ranks_sharing_a_card(cuda):
+    """NCCL where each rank of the host has a card, gloo on the CPU and
+    where ranks share a card; two such ranks all-reduce CUDA tensors over
+    gloo."""
+    from imageanalysis_tpu_torch.parallel import multihost
+
+    n = torch.cuda.device_count()
+    assert multihost.choose_backend("cuda", n) == "nccl"
+    assert multihost.choose_backend("cuda", n + 1) == "gloo"
+    assert multihost.choose_backend("cpu", 1) == "gloo"
+    rcs, outs = _two_ranks_on_one_card("rule")
+    assert rcs == [0, 0], outs
+    for out in outs:
+        assert "RANK gloo [3.0, 3.0, 3.0, 3.0]" in out, out
+
+
+def test_nccl_that_fails_to_start_raises(cuda):
+    """NCCL forced on two ranks of one card refuses them: each rank
+    raises (no switch to gloo), within its timeout."""
+    rcs, outs = _two_ranks_on_one_card("nccl")
+    assert all(rc != 0 for rc in rcs), outs
+    assert not any("RANK" in out for out in outs), outs
 
 def _hartley(p):
     p = p.astype(np.float64)

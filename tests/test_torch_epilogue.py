@@ -18,6 +18,7 @@ import torch
 
 from imageanalysis_tpu.ops import knn as jknn
 from imageanalysis_tpu_torch.ops import knn as tknn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):

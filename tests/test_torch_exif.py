@@ -41,6 +41,7 @@ from imageanalysis_tpu_torch.io import exif as texif
 from imageanalysis_tpu_torch.io import pose as tpose
 from imageanalysis_tpu_torch.io import project as tproject
 from imageanalysis_tpu_torch.testing import synthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 COLOUR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "jpeg", "colour.jpg")

@@ -19,6 +19,7 @@ import torch
 
 from imageanalysis_tpu.ops import knn as jknn
 from imageanalysis_tpu_torch.ops import knn as tknn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _planted(rng, n_a, n_b, n_planted, dim=128):

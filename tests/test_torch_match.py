@@ -37,6 +37,7 @@ from imageanalysis_tpu_torch.match import smart as tsmart
 from imageanalysis_tpu_torch.match.store import DescriptorStore
 from imageanalysis_tpu_torch.testing.synthetic import (make_mission,
                                                        write_workspace)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (320, 240)
 
@@ -273,6 +274,20 @@ def test_match_config_decides_the_arm_by_device(workspace, tmp_path):
                                               use_pallas=False), 1.0)
     for p in pairs:
         np.testing.assert_array_equal(got[p], want[p])
+    # with RANSAC both draw by pair from the config's seed: the same
+    # survivors
+    cfg_h = tmatcher.MatchConfig(transform="homography", n_hyp=64,
+                                 store_scan=1, filter_thresh=3.0)
+    bm_h = tmatcher.BatchMatcher(tp, cfg_h, use_store=True, device="cpu")
+    bm_h.match_pairs(pairs)
+    want_h = tmatcher.match_pairs_store(
+        bm_h.store, pairs, tmatcher.MatchConfig(transform="homography",
+                                                n_hyp=64,
+                                                use_pallas=False), 3.0)
+    for p in pairs:
+        np.testing.assert_array_equal(
+            tp.image_list[p[0]].match_list[tp.image_list[p[1]].name],
+            want_h[p])
     # the fundamental filter keeps a subset of the unfiltered survivors;
     # an unknown transform raises, and so does essential5, whose host
     # refilter needs a workspace

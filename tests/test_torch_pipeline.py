@@ -41,6 +41,7 @@ from imageanalysis_tpu_torch.match import matcher, smart, store
 from imageanalysis_tpu_torch.render import build_map as tbuild_map
 from imageanalysis_tpu_torch.surface import srtm as tsrtm
 from imageanalysis_tpu_torch.testing import synthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (320, 240)
 N_POINTS = 1500

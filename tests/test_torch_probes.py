@@ -26,6 +26,7 @@ from jax.experimental import pallas as real_pl
 
 from imageanalysis_tpu_torch.ops import knn as tknn
 from imageanalysis_tpu_torch.probes import fused, knn_stages, mma
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, TA, PAIRS = 256, 64, 2

@@ -38,8 +38,11 @@ The same inputs go through both packages on the CPU:
   port's writer, no --camera and no pose file, reach STEP5 with the
   cameras within 3 m of the truth;
 - the default detector (the host SIFT) runs Step 3a on the colour
-  fixture; a run across hosts and BA over a mesh of cards raise
-  NotImplementedError, and the card is never swapped for the CPU.
+  fixture; an environment that asks for several ranks without saying
+  where they meet, and BA over a mesh of more cards than the process
+  has, raise ValueError (the run across ranks itself is
+  tests/test_torch_parallel.py's), and the card is never swapped for
+  the CPU.
 """
 
 import json
@@ -75,6 +78,7 @@ from imageanalysis_tpu_torch.render import build_map as tbuild_map
 from imageanalysis_tpu_torch.render import texture as ttexture
 from imageanalysis_tpu_torch.surface import srtm as tsrtm
 from imageanalysis_tpu_torch.testing import synthetic as tsynthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "jpeg")
@@ -559,9 +563,10 @@ def tiny_project(tmp_path):
 
 def test_unported_paths_raise(tiny_project, monkeypatch):
     """The default detector (the reference's host SIFT) now runs: Step 3a
-    caches 128-value SIFT descriptors and a match list. A run across
-    hosts still raises, and so does the stage script's BA over a mesh of
-    two cards."""
+    caches 128-value SIFT descriptors and a match list. WORLD_SIZE=2
+    without RANK, MASTER_ADDR and MASTER_PORT raises before any work, and
+    the stage script's BA over a mesh of two cards raises in a process
+    that has none."""
     d, db = tiny_project
     with open(os.path.join(d, "pix4d.csv"), "w") as f:
         f.write("File Name,Lat,Lon,Alt,Roll,Pitch,Yaw\n" + "".join(
@@ -577,11 +582,13 @@ def test_unported_paths_raise(tiny_project, monkeypatch):
         assert im.load_features() and im.load_descriptors()
         assert len(im.kp) > 100 and im.des.shape == (len(im.kp), 128)
         assert im.load_matches() and len(im.match_list) == 1
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="across hosts"):
+    with pytest.raises(ValueError, match="RANK, MASTER_ADDR, MASTER_PORT"):
         tprocess.main([d, "--detector", "TPU"], device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(ValueError, match="2 distinct cards"):
         tstages.main(["optimize", d, "--mesh", "2"], device="cpu")
 
 
@@ -593,6 +600,8 @@ def test_main_needs_the_card_unless_the_cpu_is_asked(tiny_project,
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="IMGTPU_PLATFORM=cpu"):
         tprocess.main([d])
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("IMGTPU_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError):        # reached the CPU run
+    with pytest.raises(ValueError, match="RANK"):   # reached the CPU run
         tprocess.main([d])

@@ -16,6 +16,7 @@ import torch
 
 from imageanalysis_tpu.ops import ransac as jr
 from imageanalysis_tpu_torch.ops import ransac as tr
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_HYP = 64
 

@@ -35,6 +35,7 @@ from imageanalysis_tpu.render import texture as jtexture
 from imageanalysis_tpu_torch.render import geotiff as tgeotiff
 from imageanalysis_tpu_torch.render import histogram as thistogram
 from imageanalysis_tpu_torch.render import texture as ttexture
+from torch_threads import one_torch_thread  # noqa: F401
 
 CANVAS = (380, 420)              # (H, W)
 _HM = [np.array([[0.9, 0.12, -30.0], [-0.1, 1.05, -20.0],

@@ -23,6 +23,7 @@ from imageanalysis_tpu.features import sift_tpu as jsift
 from imageanalysis_tpu.ops import clahe as jclahe
 from imageanalysis_tpu_torch.features import sift as tsift
 from imageanalysis_tpu_torch.testing.synthetic import make_mission
+from torch_threads import one_torch_thread  # noqa: F401
 
 # every sigma the pyramid blurs with: the initial blur, then the five
 # per-level increments

@@ -34,6 +34,7 @@ from imageanalysis_tpu_torch.match import worklist
 from imageanalysis_tpu_torch.match.store import DescriptorStore
 from imageanalysis_tpu_torch.ops import knn as tknn
 from imageanalysis_tpu_torch.testing.synthetic import make_mission
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "imageanalysis_tpu_torch")

@@ -50,6 +50,7 @@ from imageanalysis_tpu_torch.features import detect as tdetect
 from imageanalysis_tpu_torch.io import project as tproject
 from imageanalysis_tpu_torch.match import smart as tsmart
 from imageanalysis_tpu_torch.ops import gms as tgms
+from torch_threads import one_torch_thread  # noqa: F401
 
 CAMERA = "Synthetic_TestCam_none"
 

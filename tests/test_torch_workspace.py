@@ -31,6 +31,7 @@ from imageanalysis_tpu_torch.match import matcher as tmatcher
 from imageanalysis_tpu_torch.match import smart as tsmart
 from imageanalysis_tpu_torch.match.store import DescriptorStore as TStore
 from imageanalysis_tpu_torch.testing import synthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (320, 240)
 PAIRS = [(0, 1), (1, 2), (2, 3), (0, 2), (1, 3)]
