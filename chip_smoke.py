@@ -180,6 +180,28 @@ non-zero:
     graph on a LocalMesh of distinct cards (2, and all of them), held to
     (a)'s checks, its wall beside phase 14's. Each child has a timeout;
     one that fails or times out fails the phase.
+20. the video and motion tools (imageanalysis_tpu_torch/video, motion,
+    apps/video.py; after phase 19: it imports cv2) on movies made from a
+    seed (testing/video.py): a 1920×1080, 30 fps, 300-frame mp4v movie of
+    a ground turning about the optical axis at a planted band-limited
+    rate and drifting, its flight log 2.5 s ahead, a DJI CSV and .SRT,
+    and a 120-frame still movie with a block crossing it. Through
+    apps/video.main on the card: (a) est-gyro-rates, the median rate
+    within 1.5 deg/s of the planted one; (b) hud-overlay --movie-csv in
+    both styles, 90 frames each, the correlated shift within 2/60 s; (c)
+    stabilize, every frame written, rotation jitter below the input's;
+    (d) extract-geotag and extract-dji from the .SRT's start, the GPS
+    read back through io/exif within the writer's rounding. Then (e)
+    segment_video at scale 0.5, the mover's mask IoU >= 0.5; (f)
+    StreamingDMD on the same snapshots, its lasting eigenvalues (|λ| >
+    0.9) within 1e-3 of exact DMD's at full rank; (g) SparseLK over 30
+    frames within 0.5 px of the planted motion; (h) the lens fit on
+    tracks through k1 = −0.22, k1 within 0.05. The batched fits, the
+    FFT, the snapshots' singular values and the lens loss and gradient
+    are each held against the same code on the CPU. One line a part:
+    walls, the host tracking's ms a frame beside the card's fit of all
+    pairs, the SVD's time, with the card's name and power limit. The
+    phase launches no hand-written kernel.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -191,6 +213,7 @@ is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import csv
 import glob
 import io
 import json
@@ -3341,6 +3364,362 @@ def run_parallel(root, smi, p14):
     return launches
 
 
+VIDEO_SIZE, VIDEO_FRAMES = (1920, 1080), 300   # DJI's default 1080p30, 10 s
+VIDEO_SHIFT = 2.5           # the flight log's clock ahead of the movie's, s
+MOVER_FRAMES, SEGMENT_SCALE = 120, 0.5
+LK_FRAMES = 30
+LENS_K1 = -0.22
+VIDEO_START = (2023, 6, 1, 10, 0, 0)   # the DJI log's first row, local time
+
+
+def _frames(path, n=None, gray=False, scale=1.0):
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    out = []
+    while n is None or len(out) < n:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        if gray:
+            fr = cv2.cvtColor(fr, cv2.COLOR_BGR2GRAY)
+        if scale != 1.0:
+            fr = cv2.resize(fr, (0, 0), fx=scale, fy=scale)
+        out.append(fr)
+    cap.release()
+    return out
+
+
+def _jitter_deg(rot):
+    """Rotation jitter of a motion track: the std of each frame's rotation
+    (deg) about a straight-line fit over the frames."""
+    rot = np.asarray(rot, float)
+    t = np.arange(len(rot))
+    return float((rot - np.polyval(np.polyfit(t, rot, 1), t)).std())
+
+
+def _lens_tracks(gen, K, n_pairs=48, n_pts=300):
+    """Pixel tracks of n_pairs frame pairs through a lens of k1 = LENS_K1:
+    ideal normalized points over the frame, a random similarity motion
+    between the views, then distorted (the reference's lens test, at the
+    movie's K)."""
+    from imageanalysis_tpu_torch.core.camera import (distort_normalized,
+                                                     normalized_to_pixels)
+
+    half = np.array([K[0, 2] / K[0, 0], K[1, 2] / K[1, 1]]) * 0.95
+    dist = torch.tensor([LENS_K1, 0.0, 0.0, 0.0, 0.0])
+    Kt = torch.as_tensor(K, dtype=torch.float32)
+    pairs = []
+    for _ in range(n_pairs):
+        pa = gen.uniform(-half, half, (n_pts, 2)).astype(np.float32)
+        th = gen.normal(0, 0.03)
+        R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        pb = (pa @ R.T + gen.normal(0, 0.03, 2)).astype(np.float32)
+        pairs.append(tuple(normalized_to_pixels(distort_normalized(
+            torch.from_numpy(p), dist), Kt).numpy() for p in (pa, pb)))
+    return pairs
+
+
+def run_video(root, smi, dev="cuda", size=VIDEO_SIZE, n_frames=VIDEO_FRAMES,
+              mover_frames=MOVER_FRAMES, hud_frames=90):
+    """Phase 20: the video and motion tools at 1080p on movies made from a
+    seed (testing/video.py). Every apps/video subcommand through its
+    main(), on the card; the motion tools; the device work of each on the
+    card against the same code on the CPU. Returns the walls."""
+    import cv2
+
+    from imageanalysis_tpu_torch.apps import video as video_app
+    from imageanalysis_tpu_torch.io import exif
+    from imageanalysis_tpu_torch.motion import (flow, lens_distortion,
+                                                segment, streaming_dmd)
+    from imageanalysis_tpu_torch.testing import video as synth
+    from imageanalysis_tpu_torch.video import (correlate, djilog,
+                                               flight_data, frame_motion)
+
+    import datetime
+
+    t_phase = time.perf_counter()
+    checks, walls = {}, {}
+    W, H = size
+    movie_path = os.path.join(root, "flight.mp4")
+    t0 = time.perf_counter()
+    movie = synth.write_flight_movie(movie_path, seed=20, size=size,
+                                     n_frames=n_frames)
+    log_path = os.path.join(root, "flight.csv")
+    synth.write_flight_log(log_path, movie, VIDEO_SHIFT)
+    start = datetime.datetime(*VIDEO_START)
+    dji_path = os.path.join(root, "DJIFlightRecord_2023-06-01_[10-00-00]"
+                            ".csv")
+    n_s = int(n_frames / movie.fps) + 4
+    synth.write_dji_csv(dji_path, start, n_s + 4)
+    srt_path = os.path.join(root, "flight.srt")
+    synth.write_srt(srt_path, start + datetime.timedelta(seconds=2), n_s)
+    mover_path = os.path.join(root, "mover.mp4")
+    boxes = synth.write_mover_movie(mover_path, seed=21, size=size,
+                                    n_frames=mover_frames)
+    walls["synthesis_s"] = time.perf_counter() - t0
+    log(f"[video-20] inputs: {W}x{H} {n_frames} frames at {movie.fps:g} "
+        f"fps (mp4v, cv2 {cv2.__version__}), a {mover_frames}-frame still "
+        f"movie with a mover, flight log, DJI CSV and .SRT in "
+        f"{walls['synthesis_s']:.2f} s")
+
+    # (a) est-gyro-rates: the host tracking and the card's batched fits
+    t0 = time.perf_counter()
+    pairs = list(frame_motion.track_video(movie_path))
+    track_s = time.perf_counter() - t0
+    pa, pb, w = frame_motion.pad_tracks(pairs)
+    fits = {d: frame_motion.fit_pairs(pa, pb, w, d) for d in (dev, "cpu")}
+    fit_ms = probes.time_ms(
+        lambda: frame_motion.fit_pairs(pa, pb, w, dev), dev)
+    d_rot = np.abs(fits[dev][0] - fits["cpu"][0]).max()
+    d_t = max(np.abs(fits[dev][k] - fits["cpu"][k]).max() for k in (1, 2))
+    motion_csv = os.path.join(root, "flight_motion.csv")
+    t0 = time.perf_counter()
+    rc = video_app.main(["est-gyro-rates", movie_path, "--out", motion_csv],
+                        device=dev)
+    walls["est-gyro-rates_s"] = time.perf_counter() - t0
+    with open(motion_csv) as f:
+        rows = list(csv.DictReader(f))
+    frames = np.array([int(r["frame"]) for r in rows])
+    est = np.median([float(r["rotation (deg)"]) for r in rows]) * movie.fps
+    truth = np.median(np.diff(movie.angle_deg)[frames - 1]) * movie.fps
+    checks.update({
+        "(a) est-gyro-rates rc 0, a row a frame pair":
+            rc == 0 and len(rows) == n_frames - 1,
+        "(a) median rate within 1.5 deg/s": abs(est - truth) <= 1.5,
+        # float32 sums of 400 tracks ~1000 px from the origin, in another
+        # order: the parity tests' 1e-2 px
+        "(a) card fits = CPU fits (1e-5 rad, 1e-2 px)":
+            d_rot <= 1e-5 and d_t <= 1e-2,
+    })
+    log(f"[video-20a] est-gyro-rates: {walls['est-gyro-rates_s']:.3f} s for "
+        f"{n_frames} frames; host LK tracking {1e3 * track_s / n_frames:.2f} "
+        f"ms a frame, the card's batched fit of all {len(pairs)} pairs "
+        f"{fit_ms:.3f} ms; median rate {est:.3f} deg/s (planted "
+        f"{truth:.3f}); card vs CPU fits: rotation {d_rot:.2e} rad, "
+        f"translation {d_t:.2e} px; {smi}")
+
+    # (b) hud-overlay with the clock found by correlation, in both styles
+    flight = flight_data.FlightLog(log_path)
+    shift = video_app._auto_time_shift(flight, motion_csv, dev)
+    mt = np.array([float(r["time"]) for r in rows])
+    mrate = np.radians([float(r["rotation (deg)"]) for r in rows]) \
+        / np.clip(np.gradient(mt), 1e-9, None)
+    ft = flight.t - flight.t[0]
+    frate = np.gradient(np.unwrap(np.radians(flight.cols["yaw"]))) \
+        / np.clip(np.gradient(ft), 1e-3, None)
+    ycorr = {d: correlate.sync_clocks(ft, frate, mt, mrate, device=d)[1]
+             for d in (dev, "cpu")}
+    d_corr = np.abs(ycorr[dev] - ycorr["cpu"]).max() \
+        / np.abs(ycorr["cpu"]).max()
+    fv = np.resize(frate, 4 * len(frate))
+    corr_ms = probes.time_ms(
+        lambda: correlate.cross_correlate_full(fv, mrate, device=dev), dev)
+    checks.update({
+        "(b) shift within 2/60 s": abs(shift - VIDEO_SHIFT) <= 2.0 / 60,
+        "(b) card ycorr = CPU's (1e-4 of max)": d_corr <= 1e-4,
+    })
+    for style in ("classic", "glass"):
+        out = os.path.join(root, f"hud_{style}.mp4")
+        t0 = time.perf_counter()
+        rc = video_app.main(["hud-overlay", movie_path, "--flight", log_path,
+                             "--movie-csv", motion_csv, "--style", style,
+                             "--max-frames", str(hud_frames), "--out", out],
+                            device=dev)
+        walls[f"hud-overlay_{style}_s"] = time.perf_counter() - t0
+        drawn = _frames(out)
+        checks[f"(b) hud-overlay {style}: rc 0, {hud_frames} frames"] = \
+            rc == 0 and len(drawn) == hud_frames
+        log(f"[video-20b] hud-overlay --style {style} --movie-csv: "
+            f"{walls[f'hud-overlay_{style}_s']:.3f} s for {len(drawn)} "
+            f"frames ({1e3 * walls[f'hud-overlay_{style}_s'] / hud_frames:.1f}"
+            f" ms a frame, the sync included); {smi}")
+    log(f"[video-20b] clock sync: shift {shift:.4f} s (planted "
+        f"{VIDEO_SHIFT}); one FFT cross-correlation of {len(fv)} x "
+        f"{len(mrate)} samples {corr_ms:.3f} ms; card vs CPU ycorr "
+        f"{d_corr:.2e} of its max; {smi}")
+
+    # (c) stabilize
+    stab = os.path.join(root, "flight_stab.mp4")
+    t0 = time.perf_counter()
+    rc = video_app.main(["stabilize", movie_path, "--out", stab], device=dev)
+    walls["stabilize_s"] = time.perf_counter() - t0
+    n_out = len(_frames(stab, gray=True, scale=0.05))
+    # from the second pair on: the stabilizer writes frame 0 as it is and
+    # corrects frame 1 by its whole offset from the smoothed trajectory
+    rot_in = np.degrees(fits[dev][0])[1:]
+    rot_out = [r[2] for r in
+               frame_motion.estimate_motion(stab, device=dev)[1:]]
+    j_in, j_out = _jitter_deg(rot_in), _jitter_deg(rot_out)
+    checks.update({
+        "(c) stabilize rc 0, every frame written":
+            rc == 0 and n_out == n_frames,
+        "(c) rotation jitter below the input's": j_out < j_in,
+    })
+    log(f"[video-20c] stabilize: {walls['stabilize_s']:.3f} s, {n_out} "
+        f"frames; rotation jitter {j_out:.4f} deg against the input's "
+        f"{j_in:.4f}; {smi}")
+
+    # (d) extract-geotag (from the .SRT's start) and extract-dji
+    dji = djilog.DjiCsv().load(dji_path)
+    srt_start = djilog.parse_srt(srt_path)[0][1]["datetime"]
+    gps_err = np.zeros(2)
+    n_tagged = {}
+    for cmd in ("extract-geotag", "extract-dji"):
+        out_dir = os.path.join(root, cmd)
+        t0 = time.perf_counter()
+        rc = video_app.main([cmd, movie_path, "--log", dji_path, "--out-dir",
+                             out_dir, "--srt", srt_path], device=dev)
+        walls[f"{cmd}_s"] = time.perf_counter() - t0
+        names = sorted(f for f in os.listdir(out_dir) if f.endswith(".jpg"))
+        n_tagged[cmd] = len(names)
+        for i, name in enumerate(names):
+            lon, lat, alt, *_ = exif.get_pose(os.path.join(out_dir, name))
+            q = dji.query(srt_start + i * 1.0)
+            gps_err = np.maximum(gps_err, [max(abs(lat - q["lat"]),
+                                               abs(lon - q["lon"])),
+                                           abs(alt - q["baro_alt"])])
+        checks[f"(d) {cmd} rc 0, a frame a second, pix4d.csv"] = \
+            rc == 0 and len(names) == int(np.ceil(n_frames / movie.fps)) \
+            and os.path.isfile(os.path.join(out_dir, "pix4d.csv"))
+    # the writer's rounding: 1e-4 arc-second, 1 cm
+    checks["(d) GPS read back within the writer's rounding"] = \
+        gps_err[0] <= 1e-4 / 3600 + 1e-9 and gps_err[1] <= 0.005 + 1e-9
+    log(f"[video-20d] extract-geotag {walls['extract-geotag_s']:.3f} s, "
+        f"extract-dji {walls['extract-dji_s']:.3f} s: {n_tagged} frames; "
+        f"GPS read back {gps_err[0]:.2e} deg, {gps_err[1]:.4f} m from the "
+        f"log; {smi}")
+
+    # (e) segment_video: the mover's mask against the planted block
+    t0 = time.perf_counter()
+    bg, masks = segment.segment_video(mover_path, max_frames=mover_frames,
+                                      scale=SEGMENT_SCALE, device=dev)
+    walls["segment_video_s"] = time.perf_counter() - t0
+    truth = np.zeros_like(masks)
+    s = SEGMENT_SCALE
+    for i, (x0, y0, x1, y1) in enumerate(boxes[:len(masks)]):
+        truth[i, int(y0 * s):int(y1 * s), int(x0 * s):int(x1 * s)] = True
+    iou = (masks & truth).sum() / max((masks | truth).sum(), 1)
+    # the snapshots as segment_video makes them
+    gray = _frames(mover_path, mover_frames, gray=True, scale=s)
+    F = np.stack(gray).astype(np.float32).reshape(len(gray), -1).T
+    X, Y = F[:, :-1], F[:, 1:]
+    Xd = torch.as_tensor(np.ascontiguousarray(X), device=dev)
+    svd_ms = probes.time_ms(
+        lambda: torch.linalg.svd(Xd, full_matrices=False), dev, 3)
+    S = {d: torch.linalg.svd(torch.as_tensor(np.ascontiguousarray(X),
+                                             device=d),
+                             full_matrices=False)[1].cpu().numpy()
+         for d in (dev, "cpu")}
+    d_s = np.abs(S[dev] - S["cpu"]).max() / S["cpu"][0]
+    checks.update({
+        "(e) mover mask IoU >= 0.5": iou >= 0.5,
+        "(e) card singular values = CPU's (1e-4 of the largest)":
+            d_s <= 1e-4,
+    })
+    log(f"[video-20e] segment_video {mover_frames} frames at scale {s} "
+        f"({masks.shape[2]}x{masks.shape[1]}): {walls['segment_video_s']:.3f}"
+        f" s; mover IoU {iou:.4f}; SVD of the {X.shape[0]}x{X.shape[1]} "
+        f"snapshots {svd_ms:.3f} ms; card vs CPU singular values "
+        f"{d_s:.2e} of the largest; {smi}")
+
+    # (f) StreamingDMD over the same snapshots against exact DMD, full rank
+    t0 = time.perf_counter()
+    _, ev_exact, _ = segment.exact_dmd(X, Y, device=dev)
+    exact_s = time.perf_counter() - t0
+    sdmd = streaming_dmd.StreamingDMD(device=dev)
+    t0 = time.perf_counter()
+    for k in range(X.shape[1]):
+        sdmd.update(X[:, k], Y[:, k])
+    _sync(dev)
+    stream_s = time.perf_counter() - t0
+    _, ev_stream = sdmd.compute_modes()
+    from scipy.optimize import linear_sum_assignment
+
+    cost = np.abs(ev_exact[:, None] - ev_stream[None, :])
+    r, c = linear_sum_assignment(cost)
+    lasting = np.abs(ev_exact[r]) > 0.9
+    d_ev = cost[r, c][lasting].max() if lasting.any() else np.inf
+    checks["(f) StreamingDMD's eigenvalues within 1e-3 of exact DMD's"] = \
+        len(ev_stream) == len(ev_exact) and d_ev <= 1e-3
+    log(f"[video-20f] StreamingDMD: {X.shape[1]} updates {stream_s:.3f} s, "
+        f"exact_dmd {exact_s:.3f} s; {int(lasting.sum())} of "
+        f"{len(ev_exact)} eigenvalues with |λ| > 0.9, matched within "
+        f"{d_ev:.2e} (all: {cost[r, c].max():.2e}); {smi}")
+
+    # (g) SparseLK on the flight movie against the planted motion
+    tracker = flow.SparseLK(device=dev)
+    canvas = int(np.ceil(np.hypot(W, H) + 2 * np.abs(movie.drift).max())) \
+        + 16
+    grid = np.stack(np.meshgrid(np.linspace(0.1 * W, 0.9 * W, 9),
+                                np.linspace(0.1 * H, 0.9 * H, 5)), -1) \
+        .reshape(-1, 2)
+    lk_err, lk_inl = 0.0, []
+    t0 = time.perf_counter()
+    for i, g in enumerate(_frames(movie_path, LK_FRAMES, gray=True)):
+        Hm, n_inl = tracker.update(g)
+        if i == 0:
+            continue
+        A = [np.vstack([synth.view_matrix(canvas, size, -movie.angle_deg[k],
+                                          movie.drift[k]), [0, 0, 1]])
+             for k in (i - 1, i)]
+        T = A[1] @ np.linalg.inv(A[0])
+        ph = np.c_[grid, np.ones(len(grid))]
+        want = (ph @ T.T)[:, :2]
+        if Hm is None:
+            lk_err = np.inf
+            continue
+        got = ph @ Hm.T
+        lk_err = max(lk_err, np.abs(got[:, :2] / got[:, 2:] - want).max())
+        lk_inl.append(n_inl)
+    walls["sparse_lk_s"] = time.perf_counter() - t0
+    checks["(g) SparseLK within 0.5 px of the planted motion"] = \
+        lk_err <= 0.5
+    log(f"[video-20g] SparseLK over {LK_FRAMES} frames: "
+        f"{walls['sparse_lk_s']:.3f} s; homographies within {lk_err:.4f} "
+        f"px of the planted motion (inliers {min(lk_inl)}–{max(lk_inl)}); "
+        f"{smi}")
+
+    # (h) the lens fit on tracks through k1 = −0.22
+    gen = np.random.default_rng(22)
+    K = np.array([[1500.0, 0, W / 2], [0, 1500.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    tracks = _lens_tracks(gen, K)
+    t0 = time.perf_counter()
+    k1, k2, hist = lens_distortion.estimate_k1_k2(tracks, K, device=dev)
+    walls["estimate_k1_k2_s"] = time.perf_counter() - t0
+    lg = {}
+    for d in (dev, "cpu"):
+        p = torch.tensor([-0.1, 0.02], device=d, requires_grad=True)
+        loss = lens_distortion.pair_loss(tracks, K, torch.device(d))
+        val = loss(p)
+        val.backward()
+        lg[d] = (float(val.detach()), p.grad.cpu().numpy())
+        if d == dev:     # one warm step's loss and gradient
+            step_ms = probes.time_ms(lambda: loss(p).backward(), dev, 10)
+    d_loss = abs(lg[dev][0] - lg["cpu"][0]) / abs(lg["cpu"][0])
+    d_grad = np.abs(lg[dev][1] - lg["cpu"][1]).max() \
+        / np.abs(lg["cpu"][1]).max()
+    checks.update({
+        "(h) k1 within 0.05 of the planted": abs(k1 - LENS_K1) <= 0.05,
+        "(h) card loss, gradient = CPU's (rtol 1e-4, 1e-3)":
+            d_loss <= 1e-4 and d_grad <= 1e-3,
+    })
+    log(f"[video-20h] estimate_k1_k2 over {len(tracks)} pairs x "
+        f"{len(tracks[0][0])} tracks, 300 Adam steps: "
+        f"{walls['estimate_k1_k2_s']:.3f} s (a warm step's loss and "
+        f"gradient {step_ms:.3f} ms); k1 {k1:.4f} (planted "
+        f"{LENS_K1}), k2 {k2:.4f}, loss {hist[0]:.3f} -> {hist[-1]:.5f} "
+        f"px²; card vs CPU loss {d_loss:.2e}, gradient {d_grad:.2e}; {smi}")
+
+    walls["phase_s"] = time.perf_counter() - t_phase
+    log("[video-20] " + json.dumps({**walls, "device": smi}))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 20 failed: {failed}")
+    return walls
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         return rank_child(json.loads(sys.argv[2]))
@@ -3383,6 +3762,8 @@ def main():
         d256 = run_stages(root, smi, p16_wall, p16_cams)
     with tempfile.TemporaryDirectory() as root:
         p19 = run_parallel(root, smi, p14)
+    with tempfile.TemporaryDirectory() as root:
+        run_video(root, smi)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",

@@ -43,6 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..ba import bundle, calibrate, setup as ba_setup
+from ..core.device import checked
 from ..features.detect import DetectorConfig, detect_project_features
 from ..io import camera_db, pose as pose_mod
 from ..io.logger import log
@@ -119,9 +120,7 @@ def main_device(device):
     """The device a command line runs on: IMGTPU_PLATFORM (cpu or cuda) in
     the environment, else device. The card is never swapped for the CPU:
     without one, asking for it raises."""
-    dev = torch.device(os.environ.get("IMGTPU_PLATFORM") or device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the pipeline runs on cpu or cuda, not {dev}")
+    dev = checked(os.environ.get("IMGTPU_PLATFORM") or device, "the pipeline")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card (torch.cuda.is_available() is "
                            "false); set IMGTPU_PLATFORM=cpu to run on the CPU")

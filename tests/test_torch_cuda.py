@@ -1492,3 +1492,120 @@ def test_cv_detector_matching_stage_on_card(cuda, tmp_path, detector):
     for s in range(2):
         a, b = by[image_name(2 * s)], by[image_name(2 * s + 1)]
         assert len(a.match_list.get(b.name, ())) >= 50
+
+
+# the video and motion tools (they import cv2, so after the card path's
+# tests above): the same code on the card and on the CPU
+def test_video_fits_and_correlation_card_match_cpu(cuda, rng):
+    """The batched similarity fits of estimate_motion and the FFT
+    cross-correlation of sync_clocks: float32 on both, sums in another
+    order."""
+    from imageanalysis_tpu_torch.video import correlate, frame_motion
+
+    pa = rng.uniform(0, 1920, (64, 400, 2)).astype(np.float32)
+    th = rng.normal(0, 0.01, 64)
+    R = np.stack([np.cos(th), -np.sin(th), np.sin(th), np.cos(th)], -1) \
+        .reshape(64, 1, 2, 2).astype(np.float32)
+    pb = (np.einsum("bnij,bnj->bni", np.broadcast_to(R, (64, 400, 2, 2)),
+                    pa) + rng.normal(0, 3, (64, 1, 2))).astype(np.float32)
+    w = (rng.uniform(size=(64, 400)) < 0.8).astype(np.float32)
+    got = frame_motion.fit_pairs(pa, pb, w, cuda)
+    want = frame_motion.fit_pairs(pa, pb, w, "cpu")
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+    np.testing.assert_allclose(got[1:], want[1:], atol=1e-2)
+    np.testing.assert_allclose(got[0], th, atol=1e-4)
+    a, b = rng.normal(size=3000), rng.normal(size=600)
+    yc = correlate.cross_correlate_full(a, b, device=cuda)
+    yh = correlate.cross_correlate_full(a, b, device="cpu")
+    assert np.abs(yc - yh).max() <= 1e-4 * np.abs(yh).max()
+
+
+def test_dmd_and_lens_gradient_card_match_cpu(cuda, rng):
+    """exact_dmd's SVD (singular values; vectors up to sign through the
+    eigenvalues) and the lens loss and its autograd gradient."""
+    from imageanalysis_tpu_torch.motion import lens_distortion, segment
+
+    # a static mode and a conjugate pair (|λ| = 1, 0.95) in 20,000 pixels
+    lam = np.array([1.0, 0.95 * np.exp(0.4j), 0.95 * np.exp(-0.4j)])
+    phic = rng.normal(size=20000) + 1j * rng.normal(size=20000)
+    phi = np.column_stack([rng.normal(size=20000), phic, np.conj(phic)])
+    X = np.real(phi @ (lam[:, None] ** np.arange(40)[None, :])) \
+        .astype(np.float32) + rng.normal(0, 1e-3, (20000, 40)) \
+        .astype(np.float32)
+    s = [torch.linalg.svd(torch.as_tensor(X, device=d),
+                          full_matrices=False)[1].cpu().numpy()
+         for d in (cuda, "cpu")]
+    np.testing.assert_allclose(s[0], s[1], atol=1e-4 * s[1][0])
+    ev = [np.sort_complex(segment.exact_dmd(X[:, :-1], X[:, 1:], rank=3,
+                                            device=d)[1])
+          for d in (cuda, "cpu")]
+    np.testing.assert_allclose(ev[0], ev[1], atol=1e-4)
+    np.testing.assert_allclose(ev[1], np.sort_complex(lam), atol=1e-3)
+    K = np.array([[1500.0, 0, 960], [0, 1500.0, 540], [0, 0, 1]],
+                 np.float32)
+    tracks = [(rng.uniform(0, 1900, (300, 2)).astype(np.float32),) * 2
+              for _ in range(8)]
+    tracks = [(a, a + rng.normal(0, 1, 2).astype(np.float32))
+              for a, _ in tracks]
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        p = torch.tensor([-0.1, 0.02], device=d, requires_grad=True)
+        val = lens_distortion.pair_loss(tracks, K, d)(p)
+        val.backward()
+        out.append((float(val.detach()), p.grad.cpu().numpy()))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4 * abs(out[1][0])
+    np.testing.assert_allclose(out[0][1], out[1][1],
+                               atol=1e-3 * np.abs(out[1][1]).max())
+
+
+def test_sparse_lk_card_matches_cpu(cuda, rng):
+    """SparseLK's homography RANSAC draws alike on both devices (PairDraws
+    keyed by the frame counter): the same H within float32 sums, the
+    inlier count within 1% (points at the threshold may fall either
+    way)."""
+    import cv2
+
+    from imageanalysis_tpu_torch.motion import flow
+
+    base = cv2.GaussianBlur(rng.uniform(0, 255, (540, 960))
+                            .astype(np.float32), (0, 0), 2)
+    base = cv2.normalize(base, None, 0, 255, cv2.NORM_MINMAX) \
+        .astype(np.uint8)
+    H_true = np.array([[1.0, 0.01, 6.0], [-0.01, 1.0, -4.0], [0, 0, 1.0]])
+    warped = cv2.warpPerspective(base, H_true, (960, 540))
+    out = []
+    for d in (cuda, "cpu"):
+        tracker = flow.SparseLK(device=d)
+        tracker.update(base)
+        out.append(tracker.update(warped))
+    (Hc, nc), (Hh, nh) = out
+    assert nh > 100 and abs(nc - nh) <= max(2, 0.01 * nh)
+    np.testing.assert_allclose(Hc, Hh, atol=1e-3)
+    np.testing.assert_allclose(Hc[:2, 2], H_true[:2, 2], atol=0.5)
+
+
+@pytest.mark.parametrize("tool", ["overlay_video", "stabilize_video"])
+def test_video_writer_that_does_not_open_raises_on_card(cuda, tmp_path,
+                                                        tool):
+    """The deliberate divergence on the card's OpenCV: a writer that cv2
+    cannot open raises (the reference writes nothing, silently)."""
+    import cv2
+
+    from imageanalysis_tpu_torch.testing import video as synth
+    from imageanalysis_tpu_torch.video import camera, hud, stabilize
+
+    path = str(tmp_path / "in.mp4")
+    synth.write_flight_movie(path, seed=1, size=(320, 240), n_frames=12)
+    assert cv2.VideoCapture(path).isOpened()
+    out = str(tmp_path / "no_such_dir" / "out.mp4")
+    with pytest.raises(OSError, match="VideoWriter"):
+        if tool == "overlay_video":
+            cam = camera.VirtualCamera({"K": [200.0, 0, 160, 0, 200.0, 120,
+                                              0, 0, 1]})
+            hud.overlay_video(path, out, cam,
+                              lambda t: dict(ned=[0, 0, -100.0],
+                                             quat=[1.0, 0, 0, 0],
+                                             ypr_deg=(0, 0, 0)),
+                              max_frames=2)
+        else:
+            stabilize.stabilize_video(path, out, device=cuda)

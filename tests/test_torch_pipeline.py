@@ -29,6 +29,7 @@ from imageanalysis_tpu.io.project import ProjectMgr as JProject
 from imageanalysis_tpu.match import cleanup as jcleanup
 from imageanalysis_tpu.match import groups as jgroups
 from imageanalysis_tpu_torch.apps import process as tprocess
+from imageanalysis_tpu_torch.apps import video as tvideo
 from imageanalysis_tpu_torch.ba import bundle as tbundle
 from imageanalysis_tpu_torch.ba import setup as tsetup
 from imageanalysis_tpu_torch.core.camera import project_ned_quat
@@ -38,9 +39,16 @@ from imageanalysis_tpu_torch.io.project import ProjectMgr as TProject
 from imageanalysis_tpu_torch.match import cleanup as tcleanup
 from imageanalysis_tpu_torch.match import groups as tgroups
 from imageanalysis_tpu_torch.match import matcher, smart, store
+from imageanalysis_tpu_torch.motion import flow as tflow
+from imageanalysis_tpu_torch.motion import lens_distortion as tlens
+from imageanalysis_tpu_torch.motion import segment as tsegment
+from imageanalysis_tpu_torch.motion import streaming_dmd as tsdmd
 from imageanalysis_tpu_torch.render import build_map as tbuild_map
 from imageanalysis_tpu_torch.surface import srtm as tsrtm
 from imageanalysis_tpu_torch.testing import synthetic
+from imageanalysis_tpu_torch.video import correlate as tcorrelate
+from imageanalysis_tpu_torch.video import frame_motion as tframe_motion
+from imageanalysis_tpu_torch.video import stabilize as tstabilize
 from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (320, 240)
@@ -182,9 +190,21 @@ _ENTRY_POINTS = [
     tdetect.detect_project_features, tsrtm.Terrain.__init__,
     tsrtm.project_terrain, tbuild_map.make_textures, tbuild_map.build,
     tprocess.run, tprocess.main]
+# the video and motion tools', by module (apps.video's run and main would
+# share process's names)
+_TOOL_ENTRY_POINTS = [
+    tframe_motion.estimate_motion, tcorrelate.cross_correlate_full,
+    tcorrelate.sync_clocks, tstabilize.stabilize_video,
+    tflow.SparseLK.__init__, tsegment.exact_dmd, tsegment.background_model,
+    tsegment.segment_video, tsdmd.StreamingDMD.__init__,
+    tsdmd.StreamingDMD.from_arrays, tlens.estimate_k1_k2,
+    tlens.estimate_from_video, tvideo.run, tvideo.main]
 
 
-@pytest.mark.parametrize("fn", _ENTRY_POINTS,
-                         ids=[f.__qualname__ for f in _ENTRY_POINTS])
+@pytest.mark.parametrize(
+    "fn", _ENTRY_POINTS + _TOOL_ENTRY_POINTS,
+    ids=[f.__qualname__ for f in _ENTRY_POINTS]
+    + [f"{f.__module__.split('.', 1)[1]}.{f.__qualname__}"
+       for f in _TOOL_ENTRY_POINTS])
 def test_entry_point_defaults_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
