@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profile    # + torch.profiler reruns of phases 7
                                        #   (one detect batch), 8 and 13
 
+Phase 21 alone: a script that imports chip_smoke and calls
+``device_info()``, ``build()`` and ``run_tools(root, smi)``.
+
 Phases, one printed line (or a few) each; any failure raises and exits
 non-zero:
 
@@ -202,6 +205,41 @@ non-zero:
     walls, the host tracking's ms a frame beside the card's fit of all
     pairs, the SVD's time, with the card's name and power limit. The
     phase launches no hand-written kernel.
+21. the store's modes and the tools that come after a run (after phase
+    20: it imports cv2), on phase 16's mission written with EXIF and XMP
+    as in phase 17a, after process.main with --histogram: (a) its
+    workspace through BatchMatcher's store path on phases 7-8's work
+    list in each store mode (traditional: int8, uint8 (K1 bf16), float32
+    with bf16 (K1 bf16) and without (K1 f32); smart: int8 and uint8,
+    gated K1): every mode's match lists equal int8's pair by pair on the
+    detector's integer descriptors, each mode's K1 launched, each mode's
+    walls; then the same descriptors plus seeded uniform noise in
+    [-0.5, 0.5) in a float32 store: K1 f32 and bf16 on one store batch
+    against knn_packed_plain (indices equal modulo ties, values within
+    2^-20 of the norms in f32 and TC_REL_TOL in bf16), and the store path
+    on the card against the same code on the CPU on 48 pairs (>= 99% of
+    the matches equal, the share printed); (b) apps/inspect.py (features,
+    pair, groups, matches; review --keys in both modes on a copy: the
+    dropped items' .match entries emptied, the rest untouched),
+    apps/utils.py (histogram rebuilds the run's tables; import-annotations
+    of 8 planted ground points, then preview-crops: each point inside its
+    crop; est-cam-transform's rows finite; capture-dates the EXIF times
+    written; wx-report the mean of the first and last frames' GPS within
+    1e-6 deg and no weather lookup; trim-far lists every frame and deletes
+    nothing; vignette, zip, new-camera (K within 1% of the DB's);
+    calibrate on 8 seeded chessboard views at 2176x1440, fx within 1%;
+    plot-matches), apps/zooniverse.py (chop at 512/64: 20 tiles a frame;
+    paste of marks at the planted points' pixels: each within 0.5 m of
+    its point), apps/explorer.py (select_top at the centre covers it and
+    coverage.images_covering_point includes it; _warp_full on the card
+    against the same call on the CPU through the card's texture, <= 0.1%
+    of pixels differing, the extent equal; get_elevation within 1 m of 0;
+    render_to draws >= 63 models into a PNG > 20 kB; the annotations'
+    round trip and the KML hull of the cameras). Without matplotlib on
+    the machine it prints so and skips render_to and plot-matches. One
+    line a part: walls, the card's ms for paste's rays, preview-crops'
+    projection and _warp_full beside its host share, with the card's name
+    and power limit.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -735,14 +773,17 @@ def split_planes(gen, pairs, n, gate, out):
         del got, want
 
 
-def near_packed(name, got, want, x, y, tol):
+def near_packed(name, got, want, x, y, tol, norms=None):
     """Packed keys (rows (P, n, 2) or columns (P, m)) of K1 against its
     plain version on rows x (the keys' side) and candidates y: decoded
     values within tol plus one step of a key's 10 mantissa bits, indices
     different only where their exact d2 tie within twice that, gated-out
-    keys equal. Raises otherwise; returns (the largest value difference,
-    one step of the plain version's key where it occurs, the number of
-    indices that differ)."""
+    keys equal. norms (nx (P, n), ny (P, m)), the squared norms the
+    kernel was given, make the exact d2 nx + ny − 2 x·y (the bf16 mode's
+    norms of the unrounded rows beside the rounded x, y); else |x − y|².
+    Raises otherwise; returns (the largest value difference, one step of
+    the plain version's key where it occurs, the number of indices that
+    differ)."""
     torch.cuda.synchronize()
     gv, gi = knn._decode_packed(got, got)[:2]
     wv, wi = knn._decode_packed(want, want)[:2]
@@ -758,7 +799,12 @@ def near_packed(name, got, want, x, y, tol):
         xi = x[bad[0], bad[1]].double()
 
         def d2(j):
-            return ((xi - y[bad[0], j[bad].long()].double()) ** 2).sum(-1)
+            yj = y[bad[0], j[bad].long()].double()
+            if norms is None:
+                return ((xi - yj) ** 2).sum(-1)
+            return (norms[0][bad[0], bad[1]].double()
+                    + norms[1][bad[0], j[bad].long()].double()
+                    - 2.0 * (xi * yj).sum(-1))
 
         if bool(((d2(gi) - d2(wi)).abs() > 2 * lim[bad]).any()):
             raise AssertionError(f"{name}: indices differ beyond ties")
@@ -3720,6 +3766,558 @@ def run_video(root, smi, dev="cuda", size=VIDEO_SIZE, n_frames=VIDEO_FRAMES,
     return walls
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the store's modes and the tools that come after a run
+# ---------------------------------------------------------------------------
+
+# (dtype, bf16) of each store mode; the matcher runs int8 and uint8 in bf16
+STORE_MODES = (("int8", True), ("uint8", True), ("float32", True),
+               ("float32", False))
+STORE_CPU_PAIRS = 48        # work-list pairs of the card-vs-CPU store match
+TOOL_POINTS = 8             # planted ground points: annotations and marks
+CAL_VIEWS, CAL_FX = 8, 2000.0   # chessboard views and their planted fx
+
+
+def _mode_name(dtype, bf16, gated=False):
+    name = dtype if bf16 or dtype != "float32" else "float32_f32"
+    return name + ("_smart" if gated else "")
+
+
+def _same_lists(a, b):
+    return a.keys() == b.keys() and all(np.array_equal(a[p], b[p])
+                                        for p in a)
+
+
+def run_store_modes(proj, m, smi, dev="cuda"):
+    """Phase 21 (a): BatchMatcher's store path over a workspace of the
+    mission in each store mode (traditional: int8, uint8, float32 with
+    bf16 on and off; smart: int8 and uint8), on phases 7-8's work list;
+    every mode's match lists equal int8's on the detector's integer
+    descriptors, and the mode's K1 launched. Then non-integer rows: the
+    descriptors plus seeded uniform noise in [-0.5, 0.5) in a float32
+    store: K1 f32 and bf16 on one store batch against knn_packed_plain,
+    and the store path on the card against the same code on the CPU.
+    Returns {mode: launches}."""
+    W = m.frames[0].shape[1]
+    thresh = float(W) ** 0.25
+    pairs = [(i, j) for _, i, j in worklist.build_work_list(
+        m.ned, use_distance=True)]
+    lists, launches, walls = {}, {}, {}
+    runs = [(d, b, False) for d, b in STORE_MODES] + [
+        ("int8", True, True), ("uint8", True, True)]
+    for dtype, bf16, gated in runs:
+        name = _mode_name(dtype, bf16, gated)
+        cfg = matcher.MatchConfig(
+            strategy="smart" if gated else "traditional", bf16=bf16)
+        state = smart.SmartState(proj.analysis_dir) if gated else None
+        bm = matcher.BatchMatcher(proj, cfg, use_store=False,
+                                  smart_state=state, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        bm.store = DescriptorStore.from_project(proj, device=dev,
+                                                dtype=dtype)
+        _sync(dev)
+        store_s = time.perf_counter() - t0
+        for im in proj.image_list:
+            im.match_list = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        bm.match_pairs(pairs)
+        _sync(dev)
+        walls[name] = {"store_s": store_s,
+                       "match_s": time.perf_counter() - t0}
+        launches[name] = read_launches()
+        lists[name] = project_matches(proj, pairs)
+        del bm
+    kernel = {"int8": "knn_packed_i8", "uint8": "knn_packed_bf16",
+              "float32": "knn_packed_bf16", "float32_f32": "knn_packed_f32",
+              "int8_smart": "knn_packed_gated",
+              "uint8_smart": "knn_packed_gated"}
+    n_kept = sum(bool(len(r)) for r in lists["int8"].values())
+    checks = {
+        "(a) every mode's lists equal int8's": all(
+            _same_lists(lists[n], lists["int8"])
+            for n in ("uint8", "float32", "float32_f32")),
+        "(a) smart uint8's lists equal smart int8's": _same_lists(
+            lists["uint8_smart"], lists["int8_smart"]),
+        "(a) a pair kept an image": n_kept >= len(m.ned) - 1,
+    }
+    equal = checks["(a) every mode's lists equal int8's"]
+    if torch.device(dev).type == "cuda":
+        checks["(a) each mode's K1 launched"] = all(
+            launches[n][k] > 0 for n, k in kernel.items())
+    log(f"[tools-21a] store path over {len(m.ned)} frames, {len(pairs)} "
+        f"pairs ({n_kept} kept in int8): walls s "
+        + json.dumps({n: {k: round(v, 3) for k, v in w.items()}
+                      for n, w in walls.items()})
+        + "; launches " + json.dumps(
+            {n: {k: v for k, v in launches[n].items() if v}
+             for n in launches})
+        + f"; lists equal int8's: {equal}; {smi}")
+
+    # non-integer rows in a float32 store
+    store = DescriptorStore.from_project(proj, device=dev, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = (torch.arange(store.npad, device=dev)[None, :, None]
+            < store.counts[:, None, None])
+    store.desc += (torch.rand(store.desc.shape, generator=gen, device=dev)
+                   - 0.5) * rows
+    if torch.device(dev).type == "cuda":
+        B = min(STORE_SHAPE[0], len(pairs))
+        ia = torch.tensor([p[0] for p in pairs[:B]], device=dev)
+        ib = torch.tensor([p[1] for p in pairs[:B]], device=dev)
+        n = int(store.counts.min()) // 64 * 64
+        a = store.desc[ia, :n].contiguous()
+        b = store.desc[ib, :n].contiguous()
+        na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+        for dt, rel in ((torch.float32, 2.0 ** -20),
+                        (torch.bfloat16, TC_REL_TOL)):
+            mode = str(dt)[6:]
+            xa, xb = a.to(dt).contiguous(), b.to(dt).contiguous()
+            got = knn.knn_packed_raw(xa, xb, na2, nb2)
+            want = knn.knn_packed_plain(xa, xb, na2, nb2)
+            tol = rel * float(na2.max() + nb2.max())
+            er, _, dr = near_packed(f"K1 {mode} non-integer rows", got[0],
+                                    want[0], xa.float(), xb.float(), tol,
+                                    norms=(na2, nb2))
+            ec, _, dc = near_packed(f"K1 {mode} non-integer cols", got[1],
+                                    want[1], xb.float(), xa.float(), tol,
+                                    norms=(nb2, na2))
+            log(f"[tools-21a] K1 {mode} on a float32 store batch of {B} "
+                f"pairs x {n} non-integer rows against knn_packed_plain: "
+                f"values within {max(er, ec):.4g} (tolerance {tol:.4g} "
+                f"plus a key's 10-bit step); {dr + dc} indices differ, all "
+                "on ties")
+            del xa, xb, got, want
+        del a, b
+    sub = pairs[:STORE_CPU_PAIRS]
+    t0 = time.perf_counter()
+    got = matcher.match_pairs_store(store, sub, matcher.MatchConfig(),
+                                    thresh)
+    card_s = time.perf_counter() - t0
+    host = DescriptorStore(store.desc.cpu(), store.uv.cpu(),
+                           store.counts.cpu())
+    t0 = time.perf_counter()
+    want = matcher.match_pairs_store(host, sub, matcher.MatchConfig(),
+                                     thresh)
+    cpu_s = time.perf_counter() - t0
+    same = union = 0
+    for p in sub:
+        g = {tuple(r) for r in got[p].tolist()}
+        w = {tuple(r) for r in want[p].tolist()}
+        same += len(g & w)
+        union += len(g | w)
+    share = same / max(union, 1)
+    checks["(a) non-integer store path: >= 99% of matches equal the CPU's"] \
+        = share >= 0.99 and union > 0
+    log(f"[tools-21a] float32 store of non-integer rows, {len(sub)} pairs "
+        f"through match_pairs_store: {same} of {union} matches equal on the "
+        f"card and the CPU ({100 * share:.3f}%); card {card_s:.3f} s, CPU "
+        f"{cpu_s:.3f} s; {smi}")
+    del store, host
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 21 (a) failed: {failed}")
+    return launches
+
+
+def calibration_views(root, size, fx, n=CAL_VIEWS, seed=21):
+    """n chessboard views (9 x 6 inner corners of 25 mm squares, 60 px
+    each on the board image) through a camera of focal length fx at the
+    centre of a size frame, as PNGs in root. tests/test_utils_inspect.py's
+    views, scaled to the frame."""
+    import cv2
+
+    W, H = size
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])
+    board = np.kron((np.add.outer(np.arange(7), np.arange(10)) % 2 == 0)
+                    .astype(np.uint8) * 255, np.ones((60, 60), np.uint8))
+    gen = np.random.default_rng(seed)
+    sq = 25.0
+    z0 = fx * 0.9       # the board spans about a fifth of the frame
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        R, _ = cv2.Rodrigues(gen.normal(0, 0.25, 3))
+        t = np.array([gen.normal(-20, 10), gen.normal(-20, 10),
+                      gen.uniform(z0, 1.5 * z0)])
+        Hb = K @ np.column_stack([R[:, 0] * (sq / 60), R[:, 1] * (sq / 60),
+                                  R @ np.array([-120 * sq / 60,
+                                                -90 * sq / 60, 0]) + t])
+        cv2.imwrite(os.path.join(root, f"cal_{i:02d}.png"),
+                    cv2.warpPerspective(board, Hb / Hb[2, 2], (W, H),
+                                        borderValue=128))
+    return root
+
+
+def _match_files(proj_dir):
+    """{image name: its .match dict} from a workspace's files."""
+    import pickle
+
+    meta = os.path.join(proj_dir, "ImageAnalysis", "meta")
+    out = {}
+    for f in sorted(os.listdir(meta)):
+        if f.endswith(".match"):
+            with open(os.path.join(meta, f), "rb") as fh:
+                out[f[:-6]] = {k: np.asarray(v).reshape(-1, 2).tolist()
+                               for k, v in pickle.load(fh).items()}
+    return out
+
+
+def _review_left(before, after, dropped):
+    """The review's decisions held: the dropped pairs' entries empty in
+    both directions, every other entry as it was."""
+    gone = {(a, b) for a, b in dropped} | {(b, a) for a, b in dropped}
+    for name, ml in before.items():
+        for other, rows in ml.items():
+            want = [] if (name, other) in gone else rows
+            if after[name].get(other) != want:
+                return False
+    return True
+
+
+def _tiles_per_frame(W, H, tile, overlap):
+    """The tiles zooniverse's chop cuts from a W x H frame."""
+    step = tile - overlap
+    n_y = len({min(y, max(H - tile, 0)) for y in range(0, max(H - overlap,
+                                                                 1), step)})
+    n_x = len({min(x, max(W - tile, 0)) for x in range(0, max(W - overlap,
+                                                                 1), step)})
+    return n_x * n_y
+
+
+def run_tools(root, smi, dev="cuda", size=FRAME, strips=STRIPS,
+              per_strip=PER_STRIP, max_features=MAX_FEATURES):
+    """Phase 21: the store's modes (run_store_modes) and the tools that
+    come after a run (apps/inspect.py, utils.py, zooniverse.py,
+    explorer.py, render/annotations.py, surface/coverage.py) on the
+    mission of phases 16-17 written with EXIF and XMP, after process.main
+    with --histogram. Returns phase 21 (a)'s launches by store mode."""
+    t_phase = time.perf_counter()
+    W, H = size
+    m = make_mission(strips=strips, per_strip=per_strip, size=size, seed=0,
+                     device=dev)
+    proj_dir = os.path.join(root, "tools")
+    db = os.path.join(root, "cameras")
+    write_mission(proj_dir, m, db, exif=True)
+    argv = [proj_dir, "--camera-db", db, "--scale", "1.0", "--ground", "0.0",
+            "--batch-size", "32", "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", str(max_features), "--histogram"]
+    t0 = time.perf_counter()
+    rc = process.main(argv, device=dev)
+    wall = time.perf_counter() - t0
+    proj = ProjectMgr(proj_dir)
+    proj.load_images_info()
+    if rc != 0 or not proj.state.check("STEP5"):
+        raise AssertionError(f"phase 21: process.main returned {rc}")
+    log(f"[tools-21] {len(proj.image_list)} JPEGs {W}x{H} with EXIF, "
+        f"process.main --histogram {wall:.3f} s")
+    p21 = run_store_modes(proj, m, smi, dev)
+    run_tool_checks(root, proj_dir, m, smi, dev)
+    log(f"[tools-21] phase {time.perf_counter() - t_phase:.3f} s; {smi}")
+    return p21
+
+
+def run_tool_checks(root, proj_dir, m, smi, dev="cuda"):
+    """Phase 21 (b): the tools on a processed workspace of the mission m
+    in proj_dir (its frames tagged with EXIF); scratch files under root.
+    The card's name and power limit smi go on each line."""
+    import datetime
+    import importlib.util
+
+    from imageanalysis_tpu_torch.apps import explorer as explorer_app
+    from imageanalysis_tpu_torch.apps import inspect as inspect_app
+    from imageanalysis_tpu_torch.apps import utils as utils_app
+    from imageanalysis_tpu_torch.apps import zooniverse as zoo_app
+    from imageanalysis_tpu_torch.render.annotations import Annotations
+    from imageanalysis_tpu_torch.surface import coverage
+    from imageanalysis_tpu_torch.testing.synthetic import EXIF_T0
+
+    walls, checks, seen = {}, {}, {}
+    proj = ProjectMgr(proj_dir)
+    proj.load_images_info()
+    n_img = len(proj.image_list)
+    H, W = m.frames[0].shape[:2]
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    log("[tools-21b] matplotlib: " + (
+        "present" if mpl else "absent: render_to and plot-matches not run "
+        "(the review GUI is never run here)"))
+
+    def call(name, main, args):
+        out = io.StringIO()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(args, device=dev)
+        _sync(dev)
+        walls[name] = time.perf_counter() - t0
+        checks[f"{name} rc 0"] = rc == 0
+        return out.getvalue()
+
+    # inspect
+    for name, args in (("features", ["IMG_0000"]),
+                       ("pair", ["IMG_0000", "IMG_0001"])):
+        png = os.path.join(root, f"{name}.png")
+        call(f"inspect {name}", inspect_app.main,
+             [name, proj_dir] + args + ["--out", png])
+        checks[f"inspect {name} wrote its PNG"] = (
+            os.path.isfile(png) and os.path.getsize(png) > 1000)
+    call("inspect groups", inspect_app.main, ["groups", proj_dir])
+    out = call("inspect matches", inspect_app.main, ["matches", proj_dir])
+    checks["inspect matches counts chains"] = "chains" in out
+    review = os.path.join(root, "review")
+    shutil.copytree(proj_dir, review)
+    for by_image, keys in ((False, "dd"), (True, "d")):
+        before = _match_files(review)
+        rp = ProjectMgr(review)
+        rp.load_images_info()
+        items = inspect_app.ReviewSession(
+            rp, "images" if by_image else "pairs", device=dev).items
+        if by_image:
+            im = items[0][0]
+            dropped = [(im.name, o) for o in before[im.name]]
+        else:
+            dropped = [(a.name, b.name) for a, b in items[:len(keys)]]
+        name = "inspect review --by-image" if by_image else "inspect review"
+        call(name, inspect_app.main, ["review", review, "--keys", keys]
+             + (["--by-image"] if by_image else []))
+        checks[f"{name}: dropped emptied, the rest untouched"] = (
+            len(before) == n_img and bool(dropped)
+            and _review_left(before, _match_files(review), dropped))
+
+    # utils
+    from imageanalysis_tpu_torch.render import histogram as hist_mod
+    hist0, tmpl0 = hist_mod.load(proj.analysis_dir)
+    call("utils histogram", utils_app.main, ["histogram", proj_dir])
+    hist1, tmpl1 = hist_mod.load(proj.analysis_dir)
+    checks["utils histogram rebuilds the run's tables"] = (
+        hist0 is not None and sorted(hist1) == sorted(hist0)
+        and all(np.array_equal(hist1[k][c], hist0[k][c])
+                and np.array_equal(tmpl1[k][c], tmpl0[k][c])
+                for k in hist0 for c in range(3)))
+    ref = proj.ned_reference_lla()
+    cams = camera_positions(proj)
+    names = [im.name for im in proj.image_list]
+    picks = np.linspace(0, n_img - 1, TOOL_POINTS).round().astype(int)
+    points = np.array([cams[names[i]] + [3.0, -2.0, 0.0] for i in picks])
+    points[:, 2] = 0.0
+    lla = geodesy.ned2lla(points, *ref)
+    csv_path = os.path.join(root, "points.csv")
+    with open(csv_path, "w") as f:
+        f.write("OBJECTID,Latitude,Longitude,Altitude\n" + "".join(
+            f"{k},{la:.10f},{lo:.10f},{al:.4f}\n"
+            for k, (la, lo, al) in enumerate(lla)))
+    call("utils import-annotations", utils_app.main,
+         ["import-annotations", proj_dir, csv_path])
+    out = call("utils preview-crops", utils_app.main,
+               ["preview-crops", proj_dir])
+    size_px = 256
+    at = re.findall(r"from (\S+) at \((\d+),(\d+)\)", out)
+    poses = {im.name: (np.asarray(im.get_camera_pose(opt=im.has_opt_pose())
+                                  [0]),
+                       np.asarray(im.get_camera_pose(
+                           opt=im.has_opt_pose())[2]))
+             for im in proj.image_list}
+    model = proj.camera_model(optimized=True)
+    uv = utils_app.project_markers(points, [poses[a[0]] for a in at], model,
+                                   dev) if len(at) == TOOL_POINTS else []
+    inside = [abs(u - int(cx)) <= size_px and abs(v - int(cy)) <= size_px
+              for (u, v), (_, cx, cy) in zip(uv, at)]
+    pdir = os.path.join(proj.analysis_dir, "annotations-preview")
+    jpgs = [f for f in os.listdir(pdir) if f.endswith(".jpg")]
+    checks["preview-crops: every point inside its crop, 8 JPEGs, "
+           "index.html"] = (len(inside) == TOOL_POINTS and all(inside)
+                            and len(jpgs) == TOOL_POINTS and os.path.isfile(
+                                os.path.join(pdir, "index.html")))
+    feats_t = [poses[a[0]] for a in at]
+    proj_ms = probes.time_ms(lambda: utils_app.project_markers(
+        points, feats_t, model, dev), dev, 10) if len(at) else float("nan")
+    out = call("utils est-cam-transform", utils_app.main,
+               ["est-cam-transform", proj_dir])
+    rows = re.findall(r"^IMG_\d+((?:\s+\S+){6})$", out, re.M)
+    vals = np.array([[float(x) for x in r.split()] for r in rows])
+    grps = groups.load(proj.analysis_dir)
+    seen["est-cam-transform rows, group 0"] = (len(rows), len(grps[0]))
+    checks["est-cam-transform: a finite row an image of group 0"] = (
+        len(rows) == len(grps[0]) >= 0.9 * n_img
+        and np.isfinite(vals).all())
+    out = call("utils capture-dates", utils_app.main,
+               ["capture-dates", proj_dir])
+    dates = re.findall(r"^(IMG_\d+)\.jpg (.+)$", out, re.M)
+    want = [(image_name(i), datetime.datetime.fromtimestamp(
+        EXIF_T0 + i).isoformat(" ")) for i in range(n_img)]
+    checks["capture-dates: the EXIF times written"] = dates == want
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = tempfile.mkdtemp(dir=root)  # no ~/.forecastio
+    try:
+        out = call("utils wx-report", utils_app.main, ["wx-report", proj_dir])
+    finally:
+        if home is None:
+            os.environ.pop("HOME")
+        else:
+            os.environ["HOME"] = home
+    loc = re.findall(r"Mission location: (\S+), (\S+)", out)
+    truth = geodesy.ned2lla(m.ned, *REF_LLA)
+    mid = 0.5 * (truth[0] + truth[-1])
+    checks["wx-report: mean GPS within 1e-6 deg, no weather lookup"] = (
+        len(loc) == 1 and abs(float(loc[0][0]) - mid[0]) <= 1e-6
+        and abs(float(loc[0][1]) - mid[1]) <= 1e-6
+        and "skipping weather lookup" in out)
+    listing = sorted(os.listdir(proj_dir))
+    out = call("utils trim-far", utils_app.main, ["trim-far", proj_dir])
+    checks["trim-far lists every image, deletes nothing"] = (
+        len(re.findall(r"^IMG_\d+\s+[\d.]+ m$", out, re.M)) == n_img
+        and sorted(os.listdir(proj_dir)) == listing)
+    call("utils vignette", utils_app.main,
+         ["vignette", proj_dir, "--max-images", "16"])
+    zip_path = os.path.join(root, "tools.zip")
+    call("utils zip", utils_app.main, ["zip", proj_dir, "--out", zip_path])
+    newdb = os.path.join(root, "newdb")
+    call("utils new-camera", utils_app.main,
+         ["new-camera", os.path.join(proj_dir, "IMG_0000.jpg"), "--db",
+          newdb])
+    cams_new = [json.load(open(os.path.join(newdb, f)))
+                for f in os.listdir(newdb)] if os.path.isdir(newdb) else []
+    checks["vignette, zip and new-camera wrote; K within 1% of the DB's"] = (
+        os.path.isfile(os.path.join(proj.analysis_dir, "vignette.png"))
+        and os.path.getsize(zip_path) > 0 and len(cams_new) == 1
+        and abs(cams_new[0]["K"][0] / float(m.K[0, 0]) - 1.0) <= 0.01)
+    cal = calibration_views(os.path.join(root, "cal"), (W, H), CAL_FX)
+    caldb = os.path.join(root, "caldb")
+    call("utils calibrate", utils_app.main,
+         ["calibrate", "--images", cal, "--pattern", "9x6", "--square-mm",
+          "25", "--db", caldb])
+    cal_cfg = [json.load(open(os.path.join(caldb, f)))
+               for f in os.listdir(caldb)] if os.path.isdir(caldb) else []
+    checks["calibrate: fx within 1%"] = (
+        len(cal_cfg) == 1 and abs(cal_cfg[0]["K"][0] / CAL_FX - 1.0) <= 0.01)
+    if mpl:
+        graph = os.path.join(root, "graph.png")
+        call("utils plot-matches", utils_app.main,
+             ["plot-matches", proj_dir, "--out", graph])
+        checks["plot-matches wrote its figure"] = (
+            os.path.getsize(graph) > 20_000)
+
+    # zooniverse
+    tiles_dir = os.path.join(root, "tiles")
+    call("zooniverse chop", zoo_app.main,
+         ["chop", proj_dir, tiles_dir, "--tile", "512", "--overlap", "64"])
+    with open(os.path.join(tiles_dir, "tiles.csv")) as f:
+        manifest = list(csv.DictReader(f))
+    per = {}
+    for r in manifest:
+        per.setdefault(r["image"], []).append(r)
+    n_tiles = _tiles_per_frame(W, H, 512, 64)     # 20 at 2176x1440
+    seen["chop tiles"] = (len(manifest), n_tiles)
+    checks[f"chop: {n_tiles} tiles a frame"] = (
+        len(manifest) == n_tiles * n_img
+        and all(len(v) == n_tiles for v in per.values()))
+    marks = os.path.join(root, "marks.csv")
+    with open(marks, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["tile", "u", "v", "comment"])
+        for k, ((name, _, _), (u, v)) in enumerate(zip(at, uv)):
+            # the tile of the image that holds the point farthest inside
+            best = max(per[name], key=lambda r: min(
+                u - int(r["x0"]), int(r["x0"]) + 512 - u,
+                v - int(r["y0"]), int(r["y0"]) + 512 - v))
+            w.writerow([best["tile"], u - int(best["x0"]),
+                        v - int(best["y0"]), f"point {k}"])
+    call("zooniverse paste", zoo_app.main,
+         ["paste", proj_dir, marks, os.path.join(tiles_dir, "tiles.csv")])
+    ann = Annotations(proj.analysis_dir, ref).load()
+    pasted = np.array([mk["ned"] for mk in ann.markers[-TOOL_POINTS:]])
+    paste_err = (np.abs(pasted - points).max()
+                 if len(ann.markers) == 2 * TOOL_POINTS else np.inf)
+    checks["paste: every marker within 0.5 m of its point"] = \
+        paste_err <= 0.5
+
+    def rays():
+        t = [torch.as_tensor(np.asarray(x, np.float32), device=dev)
+             for x in ([[float(u), float(v)] for u, v in uv],
+                       [poses[a[0]][0] for a in at],
+                       [poses[a[0]][1] for a in at])]
+        return zoo_app.cast_marks(*t, model.K.to(dev), model.dist.to(dev))
+    rays_ms = probes.time_ms(rays, dev, 10)
+
+    # explorer and coverage
+    t0 = time.perf_counter()
+    ex = explorer_app.Explorer(proj_dir, device=dev)
+    walls["explorer init"] = time.perf_counter() - t0
+    models = ex._model_names()
+    # the centre of the cameras that have a model, (n, e)
+    centre = np.mean([cams[n][:2] for n in models if n in cams], 0)
+    ce = (float(centre[1]), float(centre[0]))             # (e, n)
+    top = ex.select_top(models, ce)
+    rects = {n: coverage.image_coverage(ex._grid(n)[0]) for n in models}
+    covering = coverage.images_covering_point(rects, *ce)
+    seen["select_top"] = (top, ce, rects.get(top), len(covering))
+    checks["select_top covers the centre; coverage includes it"] = (
+        top is not None and top in covering
+        and rects[top][0] <= ce[0] <= rects[top][2]
+        and rects[top][1] <= ce[1] <= rects[top][3])
+    _sync(dev)
+    t0 = time.perf_counter()
+    rgba, extent = ex._warp_full(top)
+    _sync(dev)
+    walls["explorer _warp_full"] = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    ex._warp_full(top)
+    _sync(dev)
+    warp_warm = time.perf_counter() - t0
+    warp_dev = (probes.device_ms(lambda: ex._warp_full(top), reps=3)
+                if torch.device(dev).type == "cuda" else float("nan"))
+    host_ex = explorer_app.Explorer(proj_dir, device="cpu")
+    tex = ex.textures.load_full(top).cpu()
+    host_ex.textures.load_full = lambda name: tex
+    t0 = time.perf_counter()
+    rgba_cpu, extent_cpu = host_ex._warp_full(top)
+    warp_cpu = time.perf_counter() - t0
+    differ = float((rgba != rgba_cpu).any(-1).mean())
+    seen["_warp_full extent, covered"] = (extent, float(
+        (rgba[..., 3] > 0).mean()))
+    checks["_warp_full card vs CPU: <= 0.1% of pixels differ, same extent"] \
+        = extent == extent_cpu and differ <= 1e-3 \
+        and (rgba[..., 3] > 0).mean() > 0.3
+    elev = ex.get_elevation(*ce)
+    checks["get_elevation at the centre within 1 m of 0"] = abs(elev) <= 1.0
+    if mpl:
+        png = os.path.join(root, "explorer.png")
+        t0 = time.perf_counter()
+        drawn = ex.render_to(png)
+        walls["explorer render_to"] = time.perf_counter() - t0
+        seen["render_to drawn, bytes"] = (drawn, os.path.getsize(png))
+        checks["render_to draws >= 63 models into a PNG > 20 kB"] = (
+            drawn >= n_img - 1 and os.path.getsize(png) > 20_000)
+    n_mk = len(ex.annotations.markers)
+    ex.annotations.add_marker_ned([centre[0], centre[1], 0.0], "phase 21")
+    ex.annotations.save(np.array(list(cams.values())), mission_name="p21")
+    again = Annotations(proj.analysis_dir, ref).load()
+    kml = open(os.path.join(proj.analysis_dir, "annotations.kml")).read()
+    checks["annotation round trip, KML hull of the cameras"] = (
+        len(again.markers) == n_mk + 1
+        and np.allclose(again.markers[-1]["ned"],
+                        [centre[0], centre[1], 0.0], atol=1e-6)
+        and "<LineString>" in kml)
+
+    log(f"[tools-21b] inspect, utils, zooniverse and explorer walls s "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    log("[tools-21b] read back: " + json.dumps(seen, default=str))
+    log(f"[tools-21b] card ms: paste's batched rays of {len(uv)} marks "
+        f"{rays_ms:.3f}; preview-crops' projection of {len(uv)} points "
+        f"{proj_ms:.3f}; _warp_full of {top} at 1024^2: {1e3 * warp_warm:.1f} "
+        f"ms warm ({1e3 * walls['explorer _warp_full']:.1f} cold, the "
+        f"texture's load included), device time {warp_dev:.3f} ms "
+        f"(host share {100 * (1 - warp_dev / (1e3 * warp_warm)):.1f}%); "
+        f"the CPU's {1e3 * warp_cpu:.1f} ms; {100 * differ:.4f}% of pixels "
+        f"differ; paste within {paste_err:.4f} m; {smi}")
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[tools-21b] {len(checks) - len(failed)}/{len(checks)} checks "
+        "held")
+    if failed:
+        raise AssertionError(f"phase 21 (b) failed: {failed}")
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         return rank_child(json.loads(sys.argv[2]))
@@ -3764,6 +4362,8 @@ def main():
         p19 = run_parallel(root, smi, p14)
     with tempfile.TemporaryDirectory() as root:
         run_video(root, smi)
+    with tempfile.TemporaryDirectory() as root:
+        p21 = run_tools(root, smi)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
@@ -3807,23 +4407,29 @@ def main():
         """Phase 19's launches of a kernel, rank by rank of (b)."""
         return {"p19_launches": [r.get(key, 0) for r in p19]}
 
+    def at21(key):
+        """Phase 21 (a)'s launches of a kernel, by store mode."""
+        return {"p21_launches": {mode: n[key] for mode, n in p21.items()}}
+
     k1_src = "imageanalysis_tpu/ops/knn.py:105"
     kernels = [
         dict(entry("knn_packed_i8", "knn_packed.cu", k1_src,
                    slice_launches["knn_packed_i8"], k1["i8_store"]),
              **at256("knn_packed_i8_d256", "i8_store", "i8_bench"),
-             **at19("knn_packed_i8")),
+             **at19("knn_packed_i8"), **at21("knn_packed_i8")),
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
                 for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
-             **at19("knn_packed_gated")),
+             **at19("knn_packed_gated"), **at21("knn_packed_gated")),
         dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_bf16"], k1["bf16"]),
-             **at256("knn_packed_bf16_d256", "bf16_bench")),
+             **at256("knn_packed_bf16_d256", "bf16_bench"),
+             **at21("knn_packed_bf16")),
         dict(entry("knn_packed_f32", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_f32"], k1["f32"]),
-             **at256("knn_packed_f32_d256", "f32_store")),
+             **at256("knn_packed_f32_d256", "f32_store"),
+             **at21("knn_packed_f32")),
         dict(entry("knn_wide", "knn_wide.cu",
                    "imageanalysis_tpu/ops/knn.py:407",
                    wide_launches["knn_wide"], k3["bf16"]),

@@ -18,7 +18,9 @@ unpack refilters each pair by the 5-point essential RANSAC
 
 ``BatchMatcher`` has the reference's two data paths: per-chunk host
 assembly of f32 descriptors (missions under 64 images) and the resident
-int8 ``DescriptorStore`` with device-side gathers. ``find_matches`` is
+``DescriptorStore`` with device-side gathers (int8, uint8 or float32:
+match/store.py; the 2-NN runs in bf16 for the integer modes and for
+float32 unless ``MatchConfig.bf16`` is off, as the reference's rule). ``find_matches`` is
 Step 3a's matching stage over a project workspace. ``match_pairs_store``
 is the store path with the workspace lifted out. Across ranks
 (parallel/multihost.py) each rank matches its slice of the work list,
@@ -197,10 +199,12 @@ def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
                                 thresh=3.0, transform="homography",
                                 n_hyp=512, K=None, cam_a=None, cam_b=None,
                                 ground_z=None, use_pallas=None, bf16=True,
-                                gate_radius=0.0, gated=False):
+                                uint8_cast=False, gate_radius=0.0,
+                                gated=False):
     """The store match step, gathers included, over S sub-batches.
 
     idx_a/idx_b (S, B) image indices into the resident store arrays;
+    uint8_cast casts the gathered rows to bfloat16 (a uint8 store's);
     gated=True takes cam_a/cam_b (S, B, 7) and ground_z (S, B) with K for
     the smart gate. generator: a torch.Generator, or ransac.PairDraws
     without keys, which each sub-batch keys by its pairs (a · n + b for
@@ -221,8 +225,10 @@ def match_pair_batch_store_scan(store_desc, store_uv, store_counts, idx_a,
         gen = generator
         if isinstance(generator, ransac.PairDraws) and generator.keys is None:
             gen = generator.keyed(ia * store_desc.shape[0] + ib)
-        args = (store_desc.index_select(0, ia),
-                store_desc.index_select(0, ib),
+        da, db = store_desc.index_select(0, ia), store_desc.index_select(0, ib)
+        if uint8_cast:
+            da, db = da.bfloat16(), db.bfloat16()
+        args = (da, db,
                 store_uv.index_select(0, ia), store_uv.index_select(0, ib),
                 store_counts.index_select(0, ia),
                 store_counts.index_select(0, ib), gen)
@@ -275,8 +281,10 @@ class BatchMatcher:
     """Host orchestration: pack pair batches, run the device call, unpack.
 
     Two data paths: per-chunk host assembly (missions under 64 images) or
-    a resident DescriptorStore with device-side gathers. Everything runs
-    on ``device``. RANSAC's samples are keyed by the pair
+    a resident DescriptorStore with device-side gathers. The store it
+    builds is int8, as the reference's (matcher.py:344); a caller may set
+    ``store`` to a uint8 or float32 one (DescriptorStore.from_project's
+    dtype). Everything runs on ``device``. RANSAC's samples are keyed by the pair
     (ransac.PairDraws, seeded from config.seed), so a pair's matches do
     not depend on the batch or the rank that matches it (the reference
     draws per batch)."""
@@ -474,7 +482,9 @@ def _store_match(store, images, pairs, config, thresh, generator, K=None,
     results download while the next group computes (the device runs
     asynchronously; the download of group k waits only for group k).
     gate_arrays(chunk, n) → (cam_a, cam_b, ground_z) turns the gate on;
-    post_filter(i1, i2, rows, cols) refilters each pair on the host.
+    post_filter(i1, i2, rows, cols) refilters each pair on the host. The
+    2-NN runs in bf16 for an int8 or uint8 store and for a float32 one
+    unless config.bf16 is off (the reference's rule, matcher.py:545).
     Fills images[i].match_list; returns the number of matches kept."""
     B = max(config.batch_size, 256)
     S = max(int(config.store_scan), 1)
@@ -485,6 +495,7 @@ def _store_match(store, images, pairs, config, thresh, generator, K=None,
     cap = group * 512 if (config.compact_downloads
                           and npad < (1 << _COMPACT_BITS)) else 0
     dev = store.desc.device
+    bf16 = store.dtype in ("uint8", "int8") or config.bf16
     n_matched = 0
     pending = None
     for start in range(0, len(pairs), group):
@@ -505,7 +516,8 @@ def _store_match(store, images, pairs, config, thresh, generator, K=None,
             torch.from_numpy(idx[:, 1].reshape(S, B)), generator,
             ratio=config.ratio, thresh=thresh,
             transform=_device_transform(config.transform),
-            n_hyp=config.n_hyp, K=K, use_pallas=config.use_pallas, **gate)
+            n_hyp=config.n_hyp, K=K, use_pallas=config.use_pallas, bf16=bf16,
+            uint8_cast=store.dtype == "uint8", **gate)
         comp = (_compact_packed(packed.reshape(group, npad), len(chunk), cap)
                 if cap else None)
         if pending is not None:

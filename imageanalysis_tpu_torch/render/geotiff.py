@@ -71,54 +71,76 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def source_coords(M, y, x):
+    """The source pixel (sx, sy) that cv2.warpPerspective's inverse map M
+    samples for canvas rows y and columns x, in OpenCV's float32
+    arithmetic: per row M[k,1]·y + M[k,2], then fma(x, M[k,0], ·), the
+    source coordinate X / W. M (..., 3, 3) float32 whose leading dims
+    broadcast against y and x (one matrix, one a quad, one a pixel). A
+    pixel on the camera's horizon (W = 0) samples nothing: −4."""
+    def row_col(k):
+        return _fma(x, M[..., k, 0], M[..., k, 1] * y + M[..., k, 2])
+
+    w = row_col(2)
+    sx, sy = row_col(0) / w, row_col(1) / w
+    bad = ~(torch.isfinite(sx) & torch.isfinite(sy))
+    return sx.masked_fill(bad, -4.0), sy.masked_fill(bad, -4.0)
+
+
+def bilinear_taps(sx, sy, Hs, Ws):
+    """The bilinear weights (a, b) and, for each of the four taps (dx, dy)
+    in (0, 0), (1, 0), (0, 1), (1, 1), (flat index into the H·W source,
+    inside) of source coordinates sx, sy; outside taps read 0
+    (BORDER_CONSTANT)."""
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    a, b = sx - fx, sy - fy
+    x0 = fx.clamp(-2, Ws).long()
+    y0 = fy.clamp(-2, Hs).long()
+    taps = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xs, ys = x0 + dx, y0 + dy
+        inside = (xs >= 0) & (xs < Ws) & (ys >= 0) & (ys < Hs)
+        taps.append((torch.where(inside, ys * Ws + xs, 0), inside))
+    return a, b, taps
+
+
+def lerp2(a, b, p00, p01, p10, p11):
+    """OpenCV's float32 bilinear blend of four taps, lerps as fmas."""
+    v0 = _fma(a, p01 - p00, p00)
+    v1 = _fma(a, p11 - p10, p10)
+    return _fma(b, v1 - v0, v0)
+
+
+def sample(flat, a, b, taps):
+    """Bilinear samples (..., C) float32 of flat (H·W, C) float32 at the
+    taps of bilinear_taps."""
+    p = [flat[i.reshape(-1)].reshape(i.shape + (-1,)) * inside[..., None]
+         for i, inside in taps]
+    return lerp2(a[..., None], b[..., None], *p)
+
+
 def warp_frame(img, M, box):
     """cv2.warpPerspective(img, inv(M), INTER_LINEAR, BORDER_CONSTANT 0)
     on the canvas rows r0:r1 and columns c0:c1 (box), and the same warp
     of a float32 plane of ones: (warped (h, w, C) uint8, mask (h, w)
     float32). img (H, W, C) uint8; M (3, 3) maps canvas (col, row, 1) to
-    the source pixel. In float32 as OpenCV's vector kernel: per row
-    M[k,1]·y + M[k,2], then fma(x, M[k,0], ·) per column, the source
-    coordinate X / W, bilinear weights from its fraction, lerps as fmas,
-    the u8 result rounded to nearest. Runs on img's device."""
+    the source pixel. In float32 as OpenCV's vector kernel
+    (source_coords), bilinear weights from the coordinate's fraction,
+    lerps as fmas, the u8 result rounded to nearest. Runs on img's
+    device."""
     r0, r1, c0, c1 = box
     dev = img.device
     Hs, Ws = img.shape[:2]
     Mf = torch.tensor(np.asarray(M, np.float32), device=dev)
     y = torch.arange(r0, r1, dtype=torch.float32, device=dev)[:, None]
     x = torch.arange(c0, c1, dtype=torch.float32, device=dev)[None, :]
-    xb = x.expand(r1 - r0, -1)
-
-    def row_col(k):
-        return _fma(xb, Mf[k, 0], Mf[k, 1] * y + Mf[k, 2])
-
-    w = row_col(2)
-    sx, sy = row_col(0) / w, row_col(1) / w
-    # a pixel on the camera's horizon (W = 0) samples nothing
-    bad = ~(torch.isfinite(sx) & torch.isfinite(sy))
-    sx, sy = sx.masked_fill(bad, -4.0), sy.masked_fill(bad, -4.0)
-    fx, fy = torch.floor(sx), torch.floor(sy)
-    a, b = sx - fx, sy - fy
-    x0 = fx.clamp(-2, Ws).long()
-    y0 = fy.clamp(-2, Hs).long()
+    sx, sy = source_coords(Mf, y, x.expand(r1 - r0, -1))
+    a, b, taps = bilinear_taps(sx, sy, Hs, Ws)
     flat = img.reshape(Hs * Ws, -1).float()
     ones = torch.ones(Hs * Ws, 1, dtype=torch.float32, device=dev)
-
-    def at(src, dx, dy):
-        xs, ys = x0 + dx, y0 + dy
-        inside = (xs >= 0) & (xs < Ws) & (ys >= 0) & (ys < Hs)
-        i = torch.where(inside, ys * Ws + xs, 0).reshape(-1)
-        return src[i].reshape(xs.shape + (-1,)) * inside[..., None]
-
-    out = []
-    for src in (flat, ones):
-        p00, p01 = at(src, 0, 0), at(src, 1, 0)
-        p10, p11 = at(src, 0, 1), at(src, 1, 1)
-        aa, bb = a[..., None], b[..., None]
-        v0 = _fma(aa, p01 - p00, p00)
-        v1 = _fma(aa, p11 - p10, p10)
-        out.append(_fma(bb, v1 - v0, v0))
-    warped = torch.round(out[0]).clamp(0, 255).to(torch.uint8)
-    return warped, out[1][..., 0]
+    warped = torch.round(sample(flat, a, b, taps)).clamp(0, 255) \
+        .to(torch.uint8)
+    return warped, sample(ones, a, b, taps)[..., 0]
 
 
 def feather_mask(mask, box, canvas, feather):

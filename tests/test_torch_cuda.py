@@ -28,7 +28,11 @@ fundamental and essential RANSAC on the card hold the CPU's results
 within a stated tolerance. The point-local sharded BA on a mesh of the
 card's shards and over a process group of one rank on NCCL holds
 bundle.solve's result within tests/test_parallel.py's tolerances; two
-ranks sharing the card get gloo, and NCCL forced on them raises.
+ranks sharing the card get gloo, and NCCL forced on them raises. The
+store's four modes (int8, uint8, float32 with bf16 on and off) give the
+CPU's match lists on the card; the explorer's full-resolution warp, the
+zooniverse paste's batched rays and preview-crops' projection hold the
+CPU's results within stated tolerances.
 """
 
 import os
@@ -1609,3 +1613,127 @@ def test_video_writer_that_does_not_open_raises_on_card(cuda, tmp_path,
                               max_frames=2)
         else:
             stabilize.stabilize_video(path, out, device=cuda)
+
+
+_STORE_MODES = {"int8": ("int8", True, "knn_packed_i8"),
+                "uint8": ("uint8", True, "knn_packed_bf16"),
+                "float32-bf16": ("float32", True, "knn_packed_bf16"),
+                "float32-f32": ("float32", False, "knn_packed_f32")}
+
+
+@pytest.mark.parametrize("mode", list(_STORE_MODES))
+def test_store_modes_card_match_cpu(cuda, rng, mode):
+    """The store path (match_pairs_store, homography RANSAC with the pair's
+    draws) in each store mode on 4 images of ~900 planted integer rows
+    (counts below npad): the card's match lists equal the CPU's (the
+    kernels' plain versions there), and the mode's K1 launched."""
+    from imageanalysis_tpu_torch.match.store import DescriptorStore
+
+    dtype, bf16, kernel = _STORE_MODES[mode]
+    base = rng.integers(0, 120, (1000, 128))
+    pos = rng.uniform(50, 950, (1000, 2))
+    des, uv = [], []
+    for i in range(4):
+        keep = np.sort(rng.choice(1000, 900 - 20 * i, replace=False))
+        des.append(np.clip(base[keep] + rng.integers(-3, 4, (len(keep), 128)),
+                           0, 255).astype(np.float32))
+        uv.append((pos[keep] + [7.0 * i, -3.0 * i]).astype(np.float32))
+    pairs = [(0, 1), (1, 2), (2, 3), (0, 2), (1, 3)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        store = DescriptorStore.from_arrays(des, uv, device=dev, dtype=dtype)
+        assert store.dtype == dtype and store.npad == 1024
+        before = knn.LAUNCHES[kernel]
+        got[dev] = matcher.match_pairs_store(
+            store, pairs, matcher.MatchConfig(bf16=bf16, use_pallas=True),
+            thresh=4.0)
+        if dev == "cuda":
+            assert knn.LAUNCHES[kernel] > before
+    for p in pairs:
+        np.testing.assert_array_equal(got["cuda"][p], got["cpu"][p])
+        assert len(got["cuda"][p]) > 500
+
+
+def test_explorer_warp_full_card_matches_cpu(cuda, rng):
+    """The explorer's full-resolution warp of a texture over an 8 × 8 quad
+    mesh (the egg's grid, slightly warped): the card's raster equals the
+    CPU's on ≥ 99.9% of the pixels, with the same extent."""
+    import types
+
+    from imageanalysis_tpu_torch.apps.explorer import Explorer
+
+    import cv2
+
+    tex = cv2.GaussianBlur(rng.integers(0, 256, (480, 640, 3),
+                                        dtype=np.uint8), (0, 0), 2.0)
+    g = np.linspace(0.0, 1.0, 9)
+    u, v = np.meshgrid(g, g)
+    uvs = np.stack([u.ravel(), v.ravel()], 1)
+    verts = np.c_[40.0 * u.ravel() + 0.8 * np.sin(3 * v.ravel()),
+                  30.0 * v.ravel() + 0.5 * u.ravel() ** 2,
+                  np.zeros(81)]
+    quads = np.array([[r * 9 + c, r * 9 + c + 1, (r + 1) * 9 + c + 1,
+                       (r + 1) * 9 + c] for r in range(8) for c in range(8)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ex = Explorer.__new__(Explorer)
+        ex._grids = {"img": (verts, uvs, quads)}
+        t = torch.from_numpy(tex).to(dev)
+        ex.textures = types.SimpleNamespace(load_full=lambda name, t=t: t)
+        out[dev] = ex._warp_full("img", res=1024)
+    (card, ext_c), (host, ext_h) = out["cuda"], out["cpu"]
+    assert ext_c == ext_h and card.shape == host.shape == (1024, 1024, 4)
+    assert (card != host).any(-1).mean() <= 1e-3
+    assert (card[..., 3] > 0).mean() > 0.5
+
+
+def _poses(rng, n):
+    ned = np.c_[rng.uniform(-50, 50, (n, 2)), -rng.uniform(80, 100, n)]
+    # camera poses look down: pitch −90° (the mount's) with a little tilt
+    ypr = np.c_[rng.uniform(-np.pi, np.pi, n),
+                rng.normal(-np.pi / 2, 0.05, n), rng.normal(0, 0.05, n)]
+    from imageanalysis_tpu_torch.core.rotations import quat_from_ypr
+
+    quat = quat_from_ypr(*torch.from_numpy(ypr.T.astype(np.float32)))
+    return ned.astype(np.float32), quat.numpy()
+
+
+def test_paste_rays_card_match_cpu(cuda, rng):
+    """zooniverse's batched rays of 500 marks in 20 cameras: the card's
+    ground points within 1e-3 m of the CPU's."""
+    from imageanalysis_tpu_torch.apps.zooniverse import cast_marks
+
+    ned, quat = _poses(rng, 20)
+    cam = rng.integers(0, 20, 500)
+    uv = rng.uniform([0, 0], [2176, 1440], (500, 2)).astype(np.float32)
+    K = np.array([[1800.0, 0, 1088], [0, 1800.0, 720], [0, 0, 1]],
+                 np.float32)
+    dist = np.array([-0.05, 0.01, 0.0, 0.0, 0.0], np.float32)
+    hits = {}
+    for dev in ("cuda", "cpu"):
+        def t(x, dev=dev):
+            return torch.as_tensor(x, device=dev)
+        hits[dev] = cast_marks(t(uv), t(ned[cam]), t(quat[cam]), t(K),
+                               t(dist), 1.5).cpu().numpy()
+    assert np.abs(hits["cuda"] - hits["cpu"]).max() <= 1e-3
+    assert np.allclose(hits["cpu"][:, 2], -1.5)
+
+
+def test_preview_projection_card_matches_cpu(cuda, rng):
+    """preview-crops' projection of 300 ground points, each into its own
+    camera: the card's pixels within 1e-3 px of the CPU's."""
+    import types
+
+    from imageanalysis_tpu_torch.apps.utils import project_markers
+
+    ned, quat = _poses(rng, 300)
+    feats = np.c_[ned[:, :2] + rng.uniform(-20, 20, (300, 2)),
+                  np.zeros(300)]
+    model = types.SimpleNamespace(
+        K=torch.tensor([[1800.0, 0, 1088], [0, 1800.0, 720], [0, 0, 1]]),
+        dist=torch.tensor([-0.05, 0.01, 0.001, -0.001, 0.0]))
+    poses = list(zip(ned, quat))
+    uv = {dev: project_markers(feats, poses, model, dev)
+          for dev in ("cuda", "cpu")}
+    assert np.abs(uv["cuda"] - uv["cpu"]).max() <= 1e-3
+    assert np.isfinite(uv["cpu"]).all()

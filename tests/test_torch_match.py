@@ -34,6 +34,7 @@ from imageanalysis_tpu_torch.features import sift as tsift
 from imageanalysis_tpu_torch.io.project import ProjectMgr as TProject
 from imageanalysis_tpu_torch.match import matcher as tmatcher
 from imageanalysis_tpu_torch.match import smart as tsmart
+from imageanalysis_tpu_torch.match import store as store_mod
 from imageanalysis_tpu_torch.match.store import DescriptorStore
 from imageanalysis_tpu_torch.testing.synthetic import (make_mission,
                                                        write_workspace)
@@ -142,22 +143,132 @@ def test_find_matches_smart_matches_reference(workspace, tmp_path,
             assert abs(t["yaw_error"] - node["yaw_error"]) <= 0.5
 
 
-def test_store_path_smart_matches_reference(workspace, tmp_path):
-    """BatchMatcher's resident-store path, gated, with the ungated retry of
-    the pairs that came up empty."""
+_STORE_MODES = {"int8": ("int8", True), "uint8": ("uint8", True),
+                "float32-bf16": ("float32", True),
+                "float32-f32": ("float32", False)}
+
+
+def _store_path_pair(workspace, tmp_path, dtype, bf16, noise=None):
+    """Both packages' BatchMatcher store path, gated, with the ungated
+    retry of the pairs that came up empty, on stores of dtype: the
+    reference's DescriptorStore(p, dtype=...) and the port's
+    from_project(..., dtype=...) set on a matcher built without one.
+    noise (n_images, npad, 128) is added to the rows under the counts."""
+    from imageanalysis_tpu.match.store import DescriptorStore as JStore
+
     _, template = workspace
     jp, tp = _copies(template, tmp_path)
     pairs = [(i, j) for i in range(6) for j in range(i + 1, 6)]
-    config = dict(strategy="smart", transform="none", store_scan=1)
+    config = dict(strategy="smart", transform="none", store_scan=1,
+                  bf16=bf16)
     for mod, sm, p, kw in ((jmatcher, jsmart, jp, {}),
                            (tmatcher, tsmart, tp, {"device": "cpu"})):
-        bm = mod.BatchMatcher(p, mod.MatchConfig(**config), use_store=True,
+        bm = mod.BatchMatcher(p, mod.MatchConfig(**config), use_store=False,
                               smart_state=sm.SmartState(p.analysis_dir),
                               **kw)
-        assert bm.store is not None and bm.gated
+        if mod is jmatcher:
+            bm.store = JStore(p, dtype=dtype)
+        else:
+            bm.store = DescriptorStore.from_project(p, dtype=dtype, **kw)
+        assert bm.store.dtype == dtype and bm.gated
+        if noise is not None:
+            desc = np.asarray(bm.store.desc)
+            n = np.asarray(bm.store.counts)
+            assert (n < desc.shape[1]).all()
+            rows = np.arange(desc.shape[1])[None, :, None] < n[:, None, None]
+            desc = desc + np.where(rows, noise, 0).astype(np.float32)
+            bm.store.desc = (jnp.asarray(desc) if mod is jmatcher
+                             else torch.from_numpy(desc))
         bm.match_pairs(pairs, progress=False) if mod is jmatcher \
             else bm.match_pairs(pairs)
+    return jp, tp
+
+
+@pytest.mark.parametrize("mode", list(_STORE_MODES))
+def test_store_path_smart_matches_reference(workspace, tmp_path, mode):
+    """The store path in each of the store's modes: int8, uint8 (gathered
+    as bf16), float32 with bf16 on and off. The detector's descriptors are
+    integers, so every mode's 2-NN is exact and the matches equal the
+    reference's, pair for pair."""
+    jp, tp = _store_path_pair(workspace, tmp_path, *_STORE_MODES[mode])
     assert _assert_same_matches(jp, tp, min_iou=1.0) >= 14
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_store_modes_from_project_match_reference(workspace, dtype):
+    """from_project in the uint8 and float32 modes builds the reference
+    constructor's arrays (its pads 255 and 10000.0), from_arrays the same,
+    and gather returns what the reference's gather returns (uint8 rows as
+    bfloat16)."""
+    from imageanalysis_tpu.match.store import DescriptorStore as JStore
+
+    _, template = workspace
+    jp, tp = JProject(template), TProject(template)
+    for p in (jp, tp):
+        p.load_images_info()
+    want = JStore(jp, dtype=dtype)
+    got = DescriptorStore.from_project(tp, device="cpu", dtype=dtype)
+    assert got.dtype == want.dtype == dtype and got.npad == want.npad
+    np.testing.assert_array_equal(got.desc.numpy(), np.asarray(want.desc))
+    np.testing.assert_array_equal(got.uv.numpy(), np.asarray(want.uv))
+    assert (np.asarray(want.desc)[0, -1] == store_mod.DTYPES[dtype][2]).all()
+    for im in tp.image_list:
+        im.load_descriptors()
+    again = DescriptorStore.from_arrays(
+        [im.des for im in tp.image_list],
+        [got.uv[i, :n].numpy() for i, n in enumerate(got.counts.tolist())],
+        device="cpu", dtype=dtype)
+    assert torch.equal(again.desc, got.desc)
+    d, uv, n = got.gather([2, 0])
+    wd, wuv, wn = want.gather(np.array([2, 0]))
+    assert d.dtype == (torch.bfloat16 if dtype == "uint8" else torch.float32)
+    np.testing.assert_array_equal(d.float().numpy(),
+                                  np.asarray(wd, np.float32))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(wn))
+
+
+def test_store_path_float32_noninteger_rows(workspace):
+    """The store path's match step on a float32 store of the descriptors
+    plus seeded uniform noise in [−0.5, 0.5) on the rows under the counts,
+    every image's count below npad (pad rows of 10000.0 stay in every
+    pair and are dropped by the counts, never by their distance): both
+    packages' match_pair_batch_store_scan (bf16 2-NN, CPU arms, the 15
+    pairs in one sub-batch) agree on ≥ 98% of each pair's matches (bf16
+    products of non-integer values, summed in two orders), and pick the
+    same B row wherever both keep a row."""
+    from imageanalysis_tpu.match.store import DescriptorStore as JStore
+
+    _, template = workspace
+    proj = JProject(template)
+    proj.load_images_info()
+    js = JStore(proj, dtype="float32")
+    desc, counts = np.asarray(js.desc), np.asarray(js.counts)
+    assert (counts < desc.shape[1]).all() and desc.max() == 10000.0
+    rows = np.arange(desc.shape[1])[None, :, None] < counts[:, None, None]
+    noise = np.random.default_rng(11).uniform(-0.5, 0.5, desc.shape)
+    desc = desc + np.where(rows, noise, 0.0).astype(np.float32)
+    pairs = np.array([(i, j) for i in range(6) for j in range(i + 1, 6)])
+    ia, ib = pairs[:, 0][None], pairs[:, 1][None]
+    want = np.asarray(jmatcher.match_pair_batch_store_scan(
+        jnp.asarray(desc), js.uv, js.counts, jnp.asarray(ia, jnp.int32),
+        jnp.asarray(ib, jnp.int32),
+        jax.random.split(jax.random.PRNGKey(0), len(pairs))[None],
+        jnp.eye(3), None, None, None, transform="none", use_pallas=False,
+        bf16=True))[0]
+    store = DescriptorStore.from_numpy(desc, np.array(js.uv), counts,
+                                       device="cpu", dtype="float32")
+    got = tmatcher.match_pair_batch_store_scan(
+        store.desc, store.uv, store.counts, torch.from_numpy(ia),
+        torch.from_numpy(ib), transform="none", bf16=True).numpy()[0]
+    n_kept = 0
+    for w, g in zip(want, got):
+        w = {r: c for r, c in enumerate(w) if c >= 0}
+        g = {r: c for r, c in enumerate(g) if c >= 0}
+        both, union = g.keys() & w.keys(), g.keys() | w.keys()
+        assert len(both) >= 0.98 * len(union)
+        assert all(g[r] == w[r] for r in both)
+        n_kept += len(w) >= 25
+    assert n_kept >= 10
 
 
 def test_store_beyond_8192_rows_matches_reference(rng):

@@ -28,8 +28,12 @@ from imageanalysis_tpu.ba import setup as jsetup
 from imageanalysis_tpu.io.project import ProjectMgr as JProject
 from imageanalysis_tpu.match import cleanup as jcleanup
 from imageanalysis_tpu.match import groups as jgroups
+from imageanalysis_tpu_torch.apps import explorer as texplorer
+from imageanalysis_tpu_torch.apps import inspect as tinspect
 from imageanalysis_tpu_torch.apps import process as tprocess
+from imageanalysis_tpu_torch.apps import utils as tutils
 from imageanalysis_tpu_torch.apps import video as tvideo
+from imageanalysis_tpu_torch.apps import zooniverse as tzoo
 from imageanalysis_tpu_torch.ba import bundle as tbundle
 from imageanalysis_tpu_torch.ba import setup as tsetup
 from imageanalysis_tpu_torch.core.camera import project_ned_quat
@@ -190,15 +194,19 @@ _ENTRY_POINTS = [
     tdetect.detect_project_features, tsrtm.Terrain.__init__,
     tsrtm.project_terrain, tbuild_map.make_textures, tbuild_map.build,
     tprocess.run, tprocess.main]
-# the video and motion tools', by module (apps.video's run and main would
-# share process's names)
+# the video and motion tools' and the tools that come after a run, by
+# module (their mains would share process's names)
 _TOOL_ENTRY_POINTS = [
     tframe_motion.estimate_motion, tcorrelate.cross_correlate_full,
     tcorrelate.sync_clocks, tstabilize.stabilize_video,
     tflow.SparseLK.__init__, tsegment.exact_dmd, tsegment.background_model,
     tsegment.segment_video, tsdmd.StreamingDMD.__init__,
     tsdmd.StreamingDMD.from_arrays, tlens.estimate_k1_k2,
-    tlens.estimate_from_video, tvideo.run, tvideo.main]
+    tlens.estimate_from_video, tvideo.run, tvideo.main,
+    texplorer.Explorer.__init__, texplorer.main,
+    tinspect.ReviewSession.__init__, tinspect.cmd_review, tinspect.main,
+    tzoo.paste, tzoo.main, tutils.cmd_preview_crops, tutils.project_markers,
+    tutils.cmd_histogram, tutils.cmd_wx_report, tutils.main]
 
 
 @pytest.mark.parametrize(
