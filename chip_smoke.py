@@ -6,7 +6,8 @@
                                        #   (one detect batch), 8 and 13
 
 Phase 21 alone: a script that imports chip_smoke and calls
-``device_info()``, ``build()`` and ``run_tools(root, smi)``.
+``device_info()``, ``build()`` and ``run_tools(root, smi)``; phase 22
+likewise with ``run_survey(root, smi)``.
 
 Phases, one printed line (or a few) each; any failure raises and exits
 non-zero:
@@ -240,6 +241,22 @@ non-zero:
     line a part: walls, the card's ms for paste's rays, preview-crops'
     projection and _warp_full beside its host share, with the card's name
     and power limit.
+22. the survey-scale mission (run right after phase 16, before the
+    phases that import cv2): the reference's SyntheticMission (the
+    port's, testing/synthetic.py) renders 300 frames of 2176×1440 in
+    world tiles on the card, laid out as benchmarks/mission_bench.py lays
+    them out (12 rows of 25, seed 42), each warped and written by nvJPEG
+    as it is made; then apps/process.py's main with phase 16's arguments
+    and a second main that must skip every stage. Phase 16's checks
+    (STEP5, group 0 >= 90%, the last mre <= 1 px, cameras within 3 m of
+    true_camera_ned, the median point within 1 m, every models/ output,
+    K1 int8 and K2 launched, neither cv2 nor PIL imported). Lines: the
+    generator's wall, ms a frame and bytes on disk; the stage walls; the
+    pairs attempted and kept beside the JAX package's 7,549 and 1,873 on
+    the same mission; BA's iterations and mre; the cameras' mean and max
+    error; peak card memory; the launches.
+    scripts_torch/survey_mission.py runs it at any size (2812 frames by
+    default).
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -253,6 +270,7 @@ is {"ok": true, "device": {...}}.
 import contextlib
 import csv
 import glob
+import inspect
 import io
 import json
 import math
@@ -279,8 +297,9 @@ from imageanalysis_tpu_torch.ba import setup as ba_setup  # noqa: E402
 from imageanalysis_tpu_torch.core import geodesy  # noqa: E402
 from imageanalysis_tpu_torch.core.rotations import quat_multiply  # noqa: E402
 from imageanalysis_tpu_torch.features import sift  # noqa: E402
-from imageanalysis_tpu_torch.io import jpeg  # noqa: E402
+from imageanalysis_tpu_torch.io import camera_db, jpeg  # noqa: E402
 from imageanalysis_tpu_torch.io.project import ProjectMgr  # noqa: E402
+from imageanalysis_tpu_torch.io.state import StateMgr  # noqa: E402
 from imageanalysis_tpu_torch.match import (  # noqa: E402
     cleanup, groups, matcher, smart, worklist)
 from imageanalysis_tpu_torch.match.store import DescriptorStore  # noqa: E402
@@ -293,8 +312,9 @@ from imageanalysis_tpu_torch.render import (  # noqa: E402
 from imageanalysis_tpu_torch.probes import (  # noqa: E402
     blur, fused, knn_stages, mma)
 from imageanalysis_tpu_torch.testing.synthetic import (  # noqa: E402
-    CAMERA_KEY, REF_LLA, camera_config, image_name, make_ba_grid_graph,
-    make_ba_mission_graph, make_mission, write_mission, write_workspace)
+    CAMERA_KEY, REF_LLA, SyntheticMission, camera_config, image_name,
+    make_ba_grid_graph, make_ba_mission_graph, make_mission, write_mission,
+    write_workspace)
 
 FRAME = (2176, 1440)        # (W, H), benchmarks/mission_bench.py
 MAX_FEATURES = 4096
@@ -2456,7 +2476,9 @@ def mission_outcome(proj_dir, m):
     """A finished run's workspace against the mission's truth: (proj, its
     run log, the stage walls, each "BA finished" mre, the groups, each
     camera's distance from its true position, the median point's height
-    above the ground)."""
+    above the ground). m is a make_mission Mission or a SyntheticMission
+    that has generated its poses: its names and true_camera_ned(ref_lla)
+    give the truth."""
     proj = ProjectMgr(proj_dir)
     proj.load_images_info()
     run_log = "".join(open(f).read() for f in glob.glob(
@@ -2466,10 +2488,8 @@ def mission_outcome(proj_dir, m):
     mre = [float(v) for v in re.findall(r"BA finished: mre=([\d.]+)px",
                                         run_log)]
     grps = groups.load(proj.analysis_dir)
-    lla = geodesy.ned2lla(m.ned, *REF_LLA)
-    truth = geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2],
-                            *proj.ned_reference_lla())
-    by_name = {image_name(i): i for i in range(len(m.ned))}
+    truth = m.true_camera_ned(proj.ned_reference_lla())
+    by_name = {name: i for i, name in enumerate(m.names)}
     err = np.array([np.linalg.norm(np.asarray(im.get_camera_pose(
         opt=im.has_opt_pose())[0]) - truth[by_name[im.name]])
         for im in proj.image_list])
@@ -2551,12 +2571,14 @@ def camera_positions(proj):
 
 
 def process_outcome(proj_dir, m, n_frames, n_ba=1):
-    """Phase 16's checks of a finished run on the 64-frame mission (the
-    outcome, not the launches): STEP5, features in every 2176×1440 frame,
-    group 0 ≥ 90%, n_ba BA runs and the last one's mre ≤ 1 px, cameras
-    within 3 m of the truth, the median point within 1 m of the ground,
-    every render output and 64 textures of 512×512. Returns (checks, {the
-    stage walls, the cameras, a summary line})."""
+    """Phase 16's checks of a finished run (the outcome, not the
+    launches): STEP5, features in every 2176×1440 frame, group 0 ≥
+    90%, n_ba BA runs and the last one's mre ≤ 1 px, cameras within 3 m
+    of the truth, the median point within 1 m of the ground, every render
+    output, an egg for all frames but one and a 512×512 texture for each.
+    Returns (checks, {the stage walls, the cameras, a summary line, the
+    run log, each camera's error, the median point's height, the group
+    sizes, the BA mres, features a frame, eggs, textures})."""
     W, H = FRAME
     proj, run_log, walls, mre, grps, err, height = mission_outcome(proj_dir,
                                                                   m)
@@ -2575,7 +2597,7 @@ def process_outcome(proj_dir, m, n_frames, n_ba=1):
         "STEP5 reached": proj.state.check("STEP5"),
         "features in every frame": len(counts) == n_frames
         and min(counts) > 0,
-        "frames 2176x1440": set(sizes) == {(W, H)},
+        f"frames {W}x{H}": set(sizes) == {(W, H)},
         "group 0 holds >= 90%": bool(grps)
         and len(grps[0]) >= 0.9 * n_frames,
         "BA mre <= 1 px": len(mre) == n_ba and mre[-1] <= 1.0,
@@ -2584,8 +2606,8 @@ def process_outcome(proj_dir, m, n_frames, n_ba=1):
         "render outputs": all(os.path.isfile(os.path.join(models, f))
                               for f in ("surface.bin", "dummy.jpg",
                                         "surface-global.ac", "direct.ac")),
-        ">= 63 eggs": len(eggs) >= n_frames - 1,
-        "64 textures 512x512": len(texs) == n_frames
+        f">= {n_frames - 1} eggs": len(eggs) >= n_frames - 1,
+        f"{n_frames} textures 512x512": len(texs) == n_frames
         and tex_shapes == {(512, 512, 3)},
     }
     summary = (f"features/frame min {min(counts)} mean "
@@ -2595,7 +2617,11 @@ def process_outcome(proj_dir, m, n_frames, n_ba=1):
                f"{height:.4f} m above the ground; {len(eggs)} eggs, "
                f"{len(texs)} textures {sorted(tex_shapes)}")
     return checks, {"walls": walls, "cams": camera_positions(proj),
-                    "summary": summary, "run_log": run_log}
+                    "summary": summary, "run_log": run_log, "proj": proj,
+                    "err": err, "height": height,
+                    "groups": [len(g) for g in grps], "mre": mre,
+                    "features": counts, "eggs": len(eggs),
+                    "textures": len(texs)}
 
 
 def _sync(dev):
@@ -4318,6 +4344,215 @@ def run_tool_checks(root, proj_dir, m, smi, dev="cuda"):
         raise AssertionError(f"phase 21 (b) failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the reference's mission generator and process.main at survey
+# scale
+# ---------------------------------------------------------------------------
+
+SURVEY_FRAMES = 300         # benchmarks/mission_bench.py's default: 12 × 25
+# the JAX package's records of the same missions (BENCH_mission.json,
+# BENCH_mission_2812.json, BENCH_mission_2812_r4.json): pairs attempted and
+# kept, beside the port's as a cross-check
+JAX_PAIRS = {300: {"attempted": 7549, "kept": 1873},
+             2812: {"attempted": 88941, "kept": [18260, 18283]}}
+
+
+def survey_mission(proj_dir, n_images):
+    """The reference's SyntheticMission (the port's, rendering on the
+    card) laid out as benchmarks/mission_bench.py:57-80 lays it out:
+    n_images // 25 rows, fx = 1400·W/2176, frames a quarter of the
+    footprint apart at 100 m, the texture twice the ground sample
+    distance, world tiles where one texture of at most 12000² cannot hold
+    the grid, seed 42."""
+    W, H = FRAME
+    rows = max(n_images // 25, 1)
+    fx = 1400.0 * W / 2176.0
+    ground_w = W / fx * 100.0
+    spacing = 0.25 * ground_w
+    per_row = max(n_images // rows, 1)
+    span = max(per_row, rows * 2.5) * spacing + 2.5 * ground_w
+    tex_res = max(2.0 * 100.0 / fx, 0.05)
+    tex_px = min(max(int(span / tex_res) + 512, 2048), 12000)
+    return SyntheticMission(proj_dir, n_images=n_images, img_size=FRAME,
+                            altitude=100.0, spacing=spacing, fx=fx,
+                            texture_res=tex_res, rows=rows, seed=42,
+                            texture_px=tex_px,
+                            world_tiles=span > tex_px * tex_res * 0.9,
+                            device="cuda")
+
+
+def _pairs_kept(proj):
+    """Image pairs whose match list is not empty, each counted once."""
+    n = 0
+    for im in proj.image_list:
+        im.load_matches()
+        n += sum(1 for v in (im.match_list or {}).values() if len(v))
+    return n // 2
+
+
+def check_survey_k1(calls):
+    """K1 int8 at the survey store's own shape: the first and the last
+    K1 batches of the run (the last holds the work list's remainder, fewer
+    pairs), their inputs as the store path gave them, held bit-exact
+    against knn_packed_plain and timed beside their bound. Returns
+    [{batch, shape, gated, ms, plain_ms, bound_ms, bound_by,
+    max_abs_err}]."""
+    out = []
+    for tag, args in calls.items():
+        pairs, n, d = args[0].shape
+        gated = args[4] is not None
+        r = compare_keys(f"K1 int8 survey {tag} batch", knn.knn_packed_raw,
+                         knn.knn_packed_plain, args)
+        with_bound(r, *k1_bound(pairs, n, 1, "int8", gated=gated, dim=d))
+        r.update(batch=tag, shape=[pairs, n, d], gated=gated)
+        log(f"[survey-22] K1 int8 {tag} batch {pairs} x {n} x {d} "
+            f"(gated {gated}): bit-exact; kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+        out.append(r)
+    return out
+
+
+def run_survey(root, smi, n_images=SURVEY_FRAMES, proj_dir=None):
+    """Phase 22: the reference's generator on the card (survey_mission:
+    each frame warped and encoded by nvJPEG as it is made, in world tiles
+    from 300 frames on), then apps/process.py's main with phase 16's
+    arguments (mission_bench.py:145-149) and a second main that must skip
+    every stage; K1 int8 at the run's own batches (check_survey_k1).
+    proj_dir (default root/survey) may hold an earlier run: its frames
+    are kept (generate(skip_existing=True)) and main resumes from its
+    state; the launch checks then hold only for the stages that ran. The
+    camera DB goes to root/cameras. Returns (the run's launches, a dict
+    of its numbers)."""
+    W, H = FRAME
+    proj_dir = proj_dir or os.path.join(root, "survey")
+    db = os.path.join(root, "cameras")
+    m = survey_mission(proj_dir, n_images)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.generate(skip_existing=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_peak = torch.cuda.max_memory_allocated()
+    frames = sorted(glob.glob(os.path.join(proj_dir, "IMG_*.jpg")))
+    frame_bytes = sum(os.path.getsize(f) for f in frames)
+    camera_db.save(CAMERA_KEY, m.camera_config(), db)
+    argv = [proj_dir, "--camera", CAMERA_KEY, "--camera-db", db,
+            "--scale", "1.0", "--ground", "0.0", "--batch-size", "32",
+            "--min-chain-len", "2", "--detector", "TPU",
+            "--max-features", str(MAX_FEATURES)]
+    state_dir = os.path.join(proj_dir, "ImageAnalysis", "state")
+    ran = [s for s in ("STEP3a", "STEP4", "STEP5")
+           if not (os.path.isdir(state_dir) and StateMgr(state_dir).check(s))]
+
+    solves = []
+    solve = bundle.solve
+    k1_calls = {}
+    k1 = knn.knn_packed_raw
+    k1_sig = inspect.signature(k1)
+
+    def solve_and_keep(*a, **kw):
+        r = solve(*a, **kw)
+        solves.append((r.iters, r.mre))
+        return r
+
+    def k1_and_keep(*a, **kw):
+        # the first and the last batch's inputs, for check_survey_k1
+        args = k1_sig.bind(*a, **kw)
+        args.apply_defaults()
+        k1_calls.setdefault("first", args.args)
+        k1_calls["last"] = args.args
+        return k1(*a, **kw)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    bundle.solve = solve_and_keep
+    knn.knn_packed_raw = k1_and_keep
+    try:
+        t0 = time.perf_counter()
+        rc = process.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        bundle.solve = solve
+        knn.knn_packed_raw = k1
+    launches = read_launches()
+    run_peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"phase 22: process.main returned {rc}")
+    disk = shutil.disk_usage(proj_dir)
+    k1_survey = check_survey_k1(k1_calls)
+    del k1_calls
+    checks, outcome = process_outcome(proj_dir, m, n_images)
+    proj, err, walls = outcome["proj"], outcome["err"], outcome["walls"]
+    matched = [(int(a), float(b)) for a, b in re.findall(
+        r"Matched (\d+) pairs in ([\d.]+)s", outcome["run_log"])]
+    kept = _pairs_kept(proj)
+
+    reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc2 = process.main(argv)
+    again = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("Step ")]
+    again_launches = {k: v for k, v in read_launches().items() if v}
+
+    checks.update({
+        "resume skips every stage": rc2 == 0 and not again
+        and not again_launches,
+        "no PIL or cv2 imported": not {"PIL", "cv2"} & set(sys.modules),
+    })
+    if "STEP3a" in ran:
+        checks["K1 int8 and K2 launched"] = (
+            launches["knn_packed_i8"] > 0 and launches["gauss_blur_f32"] > 0)
+    numbers = {
+        "frames": n_images, "frame": [W, H], "world_tiles": m.world_tiles,
+        "generate_s": gen_s,
+        "generate_ms_per_frame": 1e3 * gen_s / n_images,
+        "generate_peak_card_bytes": gen_peak,
+        "frames_bytes_on_disk": frame_bytes,
+        "project_bytes_on_disk": sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(proj_dir) for f in fs),
+        "disk_free_bytes_after": disk.free,
+        "stages_run": ran, "main_s": wall, "stage_wall_s": walls,
+        "matched": [{"pairs": a, "s": b} for a, b in matched],
+        "pairs_kept": kept, "jax_package_pairs": JAX_PAIRS.get(n_images),
+        "ba": [{"iters": it, "mre_px": r} for it, r in solves],
+        "ba_finished_mre_px": outcome["mre"], "groups": outcome["groups"],
+        "camera_error_m": {"mean": float(err.mean()),
+                           "median": float(np.median(err)),
+                           "max": float(err.max())},
+        "median_point_above_ground_m": float(outcome["height"]),
+        "features_per_frame": {"min": int(min(outcome["features"])),
+                               "mean": float(np.mean(outcome["features"]))},
+        "eggs": outcome["eggs"], "textures": outcome["textures"],
+        "run_peak_card_bytes": run_peak, "launches": launches,
+        "k1_int8_batches": k1_survey, "device": smi,
+    }
+    log(f"[survey-22] generator: {n_images} frames {W}x{H} (world tiles "
+        f"{m.world_tiles}) in {gen_s:.3f} s, {1e3 * gen_s / n_images:.2f} "
+        f"ms a frame, {frame_bytes} bytes of JPEG, peak card memory "
+        f"{gen_peak} B")
+    for name, sec in walls.items():
+        log(f"[survey-22] stage wall: {name} {sec:.2f}s")
+    log(f"[survey-22] main {wall:.3f} s; matched {matched} (pairs, s); "
+        f"{kept} pairs kept (the JAX package on the same mission: "
+        f"{JAX_PAIRS.get(n_images)}); BA (iters, mre) {solves}; cameras "
+        f"mean {err.mean():.4f} max {err.max():.4f} m from the truth; "
+        f"median point {outcome['height']:.4f} m; groups "
+        f"{numbers['groups']}; peak card memory {run_peak} B; launches "
+        f"{launches}; {smi}")
+    log(f"[survey-22] second main: rc {rc2}, stages run {again}, launches "
+        f"{again_launches}")
+    log("[survey-22] " + json.dumps(numbers, default=str))
+    failed = [k for k, ok in checks.items() if not ok]
+    log(f"[survey-22] {len(checks) - len(failed)}/{len(checks)} checks held")
+    if failed:
+        raise AssertionError(f"phase 22 failed: {failed}")
+    return launches, numbers
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         return rank_child(json.loads(sys.argv[2]))
@@ -4354,6 +4589,9 @@ def main():
     anatomy = run_probes()
     with tempfile.TemporaryDirectory() as root:
         _, p16_wall, p16_cams = run_process(root, smi)
+    # phase 22 before the phases that import cv2 (17-21)
+    with tempfile.TemporaryDirectory() as root:
+        p22, p22_numbers = run_survey(root, smi)
     with tempfile.TemporaryDirectory() as root:
         run_process_extras(root, smi)
     with tempfile.TemporaryDirectory() as root:
@@ -4407,6 +4645,16 @@ def main():
         """Phase 19's launches of a kernel, rank by rank of (b)."""
         return {"p19_launches": [r.get(key, 0) for r in p19]}
 
+    def at22(key, batches=()):
+        """Phase 22's launches of a kernel in the survey run, and its
+        numbers at the run's own batches (check_survey_k1)."""
+        out = {"p22_launches": p22[key]}
+        for r in batches:
+            out.update({f"p22_{r['batch']}_{k}": r[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")})
+        return out
+
     def at21(key):
         """Phase 21 (a)'s launches of a kernel, by store mode."""
         return {"p21_launches": {mode: n[key] for mode, n in p21.items()}}
@@ -4416,7 +4664,8 @@ def main():
         dict(entry("knn_packed_i8", "knn_packed.cu", k1_src,
                    slice_launches["knn_packed_i8"], k1["i8_store"]),
              **at256("knn_packed_i8_d256", "i8_store", "i8_bench"),
-             **at19("knn_packed_i8"), **at21("knn_packed_i8")),
+             **at19("knn_packed_i8"), **at21("knn_packed_i8"),
+             **at22("knn_packed_i8", p22_numbers["k1_int8_batches"])),
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
@@ -4441,7 +4690,7 @@ def main():
         dict(entry("gauss_blur_f32", "gauss_blur.cu",
                    "imageanalysis_tpu/features/sift_tpu.py:67",
                    slice_launches["gauss_blur_f32"], k2),
-             **at19("gauss_blur_f32")),
+             **at19("gauss_blur_f32"), **at22("gauss_blur_f32")),
         entry("match_epilogue", "match_epilogue.cu",
               "imageanalysis_tpu/ops/knn.py:253",
               fused_launches["match_epilogue"], k4["bench"]),

@@ -1,12 +1,22 @@
 """Synthetic aerial missions for tests and on-card runs, without OpenCV.
 
-The counterpart of part of ``imageanalysis_tpu/testing/synthetic.py``: a
-seeded ground texture (blurred noise plus noise upsampled from 1/8 and
-1/32 scale, as ``make_ground_texture`` there, or the periodically tiled
-texture of ``make_tiled_texture``) viewed by nadir-ish cameras flying
-parallel strips. Each frame is an exact homography of the ground plane,
-rendered with bilinear sampling, so the planted frame-to-frame homographies
-are known exactly. Frames are made in memory on the given device.
+Two generators. ``SyntheticMission`` and ``WorldTexture`` are the
+reference's own (``imageanalysis_tpu/testing/synthetic.py:56-259``), with
+its arguments and numpy draws, so poses and pix4d.csv come out byte for
+byte; their textures (``cv_ground_texture``, ``cv_tiled_texture``) follow
+the arithmetic of the OpenCV calls the reference makes, on any device,
+and each frame is written as it is rendered, so a mission of thousands of
+frames holds one frame and one texture patch on the card. The rest of
+this module is the port's own generator, described below.
+
+The port's own, ``make_mission``, follows the reference's recipe, not its
+arithmetic: a seeded ground texture (blurred noise plus noise upsampled
+from 1/8 and 1/32 scale, as ``make_ground_texture`` there, or the
+periodically tiled texture of ``make_tiled_texture``) viewed by
+nadir-ish cameras flying parallel strips. Each frame is an exact
+homography of the ground plane, rendered with bilinear sampling, so the
+planted frame-to-frame homographies are known exactly. Frames are made
+in memory on the given device.
 
 ``write_workspace`` turns a mission and its detections into a project
 workspace (config.json, meta/*.json, cache/*.feat, cache/*.desc; no image
@@ -29,6 +39,7 @@ oracle's grid) with torch on the given device.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Callable, NamedTuple
@@ -53,7 +64,14 @@ def _normalize_u8(tex, rounding):
 
 
 def make_ground_texture(rng, shape, device="cuda"):
-    """(h, w) uint8 texture from numpy Generator rng, built on device."""
+    """(h, w) uint8 texture from numpy Generator rng, built on device: the
+    recipe of the reference's make_ground_texture, not its arithmetic. It
+    blurs with K2's plain version (13 taps at σ = 2: radius ⌈3σ⌉, where
+    cv2.GaussianBlur takes 17), draws max(h // s, 4) × max(w // s, 4)
+    coarse noise, resizes it with F.interpolate's bicubic and rounds to
+    uint8 where the reference truncates. make_mission's frames (phases
+    7-21 of chip_smoke.py) rest on it, so it stays as it is;
+    cv_ground_texture follows the reference's arithmetic."""
     h, w = shape
     noise = rng.uniform(0, 255, (h, w)).astype(np.float32)
     tex = blur_plain(torch.from_numpy(noise).to(device)[None],
@@ -72,7 +90,9 @@ def make_tiled_texture(rng, shape, period=140, blur=1.5, device="cuda"):
     noise cell (reflect-101 borders), tiled — the reference's synthetic
     'row crop / forest canopy', where every feature has a near-identical
     twin one period away. Normalized and truncated to uint8 as the
-    reference's cv2.normalize + astype."""
+    reference's cv2.normalize + astype, but blurred with K2's plain
+    version (11 taps at σ = 1.5, where cv2.GaussianBlur takes 13);
+    cv_tiled_texture follows the reference's arithmetic."""
     h, w = shape
     cell = torch.from_numpy(
         rng.uniform(0, 255, (period, period)).astype(np.float32)).to(device)
@@ -107,6 +127,19 @@ class Mission(NamedTuple):
     cam_quat: np.ndarray     # (n, 4) NED→camera-body quats (reference)
     aircraft_ypr: np.ndarray  # (n, 3) aircraft yaw, pitch, roll, degrees
     K: np.ndarray            # (3, 3) intrinsics
+
+    @property
+    def names(self):
+        """The frames' image names, in order."""
+        return [image_name(i) for i in range(len(self.ned))]
+
+    def true_camera_ned(self, ref_lla=None):
+        """The cameras' true NED positions, optionally in another NED
+        reference (the one the pipeline computed)."""
+        if ref_lla is None:
+            return self.ned
+        lla = geodesy.ned2lla(self.ned, *REF_LLA)
+        return geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2], *ref_lla)
 
 
 # the reference's nadir mount: camera body = aircraft body pitched −90°,
@@ -502,3 +535,404 @@ def write_workspace(project_dir, mission, dets):
         im.save_descriptors()
     proj.load_images_info()
     return proj
+
+
+# ---------------------------------------------------------------------------
+# the reference's generator: imageanalysis_tpu/testing/synthetic.py:26-259
+# ---------------------------------------------------------------------------
+#
+# The textures follow what OpenCV's CPU code computes there (its AVX2
+# loops), in float32 on any device: cv2.GaussianBlur's float kernel
+# (cv2.getGaussianKernel, round(8σ + 1) | 1 taps; the row pass a chain of
+# fmas from the first tap, the column pass symmetric, the two taps at ±k
+# added before their fma; the loops' scalar tails unfused), reflect-101
+# borders; cv2.resize INTER_CUBIC (a = −0.75, half-pixel centres, the
+# source index clamped, coefficients in float64 rounded to float32, each
+# pass (t0 + t1) + (t2 + t3)); cv2.normalize NORM_MINMAX (x·α + β as an
+# fma, α = 255·(1/(max − min)) and β = −min·α rounded to float32) and the
+# reference's truncating astype(np.uint8). An fma is emulated in float64,
+# where the product of two float32 values is exact, so the card and the
+# CPU give the same bits. OpenCV's optimized resize (IPP) sums in an order
+# of its own, so a texture differs from the reference's by one gray level
+# on a few texels in a million.
+
+def cv_gaussian_taps(sigma):
+    """cv2.getGaussianKernel(n, sigma, CV_32F) with cv2.GaussianBlur's n
+    for a float image and ksize (0, 0): round(8σ + 1) | 1."""
+    n = int(round(sigma * 8 + 1)) | 1
+    x = np.arange(n) - (n - 1) * 0.5
+    k = np.exp(-0.5 * x * x / (sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def cv_gaussian_blur(img, sigma):
+    """cv2.GaussianBlur(img, (0, 0), sigma) of an (H, W) float32 tensor.
+    OpenCV's vector loops fuse each tap into an fma; its scalar tails (the
+    row pass past a multiple of 4 columns, the column pass past a multiple
+    of 8) multiply and add."""
+    k = [float(v) for v in cv_gaussian_taps(sigma)]
+    r = len(k) // 2
+    H, W = img.shape
+
+    def rows(x, w, fused):
+        s = x[:, :w] * k[0]
+        for j in range(1, len(k)):
+            if fused:
+                s = s.double().add_(x[:, j:j + w].double(), alpha=k[j]) \
+                    .float()
+            else:
+                s = s + x[:, j:j + w] * k[j]
+        return s
+
+    def cols(y, fused):
+        out = y[r:r + H] * k[r]
+        for j in range(1, r + 1):
+            pair = y[r + j:r + j + H] + y[r - j:r - j + H]
+            if fused:
+                out = out.double().add_(pair.double(), alpha=k[r + j]) \
+                    .float()
+            else:
+                out = out + pair * k[r + j]
+        return out
+
+    x = F.pad(img[None, None], (r, r, 0, 0), mode="reflect")[0, 0]
+    s = rows(x, W, True)
+    t = W - W % 4
+    s[:, t:] = rows(x[:, t:], W - t, False)
+    y = F.pad(s[None, None], (0, 0, r, r), mode="reflect")[0, 0]
+    out = cols(y, True)
+    t = W - W % 8
+    out[:, t:] = cols(y[:, t:], False)
+    return out
+
+
+def _cubic_taps(n_in, n_out, device):
+    """cv2.resize INTER_CUBIC along one axis: (n_out, 4) source indices,
+    clamped, and their float32 coefficients."""
+    fx = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    sx = np.floor(fx)
+    x = fx - sx
+    A = -0.75
+    c0 = ((A * (x + 1) - 5 * A) * (x + 1) + 8 * A) * (x + 1) - 4 * A
+    c1 = ((A + 2) * x - (A + 3)) * x * x + 1
+    c2 = ((A + 2) * (1 - x) - (A + 3)) * (1 - x) * (1 - x) + 1
+    c = np.stack([c0, c1, c2, 1 - c0 - c1 - c2], axis=1).astype(np.float32)
+    idx = np.clip(sx.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  n_in - 1)
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(c).to(device))
+
+
+def cv_resize_cubic(img, size):
+    """cv2.resize(img, (w, h), interpolation=INTER_CUBIC) of an (H, W)
+    float32 tensor; size is (h, w)."""
+    H, W = img.shape
+    xi, xc = _cubic_taps(W, size[1], img.device)
+    yi, yc = _cubic_taps(H, size[0], img.device)
+
+    def taps4(t):
+        return (t[0] + t[1]) + (t[2] + t[3])
+
+    g = img[:, xi]
+    rows = taps4([g[..., k] * xc[:, k] for k in range(4)])
+    return taps4([rows[yi[:, k]] * yc[:, k:k + 1] for k in range(4)])
+
+
+def cv_normalize_u8(img):
+    """cv2.normalize(img, None, 0, 255, NORM_MINMAX).astype(np.uint8)."""
+    lo, hi = float(img.min()), float(img.max())
+    scale = 255.0 * (1.0 / (hi - lo)) if hi - lo > 2.220446049250313e-16 \
+        else 0.0
+    a, b = (float(np.float32(v)) for v in (scale, -lo * scale))
+    # x·α + β as one fma: the float64 product of two float32 is exact
+    return (img.double() * a + b).float().to(torch.uint8)
+
+
+def cv_ground_texture(rng, size=2048, blur=2.0, device="cuda"):
+    """The reference's make_ground_texture (synthetic.py:26-38) on device:
+    the same draws of numpy Generator rng ((size, size), then size//8 and
+    size//32 squares), blurred noise plus the coarse noise resized
+    INTER_CUBIC, normalized and truncated. (size, size) uint8."""
+    def uniform(n):
+        return torch.from_numpy(
+            rng.uniform(0, 255, (n, n)).astype(np.float32)).to(device)
+
+    tex = cv_gaussian_blur(uniform(size), blur)
+    for s in (8, 32):
+        tex = tex + cv_resize_cubic(uniform(size // s), (size, size))
+    return cv_normalize_u8(tex)
+
+
+def cv_tiled_texture(rng, size=2048, period=140, blur=1.5, device="cuda"):
+    """The reference's make_tiled_texture (synthetic.py:41-53) on device:
+    one blurred (period, period) noise cell of rng, tiled to (size, size),
+    normalized and truncated."""
+    cell = torch.from_numpy(rng.uniform(0, 255, (period, period))
+                            .astype(np.float32)).to(device)
+    cell = cv_gaussian_blur(cell, blur)
+    reps = -(-size // period)
+    return cv_normalize_u8(cell.repeat(reps, reps)[:size, :size])
+
+
+class WorldTexture:
+    """The reference's unbounded ground (synthetic.py:56-107): tile_m-metre
+    tiles of cv_ground_texture, each seeded by its indices, built on device
+    when first seen and kept in a first-in first-out cache of cache_tiles;
+    patch concatenates the tiles under a ground rectangle."""
+
+    def __init__(self, seed, res=0.15, tile_m=256.0, cache_tiles=32,
+                 device="cuda"):
+        self.seed = int(seed)
+        self.res = res
+        self.tile_m = tile_m
+        self.tile_px = int(round(tile_m / res))
+        self.cache_tiles = cache_tiles
+        self.device = torch.device(device)
+        self._cache = {}        # (ti, tj) → tile, oldest first
+
+    def tile_seed(self, ti, tj):
+        """The tile's seed, in Python integers: ti and tj go negative west
+        and south of the origin."""
+        return (self.seed * 1_000_003 + ti * 7919 + tj * 104729) \
+            & 0x7FFFFFFF
+
+    def _tile(self, ti, tj):
+        key = (ti, tj)
+        if key not in self._cache:
+            rng = np.random.default_rng(self.tile_seed(ti, tj))
+            self._cache[key] = cv_ground_texture(rng, self.tile_px,
+                                                 device=self.device)
+            if len(self._cache) > self.cache_tiles:
+                del self._cache[next(iter(self._cache))]
+        return self._cache[key]
+
+    def patch(self, n_min, e_min, n_max, e_max):
+        """(tex (h, w) uint8 on the device, S 3×3 mapping texture px →
+        world (n, e, 1)) covering the NED-aligned ground rectangle."""
+        ti0, ti1 = (int(math.floor(v / self.tile_m)) for v in (n_min, n_max))
+        tj0, tj1 = (int(math.floor(v / self.tile_m)) for v in (e_min, e_max))
+        tex = torch.cat([torch.cat([self._tile(ti, tj)
+                                    for tj in range(tj0, tj1 + 1)], dim=1)
+                         for ti in range(ti0, ti1 + 1)], dim=0)
+        # pixel (px, py) → n = n0 + py·res, e = e0 + px·res
+        S = np.array([[0.0, self.res, ti0 * self.tile_m],
+                      [self.res, 0.0, tj0 * self.tile_m],
+                      [0.0, 0.0, 1.0]])
+        return tex, S
+
+
+@functools.lru_cache(maxsize=None)
+def _libm():
+    """The C library's sinf and cosf, which XLA's CPU backend calls: the
+    reference's float32 attitude."""
+    import ctypes
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
+
+
+def _quat_multiply_f32(q1, q0):
+    """Hamilton product q1 ⊗ q0 of float32 [w, x, y, z] quats."""
+    w1, x1, y1, z1 = q1
+    w0, x0, y0, z0 = q0
+    return np.array([w1 * w0 - x1 * x0 - y1 * y0 - z1 * z0,
+                     w1 * x0 + x1 * w0 + y1 * z0 - z1 * y0,
+                     w1 * y0 - x1 * z0 + y1 * w0 + z1 * x0,
+                     w1 * z0 + x1 * y0 - y1 * x0 + z1 * w0], np.float32)
+
+
+def _quat_from_ypr_f32(yaw, pitch, roll):
+    """The reference's float32 quat_from_ypr of radians on the host:
+    qz(yaw) ⊗ qy(pitch) ⊗ qx(roll). Equal to it bit for bit where each
+    component of a product has one nonzero term (pitch = roll = 0, as in
+    every mission): XLA contracts the sums into fmas."""
+    qs = []
+    for axis, angle in ((2, yaw), (1, pitch), (0, roll)):
+        half = float(np.float32(angle) * np.float32(0.5))
+        q = np.array([_libm().cosf(half), 0.0, 0.0, 0.0], np.float32)
+        q[1 + axis] = _libm().sinf(half)
+        qs.append(q)
+    return _quat_multiply_f32(_quat_multiply_f32(qs[0], qs[1]), qs[2])
+
+
+def _quat_to_matrix_f32(q):
+    """The reference's float32 quat_to_matrix on the host: q normalized by
+    its norm as XLA's CPU code computes it (a chain of fmas), then the
+    body→NED matrix."""
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return f32(np.float64(a) * np.float64(b) + np.float64(c))
+
+    w, x, y, z = q
+    n = max(np.sqrt(fma(z, z, fma(y, y, fma(x, x, w * w)))), f32(1e-12))
+    w, x, y, z = (f32(v / n) for v in (w, x, y, z))
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    one, two = f32(1.0), f32(2.0)
+    return np.array([
+        [one - two * (yy + zz), two * (xy - wz), two * (xz + wy)],
+        [two * (xy + wz), one - two * (xx + zz), two * (yz - wx)],
+        [two * (xz - wy), two * (yz + wx), one - two * (xx + yy)]],
+        np.float32)
+
+
+class SyntheticMission:
+    """The reference's SyntheticMission (synthetic.py:109-259) with the
+    same arguments and numpy draws, rendering on device: poses and
+    pix4d.csv come out as the reference's, byte for byte; each frame is
+    the reference's cv2.warpPerspective(tex, world_to_image_H · S, INTER
+    _LINEAR) as render/geotiff.warp_frame computes it, written as a
+    3-channel JPEG at quality 95 by io/jpeg.encode_bgr (nvJPEG on the
+    card, cv2.imwrite on the CPU) before the next is made. The device
+    holds the texture (or the current patch of a WorldTexture, and its
+    tile cache) and one frame."""
+
+    def __init__(self, project_dir, n_images=6, img_size=(800, 600),
+                 altitude=100.0, spacing=18.0, fx=700.0, texture_res=0.25,
+                 yaw_jitter=3.0, pos_jitter=1.0, seed=7, rows=1,
+                 texture_px=2048, world_tiles=False, texture_period=None,
+                 device="cuda"):
+        self.project_dir = project_dir
+        self.n_images = n_images
+        self.w, self.h = img_size
+        self.alt = altitude
+        self.fx = fx
+        self.K = np.array([[fx, 0, self.w / 2.0], [0, fx, self.h / 2.0],
+                           [0, 0, 1.0]])
+        self.rng = np.random.default_rng(seed)
+        self.texture_res = texture_res
+        self.spacing = spacing
+        self.yaw_jitter = yaw_jitter
+        self.pos_jitter = pos_jitter
+        self.rows = rows
+        self.texture_px = texture_px
+        self.world_tiles = world_tiles
+        self.texture_period = texture_period
+        self.device = torch.device(device)
+        self.world = None  # generate's WorldTexture in world-tiles mode
+        self.poses = []  # (name, ned, aircraft ypr_deg)
+
+    def generate(self, skip_existing=False):
+        """Render the frames and write pix4d.csv; returns the records
+        (name, ned, aircraft ypr degrees). skip_existing keeps frames
+        already on disk (their draws are still made, so the records come
+        out the same)."""
+        os.makedirs(self.project_dir, exist_ok=True)
+        dev = self.device
+        if self.world_tiles:
+            world = WorldTexture(self.rng.integers(1 << 30),
+                                 res=self.texture_res, device=dev)
+            tex, S = None, None
+        else:
+            world = None
+            if self.texture_period:
+                tex = cv_tiled_texture(self.rng, self.texture_px,
+                                       self.texture_period, device=dev)
+            else:
+                tex = cv_ground_texture(self.rng, self.texture_px,
+                                        device=dev)
+            c = -tex.shape[0] / 2.0 * self.texture_res
+            S = np.array([[0.0, self.texture_res, c],
+                          [self.texture_res, 0.0, c],
+                          [0.0, 0.0, 1.0]])
+        self.world = world
+        per_row = self.n_images // self.rows or 1
+        # the grid centred on the texture's origin
+        n_off = (per_row - 1) * self.spacing * 0.5
+        e_off = (self.rows - 1) * self.spacing * 2.5 * 0.5
+        records = []
+        for i in range(self.n_images):
+            row, col = divmod(i, per_row)
+            ned = np.array([
+                col * self.spacing - n_off
+                + self.rng.normal(0, self.pos_jitter),
+                row * self.spacing * 2.5 - e_off
+                + self.rng.normal(0, self.pos_jitter),
+                -self.alt + self.rng.normal(0, self.pos_jitter),
+            ])
+            ac_ypr = (self.rng.normal(0, self.yaw_jitter), 0.0, 0.0)
+            name = f"IMG_{i:04d}.jpg"
+            if skip_existing and os.path.isfile(
+                    os.path.join(self.project_dir, name)):
+                pass
+            elif world is not None:
+                # the footprint with a margin at this altitude
+                half = (max(self.w, self.h) / self.fx) * self.alt * 0.8 + 30
+                tex_i, S_i = world.patch(ned[0] - half, ned[1] - half,
+                                         ned[0] + half, ned[1] + half)
+                self._render(tex_i, S_i, ned, ac_ypr, name)
+                del tex_i       # freed before the next patch is built
+            else:
+                self._render(tex, S, ned, ac_ypr, name)
+            records.append((name, ned, ac_ypr))
+        self.poses = records
+        self._write_pix4d(records)
+        return records
+
+    def camera_quat(self, ac_ypr_deg):
+        """NED→virtual-camera-body quat (float32 numpy) for the aircraft's
+        ypr and the nadir mount, as the reference's float32 math."""
+        d2r = np.pi / 180.0
+        q_ac = _quat_from_ypr_f32(ac_ypr_deg[0] * d2r, ac_ypr_deg[1] * d2r,
+                                  ac_ypr_deg[2] * d2r)
+        q_mount = _quat_from_ypr_f32(0.0, -90.0 * d2r, 0.0)
+        return _quat_multiply_f32(q_ac, q_mount)
+
+    def world_to_image_H(self, ned, ac_ypr):
+        """Ground-truth homography world plane (n, e, 1) → image pixels:
+        the map the renderer uses."""
+        B = _quat_to_matrix_f32(self.camera_quat(ac_ypr))   # body→NED
+        R = BODY2CAM @ B.T                          # NED→cam
+        t = -R @ ned
+        return self.K @ np.column_stack([R[:, 0], R[:, 1], t])
+
+    def _render(self, tex, S, ned, ac_ypr, name):
+        from ..render.geotiff import warp_frame
+
+        M = np.linalg.inv(self.world_to_image_H(ned, ac_ypr) @ S)
+        frame = warp_frame(tex[..., None], M, (0, self.h, 0, self.w))[0]
+        # 3-channel JPEGs, as the reference writes them
+        jpeg.encode_bgr(frame.expand(-1, -1, 3),
+                        os.path.join(self.project_dir, name), 95)
+
+    def _write_pix4d(self, records):
+        lines = ["File Name,Lat (decimal degrees),Lon (decimal degrees),"
+                 "Alt (meters MSL),Roll (decimal degrees),"
+                 "Pitch (decimal degrees),Yaw (decimal degrees)"]
+        for name, ned, ac_ypr in records:
+            lla = geodesy.ned2lla(ned, *REF_LLA)
+            lines.append(f"{name},{lla[0]:.10f},{lla[1]:.10f},{lla[2]:.2f},"
+                         f"{ac_ypr[2]:.2f},{ac_ypr[1]:.2f},{ac_ypr[0]:.2f}")
+        with open(os.path.join(self.project_dir, "pix4d.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def camera_config(self):
+        return {
+            "make": "Synthetic", "model": "TestCam", "lens_model": "none",
+            "K": [self.fx, 0.0, self.w / 2.0, 0.0, self.fx, self.h / 2.0,
+                  0.0, 0.0, 1.0],
+            "dist_coeffs": [0.0] * 5,
+            "width_px": self.w, "height_px": self.h,
+            "focal_len_mm": 8.0, "ccd_width_mm": 8.0 * self.w / self.fx,
+            "ccd_height_mm": 8.0 * self.h / self.fx,
+        }
+
+    @property
+    def names(self):
+        """The generated frames' image names (no extension), in order."""
+        return [os.path.splitext(name)[0] for name, _, _ in self.poses]
+
+    def true_camera_ned(self, ref_lla=None):
+        """The cameras' true NED positions, optionally in another NED
+        reference (the one the pipeline computed)."""
+        ned = np.array([n for _, n, _ in self.poses])
+        if ref_lla is None:
+            return ned
+        lla = geodesy.ned2lla(ned, *REF_LLA)
+        return geodesy.lla2ned(lla[:, 0], lla[:, 1], lla[:, 2], *ref_lla)

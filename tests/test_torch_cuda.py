@@ -1737,3 +1737,92 @@ def test_preview_projection_card_matches_cpu(cuda, rng):
           for dev in ("cuda", "cpu")}
     assert np.abs(uv["cuda"] - uv["cpu"]).max() <= 1e-3
     assert np.isfinite(uv["cpu"]).all()
+
+
+# --- the reference's mission generator (testing/synthetic.py) --------------
+
+def _generate_recording(monkeypatch, m):
+    """m.generate() with every frame it encodes kept on the CPU."""
+    from imageanalysis_tpu_torch.testing import synthetic
+
+    frames = []
+    encode = synthetic.jpeg.encode_bgr
+
+    def keep(img, path, quality=95):
+        frames.append(img[..., 0].cpu())
+        encode(img, path, quality)
+
+    monkeypatch.setattr(synthetic.jpeg, "encode_bgr", keep)
+    records = m.generate()
+    monkeypatch.setattr(synthetic.jpeg, "encode_bgr", encode)
+    return records, frames
+
+
+@pytest.mark.parametrize("mode", ["texture", "world_tiles"])
+def test_generator_card_matches_cpu(cuda, tmp_path, monkeypatch, mode):
+    """SyntheticMission on the card against the CPU: the same poses and
+    pix4d.csv bytes; textures and frames within one gray level on ≥ 99.9%
+    of texels and pixels (the texture arithmetic emulates its fmas in
+    float64 on both, so it comes out equal)."""
+    from imageanalysis_tpu_torch.testing import synthetic
+
+    tex = {dev: synthetic.cv_ground_texture(np.random.default_rng(5), 1707,
+                                            device=dev).cpu()
+           for dev in ("cuda", "cpu")}
+    d = (tex["cuda"].int() - tex["cpu"].int()).abs()
+    assert d.max() <= 1 and (d == 0).float().mean() >= 0.999
+    kw = (dict(n_images=8, img_size=(320, 240), altitude=100.0, spacing=6.0,
+               fx=280.0, seed=11, rows=2) if mode == "texture" else
+          dict(n_images=4, img_size=(640, 480), altitude=90.0, spacing=12.0,
+               seed=3, texture_res=0.15, world_tiles=True))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = synthetic.SyntheticMission(str(tmp_path / dev), device=dev, **kw)
+        records, frames = _generate_recording(monkeypatch, m)
+        pix4d = open(tmp_path / dev / "pix4d.csv").read()
+        out[dev] = (records, frames, pix4d)
+    (rc, fc, pc), (rp, fp, pp) = out["cuda"], out["cpu"]
+    assert pc == pp
+    assert [(n, list(ned), ypr) for n, ned, ypr in rc] == \
+        [(n, list(ned), ypr) for n, ned, ypr in rp]
+    assert len(fc) == len(fp) == kw["n_images"]
+    for a, b in zip(fc, fp):
+        d = (a.int() - b.int()).abs()
+        assert d.max() <= 1 and (d == 0).float().mean() >= 0.999
+
+
+def test_generator_card_memory_flat(cuda, tmp_path, monkeypatch):
+    """A 2-row world-tiles mission of 50 frames of 2176×1440 (the survey
+    layout of benchmarks/mission_bench.py): from frame 10 on, the card
+    memory held as a frame starts, less the tile cache (at most 32 tiles)
+    and the frame's patch, stays where it was, and no frame's peak above
+    them grows with the frame count."""
+    from imageanalysis_tpu_torch.testing import synthetic
+
+    def held(t):        # the caching allocator's blocks: 512-byte steps
+        return -(-t.numel() * t.element_size() // 512) * 512
+
+    fx = 1400.0
+    m = synthetic.SyntheticMission(
+        str(tmp_path / "m"), n_images=50, img_size=(2176, 1440),
+        altitude=100.0, spacing=0.25 * 2176 / fx * 100.0, fx=fx,
+        texture_res=2.0 * 100.0 / fx, rows=2, seed=42, world_tiles=True,
+        device="cuda")
+    before, peaks, tiles = [], [], []
+    render = m._render
+
+    def measured(tex, *a):
+        torch.cuda.synchronize()
+        base = sum(held(t) for t in m.world._cache.values()) + held(tex)
+        before.append(torch.cuda.memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+        render(tex, *a)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        tiles.append(len(m.world._cache))
+
+    monkeypatch.setattr(m, "_render", measured)
+    m.generate()
+    assert len(before) == 50 and max(tiles) <= 32
+    assert before[9:] == [before[9]] * 41, before
+    assert max(peaks[10:]) <= max(peaks[:10]) * 1.5, peaks
