@@ -970,38 +970,91 @@ def orb_rows(gen, pairs, n, full=False):
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
 
+def d256_vs_mma(r, name, args, mode):
+    """bf16 at 256 values a row: the wgmma body (K1 or K3 through its
+    wrapper) in turns with the mma.sync body it replaced
+    (knn_stages.bf16_d256_raw(body="mma"), whose keys must equal it), and
+    both bodies split into their product-only stage (held bit-exact
+    against its plain version on the first pairs; timed in turns) and the
+    key epilogue. Sets r["ms"], r["was_ms"], r["tc_product_ms"] and
+    r["was_product_ms"]."""
+    raw = knn.knn_wide_raw if mode == "wide" else knn.knn_packed_raw
+    vs_old_body(r, name, lambda: raw(*args),
+                lambda: knn_stages.bf16_d256_raw(*args, mode=mode,
+                                                 body="mma"), "was")
+    x, y, p = args[0], args[1], PROBE_PLAIN_PAIRS
+    want = knn_stages.bf16_d256_plain(x[:p], y[:p], mode="row_sum")
+
+    def product(body):
+        return knn_stages.bf16_d256_raw(x, y, mode="row_sum", body=body)
+
+    for body in ("wg", "mma"):
+        check_equal(f"{name} product-only stage ({body})",
+                    [t[:p] for t in product(body)], want)
+    t_new, t_old = in_turns(lambda: product("wg"), lambda: product("mma"))
+    r["tc_product_ms"] = float(np.mean(t_new))
+    r["was_product_ms"] = float(np.mean(t_old))
+    for body, t, p_ms in (("wgmma", r["ms"], r["tc_product_ms"]),
+                          ("mma.sync", r["was_ms"], r["was_product_ms"])):
+        log(f"[{name}] {body} body split: product + row sum {p_ms:.3f} ms, "
+            f"key epilogue {t - p_ms:.3f} ms "
+            f"({100 * (t - p_ms) / t:.1f}% of the kernel)")
+
+
 def check_knn_256():
-    """K1 (int8 at the store's and bench.py's shapes, bf16 at bench.py's,
-    f32 at the store's) and K3 (bf16 and f32 at 64 × 10240) at 256 values
-    a row: ORB's bits and the full −128..127, bit-exact against the plain
-    versions; times beside the bound and one library product of the same
-    operands. Returns {case: measurements}."""
+    """K1 (int8 at the store's and bench.py's shapes, bf16 plain and gated
+    at bench.py's, f32 at the store's) and K3 (bf16 and f32 at 64 × 10240)
+    at 256 values a row: ORB's bits and the full −128..127, bit-exact
+    against the plain versions; times beside the bound and one library
+    product of the same operands. bf16 runs the wgmma body (knn_wg.cuh),
+    timed in turns with the mma.sync body it replaced and split into
+    product and key epilogue (d256_vs_mma). Returns {case:
+    measurements}."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    pairs, n = BENCH_SHAPE
+    # a prior that gates out about half the candidates: positions in a
+    # 1000 px square, radius 400 px
+    gate = (torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000,
+            torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000,
+            400.0 ** 2)
     out = {}
     for case, (pairs, n), dtype, eb, peak in (
             ("i8_store", STORE_SHAPE, torch.int8, 1, "int8"),
             ("i8_bench", BENCH_SHAPE, torch.int8, 1, "int8"),
             ("bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
+            ("gated_bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
             ("f32_store", STORE_SHAPE, torch.float32, 4, "f32")):
+        gated = case.startswith("gated")
         name = f"K1 {case} {pairs} x {n} at 256"
         for full in (True, False):      # the timed rows last: ORB's bits
             a, b = orb_rows(gen, pairs, n, full)
             args = ((a, b) if dtype == torch.int8
-                    else float_inputs(a, b, dtype))
+                    else float_inputs(a, b, dtype)) + (gate if gated else ())
             r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
                              args, reps=5 if not full else 1,
                              plain_reps=2 if not full else 1)
-        with_bound(r, *k1_bound(pairs, n, eb, peak, dim=256))
-        x, bt = args[0].reshape(-1, 256), args[1][0].t()
-        r["product_only_ms"] = product_only(
-            name, (lambda: torch._int_mm(x, bt)) if dtype == torch.int8
-            else (lambda: torch.bmm(args[0], args[1].transpose(1, 2))))
-        del x, bt, args, a, b
+        with_bound(r, *k1_bound(pairs, n, eb, peak, gated=gated, dim=256))
+        if case == "bf16_bench":
+            d256_vs_mma(r, name, args, "packed")
+        elif gated:                     # the gate is epilogue: the same
+            vs_old_body(r, name, lambda: knn.knn_packed_raw(*args),
+                        lambda: knn_stages.bf16_d256_raw(*args, body="mma"),
+                        "was")
+            for k in ("tc_product_ms", "was_product_ms", "product_only_ms"):
+                r[k] = out["bf16_bench"][k]
+        if not gated:
+            x, bt = args[0].reshape(-1, 256), args[1][0].t()
+            r["product_only_ms"] = product_only(
+                name, (lambda: torch._int_mm(x, bt)) if dtype == torch.int8
+                else (lambda: torch.bmm(args[0], args[1].transpose(1, 2))))
+            del x, bt
+        del args, a, b
         log(f"[K1] {case} {pairs} pairs x {n} at 256 values a row: bit-exact "
             f"(ORB's bits and the full range); kernel {r['ms']:.3f} ms, "
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), product only {r['product_only_ms']} ms")
         out[case] = r
+    del gate
     pairs, n = WIDE_IMAGES, WIDE_N
     for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
                             ("f32", torch.float32, 4)):
@@ -1013,6 +1066,8 @@ def check_knn_256():
         product = 2 * pairs * n * n * 256
         with_bound(r, pairs * n * (2 * 256 * eb + 8 + 24),
                    {"bf16": (6 if mode == "f32" else 1) * product})
+        if mode == "bf16":
+            d256_vs_mma(r, name, args, "wide")
         r["product_only_ms"] = product_only(
             name, lambda: torch.bmm(args[0], args[1].transpose(1, 2)))
         del args
@@ -1026,6 +1081,9 @@ def check_knn_256():
              if "_d256" in k}
     log(f"[K1/K3 at 256] ptxas (registers, spill stores, spill loads): "
         f"{usage}")
+    warn = [w for w in _build.ptxas_warnings() if "knn_wg_kernel" in w]
+    log(f"[K1/K3 at 256] ptxas warnings of the wgmma body: "
+        f"{warn or 'none'}")
     return out
 
 
@@ -4405,10 +4463,17 @@ def check_survey_k1(calls):
                          knn.knn_packed_plain, args)
         with_bound(r, *k1_bound(pairs, n, 1, "int8", gated=gated, dim=d))
         r.update(batch=tag, shape=[pairs, n, d], gated=gated)
+        if tag == "first":
+            x, bt = args[0].reshape(-1, d), args[1][0].t()
+            r["product_only_ms"] = product_only(
+                f"K1 int8 survey {tag} batch torch._int_mm",
+                lambda: torch._int_mm(x, bt))
+            del x, bt
         log(f"[survey-22] K1 int8 {tag} batch {pairs} x {n} x {d} "
             f"(gated {gated}): bit-exact; kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}), product only "
+            f"{r.get('product_only_ms')} ms")
         out.append(r)
     return out
 
@@ -4638,7 +4703,8 @@ def main():
             tag = "d256" if len(cases) == 1 else f"d256_{case}"
             out.update({f"{tag}_{k}": k256[case][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                "product_only_ms")})
+                "product_only_ms", "was_ms", "tc_product_ms",
+                "was_product_ms") if k in k256[case]})
         return out
 
     def at19(key):
@@ -4652,7 +4718,7 @@ def main():
         for r in batches:
             out.update({f"p22_{r['batch']}_{k}": r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")})
+                "max_abs_err", "product_only_ms") if k in r})
         return out
 
     def at21(key):
@@ -4670,7 +4736,8 @@ def main():
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
                 for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
-             **at19("knn_packed_gated"), **at21("knn_packed_gated")),
+             **at19("knn_packed_gated"), **at21("knn_packed_gated"),
+             **at256("knn_packed_gated_d256", "gated_bf16_bench")),
         dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_bf16"], k1["bf16"]),
              **at256("knn_packed_bf16_d256", "bf16_bench"),

@@ -84,6 +84,11 @@ _SIGNATURES = {
     # a, b, split_a, split_b, row_p, n_pairs, n_a, n_b, dtype (0 int8,
     # 1 bf16, 2 f32), stream
     "knn_tc_row_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,
+    # n_pairs, n_a, n_b, mode (0 K1, 2 K3, 3 product + row sum), body (0
+    # mma.sync, 1 wgmma), stream
+    "knn_bf16_d256": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _P],
     # a, b, row_p, n_pairs, n_a, n_b, bf16, bm, bn, stages, stream
     "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # bf16, bm, bn, stages
@@ -253,17 +258,34 @@ _TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32",
              "NS_4D256INS_6Bf16x3EEE": "f32_d256"}
 
 
+# knn_wg_kernel<MODE> (csrc/knn_wg.cuh): bf16 at 256 values a row on wgmma
+_WG_KNN_KERNEL = re.compile(r"knn_wg_kernelILi(\d+)EE")
+
+
 def tc_kernel_usage(usage=None):
-    """ptxas_usage() of the tensor-core body's instantiations, keyed
+    """ptxas_usage() of the tensor-core bodies' instantiations, keyed
     "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2"; at 256 values a
-    row the type is suffixed, e.g. "int8_d256 0 128 128 2")."""
+    row the type is suffixed, e.g. "int8_d256 0 128 128 2"); the wgmma
+    body of bf16 at 256 as "bf16_d256 mode wg"."""
     out = {}
     for name, u in (ptxas_usage() if usage is None else usage).items():
         m = _TC_KERNEL.search(name)
         if m:
             key = [_TC_TYPES[m.group(1)], *(g for g in m.groups()[1:] if g)]
             out[" ".join(key)] = u
+        m = _WG_KNN_KERNEL.search(name)
+        if m:
+            out[f"bf16_d256 {m.group(1)} wg"] = u
     return out
+
+
+def ptxas_warnings(log=None):
+    """The build's warnings in log (default: the last build's): the
+    compilers' warnings and ptxas's performance notes (e.g. C7518, wgmma
+    serialized), each line with the kernel or source it names."""
+    return [ln.strip() for ln in (build_log if log is None else log)
+            .splitlines()
+            if "warning" in ln.lower() or "Performance Loss" in ln]
 
 
 # mm_rowsum_wg_kernel<BM, BN> (csrc/mma_probe.cu) as mangled

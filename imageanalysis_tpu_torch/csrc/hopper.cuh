@@ -1,7 +1,9 @@
 // Hopper's asynchronous machinery for sm_90a, through inline PTX: the
 // mbarriers, TMA tile loads and warpgroup products (wgmma) of a kernel
 // whose producer warp copies tiles into shared memory while consumer
-// warpgroups multiply them (P5's mm_rowsum_wg_kernel in mma_probe.cu).
+// warpgroups multiply them (P5's mm_rowsum_wg_kernel in mma_probe.cu, K1's
+// and K3's bf16 body at 256 values a row in knn_wg.cuh), and the host's
+// TMA maps.
 //
 // mbarrier phases: a barrier starts in phase 0; mbar_wait(bar, parity)
 // returns once the phase of that parity has completed, so a wait on
@@ -27,6 +29,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -87,6 +90,40 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box of a 3-D map at (c0 innermost, c1, c2) into dst, counted by
+// bar's bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from src into dst, counted by bar's bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads:
+// wait there, or arrive without waiting
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // a K-major operand under the 128-byte swizzle at p (see the head)
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
@@ -123,9 +160,9 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
 }
 
-// d (64 x 64 f32, 32 a thread) += A . B^T, scale-d on
+// d (64 x 64 f32, 32 a thread) = A . B^T + (scale_d ? d : 0)
 __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
-                                          uint64_t db) {
+                                          uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -141,7 +178,7 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 128 f32, 64 a thread) += A . B^T, scale-d on
@@ -175,5 +212,54 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// Host side: TMA maps. cuTensorMapEncodeTiled is fetched at run time by
+// cudaGetDriverEntryPointByVersion (the library is not linked against
+// libcuda), once; null if absent.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a 3-D map over (pairs, rows, K) bf16, row-major and contiguous: boxes
+// of 64 values (128 bytes) x box_rows rows of one pair, 128-byte swizzle;
+// rows beyond a pair's last read as zeros. Returns a cudaError_t.
+inline int encode_pairs(CUtensorMap* map, const void* p, int pairs,
+                        int rows, int K, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows,
+                              (cuuint64_t)pairs};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 2,
+                                 (cuuint64_t)K * 2 * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(p), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace hopper

@@ -49,6 +49,9 @@
 //   bit-exact with the plain version; other f32 within 2^-20 of the norms.
 //   Before it, the FFMA body (now the yardstick knn_ffma_f32 in
 //   knn_probe.cu) ran at 39% of the CUDA cores' 67 TFLOP/s.
+// - bf16 at 256 values a row (ORB's) runs knn_wg.cuh's body, plain and
+//   gated: wgmma fed by TMA, two consumer warpgroups in ping-pong (the
+//   mma.sync body there is knn_probe.cu's yardstick).
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and

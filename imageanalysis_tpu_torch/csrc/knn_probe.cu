@@ -19,6 +19,10 @@
 // min on) on the tensor-core body K1 runs now, at K1's tile (its modes
 // kProductRowMin, kProductTop1, kProductTop2Tile, kProductTop2 and
 // kPacked, K1 itself), the old bodies' anatomy kept as its yardstick. The full stages equal K1's result bit for bit.
+// knn_bf16_d256 runs bf16 rows of 256 values on the mma.sync body (what K1
+// and K3 launched there before knn_wg.cuh's wgmma body, kept as its
+// yardstick) or on the wgmma body, in K1's and K3's modes and the
+// product-only stage (the product / key-epilogue split at 256).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
@@ -397,4 +401,80 @@ extern "C" int knn_tc_stage(const void* a, const void* b, void* na2,
     if (e != 0) return e;
   }
   return tc_stage<int8_t>(x, stage);
+}
+
+// K3's own entry point (knn_wide.cu), for the wgmma body's keyed K3 mode
+extern "C" int knn_wide(const void* a, const void* b, const void* na2,
+                        const void* nb2, void* row_k, void* col_k,
+                        void* split_a, void* split_b, int n_pairs, int n_a,
+                        int n_b, int bf16, int dim, void* stream);
+
+namespace {
+
+// the mma.sync body at D256<uint16_t>, as launch_tc sent bf16 rows of 256
+// values to it before the wgmma body: 128 A rows a block where n_a allows,
+// else 64, two 128-row B tiles
+template <int MODE>
+int d256_mma(const void* a, const void* b, const void* na2, const void* nb2,
+             const void* uv_a, const void* pred_b, float radius2,
+             void* row_p, void* col_p, void* row_k, void* col_k, int n_pairs,
+             int n_a, int n_b, cudaStream_t s) {
+  using T = D256<uint16_t>;
+  if (n_a % 128 == 0)
+    return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
+                                         radius2, row_p, col_p, row_k, col_k,
+                                         n_pairs, n_a, n_b, s);
+  return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                      row_p, col_p, row_k, col_k, n_pairs,
+                                      n_a, n_b, s);
+}
+
+}  // namespace
+
+// bf16 rows of 256 values on either body: body 0 the mma.sync body
+// (knn_tc_kernel<D256<uint16_t>>, the yardstick), 1 the wgmma body that
+// K1 and K3 run (knn_wg.cuh; its keyed modes through K1's and K3's own
+// entry points). mode: kPacked (K1, gated when uv_a != NULL: row_p,
+// col_p), kWide (K3: row_k, col_k) or kProductRowSum (the product-only
+// stage: each A row's wrapping sum of its dots in both slots of row_p).
+// a, b (n_pairs, n_a | n_b, 256) bf16 bits, 16-byte aligned; na2, nb2,
+// uv_a, pred_b, col_p and col_k as knn_packed_float's and knn_wide's
+// (norms unused by kProductRowSum); n_a and n_b multiples of 64, at most
+// 8192 for kPacked. Returns the cudaError_t of the launch.
+extern "C" int knn_bf16_d256(const void* a, const void* b, const void* na2,
+                             const void* nb2, const void* uv_a,
+                             const void* pred_b, float radius2, void* row_p,
+                             void* col_p, void* row_k, void* col_k,
+                             int n_pairs, int n_a, int n_b, int mode,
+                             int body, void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
+      || (mode != kPacked && mode != kWide && mode != kProductRowSum) ||
+      (body != 0 && body != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    if (mode == kPacked)
+      return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                              col_p, nullptr, nullptr, n_pairs, n_a, n_b, 1,
+                              256, stream);
+    if (mode == kWide)
+      return knn_wide(a, b, na2, nb2, row_k, col_k, nullptr, nullptr,
+                      n_pairs, n_a, n_b, 1, 256, stream);
+    return launch_tc<D256<uint16_t>, kProductRowSum>(
+        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
+        nullptr, nullptr, n_pairs, n_a, n_b, s);
+  }
+  if (mode == kPacked && uv_a)
+    return d256_mma<kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                  row_p, col_p, nullptr, nullptr, n_pairs,
+                                  n_a, n_b, s);
+  if (mode == kPacked)
+    return d256_mma<kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
+                             col_p, nullptr, nullptr, n_pairs, n_a, n_b, s);
+  if (mode == kWide)
+    return d256_mma<kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f, nullptr,
+                           nullptr, row_k, col_k, n_pairs, n_a, n_b, s);
+  return d256_mma<kProductRowSum>(a, b, nullptr, nullptr, nullptr, nullptr,
+                                  0.f, row_p, nullptr, nullptr, nullptr,
+                                  n_pairs, n_a, n_b, s);
 }

@@ -35,6 +35,9 @@
 // key, which is order-independent. There is no 8192 limit.
 // - bf16 (every store beyond 8192 rows): the operands as they are, 128-row
 //   B tiles; its FFMA predecessor spent 93% of its time in the product.
+//   At 256 values a row (ORB's) bf16 runs knn_wg.cuh's body instead:
+//   wgmma fed by TMA, two consumer warpgroups in ping-pong (the mma.sync
+//   body there is knn_probe.cu's yardstick).
 // - f32: the TPU kernel's f32 dot runs at Precision.HIGHEST, a multi-pass
 //   bf16 product; here a pre-pass (knn_packed.cu's split_bf16x3_kernel)
 //   writes each operand as three bf16 planes into the caller's scratch and

@@ -47,9 +47,8 @@
 //   (n_split > 1, to fill the card with one matrix);
 // - TMA maps: 2-D over a (B M, K) and b (B N, K), 128-byte swizzle, boxes
 //   of 64 dims x BM (A) or BN (B) rows; M and N are multiples of BM and
-//   BN, so a box never crosses matrices. cuTensorMapEncodeTiled is
-//   fetched at run time by cudaGetDriverEntryPointByVersion (the library
-//   is not linked against libcuda).
+//   BN, so a box never crosses matrices (hopper.cuh's encode_tiled
+//   fetches cuTensorMapEncodeTiled at run time).
 // Integer-valued inputs whose sums stay below 2^24 give exact sums in any
 // order.
 // mm_rowsum_v0 is the first body, kept as the yardstick: 8 warps of
@@ -410,37 +409,11 @@ mm_rowsum_wg_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, fetched once at run time (null if absent)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // a 2-D map over rows x K bf16 (row-major), boxes of 64 dims x box_rows,
 // 128-byte swizzle
 int encode_rows(CUtensorMap* map, const void* p, long long rows, int K,
                 int box_rows) {
-  EncodeTiled fn = encode_tiled();
+  hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)K * 2};

@@ -101,6 +101,13 @@ measure the tensor-core body:
   of its epilogue, ``full`` K1 itself. Its plain version
   ``tc_stage_plain`` is ``knn_probe_plain``'s arithmetic with the body's
   128-row B tile (``top2_tile``: the last, possibly half, tile).
+- ``bf16_d256_raw``: bf16 rows of 256 values (ORB's) on the ``mma.sync``
+  body, which K1 and K3 ran there before the ``wgmma`` body of
+  ``csrc/knn_wg.cuh`` and which stays as its yardstick, or on the
+  ``wgmma`` body itself, in K1's mode (plain or gated), K3's, and the
+  product-only ``row_sum`` (the product / key-epilogue split at 256);
+  its plain version ``bf16_d256_plain`` is K1's, K3's or
+  ``tc_row_sum_plain``'s.
 """
 
 from __future__ import annotations
@@ -140,7 +147,7 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
-            "knn_tc_row_min": 0, "knn_tc_stage": 0}
+            "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
 # which tc_stage_raw runs every stage
 TC_BN, TC_BM = 128, 128
@@ -620,3 +627,83 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
     if route == "tc_stage":
         return tc_stage_raw(a, b, na2, nb2, card)
     return knn_probe_raw(a, b, na2, nb2, card)
+
+
+# bf16 rows of 256 values on either tensor-core body: the modes of
+# knn_bf16_d256 (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
+# body K1 and K3 ran there before; "wg": the wgmma body they run now)
+D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
+D256_BODIES = {"mma": 0, "wg": 1}
+
+
+def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name):
+    if mode not in D256_MODES or body not in D256_BODIES:
+        raise ValueError(f"{name}: no mode {mode!r} on body {body!r} "
+                         f"(modes {tuple(D256_MODES)}, bodies "
+                         f"{tuple(D256_BODIES)})")
+    if a.dtype != torch.bfloat16 or a.dim() != 3 or a.shape[2] != 256:
+        raise ValueError(f"{name}: takes (B, n, 256) bfloat16, got "
+                         f"{tuple(a.shape)} {a.dtype}")
+    if mode == "packed":
+        knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
+        if uv_a is not None:
+            knn._check_gate(uv_a, pred_b, a, b, name)
+    elif uv_a is not None:
+        raise ValueError(f"{name}: only the packed mode has a gate")
+    elif mode == "wide":
+        knn._check_wide(a, b, na2, nb2, name)
+    else:
+        _check_tc(a[..., :128], b[..., :128], name, (torch.bfloat16,))
+
+
+def bf16_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                    radius2=None, mode="packed"):
+    """Plain version of bf16_d256_raw: knn.knn_packed_plain (gated with
+    uv_a), knn.knn_wide_plain, or tc_row_sum_plain's arithmetic."""
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, "mma",
+                "bf16_d256_plain")
+    if mode == "packed":
+        return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
+    if mode == "wide":
+        return knn.knn_wide_plain(a, b, na2, nb2)
+    return _probe_rows(a, b, _row_sum)
+
+
+def bf16_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                  radius2=None, mode="packed", body="mma"):
+    """bf16 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), on
+    body "mma" (the mma.sync body, K1's and K3's yardstick at this width)
+    or "wg" (the wgmma body of csrc/knn_wg.cuh, which K1 and K3 launch),
+    in mode "packed" (K1, gated with uv_a, pred_b, radius2; row_p, col_p
+    int32), "wide" (K3; row_k, col_k int64) or "row_sum" (the product-only
+    stage: each A row's wrapping sum of its dots in both slots of row
+    (B, n_a, 2) int32, col 0x7FFFFFFF). Norms and shapes as
+    knn.knn_packed_raw / knn.knn_wide_raw; n_a and n_b multiples of 64. A
+    CPU tensor takes bf16_d256_plain; any other device raises. Counted as
+    knn_bf16_d256, not as K1's or K3's launches."""
+    name = "bf16_d256_raw"
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name)
+    if a.device.type == "cpu":
+        return bf16_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
+    dev = a.device
+    wide = mode == "wide"
+    key = torch.int64 if wide else torch.int32
+    kmax = knn._WIDE_MAX if wide else knn._KEY_MAX
+    row = torch.empty((B, n_a, 2), dtype=key, device=dev)
+    col = torch.full((B, n_b), kmax, dtype=key, device=dev)
+    rp, cp, rk, ck = ((None, None, row, col) if wide
+                      else (row, col, None, None))
+    with torch.cuda.device(dev):
+        err = _build.load().knn_bf16_d256(
+            a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
+            knn._ptr(uv_a), knn._ptr(pred_b),
+            radius2 if uv_a is not None else 0.0, knn._ptr(rp),
+            knn._ptr(cp), knn._ptr(rk), knn._ptr(ck), B, n_a, n_b,
+            D256_MODES[mode], D256_BODIES[body],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_bf16_d256")
+    LAUNCHES["knn_bf16_d256"] += 1
+    return row, col

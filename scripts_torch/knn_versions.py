@@ -12,8 +12,12 @@ card; each copy builds its kernels into ROOT/build/:
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
 norms), f32 and the gated modes at the store's shape with ~65% of the
-candidates gated out, K3 at 64 × 10240. Times: median of CUDA events
-after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
+candidates gated out, K3 at 64 × 10240; at 256 values a row (ORB's bits
+as 0/1 bf16, a quarter planted with 8 bits flipped) K1 bf16 plain and
+gated at 64 × 6144 and K3 bf16 at 64 × 10240 (``*_d256``), and, where
+the copy has ``knn_stages.bf16_d256_raw``, the product-only stage there
+on both of its bodies (``row_sum_<body>_d256_*``). Times: median of CUDA
+events after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
 SASS: the same keys → the first 12 hex digits of the sha256 of each
@@ -35,6 +39,7 @@ import torch  # noqa: E402
 
 from imageanalysis_tpu_torch import _build, probes  # noqa: E402
 from imageanalysis_tpu_torch.ops import knn  # noqa: E402
+from imageanalysis_tpu_torch.probes import knn_stages  # noqa: E402
 
 
 def planted(gen, pairs, n):
@@ -46,9 +51,31 @@ def planted(gen, pairs, n):
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
 
+def orb_bits(gen, pairs, n):
+    """int8 rows of 256 values as the store holds ORB's bits (−128/−127),
+    B's first quarter A's with 8 bits flipped."""
+    a = torch.randint(0, 2, (pairs, n, 256), generator=gen, device="cuda",
+                      dtype=torch.int16)
+    b = torch.randint(0, 2, (pairs, n, 256), generator=gen, device="cuda",
+                      dtype=torch.int16)
+    b[:, :n // 4] = a[:, :n // 4]
+    b[:, :n // 4, :8] = 1 - b[:, :n // 4, :8]
+    return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
+
+
 def as_float(a, b, dtype=torch.bfloat16):
     af, bf = a.float() + 128, b.float() + 128
     return af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1)
+
+
+def product_only(f, tag):
+    """The product-only stage (product + row sum) of bf16 at 256 values a
+    row on both bodies of a copy that has them (knn_stages.bf16_d256_raw):
+    {"row_sum_<body>_d256_<tag>": ms}."""
+    return {f"row_sum_{body}_d256_{tag}": probes.time_ms(
+        lambda: knn_stages.bf16_d256_raw(f[0], f[1], mode="row_sum",
+                                         body=body), "cuda", 3, 2)
+        for body in ("wg", "mma")}
 
 
 def own_build_module():
@@ -104,6 +131,22 @@ def main():
     del f
     f = as_float(a, b, torch.float32)
     out["k3_f32"] = t(lambda: knn.knn_wide_raw(*f), 3)
+    del a, b, f
+    f = as_float(*orb_bits(gen, 64, 6144))
+    gate = (torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
+            torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
+            400.0 ** 2)
+    out["bf16_d256_bench"] = t(lambda: knn.knn_packed_raw(*f))
+    out["gated_bf16_d256_bench"] = t(lambda: knn.knn_packed_raw(*f, *gate))
+    split = hasattr(knn_stages, "bf16_d256_raw")
+    if split:
+        out.update(product_only(f, "bench"))
+    del f, gate
+    f = as_float(*orb_bits(gen, 64, 10240))
+    out["k3_bf16_d256"] = t(lambda: knn.knn_wide_raw(*f), 3)
+    if split:
+        out.update(product_only(f, "k3"))
+    del f
     own = own_build_module()
     regs = own.tc_kernel_usage(own.ptxas_usage(_build.build_log))
     print(json.dumps({"root": ROOT, "device": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ without the conftest:
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
 arithmetic in f32 or int32 (on the tensor cores too, f32 as three bf16
-planes; on random bf16 and f32 they hold a stated tolerance), K2 (at
+planes, bf16 at 256 values a row on its wgmma body at that body's tile
+edges and on the mma.sync body it replaced; on random bf16 and f32 they
+hold a stated tolerance), K2 (at
 every radius, and its first body) rounds the same f32 products and sums
 one by one, and K4 decodes, compares and gathers exactly, so the
 comparisons are bit-exact. So are the f32 modes' split pre-pass and the
@@ -1414,19 +1416,33 @@ def _rows256(rng, pairs, n_a, n_b, kind):
             torch.from_numpy((b - 128).astype(np.int8)))
 
 
+# (n_a, n_b) at the tile edges of the bodies at 256 values a row: 192 A
+# rows (the wgmma body's second warpgroup half empty, the mma.sync bodies'
+# 64-row blocks) or 256 (one full wgmma block); B rows ending on either
+# stage of the wgmma body's two-tile ring (704: 11 tiles of 64, 384: 6)
+# and the largest sets of K1 (8192, 128 tiles) and beyond (K3's 8256)
+_SHAPES_256 = {"K1": ((192, 704), (256, 704), (192, 384), (256, 384),
+                      (192, 8192), (256, 8192)),
+               "K3": ((192, 704), (256, 704), (192, 384), (256, 384),
+                      (192, 8256), (256, 8256))}
+
+
+@pytest.mark.parametrize("shape", _SHAPES_256["K1"],
+                         ids=[f"{a}x{b}" for a, b in _SHAPES_256["K1"]])
 @pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
 @pytest.mark.parametrize("kind", ["bits", "full_range"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
                                    torch.float32],
                          ids=["int8", "bf16", "f32"])
-def test_k1_256_bit_exact_vs_plain(cuda, rng, dtype, kind, gated):
-    """K1 in every mode at 256 values a row, 192 A rows (the 64-row
-    blocks) against 704 B rows (a last B tile of 64), counted under its
-    _d256 name."""
-    a, b = (t.to(cuda) for t in _rows256(rng, 3, 192, 704, kind))
+def test_k1_256_bit_exact_vs_plain(cuda, rng, dtype, kind, gated, shape):
+    """K1 in every mode at 256 values a row, 3 pairs at the tile edges of
+    _SHAPES_256 (bf16 on the wgmma body), counted under its _d256
+    name."""
+    n_a, n_b = shape
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, n_a, n_b, kind))
     args = (a, b, None, None) if dtype == torch.int8 else \
         _float_inputs(a, b, dtype)
-    gate = _gate(rng, cuda, 3, 192, 704) if gated else ()
+    gate = _gate(rng, cuda, 3, n_a, n_b) if gated else ()
     key = ("knn_packed_gated" if gated else
            {torch.int8: "knn_packed_i8", torch.bfloat16: "knn_packed_bf16",
             torch.float32: "knn_packed_f32"}[dtype]) + "_d256"
@@ -1439,12 +1455,16 @@ def test_k1_256_bit_exact_vs_plain(cuda, rng, dtype, kind, gated):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("shape", _SHAPES_256["K3"],
+                         ids=[f"{a}x{b}" for a, b in _SHAPES_256["K3"]])
 @pytest.mark.parametrize("kind", ["bits", "full_range"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_k3_256_bit_exact_vs_plain(cuda, rng, dtype, kind):
-    """K3 at 256 values a row beyond 8192 B rows, both modes."""
-    a, b = (t.to(cuda) for t in _rows256(rng, 2, 192, 8256, kind))
+def test_k3_256_bit_exact_vs_plain(cuda, rng, dtype, kind, shape):
+    """K3 at 256 values a row, both modes, 3 pairs at the tile edges of
+    _SHAPES_256, beyond 8192 B rows too (bf16 on the wgmma body)."""
+    n_a, n_b = shape
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, n_a, n_b, kind))
     args = _float_inputs(a, b, dtype)
     key = ("knn_wide" if dtype == torch.bfloat16 else "knn_wide_f32") \
         + "_d256"
@@ -1455,6 +1475,44 @@ def test_k3_256_bit_exact_vs_plain(cuda, rng, dtype, kind):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["packed", "gated", "wide", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+def test_bf16_256_bodies_bit_exact_vs_plain(cuda, rng, body, mode):
+    """bf16 at 256 values a row on both bodies through
+    knn_stages.bf16_d256_raw (the mma.sync body is the wgmma body's
+    yardstick): K1 plain and gated, K3 and the product-only stage, 320 A
+    rows (a wgmma block and a half) against 640 B rows, on the full
+    -128..127, equal to the plain versions."""
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, 320, 640, "full_range"))
+    x, y, na2, nb2 = _float_inputs(a, b, torch.bfloat16)
+    gate = _gate(rng, cuda, 3, 320, 640) if mode == "gated" else ()
+    kw = dict(mode="packed" if mode == "gated" else mode)
+    norms = (None, None) if mode == "row_sum" else (na2, nb2)
+    before = knn_stages.LAUNCHES["knn_bf16_d256"]
+    got = knn_stages.bf16_d256_raw(x, y, *norms, *gate, body=body, **kw)
+    assert knn_stages.LAUNCHES["knn_bf16_d256"] == before + 1
+    want = knn_stages.bf16_d256_plain(x, y, *norms, *gate, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_knn_wg_sass_is_hgmma(cuda):
+    """The wgmma body of bf16 at 256 values a row (knn_wg_kernel, its
+    four modes) runs its products as HGMMA (wgmma), not as mma.sync's
+    HMMA, which the mma.sync body's bf16 kernels show."""
+    per_key = _build.tc_kernel_usage({
+        name: _build.opcode_counts(lines)
+        for name, lines in _build.sass().items()})
+    keys = {k for k in per_key if k.endswith(" wg")}
+    assert keys == {"bf16_d256 0 wg", "bf16_d256 1 wg", "bf16_d256 2 wg",
+                    "bf16_d256 3 wg"}, keys
+    for k in keys:
+        assert per_key[k]["HGMMA"] > 0 and per_key[k]["HMMA"] == 0, \
+            (k, per_key[k])
+    assert per_key["bf16_d256 0 128 128 2"]["HMMA"] > 0
 
 
 # last in the file: it imports cv2, which the card path's tests above

@@ -416,9 +416,10 @@ def test_merge_and_renumber_tools_equal_reference(tmp_path, rng):
 
 def test_calibrate_equals_reference(tmp_path):
     """Chessboard calibration of 8 seeded views at 640×480: the same
-    camera config in the DB, its numbers within 1e-6 relative
-    (cv2.calibrateCamera's threaded sums move them by ~1e-10 from one run
-    to the next, in either package)."""
+    camera config in the DB, its numbers equal. cv2.calibrateCamera's
+    threaded sums move them by up to ~3e-6 relative from one run to the
+    next (k1 of the distortion, in either package), so both packages run
+    with OpenCV on one thread, where repeated runs are bit-identical."""
     K_true = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
     board = np.kron((np.add.outer(np.arange(7), np.arange(10)) % 2 == 0)
                     .astype(np.uint8) * 255, np.ones((60, 60), np.uint8))
@@ -439,15 +440,20 @@ def test_calibrate_equals_reference(tmp_path):
                                         borderValue=128))
     argv = ["calibrate", "--images", str(img_dir), "--pattern", "9x6",
             "--square-mm", "25", "--make", "Acme", "--model", "Cal 1"]
-    assert jutils.main(argv + ["--db", str(tmp_path / "dj")]) == 0
-    assert tutils.main(argv + ["--db", str(tmp_path / "dt")], **CPU) == 0
+    threads = cv2.getNumThreads()
+    cv2.setNumThreads(1)
+    try:
+        assert jutils.main(argv + ["--db", str(tmp_path / "dj")]) == 0
+        assert tutils.main(argv + ["--db", str(tmp_path / "dt")],
+                           **CPU) == 0
+    finally:
+        cv2.setNumThreads(threads)
     got, want = (json.loads((tmp_path / d / "Acme_Cal_1.json").read_text())
                  for d in ("dt", "dj"))
     assert sorted(got) == sorted(want)
     for k in want:
         if isinstance(want[k], list):
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
-                                       atol=1e-9)
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         else:
             assert got[k] == want[k], k
     assert abs(got["K"][0] / 600.0 - 1.0) < 0.01
