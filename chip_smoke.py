@@ -813,7 +813,10 @@ def near_packed(name, got, want, x, y, tol, norms=None):
     lim = tol + 2.0 ** -10 * wv.abs()
     err = (gv - wv).abs().masked_fill(gated, 0.0)
     if bool((err > lim).any()):
-        raise AssertionError(f"{name}: values differ by {float(err.max())}")
+        k = int((err - lim).argmax())
+        raise AssertionError(
+            f"{name}: values differ by {float(err.flatten()[k])} at "
+            f"{float(wv.flatten()[k])}, beyond {float(lim.flatten()[k])}")
     bad = tuple(torch.nonzero((gi != wi) & ~gated).t())
     if len(bad[0]):
         xi = x[bad[0], bad[1]].double()
@@ -970,23 +973,33 @@ def orb_rows(gen, pairs, n, full=False):
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
 
+def d256_probe(args):
+    """The probe that runs rows of 256 values of args' type on either
+    body: knn_stages.bf16_d256_raw or f32_d256_raw, with its plain
+    version."""
+    if args[0].dtype == torch.float32:
+        return knn_stages.f32_d256_raw, knn_stages.f32_d256_plain
+    return knn_stages.bf16_d256_raw, knn_stages.bf16_d256_plain
+
+
 def d256_vs_mma(r, name, args, mode):
-    """bf16 at 256 values a row: the wgmma body (K1 or K3 through its
-    wrapper) in turns with the mma.sync body it replaced
-    (knn_stages.bf16_d256_raw(body="mma"), whose keys must equal it), and
-    both bodies split into their product-only stage (held bit-exact
-    against its plain version on the first pairs; timed in turns) and the
-    key epilogue. Sets r["ms"], r["was_ms"], r["tc_product_ms"] and
+    """bf16 or f32 at 256 values a row: the wgmma body (K1 or K3 through
+    its wrapper) in turns with the mma.sync body it replaced
+    (knn_stages.bf16_d256_raw or f32_d256_raw with body="mma", whose keys
+    must equal it), and both bodies split into their product-only stage
+    (f32: with its split pre-pass; held bit-exact against its plain
+    version on the first pairs; timed in turns) and the key epilogue.
+    Sets r["ms"], r["was_ms"], r["tc_product_ms"] and
     r["was_product_ms"]."""
     raw = knn.knn_wide_raw if mode == "wide" else knn.knn_packed_raw
+    probe, plain = d256_probe(args)
     vs_old_body(r, name, lambda: raw(*args),
-                lambda: knn_stages.bf16_d256_raw(*args, mode=mode,
-                                                 body="mma"), "was")
+                lambda: probe(*args, mode=mode, body="mma"), "was")
     x, y, p = args[0], args[1], PROBE_PLAIN_PAIRS
-    want = knn_stages.bf16_d256_plain(x[:p], y[:p], mode="row_sum")
+    want = plain(x[:p], y[:p], mode="row_sum")
 
     def product(body):
-        return knn_stages.bf16_d256_raw(x, y, mode="row_sum", body=body)
+        return probe(x, y, mode="row_sum", body=body)
 
     for body in ("wg", "mma"):
         check_equal(f"{name} product-only stage ({body})",
@@ -1001,47 +1014,117 @@ def d256_vs_mma(r, name, args, mode):
             f"({100 * (t - p_ms) / t:.1f}% of the kernel)")
 
 
+def random_planes_256(gen, pairs, n, gate, out):
+    """K1 f32 and gated f32 at the store's shape and K3 f32 at the wide
+    shape, 256 values a row, on non-integer rows whose mid and lo planes
+    are set (uniform 0..400, a quarter of B planted near A): values within
+    2⁻¹⁹ of the norms (at 256 values the plain version's own f32 product
+    errs most: tests/test_torch_cuda.py's _F32_REL_256), K1's plus one
+    step of a key's 10 mantissa bits, indices equal modulo ties. Sets
+    out[case]["random_max_abs_err"]."""
+    for case, (p, m) in (("f32_store", (pairs, n)),
+                         ("k3_f32", (WIDE_IMAGES, WIDE_N))):
+        a = torch.rand((p, m, 256), generator=gen, device="cuda") * 400
+        b = torch.rand((p, m, 256), generator=gen, device="cuda") * 400
+        b[:, :m // 4] = a[:, :m // 4] + torch.randn(
+            (p, m // 4, 256), generator=gen, device="cuda") * 2
+        args = (a, b, knn._sq_norms(a), knn._sq_norms(b))
+        rel = 2.0 ** -19
+        tol = rel * float(args[2].max() + args[3].max())
+        modes = ((("f32_store", ()), ("gated_f32_store", gate))
+                 if case == "f32_store" else (("k3_f32", None),))
+        for mode, g in modes:
+            wide = g is None
+            got = (knn.knn_wide_raw(*args) if wide
+                   else knn.knn_packed_raw(*args, *g))
+            want = (knn.knn_wide_plain(*args) if wide
+                    else knn.knn_packed_plain(*args, *g))
+            e_row, d_row = near_256(f"{mode} rows", got[0], want[0], a, b,
+                                    tol, wide)
+            e_col, d_col = near_256(f"{mode} columns", got[1], want[1], b,
+                                    a, tol, wide)
+            out[mode]["random_max_abs_err"] = max(e_row, e_col)
+            step = "" if wide else " plus a key's 10-bit step"
+            log(f"[K1/K3 at 256] {mode} {p} pairs x {m}, random f32 0..400: "
+                f"within {rel:.3g} of the norms ({tol:.6g}){step}: largest "
+                f"difference {max(e_row, e_col):.6g}; {d_row + d_col} "
+                "indices differ, all on ties")
+            del got, want
+        del a, b, args
+
+
+def near_256(name, got, want, x, y, tol, wide):
+    """near_packed for K1's packed keys, or (wide) check_wide's check of
+    K3's 64-bit keys: values within tol, indices different only where
+    their exact d2 tie within twice that (ties_only). Returns (largest
+    difference, indices that differ)."""
+    if not wide:
+        e, _, d = near_packed(name, got, want, x, y, tol)
+        return e, d
+    (gv, gi), (wv, wi) = knn._decode_wide(got), knn._decode_wide(want)
+    err = float((gv - wv).abs().max())
+    if err > tol:
+        raise AssertionError(f"{name}: values differ by {err} > {tol}")
+    n_bad = 0
+    for p in range(got.shape[0]):
+        picks = ([(gi[p][:, c], wi[p][:, c]) for c in (0, 1)]
+                 if got.dim() == 3 else [(gi[p], wi[p])])
+        for g, w in picks:
+            n_bad += ties_only(x[p], y[p], g, w, 2 * tol)
+    return err, n_bad
+
+
 def check_knn_256():
     """K1 (int8 at the store's and bench.py's shapes, bf16 plain and gated
-    at bench.py's, f32 at the store's) and K3 (bf16 and f32 at 64 × 10240)
-    at 256 values a row: ORB's bits and the full −128..127, bit-exact
-    against the plain versions; times beside the bound and one library
-    product of the same operands. bf16 runs the wgmma body (knn_wg.cuh),
-    timed in turns with the mma.sync body it replaced and split into
-    product and key epilogue (d256_vs_mma). Returns {case:
-    measurements}."""
+    at bench.py's, f32 plain and gated at the store's) and K3 (bf16 and
+    f32 at 64 × 10240) at 256 values a row: ORB's bits and the full
+    −128..127, bit-exact against the plain versions; times beside the
+    bound and one library product of the same operands. bf16 and f32 run
+    the wgmma body (knn_wg.cuh), timed in turns with the mma.sync body it
+    replaced and split into product and key epilogue (d256_vs_mma); f32
+    also on non-integer rows within its tolerance (random_planes_256).
+    Returns {case: measurements}."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    pairs, n = BENCH_SHAPE
-    # a prior that gates out about half the candidates: positions in a
-    # 1000 px square, radius 400 px
-    gate = (torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000,
-            torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000,
-            400.0 ** 2)
+    gates = {}
+
+    def gate_of(pairs, n):
+        """a prior that gates out about half the candidates: positions in
+        a 1000 px square, radius 400 px"""
+        if (pairs, n) not in gates:
+            gates[pairs, n] = (
+                torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                * 1000,
+                torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                * 1000, 400.0 ** 2)
+        return gates[pairs, n]
+
     out = {}
     for case, (pairs, n), dtype, eb, peak in (
             ("i8_store", STORE_SHAPE, torch.int8, 1, "int8"),
             ("i8_bench", BENCH_SHAPE, torch.int8, 1, "int8"),
             ("bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
             ("gated_bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
-            ("f32_store", STORE_SHAPE, torch.float32, 4, "f32")):
+            ("f32_store", STORE_SHAPE, torch.float32, 4, "f32"),
+            ("gated_f32_store", STORE_SHAPE, torch.float32, 4, "f32")):
         gated = case.startswith("gated")
+        gate = gate_of(pairs, n) if gated else ()
         name = f"K1 {case} {pairs} x {n} at 256"
         for full in (True, False):      # the timed rows last: ORB's bits
             a, b = orb_rows(gen, pairs, n, full)
             args = ((a, b) if dtype == torch.int8
-                    else float_inputs(a, b, dtype)) + (gate if gated else ())
+                    else float_inputs(a, b, dtype)) + gate
             r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
                              args, reps=5 if not full else 1,
                              plain_reps=2 if not full else 1)
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=gated, dim=256))
-        if case == "bf16_bench":
+        if case in ("bf16_bench", "f32_store"):
             d256_vs_mma(r, name, args, "packed")
         elif gated:                     # the gate is epilogue: the same
+            probe = d256_probe(args)[0]
             vs_old_body(r, name, lambda: knn.knn_packed_raw(*args),
-                        lambda: knn_stages.bf16_d256_raw(*args, body="mma"),
-                        "was")
+                        lambda: probe(*args, body="mma"), "was")
             for k in ("tc_product_ms", "was_product_ms", "product_only_ms"):
-                r[k] = out["bf16_bench"][k]
+                r[k] = out[case[len("gated_"):]][k]
         if not gated:
             x, bt = args[0].reshape(-1, 256), args[1][0].t()
             r["product_only_ms"] = product_only(
@@ -1054,7 +1137,6 @@ def check_knn_256():
             f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), product only {r['product_only_ms']} ms")
         out[case] = r
-    del gate
     pairs, n = WIDE_IMAGES, WIDE_N
     for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
                             ("f32", torch.float32, 4)):
@@ -1066,8 +1148,7 @@ def check_knn_256():
         product = 2 * pairs * n * n * 256
         with_bound(r, pairs * n * (2 * 256 * eb + 8 + 24),
                    {"bf16": (6 if mode == "f32" else 1) * product})
-        if mode == "bf16":
-            d256_vs_mma(r, name, args, "wide")
+        d256_vs_mma(r, name, args, "wide")
         r["product_only_ms"] = product_only(
             name, lambda: torch.bmm(args[0], args[1].transpose(1, 2)))
         del args
@@ -1077,6 +1158,8 @@ def check_knn_256():
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}), product only "
             f"{r['product_only_ms']} ms")
         out[f"k3_{mode}"] = r
+    random_planes_256(gen, *STORE_SHAPE, gate_of(*STORE_SHAPE), out)
+    del gates
     usage = {k: v for k, v in _build.tc_kernel_usage().items()
              if "_d256" in k}
     log(f"[K1/K3 at 256] ptxas (registers, spill stores, spill loads): "
@@ -3055,8 +3138,10 @@ def run_stages(root, smi, p16_wall, p16_cams):
     mission, written afresh. (a) The numbered workflow as CLI calls with
     --detector TPU; (b) matching --detector SIFT and ORB at the
     reference's defaults; (c) process.main with the default detector, at
-    4096 features a frame and at every feature. Returns the launches of
-    the 256-wide kernels over (b)'s ORB runs."""
+    4096 features a frame and at every feature; (d) the store path in
+    float32 with bf16 off on (b)'s ORB workspaces, against int8's lists.
+    Returns the launches of the 256-wide kernels over (b)'s ORB runs and
+    (d)'s store paths."""
     W, H = FRAME
     m = make_mission(strips=STRIPS, per_strip=PER_STRIP, size=FRAME, seed=0,
                      device="cuda")
@@ -3160,6 +3245,35 @@ def run_stages(root, smi, p16_wall, p16_cams):
         det: [{k: v for k, v in r.items() if k != "launches"} for r in rs]
         for det, rs in runs.items()} | {"d256_launches": d256,
                                         "device": smi}))
+
+    # (d) the store path in float32 with bf16 off on (b)'s ORB workspaces
+    # of the whole mission: K1 f32 or K3 f32 at 256 values a row, as the
+    # feature counts reach them; ORB's bits give the same integer
+    # distances in both modes, so the lists equal the int8 mode's
+    pairs = [(i, j) for _, i, j in worklist.build_work_list(
+        m.ned, use_distance=True)]
+    for tag in ("orb", "orb_k1", "orb_k3"):
+        d = os.path.join(root, tag)
+        if not os.path.isdir(d):
+            continue
+        proj = ProjectMgr(d)
+        proj.load_images_info()
+        lists, launches, walls = store_path(
+            proj, pairs, [("int8", True, False), ("float32", False, False)])
+        f32 = {k: launches["float32_f32"][k] for k in (
+            "knn_packed_f32_d256", "knn_wide_f32_d256")}
+        for k, v in f32.items():
+            d256[k] = d256.get(k, 0) + v
+        n_kept = sum(bool(len(r)) for r in lists["int8"].values())
+        same = _same_lists(lists["float32_f32"], lists["int8"])
+        checks[f"(d) {tag} float32 lists equal int8's"] = same
+        checks[f"(d) {tag} f32 at 256 launched"] = sum(f32.values()) > 0
+        log(f"[stages-18d] store path on {tag}'s workspace, {len(pairs)} "
+            f"pairs ({n_kept} kept in int8), float32 with bf16 off against "
+            f"int8: lists equal {same}; f32 launches {f32}; walls s "
+            + json.dumps({n: {k: round(v, 3) for k, v in w.items()}
+                          for n, w in walls.items()}) + f"; {smi}")
+        del proj, lists
 
     # (c) process.main with the default detector (host SIFT at scale 0.4)
     # and phase 16's other arguments: at phase 16's 4096 features a frame
@@ -3872,23 +3986,12 @@ def _same_lists(a, b):
                                         for p in a)
 
 
-def run_store_modes(proj, m, smi, dev="cuda"):
-    """Phase 21 (a): BatchMatcher's store path over a workspace of the
-    mission in each store mode (traditional: int8, uint8, float32 with
-    bf16 on and off; smart: int8 and uint8), on phases 7-8's work list;
-    every mode's match lists equal int8's on the detector's integer
-    descriptors, and the mode's K1 launched. Then non-integer rows: the
-    descriptors plus seeded uniform noise in [-0.5, 0.5) in a float32
-    store: K1 f32 and bf16 on one store batch against knn_packed_plain,
-    and the store path on the card against the same code on the CPU.
-    Returns {mode: launches}."""
-    W = m.frames[0].shape[1]
-    thresh = float(W) ** 0.25
-    pairs = [(i, j) for _, i, j in worklist.build_work_list(
-        m.ned, use_distance=True)]
+def store_path(proj, pairs, runs, dev="cuda"):
+    """BatchMatcher's store path over the workspace proj in each run's
+    store mode (dtype, bf16, gated: the smart strategy) on the work list
+    pairs. Returns ({mode: match lists}, {mode: launches}, {mode: walls})
+    by _mode_name."""
     lists, launches, walls = {}, {}, {}
-    runs = [(d, b, False) for d, b in STORE_MODES] + [
-        ("int8", True, True), ("uint8", True, True)]
     for dtype, bf16, gated in runs:
         name = _mode_name(dtype, bf16, gated)
         cfg = matcher.MatchConfig(
@@ -3913,6 +4016,26 @@ def run_store_modes(proj, m, smi, dev="cuda"):
         launches[name] = read_launches()
         lists[name] = project_matches(proj, pairs)
         del bm
+    return lists, launches, walls
+
+
+def run_store_modes(proj, m, smi, dev="cuda"):
+    """Phase 21 (a): BatchMatcher's store path over a workspace of the
+    mission in each store mode (traditional: int8, uint8, float32 with
+    bf16 on and off; smart: int8 and uint8), on phases 7-8's work list;
+    every mode's match lists equal int8's on the detector's integer
+    descriptors, and the mode's K1 launched. Then non-integer rows: the
+    descriptors plus seeded uniform noise in [-0.5, 0.5) in a float32
+    store: K1 f32 and bf16 on one store batch against knn_packed_plain,
+    and the store path on the card against the same code on the CPU.
+    Returns {mode: launches}."""
+    W = m.frames[0].shape[1]
+    thresh = float(W) ** 0.25
+    pairs = [(i, j) for _, i, j in worklist.build_work_list(
+        m.ned, use_distance=True)]
+    runs = [(d, b, False) for d, b in STORE_MODES] + [
+        ("int8", True, True), ("uint8", True, True)]
+    lists, launches, walls = store_path(proj, pairs, runs, dev)
     kernel = {"int8": "knn_packed_i8", "uint8": "knn_packed_bf16",
               "float32": "knn_packed_bf16", "float32_f32": "knn_packed_f32",
               "int8_smart": "knn_packed_gated",
@@ -4704,7 +4827,7 @@ def main():
             out.update({f"{tag}_{k}": k256[case][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "product_only_ms", "was_ms", "tc_product_ms",
-                "was_product_ms") if k in k256[case]})
+                "was_product_ms", "random_max_abs_err") if k in k256[case]})
         return out
 
     def at19(key):
@@ -4737,7 +4860,8 @@ def main():
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
                 for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
              **at19("knn_packed_gated"), **at21("knn_packed_gated"),
-             **at256("knn_packed_gated_d256", "gated_bf16_bench")),
+             **at256("knn_packed_gated_d256", "gated_bf16_bench",
+                     "gated_f32_store")),
         dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_bf16"], k1["bf16"]),
              **at256("knn_packed_bf16_d256", "bf16_bench"),

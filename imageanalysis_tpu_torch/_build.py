@@ -89,6 +89,11 @@ _SIGNATURES = {
     # mma.sync, 1 wgmma), stream
     "knn_bf16_d256": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _P],
+    # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,
+    # split_a, split_b (the planes' scratch), n_pairs, n_a, n_b, mode (0 K1,
+    # 2 K3, 3 product + row sum), body (0 mma.sync, 1 wgmma), stream
+    "knn_f32_d256": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _I, _I, _I, _P],
     # a, b, row_p, n_pairs, n_a, n_b, bf16, bm, bn, stages, stream
     "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # bf16, bm, bn, stages
@@ -258,15 +263,18 @@ _TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32",
              "NS_4D256INS_6Bf16x3EEE": "f32_d256"}
 
 
-# knn_wg_kernel<MODE> (csrc/knn_wg.cuh): bf16 at 256 values a row on wgmma
-_WG_KNN_KERNEL = re.compile(r"knn_wg_kernelILi(\d+)EE")
+# knn_wg_kernel<T, MODE> (csrc/knn_wg.cuh): bf16 (T "NS_4D256ItEE") and
+# f32 (T "NS_4D256INS_6Bf16x3EEE") at 256 values a row on wgmma; T absent
+# from builds whose body took bf16 only
+_WG_KNN_KERNEL = re.compile(r"knn_wg_kernelI(NS_4D256I(?:t|NS_6Bf16x3E)EE)?"
+                            r"Li(\d+)EE")
 
 
 def tc_kernel_usage(usage=None):
     """ptxas_usage() of the tensor-core bodies' instantiations, keyed
     "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2"; at 256 values a
     row the type is suffixed, e.g. "int8_d256 0 128 128 2"); the wgmma
-    body of bf16 at 256 as "bf16_d256 mode wg"."""
+    body at 256 as "bf16_d256 mode wg" and "f32_d256 mode wg"."""
     out = {}
     for name, u in (ptxas_usage() if usage is None else usage).items():
         m = _TC_KERNEL.search(name)
@@ -275,7 +283,8 @@ def tc_kernel_usage(usage=None):
             out[" ".join(key)] = u
         m = _WG_KNN_KERNEL.search(name)
         if m:
-            out[f"bf16_d256 {m.group(1)} wg"] = u
+            kind = _TC_TYPES[m.group(1)] if m.group(1) else "bf16_d256"
+            out[f"{kind} {m.group(2)} wg"] = u
     return out
 
 

@@ -2,8 +2,8 @@
 // mbarriers, TMA tile loads and warpgroup products (wgmma) of a kernel
 // whose producer warp copies tiles into shared memory while consumer
 // warpgroups multiply them (P5's mm_rowsum_wg_kernel in mma_probe.cu, K1's
-// and K3's bf16 body at 256 values a row in knn_wg.cuh), and the host's
-// TMA maps.
+// and K3's bf16 and f32 bodies at 256 values a row in knn_wg.cuh), and the
+// host's TMA maps.
 //
 // mbarrier phases: a barrier starts in phase 0; mbar_wait(bar, parity)
 // returns once the phase of that parity has completed, so a wait on
@@ -24,7 +24,10 @@
 // Accumulator layout of wgmma.m64nNk16 (f32): warp w of the warpgroup
 // holds rows 16w..16w+15; lane l's d[i] is row 16w + l / 4 + 8 ((i / 2)
 // % 2), column 8 (i / 4) + 2 (l % 4) + i % 2, as mma.sync's m16n8 C
-// fragment repeated along N.
+// fragment repeated along N. An A operand in registers (wgmma_64_rs) is
+// mma.sync's m16n16 A fragment of the warp's 16 rows (mma_sync.cuh's
+// head): a0 row l / 4, values 2 (l % 4) and + 1 of the k-step; a1 the row
+// + 8; a2, a3 the same rows at values + 8.
 
 #pragma once
 
@@ -181,6 +184,29 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 f32, 32 a thread) = A . B^T + (scale_d ? d : 0), A from
+// registers (a: the warp's fragment, see the head), B from shared memory
+__device__ __forceinline__ void wgmma_64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 128 f32, 64 a thread) += A . B^T, scale-d on
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
                                           uint64_t db) {
@@ -242,7 +268,8 @@ inline EncodeTiled encode_tiled() {
 
 // a 3-D map over (pairs, rows, K) bf16, row-major and contiguous: boxes
 // of 64 values (128 bytes) x box_rows rows of one pair, 128-byte swizzle;
-// rows beyond a pair's last read as zeros. Returns a cudaError_t.
+// rows beyond a pair's last read as zeros (K 768: f32's three planes of
+// 256 values side by side). Returns a cudaError_t.
 inline int encode_pairs(CUtensorMap* map, const void* p, int pairs,
                         int rows, int K, int box_rows) {
   EncodeTiled fn = encode_tiled();

@@ -46,12 +46,15 @@
 //   once a B tile (why: the head of knn_tc.cuh). The planes come from a
 //   split pre-pass (split_bf16x3_kernel) into bf16 scratch of the
 //   caller's. Integer-valued descriptors give exact dots, so keys
-//   bit-exact with the plain version; other f32 within 2^-20 of the norms.
+//   bit-exact with the plain version; other f32 within 2^-20 of the norms
+//   (2^-19 at 256 values a row, where the plain version's own f32 product
+//   errs more).
 //   Before it, the FFMA body (now the yardstick knn_ffma_f32 in
 //   knn_probe.cu) ran at 39% of the CUDA cores' 67 TFLOP/s.
-// - bf16 at 256 values a row (ORB's) runs knn_wg.cuh's body, plain and
-//   gated: wgmma fed by TMA, two consumer warpgroups in ping-pong (the
-//   mma.sync body there is knn_probe.cu's yardstick).
+// - bf16 and f32 at 256 values a row (ORB's) run knn_wg.cuh's body, plain
+//   and gated: wgmma fed by TMA, two consumer warpgroups in ping-pong (f32
+//   after its split pre-pass, A's hi plane in registers, B plane by plane;
+//   the mma.sync bodies there are knn_probe.cu's yardsticks).
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and

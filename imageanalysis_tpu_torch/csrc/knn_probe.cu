@@ -19,10 +19,11 @@
 // min on) on the tensor-core body K1 runs now, at K1's tile (its modes
 // kProductRowMin, kProductTop1, kProductTop2Tile, kProductTop2 and
 // kPacked, K1 itself), the old bodies' anatomy kept as its yardstick. The full stages equal K1's result bit for bit.
-// knn_bf16_d256 runs bf16 rows of 256 values on the mma.sync body (what K1
-// and K3 launched there before knn_wg.cuh's wgmma body, kept as its
-// yardstick) or on the wgmma body, in K1's and K3's modes and the
-// product-only stage (the product / key-epilogue split at 256).
+// knn_bf16_d256 and knn_f32_d256 run bf16 and f32 rows of 256 values on
+// the mma.sync body (what K1 and K3 launched there before knn_wg.cuh's
+// wgmma body, kept as its yardstick) or on the wgmma body, in K1's and
+// K3's modes and the product-only stage (the product / key-epilogue split
+// at 256).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
@@ -411,22 +412,53 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
 
 namespace {
 
-// the mma.sync body at D256<uint16_t>, as launch_tc sent bf16 rows of 256
-// values to it before the wgmma body: 128 A rows a block where n_a allows,
-// else 64, two 128-row B tiles
-template <int MODE>
+// the mma.sync body at T (D256<uint16_t> or D256<Bf16x3>), as launch_tc
+// sent rows of 256 values to it before the wgmma body: bf16 128 A rows a
+// block where n_a allows, else 64, two 128-row B tiles; f32 64 A rows and
+// one 64-row B tile
+template <typename T, int MODE>
 int d256_mma(const void* a, const void* b, const void* na2, const void* nb2,
              const void* uv_a, const void* pred_b, float radius2,
              void* row_p, void* col_p, void* row_k, void* col_k, int n_pairs,
              int n_a, int n_b, cudaStream_t s) {
-  using T = D256<uint16_t>;
-  if (n_a % 128 == 0)
-    return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
-                                         radius2, row_p, col_p, row_k, col_k,
-                                         n_pairs, n_a, n_b, s);
-  return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                      row_p, col_p, row_k, col_k, n_pairs,
-                                      n_a, n_b, s);
+  if constexpr (std::is_same<T, D256<Bf16x3>>::value) {
+    return tc::launch_tile<T, MODE, 64, 64, 1>(a, b, na2, nb2, uv_a, pred_b,
+                                               radius2, row_p, col_p, row_k,
+                                               col_k, n_pairs, n_a, n_b, s);
+  } else {
+    if (n_a % 128 == 0)
+      return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
+                                           radius2, row_p, col_p, row_k,
+                                           col_k, n_pairs, n_a, n_b, s);
+    return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b,
+                                        radius2, row_p, col_p, row_k, col_k,
+                                        n_pairs, n_a, n_b, s);
+  }
+}
+
+// the mma.sync body at T in mode (kPacked, gated where uv_a != NULL;
+// kWide; kProductRowSum)
+template <typename T>
+int d256_mma_mode(const void* a, const void* b, const void* na2,
+                  const void* nb2, const void* uv_a, const void* pred_b,
+                  float radius2, void* row_p, void* col_p, void* row_k,
+                  void* col_k, int n_pairs, int n_a, int n_b, int mode,
+                  cudaStream_t s) {
+  if (mode == kPacked && uv_a)
+    return d256_mma<T, kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                     row_p, col_p, nullptr, nullptr, n_pairs,
+                                     n_a, n_b, s);
+  if (mode == kPacked)
+    return d256_mma<T, kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
+                                col_p, nullptr, nullptr, n_pairs, n_a, n_b,
+                                s);
+  if (mode == kWide)
+    return d256_mma<T, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
+                              nullptr, nullptr, row_k, col_k, n_pairs, n_a,
+                              n_b, s);
+  return d256_mma<T, kProductRowSum>(a, b, nullptr, nullptr, nullptr,
+                                     nullptr, 0.f, row_p, nullptr, nullptr,
+                                     nullptr, n_pairs, n_a, n_b, s);
 }
 
 }  // namespace
@@ -464,17 +496,46 @@ extern "C" int knn_bf16_d256(const void* a, const void* b, const void* na2,
         a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
         nullptr, nullptr, n_pairs, n_a, n_b, s);
   }
-  if (mode == kPacked && uv_a)
-    return d256_mma<kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                  row_p, col_p, nullptr, nullptr, n_pairs,
-                                  n_a, n_b, s);
-  if (mode == kPacked)
-    return d256_mma<kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
-                             col_p, nullptr, nullptr, n_pairs, n_a, n_b, s);
-  if (mode == kWide)
-    return d256_mma<kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f, nullptr,
-                           nullptr, row_k, col_k, n_pairs, n_a, n_b, s);
-  return d256_mma<kProductRowSum>(a, b, nullptr, nullptr, nullptr, nullptr,
-                                  0.f, row_p, nullptr, nullptr, nullptr,
-                                  n_pairs, n_a, n_b, s);
+  return d256_mma_mode<D256<uint16_t>>(a, b, na2, nb2, uv_a, pred_b,
+                                       radius2, row_p, col_p, row_k, col_k,
+                                       n_pairs, n_a, n_b, mode, s);
+}
+
+// f32 rows of 256 values on either body, as knn_bf16_d256 for bf16: body
+// 0 the mma.sync body (knn_tc_kernel<D256<Bf16x3>>, the yardstick), 1 the
+// wgmma body that K1 and K3 run (its keyed modes through K1's and K3's own
+// entry points); both after the split pre-pass into split_a (n_pairs, n_a,
+// 3, 256) and split_b (n_pairs, n_b, 3, 256) bf16 scratch. a, b (n_pairs,
+// n_a | n_b, 256) f32, 16-byte aligned; other arguments and the modes as
+// knn_bf16_d256's (kProductRowSum: integer-valued rows, so that each dot is
+// an integer). Returns the cudaError_t of the first failed launch.
+extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
+                            const void* nb2, const void* uv_a,
+                            const void* pred_b, float radius2, void* row_p,
+                            void* col_p, void* row_k, void* col_k,
+                            void* split_a, void* split_b, int n_pairs,
+                            int n_a, int n_b, int mode, int body,
+                            void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
+      || (mode != kPacked && mode != kWide && mode != kProductRowSum) ||
+      (body != 0 && body != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1 && mode == kPacked)
+    return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                            col_p, split_a, split_b, n_pairs, n_a, n_b, 0,
+                            256, stream);
+  if (body == 1 && mode == kWide)
+    return knn_wide(a, b, na2, nb2, row_k, col_k, split_a, split_b, n_pairs,
+                    n_a, n_b, 0, 256, stream);
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s, 256);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s, 256);
+  if (e != 0) return e;
+  if (body == 1)
+    return launch_tc<D256<Bf16x3>, kProductRowSum>(
+        split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
+        nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
+  return d256_mma_mode<D256<Bf16x3>>(split_a, split_b, na2, nb2, uv_a,
+                                     pred_b, radius2, row_p, col_p, row_k,
+                                     col_k, n_pairs, n_a, n_b, mode, s);
 }

@@ -74,19 +74,18 @@
 //
 // Rows of 256 values (ORB's 256 bits as 0/1, the int8 store's -128/-127):
 // the operand type D256<T> is T at twice the row, the same body with twice
-// the k-steps, for int8 and f32. Its rows are padded to an odd number of
-// 16-byte units too (int8 272 B, f32 1552 B). Exactness holds as at 128:
-// int8 |dot| <= 256 x 128^2 = 2^22 (the 1.5 x 2^23 trick still lands in
-// [2^23, 2^24]) and d2 <= 256 x 255^2 < 2^24; integer-valued floats keep
-// every partial sum below 2^24. Tiles: int8 as at 128 (~108 KB, two
-// blocks an SM); f32 would need 194 KB for 128 A rows alone, so it takes
-// 64 A rows and one 64-row B tile (~196 KB, STAGES = 1: the copy of a tile
-// does not overlap the product of the one before, a simple tile kept for
-// a mode that only the chunked path below 64 images reaches). bf16 at 256
-// (D256<uint16_t>) runs its own body, wgmma fed by TMA (knn_wg.cuh):
-// here its 528-byte rows held 128 A rows and two 128-row B tiles, ~204 KB,
-// one block an SM whose product and key epilogue took turns; that body
-// stays instantiated only as knn_probe.cu's yardstick.
+// the k-steps for int8, whose rows are padded to an odd number of 16-byte
+// units too (272 B). Exactness holds as at 128: int8 |dot| <= 256 x 128^2
+// = 2^22 (the 1.5 x 2^23 trick still lands in [2^23, 2^24]) and d2 <= 256
+// x 255^2 < 2^24; integer-valued floats keep every partial sum below 2^24.
+// int8's tiles as at 128 (~108 KB, two blocks an SM). bf16 (D256<uint16_t>)
+// and f32 (D256<Bf16x3>) at 256 run their own body, wgmma fed by TMA
+// (knn_wg.cuh): here bf16's 528-byte rows held 128 A rows and two
+// 128-row B tiles (~204 KB) and f32's 1552-byte rows 64 A rows and one
+// 64-row B tile (~196 KB, STAGES = 1: the copy of a tile did not overlap
+// the product of the one before), one block an SM whose product and key
+// epilogue took turns; those instantiations stay only as knn_probe.cu's
+// yardsticks.
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
@@ -795,8 +794,8 @@ int tile_blocks_per_sm() {
 }  // namespace tc
 }  // namespace knn
 
-// the bf16 body at 256 values a row (launch_tc below), which uses tc's
-// keys and merges
+// the bf16 and f32 body at 256 values a row (launch_tc below), which uses
+// tc's keys and merges
 #include "knn_wg.cuh"
 
 namespace knn {
@@ -819,23 +818,19 @@ int launch_row_norms_i8(const void* x, void* out, long long rows,
 // kProductRowSum and kProductRowMin); uv_a, pred_b f32 for kPackedGated;
 // n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of 128
 // A rows where n_a allows, else 64, and the type's B tiles in a ring of
-// two; D256<Bf16x3> 64 A rows and one 64-row B tile (the head of this
-// file); D256<uint16_t> the wgmma body (knn_wg.cuh). Returns the
-// cudaError_t of the launch.
+// two; D256<uint16_t> and D256<Bf16x3> the wgmma body (knn_wg.cuh).
+// Returns the cudaError_t of the launch.
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,
               float radius2, void* row_p, void* col_p, void* row_k,
               void* col_k, int n_pairs, int n_a, int n_b,
               cudaStream_t stream) {
-  if constexpr (std::is_same<T, D256<Bf16x3>>::value) {
-    return tc::launch_tile<T, MODE, 64, 64, 1>(a, b, na2, nb2, uv_a, pred_b,
-                                               radius2, row_p, col_p, row_k,
-                                               col_k, n_pairs, n_a, n_b,
-                                               stream);
-  } else if constexpr (std::is_same<T, D256<uint16_t>>::value) {
-    return wg::launch<MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                            col_p, row_k, col_k, n_pairs, n_a, n_b, stream);
+  if constexpr (std::is_same<T, D256<Bf16x3>>::value ||
+                std::is_same<T, D256<uint16_t>>::value) {
+    return wg::launch<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                               col_p, row_k, col_k, n_pairs, n_a, n_b,
+                               stream);
   } else {
     if (n_a % 128 == 0)
       return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,

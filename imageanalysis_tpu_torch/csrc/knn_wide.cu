@@ -37,7 +37,7 @@
 //   B tiles; its FFMA predecessor spent 93% of its time in the product.
 //   At 256 values a row (ORB's) bf16 runs knn_wg.cuh's body instead:
 //   wgmma fed by TMA, two consumer warpgroups in ping-pong (the mma.sync
-//   body there is knn_probe.cu's yardstick).
+//   body there is knn_probe.cu's yardstick), and so does f32 (below).
 // - f32: the TPU kernel's f32 dot runs at Precision.HIGHEST, a multi-pass
 //   bf16 product; here a pre-pass (knn_packed.cu's split_bf16x3_kernel)
 //   writes each operand as three bf16 planes into the caller's scratch and
@@ -47,7 +47,11 @@
 //   SM). Integer-valued descriptors give exact dots, so keys equal the
 //   plain version's bit for bit; other f32 within 2^-20 of the norms. Its
 //   FFMA predecessor (knn_probe.cu's knn_ffma_f32, kept as the yardstick)
-//   ran at 39% of the CUDA cores' 67 TFLOP/s.
+//   ran at 39% of the CUDA cores' 67 TFLOP/s. At 256 values a row f32
+//   runs knn_wg.cuh's body: A's hi plane in registers, its mid and lo in
+//   shared memory, B's planes streamed one by one by TMA; other f32 there
+//   within 2^-19 of the norms (the plain version's own f32 product lies
+//   further from the f64 truth than either tensor-core body's).
 
 #include "knn_common.cuh"
 

@@ -108,6 +108,10 @@ measure the tensor-core body:
   product-only ``row_sum`` (the product / key-epilogue split at 256);
   its plain version ``bf16_d256_plain`` is K1's, K3's or
   ``tc_row_sum_plain``'s.
+- ``f32_d256_raw``: the same for f32 rows of 256 values (three bf16
+  planes after the split pre-pass), whose ``mma.sync`` body (64 A rows,
+  one 64-row B tile) K1 and K3 ran before the ``wgmma`` body; its plain
+  version ``f32_d256_plain``.
 """
 
 from __future__ import annotations
@@ -147,7 +151,8 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
-            "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0}
+            "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0,
+            "knn_f32_d256": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
 # which tc_stage_raw runs every stage
 TC_BN, TC_BM = 128, 128
@@ -629,20 +634,21 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
     return knn_probe_raw(a, b, na2, nb2, card)
 
 
-# bf16 rows of 256 values on either tensor-core body: the modes of
-# knn_bf16_d256 (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
-# body K1 and K3 ran there before; "wg": the wgmma body they run now)
+# rows of 256 values on either tensor-core body: the modes of
+# knn_bf16_d256 and knn_f32_d256 (csrc/knn_probe.cu) and the bodies ("mma":
+# mma.sync, the body K1 and K3 ran there before; "wg": the wgmma body they
+# run now)
 D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
 D256_BODIES = {"mma": 0, "wg": 1}
 
 
-def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name):
+def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype):
     if mode not in D256_MODES or body not in D256_BODIES:
         raise ValueError(f"{name}: no mode {mode!r} on body {body!r} "
                          f"(modes {tuple(D256_MODES)}, bodies "
                          f"{tuple(D256_BODIES)})")
-    if a.dtype != torch.bfloat16 or a.dim() != 3 or a.shape[2] != 256:
-        raise ValueError(f"{name}: takes (B, n, 256) bfloat16, got "
+    if a.dtype != dtype or a.dim() != 3 or a.shape[2] != 256:
+        raise ValueError(f"{name}: takes (B, n, 256) {str(dtype)[6:]}, got "
                          f"{tuple(a.shape)} {a.dtype}")
     if mode == "packed":
         knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
@@ -653,20 +659,57 @@ def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name):
     elif mode == "wide":
         knn._check_wide(a, b, na2, nb2, name)
     else:
-        _check_tc(a[..., :128], b[..., :128], name, (torch.bfloat16,))
+        _check_tc(a[..., :128], b[..., :128], name, (dtype,))
+
+
+def _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode, name, dtype):
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, "mma", name, dtype)
+    if mode == "packed":
+        return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
+    if mode == "wide":
+        return knn.knn_wide_plain(a, b, na2, nb2)
+    return _probe_rows(a, b, _row_sum)
+
+
+def _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
+    """bf16_d256_raw's and f32_d256_raw's launch (their checks done, a and
+    b on a CUDA card)."""
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    f32 = dtype == torch.float32
+    entry = "knn_f32_d256" if f32 else "knn_bf16_d256"
+    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b,
+                      entry.replace("knn_", "") + "_raw")
+    dev = a.device
+    wide = mode == "wide"
+    key = torch.int64 if wide else torch.int32
+    kmax = knn._WIDE_MAX if wide else knn._KEY_MAX
+    row = torch.empty((B, n_a, 2), dtype=key, device=dev)
+    col = torch.full((B, n_b), kmax, dtype=key, device=dev)
+    rp, cp, rk, ck = ((None, None, row, col) if wide
+                      else (row, col, None, None))
+    # f32: scratch for the operands' three bf16 planes
+    split = (knn._split_scratch(a), knn._split_scratch(b)) if f32 else ()
+    with torch.cuda.device(dev):
+        err = getattr(_build.load(), entry)(
+            a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
+            knn._ptr(uv_a), knn._ptr(pred_b),
+            radius2 if uv_a is not None else 0.0, knn._ptr(rp),
+            knn._ptr(cp), knn._ptr(rk), knn._ptr(ck),
+            *(x.data_ptr() for x in split), B, n_a, n_b,
+            D256_MODES[mode], D256_BODIES[body],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
+    return row, col
 
 
 def bf16_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
                     radius2=None, mode="packed"):
     """Plain version of bf16_d256_raw: knn.knn_packed_plain (gated with
     uv_a), knn.knn_wide_plain, or tc_row_sum_plain's arithmetic."""
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, "mma",
-                "bf16_d256_plain")
-    if mode == "packed":
-        return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
-    if mode == "wide":
-        return knn.knn_wide_plain(a, b, na2, nb2)
-    return _probe_rows(a, b, _row_sum)
+    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
+                       "bf16_d256_plain", torch.bfloat16)
 
 
 def bf16_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
@@ -681,29 +724,34 @@ def bf16_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
     knn.knn_packed_raw / knn.knn_wide_raw; n_a and n_b multiples of 64. A
     CPU tensor takes bf16_d256_plain; any other device raises. Counted as
     knn_bf16_d256, not as K1's or K3's launches."""
-    name = "bf16_d256_raw"
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name)
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "bf16_d256_raw",
+                torch.bfloat16)
     if a.device.type == "cpu":
         return bf16_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
-    B, n_a, _ = a.shape
-    n_b = b.shape[1]
-    knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b, name)
-    dev = a.device
-    wide = mode == "wide"
-    key = torch.int64 if wide else torch.int32
-    kmax = knn._WIDE_MAX if wide else knn._KEY_MAX
-    row = torch.empty((B, n_a, 2), dtype=key, device=dev)
-    col = torch.full((B, n_b), kmax, dtype=key, device=dev)
-    rp, cp, rk, ck = ((None, None, row, col) if wide
-                      else (row, col, None, None))
-    with torch.cuda.device(dev):
-        err = _build.load().knn_bf16_d256(
-            a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
-            knn._ptr(uv_a), knn._ptr(pred_b),
-            radius2 if uv_a is not None else 0.0, knn._ptr(rp),
-            knn._ptr(cp), knn._ptr(rk), knn._ptr(ck), B, n_a, n_b,
-            D256_MODES[mode], D256_BODIES[body],
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "knn_bf16_d256")
-    LAUNCHES["knn_bf16_d256"] += 1
-    return row, col
+    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
+                     torch.bfloat16)
+
+
+def f32_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                   radius2=None, mode="packed"):
+    """Plain version of f32_d256_raw: knn.knn_packed_plain (gated with
+    uv_a), knn.knn_wide_plain, or tc_row_sum_plain's arithmetic."""
+    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
+                       "f32_d256_plain", torch.float32)
+
+
+def f32_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                 radius2=None, mode="packed", body="mma"):
+    """f32 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), split
+    into their three bf16 planes and then on body "mma" (the mma.sync body,
+    K1's and K3's yardstick at this width) or "wg" (the wgmma body of
+    csrc/knn_wg.cuh, which K1 and K3 launch), in the modes of
+    bf16_d256_raw ("row_sum" on integer-valued rows, whose dots are
+    integers). A CPU tensor takes f32_d256_plain; any other device raises.
+    Counted as knn_f32_d256, not as K1's or K3's launches."""
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "f32_d256_raw",
+                torch.float32)
+    if a.device.type == "cpu":
+        return f32_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
+    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
+                     torch.float32)

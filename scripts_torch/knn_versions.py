@@ -7,17 +7,19 @@ Run it once per copy of the package, each in its own process, in turns
 (old, new, new, old), to compare two versions of the 2-NN kernels on one
 card; each copy builds its kernels into ROOT/build/:
 
-    python3 scripts_torch/knn_versions.py [ROOT]     # default: this repo
+    python3 scripts_torch/knn_versions.py [ROOT] [--f32-d256]
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
 norms), f32 and the gated modes at the store's shape with ~65% of the
 candidates gated out, K3 at 64 × 10240; at 256 values a row (ORB's bits
 as 0/1 bf16, a quarter planted with 8 bits flipped) K1 bf16 plain and
-gated at 64 × 6144 and K3 bf16 at 64 × 10240 (``*_d256``), and, where
-the copy has ``knn_stages.bf16_d256_raw``, the product-only stage there
-on both of its bodies (``row_sum_<body>_d256_*``). Times: median of CUDA
-events after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
+gated at 64 × 6144, K3 bf16 at 64 × 10240, K1 f32 plain and gated at
+256 × 4096 and K3 f32 at 64 × 10240 (``*_d256``), and, where the copy
+has ``knn_stages.bf16_d256_raw`` (``f32_d256_raw``), the product-only
+stage there on both of its bodies (``row_sum_<body>_d256_*``,
+``row_sum_<body>_f32_d256_*``). ``--f32-d256`` times the f32 cases at
+256 alone. Times: median of CUDA events after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
 SASS: the same keys → the first 12 hex digits of the sha256 of each
@@ -31,7 +33,9 @@ import json
 import os
 import sys
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+_ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+ONLY_F32_D256 = "--f32-d256" in sys.argv[1:]
+ROOT = os.path.abspath(_ARGS[0] if _ARGS else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, ROOT)
 
@@ -68,14 +72,38 @@ def as_float(a, b, dtype=torch.bfloat16):
     return af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1)
 
 
-def product_only(f, tag):
-    """The product-only stage (product + row sum) of bf16 at 256 values a
-    row on both bodies of a copy that has them (knn_stages.bf16_d256_raw):
-    {"row_sum_<body>_d256_<tag>": ms}."""
+def product_only(f, tag, probe="bf16_d256_raw"):
+    """The product-only stage (product + row sum) of bf16 (or, probe
+    "f32_d256_raw", f32) at 256 values a row on both bodies of a copy that
+    has them: {"row_sum_<body>_d256_<tag>": ms}."""
+    fn = getattr(knn_stages, probe)
     return {f"row_sum_{body}_d256_{tag}": probes.time_ms(
-        lambda: knn_stages.bf16_d256_raw(f[0], f[1], mode="row_sum",
-                                         body=body), "cuda", 3, 2)
+        lambda: fn(f[0], f[1], mode="row_sum", body=body), "cuda", 3, 2)
         for body in ("wg", "mma")}
+
+
+def f32_d256(gen, out):
+    """K1 f32 plain and gated at 256 × 4096 and K3 f32 at 64 × 10240, at
+    256 values a row (ORB's bits as f32), and the product-only stage on
+    both bodies where the copy has knn_stages.f32_d256_raw."""
+    split = hasattr(knn_stages, "f32_d256_raw")
+    f = as_float(*orb_bits(gen, 256, 4096), torch.float32)
+    gate = (torch.rand((256, 4096, 2), generator=gen, device="cuda") * 1000,
+            torch.rand((256, 4096, 2), generator=gen, device="cuda") * 1000,
+            400.0 ** 2)
+    out["f32_d256_store"] = probes.time_ms(lambda: knn.knn_packed_raw(*f),
+                                           "cuda", 3, 2)
+    out["gated_f32_d256_store"] = probes.time_ms(
+        lambda: knn.knn_packed_raw(*f, *gate), "cuda", 3, 2)
+    if split:
+        out.update(product_only(f, "f32_store", "f32_d256_raw"))
+    del f, gate
+    f = as_float(*orb_bits(gen, 64, 10240), torch.float32)
+    out["k3_f32_d256"] = probes.time_ms(lambda: knn.knn_wide_raw(*f),
+                                        "cuda", 3, 2)
+    if split:
+        out.update(product_only(f, "k3_f32", "f32_d256_raw"))
+    del f
 
 
 def own_build_module():
@@ -107,6 +135,9 @@ def main():
         return probes.time_ms(fn, "cuda", reps, 2)
 
     out = {}
+    if ONLY_F32_D256:
+        f32_d256(gen, out)
+        return report(out)
     for name, pairs, n in (("store", 256, 4096), ("bench", 64, 6144)):
         a, b = planted(gen, pairs, n)
         f = as_float(a, b)
@@ -147,6 +178,12 @@ def main():
     if split:
         out.update(product_only(f, "k3"))
     del f
+    f32_d256(gen, out)
+    report(out)
+
+
+def report(out):
+    """Print the JSON line: times, this copy's registers and SASS."""
     own = own_build_module()
     regs = own.tc_kernel_usage(own.ptxas_usage(_build.build_log))
     print(json.dumps({"root": ROOT, "device": torch.cuda.get_device_name(0),

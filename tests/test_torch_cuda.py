@@ -9,9 +9,9 @@ without the conftest:
 Each kernel is held against its plain PyTorch version on the same card.
 On integer-valued descriptors K1 (every mode) and K3 are integer
 arithmetic in f32 or int32 (on the tensor cores too, f32 as three bf16
-planes, bf16 at 256 values a row on its wgmma body at that body's tile
-edges and on the mma.sync body it replaced; on random bf16 and f32 they
-hold a stated tolerance), K2 (at
+planes, bf16 and f32 at 256 values a row on their wgmma body at that
+body's tile edges and on the mma.sync bodies it replaced; on random bf16
+and f32 they hold a stated tolerance), K2 (at
 every radius, and its first body) rounds the same f32 products and sums
 one by one, and K4 decodes, compares and gathers exactly, so the
 comparisons are bit-exact. So are the f32 modes' split pre-pass and the
@@ -1499,20 +1499,105 @@ def test_bf16_256_bodies_bit_exact_vs_plain(cuda, rng, body, mode):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("mode", ["packed", "gated", "wide", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+@pytest.mark.parametrize("kind", ["bits", "full_range"])
+def test_f32_256_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
+    """f32 at 256 values a row on both bodies through
+    knn_stages.f32_d256_raw (the mma.sync body is the wgmma body's
+    yardstick): K1 plain and gated, K3 and the product-only stage, 320 A
+    rows (two and a half wgmma blocks of 128) against 640 B rows, on ORB's
+    bits and the full -128..127, equal to the plain versions."""
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, 320, 640, kind))
+    x, y, na2, nb2 = _float_inputs(a, b, torch.float32)
+    gate = _gate(rng, cuda, 3, 320, 640) if mode == "gated" else ()
+    kw = dict(mode="packed" if mode == "gated" else mode)
+    norms = (None, None) if mode == "row_sum" else (na2, nb2)
+    before = knn_stages.LAUNCHES["knn_f32_d256"]
+    got = knn_stages.f32_d256_raw(x, y, *norms, *gate, body=body, **kw)
+    assert knn_stages.LAUNCHES["knn_f32_d256"] == before + 1
+    want = knn_stages.f32_d256_plain(x, y, *norms, *gate, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# at 256 values a row the values hold twice _F32_REL: the plain version's
+# own f32 product rounds twice the terms at twice the magnitude of 128's;
+# on these rows its K3 values lie 21-24 from the f64 truth where both
+# tensor-core bodies' (wgmma and mma.sync, equal values) lie 15-16, against
+# 2⁻²⁰ (max |a|² + max |b|²) = 31 (scripts_torch/f32_256_errors.py on an
+# NVIDIA H100 80GB HBM3)
+_F32_REL_256 = 2.0 ** -19
+
+
+def _random_f32_256(rng, cuda, pairs, n_a, n_b):
+    """Non-integer f32 rows of 256 values (uniform 0..400, B's first
+    quarter planted near A's) with their norms and the tolerance
+    _F32_REL_256 × (max |a|² + max |b|²)."""
+    k = min(n_a, n_b) // 4
+    a = rng.uniform(0, 400, (pairs, n_a, 256))
+    b = rng.uniform(0, 400, (pairs, n_b, 256))
+    b[:, :k] = a[:, :k] + rng.normal(0, 2, (pairs, k, 256))
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (a, b))
+    na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+    return a, b, na2, nb2, _F32_REL_256 * float(na2.max() + nb2.max())
+
+
+@pytest.mark.parametrize("shape", _SHAPES_256["K1"],
+                         ids=[f"{a}x{b}" for a, b in _SHAPES_256["K1"]])
+@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
+def test_k1_f32_256_within_tolerance_on_random(cuda, rng, gated, shape):
+    """K1 f32 at 256 values a row (the wgmma body) on non-integer rows,
+    whose mid and lo planes are set, at the tile edges of _SHAPES_256:
+    values within 2⁻¹⁹ of the norms (_F32_REL_256) plus a key's 10-bit
+    step, indices different only on ties."""
+    n_a, n_b = shape
+    a, b, na2, nb2, tol = _random_f32_256(rng, cuda, 2, n_a, n_b)
+    gate = _gate(rng, cuda, 2, n_a, n_b) if gated else ()
+    key = ("knn_packed_gated" if gated else "knn_packed_f32") + "_d256"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_packed_raw(a, b, na2, nb2, *gate)
+    assert knn.LAUNCHES[key] == before + 1
+    want = knn.knn_packed_plain(a, b, na2, nb2, *gate)
+    torch.cuda.synchronize()
+    _near(got[0], want[0], a, b, tol, True, "rows")
+    _near(got[1], want[1], b, a, tol, True, "columns")
+
+
+@pytest.mark.parametrize("shape", _SHAPES_256["K3"],
+                         ids=[f"{a}x{b}" for a, b in _SHAPES_256["K3"]])
+def test_k3_f32_256_within_tolerance_on_random(cuda, rng, shape):
+    """K3 f32 at 256 values a row (the wgmma body) on non-integer rows at
+    the tile edges of _SHAPES_256, beyond 8192 B rows too: values within
+    2⁻¹⁹ of the norms (_F32_REL_256), indices different only on
+    ties."""
+    n_a, n_b = shape
+    a, b, na2, nb2, tol = _random_f32_256(rng, cuda, 2, n_a, n_b)
+    before = knn.LAUNCHES["knn_wide_f32_d256"]
+    got = knn.knn_wide_raw(a, b, na2, nb2)
+    assert knn.LAUNCHES["knn_wide_f32_d256"] == before + 1
+    want = knn.knn_wide_plain(a, b, na2, nb2)
+    torch.cuda.synchronize()
+    _near(got[0], want[0], a, b, tol, False, "rows")
+    _near(got[1], want[1], b, a, tol, False, "columns")
+
+
 def test_knn_wg_sass_is_hgmma(cuda):
-    """The wgmma body of bf16 at 256 values a row (knn_wg_kernel, its
-    four modes) runs its products as HGMMA (wgmma), not as mma.sync's
-    HMMA, which the mma.sync body's bf16 kernels show."""
+    """The wgmma body at 256 values a row (knn_wg_kernel, its four modes
+    for bf16 and for f32) runs its products as HGMMA (wgmma), not as
+    mma.sync's HMMA, which the mma.sync bodies' kernels at 256 show."""
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines)
         for name, lines in _build.sass().items()})
     keys = {k for k in per_key if k.endswith(" wg")}
-    assert keys == {"bf16_d256 0 wg", "bf16_d256 1 wg", "bf16_d256 2 wg",
-                    "bf16_d256 3 wg"}, keys
+    assert keys == {f"{t}_d256 {m} wg" for t in ("bf16", "f32")
+                    for m in range(4)}, keys
     for k in keys:
         assert per_key[k]["HGMMA"] > 0 and per_key[k]["HMMA"] == 0, \
             (k, per_key[k])
     assert per_key["bf16_d256 0 128 128 2"]["HMMA"] > 0
+    assert per_key["f32_d256 0 64 64 1"]["HMMA"] > 0
 
 
 # last in the file: it imports cv2, which the card path's tests above

@@ -358,17 +358,19 @@ def test_k1_k3_random_floats_within_tolerance(rng):
                                    atol=atol)
 
 
-def test_split_bf16x3_plain_reconstructs_exactly(rng):
-    """K1 f32's pre-pass, plain version: the three bf16 planes of seeded
-    f32 descriptors (uniform SIFT-like, normal, integer) add up to the
-    value exactly, hi is the value rounded to bf16, and |mid| ≤ 2⁻⁸ |x|,
-    |lo| ≤ 2⁻¹⁶ |x| (the orders the product relies on)."""
-    x = np.concatenate([rng.uniform(0, 512, (64, 128)),
-                        rng.normal(0, 100, (64, 128)),
-                        rng.integers(0, 256, (64, 128))]).astype(np.float32)
+@pytest.mark.parametrize("dim", [128, 256])
+def test_split_bf16x3_plain_reconstructs_exactly(rng, dim):
+    """K1 f32's pre-pass, plain version, at SIFT's 128 values a row and
+    ORB's 256: the three bf16 planes of seeded f32 descriptors (uniform
+    SIFT-like, normal, integer) add up to the value exactly, hi is the
+    value rounded to bf16, and |mid| ≤ 2⁻⁸ |x|, |lo| ≤ 2⁻¹⁶ |x| (the
+    orders the product relies on)."""
+    x = np.concatenate([rng.uniform(0, 512, (64, dim)),
+                        rng.normal(0, 100, (64, dim)),
+                        rng.integers(0, 256, (64, dim))]).astype(np.float32)
     t = _t(x)
     planes = tknn.split_bf16x3_plain(t)
-    assert planes.shape == (192, 3, 128) and planes.dtype == torch.bfloat16
+    assert planes.shape == (192, 3, dim) and planes.dtype == torch.bfloat16
     hi, mid, lo = (planes[:, i].double() for i in range(3))
     assert torch.equal(hi + mid + lo, t.double())
     assert torch.equal(planes[:, 0], t.bfloat16())

@@ -1,7 +1,8 @@
-"""Port parity: bf16 rows of 256 values (ORB's bits) on either tensor-core
-body through ``probes.knn_stages.bf16_d256_raw`` (K1's mode plain and
-gated, K3's, the product-only stage), and the build log's parsers for
-the ``wgmma`` body of ``csrc/knn_wg.cuh``.
+"""Port parity: bf16 and f32 rows of 256 values (ORB's bits) on either
+tensor-core body through ``probes.knn_stages.bf16_d256_raw`` and
+``f32_d256_raw`` (K1's mode plain and gated, K3's, the product-only
+stage), and the build log's parsers for the ``wgmma`` body of
+``csrc/knn_wg.cuh`` at both types.
 
 On the CPU the wrapper takes its plain version whatever the body, so
 these tests hold that plain version: K1's mode bit-exact against the JAX
@@ -116,3 +117,95 @@ def test_build_log_reads_the_wgmma_body():
                      "bf16_d256 0 128 128 2": (163, 0, 0)}
     lines = log.splitlines()
     assert _build.ptxas_warnings(log) == [lines[0], lines[-1]]
+
+
+def _f32(a, b, frac=False, rng=None):
+    """ORB's bits as f32 rows (frac: plus seeded noise in [0, 0.5), so that
+    the mid and lo planes are set) with the f32 squared norms."""
+    x, y = (torch.from_numpy(v.astype(np.float32)) for v in (a, b))
+    if frac:
+        x = x + torch.from_numpy(rng.uniform(0, 0.5, x.shape)
+                                 .astype(np.float32))
+        y = y + torch.from_numpy(rng.uniform(0, 0.5, y.shape)
+                                 .astype(np.float32))
+    return x, y, (x * x).sum(-1), (y * y).sum(-1)
+
+
+@pytest.mark.parametrize("mode", ["packed", "gated", "wide", "row_sum"])
+def test_f32_d256_modes_on_cpu_are_plain(rng, mode):
+    """f32 at 256 values a row on either body takes its plain version on
+    the CPU, uncounted: K1's (plain and gated) and K3's on rows whose mid
+    and lo planes are set, the product-only stage on ORB's bits."""
+    a, b = _bits(rng, 2, 128, 192)
+    x, y, na2, nb2 = _f32(a, b, frac=mode != "row_sum", rng=rng)
+    before = knn_stages.LAUNCHES["knn_f32_d256"]
+    if mode == "row_sum":
+        row, col = knn_stages.f32_d256_raw(x, y, mode="row_sum", body="wg")
+        dots = np.einsum("pik,pjk->pij", a, b).sum(-1)
+        assert np.array_equal(row[..., 0].numpy(), dots)
+        assert torch.equal(row[..., 0], row[..., 1])
+        assert bool((col == 0x7FFFFFFF).all())
+    else:
+        gate = ()
+        if mode == "gated":
+            gate = (torch.from_numpy(rng.uniform(0, 100, (2, 128, 2))
+                                     .astype(np.float32)),
+                    torch.from_numpy(rng.uniform(0, 100, (2, 192, 2))
+                                     .astype(np.float32)), 5.0 ** 2)
+        kw = dict(mode="wide") if mode == "wide" else {}
+        for body in ("mma", "wg"):
+            got = knn_stages.f32_d256_raw(x, y, na2, nb2, *gate, body=body,
+                                          **kw)
+            want = (tknn.knn_wide_plain(x, y, na2, nb2) if mode == "wide"
+                    else tknn.knn_packed_plain(x, y, na2, nb2, *gate))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            assert all(torch.equal(g, w) for g, w in zip(
+                got, knn_stages.f32_d256_plain(x, y, na2, nb2, *gate, **kw)))
+    assert knn_stages.LAUNCHES["knn_f32_d256"] == before
+
+
+def test_f32_d256_raw_rejects_what_it_does_not_take(rng):
+    x, y, na2, nb2 = _f32(*_bits(rng, 1, 64, 64))
+    with pytest.raises(ValueError, match="no mode"):
+        knn_stages.f32_d256_raw(x, y, na2, nb2, mode="top2")
+    with pytest.raises(ValueError, match="no mode"):
+        knn_stages.f32_d256_raw(x, y, na2, nb2, body="ffma")
+    with pytest.raises(ValueError, match="256"):
+        knn_stages.f32_d256_raw(x[..., :128], y[..., :128], na2, nb2)
+    with pytest.raises(ValueError, match="float32"):
+        knn_stages.f32_d256_raw(x.bfloat16(), y.bfloat16(), na2, nb2)
+    with pytest.raises(ValueError, match="gate"):
+        knn_stages.f32_d256_raw(x, y, na2, nb2, torch.zeros((1, 64, 2)),
+                                torch.zeros((1, 64, 2)), 1.0, mode="wide")
+    with pytest.raises(ValueError, match="norms"):
+        knn_stages.f32_d256_plain(x, y, mode="wide")
+
+
+def test_build_log_reads_both_wgmma_bodies():
+    """The build log's parser on ptxas's lines of the wgmma body templated
+    on its operand: bf16 (D256<uint16_t>) and f32 (D256<Bf16x3>) at 256
+    values a row, beside the f32 mma.sync body it replaced."""
+    wg = "_ZN3knn2wg13knn_wg_kernelI{}Li{}EEEv14CUtensorMap_stS2_PKjPKf"
+    bf16 = wg.format("NS_4D256ItEE", 1)
+    f32 = wg.format("NS_4D256INS_6Bf16x3EEE", 2)
+    mma = ("_ZN3knn2tc13knn_tc_kernelINS_4D256INS_6Bf16x3EEELi2ELi64ELi64"
+           "ELi1EEEvPKT_")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{bf16}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {bf16}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        f"ptxas info    : Compiling entry function '{f32}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {f32}",
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        f"ptxas info    : Compiling entry function '{mma}' for 'sm_90a'",
+        "ptxas info    : Used 255 registers",
+        "ptxas info    : (C7518) Potential Performance Loss: wgmma.mma_async"
+        f" instructions are serialized in the function '{f32}'"])
+    usage = _build.tc_kernel_usage(_build.ptxas_usage(log))
+    assert usage == {"bf16_d256 1 wg": (168, 0, 0),
+                     "f32_d256 2 wg": (168, 4, 8),
+                     "f32_d256 2 64 64 1": (255, 0, 0)}
+    assert _build.ptxas_warnings(log) == [log.splitlines()[-1].strip()]
