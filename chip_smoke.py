@@ -29,8 +29,10 @@ non-zero:
    version) and the key epilogue (the rest); each mode beside one library
    product of its type (torch._int_mm, torch.bmm); at 256 values a row
    (ORB's bits, −128/−127 in the store, and the full −128..127): int8 at
-   both shapes, bf16 at bench.py's, f32 at the store's, each bit-exact,
-   timed beside its bound and one library product;
+   both shapes, gated int8 and bf16 plain and gated at bench.py's, f32
+   plain and gated at the store's, each bit-exact, on the wgmma body
+   timed in turns with the mma.sync body it replaced and split into
+   product and key epilogue, beside its bound and one library product;
 5. K3 (wide 2-NN) against knn_wide_plain at 64 pairs × 10240, both
    modes on the tensor-core body (f32 as three bf16 planes): int8 store
    rows cast to bf16 and to f32 (bit-exact; each in turns against the
@@ -159,8 +161,17 @@ non-zero:
     frame, the reference's default) the same but the cameras' 3 m, which
     is printed (stray matches of low-overlap pairs linked into chains
     pull BA's cameras up to ~4 m there, as the reference's BA does on the
-    same chains: ROADMAP.md queue 3). One line a part, with the card's
-    name and power limit.
+    same chains: ROADMAP.md queue 3); (d) the store path in float32 with
+    bf16 off on (b)'s ORB workspaces, its match lists equal int8's; (e)
+    process.main with (c)'s arguments and --detector ORB --max-features
+    8000 --match-strategy smart: phase 16's checks but group 0's share
+    and the eggs' and textures' counts, which are printed (these ORB
+    settings match no pair across strips 0 and 1, so the groups split 48
+    / 16: ROADMAP.md queue 3), the smart gate's K1 at 256 values a row
+    launched on the int8 store only, and the run's first and last int8
+    K1 calls at 256 (gated and not) held bit-exact against the plain
+    version on their own inputs and timed beside their bound. One line a
+    part, with the card's name and power limit.
 19. the pipeline across processes (imageanalysis_tpu_torch/parallel):
     (a) phase 14's mission graph through parallel/sharded.solve_sharded
     (the point-local sharded BA, BAConfig()) on a LocalMesh of 4 shards
@@ -267,6 +278,7 @@ PyTorch call computes the same function, that call's time; the last line
 is {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import csv
 import glob
@@ -536,19 +548,21 @@ def float_inputs(a, b, dtype):
     return (af.to(dtype), bf.to(dtype), (af * af).sum(-1), (bf * bf).sum(-1))
 
 
-def k1_bound(pairs, n, elem_bytes, peak, gated=False, dim=128):
-    """K1's bound at pairs × n × n: descriptors, the float modes' f32
-    norms and the gate's positions read once, row_p (8 B) and col_p (4 B)
-    written once; the 2·n·n·dim products at the mode's peak (f32: the six
-    bf16 products of its three-plane split on the tensor cores, the work
-    the kernel does), plus the gate's f32 arithmetic."""
-    n_bytes = pairs * n * (2 * dim * elem_bytes + 12
-                           + (8 if elem_bytes > 1 else 0)
-                           + (16 if gated else 0))
-    product = 2 * pairs * n * n * dim
+def k1_bound(pairs, n, elem_bytes, peak, gated=False, dim=128, n_b=None):
+    """K1's bound at pairs × n × n_b (n_b default n): descriptors, the
+    float modes' f32 norms and the gate's positions read once, row_p (8 B
+    an A row) and col_p (4 B a B row) written once; the 2·n·n_b·dim
+    products at the mode's peak (f32: the six bf16 products of its
+    three-plane split on the tensor cores, the work the kernel does), plus
+    the gate's f32 arithmetic."""
+    n_b = n if n_b is None else n_b
+    row = (dim * elem_bytes + (4 if elem_bytes > 1 else 0)
+           + (8 if gated else 0))
+    n_bytes = pairs * (n * (row + 8) + n_b * (row + 4))
+    product = 2 * pairs * n * n_b * dim
     ops = {"bf16": 6 * product} if peak == "f32" else {peak: product}
     if gated:
-        ops["f32"] = ops.get("f32", 0) + GATE_FLOPS * pairs * n * n
+        ops["f32"] = ops.get("f32", 0) + GATE_FLOPS * pairs * n * n_b
     return n_bytes, ops
 
 
@@ -975,22 +989,24 @@ def orb_rows(gen, pairs, n, full=False):
 
 def d256_probe(args):
     """The probe that runs rows of 256 values of args' type on either
-    body: knn_stages.bf16_d256_raw or f32_d256_raw, with its plain
-    version."""
-    if args[0].dtype == torch.float32:
-        return knn_stages.f32_d256_raw, knn_stages.f32_d256_plain
-    return knn_stages.bf16_d256_raw, knn_stages.bf16_d256_plain
+    body: knn_stages.bf16_d256_raw, i8_d256_raw or f32_d256_raw, with its
+    plain version."""
+    return {torch.float32: (knn_stages.f32_d256_raw,
+                            knn_stages.f32_d256_plain),
+            torch.int8: (knn_stages.i8_d256_raw, knn_stages.i8_d256_plain),
+            torch.bfloat16: (knn_stages.bf16_d256_raw,
+                             knn_stages.bf16_d256_plain)}[args[0].dtype]
 
 
 def d256_vs_mma(r, name, args, mode):
-    """bf16 or f32 at 256 values a row: the wgmma body (K1 or K3 through
-    its wrapper) in turns with the mma.sync body it replaced
-    (knn_stages.bf16_d256_raw or f32_d256_raw with body="mma", whose keys
-    must equal it), and both bodies split into their product-only stage
-    (f32: with its split pre-pass; held bit-exact against its plain
-    version on the first pairs; timed in turns) and the key epilogue.
-    Sets r["ms"], r["was_ms"], r["tc_product_ms"] and
-    r["was_product_ms"]."""
+    """bf16, int8 or f32 at 256 values a row: the wgmma body (K1 or K3
+    through its wrapper) in turns with the mma.sync body it replaced
+    (knn_stages.bf16_d256_raw, i8_d256_raw or f32_d256_raw with
+    body="mma", whose keys must equal it), and both bodies split into
+    their product-only stage (f32: with its split pre-pass; int8: without
+    K1's norm pre-pass; held bit-exact against its plain version on the
+    first pairs; timed in turns) and the key epilogue. Sets r["ms"],
+    r["was_ms"], r["tc_product_ms"] and r["was_product_ms"]."""
     raw = knn.knn_wide_raw if mode == "wide" else knn.knn_packed_raw
     probe, plain = d256_probe(args)
     vs_old_body(r, name, lambda: raw(*args),
@@ -1075,15 +1091,17 @@ def near_256(name, got, want, x, y, tol, wide):
 
 
 def check_knn_256():
-    """K1 (int8 at the store's and bench.py's shapes, bf16 plain and gated
-    at bench.py's, f32 plain and gated at the store's) and K3 (bf16 and
-    f32 at 64 × 10240) at 256 values a row: ORB's bits and the full
-    −128..127, bit-exact against the plain versions; times beside the
-    bound and one library product of the same operands. bf16 and f32 run
-    the wgmma body (knn_wg.cuh), timed in turns with the mma.sync body it
-    replaced and split into product and key epilogue (d256_vs_mma); f32
-    also on non-integer rows within its tolerance (random_planes_256).
-    Returns {case: measurements}."""
+    """K1 (int8 at the store's and bench.py's shapes, gated int8 and bf16
+    plain and gated at bench.py's, f32 plain and gated at the store's) and
+    K3 (bf16 and f32 at 64 × 10240) at 256 values a row: ORB's bits and
+    the full −128..127, bit-exact against the plain versions; times beside
+    the bound and one library product of the same operands (the gated
+    modes: their ungated mode's). Every type runs the wgmma body
+    (knn_wg.cuh), timed in turns with the mma.sync body it replaced and
+    split into product and key epilogue (d256_vs_mma; the gated modes in
+    turns, with their ungated mode's split); f32 also on non-integer rows
+    within its tolerance (random_planes_256). Returns {case:
+    measurements}."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     gates = {}
 
@@ -1102,6 +1120,7 @@ def check_knn_256():
     for case, (pairs, n), dtype, eb, peak in (
             ("i8_store", STORE_SHAPE, torch.int8, 1, "int8"),
             ("i8_bench", BENCH_SHAPE, torch.int8, 1, "int8"),
+            ("gated_i8_bench", BENCH_SHAPE, torch.int8, 1, "int8"),
             ("bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
             ("gated_bf16_bench", BENCH_SHAPE, torch.bfloat16, 2, "bf16"),
             ("f32_store", STORE_SHAPE, torch.float32, 4, "f32"),
@@ -1111,15 +1130,15 @@ def check_knn_256():
         name = f"K1 {case} {pairs} x {n} at 256"
         for full in (True, False):      # the timed rows last: ORB's bits
             a, b = orb_rows(gen, pairs, n, full)
-            args = ((a, b) if dtype == torch.int8
+            args = ((a, b, None, None) if dtype == torch.int8
                     else float_inputs(a, b, dtype)) + gate
             r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
                              args, reps=5 if not full else 1,
                              plain_reps=2 if not full else 1)
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=gated, dim=256))
-        if case in ("bf16_bench", "f32_store"):
+        if not gated:
             d256_vs_mma(r, name, args, "packed")
-        elif gated:                     # the gate is epilogue: the same
+        else:                           # the gate is epilogue: the same
             probe = d256_probe(args)[0]
             vs_old_body(r, name, lambda: knn.knn_packed_raw(*args),
                         lambda: probe(*args, body="mma"), "was")
@@ -3139,9 +3158,11 @@ def run_stages(root, smi, p16_wall, p16_cams):
     --detector TPU; (b) matching --detector SIFT and ORB at the
     reference's defaults; (c) process.main with the default detector, at
     4096 features a frame and at every feature; (d) the store path in
-    float32 with bf16 off on (b)'s ORB workspaces, against int8's lists.
-    Returns the launches of the 256-wide kernels over (b)'s ORB runs and
-    (d)'s store paths."""
+    float32 with bf16 off on (b)'s ORB workspaces, against int8's lists;
+    (e) process.main with ORB at 8000 features and the smart strategy
+    (run_orb_smart). Returns (the launches of the 256-wide kernels over
+    (b)'s ORB runs, (d)'s store paths and (e)'s run; run_orb_smart's
+    numbers)."""
     W, H = FRAME
     m = make_mission(strips=STRIPS, per_strip=PER_STRIP, size=FRAME, seed=0,
                      device="cuda")
@@ -3305,10 +3326,88 @@ def run_stages(root, smi, p16_wall, p16_cams):
             f"phase 16's other arguments: {wall:.3f} s; {out['summary']}; "
             f"stage walls {out['walls']}; launches "
             f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+
+    # (e) ORB's smart path on the user's command
+    p18e = run_orb_smart(root, src, m, base, smi)
+    for k, v in p18e["launches"].items():
+        if k.endswith("_d256"):
+            d256[k] = d256.get(k, 0) + v
+    checks.update(p18e.pop("checks"))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"phase 18 failed: {failed}")
-    return d256
+    return d256, p18e
+
+
+def cross_strip(proj):
+    """{"a-b": [pairs attempted, pairs with matches, matches]} over a
+    project's pairs of frames in strips a < b of phase 16's mission."""
+    names = [im.name for im in proj.image_list]
+    out = {}
+    for i, im in enumerate(proj.image_list):
+        im.load_matches()
+        for other, lst in (im.match_list or {}).items():
+            j = names.index(other)
+            a, b = i // PER_STRIP, j // PER_STRIP
+            if i < j and a != b:
+                r = out.setdefault(f"{a}-{b}", [0, 0, 0])
+                r[0] += 1
+                r[1] += bool(len(lst))
+                r[2] += len(lst)
+    return dict(sorted(out.items()))
+
+
+def run_orb_smart(root, src, m, base, smi):
+    """Phase 18 (e): process.main on a copy of phase 16's mission at src
+    with base (phase 18 (c)'s arguments) and --detector ORB --max-features
+    8000 --match-strategy smart: ORB's 256-bit rows at 8000 features a
+    frame (K1 at 256 values a row, below K3's 8192), whose smart gate runs
+    K1 gated at 256 on the int8 store. Holds rc 0, phase 16's checks, the
+    gated launches, every gated K1 call int8 at 256, and the first and
+    the last int8 K1 call at 256 of each gate (their inputs as the store
+    gave them) bit-exact against knn_packed_plain (check_k1_calls). The
+    reference's ORB settings match no pair across strips 0 and 1 of this
+    mission (the traditional strategy neither): the groups split 48 / 16
+    and only group 0 gets eggs and textures (ROADMAP.md queue 3), so those
+    three checks are printed, not held. Returns {checks, launches,
+    gated: check_k1_calls' list for gated calls, plain: for ungated}."""
+    n = len(m.frames)
+    d = os.path.join(root, "orb_smart")
+    shutil.copytree(src, d)
+    kinds = {("int8", 256, True), ("int8", 256, False)}
+    reset_launches()
+    with keeping_k1(kinds) as (calls, kept):
+        t0 = time.perf_counter()
+        rc = process.main([d, *base, "--detector", "ORB", "--max-features",
+                           "8000", "--match-strategy", "smart"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    k1 = {name: check_k1_calls(kept.get(("int8", 256, gated), {}),
+                               f"ORB smart {name}", "stages-18e")
+          for name, gated in (("gated", True), ("plain", False))}
+    del kept
+    more, out = process_outcome(d, m, n)
+    printed = {k: more.pop(k) for k in ("group 0 holds >= 90%",
+                                        f">= {n - 1} eggs",
+                                        f"{n} textures 512x512")}
+    cross = cross_strip(out["proj"])
+    gated = {k: v for k, v in calls.items() if k[2]}
+    checks = {f"(e) {k}": v for k, v in more.items()}
+    checks["(e) rc 0"] = rc == 0
+    checks["(e) K1 gated at 256 launched"] = \
+        launches["knn_packed_gated_d256"] > 0
+    checks["(e) K1 gated on the int8 store only"] = bool(gated) and set(
+        gated) == {("int8", 256, True)}
+    log(f"[stages-18e] process.main --detector ORB --max-features 8000 "
+        f"--match-strategy smart, (c)'s other arguments: {wall:.3f} s; "
+        f"{out['summary']}; stage walls {out['walls']}; K1 calls (type, "
+        f"width, gated): {dict(calls)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; printed, not held: "
+        f"{printed}; pairs across strips (by strip pair: attempted, with "
+        f"matches, matches): {cross}; {smi}")
+    return {"checks": checks, "launches": launches, **k1}
+
 
 P19_TIMEOUT_S = 420         # a phase 19 child's wall at most
 
@@ -4571,32 +4670,73 @@ def _pairs_kept(proj):
     return n // 2
 
 
-def check_survey_k1(calls):
-    """K1 int8 at the survey store's own shape: the first and the last
-    K1 batches of the run (the last holds the work list's remainder, fewer
-    pairs), their inputs as the store path gave them, held bit-exact
-    against knn_packed_plain and timed beside their bound. Returns
-    [{batch, shape, gated, ms, plain_ms, bound_ms, bound_by,
-    max_abs_err}]."""
+@contextlib.contextmanager
+def keeping_k1(kinds):
+    """knn.knn_packed_raw wrapped while the block runs: its calls counted
+    by kind, (descriptor type, row width, gated), e.g. ("int8", 256,
+    True), and the arguments (defaults applied) of the first and the last
+    call of each kind in `kinds` kept for check_k1_calls. Yields (counts,
+    kept): kept[kind] = {"first": args, "last": args}."""
+    raw = knn.knn_packed_raw
+    sig = inspect.signature(raw)
+    counts, kept = collections.Counter(), {}
+
+    def wrapped(*a, **kw):
+        args = sig.bind(*a, **kw)
+        args.apply_defaults()
+        args = args.args
+        kind = (str(args[0].dtype)[6:], args[0].shape[-1],
+                args[4] is not None)
+        counts[kind] += 1
+        if kind in kinds:
+            kept.setdefault(kind, {}).setdefault("first", args)
+            kept[kind]["last"] = args
+        return raw(*a, **kw)
+
+    knn.knn_packed_raw = wrapped
+    try:
+        yield counts, kept
+    finally:
+        knn.knn_packed_raw = raw
+
+
+def check_k1_calls(calls, where, tag):
+    """K1 int8 at a run's own shapes: the first and the last K1 call of
+    one kind (keeping_k1's kept[kind]; the last may hold a work list's
+    remainder, fewer pairs), their inputs as the store path gave them,
+    held bit-exact against knn_packed_plain and timed beside their bound;
+    the first beside the ungated torch._int_mm product of as many rows.
+    where names the run in the log, tag its phase. Returns [{batch,
+    shape, gated, ms, plain_ms, bound_ms, bound_by, max_abs_err}]."""
     out = []
-    for tag, args in calls.items():
+    for batch, args in calls.items():
         pairs, n, d = args[0].shape
+        n_b = args[1].shape[1]
         gated = args[4] is not None
-        r = compare_keys(f"K1 int8 survey {tag} batch", knn.knn_packed_raw,
-                         knn.knn_packed_plain, args)
-        with_bound(r, *k1_bound(pairs, n, 1, "int8", gated=gated, dim=d))
-        r.update(batch=tag, shape=[pairs, n, d], gated=gated)
-        if tag == "first":
+        name = f"K1 int8 {where} {batch} batch"
+        r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
+                         args)
+        with_bound(r, *k1_bound(pairs, n, 1, "int8", gated=gated, dim=d,
+                                n_b=n_b))
+        r.update(batch=batch, shape=[pairs, n, n_b, d], gated=gated)
+        if batch == "first":
+            # every A row against the first pair's B rows, in slices
+            # whose int32 output stays within 8 GiB
             x, bt = args[0].reshape(-1, d), args[1][0].t()
-            r["product_only_ms"] = product_only(
-                f"K1 int8 survey {tag} batch torch._int_mm",
-                lambda: torch._int_mm(x, bt))
+            step = max(1, (1 << 31) // n_b)
+
+            def int_mm():
+                for i in range(0, len(x), step):
+                    torch._int_mm(x[i:i + step], bt)
+
+            r["product_only_ms"] = product_only(f"{name} torch._int_mm",
+                                                int_mm)
             del x, bt
-        log(f"[survey-22] K1 int8 {tag} batch {pairs} x {n} x {d} "
-            f"(gated {gated}): bit-exact; kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), product only "
-            f"{r.get('product_only_ms')} ms")
+        log(f"[{tag}] K1 int8 {where} {batch} batch {pairs} x {n} x {n_b} "
+            f"x {d} (gated {gated}): bit-exact; kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), product only {r.get('product_only_ms')} "
+            f"ms")
         out.append(r)
     return out
 
@@ -4606,7 +4746,7 @@ def run_survey(root, smi, n_images=SURVEY_FRAMES, proj_dir=None):
     each frame warped and encoded by nvJPEG as it is made, in world tiles
     from 300 frames on), then apps/process.py's main with phase 16's
     arguments (mission_bench.py:145-149) and a second main that must skip
-    every stage; K1 int8 at the run's own batches (check_survey_k1).
+    every stage; K1 int8 at the run's own batches (check_k1_calls).
     proj_dir (default root/survey) may hold an earlier run: its frames
     are kept (generate(skip_existing=True)) and main resumes from its
     state; the launch checks then hold only for the stages that ran. The
@@ -4636,41 +4776,30 @@ def run_survey(root, smi, n_images=SURVEY_FRAMES, proj_dir=None):
 
     solves = []
     solve = bundle.solve
-    k1_calls = {}
-    k1 = knn.knn_packed_raw
-    k1_sig = inspect.signature(k1)
 
     def solve_and_keep(*a, **kw):
         r = solve(*a, **kw)
         solves.append((r.iters, r.mre))
         return r
 
-    def k1_and_keep(*a, **kw):
-        # the first and the last batch's inputs, for check_survey_k1
-        args = k1_sig.bind(*a, **kw)
-        args.apply_defaults()
-        k1_calls.setdefault("first", args.args)
-        k1_calls["last"] = args.args
-        return k1(*a, **kw)
-
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     bundle.solve = solve_and_keep
-    knn.knn_packed_raw = k1_and_keep
+    kind = ("int8", 128, False)
     try:
-        t0 = time.perf_counter()
-        rc = process.main(argv)
-        wall = time.perf_counter() - t0
+        with keeping_k1({kind}) as (_, kept):
+            t0 = time.perf_counter()
+            rc = process.main(argv)
+            wall = time.perf_counter() - t0
     finally:
         bundle.solve = solve
-        knn.knn_packed_raw = k1
     launches = read_launches()
     run_peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError(f"phase 22: process.main returned {rc}")
     disk = shutil.disk_usage(proj_dir)
-    k1_survey = check_survey_k1(k1_calls)
-    del k1_calls
+    k1_survey = check_k1_calls(kept.get(kind, {}), "survey", "survey-22")
+    del kept
     checks, outcome = process_outcome(proj_dir, m, n_images)
     proj, err, walls = outcome["proj"], outcome["err"], outcome["walls"]
     matched = [(int(a), float(b)) for a, b in re.findall(
@@ -4783,7 +4912,7 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         run_process_extras(root, smi)
     with tempfile.TemporaryDirectory() as root:
-        d256 = run_stages(root, smi, p16_wall, p16_cams)
+        d256, p18e = run_stages(root, smi, p16_wall, p16_cams)
     with tempfile.TemporaryDirectory() as root:
         p19 = run_parallel(root, smi, p14)
     with tempfile.TemporaryDirectory() as root:
@@ -4836,13 +4965,20 @@ def main():
 
     def at22(key, batches=()):
         """Phase 22's launches of a kernel in the survey run, and its
-        numbers at the run's own batches (check_survey_k1)."""
+        numbers at the run's own batches (check_k1_calls)."""
         out = {"p22_launches": p22[key]}
         for r in batches:
             out.update({f"p22_{r['batch']}_{k}": r[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "product_only_ms") if k in r})
         return out
+
+    def at18e(prefix, batches):
+        """Phase 18 (e)'s numbers of K1 int8 at 256 at the ORB smart
+        run's own first and last calls (check_k1_calls)."""
+        return {f"{prefix}_{r['batch']}_{k}": r[k] for r in batches
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "max_abs_err", "product_only_ms") if k in r}
 
     def at21(key):
         """Phase 21 (a)'s launches of a kernel, by store mode."""
@@ -4854,14 +4990,16 @@ def main():
                    slice_launches["knn_packed_i8"], k1["i8_store"]),
              **at256("knn_packed_i8_d256", "i8_store", "i8_bench"),
              **at19("knn_packed_i8"), **at21("knn_packed_i8"),
-             **at22("knn_packed_i8", p22_numbers["k1_int8_batches"])),
+             **at22("knn_packed_i8", p22_numbers["k1_int8_batches"]),
+             **at18e("p18e", p18e["plain"])),
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
                 for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
              **at19("knn_packed_gated"), **at21("knn_packed_gated"),
-             **at256("knn_packed_gated_d256", "gated_bf16_bench",
-                     "gated_f32_store")),
+             **at256("knn_packed_gated_d256", "gated_i8_bench",
+                     "gated_bf16_bench", "gated_f32_store"),
+             **at18e("p18e", p18e["gated"])),
         dict(entry("knn_packed_bf16", "knn_packed.cu", k1_src,
                    rep_launches["knn_packed_bf16"], k1["bf16"]),
              **at256("knn_packed_bf16_d256", "bf16_bench"),

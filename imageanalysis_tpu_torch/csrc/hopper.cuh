@@ -2,8 +2,8 @@
 // mbarriers, TMA tile loads and warpgroup products (wgmma) of a kernel
 // whose producer warp copies tiles into shared memory while consumer
 // warpgroups multiply them (P5's mm_rowsum_wg_kernel in mma_probe.cu, K1's
-// and K3's bf16 and f32 bodies at 256 values a row in knn_wg.cuh), and the
-// host's TMA maps.
+// and K3's bf16, int8 and f32 bodies at 256 values a row in knn_wg.cuh),
+// and the host's TMA maps.
 //
 // mbarrier phases: a barrier starts in phase 0; mbar_wait(bar, parity)
 // returns once the phase of that parity has completed, so a wait on
@@ -19,15 +19,18 @@
 // start 1024-byte aligned. A K-major operand of 64 (A) or N (B) rows x 16
 // k is then described by its first row's address plus 32 bytes a k-step
 // of 16, a stride of 1024 bytes between groups of 8 rows (SBO), the
-// leading offset unused (LBO 1), layout 1 (128-byte swizzle).
+// leading offset unused (LBO 1), layout 1 (128-byte swizzle). int8's
+// k-step of 32 (wgmma_64_s8) reads the same 32 bytes of a row, so its
+// operands are described alike; TMA moves bytes, so an int8 row of 256
+// values travels as 128 bf16 "values" (encode_pairs with K 128).
 //
-// Accumulator layout of wgmma.m64nNk16 (f32): warp w of the warpgroup
-// holds rows 16w..16w+15; lane l's d[i] is row 16w + l / 4 + 8 ((i / 2)
-// % 2), column 8 (i / 4) + 2 (l % 4) + i % 2, as mma.sync's m16n8 C
-// fragment repeated along N. An A operand in registers (wgmma_64_rs) is
-// mma.sync's m16n16 A fragment of the warp's 16 rows (mma_sync.cuh's
-// head): a0 row l / 4, values 2 (l % 4) and + 1 of the k-step; a1 the row
-// + 8; a2, a3 the same rows at values + 8.
+// Accumulator layout of wgmma.m64nNk16 (f32) and m64nNk32 (s32): warp w
+// of the warpgroup holds rows 16w..16w+15; lane l's d[i] is row 16w + l /
+// 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2, as mma.sync's
+// m16n8 C fragment repeated along N. An A operand in registers
+// (wgmma_64_rs) is mma.sync's m16n16 A fragment of the warp's 16 rows
+// (mma_sync.cuh's head): a0 row l / 4, values 2 (l % 4) and + 1 of the
+// k-step; a1 the row + 8; a2, a3 the same rows at values + 8.
 
 #pragma once
 
@@ -152,6 +155,9 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void reg_fence(float& r) {
   asm volatile("" : "+f"(r) :: "memory");
 }
+__device__ __forceinline__ void reg_fence(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
 
 // a warpgroup's register budget, all its warps together
 template <int R>
@@ -205,6 +211,28 @@ __device__ __forceinline__ void wgmma_64_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 s32, 32 a thread) = A . B^T + (scale_d ? d : 0), A and B
+// int8 (s8) from shared memory, k-steps of 32 values; exact sums
+__device__ __forceinline__ void wgmma_64_s8(int (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 128 f32, 64 a thread) += A . B^T, scale-d on
@@ -269,7 +297,8 @@ inline EncodeTiled encode_tiled() {
 // a 3-D map over (pairs, rows, K) bf16, row-major and contiguous: boxes
 // of 64 values (128 bytes) x box_rows rows of one pair, 128-byte swizzle;
 // rows beyond a pair's last read as zeros (K 768: f32's three planes of
-// 256 values side by side). Returns a cudaError_t.
+// 256 values side by side; K 128: int8's 256 bytes a row). Returns a
+// cudaError_t.
 inline int encode_pairs(CUtensorMap* map, const void* p, int pairs,
                         int rows, int K, int box_rows) {
   EncodeTiled fn = encode_tiled();

@@ -51,10 +51,11 @@
 //   errs more).
 //   Before it, the FFMA body (now the yardstick knn_ffma_f32 in
 //   knn_probe.cu) ran at 39% of the CUDA cores' 67 TFLOP/s.
-// - bf16 and f32 at 256 values a row (ORB's) run knn_wg.cuh's body, plain
-//   and gated: wgmma fed by TMA, two consumer warpgroups in ping-pong (f32
-//   after its split pre-pass, A's hi plane in registers, B plane by plane;
-//   the mma.sync bodies there are knn_probe.cu's yardsticks).
+// - bf16, int8 and f32 at 256 values a row (ORB's) run knn_wg.cuh's body,
+//   plain and gated: wgmma fed by TMA, two consumer warpgroups in
+//   ping-pong (int8 wgmma s8 after its norm pre-pass; f32 after its split
+//   pre-pass, A's hi plane in registers, B plane by plane; the mma.sync
+//   bodies there are knn_probe.cu's yardsticks).
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and

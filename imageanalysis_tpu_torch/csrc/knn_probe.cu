@@ -19,11 +19,11 @@
 // min on) on the tensor-core body K1 runs now, at K1's tile (its modes
 // kProductRowMin, kProductTop1, kProductTop2Tile, kProductTop2 and
 // kPacked, K1 itself), the old bodies' anatomy kept as its yardstick. The full stages equal K1's result bit for bit.
-// knn_bf16_d256 and knn_f32_d256 run bf16 and f32 rows of 256 values on
-// the mma.sync body (what K1 and K3 launched there before knn_wg.cuh's
-// wgmma body, kept as its yardstick) or on the wgmma body, in K1's and
-// K3's modes and the product-only stage (the product / key-epilogue split
-// at 256).
+// knn_bf16_d256, knn_i8_d256 and knn_f32_d256 run bf16, int8 and f32
+// rows of 256 values on the mma.sync body (what K1 and K3 launched there
+// before knn_wg.cuh's wgmma body, kept as its yardstick) or on the wgmma
+// body, in K1's and K3's modes (int8: K1's) and the product-only stage
+// (the product / key-epilogue split at 256).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
@@ -365,6 +365,11 @@ extern "C" int knn_packed_float(const void* a, const void* b,
                                 void* split_a, void* split_b, int n_pairs,
                                 int n_a, int n_b, int bf16, int dim,
                                 void* stream);
+extern "C" int knn_packed_i8_gated(const void* a, const void* b, void* na2,
+                                   void* nb2, const void* uv_a,
+                                   const void* pred_b, float radius2,
+                                   void* row_p, void* col_p, int n_pairs,
+                                   int n_a, int n_b, int dim, void* stream);
 
 // P3: K1 up to `stage` (a Stage of knn_common.cuh: row_min .. full) on
 // the tensor-core body at K1's tile (128, 128, 2): row_min the product
@@ -412,10 +417,10 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
 
 namespace {
 
-// the mma.sync body at T (D256<uint16_t> or D256<Bf16x3>), as launch_tc
-// sent rows of 256 values to it before the wgmma body: bf16 128 A rows a
-// block where n_a allows, else 64, two 128-row B tiles; f32 64 A rows and
-// one 64-row B tile
+// the mma.sync body at T (D256<uint16_t>, D256<int8_t> or D256<Bf16x3>),
+// as launch_tc sent rows of 256 values to it before the wgmma body: bf16
+// and int8 128 A rows a block where n_a allows, else 64, two 128-row B
+// tiles; f32 64 A rows and one 64-row B tile
 template <typename T, int MODE>
 int d256_mma(const void* a, const void* b, const void* na2, const void* nb2,
              const void* uv_a, const void* pred_b, float radius2,
@@ -538,4 +543,52 @@ extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
   return d256_mma_mode<D256<Bf16x3>>(split_a, split_b, na2, nb2, uv_a,
                                      pred_b, radius2, row_p, col_p, row_k,
                                      col_k, n_pairs, n_a, n_b, mode, s);
+}
+
+// int8 rows of 256 values on either body, as knn_bf16_d256 for bf16: body
+// 0 the mma.sync body (knn_tc_kernel<D256<int8_t>>, the yardstick), 1 the
+// wgmma body that K1 runs (knn_wg.cuh; its keyed modes through K1's own
+// entry points). mode: kPacked (K1, gated when uv_a != NULL) or
+// kProductRowSum (the product-only stage, each A row's wrapping sum of
+// its dots in both slots of row_p). a, b (n_pairs, n_a | n_b, 256) int8,
+// 16-byte aligned; na2 (n_pairs, n_a) and nb2 (n_pairs, n_b) f32 scratch,
+// which kPacked's norm pre-pass fills first (as K1 int8 does; unused by
+// kProductRowSum); uv_a, pred_b and col_p as knn_packed_i8_gated's; n_a
+// and n_b multiples of 64, at most 8192 for kPacked. Returns the
+// cudaError_t of the first failed launch.
+extern "C" int knn_i8_d256(const void* a, const void* b, void* na2,
+                           void* nb2, const void* uv_a, const void* pred_b,
+                           float radius2, void* row_p, void* col_p,
+                           int n_pairs, int n_a, int n_b, int mode, int body,
+                           void* stream) {
+  using I8 = D256<int8_t>;
+  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
+      || (mode != kPacked && mode != kProductRowSum) ||
+      (body != 0 && body != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == kProductRowSum)
+    return body == 1
+               ? launch_tc<I8, kProductRowSum>(
+                     a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
+                     nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s)
+               : d256_mma<I8, kProductRowSum>(
+                     a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
+                     nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
+  if (body == 1)
+    return uv_a ? knn_packed_i8_gated(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                      row_p, col_p, n_pairs, n_a, n_b, 256,
+                                      stream)
+                : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
+                                n_b, 256, stream);
+  int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s, 256);
+  if (e == 0)
+    e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, 256);
+  if (e != 0) return e;
+  if (uv_a)
+    return d256_mma<I8, kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                      row_p, col_p, nullptr, nullptr,
+                                      n_pairs, n_a, n_b, s);
+  return d256_mma<I8, kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
+                               col_p, nullptr, nullptr, n_pairs, n_a, n_b, s);
 }

@@ -73,19 +73,16 @@
 // K3 take the same f32 body; K3's keys are 64-bit (kWide).
 //
 // Rows of 256 values (ORB's 256 bits as 0/1, the int8 store's -128/-127):
-// the operand type D256<T> is T at twice the row, the same body with twice
-// the k-steps for int8, whose rows are padded to an odd number of 16-byte
-// units too (272 B). Exactness holds as at 128: int8 |dot| <= 256 x 128^2
-// = 2^22 (the 1.5 x 2^23 trick still lands in [2^23, 2^24]) and d2 <= 256
-// x 255^2 < 2^24; integer-valued floats keep every partial sum below 2^24.
-// int8's tiles as at 128 (~108 KB, two blocks an SM). bf16 (D256<uint16_t>)
-// and f32 (D256<Bf16x3>) at 256 run their own body, wgmma fed by TMA
-// (knn_wg.cuh): here bf16's 528-byte rows held 128 A rows and two
-// 128-row B tiles (~204 KB) and f32's 1552-byte rows 64 A rows and one
-// 64-row B tile (~196 KB, STAGES = 1: the copy of a tile did not overlap
-// the product of the one before), one block an SM whose product and key
-// epilogue took turns; those instantiations stay only as knn_probe.cu's
-// yardsticks.
+// the operand type D256<T> is T at twice the row. Exactness holds as at
+// 128: int8 |dot| <= 256 x 128^2 = 2^22 (the 1.5 x 2^23 trick still lands
+// in [2^23, 2^24]) and d2 <= 256 x 255^2 < 2^24; integer-valued floats
+// keep every partial sum below 2^24. All three types at 256 run their own
+// body, wgmma fed by TMA (knn_wg.cuh): here int8's 272-byte rows held the
+// 128-row tiles of 128 (~108 KB, two blocks an SM, twice the k-steps),
+// bf16's 528-byte rows 128 A rows and two 128-row B tiles (~204 KB) and
+// f32's 1552-byte rows 64 A rows and one 64-row B tile (~196 KB, STAGES =
+// 1: the copy of a tile did not overlap the product of the one before);
+// those instantiations stay only as knn_probe.cu's yardsticks.
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
@@ -794,8 +791,8 @@ int tile_blocks_per_sm() {
 }  // namespace tc
 }  // namespace knn
 
-// the bf16 and f32 body at 256 values a row (launch_tc below), which uses
-// tc's keys and merges
+// the bf16, int8 and f32 body at 256 values a row (launch_tc below), which
+// uses tc's keys and merges
 #include "knn_wg.cuh"
 
 namespace knn {
@@ -818,7 +815,8 @@ int launch_row_norms_i8(const void* x, void* out, long long rows,
 // kProductRowSum and kProductRowMin); uv_a, pred_b f32 for kPackedGated;
 // n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of 128
 // A rows where n_a allows, else 64, and the type's B tiles in a ring of
-// two; D256<uint16_t> and D256<Bf16x3> the wgmma body (knn_wg.cuh).
+// two; D256<uint16_t>, D256<int8_t> and D256<Bf16x3> the wgmma body
+// (knn_wg.cuh).
 // Returns the cudaError_t of the launch.
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
@@ -827,7 +825,8 @@ int launch_tc(const void* a, const void* b, const void* na2,
               void* col_k, int n_pairs, int n_a, int n_b,
               cudaStream_t stream) {
   if constexpr (std::is_same<T, D256<Bf16x3>>::value ||
-                std::is_same<T, D256<uint16_t>>::value) {
+                std::is_same<T, D256<uint16_t>>::value ||
+                std::is_same<T, D256<int8_t>>::value) {
     return wg::launch<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
                                col_p, row_k, col_k, n_pairs, n_a, n_b,
                                stream);

@@ -4,16 +4,20 @@
 // kernel over the operand type T:
 // - D256<uint16_t>, bf16 rows (ORB's 256 bits as 0/1, or the int8 store's
 //   rows cast to bf16): the bf16 body;
+// - D256<int8_t>, int8 rows (ORB's bits as the int8 store holds them,
+//   -128/-127, or any -128..127): the bf16 body's layout at half the
+//   bytes, wgmma s8 with exact s32 sums (K1 only);
 // - D256<Bf16x3>, f32 rows as three bf16 planes (hi, mid, lo; knn_tc.cuh's
 //   head): the f32 body.
-// Included by knn_tc.cuh, whose launch_tc sends both types here in every
-// mode: K1 plain (kPacked) and gated (kPackedGated), K3 (kWide), and the
-// product-only stage (kProductRowSum, the probes' split). The mma.sync
-// bodies they replaced at these types (knn_tc_kernel<D256<uint16_t>> and
-// <D256<Bf16x3>>) stay reachable from knn_probe.cu (knn_bf16_d256,
-// knn_f32_d256) as their yardsticks.
+// Included by knn_tc.cuh, whose launch_tc sends the three types here in
+// every mode: K1 plain (kPacked) and gated (kPackedGated), K3 (kWide; bf16
+// and f32), and the product-only stage (kProductRowSum, the probes'
+// split). The mma.sync bodies they replaced at these types
+// (knn_tc_kernel<D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
+// reachable from knn_probe.cu (knn_bf16_d256, knn_i8_d256, knn_f32_d256)
+// as their yardsticks.
 //
-// Replaces, for bf16 and f32 rows of 256 values:
+// Replaces, for bf16, int8 and f32 rows of 256 values:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, every dot)
 //
@@ -23,7 +27,8 @@
 // 20.845 ms); the per-element key epilogue on the CUDA cores (d2, key,
 // row top-2, column minimum: ~10 instructions a candidate for K1, ~15 and
 // 64-bit column keys for K3), which at 256 values costs about as much as
-// the bf16 product for K1 and more for K3, a sixth of that against f32's;
+// the bf16 product for K1 and more for K3, twice the int8 product, a
+// sixth of f32's;
 // and the L2 -> SM feed of B, which every block reads whole (bf16 64 x
 // 6144 at BM = 256: 4.8 GB, 13.4 GB at 64 x 10240; f32 at BM = 64: 103
 // GB at 256 x 4096, 161 GB at 64 x 10240, streamed at 5.1-5.4 TB/s). The
@@ -39,17 +44,20 @@
 // - A resident: a block owns BM A rows of one pair. bf16: BM = 256,
 //   consumer warpgroup w rows 128 w .. as two m64 halves, TMA-loaded once
 //   as four 64-value chunks of 256 rows x 128 bytes (128 KB, 128-byte
-//   swizzle). f32: BM = 64, both warpgroups on all of them (one m64 half);
+//   swizzle); int8 the same rows as two 128-value chunks (64 KB). f32:
+//   BM = 64, both warpgroups on all of them (one m64 half);
 //   the hi plane in registers (each thread's m16n8k16 A fragments of its
 //   warp's 16 rows, 16 k-steps x 4 registers, loaded once from the split
 //   rows in global memory), the mid and lo planes in shared memory as
-//   bf16's A (64 KB). bf16's rows beyond n_a (n_a not a multiple of 256)
+//   bf16's A (64 KB). bf16's and int8's rows beyond n_a (n_a not a
+//   multiple of 256)
 //   read as zeros (the TMA map is 3-D over pairs, rows, values) and are
 //   left out of the keys (the epilogue is compiled for one half and for
 //   two); a warpgroup with no row in the pair skips its epilogue.
 // - B streamed: 64-row tiles, stages of four 64-value chunks of 64 rows x
-//   128 bytes (32 KB) in a ring with full and empty mbarriers. bf16: a
-//   ring of two, a stage a tile, both warpgroups on every tile. f32: a
+//   128 bytes (32 KB; int8 two 128-value chunks, 16 KB) in a ring with
+//   full and empty mbarriers. bf16 and int8: a ring of two, a stage a
+//   tile, both warpgroups on every tile. f32: a
 //   ring of four, a stage a plane, a tile's planes in the order lo, mid,
 //   hi (value 256 p + 64 c of the split rows); warpgroup w takes tiles w,
 //   w + 2, .. (its warps alone empty their stages). Each tile's f32 norms
@@ -58,9 +66,13 @@
 //   only after the epilogues of the tile four back, f32's by the same
 //   warpgroup, which a ring of three would not hold: a stage is released
 //   as soon as its products are done, before the epilogue that reads its
-//   slot). ~206 KB (bf16), ~205 KB (f32) of shared memory.
-// - Products: wgmma.m64n64k16 with f32 accumulators, scale-d off at a
-//   sum's first k-step (no zero fill), 16 k-steps a plane. bf16: per tile
+//   slot; bf16 and int8 rewrite tile t's slot for tile t + 4, once both
+//   warpgroups have released tile t + 2, after their epilogue of t).
+//   ~206 KB (bf16), ~106 KB (int8), ~205 KB (f32) of shared memory.
+// - Products: wgmma.m64n64k16 with f32 accumulators (int8: m64n64k32
+//   with s32 accumulators in the same layout), scale-d off at a sum's
+//   first k-step (no zero fill), 16 k-steps a plane (int8: 8). bf16 and
+//   int8: per tile
 //   and warpgroup, 16 k-steps x 2 halves committed as one group and
 //   waited for at once; ping-pong: warpgroup 0 issues tile t's products
 //   once warpgroup 1 has issued t - 1's, warpgroup 1 once 0 has issued
@@ -109,7 +121,29 @@
 //   order of columns and rows within a thread, so keys equal the plain
 //   versions bit for bit on integer-valued rows (ORB's bits, the int8
 //   store's -128..127: every product and partial sum an integer below
-//   2^24; f32's mid and lo planes are then 0).
+//   2^24; f32's mid and lo planes are then 0). int8's are knn_tc.cuh's
+//   int8 arithmetic: the s32 dot (|dot| <= 256 x 128^2 = 2^22) made f32
+//   by the 1.5 x 2^23 trick, then (na - 2 dot) + nb, each step an
+//   integer below 2^24, exact.
+//
+// int8 against the mma.sync s8 body it replaced (128-row A and B tiles of
+// 272-byte padded rows in a cp.async ring, two blocks an SM taking turns
+// between product and epilogue): the product halves against bf16's while
+// the epilogue stays, so the key epilogue bounds the kernel (at 64 x 6144
+// the product-only stage takes about a third of it). Its epilogue is
+// therefore cut to 10 instructions a candidate and given more independent
+// work: each packed key is one LOP3 ((bits & ~mask) | index, key_or;
+// ptxas otherwise masks once and ors twice), and a row's top-2 runs as
+// two partial top-2s over alternate n8 tiles, merged at the end (the
+// min/max chain of the top-2 is the epilogue's longest dependence, and
+// one warp a scheduler issues it while the other warpgroup's warp waits
+// on its products). K1 bf16 and f32 run the same key code: there it
+// neither gains nor loses (PERF.md), their products hiding the epilogue.
+// The designs it was chosen over (scripts_torch/knn_versions.py
+// --i8-d256, in turns; PERF.md): bf16's structure as it is (13-15%
+// slower), with a ring of four B stages (the same as with two once the
+// epilogue is cut), without the ping-pong barriers (slower still), with
+// four partial top-2s a row (5% slower than two).
 
 #pragma once
 
@@ -120,27 +154,35 @@ namespace wg {
 
 constexpr int kThreads = 384;       // two consumer warpgroups, a producer
 constexpr int kBN = 64;             // B rows a tile
-constexpr int kChunks = 4;          // 64-value (128-byte) chunks of a plane
 constexpr int kSlots = 4;           // norm and gate slots: tile t in t % 4
 constexpr int kBChunk = kBN * 128;  // bytes of one B chunk
 constexpr int kConsumerWarps = 8;
 
-// What the operand type decides: A rows a block; m64 halves a consumer
-// warpgroup (bf16: two, each warpgroup its own rows; f32: one, both
-// warpgroups on the block's rows, alternate B tiles); bf16 planes a row;
-// A planes in shared memory; B stages in the ring; arrivals that empty a
-// stage (the consumer warps that read it)
+// What the operand type decides: the accumulator type; A rows a block;
+// m64 halves a consumer warpgroup (bf16 and int8: two, each warpgroup its
+// own rows; f32: one, both warpgroups on the block's rows, alternate B
+// tiles); planes a row; 128-byte chunks of a plane's row (bf16: 64
+// values; int8: 128); A planes in shared memory; B stages in the ring;
+// arrivals that empty a stage (the consumer warps that read it)
 template <typename T>
 struct Body;
 template <>
 struct Body<D256<uint16_t>> {
+  using Acc = float;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
-  static constexpr int kRing = 2, kEmpty = 8;
+  static constexpr int kChunks = 4, kRing = 2, kEmpty = 8;
+};
+template <>
+struct Body<D256<int8_t>> {
+  using Acc = int;
+  static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
+  static constexpr int kChunks = 2, kRing = 2, kEmpty = 8;
 };
 template <>
 struct Body<D256<Bf16x3>> {       // hi in registers; mid, lo in smem
+  using Acc = float;
   static constexpr int kRows = 64, kHalves = 1, kPlanes = 3, kAPlanes = 2;
-  static constexpr int kRing = 4, kEmpty = 4;
+  static constexpr int kChunks = 4, kRing = 4, kEmpty = 4;
 };
 template <typename T>
 constexpr int kBM = Body<T>::kRows;
@@ -149,8 +191,9 @@ constexpr int kAChunk = kBM<T> * 128;         // bytes of one A chunk
 
 template <typename T, int MODE>
 struct Smem {
-  unsigned char a[Body<T>::kAPlanes][kChunks][kAChunk<T>];  // 1024-aligned
-  unsigned char b[Body<T>::kRing][kChunks][kBChunk];
+  static constexpr int kC = Body<T>::kChunks;
+  unsigned char a[Body<T>::kAPlanes][kC][kAChunk<T>];  // 1024-aligned
+  unsigned char b[Body<T>::kRing][kC][kBChunk];
   float nb2[kSlots][kBN];
   float pb[kSlots][kBN * 2];        // the gate's predicted positions
   float ua[kBM<T> * 2];             // the gate's A positions
@@ -180,31 +223,44 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
 
 // keeps the compiler from moving accumulators across wgmma's issue and
 // wait
-template <int H>
-__device__ __forceinline__ void fence_acc(float (&acc)[H][32]) {
+template <typename A, int H>
+__device__ __forceinline__ void fence_acc(A (&acc)[H][32]) {
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int i = 0; i < 32; ++i) hopper::reg_fence(acc[h][i]);
 }
 
-// bf16: one tile's products into acc (2 m64 halves x 64 columns): A's
-// rows of the warpgroup at sa, the B stage at sb
-__device__ __forceinline__ void issue(float (&acc)[2][32],
+// one 32-byte k-step of the operand type: bf16 m64n64k16 into f32, int8
+// m64n64k32 into s32
+__device__ __forceinline__ void product64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_64(d, da, db, scale_d);
+}
+__device__ __forceinline__ void product64(int (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_64_s8(d, da, db, scale_d);
+}
+
+// bf16 and int8: one tile's products into acc (2 m64 halves x 64
+// columns): A's rows of the warpgroup at sa, the B stage at sb; four
+// 32-byte k-steps a 128-byte chunk
+template <typename T>
+__device__ __forceinline__ void issue(typename Body<T>::Acc (&acc)[2][32],
                                       const unsigned char* sa,
                                       const unsigned char* sb) {
   using namespace hopper;
-  constexpr int kA = kAChunk<D256<uint16_t>>;
+  constexpr int kA = kAChunk<T>;
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
+  for (int c = 0; c < Body<T>::kChunks; ++c)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        wgmma_64(acc[h], desc_sw128(sa + c * kA + h * 64 * 128 + kk * 32),
-                 desc_sw128(sb + c * kBChunk + kk * 32), (c | kk) != 0);
+        product64(acc[h], desc_sw128(sa + c * kA + h * 64 * 128 + kk * 32),
+                  desc_sw128(sb + c * kBChunk + kk * 32), (c | kk) != 0);
   wgmma_commit();
 }
 
@@ -219,7 +275,8 @@ __device__ __forceinline__ void product(float (&d)[32],
                                         const uint32_t (&ah)[16][4],
                                         uint64_t da, int a_off, uint64_t db,
                                         int s) {
-  constexpr int kPlane = kChunks * kAChunk<D256<Bf16x3>>;  // smem plane
+  constexpr int kPlane =             // bytes of a plane in shared memory
+      Body<D256<Bf16x3>>::kChunks * kAChunk<D256<Bf16x3>>;
   const int scale = A == 0 && P != 1 ? s != 0 : 1;
   if constexpr (A == 0)
     hopper::wgmma_64_rs(d, ah[s], db, scale);
@@ -244,6 +301,7 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
   using namespace hopper;
   constexpr int P = 2 - I;
   constexpr int kA = kAChunk<D256<Bf16x3>>;
+  constexpr int kChunks = Body<D256<Bf16x3>>::kChunks;
   uint64_t da = desc_sw128(sa), db0 = desc_sw128(sb);
   asm volatile("" : "+l"(da), "+l"(db0));
   fence_acc(acc);
@@ -264,6 +322,15 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
       if constexpr (P == 0) product<2, P>(sm[0], ah, da, off, db, s);
     }
   wgmma_commit();
+}
+
+// (bits & ~kIdxMask) | idx, a packed key, in one LOP3: ptxas otherwise
+// masks once and ors twice for a candidate's row and column keys
+__device__ __forceinline__ int key_or(int bits, int idx) {
+  int k;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;"
+      : "=r"(k) : "r"(bits), "r"(~kIdxMask), "r"(idx));
+  return k;
 }
 
 // One exchange of column_minima: this thread keeps k[0..N) (up: k[N..2N))
@@ -313,7 +380,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
               int n_a, int n_b) {
   using namespace hopper;
   using K = tc::Key<MODE>;
+  using Acc = typename Body<T>::Acc;
   constexpr bool kF32 = Body<T>::kPlanes == 3;
+  constexpr bool kInt8 = std::is_same<Acc, int>::value;
+  constexpr int kChunks = Body<T>::kChunks;
   constexpr int kHalves = Body<T>::kHalves;
   constexpr int kBMT = kBM<T>;
   constexpr int kAC = kAChunk<T>;
@@ -322,6 +392,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   constexpr bool kNorms = normed(MODE);
   static_assert(MODE == kPacked || kGated || MODE == kWide || kSum,
                 "K1, K3 or the product-only stage");
+  static_assert(MODE != kWide || !kInt8, "K3 takes bf16 or f32");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   Smem<T, MODE>& s = *reinterpret_cast<Smem<T, MODE>*>(
@@ -407,9 +478,14 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
 
   // the row top-2 of this thread's columns: K1's packed keys; K3's values
   // and indices (v1 <= v2), made into 64-bit keys at the end; the row sum
-  // (in r1) of kProductRowSum
+  // (in r1) of kProductRowSum. K1 keeps a row's top-2 as kChains partial
+  // top-2s (chain c over the n8 tiles nt with nt % kChains == c), merged
+  // at the end: its epilogue is short of independent work while the
+  // other warpgroup waits on its products, and the min/max chain of a
+  // row's top-2 is the longest dependence in it.
+  constexpr int kChains = MODE == kPacked || kGated ? 2 : 1;
   float na[2][2], ux[2][2], uy[2][2];
-  int r1[2][2], r2[2][2];
+  int r1[2][2][2], r2[2][2][2];
   float v1[2][2], v2[2][2];
 #pragma unroll
   for (int h = 0; h < kHalves; ++h)
@@ -417,7 +493,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r0 + h * 64 + hh * 8;
       na[h][hh] = kNorms && valid[h] ? na2[(size_t)pair * n_a + row] : 0.f;
-      r1[h][hh] = r2[h][hh] = kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
+#pragma unroll
+      for (int ch = 0; ch < kChains; ++ch)
+        r1[h][hh][ch] = r2[h][hh][ch] =
+            kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
       v1[h][hh] = v2[h][hh] = __int_as_float(0x7F800000);
     }
   // f32: the A fragments of the hi plane of rows r0, r0 + 8 (in the pair:
@@ -471,9 +550,9 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = r0 + h * 64 + hh * 8;
-          const float dot = acc[h][nt * 4 + hh * 2 + e];
+          const Acc dot = acc[h][nt * 4 + hh * 2 + e];
           if constexpr (kSum) {
-            r1[h][hh] = tc::wrap_add(r1[h][hh], tc::dot_int(dot));
+            r1[h][hh][0] = tc::wrap_add(r1[h][hh][0], tc::dot_int(dot));
           } else if constexpr (MODE == kWide) {
             // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain
             // version; -0 → +0: equal values tie on index
@@ -485,23 +564,37 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
             // index among equal values: the 64-bit keys' order
             const bool p1 = d2 < v1[h][hh], p2 = d2 < v2[h][hh];
             v2[h][hh] = p1 ? v1[h][hh] : p2 ? d2 : v2[h][hh];
-            r2[h][hh] = p1 ? r1[h][hh] : p2 ? b0 + c : r2[h][hh];
+            r2[h][hh][0] = p1 ? r1[h][hh][0] : p2 ? b0 + c : r2[h][hh][0];
             v1[h][hh] = p1 ? d2 : v1[h][hh];
-            r1[h][hh] = p1 ? b0 + c : r1[h][hh];
+            r1[h][hh][0] = p1 ? b0 + c : r1[h][hh][0];
             const bool pc = d2 < cv[j];
             cv[j] = pc ? d2 : cv[j];
             ci[j] = pc ? row : ci[j];
           } else {
-            const float d2 = __fsub_rn(__fadd_rn(na[h][hh], nbv),
-                                       __fmul_rn(2.f, dot));
-            int bits = __float_as_int(fmaxf(d2, 0.f)) & ~kIdxMask;
+            int bits;               // masked by key_or
+            if constexpr (kInt8) {
+              // the f32 with the bits of 1.5 x 2^23 + dot, less 1.5 x
+              // 2^23, is float(dot) exactly (|dot| <= 2^22); na - 2 dot
+              // and d2 are integers below 2^24 (knn_tc.cuh's int8 d2)
+              const float dotf = __fsub_rn(
+                  __int_as_float(0x4B400000 + dot), 12582912.f);
+              bits = __float_as_int(
+                  __fadd_rn(__fmaf_rn(-2.f, dotf, na[h][hh]), nbv));
+            } else {
+              const float d2 = __fsub_rn(__fadd_rn(na[h][hh], nbv),
+                                         __fmul_rn(2.f, dot));
+              bits = __float_as_int(fmaxf(d2, 0.f));
+            }
             if (kGated && gated_out(ux[h][hh], uy[h][hh], px, py, radius2))
               bits = kGatedBits;
+            // the row's and the column's key
+            const int rk = key_or(bits, b0 + c);
+            const int ek = key_or(bits, row);
             // insert2 on unique keys, as min/max
-            const int rk = bits | (b0 + c);
-            r2[h][hh] = min(r2[h][hh], max(r1[h][hh], rk));
-            r1[h][hh] = min(r1[h][hh], rk);
-            ck[j] = min(ck[j], bits | row);
+            const int ch = nt % kChains;
+            r2[h][hh][ch] = min(r2[h][hh][ch], max(r1[h][hh][ch], rk));
+            r1[h][hh][ch] = min(r1[h][hh][ch], rk);
+            ck[j] = min(ck[j], ek);
           }
         }
     }
@@ -540,9 +633,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       atomicMin(&col_p[j], m);
   };
 
-  // the tile's norms of this thread's 16 columns: bf16 reads them before
-  // the products (the gate's positions, in 32 more registers, cost more
-  // there than they save), f32 after them (its registers hold A's plane)
+  // the tile's norms of this thread's 16 columns: bf16 and int8 read them
+  // before the products (the gate's positions, in 32 more registers, cost
+  // more there than they save), f32 after them (its registers hold A's
+  // plane)
   auto norms = [&](float (&nbr)[16], int t) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -564,7 +658,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     // has issued tile t - 1's (named barrier 1), warpgroup 1 once
     // warpgroup 0 has issued tile t's (barrier 2), so the tensor cores
     // take the two in turns while the other warpgroup runs its epilogue
-    float acc[2][32];
+    Acc acc[2][32];
     for (int t = 0; t < n_tiles; ++t) {
       wait(&s.full[t & 1], (t >> 1) & 1);
       float nbr[16];
@@ -573,7 +667,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
         bar_sync(2, 256);
       else if (t > 0)
         bar_sync(1, 256);
-      issue(acc, sa, s.b[t & 1][0]);
+      issue<T>(acc, sa, s.b[t & 1][0]);
       if (wg == 0)
         bar_arrive(2, 256);
       else if (t + 1 < n_tiles)
@@ -636,11 +730,16 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     for (int hh = 0; hh < 2; ++hh) {
       K k1, k2;
       if constexpr (MODE == kWide) {  // -1: no candidate in this thread
-        k1 = r1[h][hh] < 0 ? kWideMax : wide_key(v1[h][hh], r1[h][hh]);
-        k2 = r2[h][hh] < 0 ? kWideMax : wide_key(v2[h][hh], r2[h][hh]);
+        k1 = r1[h][hh][0] < 0 ? kWideMax
+                              : wide_key(v1[h][hh], r1[h][hh][0]);
+        k2 = r2[h][hh][0] < 0 ? kWideMax
+                              : wide_key(v2[h][hh], r2[h][hh][0]);
       } else {
-        k1 = r1[h][hh];
-        k2 = r2[h][hh];
+        k1 = r1[h][hh][0];
+        k2 = r2[h][hh][0];
+#pragma unroll
+        for (int ch = 1; ch < kChains; ++ch)
+          tc::merge2(r1[h][hh][ch], r2[h][hh][ch], k1, k2);
       }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -680,16 +779,18 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
 }
 
 // The body over T in MODE on a (n_pairs, n_a, 256) and b (n_pairs, n_b,
-// 256) rows of T (bf16 bits; f32: the split pre-pass's (n_pairs, n, 3,
-// 256) bf16 planes), 16-byte aligned, n_a and n_b multiples of 64; other
-// arguments as knn_tc_kernel's. Returns the cudaError_t of the launch
-// (that of the TMA maps' encoding where it fails).
+// 256) rows of T (bf16 bits; int8 with K1's norm pre-pass's f32 norms;
+// f32: the split pre-pass's (n_pairs, n, 3, 256) bf16 planes), 16-byte
+// aligned, n_a and n_b multiples of 64; other arguments as
+// knn_tc_kernel's. Returns the cudaError_t of the launch (that of the TMA
+// maps' encoding where it fails).
 template <typename T, int MODE>
 int launch(const void* a, const void* b, const void* na2, const void* nb2,
            const void* uv_a, const void* pred_b, float radius2, void* row_p,
            void* col_p, void* row_k, void* col_k, int n_pairs, int n_a,
            int n_b, cudaStream_t stream) {
-  constexpr int kK = 256 * Body<T>::kPlanes;   // bf16 values a row
+  // bf16 values a row (TMA moves bytes: int8's 256 bytes as 128)
+  constexpr int kK = 64 * Body<T>::kChunks * Body<T>::kPlanes;
   CUtensorMap ta, tb;
   int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kBM<T>);
   if (e == 0) e = hopper::encode_pairs(&tb, b, n_pairs, n_b, kK, kBN);

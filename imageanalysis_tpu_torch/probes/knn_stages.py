@@ -112,6 +112,11 @@ measure the tensor-core body:
   planes after the split pre-pass), whose ``mma.sync`` body (64 A rows,
   one 64-row B tile) K1 and K3 ran before the ``wgmma`` body; its plain
   version ``f32_d256_plain``.
+- ``i8_d256_raw``: the same for int8 rows of 256 values (ORB's bits as
+  the int8 store holds them) in K1's mode (plain or gated, after K1's
+  norm pre-pass) and the product-only ``row_sum``, whose ``mma.sync`` s8
+  body (the 128-row tiles of 128 values at twice the k-steps) K1 ran
+  before the ``wgmma`` s8 body; its plain version ``i8_d256_plain``.
 """
 
 from __future__ import annotations
@@ -152,7 +157,7 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
             "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0,
-            "knn_f32_d256": 0}
+            "knn_f32_d256": 0, "knn_i8_d256": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
 # which tc_stage_raw runs every stage
 TC_BN, TC_BM = 128, 128
@@ -635,9 +640,9 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
 
 
 # rows of 256 values on either tensor-core body: the modes of
-# knn_bf16_d256 and knn_f32_d256 (csrc/knn_probe.cu) and the bodies ("mma":
-# mma.sync, the body K1 and K3 ran there before; "wg": the wgmma body they
-# run now)
+# knn_bf16_d256, knn_i8_d256 (no "wide": K3 takes no int8) and
+# knn_f32_d256 (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
+# body K1 and K3 ran there before; "wg": the wgmma body they run now)
 D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
 D256_BODIES = {"mma": 0, "wg": 1}
 
@@ -650,6 +655,9 @@ def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype):
     if a.dtype != dtype or a.dim() != 3 or a.shape[2] != 256:
         raise ValueError(f"{name}: takes (B, n, 256) {str(dtype)[6:]}, got "
                          f"{tuple(a.shape)} {a.dtype}")
+    if mode == "wide" and dtype == torch.int8:
+        raise ValueError(f"{name}: no mode 'wide' for int8 (K3 takes bf16 "
+                         "or f32)")
     if mode == "packed":
         knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
         if uv_a is not None:
@@ -672,15 +680,18 @@ def _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode, name, dtype):
 
 
 def _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
-    """bf16_d256_raw's and f32_d256_raw's launch (their checks done, a and
-    b on a CUDA card)."""
+    """bf16_d256_raw's, i8_d256_raw's and f32_d256_raw's launch (their
+    checks done, a and b on a CUDA card)."""
     B, n_a, _ = a.shape
     n_b = b.shape[1]
     f32 = dtype == torch.float32
-    entry = "knn_f32_d256" if f32 else "knn_bf16_d256"
+    entry = {torch.float32: "knn_f32_d256", torch.int8: "knn_i8_d256",
+             torch.bfloat16: "knn_bf16_d256"}[dtype]
     knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b,
                       entry.replace("knn_", "") + "_raw")
     dev = a.device
+    if dtype == torch.int8:
+        return _i8_d256_launch(a, b, uv_a, pred_b, radius2, mode, body)
     wide = mode == "wide"
     key = torch.int64 if wide else torch.int32
     kmax = knn._WIDE_MAX if wide else knn._KEY_MAX
@@ -701,6 +712,28 @@ def _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     LAUNCHES[entry] += 1
+    return row, col
+
+
+def _i8_d256_launch(a, b, uv_a, pred_b, radius2, mode, body):
+    """i8_d256_raw's launch: csrc/knn_probe.cu's knn_i8_d256, with
+    scratch for K1's norm pre-pass."""
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    na2 = torch.empty((B, n_a), dtype=torch.float32, device=dev)
+    nb2 = torch.empty((B, n_b), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().knn_i8_d256(
+            a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
+            knn._ptr(uv_a), knn._ptr(pred_b),
+            radius2 if uv_a is not None else 0.0, row.data_ptr(),
+            col.data_ptr(), B, n_a, n_b, D256_MODES[mode],
+            D256_BODIES[body], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_i8_d256")
+    LAUNCHES["knn_i8_d256"] += 1
     return row, col
 
 
@@ -755,3 +788,31 @@ def f32_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
         return f32_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
     return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
                      torch.float32)
+
+
+def i8_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                  radius2=None, mode="packed"):
+    """Plain version of i8_d256_raw: knn.knn_packed_plain (gated with
+    uv_a) or tc_row_sum_plain's arithmetic."""
+    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
+                       "i8_d256_plain", torch.int8)
+
+
+def i8_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+                radius2=None, mode="packed", body="mma"):
+    """int8 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), on
+    body "mma" (the mma.sync s8 body, K1's yardstick at this width) or
+    "wg" (the wgmma s8 body of csrc/knn_wg.cuh, which K1 launches), in
+    mode "packed" (K1 after its norm pre-pass, gated with uv_a, pred_b,
+    radius2; row_p, col_p int32) or "row_sum" (the product-only stage:
+    each A row's wrapping sum of its dots in both slots of row (B, n_a,
+    2) int32, col 0x7FFFFFFF). na2 and nb2 are ignored, as
+    knn.knn_packed_raw ignores them for int8; n_a and n_b multiples of
+    64. A CPU tensor takes i8_d256_plain; any other device raises.
+    Counted as knn_i8_d256, not as K1's launches."""
+    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "i8_d256_raw",
+                torch.int8)
+    if a.device.type == "cpu":
+        return i8_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
+    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
+                     torch.int8)

@@ -7,7 +7,8 @@ Run it once per copy of the package, each in its own process, in turns
 (old, new, new, old), to compare two versions of the 2-NN kernels on one
 card; each copy builds its kernels into ROOT/build/:
 
-    python3 scripts_torch/knn_versions.py [ROOT] [--f32-d256]
+    python3 scripts_torch/knn_versions.py [ROOT] [--d256 | --f32-d256 |
+        --i8-d256]
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
@@ -19,12 +20,18 @@ gated at 64 × 6144, K3 bf16 at 64 × 10240, K1 f32 plain and gated at
 has ``knn_stages.bf16_d256_raw`` (``f32_d256_raw``), the product-only
 stage there on both of its bodies (``row_sum_<body>_d256_*``,
 ``row_sum_<body>_f32_d256_*``). ``--f32-d256`` times the f32 cases at
-256 alone. Times: median of CUDA events after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
+256 alone; ``--i8-d256`` K1 int8 at 256 alone (ORB's bits as the int8
+store holds them): plain and gated at 64 × 6144, plain at 256 × 4096,
+and where the copy has ``knn_stages.i8_d256_raw`` the product-only stage
+on both bodies (``row_sum_<body>_i8_d256_*``); ``--d256`` every case at
+256 values a row (bf16, f32 and int8). Times: median of CUDA events
+after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
 SASS: the same keys → the first 12 hex digits of the sha256 of each
 tensor-core instantiation's machine code (cuobjdump -sass of the copy's
 library), so two copies' kernels can be seen to be the same code.
+Warnings: ptxas's warnings and performance notes from the same log.
 """
 
 import hashlib
@@ -35,6 +42,8 @@ import sys
 
 _ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 ONLY_F32_D256 = "--f32-d256" in sys.argv[1:]
+ONLY_I8_D256 = "--i8-d256" in sys.argv[1:]
+ONLY_D256 = "--d256" in sys.argv[1:]
 ROOT = os.path.abspath(_ARGS[0] if _ARGS else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, ROOT)
@@ -74,12 +83,37 @@ def as_float(a, b, dtype=torch.bfloat16):
 
 def product_only(f, tag, probe="bf16_d256_raw"):
     """The product-only stage (product + row sum) of bf16 (or, probe
-    "f32_d256_raw", f32) at 256 values a row on both bodies of a copy that
-    has them: {"row_sum_<body>_d256_<tag>": ms}."""
+    "f32_d256_raw" or "i8_d256_raw", f32 or int8) at 256 values a row on
+    both bodies of a copy that has them: {"row_sum_<body>_d256_<tag>":
+    ms}."""
     fn = getattr(knn_stages, probe)
     return {f"row_sum_{body}_d256_{tag}": probes.time_ms(
         lambda: fn(f[0], f[1], mode="row_sum", body=body), "cuda", 3, 2)
         for body in ("wg", "mma")}
+
+
+def bf16_d256(gen, out):
+    """K1 bf16 plain and gated at 64 × 6144 and K3 bf16 at 64 × 10240, at
+    256 values a row (ORB's bits as 0/1 bf16), and the product-only stage
+    on both bodies where the copy has knn_stages.bf16_d256_raw."""
+    split = hasattr(knn_stages, "bf16_d256_raw")
+    f = as_float(*orb_bits(gen, 64, 6144))
+    gate = (torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
+            torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
+            400.0 ** 2)
+    out["bf16_d256_bench"] = probes.time_ms(lambda: knn.knn_packed_raw(*f),
+                                            "cuda", 5, 2)
+    out["gated_bf16_d256_bench"] = probes.time_ms(
+        lambda: knn.knn_packed_raw(*f, *gate), "cuda", 5, 2)
+    if split:
+        out.update(product_only(f, "bench"))
+    del f, gate
+    f = as_float(*orb_bits(gen, 64, 10240))
+    out["k3_bf16_d256"] = probes.time_ms(lambda: knn.knn_wide_raw(*f),
+                                         "cuda", 3, 2)
+    if split:
+        out.update(product_only(f, "k3"))
+    del f
 
 
 def f32_d256(gen, out):
@@ -104,6 +138,31 @@ def f32_d256(gen, out):
     if split:
         out.update(product_only(f, "k3_f32", "f32_d256_raw"))
     del f
+
+
+def i8_d256(gen, out):
+    """K1 int8 at 256 values a row (ORB's bits as the store holds them):
+    plain and gated (gate_of's prior in chip_smoke.py: ~half the
+    candidates out) at 64 × 6144, plain at 256 × 4096, and the
+    product-only stage on both bodies where the copy has
+    knn_stages.i8_d256_raw."""
+    split = hasattr(knn_stages, "i8_d256_raw")
+    for tag, pairs, n in (("bench", 64, 6144), ("store", 256, 4096)):
+        a, b = orb_bits(gen, pairs, n)
+        out[f"i8_d256_{tag}"] = probes.time_ms(
+            lambda: knn.knn_packed_raw(a, b), "cuda", 5, 2)
+        if tag == "bench":
+            gate = (torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                    * 1000,
+                    torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                    * 1000, 400.0 ** 2)
+            out["gated_i8_d256_bench"] = probes.time_ms(
+                lambda: knn.knn_packed_raw(a, b, None, None, *gate), "cuda",
+                5, 2)
+            del gate
+        if split:
+            out.update(product_only((a, b), f"i8_{tag}", "i8_d256_raw"))
+        del a, b
 
 
 def own_build_module():
@@ -138,6 +197,14 @@ def main():
     if ONLY_F32_D256:
         f32_d256(gen, out)
         return report(out)
+    if ONLY_I8_D256:
+        i8_d256(gen, out)
+        return report(out)
+    if ONLY_D256:
+        bf16_d256(gen, out)
+        f32_d256(gen, out)
+        i8_d256(gen, out)
+        return report(out)
     for name, pairs, n in (("store", 256, 4096), ("bench", 64, 6144)):
         a, b = planted(gen, pairs, n)
         f = as_float(a, b)
@@ -163,22 +230,9 @@ def main():
     f = as_float(a, b, torch.float32)
     out["k3_f32"] = t(lambda: knn.knn_wide_raw(*f), 3)
     del a, b, f
-    f = as_float(*orb_bits(gen, 64, 6144))
-    gate = (torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
-            torch.rand((64, 6144, 2), generator=gen, device="cuda") * 1000,
-            400.0 ** 2)
-    out["bf16_d256_bench"] = t(lambda: knn.knn_packed_raw(*f))
-    out["gated_bf16_d256_bench"] = t(lambda: knn.knn_packed_raw(*f, *gate))
-    split = hasattr(knn_stages, "bf16_d256_raw")
-    if split:
-        out.update(product_only(f, "bench"))
-    del f, gate
-    f = as_float(*orb_bits(gen, 64, 10240))
-    out["k3_bf16_d256"] = t(lambda: knn.knn_wide_raw(*f), 3)
-    if split:
-        out.update(product_only(f, "k3"))
-    del f
+    bf16_d256(gen, out)
     f32_d256(gen, out)
+    i8_d256(gen, out)
     report(out)
 
 
@@ -188,7 +242,9 @@ def report(out):
     regs = own.tc_kernel_usage(own.ptxas_usage(_build.build_log))
     print(json.dumps({"root": ROOT, "device": torch.cuda.get_device_name(0),
                       "ms": {k: round(v, 4) for k, v in out.items()},
-                      "tc_registers": regs, "tc_sass": sass_digests(own)}),
+                      "tc_registers": regs, "tc_sass": sass_digests(own),
+                      "ptxas_warnings": own.ptxas_warnings(
+                          _build.build_log)}),
           flush=True)
 
 

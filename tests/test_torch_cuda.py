@@ -1522,6 +1522,30 @@ def test_f32_256_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("mode", ["packed", "gated", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+@pytest.mark.parametrize("kind", ["bits", "full_range"])
+def test_i8_256_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
+    """int8 at 256 values a row on both bodies through
+    knn_stages.i8_d256_raw (the mma.sync s8 body is the wgmma s8 body's
+    yardstick): K1 plain and gated and the product-only stage, 320 A rows
+    (a wgmma block and a half) against 640 B rows, on ORB's bits and the
+    full -128..127, equal to the plain versions and counted as
+    knn_i8_d256, not as K1's launches."""
+    a, b = (t.to(cuda) for t in _rows256(rng, 3, 320, 640, kind))
+    gate = _gate(rng, cuda, 3, 320, 640) if mode == "gated" else ()
+    kw = dict(mode="row_sum" if mode == "row_sum" else "packed")
+    before = knn_stages.LAUNCHES["knn_i8_d256"]
+    k1 = dict(knn.LAUNCHES)
+    got = knn_stages.i8_d256_raw(a, b, None, None, *gate, body=body, **kw)
+    assert knn_stages.LAUNCHES["knn_i8_d256"] == before + 1
+    assert knn.LAUNCHES == k1
+    want = knn_stages.i8_d256_plain(a, b, None, None, *gate, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # at 256 values a row the values hold twice _F32_REL: the plain version's
 # own f32 product rounds twice the terms at twice the magnitude of 128's;
 # on these rows its K3 values lie 21-24 from the f64 truth where both
@@ -1586,18 +1610,27 @@ def test_k3_f32_256_within_tolerance_on_random(cuda, rng, shape):
 def test_knn_wg_sass_is_hgmma(cuda):
     """The wgmma body at 256 values a row (knn_wg_kernel, its four modes
     for bf16 and for f32) runs its products as HGMMA (wgmma), not as
-    mma.sync's HMMA, which the mma.sync bodies' kernels at 256 show."""
+    mma.sync's HMMA, which the mma.sync bodies' kernels at 256 show; its
+    three int8 modes (K1 plain and gated, the product-only stage) as the
+    integer wgmma, IGMMA, not as mma.sync's IMMA, which the int8 mma.sync
+    body at 256 shows."""
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines)
         for name, lines in _build.sass().items()})
     keys = {k for k in per_key if k.endswith(" wg")}
     assert keys == {f"{t}_d256 {m} wg" for t in ("bf16", "f32")
-                    for m in range(4)}, keys
+                    for m in range(4)} | {f"int8_d256 {m} wg"
+                                          for m in (0, 1, 3)}, keys
     for k in keys:
-        assert per_key[k]["HGMMA"] > 0 and per_key[k]["HMMA"] == 0, \
-            (k, per_key[k])
+        if k.startswith("int8"):
+            assert per_key[k]["IGMMA"] > 0 and per_key[k]["IMMA"] == 0 \
+                and per_key[k]["HGMMA"] == 0, (k, per_key[k])
+        else:
+            assert per_key[k]["HGMMA"] > 0 and per_key[k]["HMMA"] == 0, \
+                (k, per_key[k])
     assert per_key["bf16_d256 0 128 128 2"]["HMMA"] > 0
     assert per_key["f32_d256 0 64 64 1"]["HMMA"] > 0
+    assert per_key["int8_d256 0 128 128 2"]["IMMA"] > 0
 
 
 # last in the file: it imports cv2, which the card path's tests above
