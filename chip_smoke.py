@@ -603,10 +603,11 @@ def vs_old_body(r, name, new, old, body):
 
 def product_split(r, name, a, b, product_ms=None):
     """K1's or K3's time on the tensor-core body split into the body's
-    product (its product-only stage: product + row sum, held bit-exact
-    against tc_row_sum_plain on the first pairs, or product_ms of the
-    same shape and type) and the key epilogue (the rest). f32's stage
-    includes its split pre-pass."""
+    product (product_ms, measured on the same shape, type and body, or
+    else the mma.sync body's product-only stage, tc_row_sum_raw: product
+    + row sum, held bit-exact against tc_row_sum_plain on the first
+    pairs) and the key epilogue (the rest). f32's stage includes its
+    split pre-pass. The wgmma body's product-only stage is wg_vs_mma's."""
     if product_ms is None:
         p = PROBE_PLAIN_PAIRS
         check_equal(f"{name} product-only stage",
@@ -637,10 +638,12 @@ def full_range_descriptors(gen, pairs, n, n_planted):
 
 
 def check_knn():
-    """K1 in every mode; returns {mode: measurements}. Every mode (the
-    tensor-core body) is also timed in turns against the body it replaced
-    (knn_stages.dp4a_i8_raw, ffma_bf16_raw, ffma_f32_raw) and split into
-    the body's product and the key epilogue."""
+    """K1 in every mode; returns {mode: measurements}. int8 and bf16 (the
+    wgmma body, plain and gated) are timed in turns against the mma.sync
+    body they replaced (knn_stages.i8_d128_raw, bf16_d128_raw) and both
+    bodies split into product and key epilogue (wg_vs_mma); f32 (the
+    mma.sync body) in turns against its FFMA body (ffma_f32_raw), split
+    into its product and the key epilogue."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
@@ -651,10 +654,8 @@ def check_knn():
         compare_keys("K1 int8 full range", knn.knn_packed_raw,
                      knn.knn_packed_plain, (fa, fb), reps=1, plain_reps=1)
         del fa, fb
-        vs_old_body(r, f"K1 int8 {pairs} x {n}",
-                    lambda: knn.knn_packed_raw(a, b),
-                    lambda: knn_stages.dp4a_i8_raw(a, b), "dp4a")
-        product_split(r, f"K1 int8 {pairs} x {n}", a, b)
+        wg_vs_mma(r, f"K1 int8 {pairs} x {n}", (a, b, None, None),
+                  "packed")
         with_bound(r, *k1_bound(pairs, n, 1, "int8"))
         log(f"[K1] int8 {name} {pairs} pairs x {n}: bit-exact (planted "
             f"rows and the full -128..127); kernel {r['ms']:.3f} ms, plain "
@@ -673,60 +674,47 @@ def check_knn():
         log(f"[K1] int8 {name}: torch._int_mm's int32 output alone takes "
             f"{out_ms:.3f} ms at 3.35 TB/s")
         out[f"i8_{name}"] = r
-        if name == "bench":
-            fargs = float_inputs(a, b, torch.bfloat16)
-            r = compare_keys("K1 bf16 bench", knn.knn_packed_raw,
-                             knn.knn_packed_plain, fargs, plain_reps=1)
-            vs_old_body(r, f"K1 bf16 {pairs} x {n}",
-                        lambda: knn.knn_packed_raw(*fargs),
-                        lambda: knn_stages.ffma_bf16_raw(*fargs), "ffma")
-            product_split(r, f"K1 bf16 {pairs} x {n}", fargs[0], fargs[1])
-            with_bound(r, *k1_bound(pairs, n, 2, "bf16"))
-            bt = fargs[1].transpose(1, 2)
-            r["product_only_ms"] = product_only(
-                f"K1 bf16 torch.bmm {pairs} x {n} x {n}",
-                lambda: torch.bmm(fargs[0], bt))
-            del bt
-            log(f"[K1] bf16 bench {pairs} pairs x {n}: bit-exact; kernel "
-                f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
-            out["bf16_bench"] = r
-            del fargs
+        fargs = float_inputs(a, b, torch.bfloat16)
+        r = compare_keys(f"K1 bf16 {name}", knn.knn_packed_raw,
+                         knn.knn_packed_plain, fargs, plain_reps=1)
+        wg_vs_mma(r, f"K1 bf16 {pairs} x {n}", fargs, "packed")
+        with_bound(r, *k1_bound(pairs, n, 2, "bf16"))
+        bt = fargs[1].transpose(1, 2)
+        r["product_only_ms"] = product_only(
+            f"K1 bf16 torch.bmm {pairs} x {n} x {n}",
+            lambda: torch.bmm(fargs[0], bt))
+        del bt, fargs
+        log(f"[K1] bf16 {name} {pairs} pairs x {n}: bit-exact; kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        out["bf16" if name == "store" else "bf16_bench"] = r
     pairs, n = STORE_SHAPE
     a, b = planted_descriptors(gen, pairs, n, n // 4)
-    for mode, dtype, eb in (("bf16", torch.bfloat16, 2),
-                            ("f32", torch.float32, 4)):
-        args = float_inputs(a, b, dtype)
-        r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
-                         knn.knn_packed_plain, args)
-        old = (knn_stages.ffma_bf16_raw if mode == "bf16"
-               else knn_stages.ffma_f32_raw)
-        vs_old_body(r, f"K1 {mode} {pairs} x {n}",
-                    lambda: knn.knn_packed_raw(*args),
-                    lambda: old(*args), "ffma")
-        product_split(r, f"K1 {mode} {pairs} x {n}", args[0], args[1])
-        # f32: also the bound of its product on the CUDA cores (FFMA)
-        if mode == "f32":
-            r["ffma_bound_ms"] = bound(0, {"f32": 2 * pairs * n * n
-                                           * 128})[0]
-        with_bound(r, *k1_bound(pairs, n, eb, mode))
-        log(f"[K1] {mode} {pairs} pairs x {n}: bit-exact; kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']})"
-            + (f" (six bf16 products); its product on the CUDA cores "
-               f"{r['ffma_bound_ms']:.3f} ms" if mode == "f32" else ""))
-        # the product alone, in the mode's type (f32: TF32 off, the
-        # package's setting, so full f32 as the kernel)
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise AssertionError("TF32 is on: the f32 yardstick would not "
-                                 "be an f32 product")
-        bt = args[1].transpose(1, 2)
-        r["product_only_ms"] = product_only(
-            f"K1 {mode} torch.bmm {pairs} x {n} x {n}",
-            lambda: torch.bmm(args[0], bt))
-        del bt
-        out[mode] = r
-        del args
+    args = float_inputs(a, b, torch.float32)
+    r = compare_keys("K1 f32", knn.knn_packed_raw, knn.knn_packed_plain,
+                     args)
+    vs_old_body(r, f"K1 f32 {pairs} x {n}",
+                lambda: knn.knn_packed_raw(*args),
+                lambda: knn_stages.ffma_f32_raw(*args), "ffma")
+    product_split(r, f"K1 f32 {pairs} x {n}", args[0], args[1])
+    # also the bound of its product on the CUDA cores (FFMA)
+    r["ffma_bound_ms"] = bound(0, {"f32": 2 * pairs * n * n * 128})[0]
+    with_bound(r, *k1_bound(pairs, n, 4, "f32"))
+    log(f"[K1] f32 {pairs} pairs x {n}: bit-exact; kernel {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']}) (six bf16 products); its product on the CUDA "
+        f"cores {r['ffma_bound_ms']:.3f} ms")
+    # the product alone, in the mode's type (TF32 off, the package's
+    # setting, so full f32 as the kernel)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 yardstick would not be an "
+                             "f32 product")
+    bt = args[1].transpose(1, 2)
+    r["product_only_ms"] = product_only(
+        f"K1 f32 torch.bmm {pairs} x {n} x {n}",
+        lambda: torch.bmm(args[0], bt))
+    del bt, args
+    out["f32"] = r
     # a prior that gates out about half the candidates: positions in a
     # 1000 px square, radius 400 px
     uv_a = torch.rand((pairs, n, 2), generator=gen, device="cuda") * 1000
@@ -735,21 +723,28 @@ def check_knn():
     d = uv_a[0, :, None, :] - pred[0, None, :, :]
     frac = float(((d * d).sum(-1) > radius2).float().mean())
     gate = (uv_a, pred, radius2)
-    for mode, args, eb, peak, old_raw, body, ungated in (
-            ("gated_i8", (a, b, None, None), 1, "int8",
-             knn_stages.dp4a_i8_raw, "dp4a", "i8_store"),
+    for mode, args, eb, peak, ungated in (
+            ("gated_i8", (a, b, None, None), 1, "int8", "i8_store"),
             ("gated_bf16", float_inputs(a, b, torch.bfloat16), 2, "bf16",
-             knn_stages.ffma_bf16_raw, "ffma", "bf16"),
+             "bf16"),
             ("gated_f32", float_inputs(a, b, torch.float32), 4, "f32",
-             knn_stages.ffma_f32_raw, "ffma", "f32")):
+             "f32")):
         gargs = (*args, *gate)
-        old_args = (a, b, *gate) if body == "dp4a" else gargs
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, gargs)
-        vs_old_body(r, f"K1 {mode} {pairs} x {n}",
-                    lambda: knn.knn_packed_raw(*gargs),
-                    lambda: old_raw(*old_args), body)
-        # the gate is epilogue: the product is the ungated mode's
+        # in turns with the body it replaced: int8 and bf16 the mma.sync
+        # body, f32 the FFMA body; the gate is epilogue, so the product is
+        # the ungated mode's
+        if mode == "gated_f32":
+            vs_old_body(r, f"K1 {mode} {pairs} x {n}",
+                        lambda: knn.knn_packed_raw(*gargs),
+                        lambda: knn_stages.ffma_f32_raw(*gargs), "ffma")
+        else:
+            probe = rows_probe(args)[0]
+            vs_old_body(r, f"K1 {mode} {pairs} x {n}",
+                        lambda: knn.knn_packed_raw(*gargs),
+                        lambda: probe(*gargs, body="mma"), "was")
+            r["was_product_ms"] = out[ungated]["was_product_ms"]
         product_split(r, f"K1 {mode} {pairs} x {n}", None, None,
                       out[ungated]["tc_product_ms"])
         r["product_only_ms"] = out[ungated]["product_only_ms"]
@@ -761,6 +756,15 @@ def check_knn():
             f"{r['product_only_ms']} ms")
         out[mode] = r
     split_planes(gen, pairs, n, gate, out)
+    usage = {k: v for k, v in _build.tc_kernel_usage().items()
+             if k.endswith(" wg") and "_d256" not in k}
+    warn = [w for w in _build.ptxas_warnings()
+            if "knn_wg_kernelIa" in w or "knn_wg_kernelIt" in w]
+    log(f"[K1 at 128] wgmma body, ptxas (registers, spill stores, spill "
+        f"loads): {usage}; its notes: {warn or 'none'}")
+    if warn or any(st or ld for _, st, ld in usage.values()):
+        raise AssertionError(f"K1's wgmma body at 128 spills or is "
+                             f"serialized: {usage}, {warn}")
     return out
 
 
@@ -987,28 +991,28 @@ def orb_rows(gen, pairs, n, full=False):
     return (a - 128).to(torch.int8), (b - 128).to(torch.int8)
 
 
-def d256_probe(args):
-    """The probe that runs rows of 256 values of args' type on either
-    body: knn_stages.bf16_d256_raw, i8_d256_raw or f32_d256_raw, with its
-    plain version."""
-    return {torch.float32: (knn_stages.f32_d256_raw,
-                            knn_stages.f32_d256_plain),
-            torch.int8: (knn_stages.i8_d256_raw, knn_stages.i8_d256_plain),
-            torch.bfloat16: (knn_stages.bf16_d256_raw,
-                             knn_stages.bf16_d256_plain)}[args[0].dtype]
+def rows_probe(args):
+    """The probe that runs args' rows (their type and width: bf16, int8
+    and f32 at 256 values, bf16 and int8 at 128) on either body:
+    knn_stages.<type>_d<width>_raw, with its plain version."""
+    tag = {torch.float32: "f32", torch.int8: "i8",
+           torch.bfloat16: "bf16"}[args[0].dtype]
+    name = f"{tag}_d{args[0].shape[-1]}"
+    return (getattr(knn_stages, f"{name}_raw"),
+            getattr(knn_stages, f"{name}_plain"))
 
 
-def d256_vs_mma(r, name, args, mode):
-    """bf16, int8 or f32 at 256 values a row: the wgmma body (K1 or K3
-    through its wrapper) in turns with the mma.sync body it replaced
-    (knn_stages.bf16_d256_raw, i8_d256_raw or f32_d256_raw with
-    body="mma", whose keys must equal it), and both bodies split into
-    their product-only stage (f32: with its split pre-pass; int8: without
-    K1's norm pre-pass; held bit-exact against its plain version on the
-    first pairs; timed in turns) and the key epilogue. Sets r["ms"],
+def wg_vs_mma(r, name, args, mode):
+    """bf16, int8 or f32 at 256 values a row, bf16 and int8 at 128: the
+    wgmma body (K1 or K3 through its wrapper) in turns with the mma.sync
+    body it replaced (knn_stages.<type>_d<width>_raw with body="mma",
+    whose keys must equal it), and both bodies split into their
+    product-only stage (f32: with its split pre-pass; int8: without K1's
+    norm pre-pass; held bit-exact against its plain version on the first
+    pairs; timed in turns) and the key epilogue. Sets r["ms"],
     r["was_ms"], r["tc_product_ms"] and r["was_product_ms"]."""
     raw = knn.knn_wide_raw if mode == "wide" else knn.knn_packed_raw
-    probe, plain = d256_probe(args)
+    probe, plain = rows_probe(args)
     vs_old_body(r, name, lambda: raw(*args),
                 lambda: probe(*args, mode=mode, body="mma"), "was")
     x, y, p = args[0], args[1], PROBE_PLAIN_PAIRS
@@ -1098,7 +1102,7 @@ def check_knn_256():
     the bound and one library product of the same operands (the gated
     modes: their ungated mode's). Every type runs the wgmma body
     (knn_wg.cuh), timed in turns with the mma.sync body it replaced and
-    split into product and key epilogue (d256_vs_mma; the gated modes in
+    split into product and key epilogue (wg_vs_mma; the gated modes in
     turns, with their ungated mode's split); f32 also on non-integer rows
     within its tolerance (random_planes_256). Returns {case:
     measurements}."""
@@ -1137,9 +1141,9 @@ def check_knn_256():
                              plain_reps=2 if not full else 1)
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=gated, dim=256))
         if not gated:
-            d256_vs_mma(r, name, args, "packed")
+            wg_vs_mma(r, name, args, "packed")
         else:                           # the gate is epilogue: the same
-            probe = d256_probe(args)[0]
+            probe = rows_probe(args)[0]
             vs_old_body(r, name, lambda: knn.knn_packed_raw(*args),
                         lambda: probe(*args, body="mma"), "was")
             for k in ("tc_product_ms", "was_product_ms", "product_only_ms"):
@@ -1167,7 +1171,7 @@ def check_knn_256():
         product = 2 * pairs * n * n * 256
         with_bound(r, pairs * n * (2 * 256 * eb + 8 + 24),
                    {"bf16": (6 if mode == "f32" else 1) * product})
-        d256_vs_mma(r, name, args, "wide")
+        wg_vs_mma(r, name, args, "wide")
         r["product_only_ms"] = product_only(
             name, lambda: torch.bmm(args[0], args[1].transpose(1, 2)))
         del args
@@ -1363,8 +1367,10 @@ def run_smart_slice(m, dets, root, profile=False):
     against the planted homographies and the true ground; what the
     corrections and requalify_pairs then drop is reported. profile=True
     runs find_matches once more on a fresh copy under torch.profiler.
-    Returns (launches, find_matches's {(i, j): matches}, the workspace
-    after requalify_pairs, its smart state)."""
+    The run's own first and last gated K1 int8 call are held bit-exact
+    and timed in turns with the mma.sync body (check_k1_calls). Returns
+    (launches, find_matches's {(i, j): matches}, the workspace after
+    requalify_pairs, its smart state, check_k1_calls' list)."""
     W, _ = FRAME
     t0 = time.perf_counter()
     proj = write_workspace(os.path.join(root, "smart"), m, dets)
@@ -1372,12 +1378,16 @@ def run_smart_slice(m, dets, root, profile=False):
     state = smart.SmartState(proj.analysis_dir)
     config = matcher.MatchConfig(strategy="smart")
     reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    matcher.find_matches(proj, config, smart_state=state, device="cuda")
-    torch.cuda.synchronize()
-    walls["find_matches"] = time.perf_counter() - t0
+    kind = ("int8", 128, True)
+    with keeping_k1({kind}) as (_, kept):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matcher.find_matches(proj, config, smart_state=state, device="cuda")
+        torch.cuda.synchronize()
+        walls["find_matches"] = time.perf_counter() - t0
     launches = read_launches()
+    k1_calls = check_k1_calls(kept.get(kind, {}), "smart", "smart")
+    del kept
 
     pairs = [(i, j) for _, i, j in worklist.build_work_list(m.ned)]
     thresh = float(W) ** 0.25
@@ -1438,7 +1448,7 @@ def run_smart_slice(m, dets, root, profile=False):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         profile_summary(prof, wall)
-    return launches, result, proj, state
+    return launches, result, proj, state, k1_calls
 
 
 def run_repetitive(root):
@@ -2059,8 +2069,9 @@ def probe_inputs():
 def compare_stages(a, b, fargs):
     """P3/P4/P6's kernel at bench's shape against its plain version on the
     first pairs (every stage at K1's tile, the row minimum at every tile),
-    and its full stage against K1 on all 64 pairs; P3's stages on the
-    tensor-core body (tc_stage) the same way."""
+    and its full stage against K1 on all 64 pairs; P3's and P4's stages on
+    the mma.sync body (tc_stage, tc_row_sum; K1 itself runs the wgmma
+    body, whose keys its full stage must equal) the same way."""
     p = PROBE_PLAIN_PAIRS
     for dtype, args in (("int8", (a, b, None, None)), ("bf16", fargs)):
         sub = tuple(None if x is None else x[:p] for x in args)
@@ -2086,8 +2097,9 @@ def compare_stages(a, b, fargs):
                     knn_stages.tc_stage_raw(*args),
                     knn.knn_packed_raw(*args))
         log(f"[probes] tc_stage {dtype}: P3's "
-            f"{len(knn_stages.P3_VARIANTS)} stages on the tensor-core body "
-            f"bit-exact on {p} of 64 pairs; full = K1 on all 64")
+            f"{len(knn_stages.P3_VARIANTS)} stages on the mma.sync body "
+            f"bit-exact on {p} of 64 pairs; full = K1 (the wgmma body) on "
+            f"all 64")
         for stage in knn_stages.P4_TC_STAGES:
             got = knn_stages.p4_stage_raw(*args, stage=stage)
             want = knn_stages.p4_stage_plain(*sub, stage=stage)
@@ -2096,7 +2108,7 @@ def compare_stages(a, b, fargs):
         check_equal(f"P4 {dtype} stage 3 against K1",
                     knn_stages.p4_stage_raw(*args, stage=3),
                     knn.knn_packed_raw(*args))
-        log(f"[probes] P4 {dtype}: its 4 stages on the tensor-core body "
+        log(f"[probes] P4 {dtype}: its 4 stages on the mma.sync body "
             f"(row_sum by tc_row_sum, top1, top2 and full by tc_stage) "
             f"bit-exact on {p} of 64 pairs; stage 3 = K1 on all 64")
 
@@ -2112,8 +2124,9 @@ def stage_split(t):
 
 
 def run_anatomy(a, b, fargs, library):
-    """P4 and P3 at bench's shape on the tensor-core body (the body K1
-    runs: tc_row_sum and tc_stage), each stage or variant in turns with
+    """P4 and P3 at bench's shape on the mma.sync body (K1's body at 128
+    before the wgmma body, so that their earlier numbers stay comparable:
+    tc_row_sum and tc_stage), each stage or variant in turns with
     the old bodies' (__dp4a for int8, FFMA for bf16; knn_probe), over both
     dtypes, each in its own drive. Logs each body's stage split, each
     variant beside its bound and one library product (library: {dtype:
@@ -2165,14 +2178,14 @@ def run_anatomy(a, b, fargs, library):
                rises else "a variant runs more than 3% faster than the "
                "one before it"))
         k1 = [time_ms(lambda: knn.knn_packed_raw(*args), 3) for _ in "ab"]
-        log(f"[anatomy] K1 {dtype} 64 x 6144 split, ms, tensor-core body: "
+        log(f"[anatomy] K1 {dtype} 64 x 6144 split, ms, mma.sync body: "
             + json.dumps({k: round(x, 3) for k, x in stage_split(tc).items()})
             + f" (product {100 * tc['row_min'] / tc['full']:.1f}% of K1); "
             f"{old_body} body, in turns: "
             + json.dumps({k: round(x, 3)
                           for k, x in stage_split(old).items()})
             + f" (product {100 * old['row_min'] / old['full']:.1f}%); K1 "
-            f"itself {k1[0]:.3f} / {k1[1]:.3f} ms")
+            f"itself (the wgmma body) {k1[0]:.3f} / {k1[1]:.3f} ms")
         p4tc = {s: float(np.mean(v[0])) for s, v in p4[dtype].items()}
         p4old = {s: float(np.mean(v[1])) for s, v in p4[dtype].items()}
         for s, ((t1, t2), (o1, o2)) in p4[dtype].items():
@@ -2540,9 +2553,17 @@ def run_fused(a, b, uv_b):
         return sum(ms for kn, ms in kernels[k].items() if name in kn)
     split = {"kernel_ms": kernel_ms("tc", "knn_tc_kernel"),
              "noepi_kernel_ms": kernel_ms("tc_noepi", "knn_tc_kernel"),
-             "k1_ms": kernel_ms("two_launch", "knn_tc_kernel"),
+             "k1_ms": kernel_ms("two_launch", "knn_wg_kernel"),
              "k4_ms": kernel_ms("two_launch", "match_epilogue_kernel"),
              "was_kernel_ms": kernel_ms("old", "knn_fused_probe_kernel")}
+    def bodies(k):
+        """The K1 bodies whose kernels call k launched."""
+        return sorted({"wgmma" if "knn_wg_kernel" in kn else "mma.sync"
+                       for kn in kernels[k]
+                       if "knn_wg_kernel" in kn or "knn_tc_kernel" in kn})
+    log(f"[P2] bodies: the single launch ran {bodies('tc')} (kFused on the "
+        f"int8 mma.sync body), its yardstick K1 then K4 "
+        f"{bodies('two_launch')} (K1 int8 at 128 runs the wgmma body)")
     full = mean["full"]
     log(f"[P2] full: tensor cores {full['tc']['device']:.3f} ms against "
         f"K1 then K4 {full['two_launch']['device']:.3f} "
@@ -4704,7 +4725,9 @@ def check_k1_calls(calls, where, tag):
     """K1 int8 at a run's own shapes: the first and the last K1 call of
     one kind (keeping_k1's kept[kind]; the last may hold a work list's
     remainder, fewer pairs), their inputs as the store path gave them,
-    held bit-exact against knn_packed_plain and timed beside their bound;
+    held bit-exact against knn_packed_plain and timed beside their bound
+    (at 128 values a row in turns with the mma.sync body it replaced,
+    knn_stages.i8_d128_raw);
     the first beside the ungated torch._int_mm product of as many rows.
     where names the run in the log, tag its phase. Returns [{batch,
     shape, gated, ms, plain_ms, bound_ms, bound_by, max_abs_err}]."""
@@ -4716,6 +4739,10 @@ def check_k1_calls(calls, where, tag):
         name = f"K1 int8 {where} {batch} batch"
         r = compare_keys(name, knn.knn_packed_raw, knn.knn_packed_plain,
                          args)
+        if d == 128:    # the mma.sync body it replaced, in turns
+            vs_old_body(r, name, lambda: knn.knn_packed_raw(*args),
+                        lambda: knn_stages.i8_d128_raw(*args, body="mma"),
+                        "was")
         with_bound(r, *k1_bound(pairs, n, 1, "int8", gated=gated, dim=d,
                                 n_b=n_b))
         r.update(batch=batch, shape=[pairs, n, n_b, d], gated=gated)
@@ -4732,9 +4759,12 @@ def check_k1_calls(calls, where, tag):
             r["product_only_ms"] = product_only(f"{name} torch._int_mm",
                                                 int_mm)
             del x, bt
+        was = (f" (mma.sync body {r['was_ms']:.3f} ms, in turns)"
+               if "was_ms" in r else "")
         log(f"[{tag}] K1 int8 {where} {batch} batch {pairs} x {n} x {n_b} "
-            f"x {d} (gated {gated}): bit-exact; kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"x {d} (gated {gated}): bit-exact; kernel {r['ms']:.3f} ms"
+            f"{was}, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), product only {r.get('product_only_ms')} "
             f"ms")
         out.append(r)
@@ -4886,7 +4916,7 @@ def main():
     if profile:
         profile_detect(m)
     with tempfile.TemporaryDirectory() as root:
-        smart_launches, smart_result, proj, state = run_smart_slice(
+        smart_launches, smart_result, proj, state, p8 = run_smart_slice(
             m, dets, root, profile)
         reset_launches()
         try:
@@ -4933,6 +4963,7 @@ def main():
                                          "ffma_bound_ms", "loop_ms",
                                          "device_ms", "loop_device_ms",
                                          "random_max_abs_err", "int8_ms",
+                                         "was_product_ms",
                                          "int8_dp4a_ms", "int8_bound_ms",
                                          "int8_library_ms", "was_ms",
                                          "call_device_ms", "event_ms",
@@ -4969,16 +5000,18 @@ def main():
         out = {"p22_launches": p22[key]}
         for r in batches:
             out.update({f"p22_{r['batch']}_{k}": r[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "shape", "ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
                 "max_abs_err", "product_only_ms") if k in r})
         return out
 
     def at18e(prefix, batches):
-        """Phase 18 (e)'s numbers of K1 int8 at 256 at the ORB smart
-        run's own first and last calls (check_k1_calls)."""
+        """K1 int8's numbers at a run's own first and last calls
+        (check_k1_calls): phase 18 (e)'s ORB smart run at 256 ("p18e"),
+        phase 8's smart run at 128 ("p8")."""
         return {f"{prefix}_{r['batch']}_{k}": r[k] for r in batches
-                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                          "max_abs_err", "product_only_ms") if k in r}
+                for k in ("shape", "ms", "was_ms", "plain_ms", "bound_ms",
+                          "bound_by", "max_abs_err", "product_only_ms")
+                if k in r}
 
     def at21(key):
         """Phase 21 (a)'s launches of a kernel, by store mode."""
@@ -4995,7 +5028,9 @@ def main():
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
-                for k in ("ms", "ffma_ms", "bound_ms", "tc_product_ms")},
+                for k in ("ms", "ffma_ms", "was_ms", "bound_ms",
+                          "tc_product_ms", "was_product_ms") if k in k1[m]},
+             **at18e("p8", p8),
              **at19("knn_packed_gated"), **at21("knn_packed_gated"),
              **at256("knn_packed_gated_d256", "gated_i8_bench",
                      "gated_bf16_bench", "gated_f32_store"),

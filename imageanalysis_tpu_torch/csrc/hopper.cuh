@@ -2,7 +2,7 @@
 // mbarriers, TMA tile loads and warpgroup products (wgmma) of a kernel
 // whose producer warp copies tiles into shared memory while consumer
 // warpgroups multiply them (P5's mm_rowsum_wg_kernel in mma_probe.cu, K1's
-// and K3's bf16, int8 and f32 bodies at 256 values a row in knn_wg.cuh),
+// and K3's bf16, int8 and f32 bodies in knn_wg.cuh),
 // and the host's TMA maps.
 //
 // mbarrier phases: a barrier starts in phase 0; mbar_wait(bar, parity)
@@ -297,8 +297,8 @@ inline EncodeTiled encode_tiled() {
 // a 3-D map over (pairs, rows, K) bf16, row-major and contiguous: boxes
 // of 64 values (128 bytes) x box_rows rows of one pair, 128-byte swizzle;
 // rows beyond a pair's last read as zeros (K 768: f32's three planes of
-// 256 values side by side; K 128: int8's 256 bytes a row). Returns a
-// cudaError_t.
+// 256 values side by side; K 128: int8's 256 bytes a row, K 64 its 128).
+// Returns a cudaError_t.
 inline int encode_pairs(CUtensorMap* map, const void* p, int pairs,
                         int rows, int K, int box_rows) {
   EncodeTiled fn = encode_tiled();

@@ -24,38 +24,32 @@
 // the order of the reductions and the tiling, given bit-exact d2 — which
 // integer-valued descriptors give in every mode.
 //
-// What bounds it on the H100: the product. A 4096 x 4096 pair is 2.1 G
-// multiply-adds over 1-4 MB of descriptors, so memory is no limit; the
-// limit is the rate of the product and of the per-element key epilogue
-// (convert, mask, gate, or, two compares). Every mode, plain and gated,
-// runs knn_tc.cuh's tensor-core body (through knn_common.cuh):
-// - bf16 and int8:
-//   mma.sync (bf16 m16n8k16 with f32 sums, s8 m16n8k32 with exact s32
-//   sums) on the operands as they are, a 128-row A tile resident in shared
-//   memory, B tiles of 128 rows through a two-stage cp.async ring, the key
-//   epilogue on the accumulator fragments. Before it, the product was 93%
-//   of the FFMA body's bf16 time (26.8 TFLOP/s) and 86% of the __dp4a
-//   body's int8 time (100 TOP/s). int8 takes its squared norms from a
-//   pre-pass (row_norms_i8_kernel) into f32 scratch of the caller's (exact:
-//   at most 128 x 128^2 = 2^21), as the float modes take theirs from the
-//   caller.
-// - f32 takes the same body on three bf16 planes of each operand (hi, mid,
-//   lo: the TPU kernel's own Precision.HIGHEST product is a multi-pass
-//   bf16 product too), six plane products a k-step: hi·hi into one f32
-//   accumulator, the five smaller products into a second, the two added
-//   once a B tile (why: the head of knn_tc.cuh). The planes come from a
-//   split pre-pass (split_bf16x3_kernel) into bf16 scratch of the
-//   caller's. Integer-valued descriptors give exact dots, so keys
-//   bit-exact with the plain version; other f32 within 2^-20 of the norms
-//   (2^-19 at 256 values a row, where the plain version's own f32 product
-//   errs more).
-//   Before it, the FFMA body (now the yardstick knn_ffma_f32 in
-//   knn_probe.cu) ran at 39% of the CUDA cores' 67 TFLOP/s.
-// - bf16, int8 and f32 at 256 values a row (ORB's) run knn_wg.cuh's body,
-//   plain and gated: wgmma fed by TMA, two consumer warpgroups in
-//   ping-pong (int8 wgmma s8 after its norm pre-pass; f32 after its split
-//   pre-pass, A's hi plane in registers, B plane by plane; the mma.sync
-//   bodies there are knn_probe.cu's yardsticks).
+// What bounds it on the H100: the product and the per-element key
+// epilogue (convert, mask, gate, or, two compares). A 4096 x 4096 pair is
+// 2.1 G multiply-adds over 1-4 MB of descriptors, so memory is no limit.
+// Every mode, plain and gated, runs a tensor-core body (through
+// knn_common.cuh's knn_tc.cuh):
+// - bf16 and int8 at either width, and f32 at 256, run knn_wg.cuh's body:
+//   wgmma fed by TMA, consumer warpgroups in ping-pong (int8 at 128 three,
+//   else two), the key epilogue of one under the products of another
+//   (int8 wgmma s8 after its norm pre-pass, row_norms_i8_kernel, into f32
+//   scratch of the caller's: exact, at most 128 x 128^2 = 2^21, B's at 128
+//   written less 2^23 + 2^21 for the epilogue's two-operation d2; f32 after
+//   its split pre-pass, A's hi plane in registers, B plane by plane). The
+//   mma.sync bodies they replaced (128-row tiles in a cp.async ring,
+//   mma.sync m16n8k16 / m16n8k32) are knn_probe.cu's yardsticks.
+// - f32 at 128 runs knn_tc.cuh's mma.sync body on three bf16 planes of
+//   each operand (hi, mid, lo: the TPU kernel's own Precision.HIGHEST
+//   product is a multi-pass bf16 product too), six plane products a
+//   k-step: hi·hi into one f32 accumulator, the five smaller products into
+//   a second, the two added once a B tile (why: the head of knn_tc.cuh).
+//   The planes come from a split pre-pass (split_bf16x3_kernel) into bf16
+//   scratch of the caller's. Integer-valued descriptors give exact dots, so
+//   keys bit-exact with the plain version; other f32 within 2^-20 of the
+//   norms (2^-19 at 256 values a row, where the plain version's own f32
+//   product errs more). Before it, the FFMA body (now the yardstick
+//   knn_ffma_f32 in knn_probe.cu) ran at 39% of the CUDA cores' 67
+//   TFLOP/s.
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and
@@ -101,12 +95,13 @@ split_bf16x3_kernel(const float4* __restrict__ x, uint2* __restrict__ out,
 }
 
 // Squared norms of int8 rows of D values, summed in int32 and written as
-// f32 (exact: at most 256 x 128^2 = 2^22): D / 16 threads a row, 16 bytes
-// each, so a warp reads 512 contiguous bytes of whole rows
+// f32 plus bias (exact: at most 256 x 128^2 = 2^22, bias an integer of
+// magnitude below 2^24 - 2^22): D / 16 threads a row, 16 bytes each, so a
+// warp reads 512 contiguous bytes of whole rows
 template <int D>
 __global__ void __launch_bounds__(256)
 row_norms_i8_kernel(const int4* __restrict__ x, float* __restrict__ out,
-                    long long rows) {
+                    long long rows, float bias) {
   constexpr int kT = D / 16;        // threads a row
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long r = t / kT;
@@ -121,19 +116,22 @@ row_norms_i8_kernel(const int4* __restrict__ x, float* __restrict__ out,
 #pragma unroll
   for (int off = kT / 2; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (r < rows && t % kT == 0) out[r] = (float)s;
+  if (r < rows && t % kT == 0) out[r] = __fadd_rn((float)s, bias);
 }
 
-// int8 (I8: int8_t or D256<int8_t>): the norms pre-pass into na2 / nb2,
-// then the tensor-core body
+// int8 (I8: int8_t or D256<int8_t>): the norms pre-pass into na2 / nb2
+// (B's biased as the body's epilogue takes them, wg::nb_bias), then the
+// tensor-core body
 template <typename I8, int MODE>
 int launch_i8_at(const void* a, const void* b, void* na2, void* nb2,
               const void* uv_a, const void* pred_b, float radius2,
               void* row_p, void* col_p, int n_pairs, int n_a, int n_b,
               int dim, cudaStream_t s) {
+  static_assert(on_wg<I8, MODE>, "K1 int8 runs the wgmma body");
   int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s, dim);
   if (e == 0)
-    e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, dim);
+    e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, dim,
+                            wg::nb_bias<I8>());
   if (e != 0) return e;
   return launch_tc<I8, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
                              col_p, nullptr, nullptr, n_pairs, n_a, n_b, s);
@@ -206,14 +204,14 @@ int launch_float(const void* a, const void* b, const void* na2,
 // declared in knn_tc.cuh, for K1 int8 here and P3's stages in
 // knn_probe.cu
 int knn::launch_row_norms_i8(const void* x, void* out, long long rows,
-                             cudaStream_t stream, int dim) {
+                             cudaStream_t stream, int dim, float bias) {
   const unsigned blocks = (unsigned)((rows * (dim / 16) + 255) / 256);
   if (dim == 256)
-    row_norms_i8_kernel<256><<<blocks, 256, 0, stream>>>((const int4*)x,
-                                                         (float*)out, rows);
+    row_norms_i8_kernel<256><<<blocks, 256, 0, stream>>>(
+        (const int4*)x, (float*)out, rows, bias);
   else
-    row_norms_i8_kernel<128><<<blocks, 256, 0, stream>>>((const int4*)x,
-                                                         (float*)out, rows);
+    row_norms_i8_kernel<128><<<blocks, 256, 0, stream>>>(
+        (const int4*)x, (float*)out, rows, bias);
   return (int)cudaGetLastError();
 }
 

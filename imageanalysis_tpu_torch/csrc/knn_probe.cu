@@ -16,20 +16,23 @@
 // B tile, + the running top-2, + the column atomicMin. knn_probe runs them
 // on the bodies K1 ran before its tensor-core body (knn_tc.cuh), so each
 // dtype's anatomy there is one body's; knn_tc_stage runs P3's five (row
-// min on) on the tensor-core body K1 runs now, at K1's tile (its modes
-// kProductRowMin, kProductTop1, kProductTop2Tile, kProductTop2 and
-// kPacked, K1 itself), the old bodies' anatomy kept as its yardstick. The full stages equal K1's result bit for bit.
+// min on) on the mma.sync body, at its K1 tile (its modes kProductRowMin,
+// kProductTop1, kProductTop2Tile, kProductTop2 and kPacked, its K1: K1
+// itself now runs the wgmma body), the old bodies' anatomy kept as its
+// yardstick. The full stages equal K1's result bit for bit.
 // knn_bf16_d256, knn_i8_d256 and knn_f32_d256 run bf16, int8 and f32
-// rows of 256 values on the mma.sync body (what K1 and K3 launched there
-// before knn_wg.cuh's wgmma body, kept as its yardstick) or on the wgmma
-// body, in K1's and K3's modes (int8: K1's) and the product-only stage
-// (the product / key-epilogue split at 256).
+// rows of 256 values, knn_bf16_d128 and knn_i8_d128 bf16 and int8 rows of
+// 128, on the mma.sync body (what K1 and K3 launched there before
+// knn_wg.cuh's wgmma body, kept as its yardstick) or on the wgmma body, in
+// K1's and K3's modes (int8 and at 128: K1's) and the product-only stage
+// (the product / key-epilogue split).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
 // body's yardsticks. On the tensor-core body:
-// knn_tc_row_sum, its product-only stage (product + wrapping row sum,
-// kRowSum's result) in any of its types, and knn_tc_row_min, P6's product
+// knn_tc_row_sum, the mma.sync body's product-only stage (product +
+// wrapping row sum, kRowSum's result) in any of its types, and
+// knn_tc_row_min, P6's product
 // + row min (kRowMin's result) at each tile of P6's sweep.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
@@ -238,27 +241,29 @@ extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core body's product-only stage (kProductRowSum): row_p
+// The mma.sync body's product-only stage (kProductRowSum): row_p
 // (n_pairs, n_a, 2) int32 gets each A row's wrapping sum of its dots with
 // all n_b B rows in both slots. a, b int8 (dtype 0), integer-valued bf16
 // bits (1) or integer-valued f32 (2, split first into split_a (n_pairs,
 // n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch, unused
 // otherwise), 16-byte aligned; n_a and n_b multiples of 64, of any size
-// (K1's and K3's shapes). Returns the cudaError_t of the launch.
+// (K1's and K3's shapes). The body f32 and K3 run at 128 and P4's stage
+// 0; the wgmma body's product-only stage at 128 is knn_i8_d128's and
+// knn_bf16_d128's. Returns the cudaError_t of the launch.
 extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
                               void* split_b, void* row_p, int n_pairs,
                               int n_a, int n_b, int dtype, void* stream) {
   if (bad_shape(n_pairs, n_a, n_b, 1 << 30) || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define ROW_SUM_ARGS                                                       \
+  a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr, nullptr, \
+      nullptr, n_pairs, n_a, n_b, s
   if (dtype == 1)
-    return launch_tc<uint16_t, kProductRowSum>(
-        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
-        nullptr, nullptr, n_pairs, n_a, n_b, s);
+    return tc::launch_mma<uint16_t, kProductRowSum>(ROW_SUM_ARGS);
   if (dtype == 0)
-    return launch_tc<int8_t, kProductRowSum>(
-        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
-        nullptr, nullptr, n_pairs, n_a, n_b, s);
+    return tc::launch_mma<int8_t, kProductRowSum>(ROW_SUM_ARGS);
+#undef ROW_SUM_ARGS
   int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
   if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
   if (e != 0) return e;
@@ -346,14 +351,15 @@ int tc_stage(const Args& x, int stage) {
     case kTop1: return tc_stage_launch<T, kProductTop1>(x);
     case kTop2Tile: return tc_stage_launch<T, kProductTop2Tile>(x);
     case kTop2: return tc_stage_launch<T, kProductTop2>(x);
+    case kFull: return tc_stage_launch<T, kPacked>(x);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// K1's own entry points (knn_packed.cu): the full stage launches K1's code,
-// not a second instantiation of it here
+// K1's own entry points (knn_packed.cu), for the wgmma body's keyed modes:
+// K1's code, not a second instantiation of it here
 extern "C" int knn_packed_i8(const void* a, const void* b, void* na2,
                              void* nb2, void* row_p, void* col_p,
                              int n_pairs, int n_a, int n_b, int dim,
@@ -372,11 +378,12 @@ extern "C" int knn_packed_i8_gated(const void* a, const void* b, void* na2,
                                    int n_a, int n_b, int dim, void* stream);
 
 // P3: K1 up to `stage` (a Stage of knn_common.cuh: row_min .. full) on
-// the tensor-core body at K1's tile (128, 128, 2): row_min the product
+// the mma.sync body at its K1 tile (128, 128, 2): row_min the product
 // with the row minimum of the dots (kProductRowMin), top1, top2_tile and
 // top2 K1's packed keys with part of its epilogue (kProductTop1,
-// kProductTop2Tile, kProductTop2), full K1 itself (kPacked, through K1's
-// entry points). a, b (n_pairs, n_a | n_b, 128) int8 (dtype 0) or
+// kProductTop2Tile, kProductTop2), full its own K1 (kPacked on this body,
+// so that every stage is one body's; K1 itself runs knn_wg.cuh's wgmma
+// body). a, b (n_pairs, n_a | n_b, 128) int8 (dtype 0) or
 // integer-valued bf16 bits (1), 16-byte aligned; na2, nb2 (n_pairs, n) f32:
 // bf16's squared norms from top1 on, int8's scratch, which the norms
 // pre-pass of K1 fills first from top1 on (as K1 int8 does); row_p
@@ -390,13 +397,6 @@ extern "C" int knn_tc_stage(const void* a, const void* b, void* na2,
   if (bad_shape(n_pairs, n_a, n_b, kIdxMask + 1) || n_a % 128 ||
       dtype < 0 || dtype > 1 || stage < kRowMin || stage > kFull)
     return (int)cudaErrorInvalidValue;
-  if (stage == kFull)
-    return dtype == 1
-               ? knn_packed_float(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                                  row_p, col_p, nullptr, nullptr, n_pairs,
-                                  n_a, n_b, 1, kDim, stream)
-               : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
-                               n_b, kDim, stream);
   const Args x{a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b,
                (cudaStream_t)stream};
   if (dtype == 1) return tc_stage<uint16_t>(x, stage);
@@ -417,54 +417,88 @@ extern "C" int knn_wide(const void* a, const void* b, const void* na2,
 
 namespace {
 
-// the mma.sync body at T (D256<uint16_t>, D256<int8_t> or D256<Bf16x3>),
-// as launch_tc sent rows of 256 values to it before the wgmma body: bf16
-// and int8 128 A rows a block where n_a allows, else 64, two 128-row B
-// tiles; f32 64 A rows and one 64-row B tile
-template <typename T, int MODE>
-int d256_mma(const void* a, const void* b, const void* na2, const void* nb2,
+#define BODY_ARGS                                                         \
+  a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,      \
+      n_pairs, n_a, n_b
+
+// the mma.sync body at T (uint16_t, int8_t at 128 values a row; D256<T>
+// at 256), as launch_tc sent those rows to it before the wgmma body
+// (tc::launch_mma), in mode (kPacked, gated where uv_a != NULL; kWide;
+// kProductRowSum)
+template <typename T>
+int mma_mode(const void* a, const void* b, const void* na2, const void* nb2,
              const void* uv_a, const void* pred_b, float radius2,
              void* row_p, void* col_p, void* row_k, void* col_k, int n_pairs,
-             int n_a, int n_b, cudaStream_t s) {
-  if constexpr (std::is_same<T, D256<Bf16x3>>::value) {
-    return tc::launch_tile<T, MODE, 64, 64, 1>(a, b, na2, nb2, uv_a, pred_b,
-                                               radius2, row_p, col_p, row_k,
-                                               col_k, n_pairs, n_a, n_b, s);
-  } else {
-    if (n_a % 128 == 0)
-      return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
-                                           radius2, row_p, col_p, row_k,
-                                           col_k, n_pairs, n_a, n_b, s);
-    return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b,
-                                        radius2, row_p, col_p, row_k, col_k,
-                                        n_pairs, n_a, n_b, s);
-  }
+             int n_a, int n_b, int mode, cudaStream_t s) {
+  if (mode == kPacked && uv_a)
+    return tc::launch_mma<T, kPackedGated>(BODY_ARGS, s);
+  if (mode == kPacked) return tc::launch_mma<T, kPacked>(BODY_ARGS, s);
+  // K3 only at 256 here (at 128 it is knn_wide's own)
+  if constexpr (std::is_same<T, D256<uint16_t>>::value ||
+                std::is_same<T, D256<Bf16x3>>::value)
+    if (mode == kWide) return tc::launch_mma<T, kWide>(BODY_ARGS, s);
+  return tc::launch_mma<T, kProductRowSum>(BODY_ARGS, s);
 }
 
-// the mma.sync body at T in mode (kPacked, gated where uv_a != NULL;
-// kWide; kProductRowSum)
-template <typename T>
-int d256_mma_mode(const void* a, const void* b, const void* na2,
-                  const void* nb2, const void* uv_a, const void* pred_b,
-                  float radius2, void* row_p, void* col_p, void* row_k,
-                  void* col_k, int n_pairs, int n_a, int n_b, int mode,
-                  cudaStream_t s) {
-  if (mode == kPacked && uv_a)
-    return d256_mma<T, kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                     row_p, col_p, nullptr, nullptr, n_pairs,
-                                     n_a, n_b, s);
-  if (mode == kPacked)
-    return d256_mma<T, kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
-                                col_p, nullptr, nullptr, n_pairs, n_a, n_b,
-                                s);
-  if (mode == kWide)
-    return d256_mma<T, kWide>(a, b, na2, nb2, nullptr, nullptr, 0.f,
-                              nullptr, nullptr, row_k, col_k, n_pairs, n_a,
-                              n_b, s);
-  return d256_mma<T, kProductRowSum>(a, b, nullptr, nullptr, nullptr,
-                                     nullptr, 0.f, row_p, nullptr, nullptr,
-                                     nullptr, n_pairs, n_a, n_b, s);
+bool bad_mode(int n_pairs, int n_a, int n_b, int mode, int body,
+              bool wide) {
+  return bad_shape(n_pairs, n_a, n_b,
+                   mode == kPacked ? kIdxMask + 1 : 1 << 30) ||
+         (mode != kPacked && !(wide && mode == kWide) &&
+          mode != kProductRowSum) ||
+         (body != 0 && body != 1);
 }
+
+// bf16 rows of dim values (H: uint16_t at 128, D256<uint16_t> at 256) on
+// either body, as knn_bf16_d256 below
+template <typename H>
+int bf16_bodies(const void* a, const void* b, const void* na2,
+                const void* nb2, const void* uv_a, const void* pred_b,
+                float radius2, void* row_p, void* col_p, void* row_k,
+                void* col_k, int n_pairs, int n_a, int n_b, int mode,
+                int body, int dim, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    if (mode == kPacked)
+      return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                              col_p, nullptr, nullptr, n_pairs, n_a, n_b, 1,
+                              dim, stream);
+    if (mode == kWide)
+      return knn_wide(a, b, na2, nb2, row_k, col_k, nullptr, nullptr,
+                      n_pairs, n_a, n_b, 1, dim, stream);
+    return launch_tc<H, kProductRowSum>(BODY_ARGS, s);
+  }
+  return mma_mode<H>(BODY_ARGS, mode, s);
+}
+
+// int8 rows of dim values (I8: int8_t at 128, D256<int8_t> at 256) on
+// either body, as knn_i8_d256 below
+template <typename I8>
+int i8_bodies(const void* a, const void* b, void* na2, void* nb2,
+              const void* uv_a, const void* pred_b, float radius2,
+              void* row_p, void* col_p, int n_pairs, int n_a, int n_b,
+              int mode, int body, int dim, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  void* row_k = nullptr;
+  void* col_k = nullptr;
+  if (mode == kProductRowSum)
+    return body == 1 ? launch_tc<I8, kProductRowSum>(BODY_ARGS, s)
+                     : mma_mode<I8>(BODY_ARGS, mode, s);
+  if (body == 1)
+    return uv_a ? knn_packed_i8_gated(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                      row_p, col_p, n_pairs, n_a, n_b, dim,
+                                      stream)
+                : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
+                                n_b, dim, stream);
+  // the mma.sync body takes the norms as they are (no bias)
+  int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s, dim);
+  if (e == 0)
+    e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, dim);
+  if (e != 0) return e;
+  return mma_mode<I8>(BODY_ARGS, mode, s);
+}
+
+#undef BODY_ARGS
 
 }  // namespace
 
@@ -484,26 +518,28 @@ extern "C" int knn_bf16_d256(const void* a, const void* b, const void* na2,
                              void* col_p, void* row_k, void* col_k,
                              int n_pairs, int n_a, int n_b, int mode,
                              int body, void* stream) {
-  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
-      || (mode != kPacked && mode != kWide && mode != kProductRowSum) ||
-      (body != 0 && body != 1))
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, true))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (body == 1) {
-    if (mode == kPacked)
-      return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                              col_p, nullptr, nullptr, n_pairs, n_a, n_b, 1,
-                              256, stream);
-    if (mode == kWide)
-      return knn_wide(a, b, na2, nb2, row_k, col_k, nullptr, nullptr,
-                      n_pairs, n_a, n_b, 1, 256, stream);
-    return launch_tc<D256<uint16_t>, kProductRowSum>(
-        a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p, nullptr,
-        nullptr, nullptr, n_pairs, n_a, n_b, s);
-  }
-  return d256_mma_mode<D256<uint16_t>>(a, b, na2, nb2, uv_a, pred_b,
-                                       radius2, row_p, col_p, row_k, col_k,
-                                       n_pairs, n_a, n_b, mode, s);
+  return bf16_bodies<D256<uint16_t>>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                     row_p, col_p, row_k, col_k, n_pairs,
+                                     n_a, n_b, mode, body, 256, stream);
+}
+
+// bf16 rows of 128 values on either body, as knn_bf16_d256: body 0 the
+// mma.sync body (knn_tc_kernel<uint16_t>, K1's yardstick at 128), 1 the
+// wgmma body that K1 bf16 runs; modes kPacked and kProductRowSum (K3 at
+// 128 stays on the mma.sync body: knn_wide). a, b (n_pairs, n_a | n_b,
+// 128) bf16 bits. Returns the cudaError_t of the launch.
+extern "C" int knn_bf16_d128(const void* a, const void* b, const void* na2,
+                             const void* nb2, const void* uv_a,
+                             const void* pred_b, float radius2, void* row_p,
+                             void* col_p, int n_pairs, int n_a, int n_b,
+                             int mode, int body, void* stream) {
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, false))
+    return (int)cudaErrorInvalidValue;
+  return bf16_bodies<uint16_t>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                               col_p, nullptr, nullptr, n_pairs, n_a, n_b,
+                               mode, body, 128, stream);
 }
 
 // f32 rows of 256 values on either body, as knn_bf16_d256 for bf16: body
@@ -521,9 +557,7 @@ extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
                             void* split_a, void* split_b, int n_pairs,
                             int n_a, int n_b, int mode, int body,
                             void* stream) {
-  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
-      || (mode != kPacked && mode != kWide && mode != kProductRowSum) ||
-      (body != 0 && body != 1))
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, true))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (body == 1 && mode == kPacked)
@@ -540,9 +574,9 @@ extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
     return launch_tc<D256<Bf16x3>, kProductRowSum>(
         split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
         nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
-  return d256_mma_mode<D256<Bf16x3>>(split_a, split_b, na2, nb2, uv_a,
-                                     pred_b, radius2, row_p, col_p, row_k,
-                                     col_k, n_pairs, n_a, n_b, mode, s);
+  return mma_mode<D256<Bf16x3>>(split_a, split_b, na2, nb2, uv_a, pred_b,
+                                radius2, row_p, col_p, row_k, col_k,
+                                n_pairs, n_a, n_b, mode, s);
 }
 
 // int8 rows of 256 values on either body, as knn_bf16_d256 for bf16: body
@@ -561,34 +595,25 @@ extern "C" int knn_i8_d256(const void* a, const void* b, void* na2,
                            float radius2, void* row_p, void* col_p,
                            int n_pairs, int n_a, int n_b, int mode, int body,
                            void* stream) {
-  using I8 = D256<int8_t>;
-  if (bad_shape(n_pairs, n_a, n_b, mode == kPacked ? kIdxMask + 1 : 1 << 30)
-      || (mode != kPacked && mode != kProductRowSum) ||
-      (body != 0 && body != 1))
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, false))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kProductRowSum)
-    return body == 1
-               ? launch_tc<I8, kProductRowSum>(
-                     a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
-                     nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s)
-               : d256_mma<I8, kProductRowSum>(
-                     a, b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
-                     nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
-  if (body == 1)
-    return uv_a ? knn_packed_i8_gated(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                      row_p, col_p, n_pairs, n_a, n_b, 256,
-                                      stream)
-                : knn_packed_i8(a, b, na2, nb2, row_p, col_p, n_pairs, n_a,
-                                n_b, 256, stream);
-  int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s, 256);
-  if (e == 0)
-    e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, 256);
-  if (e != 0) return e;
-  if (uv_a)
-    return d256_mma<I8, kPackedGated>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                      row_p, col_p, nullptr, nullptr,
-                                      n_pairs, n_a, n_b, s);
-  return d256_mma<I8, kPacked>(a, b, na2, nb2, nullptr, nullptr, 0.f, row_p,
-                               col_p, nullptr, nullptr, n_pairs, n_a, n_b, s);
+  return i8_bodies<D256<int8_t>>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                 row_p, col_p, n_pairs, n_a, n_b, mode, body,
+                                 256, stream);
+}
+
+// int8 rows of 128 values (SIFT's in the int8 store) on either body, as
+// knn_i8_d256: body 0 the mma.sync s8 body (knn_tc_kernel<int8_t>, K1's
+// yardstick at 128), 1 the wgmma s8 body that K1 runs. Returns the
+// cudaError_t of the first failed launch.
+extern "C" int knn_i8_d128(const void* a, const void* b, void* na2,
+                           void* nb2, const void* uv_a, const void* pred_b,
+                           float radius2, void* row_p, void* col_p,
+                           int n_pairs, int n_a, int n_b, int mode, int body,
+                           void* stream) {
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, false))
+    return (int)cudaErrorInvalidValue;
+  return i8_bodies<int8_t>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                           col_p, n_pairs, n_a, n_b, mode, body, 128,
+                           stream);
 }

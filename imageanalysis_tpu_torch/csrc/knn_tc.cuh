@@ -1,9 +1,14 @@
-// K1's and K3's body on the tensor cores, for Hopper (sm_90a), over the
-// operand type T: bf16 bits (uint16_t), int8 (int8_t) or f32 split into
-// three bf16 planes (Bf16x3). Included at the end of knn_common.cuh, whose
-// constants, gate and keys it uses; K1 (knn_packed.cu) launches it in all
-// of its modes, plain (kPacked) and gated (kPackedGated), K3 (knn_wide.cu)
-// in both of its modes, bf16 and f32 (kWide). The probes' modes
+// K1's and K3's mma.sync body on the tensor cores, for Hopper (sm_90a),
+// over the operand type T: bf16 bits (uint16_t), int8 (int8_t) or f32
+// split into three bf16 planes (Bf16x3). Included at the end of
+// knn_common.cuh, whose constants, gate and keys it uses. What still runs
+// it at 128 values a row: K1 f32 (knn_packed.cu) plain (kPacked) and gated
+// (kPackedGated), K3 (knn_wide.cu) in both of its modes, bf16 and f32
+// (kWide), and the probes. K1 bf16 and int8 at 128, and every type at 256,
+// run the wgmma body (knn_wg.cuh, launch_tc at the end); the mma.sync
+// instantiations they replaced stay as knn_probe.cu's yardsticks
+// (knn_bf16_d128, knn_i8_d128, knn_*_d256), and P3's and P4's stages run
+// here whole, K1 at their full stage included. The probes' modes
 // (knn_probe.cu) cut its epilogue down: kProductRowSum, a wrapping row sum
 // in place of the keys (the product-only stage); kProductRowMin, the row
 // minimum of the dots (P6's kernel, swept over tiles); and K1's packed d2
@@ -82,7 +87,8 @@
 // bf16's 528-byte rows 128 A rows and two 128-row B tiles (~204 KB) and
 // f32's 1552-byte rows 64 A rows and one 64-row B tile (~196 KB, STAGES =
 // 1: the copy of a tile did not overlap the product of the one before);
-// those instantiations stay only as knn_probe.cu's yardsticks.
+// those instantiations stay only as knn_probe.cu's yardsticks, as do bf16's
+// and int8's at 128 (tc::launch_mma).
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
@@ -788,11 +794,35 @@ int tile_blocks_per_sm() {
   return e == cudaSuccess ? n : -(int)e;
 }
 
+// The mma.sync body in MODE over T as launch_tc sends it: f32 at 256 (the
+// yardstick, knn_probe.cu) 64 A rows and one 64-row B tile; else 128 A
+// rows a block where n_a allows, else 64, the type's B tiles in a ring of
+// two. Returns the cudaError_t of the launch.
+template <typename T, int MODE>
+int launch_mma(const void* a, const void* b, const void* na2,
+               const void* nb2, const void* uv_a, const void* pred_b,
+               float radius2, void* row_p, void* col_p, void* row_k,
+               void* col_k, int n_pairs, int n_a, int n_b,
+               cudaStream_t stream) {
+  if constexpr (std::is_same<T, D256<Bf16x3>>::value) {
+    return launch_tile<T, MODE, 64, 64, 1>(a, b, na2, nb2, uv_a, pred_b,
+                                           radius2, row_p, col_p, row_k,
+                                           col_k, n_pairs, n_a, n_b, stream);
+  } else {
+    if (n_a % 128 == 0)
+      return launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
+                                       radius2, row_p, col_p, row_k, col_k,
+                                       n_pairs, n_a, n_b, stream);
+    return launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                    row_p, col_p, row_k, col_k, n_pairs, n_a,
+                                    n_b, stream);
+  }
+}
+
 }  // namespace tc
 }  // namespace knn
 
-// the bf16, int8 and f32 body at 256 values a row (launch_tc below), which
-// uses tc's keys and merges
+// the wgmma body (launch_tc below), which uses tc's keys and merges
 #include "knn_wg.cuh"
 
 namespace knn {
@@ -804,40 +834,45 @@ int launch_split(const void* x, void* out, long long rows,
                  cudaStream_t stream, int dim = kDim);
 
 // Squared norms of int8 rows (K1 int8's pre-pass, knn_packed.cu): x (rows,
-// dim) int8, 16-byte aligned → out (rows) f32, exact; dim 128 or 256.
-// Returns the cudaError_t of the launch.
+// dim) int8, 16-byte aligned → out (rows) f32, exact, plus bias (an
+// integer: the sum stays exact; wg::nb_bias); dim 128 or 256. Returns the
+// cudaError_t of the launch.
 int launch_row_norms_i8(const void* x, void* out, long long rows,
-                        cudaStream_t stream, int dim = kDim);
+                        cudaStream_t stream, int dim = kDim,
+                        float bias = 0.f);
 
 // The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
 // the split rows of launch_split; D256<T>: T at 256 values a row). a, b
 // (n_pairs, n, 128 or 256) T; na2, nb2 the f32 squared norms (unused by
-// kProductRowSum and kProductRowMin); uv_a, pred_b f32 for kPackedGated;
-// n_a and n_b multiples of 64 (the caller checks the shapes). Blocks of 128
-// A rows where n_a allows, else 64, and the type's B tiles in a ring of
-// two; D256<uint16_t>, D256<int8_t> and D256<Bf16x3> the wgmma body
-// (knn_wg.cuh).
-// Returns the cudaError_t of the launch.
+// kProductRowSum and kProductRowMin; int8's B norms biased by
+// wg::nb_bias); uv_a, pred_b f32 for kPackedGated; n_a and n_b multiples
+// of 64 (the caller checks the shapes). The wgmma body (knn_wg.cuh) for
+// every type at 256 and for bf16 and int8 at 128 in K1's modes and the
+// product-only stage; else (f32 and K3 at 128) the mma.sync body, blocks
+// of 128 A rows where n_a allows, else 64, the type's B tiles in a ring of
+// two. Returns the cudaError_t of the launch.
+template <typename T, int MODE>
+constexpr bool on_wg =
+    std::is_same<T, D256<Bf16x3>>::value ||
+    std::is_same<T, D256<uint16_t>>::value ||
+    std::is_same<T, D256<int8_t>>::value ||
+    ((std::is_same<T, uint16_t>::value || std::is_same<T, int8_t>::value) &&
+     (MODE == kPacked || MODE == kPackedGated || MODE == kProductRowSum));
+
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,
               float radius2, void* row_p, void* col_p, void* row_k,
               void* col_k, int n_pairs, int n_a, int n_b,
               cudaStream_t stream) {
-  if constexpr (std::is_same<T, D256<Bf16x3>>::value ||
-                std::is_same<T, D256<uint16_t>>::value ||
-                std::is_same<T, D256<int8_t>>::value) {
+  if constexpr (on_wg<T, MODE>) {
     return wg::launch<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
                                col_p, row_k, col_k, n_pairs, n_a, n_b,
                                stream);
   } else {
-    if (n_a % 128 == 0)
-      return tc::launch_tile<T, MODE, 128>(a, b, na2, nb2, uv_a, pred_b,
-                                           radius2, row_p, col_p, row_k,
-                                           col_k, n_pairs, n_a, n_b, stream);
-    return tc::launch_tile<T, MODE, 64>(a, b, na2, nb2, uv_a, pred_b,
-                                        radius2, row_p, col_p, row_k, col_k,
-                                        n_pairs, n_a, n_b, stream);
+    return tc::launch_mma<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                   row_p, col_p, row_k, col_k, n_pairs, n_a,
+                                   n_b, stream);
   }
 }
 

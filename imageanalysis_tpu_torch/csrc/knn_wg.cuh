@@ -1,149 +1,163 @@
-// K1's and K3's body for rows of 256 values, for Hopper (sm_90a):
-// warpgroup products (wgmma) fed by TMA, one warpgroup's key epilogue on
-// the CUDA cores while the tensor cores run the other's products. One
-// kernel over the operand type T:
-// - D256<uint16_t>, bf16 rows (ORB's 256 bits as 0/1, or the int8 store's
-//   rows cast to bf16): the bf16 body;
-// - D256<int8_t>, int8 rows (ORB's bits as the int8 store holds them,
-//   -128/-127, or any -128..127): the bf16 body's layout at half the
+// K1's and K3's body on the tensor cores for Hopper (sm_90a): warpgroup
+// products (wgmma) fed by TMA, one warpgroup's key epilogue on the CUDA
+// cores while the tensor cores run another's products. One kernel over
+// the operand type T:
+// - uint16_t and int8_t, bf16 and int8 rows of 128 values (SIFT's: the
+//   int8 store's -128..127, bf16 for the store's uint8 and float32 modes
+//   and the chunked float path), K1 only;
+// - D256<uint16_t>, bf16 rows of 256 values (ORB's 256 bits as 0/1, or
+//   the int8 store's rows cast to bf16): the bf16 body;
+// - D256<int8_t>, int8 rows of 256 (ORB's bits as the int8 store holds
+//   them, -128/-127, or any -128..127): the bf16 body's layout at half the
 //   bytes, wgmma s8 with exact s32 sums (K1 only);
-// - D256<Bf16x3>, f32 rows as three bf16 planes (hi, mid, lo; knn_tc.cuh's
-//   head): the f32 body.
-// Included by knn_tc.cuh, whose launch_tc sends the three types here in
-// every mode: K1 plain (kPacked) and gated (kPackedGated), K3 (kWide; bf16
-// and f32), and the product-only stage (kProductRowSum, the probes'
-// split). The mma.sync bodies they replaced at these types
-// (knn_tc_kernel<D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
-// reachable from knn_probe.cu (knn_bf16_d256, knn_i8_d256, knn_f32_d256)
+// - D256<Bf16x3>, f32 rows of 256 as three bf16 planes (hi, mid, lo;
+//   knn_tc.cuh's head): the f32 body.
+// Included by knn_tc.cuh, whose launch_tc sends these types here: K1 plain
+// (kPacked) and gated (kPackedGated), K3 at 256 (kWide; bf16 and f32), and
+// the product-only stage (kProductRowSum, the probes' split). f32 and K3
+// at 128 stay on knn_tc.cuh's mma.sync body. The mma.sync bodies replaced
+// here (knn_tc_kernel<uint16_t>, <int8_t>, <D256<uint16_t>>,
+// <D256<int8_t>> and <D256<Bf16x3>>) stay reachable from knn_probe.cu
+// (knn_bf16_d128, knn_i8_d128, knn_bf16_d256, knn_i8_d256, knn_f32_d256)
 // as their yardsticks.
 //
-// Replaces, for bf16, int8 and f32 rows of 256 values:
+// Replaces, for bf16 and int8 rows of 128 values and bf16, int8 and f32
+// rows of 256:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
-//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3, every dot)
+//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3 at 256)
 //
-// What bounds it on the H100: the product, 2 n_a n_b 256 operations a
-// pair at 989 TFLOP/s, six times over for f32 (bf16 64 x 6144^2: 1.251
-// ms; 64 x 10240^2: 3.474 ms; f32 256 x 4096^2: 13.341 ms, 64 x 10240^2:
-// 20.845 ms); the per-element key epilogue on the CUDA cores (d2, key,
-// row top-2, column minimum: ~10 instructions a candidate for K1, ~15 and
-// 64-bit column keys for K3), which at 256 values costs about as much as
-// the bf16 product for K1 and more for K3, twice the int8 product, a
-// sixth of f32's;
-// and the L2 -> SM feed of B, which every block reads whole (bf16 64 x
-// 6144 at BM = 256: 4.8 GB, 13.4 GB at 64 x 10240; f32 at BM = 64: 103
-// GB at 256 x 4096, 161 GB at 64 x 10240, streamed at 5.1-5.4 TB/s). The
-// mma.sync bodies held one block an SM whose product and epilogue took
-// turns with nothing to fill the gaps, bf16 at 128 A rows and two 128-row
-// B tiles, f32 (1552-byte padded rows) at 64 A rows and a single 64-row B
-// tile whose copy did not overlap the product before it.
+// What bounds it on the H100: the product, 2 n_a n_b D operations a pair
+// at 989 TFLOP/s (bf16; 1,979 TOP/s int8; six times over for f32: bf16
+// 64 x 6144^2 at 256 values 1.251 ms, at 128 0.625 ms; int8 at 128 0.313
+// ms); the per-element key epilogue on the CUDA cores (d2, key, row top-2,
+// column minimum: ~9 instructions a candidate for K1, ~15 and 64-bit
+// column keys for K3), which does the same work at either width: at 64 x
+// 6144 its 2.42e9 candidates take 0.72 ms at the full issue rate, more
+// than twice int8's product at 128, and its integer-pipe operations (16
+// lanes a scheduler) bound it before the issue rate does; and the L2 -> SM
+// feed of B, which every block reads whole (bf16 64 x 6144 at BM = 256:
+// 4.8 GB at 256 values, 13.4 GB at 64 x 10240; f32 at BM = 64: 103 GB at
+// 256 x 4096, 161 GB at 64 x 10240, streamed at 5.1-5.4 TB/s). The
+// mma.sync bodies held one or two blocks an SM whose product and epilogue
+// took turns with nothing to fill the gaps.
 //
 // Design (hopper.cuh's head has the layouts):
-// - 384 threads: warpgroups 0 and 1 consume, warpgroup 2 produces (one
-//   thread issues every copy); setmaxnreg moves the producer's registers
-//   (40) to the consumers (232). One block an SM.
-// - A resident: a block owns BM A rows of one pair. bf16: BM = 256,
-//   consumer warpgroup w rows 128 w .. as two m64 halves, TMA-loaded once
-//   as four 64-value chunks of 256 rows x 128 bytes (128 KB, 128-byte
-//   swizzle); int8 the same rows as two 128-value chunks (64 KB). f32:
-//   BM = 64, both warpgroups on all of them (one m64 half);
-//   the hi plane in registers (each thread's m16n8k16 A fragments of its
-//   warp's 16 rows, 16 k-steps x 4 registers, loaded once from the split
-//   rows in global memory), the mid and lo planes in shared memory as
-//   bf16's A (64 KB). bf16's and int8's rows beyond n_a (n_a not a
-//   multiple of 256)
-//   read as zeros (the TMA map is 3-D over pairs, rows, values) and are
-//   left out of the keys (the epilogue is compiled for one half and for
-//   two); a warpgroup with no row in the pair skips its epilogue.
-// - B streamed: 64-row tiles, stages of four 64-value chunks of 64 rows x
-//   128 bytes (32 KB; int8 two 128-value chunks, 16 KB) in a ring with
-//   full and empty mbarriers. bf16 and int8: a ring of two, a stage a
-//   tile, both warpgroups on every tile. f32: a
-//   ring of four, a stage a plane, a tile's planes in the order lo, mid,
-//   hi (value 256 p + 64 c of the split rows); warpgroup w takes tiles w,
-//   w + 2, .. (its warps alone empty their stages). Each tile's f32 norms
-//   and gate positions go by bulk copy into a ring of four slots, counted
-//   by the full barrier of the tile's first stage (a slot is rewritten
-//   only after the epilogues of the tile four back, f32's by the same
-//   warpgroup, which a ring of three would not hold: a stage is released
-//   as soon as its products are done, before the epilogue that reads its
-//   slot; bf16 and int8 rewrite tile t's slot for tile t + 4, once both
-//   warpgroups have released tile t + 2, after their epilogue of t).
-//   ~206 KB (bf16), ~106 KB (int8), ~205 KB (f32) of shared memory.
-// - Products: wgmma.m64n64k16 with f32 accumulators (int8: m64n64k32
-//   with s32 accumulators in the same layout), scale-d off at a sum's
-//   first k-step (no zero fill), 16 k-steps a plane (int8: 8). bf16 and
-//   int8: per tile
-//   and warpgroup, 16 k-steps x 2 halves committed as one group and
-//   waited for at once; ping-pong: warpgroup 0 issues tile t's products
-//   once warpgroup 1 has issued t - 1's, warpgroup 1 once 0 has issued
-//   t's (two named barriers), so the tensor cores take the two in turns
-//   and each warpgroup's key epilogue runs under the other's products.
-//   (Two accumulator sets in one warpgroup, tile t + 1's products in
-//   flight under tile t's epilogue, were bf16's first design: ptxas
-//   serialized its wgmma (C7518, a dependence in a divergent path) and
-//   spilled at the setmaxnreg budget, 48-612 bytes. Without the two
-//   barriers the warpgroups' products and epilogues fall into step, 2-10%
-//   slower. Each B tile multicast by TMA to a cluster of two blocks along
-//   M halves the L2 feed but couples the two blocks' rings: 15-21%
-//   slower.) f32: the six plane products of order >= 2^-16, hi.hi into
-//   one accumulator and the five smaller into a second, added once a tile
-//   (knn_tc.cuh's head), in the order the B planes arrive: B lo: hi.lo; B
-//   mid: hi.mid, mid.mid; B hi: hi.hi (the first accumulator), mid.hi,
-//   lo.hi. The products of A's hi plane take it from registers (wgmma's
-//   register-A form), the others from shared memory. A plane's products
-//   are one commit group; a stage is released once its group is done
-//   (wgmma_wait<1> after the next plane's issue). The warpgroups need no
-//   barrier between them: the ring's order staggers them, one's key
-//   epilogue under the other's products. The designs it was chosen over
-//   (scripts_torch/knn_versions.py, PERF.md): BM = 128, both warpgroups on
-//   every tile (a ring of two single-plane stages, ping-pong stage by
-//   stage) halves the L2 feed but stalls the tensor cores, ~15% slower;
-//   the lo plane in registers in place of hi (five products of six read A
-//   from shared memory, whose 128 bytes a clock an SS m64n64k16 uses
-//   whole) slower still.
+// - Consumer warpgroups (two; int8 at 128: three) and a producer
+//   warpgroup (one thread issues every copy); setmaxnreg moves the
+//   producer's registers (40) to the consumers (232; three: 152). One block
+//   an SM.
+// - A resident: a block owns BM A rows of one pair, TMA-loaded once in
+//   64-value chunks of BM rows x 128 bytes (boxes of up to 256 rows;
+//   128-byte swizzle). bf16 and int8: BM = 128 a consumer warpgroup (two
+//   m64 halves each): bf16 256 rows (at 256 values four chunks, 128 KB; at
+//   128 two, 64 KB), int8 at 256 256 rows as two 128-value chunks (64 KB),
+//   int8 at 128 384 rows as one (48 KB). f32: BM = 64, both warpgroups on
+//   all of them (one m64 half); the hi plane in registers (each thread's
+//   m16n8k16 A fragments of its warp's 16 rows, 16 k-steps x 4 registers,
+//   loaded once from the split rows in global memory), the mid and lo
+//   planes in shared memory as bf16's A (64 KB). bf16's and int8's rows
+//   beyond n_a (n_a not a multiple of BM) read as zeros (the TMA map is 3-D
+//   over pairs, rows, values) and are left out of the keys (the epilogue
+//   is compiled for one half and for two); a warpgroup with no row in the
+//   pair skips its epilogue.
+// - B streamed: 64-row tiles, stages of 64-value chunks of 64 rows x 128
+//   bytes (bf16 32 KB at 256 values, 16 KB at 128; int8 16 KB at 256, 8
+//   KB at 128) in a ring with full and empty mbarriers. bf16 and int8: a
+//   ring of two, a stage a tile, every consumer warpgroup on every tile.
+//   f32: a ring of four, a stage a plane, a tile's planes in the order lo,
+//   mid, hi (value 256 p + 64 c of the split rows); warpgroup w takes
+//   tiles w, w + 2, .. (its warps alone empty their stages). Each tile's
+//   f32 norms and gate positions go by bulk copy into a ring of slots,
+//   counted by the full barrier of the tile's first stage (kSlots: a slot
+//   is rewritten only after the epilogues of the tile four back, f32's by
+//   the same warpgroup, which a ring of three would not hold: a stage is
+//   released as soon as its products are done, before the epilogue that
+//   reads its slot; bf16 and int8 rewrite tile t's slot for tile t + 4,
+//   once every warpgroup has released tile t + 2, after its epilogue of
+//   t). ~206 KB (bf16 at 256), ~106 KB (int8 at 256), ~205 KB (f32),
+//   ~100 KB (bf16 at 128), ~70 KB (int8 at 128) of shared memory.
+// - Products: wgmma.m64n64k16 with f32 accumulators (int8: m64n64k32 with
+//   s32 accumulators in the same layout), scale-d off at a sum's first
+//   k-step (no zero fill), 16 k-steps a plane at 256 values (int8: 8), 8
+//   at 128 (int8: 4). bf16 and int8: per tile and warpgroup, its k-steps x
+//   2 halves committed as one group and waited for at once; ping-pong:
+//   warpgroup 0 issues tile t's products once the last warpgroup has
+//   issued t - 1's, warpgroup w > 0 once w - 1 has issued t's (a named
+//   barrier each), so the tensor cores take the warpgroups in turns and
+//   each one's key epilogue runs under the others' products. (Two
+//   accumulator sets in one warpgroup, tile t + 1's products in flight
+//   under tile t's epilogue, were bf16's first design: ptxas serialized its
+//   wgmma (C7518, a dependence in a divergent path) and spilled at the
+//   setmaxnreg budget, 48-612 bytes. Without the barriers the warpgroups'
+//   products and epilogues fall into step, 2-10% slower. Each B tile
+//   multicast by TMA to a cluster of two blocks along M halves the L2 feed
+//   but couples the two blocks' rings: 15-21% slower.) f32: the six plane
+//   products of order >= 2^-16, hi.hi into one accumulator and the five
+//   smaller into a second, added once a tile (knn_tc.cuh's head), in the
+//   order the B planes arrive: B lo: hi.lo; B mid: hi.mid, mid.mid; B hi:
+//   hi.hi (the first accumulator), mid.hi, lo.hi. The products of A's hi
+//   plane take it from registers (wgmma's register-A form), the others
+//   from shared memory. A plane's products are one commit group; a stage
+//   is released once its group is done (wgmma_wait<1> after the next
+//   plane's issue). The warpgroups need no barrier between them: the
+//   ring's order staggers them, one's key epilogue under the other's
+//   products. The designs it was chosen over (scripts_torch/knn_versions.py,
+//   PERF.md): BM = 128, both warpgroups on every tile (a ring of two
+//   single-plane stages, ping-pong stage by stage) halves the L2 feed but
+//   stalls the tensor cores, ~15% slower; the lo plane in registers in
+//   place of hi (five products of six read A from shared memory, whose 128
+//   bytes a clock an SS m64n64k16 uses whole) slower still.
 // - Epilogue: the accumulator layout is mma.sync's m16n8 C fragment
 //   repeated along N, so knn_tc.cuh's arithmetic carries over: a thread
 //   holds 2 rows a half (rows g, g + 8 of its warp's 16) and 16 columns
-//   (2q, 2q + 1 of 8 n8 tiles) of a tile, in straight-line code
-//   (compiled for each number of valid halves: a branch inside it would
-//   cut the columns into blocks the compiler cannot interleave). Row
-//   top-2 in registers for the whole sweep, merged over the quad at the
-//   end (each row lies in one warp: no merge across warps; f32's two
-//   warpgroups, each over its tiles, then meet in shared memory). Each
-//   column's minimum over the thread's rows, then over g by a transposed
-//   reduction (column_minima), then the warpgroup's 4 warps' partials meet
-//   in shared memory (a named barrier per warpgroup and tile, partials
-//   double-buffered by the warpgroup's tile parity) and leave by one
-//   global atomicMin per column and warpgroup, under its next tile's
-//   products.
-// - d2, keys and gate are knn_common.cuh's float body's, operation for
-//   operation (__fadd_rn/__fmul_rn, no FMA contraction), in the same
-//   order of columns and rows within a thread, so keys equal the plain
-//   versions bit for bit on integer-valued rows (ORB's bits, the int8
-//   store's -128..127: every product and partial sum an integer below
-//   2^24; f32's mid and lo planes are then 0). int8's are knn_tc.cuh's
-//   int8 arithmetic: the s32 dot (|dot| <= 256 x 128^2 = 2^22) made f32
-//   by the 1.5 x 2^23 trick, then (na - 2 dot) + nb, each step an
-//   integer below 2^24, exact.
+//   (2q, 2q + 1 of 8 n8 tiles) of a tile, in straight-line code (compiled
+//   for each number of valid halves: a branch inside it would cut the
+//   columns into blocks the compiler cannot interleave). Row top-2 in
+//   registers for the whole sweep, K1's as two partial top-2s over
+//   alternate n8 tiles (the min/max chain of the top-2 is the epilogue's
+//   longest dependence), merged over the quad at the end (each row lies in
+//   one warp: no merge across warps; f32's two warpgroups, each over its
+//   tiles, then meet in shared memory). Each column's minimum over the
+//   thread's rows, then over g by a transposed reduction (column_minima),
+//   then the warpgroup's 4 warps' partials meet in shared memory (a named
+//   barrier per warpgroup and tile, partials double-buffered by the
+//   warpgroup's tile parity) and leave by one global atomicMin per column
+//   and warpgroup, under its next tile's products.
+// - Keys are the plain versions' bit for bit on integer-valued rows (ORB's
+//   bits, the int8 store's -128..127: every product and partial sum an
+//   integer below 2^24; f32's mid and lo planes are then 0). The float
+//   types' d2 is knn_common.cuh's float body's, (na + nb) - 2 dot rounded
+//   once (2 dot is exact, so one FFMA), and its gate operation for
+//   operation (__fadd_rn/__fmul_rn, no FMA contraction). int8 at 256 is
+//   knn_tc.cuh's int8 arithmetic: the s32 dot (|dot| <= 256 x 128^2 =
+//   2^22) made f32 by the 1.5 x 2^23 trick, then (na - 2 dot) + nb, each
+//   step an integer below 2^24, exact. int8 at 128 takes two operations
+//   (kD2Mad): each value's a^2 - 2ab lies in [-2^14, 48896], so 2^21 + na -
+//   2 dot lies in [0, 8355840], below 2^23; one IMAD writes it into the
+//   mantissa of 2^23 (the f32 2^23 + 2^21 + na - 2 dot, exactly) and one
+//   FADD adds nb - 2^23 - 2^21, which the norm pre-pass wrote (kNbBias):
+//   the exact d2 <= 128 x 255^2 < 2^23, an f32. A candidate's two keys come
+//   from one mask by two IMADs ((bits & ~mask) + index, with a multiplier 1
+//   ptxas cannot see), which run on the FMA pipe where LOP3s would take
+//   the integer pipe's slots, which the top-2's and the column's min/max
+//   already fill.
 //
-// int8 against the mma.sync s8 body it replaced (128-row A and B tiles of
-// 272-byte padded rows in a cp.async ring, two blocks an SM taking turns
-// between product and epilogue): the product halves against bf16's while
-// the epilogue stays, so the key epilogue bounds the kernel (at 64 x 6144
-// the product-only stage takes about a third of it). Its epilogue is
-// therefore cut to 10 instructions a candidate and given more independent
-// work: each packed key is one LOP3 ((bits & ~mask) | index, key_or;
-// ptxas otherwise masks once and ors twice), and a row's top-2 runs as
-// two partial top-2s over alternate n8 tiles, merged at the end (the
-// min/max chain of the top-2 is the epilogue's longest dependence, and
-// one warp a scheduler issues it while the other warpgroup's warp waits
-// on its products). K1 bf16 and f32 run the same key code: there it
-// neither gains nor loses (PERF.md), their products hiding the epilogue.
-// The designs it was chosen over (scripts_torch/knn_versions.py
-// --i8-d256, in turns; PERF.md): bf16's structure as it is (13-15%
-// slower), with a ring of four B stages (the same as with two once the
-// epilogue is cut), without the ping-pong barriers (slower still), with
-// four partial top-2s a row (5% slower than two).
+// The key epilogue bounds the body wherever the product is small (int8 at
+// either width, bf16 at 128): it does the same work at either width. The
+// designs it was chosen over (scripts_torch/knn_versions.py --i8-d256 and
+// --d128, in turns; PERF.md): at 256, int8 on bf16's structure as it was
+// (13-15% slower), with a ring of four B stages (the same), without the
+// ping-pong barriers (slower still), with four partial top-2s a row (5%
+// slower than two); the keys as one LOP3 each, (bits & ~mask) | index
+// (int8 3-8% slower; bf16, with its d2's separate FMUL, 8-13%). At 128:
+// the 256 body's epilogue as it was (int8 4-16% slower, bf16 11-18%);
+// the keys by LOP3 (int8 the same, bf16 10-23% slower); a ring of four
+// (the same);
+// int8 with two consumer warpgroups of 256 rows (12-23% slower than
+// three: at 128 values a tile's products are short, and three give each
+// scheduler three warps to issue from); bf16 with three (within the
+// spread); BM = 128 with two blocks an SM (a launch failure, left
+// undiagnosed: the two blocks' setmaxnreg hand-over is the suspect).
 
 #pragma once
 
@@ -152,45 +166,78 @@
 namespace knn {
 namespace wg {
 
-constexpr int kThreads = 384;       // two consumer warpgroups, a producer
 constexpr int kBN = 64;             // B rows a tile
-constexpr int kSlots = 4;           // norm and gate slots: tile t in t % 4
 constexpr int kBChunk = kBN * 128;  // bytes of one B chunk
-constexpr int kConsumerWarps = 8;
+constexpr int kSlots = 4;           // norm and gate slots: tile t in t % 4
 
 // What the operand type decides: the accumulator type; A rows a block;
 // m64 halves a consumer warpgroup (bf16 and int8: two, each warpgroup its
 // own rows; f32: one, both warpgroups on the block's rows, alternate B
 // tiles); planes a row; 128-byte chunks of a plane's row (bf16: 64
 // values; int8: 128); A planes in shared memory; B stages in the ring;
-// arrivals that empty a stage (the consumer warps that read it)
+// arrivals that empty a stage (the consumer warps that read it); consumer
+// warpgroups
 template <typename T>
 struct Body;
+template <>
+struct Body<uint16_t> {             // bf16 at 128 values a row
+  using Acc = float;
+  static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
+  static constexpr int kChunks = 2, kRing = 2, kEmpty = 8, kConsumers = 2;
+};
+template <>
+struct Body<int8_t> {               // int8 at 128: one 128-byte chunk,
+  using Acc = int;                  // three consumer warpgroups
+  static constexpr int kRows = 384, kHalves = 2, kPlanes = 1, kAPlanes = 1;
+  static constexpr int kChunks = 1, kRing = 2, kEmpty = 12, kConsumers = 3;
+};
 template <>
 struct Body<D256<uint16_t>> {
   using Acc = float;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
-  static constexpr int kChunks = 4, kRing = 2, kEmpty = 8;
+  static constexpr int kChunks = 4, kRing = 2, kEmpty = 8, kConsumers = 2;
 };
 template <>
 struct Body<D256<int8_t>> {
   using Acc = int;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
-  static constexpr int kChunks = 2, kRing = 2, kEmpty = 8;
+  static constexpr int kChunks = 2, kRing = 2, kEmpty = 8, kConsumers = 2;
 };
 template <>
 struct Body<D256<Bf16x3>> {       // hi in registers; mid, lo in smem
   using Acc = float;
   static constexpr int kRows = 64, kHalves = 1, kPlanes = 3, kAPlanes = 2;
-  static constexpr int kChunks = 4, kRing = 4, kEmpty = 4;
+  static constexpr int kChunks = 4, kRing = 4, kEmpty = 4, kConsumers = 2;
 };
+// int8 at 128 values a row takes d2 in two operations, an IMAD and an
+// FADD, from B norms that the pre-pass writes less kNbBias (the head)
+template <typename T>
+constexpr bool kD2Mad = std::is_same<T, int8_t>::value;
+constexpr float kNbBias = -10485760.f;    // -(2^23 + 2^21)
+// what K1's int8 pre-pass adds to the B norms for the body over T
+template <typename T>
+constexpr float nb_bias() { return kD2Mad<T> ? kNbBias : 0.f; }
 template <typename T>
 constexpr int kBM = Body<T>::kRows;
+// threads a block: the consumer warpgroups and a producer warpgroup
+template <typename T>
+constexpr int kThreads = 128 * (Body<T>::kConsumers + 1);
+// A rows a TMA box (at most 256), the box loaded kBM / kABox times
+template <typename T>
+constexpr int kABox = kBM<T> <= 256 ? kBM<T> : 128;
+// a consumer thread's registers after setmaxnreg: the SM's 65,536 less
+// the producer warpgroup's 40 a thread, over the consumers, in multiples
+// of 8 (two consumer warpgroups: 232; three: 152)
+template <typename T>
+constexpr int kConsumerRegs =
+    (65536 - 40 * 128) / (128 * Body<T>::kConsumers) / 8 * 8;
 template <typename T>
 constexpr int kAChunk = kBM<T> * 128;         // bytes of one A chunk
 
 template <typename T, int MODE>
 struct Smem {
+  static_assert(Body<T>::kPlanes == 3 || Body<T>::kRing == 2,
+                "four norm slots hold a ring of two tiles (the head)");
   static constexpr int kC = Body<T>::kChunks;
   unsigned char a[Body<T>::kAPlanes][kC][kAChunk<T>];  // 1024-aligned
   unsigned char b[Body<T>::kRing][kC][kBChunk];
@@ -198,7 +245,7 @@ struct Smem {
   float pb[kSlots][kBN * 2];        // the gate's predicted positions
   float ua[kBM<T> * 2];             // the gate's A positions
   // column partials: [warpgroup][tile parity][warp][column]
-  tc::Key<MODE> colpart[2][2][4][kBN];
+  tc::Key<MODE> colpart[Body<T>::kConsumers][2][4][kBN];
   tc::Key<MODE> rowpart[64][2];     // f32: warpgroup 1's row top-2
   uint64_t full[Body<T>::kRing], empty[Body<T>::kRing], a_full;
 };
@@ -324,13 +371,13 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
   wgmma_commit();
 }
 
-// (bits & ~kIdxMask) | idx, a packed key, in one LOP3: ptxas otherwise
-// masks once and ors twice for a candidate's row and column keys
-__device__ __forceinline__ int key_or(int bits, int idx) {
-  int k;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;"
-      : "=r"(k) : "r"(bits), "r"(~kIdxMask), "r"(idx));
-  return k;
+// a * b + c, an IMAD (the FMA pipe) that ptxas cannot turn into an add
+// on the integer pipe where b is opaque (the keys' b, 1, is read from
+// %nctaid.z; launch holds the grid's z dimension at 1)
+__device__ __forceinline__ int mad_s32(int a, int b, int c) {
+  int d;
+  asm("mad.lo.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
 // One exchange of column_minima: this thread keeps k[0..N) (up: k[N..2N))
@@ -368,7 +415,7 @@ __device__ __forceinline__ int column_minima(K (&k)[16], int g) {
 // rows; a32: f32's split A rows (n_pairs, n_a, 3, 256) bf16 as pairs of
 // values, for its hi fragments (unused by bf16).
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads<T>, 1)
 knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
               const __grid_constant__ CUtensorMap tb,
               const uint32_t* __restrict__ a32,
@@ -413,9 +460,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   }
   __syncthreads();
 
-  if (tid >= 256) {                 // the producer warpgroup
-    regs_dec<40>();
-    if (tid != 256) return;
+  constexpr int kC = Body<T>::kConsumers;
+  if (tid >= 128 * kC) {            // the producer warpgroup
+    regs_dec<40>();                 // consumers: kConsumerRegs
+    if (tid != 128 * kC) return;
     tma_prefetch(&ta);
     tma_prefetch(&tb);
     const int rows_a = min(kBMT, n_a - a0);
@@ -425,8 +473,9 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
     for (int p = 0; p < Body<T>::kAPlanes; ++p)
       for (int c = 0; c < kChunks; ++c)
-        tma_load_3d(s.a[p][c], &ta, &s.a_full,
-                    (kF32 ? 256 * (p + 1) : 0) + c * 64, a0, pair);
+        for (int r = 0; r < kBMT; r += kABox<T>)
+          tma_load_3d(s.a[p][c] + r * 128, &ta, &s.a_full,
+                      (kF32 ? 256 * (p + 1) : 0) + c * 64, a0 + r, pair);
     if (kGated)
       bulk_load(s.ua, uv_a + ((size_t)pair * n_a + a0) * 2, rows_a * 8,
                 &s.a_full);
@@ -459,8 +508,8 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     return;
   }
 
-  regs_inc<232>();
-  // bf16: rows wg * BM / 2 .. of the block; f32: tiles wg, wg + 2, ..
+  regs_inc<kConsumerRegs<T>>();
+  // bf16 and int8: rows 128 wg .. of the block; f32: tiles wg, wg + 2, ..
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
@@ -485,6 +534,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   // row's top-2 is the longest dependence in it.
   constexpr int kChains = MODE == kPacked || kGated ? 2 : 1;
   float na[2][2], ux[2][2], uy[2][2];
+  int nak[2][2];                    // kD2Mad: 2^21 + na as f32 bits of 2^23
   int r1[2][2][2], r2[2][2][2];
   float v1[2][2], v2[2][2];
 #pragma unroll
@@ -493,6 +543,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r0 + h * 64 + hh * 8;
       na[h][hh] = kNorms && valid[h] ? na2[(size_t)pair * n_a + row] : 0.f;
+      nak[h][hh] = 0x4B000000 + (1 << 21) + __float2int_rn(na[h][hh]);
 #pragma unroll
       for (int ch = 0; ch < kChains; ++ch)
         r1[h][hh][ch] = r2[h][hh][ch] =
@@ -520,6 +571,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       uy[h][hh] = kGated ? s.ua[2 * r + 1] : 0.f;
     }
   const unsigned char* sa = s.a[0][0] + wg * kWgRows * 128;
+  int one;                          // 1, opaque to ptxas (mad_s32)
+  asm volatile("mov.u32 %0, %%nctaid.z;" : "=r"(one));
+  (void)one;
+  (void)nak;
 
   // tile t's key epilogue on acc (its products complete) over the
   // warpgroup's first H halves (those with rows in the pair): H a
@@ -571,8 +626,16 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
             cv[j] = pc ? d2 : cv[j];
             ci[j] = pc ? row : ci[j];
           } else {
-            int bits;               // masked by key_or
-            if constexpr (kInt8) {
+            int bits;               // masked below
+            if constexpr (kInt8 && kD2Mad<T>) {
+              // 128 values: each value's a^2 - 2ab lies in [-2^14, 48896],
+              // so 2^21 + na - 2 dot lies in [0, 8355840], below 2^23: as
+              // the mantissa of 2^23 (nak) it is the f32 2^23 + 2^21 + na
+              // - 2 dot, exactly; adding nb - 2^23 - 2^21 (nbv, the
+              // pre-pass's biased norm) rounds the exact d2 < 2^23, an f32
+              bits = __float_as_int(__fadd_rn(
+                  __int_as_float(mad_s32(dot, -2, nak[h][hh])), nbv));
+            } else if constexpr (kInt8) {
               // the f32 with the bits of 1.5 x 2^23 + dot, less 1.5 x
               // 2^23, is float(dot) exactly (|dot| <= 2^22); na - 2 dot
               // and d2 are integers below 2^24 (knn_tc.cuh's int8 d2)
@@ -581,15 +644,19 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
               bits = __float_as_int(
                   __fadd_rn(__fmaf_rn(-2.f, dotf, na[h][hh]), nbv));
             } else {
-              const float d2 = __fsub_rn(__fadd_rn(na[h][hh], nbv),
-                                         __fmul_rn(2.f, dot));
+              // 2 dot is exact, so one rounding of (na + nb) - 2 dot is
+              // the plain version's
+              const float d2 =
+                  __fmaf_rn(-2.f, dot, __fadd_rn(na[h][hh], nbv));
               bits = __float_as_int(fmaxf(d2, 0.f));
             }
             if (kGated && gated_out(ux[h][hh], uy[h][hh], px, py, radius2))
               bits = kGatedBits;
-            // the row's and the column's key
-            const int rk = key_or(bits, b0 + c);
-            const int ek = key_or(bits, row);
+            // the row's and the column's key from one mask, by IMADs on
+            // the FMA pipe (LOP3s would take the integer pipe's slots)
+            const int m = bits & ~kIdxMask;
+            const int rk = mad_s32(m, one, b0 + c);
+            const int ek = mad_s32(m, one, row);
             // insert2 on unique keys, as min/max
             const int ch = nt % kChains;
             r2[h][hh][ch] = min(r2[h][hh][ch], max(r1[h][hh][ch], rk));
@@ -614,7 +681,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
                            [(j0 >> 1) * 8 + 2 * q];
       part[0] = k[0];
       part[1] = k[1];
-      bar_sync(3 + wg, 128);        // the partials are in: flush(t)
+      bar_sync(kC + 1 + wg, 128);   // the partials are in: flush(t)
     }
   };
 
@@ -654,22 +721,22 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   };
 
   if constexpr (!kF32) {
-    // ping-pong: warpgroup 0 issues tile t's products once warpgroup 1
-    // has issued tile t - 1's (named barrier 1), warpgroup 1 once
-    // warpgroup 0 has issued tile t's (barrier 2), so the tensor cores
-    // take the two in turns while the other warpgroup runs its epilogue
+    // ping-pong: warpgroup 0 issues tile t's products once the last
+    // warpgroup has issued tile t - 1's (named barrier 1), warpgroup w > 0
+    // once warpgroup w - 1 has issued tile t's (barrier 1 + w), so the
+    // tensor cores take them in turns while the others run their epilogue
     Acc acc[2][32];
     for (int t = 0; t < n_tiles; ++t) {
-      wait(&s.full[t & 1], (t >> 1) & 1);
+      wait(&s.full[t % kRing], (t / kRing) & 1);
       float nbr[16];
       norms(nbr, t);
-      if (wg == 1)
-        bar_sync(2, 256);
+      if (wg > 0)
+        bar_sync(1 + wg, 256);
       else if (t > 0)
         bar_sync(1, 256);
-      issue<T>(acc, sa, s.b[t & 1][0]);
-      if (wg == 0)
-        bar_arrive(2, 256);
+      issue<T>(acc, sa, s.b[t % kRing][0]);
+      if (wg + 1 < kC)
+        bar_arrive(2 + wg, 256);
       else if (t + 1 < n_tiles)
         bar_arrive(1, 256);
       if (t > 0) flush(t - 1);      // under this tile's products
@@ -792,7 +859,7 @@ int launch(const void* a, const void* b, const void* na2, const void* nb2,
   // bf16 values a row (TMA moves bytes: int8's 256 bytes as 128)
   constexpr int kK = 64 * Body<T>::kChunks * Body<T>::kPlanes;
   CUtensorMap ta, tb;
-  int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kBM<T>);
+  int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kABox<T>);
   if (e == 0) e = hopper::encode_pairs(&tb, b, n_pairs, n_b, kK, kBN);
   if (e != 0) return e;
   e = (int)cudaFuncSetAttribute(knn_wg_kernel<T, MODE>,
@@ -800,7 +867,10 @@ int launch(const void* a, const void* b, const void* na2, const void* nb2,
                                 kSmem<T, MODE>);
   if (e != 0) return e;
   dim3 grid((n_a + kBM<T> - 1) / kBM<T>, n_pairs);
-  knn_wg_kernel<T, MODE><<<grid, kThreads, kSmem<T, MODE>, stream>>>(
+  // the kernel reads its keys' multiplier 1 from %nctaid.z (mad_s32): a
+  // grid with a z dimension would scale every K1 key
+  if (grid.z != 1) return (int)cudaErrorInvalidConfiguration;
+  knn_wg_kernel<T, MODE><<<grid, kThreads<T>, kSmem<T, MODE>, stream>>>(
       ta, tb, Body<T>::kPlanes == 3 ? (const uint32_t*)a : nullptr,
       (const float*)na2, (const float*)nb2, (const float*)uv_a,
       (const float*)pred_b, radius2, (int*)row_p, (int*)col_p,

@@ -84,8 +84,8 @@ measure the tensor-core body:
   (plain, gated, wide); ``ffma_f32_raw``: the FFMA body in K1's and K3's
   f32 modes (plain, gated, wide). The yardsticks the tensor-core body is
   timed against; their plain versions are K1's and K3's.
-- ``tc_row_sum_raw``: the tensor-core body's product with the
-  ``row_sum`` stage's wrapping row sum in place of the key epilogue, in
+- ``tc_row_sum_raw``: the ``mma.sync`` tensor-core body's product with
+  the ``row_sum`` stage's wrapping row sum in place of the key epilogue, in
   any of its types (int8, bf16, f32 as three bf16 planes) and at any
   size (K1's and K3's); its plain version is ``tc_row_sum_plain``, the
   ``row_sum`` stage's arithmetic. K1's or K3's time less its time is the
@@ -157,7 +157,8 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
             "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0,
-            "knn_f32_d256": 0, "knn_i8_d256": 0}
+            "knn_f32_d256": 0, "knn_i8_d256": 0, "knn_bf16_d128": 0,
+            "knn_i8_d128": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
 # which tc_stage_raw runs every stage
 TC_BN, TC_BM = 128, 128
@@ -452,13 +453,15 @@ def tc_row_sum_plain(a, b):
 
 
 def tc_row_sum_raw(a, b):
-    """The tensor-core body's product-only stage on a CUDA tensor: a (B,
-    n_a, 128), b (B, n_b, 128) int8 or integer-valued bf16 or f32 (split
-    into its three bf16 planes first, as K1's and K3's f32 modes), n_a
-    and n_b multiples of 64, of any size. Returns (row (B, n_a, 2) int32,
-    each A row's wrapping sum of its dots in both slots; col (B, n_b)
-    int32, 0x7FFFFFFF): the result of tc_row_sum_plain, which a CPU
-    tensor takes; any other device raises."""
+    """The mma.sync body's product-only stage on a CUDA tensor (what K1
+    f32 and K3 run at 128, P4's stage 0; the wgmma body's at 128 is
+    i8_d128_raw's and bf16_d128_raw's mode "row_sum"): a (B, n_a, 128),
+    b (B, n_b, 128) int8 or integer-valued bf16 or f32 (split into its
+    three bf16 planes first, as K1's and K3's f32 modes), n_a and n_b
+    multiples of 64, of any size. Returns (row (B, n_a, 2) int32, each A
+    row's wrapping sum of its dots in both slots; col (B, n_b) int32,
+    0x7FFFFFFF): the result of tc_row_sum_plain, which a CPU tensor
+    takes; any other device raises."""
     name = "tc_row_sum_raw"
     _check_tc(a, b, name, _ROW_SUM_TYPES)
     if a.device.type == "cpu":
@@ -639,25 +642,33 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
     return knn_probe_raw(a, b, na2, nb2, card)
 
 
-# rows of 256 values on either tensor-core body: the modes of
-# knn_bf16_d256, knn_i8_d256 (no "wide": K3 takes no int8) and
-# knn_f32_d256 (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
+# rows of 128 or 256 values on either tensor-core body: the modes of
+# knn_bf16_d256, knn_i8_d256 (no "wide": K3 takes no int8), knn_f32_d256,
+# knn_bf16_d128 and knn_i8_d128 (K3 at 128 stays on the mma.sync body: no
+# "wide" at 128) (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
 # body K1 and K3 ran there before; "wg": the wgmma body they run now)
 D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
-D256_BODIES = {"mma": 0, "wg": 1}
+BODIES = {"mma": 0, "wg": 1}
+# the C entry point of each (type, width)
+_ENTRIES = {(torch.bfloat16, 256): "knn_bf16_d256",
+            (torch.float32, 256): "knn_f32_d256",
+            (torch.int8, 256): "knn_i8_d256",
+            (torch.bfloat16, 128): "knn_bf16_d128",
+            (torch.int8, 128): "knn_i8_d128"}
 
 
-def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype):
-    if mode not in D256_MODES or body not in D256_BODIES:
+def _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype,
+                dim):
+    if mode not in D256_MODES or body not in BODIES:
         raise ValueError(f"{name}: no mode {mode!r} on body {body!r} "
                          f"(modes {tuple(D256_MODES)}, bodies "
-                         f"{tuple(D256_BODIES)})")
-    if a.dtype != dtype or a.dim() != 3 or a.shape[2] != 256:
-        raise ValueError(f"{name}: takes (B, n, 256) {str(dtype)[6:]}, got "
-                         f"{tuple(a.shape)} {a.dtype}")
-    if mode == "wide" and dtype == torch.int8:
-        raise ValueError(f"{name}: no mode 'wide' for int8 (K3 takes bf16 "
-                         "or f32)")
+                         f"{tuple(BODIES)})")
+    if a.dtype != dtype or a.dim() != 3 or a.shape[2] != dim:
+        raise ValueError(f"{name}: takes (B, n, {dim}) {str(dtype)[6:]}, "
+                         f"got {tuple(a.shape)} {a.dtype}")
+    if mode == "wide" and (dtype == torch.int8 or dim == 128):
+        raise ValueError(f"{name}: no mode 'wide' (K3 takes bf16 or f32, "
+                         "and runs the mma.sync body at 128)")
     if mode == "packed":
         knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
         if uv_a is not None:
@@ -670,8 +681,9 @@ def _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype):
         _check_tc(a[..., :128], b[..., :128], name, (dtype,))
 
 
-def _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode, name, dtype):
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, "mma", name, dtype)
+def _rows_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode, name, dtype,
+                dim):
+    _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, "mma", name, dtype, dim)
     if mode == "packed":
         return knn.knn_packed_plain(a, b, na2, nb2, uv_a, pred_b, radius2)
     if mode == "wide":
@@ -679,19 +691,18 @@ def _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode, name, dtype):
     return _probe_rows(a, b, _row_sum)
 
 
-def _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
-    """bf16_d256_raw's, i8_d256_raw's and f32_d256_raw's launch (their
-    checks done, a and b on a CUDA card)."""
-    B, n_a, _ = a.shape
+def _rows_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
+    """The launch of the *_d256_raw and *_d128_raw wrappers (their checks
+    done, a and b on a CUDA card)."""
+    B, n_a, dim = a.shape
     n_b = b.shape[1]
     f32 = dtype == torch.float32
-    entry = {torch.float32: "knn_f32_d256", torch.int8: "knn_i8_d256",
-             torch.bfloat16: "knn_bf16_d256"}[dtype]
+    entry = _ENTRIES[dtype, dim]
     knn._check_launch((a, b, na2, nb2, uv_a, pred_b), n_a, n_b,
                       entry.replace("knn_", "") + "_raw")
     dev = a.device
     if dtype == torch.int8:
-        return _i8_d256_launch(a, b, uv_a, pred_b, radius2, mode, body)
+        return _i8_launch(a, b, uv_a, pred_b, radius2, mode, body, entry)
     wide = mode == "wide"
     key = torch.int64 if wide else torch.int32
     kmax = knn._WIDE_MAX if wide else knn._KEY_MAX
@@ -699,25 +710,26 @@ def _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
     col = torch.full((B, n_b), kmax, dtype=key, device=dev)
     rp, cp, rk, ck = ((None, None, row, col) if wide
                       else (row, col, None, None))
-    # f32: scratch for the operands' three bf16 planes
+    # bf16 at 128 has no K3 outputs; f32: scratch for the operands' three
+    # bf16 planes
+    keys3 = (knn._ptr(rk), knn._ptr(ck)) if dim == 256 else ()
     split = (knn._split_scratch(a), knn._split_scratch(b)) if f32 else ()
     with torch.cuda.device(dev):
         err = getattr(_build.load(), entry)(
             a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
             knn._ptr(uv_a), knn._ptr(pred_b),
             radius2 if uv_a is not None else 0.0, knn._ptr(rp),
-            knn._ptr(cp), knn._ptr(rk), knn._ptr(ck),
-            *(x.data_ptr() for x in split), B, n_a, n_b,
-            D256_MODES[mode], D256_BODIES[body],
+            knn._ptr(cp), *keys3, *(x.data_ptr() for x in split), B, n_a,
+            n_b, D256_MODES[mode], BODIES[body],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
     LAUNCHES[entry] += 1
     return row, col
 
 
-def _i8_d256_launch(a, b, uv_a, pred_b, radius2, mode, body):
-    """i8_d256_raw's launch: csrc/knn_probe.cu's knn_i8_d256, with
-    scratch for K1's norm pre-pass."""
+def _i8_launch(a, b, uv_a, pred_b, radius2, mode, body, entry):
+    """i8_d256_raw's and i8_d128_raw's launch: csrc/knn_probe.cu's
+    knn_i8_d256 or knn_i8_d128, with scratch for K1's norm pre-pass."""
     B, n_a, _ = a.shape
     n_b = b.shape[1]
     dev = a.device
@@ -726,93 +738,72 @@ def _i8_d256_launch(a, b, uv_a, pred_b, radius2, mode, body):
     na2 = torch.empty((B, n_a), dtype=torch.float32, device=dev)
     nb2 = torch.empty((B, n_b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _build.load().knn_i8_d256(
+        err = getattr(_build.load(), entry)(
             a.data_ptr(), b.data_ptr(), na2.data_ptr(), nb2.data_ptr(),
             knn._ptr(uv_a), knn._ptr(pred_b),
             radius2 if uv_a is not None else 0.0, row.data_ptr(),
-            col.data_ptr(), B, n_a, n_b, D256_MODES[mode],
-            D256_BODIES[body], torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "knn_i8_d256")
-    LAUNCHES["knn_i8_d256"] += 1
+            col.data_ptr(), B, n_a, n_b, D256_MODES[mode], BODIES[body],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    LAUNCHES[entry] += 1
     return row, col
 
 
-def bf16_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                    radius2=None, mode="packed"):
-    """Plain version of bf16_d256_raw: knn.knn_packed_plain (gated with
-    uv_a), knn.knn_wide_plain, or tc_row_sum_plain's arithmetic."""
-    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
-                       "bf16_d256_plain", torch.bfloat16)
+def _rows_wrapper(dtype, dim, yardstick):
+    """The plain version and the wrapper of `dtype` rows of `dim` values
+    on either body (yardstick: what the mma.sync body is at this width)."""
+    tag = {torch.bfloat16: "bf16", torch.float32: "f32",
+           torch.int8: "i8"}[dtype]
+    name = f"{tag}_d{dim}"
+    modes = ('"packed" or "row_sum"' if dim == 128 or dtype == torch.int8
+             else '"packed", "wide" or "row_sum"')
+
+    def plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
+              radius2=None, mode="packed"):
+        return _rows_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
+                           f"{name}_plain", dtype, dim)
+
+    def raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None, radius2=None,
+            mode="packed", body="mma"):
+        _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, f"{name}_raw",
+                    dtype, dim)
+        if a.device.type == "cpu":
+            return plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
+        return _rows_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
+                         dtype)
+
+    plain.__name__, raw.__name__ = f"{name}_plain", f"{name}_raw"
+    plain.__doc__ = (f"Plain version of {name}_raw: knn.knn_packed_plain "
+                     "(gated with uv_a), knn.knn_wide_plain, or "
+                     "tc_row_sum_plain's arithmetic.")
+    raw.__doc__ = (
+        f"{str(dtype)[6:]} rows of {dim} values, a (B, n_a, {dim}) and b "
+        f"(B, n_b, {dim}), on body \"mma\" ({yardstick}) or \"wg\" (the "
+        "wgmma body of csrc/knn_wg.cuh, which K1 and K3 launch), in mode "
+        f"{modes}: \"packed\" K1 (gated with uv_a, pred_b, radius2; row_p, "
+        "col_p int32; int8 after K1's norm pre-pass, na2 and nb2 ignored), "
+        "\"wide\" K3 (row_k, col_k int64), \"row_sum\" the product-only "
+        "stage (each A row's wrapping sum of its dots in both slots of row "
+        "(B, n_a, 2) int32, col 0x7FFFFFFF; f32 on integer-valued rows). "
+        "Norms and shapes as knn.knn_packed_raw / knn.knn_wide_raw; n_a "
+        f"and n_b multiples of 64. A CPU tensor takes {name}_plain; any "
+        f"other device raises. Counted as {_ENTRIES[dtype, dim]}, not as "
+        "K1's or K3's launches.")
+    return plain, raw
 
 
-def bf16_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                  radius2=None, mode="packed", body="mma"):
-    """bf16 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), on
-    body "mma" (the mma.sync body, K1's and K3's yardstick at this width)
-    or "wg" (the wgmma body of csrc/knn_wg.cuh, which K1 and K3 launch),
-    in mode "packed" (K1, gated with uv_a, pred_b, radius2; row_p, col_p
-    int32), "wide" (K3; row_k, col_k int64) or "row_sum" (the product-only
-    stage: each A row's wrapping sum of its dots in both slots of row
-    (B, n_a, 2) int32, col 0x7FFFFFFF). Norms and shapes as
-    knn.knn_packed_raw / knn.knn_wide_raw; n_a and n_b multiples of 64. A
-    CPU tensor takes bf16_d256_plain; any other device raises. Counted as
-    knn_bf16_d256, not as K1's or K3's launches."""
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "bf16_d256_raw",
-                torch.bfloat16)
-    if a.device.type == "cpu":
-        return bf16_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
-    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
-                     torch.bfloat16)
-
-
-def f32_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                   radius2=None, mode="packed"):
-    """Plain version of f32_d256_raw: knn.knn_packed_plain (gated with
-    uv_a), knn.knn_wide_plain, or tc_row_sum_plain's arithmetic."""
-    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
-                       "f32_d256_plain", torch.float32)
-
-
-def f32_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                 radius2=None, mode="packed", body="mma"):
-    """f32 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), split
-    into their three bf16 planes and then on body "mma" (the mma.sync body,
-    K1's and K3's yardstick at this width) or "wg" (the wgmma body of
-    csrc/knn_wg.cuh, which K1 and K3 launch), in the modes of
-    bf16_d256_raw ("row_sum" on integer-valued rows, whose dots are
-    integers). A CPU tensor takes f32_d256_plain; any other device raises.
-    Counted as knn_f32_d256, not as K1's or K3's launches."""
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "f32_d256_raw",
-                torch.float32)
-    if a.device.type == "cpu":
-        return f32_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
-    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
-                     torch.float32)
-
-
-def i8_d256_plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                  radius2=None, mode="packed"):
-    """Plain version of i8_d256_raw: knn.knn_packed_plain (gated with
-    uv_a) or tc_row_sum_plain's arithmetic."""
-    return _d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
-                       "i8_d256_plain", torch.int8)
-
-
-def i8_d256_raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-                radius2=None, mode="packed", body="mma"):
-    """int8 rows of 256 values, a (B, n_a, 256) and b (B, n_b, 256), on
-    body "mma" (the mma.sync s8 body, K1's yardstick at this width) or
-    "wg" (the wgmma s8 body of csrc/knn_wg.cuh, which K1 launches), in
-    mode "packed" (K1 after its norm pre-pass, gated with uv_a, pred_b,
-    radius2; row_p, col_p int32) or "row_sum" (the product-only stage:
-    each A row's wrapping sum of its dots in both slots of row (B, n_a,
-    2) int32, col 0x7FFFFFFF). na2 and nb2 are ignored, as
-    knn.knn_packed_raw ignores them for int8; n_a and n_b multiples of
-    64. A CPU tensor takes i8_d256_plain; any other device raises.
-    Counted as knn_i8_d256, not as K1's launches."""
-    _check_d256(a, b, na2, nb2, uv_a, pred_b, mode, body, "i8_d256_raw",
-                torch.int8)
-    if a.device.type == "cpu":
-        return i8_d256_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode)
-    return _d256_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body,
-                     torch.int8)
+bf16_d256_plain, bf16_d256_raw = _rows_wrapper(
+    torch.bfloat16, 256, "the mma.sync body, K1's and K3's yardstick at "
+    "this width")
+f32_d256_plain, f32_d256_raw = _rows_wrapper(
+    torch.float32, 256, "the mma.sync body on the three bf16 planes after "
+    "the split pre-pass: 64 A rows, one 64-row B tile")
+i8_d256_plain, i8_d256_raw = _rows_wrapper(
+    torch.int8, 256, "the mma.sync s8 body, the 128-row tiles of 128 "
+    "values at twice the k-steps")
+bf16_d128_plain, bf16_d128_raw = _rows_wrapper(
+    torch.bfloat16, 128, "the mma.sync body, K1 bf16's yardstick at 128: "
+    "m16n8k16, 128-row A and B tiles in a cp.async ring")
+i8_d128_plain, i8_d128_raw = _rows_wrapper(
+    torch.int8, 128, "the mma.sync s8 body, K1 int8's yardstick at 128: "
+    "m16n8k32, 128-row A and B tiles in a cp.async ring")

@@ -8,7 +8,7 @@ Run it once per copy of the package, each in its own process, in turns
 card; each copy builds its kernels into ROOT/build/:
 
     python3 scripts_torch/knn_versions.py [ROOT] [--d256 | --f32-d256 |
-        --i8-d256]
+        --i8-d256 | --d128 [--check]]
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
@@ -24,7 +24,14 @@ stage there on both of its bodies (``row_sum_<body>_d256_*``,
 store holds them): plain and gated at 64 × 6144, plain at 256 × 4096,
 and where the copy has ``knn_stages.i8_d256_raw`` the product-only stage
 on both bodies (``row_sum_<body>_i8_d256_*``); ``--d256`` every case at
-256 values a row (bf16, f32 and int8). Times: median of CUDA events
+256 values a row (bf16, f32 and int8); ``--d128`` K1 int8 and bf16 at
+128 values a row alone (SIFT's rows): plain and gated at 64 × 6144,
+plain at 256 × 4096 (``*_d128_*``), and where the copy has
+``knn_stages.i8_d128_raw`` (``bf16_d128_raw``) the same cases on the
+``mma.sync`` body (``mma_*``) and the product-only stage on both bodies
+(``row_sum_<body>_*``); with ``--check`` each of those K1 cases is
+first held bit-exact against the copy's ``mma.sync`` body (the script
+exits on a difference). Times: median of CUDA events
 after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
@@ -44,6 +51,8 @@ _ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 ONLY_F32_D256 = "--f32-d256" in sys.argv[1:]
 ONLY_I8_D256 = "--i8-d256" in sys.argv[1:]
 ONLY_D256 = "--d256" in sys.argv[1:]
+ONLY_D128 = "--d128" in sys.argv[1:]
+CHECK = "--check" in sys.argv[1:]
 ROOT = os.path.abspath(_ARGS[0] if _ARGS else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, ROOT)
@@ -165,6 +174,47 @@ def i8_d256(gen, out):
         del a, b
 
 
+def d128(gen, out):
+    """K1 int8 and bf16 at 128 values a row (bench.py's planted rows):
+    plain and gated (gate_of's prior in chip_smoke.py: ~half the
+    candidates out) at 64 × 6144, plain at 256 × 4096; where the copy has
+    knn_stages.i8_d128_raw and bf16_d128_raw, each case on the mma.sync
+    body (``mma_<case>``) and the product-only stage on both bodies
+    (``row_sum_<body>_<type>_<shape>``)."""
+    split = hasattr(knn_stages, "i8_d128_raw")
+    for tag, pairs, n in (("bench", 64, 6144), ("store", 256, 4096)):
+        a, b = planted(gen, pairs, n)
+        gate = ((torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                 * 1000,
+                 torch.rand((pairs, n, 2), generator=gen, device="cuda")
+                 * 1000, 400.0 ** 2) if tag == "bench" else None)
+        for kind, args, probe in (
+                ("i8", (a, b, None, None), "i8_d128_raw"),
+                ("bf16", as_float(a, b), "bf16_d128_raw")):
+            fn = getattr(knn_stages, probe, None)
+            cases = [("", args, ())] + ([("gated_", args, gate)] if gate
+                                        else [])
+            for pre, x, g in cases:
+                if CHECK and split and not all(
+                        torch.equal(u, v) for u, v in zip(
+                            knn.knn_packed_raw(*x, *g),
+                            fn(*x, *g, body="mma"))):
+                    sys.exit(f"{ROOT}: {pre}{kind}_d128_{tag} differs from "
+                             f"the mma.sync body")
+                out[f"{pre}{kind}_d128_{tag}"] = probes.time_ms(
+                    lambda: knn.knn_packed_raw(*x, *g), "cuda", 5, 2)
+                if split:
+                    out[f"mma_{pre}{kind}_d128_{tag}"] = probes.time_ms(
+                        lambda: fn(*x, *g, body="mma"), "cuda", 5, 2)
+            if split:
+                for body in ("wg", "mma"):
+                    out[f"row_sum_{body}_{kind}_d128_{tag}"] = \
+                        probes.time_ms(lambda: fn(args[0], args[1],
+                                                  mode="row_sum",
+                                                  body=body), "cuda", 5, 2)
+        del a, b, gate
+
+
 def own_build_module():
     """This checkout's _build.py (stdlib only), for its log parsers."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -199,6 +249,9 @@ def main():
         return report(out)
     if ONLY_I8_D256:
         i8_d256(gen, out)
+        return report(out)
+    if ONLY_D128:
+        d128(gen, out)
         return report(out)
     if ONLY_D256:
         bf16_d256(gen, out)

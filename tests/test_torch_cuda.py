@@ -1546,6 +1546,64 @@ def test_i8_256_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
         assert torch.equal(g, w)
 
 
+def _rows128(rng, pairs, n_a, n_b, kind):
+    """int8 rows of 128 values: planted SIFT-like rows (value − 128 of
+    0..99, B's first quarter near A's) or the full −128..127 with an all
+    −128 and an all 127 row on each side."""
+    k = min(n_a, n_b) // 4
+    return (_planted(rng, pairs, n_a, n_b, k) if kind == "planted"
+            else _full_range(rng, pairs, n_a, n_b, k))
+
+
+@pytest.mark.parametrize("mode", ["packed", "gated", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+@pytest.mark.parametrize("kind", ["planted", "full_range"])
+def test_i8_128_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
+    """int8 at 128 values a row (SIFT's in the int8 store) on both bodies
+    through knn_stages.i8_d128_raw (the mma.sync s8 body is the wgmma s8
+    body's yardstick): K1 plain and gated and the product-only stage, 320
+    A rows (a wgmma block and a quarter) against 640 B rows, on planted
+    rows and the full -128..127, equal to the plain versions and counted
+    as knn_i8_d128, not as K1's launches."""
+    a, b = (t.to(cuda) for t in _rows128(rng, 3, 320, 640, kind))
+    gate = _gate(rng, cuda, 3, 320, 640) if mode == "gated" else ()
+    kw = dict(mode="row_sum" if mode == "row_sum" else "packed")
+    before = knn_stages.LAUNCHES["knn_i8_d128"]
+    k1 = dict(knn.LAUNCHES)
+    got = knn_stages.i8_d128_raw(a, b, None, None, *gate, body=body, **kw)
+    assert knn_stages.LAUNCHES["knn_i8_d128"] == before + 1
+    assert knn.LAUNCHES == k1
+    want = knn_stages.i8_d128_plain(a, b, None, None, *gate, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["packed", "gated", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+@pytest.mark.parametrize("kind", ["planted", "full_range"])
+def test_bf16_128_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
+    """bf16 at 128 values a row (integer-valued 0..255, the store's uint8
+    and float32 modes) on both bodies through knn_stages.bf16_d128_raw
+    (the mma.sync body is the wgmma body's yardstick): K1 plain and gated
+    and the product-only stage, 320 A rows against 640 B rows, equal to
+    the plain versions and counted as knn_bf16_d128."""
+    a, b = (t.to(cuda) for t in _rows128(rng, 3, 320, 640, kind))
+    x, y, na2, nb2 = _float_inputs(a, b, torch.bfloat16)
+    gate = _gate(rng, cuda, 3, 320, 640) if mode == "gated" else ()
+    kw = dict(mode="row_sum" if mode == "row_sum" else "packed")
+    norms = (None, None) if mode == "row_sum" else (na2, nb2)
+    before = knn_stages.LAUNCHES["knn_bf16_d128"]
+    k1 = dict(knn.LAUNCHES)
+    got = knn_stages.bf16_d128_raw(x, y, *norms, *gate, body=body, **kw)
+    assert knn_stages.LAUNCHES["knn_bf16_d128"] == before + 1
+    assert knn.LAUNCHES == k1
+    want = knn_stages.bf16_d128_plain(x, y, *norms, *gate, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # at 256 values a row the values hold twice _F32_REL: the plain version's
 # own f32 product rounds twice the terms at twice the magnitude of 128's;
 # on these rows its K3 values lie 21-24 from the f64 truth where both
@@ -1608,19 +1666,21 @@ def test_k3_f32_256_within_tolerance_on_random(cuda, rng, shape):
 
 
 def test_knn_wg_sass_is_hgmma(cuda):
-    """The wgmma body at 256 values a row (knn_wg_kernel, its four modes
-    for bf16 and for f32) runs its products as HGMMA (wgmma), not as
-    mma.sync's HMMA, which the mma.sync bodies' kernels at 256 show; its
-    three int8 modes (K1 plain and gated, the product-only stage) as the
-    integer wgmma, IGMMA, not as mma.sync's IMMA, which the int8 mma.sync
-    body at 256 shows."""
+    """The wgmma body (knn_wg_kernel) runs its products as HGMMA (wgmma),
+    not as mma.sync's HMMA, in its four modes at 256 values a row for
+    bf16 and f32 and in its three at 128 for bf16 (K1 plain and gated,
+    the product-only stage), which the mma.sync bodies' kernels at both
+    widths show; its three int8 modes at 256 and at 128 as the integer
+    wgmma, IGMMA, not as mma.sync's IMMA, which the int8 mma.sync bodies
+    at both widths (the yardsticks) show."""
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines)
         for name, lines in _build.sass().items()})
     keys = {k for k in per_key if k.endswith(" wg")}
-    assert keys == {f"{t}_d256 {m} wg" for t in ("bf16", "f32")
-                    for m in range(4)} | {f"int8_d256 {m} wg"
-                                          for m in (0, 1, 3)}, keys
+    assert keys == ({f"{t}_d256 {m} wg" for t in ("bf16", "f32")
+                     for m in range(4)}
+                    | {f"{t} {m} wg" for t in ("int8_d256", "int8", "bf16")
+                       for m in (0, 1, 3)}), keys
     for k in keys:
         if k.startswith("int8"):
             assert per_key[k]["IGMMA"] > 0 and per_key[k]["IMMA"] == 0 \
@@ -1631,6 +1691,9 @@ def test_knn_wg_sass_is_hgmma(cuda):
     assert per_key["bf16_d256 0 128 128 2"]["HMMA"] > 0
     assert per_key["f32_d256 0 64 64 1"]["HMMA"] > 0
     assert per_key["int8_d256 0 128 128 2"]["IMMA"] > 0
+    for t, op in (("int8", "IMMA"), ("bf16", "HMMA")):
+        for m in (0, 1, 3):
+            assert per_key[f"{t} {m} 128 128 2"][op] > 0, (t, m)
 
 
 # last in the file: it imports cv2, which the card path's tests above
