@@ -757,14 +757,11 @@ def check_knn():
         out[mode] = r
     split_planes(gen, pairs, n, gate, out)
     usage = {k: v for k, v in _build.tc_kernel_usage().items()
-             if k.endswith(" wg") and "_d256" not in k}
-    warn = [w for w in _build.ptxas_warnings()
-            if "knn_wg_kernelIa" in w or "knn_wg_kernelIt" in w]
+             if k.split()[0] in ("int8", "bf16") and k.endswith(" wg")
+             and k.split()[1] != "2"}
+    warn = wg_notes(usage, ["a", "tLi0E", "tLi1E", "tLi3E"])
     log(f"[K1 at 128] wgmma body, ptxas (registers, spill stores, spill "
         f"loads): {usage}; its notes: {warn or 'none'}")
-    if warn or any(st or ld for _, st, ld in usage.values()):
-        raise AssertionError(f"K1's wgmma body at 128 spills or is "
-                             f"serialized: {usage}, {warn}")
     return out
 
 
@@ -866,10 +863,25 @@ def ties_only(q, cand, gi, wi, tol):
     return len(bad)
 
 
+def wg_notes(usage, kernels):
+    """ptxas's (registers, spill stores, spill loads) of the wgmma body's
+    instantiations keyed in usage, and its notes (e.g. C7518) on the
+    mangled kernel names that start with one of kernels; raises where one
+    spills or has a note."""
+    warn = [w for w in _build.ptxas_warnings()
+            if any(f"knn_wg_kernelI{k}" in w for k in kernels)]
+    if warn or any(st or ld for _, st, ld in usage.values()):
+        raise AssertionError(f"the wgmma body spills or is serialized: "
+                             f"{usage}, {warn}")
+    return warn
+
+
 def check_wide():
-    """K3 in both modes at 64 pairs × 10240 on the tensor-core body: int8
-    store rows cast to bf16 and to f32, bit-exact, each in turns against
-    the FFMA body it replaced and split into product and key epilogue; f32
+    """K3 in both modes at 64 pairs × 10240 on the wgmma body: int8 store
+    rows cast to bf16 and to f32, bit-exact, each in turns against the
+    mma.sync body it replaced (whose keys must equal it) and both bodies
+    split into product and key epilogue (wg_vs_mma), its keys also equal
+    to the FFMA body's (timed beside it); f32's split pre-pass alone; f32
     also on integer rows 256..360 (mid planes set, bit-exact) and, with
     bf16, on random rows (indices modulo ties, values within a stated
     tolerance). Returns {"bf16": measurements, "f32": measurements}."""
@@ -891,7 +903,19 @@ def check_wide():
                          args, reps=3, plain_reps=1)
         vs_old_body(r, name, lambda: knn.knn_wide_raw(*args),
                     lambda: old(*args, wide=True), "ffma")
-        product_split(r, name, args[0], args[1])
+        wg_vs_mma(r, name, args, "wide")
+        if mode == "f32":
+            # the split pre-pass alone, both operands (part of the f32
+            # times above), beside its bound: each f32 read once, its
+            # three bf16 planes written once
+            r["split_ms"] = time_ms(lambda: (knn.split_bf16x3_raw(args[0]),
+                                             knn.split_bf16x3_raw(args[1])),
+                                    5)
+            r["split_bound_ms"] = bound(2 * pairs * n * 128 * (4 + 6),
+                                        {})[0]
+            log(f"[K3] f32 split pre-pass {pairs} x {n} x 128, both "
+                f"operands: {r['split_ms']:.3f} ms (bound "
+                f"{r['split_bound_ms']:.3f} ms, bytes)")
         # descriptors and norms read once; row keys (16 B) and column keys
         # (8 B) written once; f32: the six bf16 products of its split, the
         # work the kernel does, and beside it the product on the CUDA
@@ -900,11 +924,18 @@ def check_wide():
                    {"bf16": (6 if mode == "f32" else 1) * product})
         if mode == "f32":
             r["ffma_bound_ms"] = bound(0, {"f32": product})[0]
-        # ptxas's (registers, spill stores, spill loads) of the mode's two
-        # instantiations (BM 128 and 64); empty if built before this run
-        r["registers"] = {k: v for k, v in _build.tc_kernel_usage().items()
-                          if k.startswith(f"{mode} 2 ")}
-        log(f"[K3] {mode} ptxas: {r['registers']}")
+        # ptxas's (registers, spill stores, spill loads) of the wgmma
+        # body's K3 and product-only stage at 128 and the mma.sync
+        # yardsticks' K3 (BM 128 and 64); empty if built before this run
+        usage = _build.tc_kernel_usage()
+        r["registers"] = {k: v for k, v in usage.items()
+                          if k.startswith(f"{mode} 2 ")
+                          or k == f"{mode} 3 wg"}
+        notes = wg_notes({k: v for k, v in r["registers"].items()
+                          if k.endswith(" wg")},
+                         ["tLi2E"] if mode == "bf16" else ["NS_6Bf16x3E"])
+        log(f"[K3] {mode} ptxas: {r['registers']}; the wgmma body's notes: "
+            f"{notes or 'none'}")
         bt = args[1].transpose(1, 2)
         r["product_only_ms"] = product_only(
             f"K3 {mode} torch.bmm {pairs} x {n} x {n}",
@@ -993,7 +1024,7 @@ def orb_rows(gen, pairs, n, full=False):
 
 def rows_probe(args):
     """The probe that runs args' rows (their type and width: bf16, int8
-    and f32 at 256 values, bf16 and int8 at 128) on either body:
+    and f32 at 256 or 128 values) on either body:
     knn_stages.<type>_d<width>_raw, with its plain version."""
     tag = {torch.float32: "f32", torch.int8: "i8",
            torch.bfloat16: "bf16"}[args[0].dtype]
@@ -1003,10 +1034,10 @@ def rows_probe(args):
 
 
 def wg_vs_mma(r, name, args, mode):
-    """bf16, int8 or f32 at 256 values a row, bf16 and int8 at 128: the
-    wgmma body (K1 or K3 through its wrapper) in turns with the mma.sync
-    body it replaced (knn_stages.<type>_d<width>_raw with body="mma",
-    whose keys must equal it), and both bodies split into their
+    """bf16, int8 or f32 at 256 values a row or at 128 (f32 at 128: K3
+    only): the wgmma body (K1 or K3 through its wrapper) in turns with the
+    mma.sync body it replaced (knn_stages.<type>_d<width>_raw with
+    body="mma", whose keys must equal it), and both bodies split into their
     product-only stage (f32: with its split pre-pass; int8: without K1's
     norm pre-pass; held bit-exact against its plain version on the first
     pairs; timed in turns) and the key epilogue. Sets r["ms"],
@@ -4975,7 +5006,8 @@ def main():
                                          "noepi_kernel_ms", "k1_ms",
                                          "k4_ms", "was_kernel_ms",
                                          "stages", "was_tile",
-                                         "sweep")
+                                         "sweep", "split_ms",
+                                         "split_bound_ms")
                        if k in r})
 
     def at256(launch_key, *cases):

@@ -91,22 +91,22 @@ _SIGNATURES = {
                       _I, _I, _P],
     # a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,
     # split_a, split_b (the planes' scratch), n_pairs, n_a, n_b, mode (0 K1,
-    # 2 K3, 3 product + row sum), body (0 mma.sync, 1 wgmma), stream
+    # 2 K3, 3 product + row sum; at 128 no K1), body (0 mma.sync, 1
+    # wgmma), stream
     "knn_f32_d256": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _I, _I, _I, _P],
+    "knn_f32_d128": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I,
                      _I, _I, _I, _I, _P],
     # a, b, na2, nb2 (the norms' scratch), uv_a, pred_b, radius2, row_p,
     # col_p, n_pairs, n_a, n_b, mode (0 K1, 3 product + row sum), body (0
     # mma.sync, 1 wgmma), stream
     "knn_i8_d256": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I,
                     _P],
-    # rows of 128 values, as knn_i8_d256 (int8) and knn_bf16_d256 without
-    # row_k, col_k (bf16): a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-    # col_p, n_pairs, n_a, n_b, mode (0 K1, 3 product + row sum), body (0
-    # mma.sync, 1 wgmma), stream
+    # rows of 128 values, as knn_i8_d256 (int8) and knn_bf16_d256 (bf16)
     "knn_i8_d128": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I,
                     _P],
-    "knn_bf16_d128": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
-                      _I, _P],
+    "knn_bf16_d128": [_P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _P],
     # a, b, row_p, n_pairs, n_a, n_b, bf16, bm, bn, stages, stream
     "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # bf16, bm, bn, stages
@@ -276,21 +276,21 @@ _TC_TYPES = {"t": "bf16", "a": "int8", "NS_6Bf16x3E": "f32",
              "NS_4D256INS_6Bf16x3EEE": "f32_d256"}
 
 
-# knn_wg_kernel<T, MODE> (csrc/knn_wg.cuh): bf16 ("t") and int8 ("a") at
-# 128 values a row, bf16 ("NS_4D256ItEE"), int8 ("NS_4D256IaEE") and f32
-# ("NS_4D256INS_6Bf16x3EEE") at 256 on wgmma; T absent from builds whose
-# body took bf16 at 256 only
-_WG_KNN_KERNEL = re.compile(r"knn_wg_kernelI(t|a|NS_4D256I(?:t|a|"
-                            r"NS_6Bf16x3E)EE)?Li(\d+)EE")
+# knn_wg_kernel<T, MODE> (csrc/knn_wg.cuh): bf16 ("t"), int8 ("a") and f32
+# ("NS_6Bf16x3E") at 128 values a row, bf16 ("NS_4D256ItEE"), int8
+# ("NS_4D256IaEE") and f32 ("NS_4D256INS_6Bf16x3EEE") at 256 on wgmma; T
+# absent from builds whose body took bf16 at 256 only
+_WG_KNN_KERNEL = re.compile(r"knn_wg_kernelI(t|a|NS_6Bf16x3E|NS_4D256I(?:t|"
+                            r"a|NS_6Bf16x3E)EE)?Li(\d+)EE")
 
 
 def tc_kernel_usage(usage=None):
     """ptxas_usage() of the tensor-core bodies' instantiations, keyed
     "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2"; at 256 values a
     row the type is suffixed, e.g. "int8_d256 0 128 128 2"); the wgmma
-    body as "type mode wg": "bf16 mode wg" and "int8 mode wg" at 128,
-    "bf16_d256 mode wg", "int8_d256 mode wg" and "f32_d256 mode wg" at
-    256."""
+    body as "type mode wg": "bf16 mode wg", "int8 mode wg" and "f32 mode
+    wg" at 128, "bf16_d256 mode wg", "int8_d256 mode wg" and "f32_d256
+    mode wg" at 256."""
     out = {}
     for name, u in (ptxas_usage() if usage is None else usage).items():
         m = _TC_KERNEL.search(name)

@@ -21,11 +21,12 @@
 // itself now runs the wgmma body), the old bodies' anatomy kept as its
 // yardstick. The full stages equal K1's result bit for bit.
 // knn_bf16_d256, knn_i8_d256 and knn_f32_d256 run bf16, int8 and f32
-// rows of 256 values, knn_bf16_d128 and knn_i8_d128 bf16 and int8 rows of
-// 128, on the mma.sync body (what K1 and K3 launched there before
-// knn_wg.cuh's wgmma body, kept as its yardstick) or on the wgmma body, in
-// K1's and K3's modes (int8 and at 128: K1's) and the product-only stage
-// (the product / key-epilogue split).
+// rows of 256 values, knn_bf16_d128, knn_i8_d128 and knn_f32_d128 bf16,
+// int8 and f32 rows of 128, on the mma.sync body (what K1 and K3 launched
+// there before knn_wg.cuh's wgmma body, kept as its yardstick) or on the
+// wgmma body, in K1's and K3's modes (int8: K1's; f32 at 128: K3's, K1
+// f32 at 128 being on the mma.sync body itself) and the product-only
+// stage (the product / key-epilogue split).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
@@ -247,9 +248,10 @@ extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
 // bits (1) or integer-valued f32 (2, split first into split_a (n_pairs,
 // n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch, unused
 // otherwise), 16-byte aligned; n_a and n_b multiples of 64, of any size
-// (K1's and K3's shapes). The body f32 and K3 run at 128 and P4's stage
-// 0; the wgmma body's product-only stage at 128 is knn_i8_d128's and
-// knn_bf16_d128's. Returns the cudaError_t of the launch.
+// (K1's and K3's shapes). The body K1 f32 runs at 128 and P4's stage 0;
+// the wgmma body's product-only stage at 128 is knn_i8_d128's,
+// knn_bf16_d128's and knn_f32_d128's. Returns the cudaError_t of the
+// launch.
 extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
                               void* split_b, void* row_p, int n_pairs,
                               int n_a, int n_b, int dtype, void* stream) {
@@ -267,7 +269,7 @@ extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
   int e = launch_split(a, split_a, (long long)n_pairs * n_a, s);
   if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s);
   if (e != 0) return e;
-  return launch_tc<Bf16x3, kProductRowSum>(
+  return tc::launch_mma<Bf16x3, kProductRowSum>(
       split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
       nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
 }
@@ -421,10 +423,10 @@ namespace {
   a, b, na2, nb2, uv_a, pred_b, radius2, row_p, col_p, row_k, col_k,      \
       n_pairs, n_a, n_b
 
-// the mma.sync body at T (uint16_t, int8_t at 128 values a row; D256<T>
-// at 256), as launch_tc sent those rows to it before the wgmma body
-// (tc::launch_mma), in mode (kPacked, gated where uv_a != NULL; kWide;
-// kProductRowSum)
+// the mma.sync body at T (uint16_t, int8_t, Bf16x3 at 128 values a row;
+// D256<T> at 256), as launch_tc sent those rows to it before the wgmma
+// body (tc::launch_mma), in mode (kPacked, gated where uv_a != NULL;
+// kWide; kProductRowSum)
 template <typename T>
 int mma_mode(const void* a, const void* b, const void* na2, const void* nb2,
              const void* uv_a, const void* pred_b, float radius2,
@@ -433,9 +435,7 @@ int mma_mode(const void* a, const void* b, const void* na2, const void* nb2,
   if (mode == kPacked && uv_a)
     return tc::launch_mma<T, kPackedGated>(BODY_ARGS, s);
   if (mode == kPacked) return tc::launch_mma<T, kPacked>(BODY_ARGS, s);
-  // K3 only at 256 here (at 128 it is knn_wide's own)
-  if constexpr (std::is_same<T, D256<uint16_t>>::value ||
-                std::is_same<T, D256<Bf16x3>>::value)
+  if constexpr (!std::is_same<typename Elem<T>::type, int8_t>::value)
     if (mode == kWide) return tc::launch_mma<T, kWide>(BODY_ARGS, s);
   return tc::launch_mma<T, kProductRowSum>(BODY_ARGS, s);
 }
@@ -526,21 +526,52 @@ extern "C" int knn_bf16_d256(const void* a, const void* b, const void* na2,
 }
 
 // bf16 rows of 128 values on either body, as knn_bf16_d256: body 0 the
-// mma.sync body (knn_tc_kernel<uint16_t>, K1's yardstick at 128), 1 the
-// wgmma body that K1 bf16 runs; modes kPacked and kProductRowSum (K3 at
-// 128 stays on the mma.sync body: knn_wide). a, b (n_pairs, n_a | n_b,
-// 128) bf16 bits. Returns the cudaError_t of the launch.
+// mma.sync body (knn_tc_kernel<uint16_t>, K1's and K3's yardstick at
+// 128), 1 the wgmma body that K1 and K3 bf16 run. a, b (n_pairs, n_a |
+// n_b, 128) bf16 bits. Returns the cudaError_t of the launch.
 extern "C" int knn_bf16_d128(const void* a, const void* b, const void* na2,
                              const void* nb2, const void* uv_a,
                              const void* pred_b, float radius2, void* row_p,
-                             void* col_p, int n_pairs, int n_a, int n_b,
-                             int mode, int body, void* stream) {
-  if (bad_mode(n_pairs, n_a, n_b, mode, body, false))
+                             void* col_p, void* row_k, void* col_k,
+                             int n_pairs, int n_a, int n_b, int mode,
+                             int body, void* stream) {
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, true))
     return (int)cudaErrorInvalidValue;
   return bf16_bodies<uint16_t>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                               col_p, nullptr, nullptr, n_pairs, n_a, n_b,
-                               mode, body, 128, stream);
+                               col_p, row_k, col_k, n_pairs, n_a, n_b, mode,
+                               body, 128, stream);
 }
+
+namespace {
+
+// f32 rows of dim values (F: Bf16x3 at 128, D256<Bf16x3> at 256) on
+// either body, as knn_f32_d256 below
+template <typename F>
+int f32_bodies(const void* a, const void* b, const void* na2,
+               const void* nb2, const void* uv_a, const void* pred_b,
+               float radius2, void* row_p, void* col_p, void* row_k,
+               void* col_k, void* split_a, void* split_b, int n_pairs,
+               int n_a, int n_b, int mode, int body, int dim, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1 && mode == kPacked)
+    return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                            col_p, split_a, split_b, n_pairs, n_a, n_b, 0,
+                            dim, stream);
+  if (body == 1 && mode == kWide)
+    return knn_wide(a, b, na2, nb2, row_k, col_k, split_a, split_b, n_pairs,
+                    n_a, n_b, 0, dim, stream);
+  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s, dim);
+  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s, dim);
+  if (e != 0) return e;
+  if (body == 1)
+    return launch_tc<F, kProductRowSum>(
+        split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
+        nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
+  return mma_mode<F>(split_a, split_b, na2, nb2, uv_a, pred_b, radius2,
+                     row_p, col_p, row_k, col_k, n_pairs, n_a, n_b, mode, s);
+}
+
+}  // namespace
 
 // f32 rows of 256 values on either body, as knn_bf16_d256 for bf16: body
 // 0 the mma.sync body (knn_tc_kernel<D256<Bf16x3>>, the yardstick), 1 the
@@ -559,24 +590,32 @@ extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
                             void* stream) {
   if (bad_mode(n_pairs, n_a, n_b, mode, body, true))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (body == 1 && mode == kPacked)
-    return knn_packed_float(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                            col_p, split_a, split_b, n_pairs, n_a, n_b, 0,
-                            256, stream);
-  if (body == 1 && mode == kWide)
-    return knn_wide(a, b, na2, nb2, row_k, col_k, split_a, split_b, n_pairs,
-                    n_a, n_b, 0, 256, stream);
-  int e = launch_split(a, split_a, (long long)n_pairs * n_a, s, 256);
-  if (e == 0) e = launch_split(b, split_b, (long long)n_pairs * n_b, s, 256);
-  if (e != 0) return e;
-  if (body == 1)
-    return launch_tc<D256<Bf16x3>, kProductRowSum>(
-        split_a, split_b, nullptr, nullptr, nullptr, nullptr, 0.f, row_p,
-        nullptr, nullptr, nullptr, n_pairs, n_a, n_b, s);
-  return mma_mode<D256<Bf16x3>>(split_a, split_b, na2, nb2, uv_a, pred_b,
-                                radius2, row_p, col_p, row_k, col_k,
-                                n_pairs, n_a, n_b, mode, s);
+  return f32_bodies<D256<Bf16x3>>(a, b, na2, nb2, uv_a, pred_b, radius2,
+                                  row_p, col_p, row_k, col_k, split_a,
+                                  split_b, n_pairs, n_a, n_b, mode, body,
+                                  256, stream);
+}
+
+// f32 rows of 128 values on either body, as knn_f32_d256 in the modes
+// kWide and kProductRowSum (K1 f32 at 128 runs the mma.sync body itself,
+// knn_packed_float; uv_a, pred_b and radius2 unused): body 0 the mma.sync
+// body (knn_tc_kernel<Bf16x3>, K3 f32's yardstick at 128), 1 the wgmma
+// body that K3 f32 runs; both after the split pre-pass into split_a
+// (n_pairs, n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch.
+// a, b (n_pairs, n_a | n_b, 128) f32. Returns the cudaError_t of the first
+// failed launch.
+extern "C" int knn_f32_d128(const void* a, const void* b, const void* na2,
+                            const void* nb2, const void* uv_a,
+                            const void* pred_b, float radius2, void* row_p,
+                            void* col_p, void* row_k, void* col_k,
+                            void* split_a, void* split_b, int n_pairs,
+                            int n_a, int n_b, int mode, int body,
+                            void* stream) {
+  if (mode == kPacked || bad_mode(n_pairs, n_a, n_b, mode, body, true))
+    return (int)cudaErrorInvalidValue;
+  return f32_bodies<Bf16x3>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                            col_p, row_k, col_k, split_a, split_b, n_pairs,
+                            n_a, n_b, mode, body, 128, stream);
 }
 
 // int8 rows of 256 values on either body, as knn_bf16_d256 for bf16: body

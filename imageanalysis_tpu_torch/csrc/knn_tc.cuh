@@ -2,13 +2,13 @@
 // over the operand type T: bf16 bits (uint16_t), int8 (int8_t) or f32
 // split into three bf16 planes (Bf16x3). Included at the end of
 // knn_common.cuh, whose constants, gate and keys it uses. What still runs
-// it at 128 values a row: K1 f32 (knn_packed.cu) plain (kPacked) and gated
-// (kPackedGated), K3 (knn_wide.cu) in both of its modes, bf16 and f32
-// (kWide), and the probes. K1 bf16 and int8 at 128, and every type at 256,
-// run the wgmma body (knn_wg.cuh, launch_tc at the end); the mma.sync
-// instantiations they replaced stay as knn_probe.cu's yardsticks
-// (knn_bf16_d128, knn_i8_d128, knn_*_d256), and P3's and P4's stages run
-// here whole, K1 at their full stage included. The probes' modes
+// it: K1 f32 at 128 values a row (knn_packed.cu) plain (kPacked) and
+// gated (kPackedGated), and the probes. K1 bf16 and int8 and K3 bf16 and
+// f32 at 128, and every type at 256, run the wgmma body (knn_wg.cuh,
+// launch_tc at the end); the mma.sync instantiations they replaced stay as
+// knn_probe.cu's yardsticks (knn_bf16_d128, knn_i8_d128, knn_f32_d128,
+// knn_*_d256), and P3's and P4's stages run here whole, K1 at their full
+// stage included. The probes' modes
 // (knn_probe.cu) cut its epilogue down: kProductRowSum, a wrapping row sum
 // in place of the keys (the product-only stage); kProductRowMin, the row
 // minimum of the dots (P6's kernel, swept over tiles); and K1's packed d2
@@ -88,7 +88,7 @@
 // f32's 1552-byte rows 64 A rows and one 64-row B tile (~196 KB, STAGES =
 // 1: the copy of a tile did not overlap the product of the one before);
 // those instantiations stay only as knn_probe.cu's yardsticks, as do bf16's
-// and int8's at 128 (tc::launch_mma).
+// and int8's at 128 and K3's at 128 (tc::launch_mma).
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
@@ -847,17 +847,21 @@ int launch_row_norms_i8(const void* x, void* out, long long rows,
 // kProductRowSum and kProductRowMin; int8's B norms biased by
 // wg::nb_bias); uv_a, pred_b f32 for kPackedGated; n_a and n_b multiples
 // of 64 (the caller checks the shapes). The wgmma body (knn_wg.cuh) for
-// every type at 256 and for bf16 and int8 at 128 in K1's modes and the
-// product-only stage; else (f32 and K3 at 128) the mma.sync body, blocks
-// of 128 A rows where n_a allows, else 64, the type's B tiles in a ring of
-// two. Returns the cudaError_t of the launch.
+// every type at 256; at 128 for bf16 and int8 in K1's modes, bf16 and f32
+// in K3's (kWide), and all three in the product-only stage; else (K1 f32
+// at 128, plain and gated) the mma.sync body, blocks of 128 A rows where
+// n_a allows, else 64, the type's B tiles in a ring of two. Returns the
+// cudaError_t of the launch.
 template <typename T, int MODE>
 constexpr bool on_wg =
     std::is_same<T, D256<Bf16x3>>::value ||
     std::is_same<T, D256<uint16_t>>::value ||
     std::is_same<T, D256<int8_t>>::value ||
     ((std::is_same<T, uint16_t>::value || std::is_same<T, int8_t>::value) &&
-     (MODE == kPacked || MODE == kPackedGated || MODE == kProductRowSum));
+     (MODE == kPacked || MODE == kPackedGated)) ||
+    ((std::is_same<T, uint16_t>::value || std::is_same<T, Bf16x3>::value) &&
+     MODE == kWide) ||
+    MODE == kProductRowSum;
 
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,

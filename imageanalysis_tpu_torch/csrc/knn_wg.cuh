@@ -3,28 +3,30 @@
 // cores while the tensor cores run another's products. One kernel over
 // the operand type T:
 // - uint16_t and int8_t, bf16 and int8 rows of 128 values (SIFT's: the
-//   int8 store's -128..127, bf16 for the store's uint8 and float32 modes
-//   and the chunked float path), K1 only;
+//   int8 store's -128..127, bf16 for the store's uint8 and float32 modes,
+//   the chunked float path and every store beyond 8192 rows): K1, and K3
+//   in bf16;
+// - Bf16x3, f32 rows of 128 as three bf16 planes (hi, mid, lo;
+//   knn_tc.cuh's head): K3 (K1 f32 at 128 stays on knn_tc.cuh's mma.sync
+//   body);
 // - D256<uint16_t>, bf16 rows of 256 values (ORB's 256 bits as 0/1, or
 //   the int8 store's rows cast to bf16): the bf16 body;
 // - D256<int8_t>, int8 rows of 256 (ORB's bits as the int8 store holds
 //   them, -128/-127, or any -128..127): the bf16 body's layout at half the
 //   bytes, wgmma s8 with exact s32 sums (K1 only);
-// - D256<Bf16x3>, f32 rows of 256 as three bf16 planes (hi, mid, lo;
-//   knn_tc.cuh's head): the f32 body.
+// - D256<Bf16x3>, f32 rows of 256 as three bf16 planes: the f32 body.
 // Included by knn_tc.cuh, whose launch_tc sends these types here: K1 plain
-// (kPacked) and gated (kPackedGated), K3 at 256 (kWide; bf16 and f32), and
-// the product-only stage (kProductRowSum, the probes' split). f32 and K3
-// at 128 stay on knn_tc.cuh's mma.sync body. The mma.sync bodies replaced
-// here (knn_tc_kernel<uint16_t>, <int8_t>, <D256<uint16_t>>,
-// <D256<int8_t>> and <D256<Bf16x3>>) stay reachable from knn_probe.cu
-// (knn_bf16_d128, knn_i8_d128, knn_bf16_d256, knn_i8_d256, knn_f32_d256)
-// as their yardsticks.
+// (kPacked) and gated (kPackedGated), K3 (kWide; bf16 and f32), and the
+// product-only stage (kProductRowSum, the probes' split). The mma.sync
+// bodies replaced here (knn_tc_kernel<uint16_t>, <int8_t>, <Bf16x3> in
+// K3's mode, <D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
+// reachable from knn_probe.cu (knn_bf16_d128, knn_i8_d128, knn_f32_d128,
+// knn_bf16_d256, knn_i8_d256, knn_f32_d256) as their yardsticks.
 //
-// Replaces, for bf16 and int8 rows of 128 values and bf16, int8 and f32
-// rows of 256:
+// Replaces, for bf16 and int8 rows of 128 values (f32 in K3 only) and
+// bf16, int8 and f32 rows of 256:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
-//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3 at 256)
+//   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3)
 //
 // What bounds it on the H100: the product, 2 n_a n_b D operations a pair
 // at 989 TFLOP/s (bf16; 1,979 TOP/s int8; six times over for f32: bf16
@@ -37,9 +39,14 @@
 // lanes a scheduler) bound it before the issue rate does; and the L2 -> SM
 // feed of B, which every block reads whole (bf16 64 x 6144 at BM = 256:
 // 4.8 GB at 256 values, 13.4 GB at 64 x 10240; f32 at BM = 64: 103 GB at
-// 256 x 4096, 161 GB at 64 x 10240, streamed at 5.1-5.4 TB/s). The
+// 256 x 4096, 161 GB at 64 x 10240, streamed at 5.1-5.4 TB/s; at 128
+// values and 64 x 10240 80.5 GB at BM = 64, 40 GB at BM = 128). The
 // mma.sync bodies held one or two blocks an SM whose product and epilogue
-// took turns with nothing to fill the gaps.
+// took turns with nothing to fill the gaps. K3's epilogue (value and index
+// of the row's top-2 and of the column's minimum, ~9 compares and selects
+// a candidate, the 64-bit column keys' exchanges besides) takes the
+// integer pipe's 16 lanes a scheduler: at 128 values it, not the product,
+// bounds K3 bf16.
 //
 // Design (hopper.cuh's head has the layouts):
 // - Consumer warpgroups (two; int8 at 128: three) and a producer
@@ -51,22 +58,24 @@
 //   128-byte swizzle). bf16 and int8: BM = 128 a consumer warpgroup (two
 //   m64 halves each): bf16 256 rows (at 256 values four chunks, 128 KB; at
 //   128 two, 64 KB), int8 at 256 256 rows as two 128-value chunks (64 KB),
-//   int8 at 128 384 rows as one (48 KB). f32: BM = 64, both warpgroups on
-//   all of them (one m64 half); the hi plane in registers (each thread's
-//   m16n8k16 A fragments of its warp's 16 rows, 16 k-steps x 4 registers,
-//   loaded once from the split rows in global memory), the mid and lo
-//   planes in shared memory as bf16's A (64 KB). bf16's and int8's rows
-//   beyond n_a (n_a not a multiple of BM) read as zeros (the TMA map is 3-D
-//   over pairs, rows, values) and are left out of the keys (the epilogue
-//   is compiled for one half and for two); a warpgroup with no row in the
-//   pair skips its epilogue.
+//   int8 at 128 384 rows as one (48 KB). f32 (one m64 half a warpgroup):
+//   at 256 values BM = 64, both warpgroups on all of them; at 128 BM =
+//   128, each warpgroup its own 64. The hi plane in registers (each
+//   thread's m16n8k16 A fragments of its warp's 16 rows, 16 k-steps x 4
+//   registers at 256 values, 8 at 128, loaded once from the split rows in
+//   global memory), the mid and lo planes in shared memory as bf16's A (64
+//   KB). Rows beyond n_a (n_a not a multiple of BM) read as zeros (the TMA
+//   map is 3-D over pairs, rows, values) and are left out of the keys (the
+//   epilogue is compiled for one half and for two); a warpgroup with no
+//   row in the pair skips its epilogue.
 // - B streamed: 64-row tiles, stages of 64-value chunks of 64 rows x 128
 //   bytes (bf16 32 KB at 256 values, 16 KB at 128; int8 16 KB at 256, 8
 //   KB at 128) in a ring with full and empty mbarriers. bf16 and int8: a
 //   ring of two, a stage a tile, every consumer warpgroup on every tile.
-//   f32: a ring of four, a stage a plane, a tile's planes in the order lo,
-//   mid, hi (value 256 p + 64 c of the split rows); warpgroup w takes
-//   tiles w, w + 2, .. (its warps alone empty their stages). Each tile's
+//   f32: a stage a plane, a tile's planes in the order lo, mid, hi (value
+//   dim p + 64 c of the split rows); at 256 values a ring of four,
+//   warpgroup w takes tiles w, w + 2, .. (its warps alone empty their
+//   stages); at 128 a ring of six, both on every tile. Each tile's
 //   f32 norms and gate positions go by bulk copy into a ring of slots,
 //   counted by the full barrier of the tile's first stage (kSlots: a slot
 //   is rewritten only after the epilogues of the tile four back, f32's by
@@ -74,8 +83,10 @@
 //   released as soon as its products are done, before the epilogue that
 //   reads its slot; bf16 and int8 rewrite tile t's slot for tile t + 4,
 //   once every warpgroup has released tile t + 2, after its epilogue of
-//   t). ~206 KB (bf16 at 256), ~106 KB (int8 at 256), ~205 KB (f32),
-//   ~100 KB (bf16 at 128), ~70 KB (int8 at 128) of shared memory.
+//   t; f32 at 128 likewise, tile t + 2's lo plane being stage 3 t + 6).
+//   ~206 KB (bf16 at 256), ~106 KB (int8 at 256), ~205 KB (f32 at 256),
+//   ~100 KB (bf16 at 128; K3 ~108), ~70 KB (int8 at 128), ~174 KB (f32 at
+//   128) of shared memory.
 // - Products: wgmma.m64n64k16 with f32 accumulators (int8: m64n64k32 with
 //   s32 accumulators in the same layout), scale-d off at a sum's first
 //   k-step (no zero fill), 16 k-steps a plane at 256 values (int8: 8), 8
@@ -99,14 +110,18 @@
 //   plane take it from registers (wgmma's register-A form), the others
 //   from shared memory. A plane's products are one commit group; a stage
 //   is released once its group is done (wgmma_wait<1> after the next
-//   plane's issue). The warpgroups need no barrier between them: the
-//   ring's order staggers them, one's key epilogue under the other's
-//   products. The designs it was chosen over (scripts_torch/knn_versions.py,
-//   PERF.md): BM = 128, both warpgroups on every tile (a ring of two
-//   single-plane stages, ping-pong stage by stage) halves the L2 feed but
-//   stalls the tensor cores, ~15% slower; the lo plane in registers in
-//   place of hi (five products of six read A from shared memory, whose 128
-//   bytes a clock an SS m64n64k16 uses whole) slower still.
+//   plane's issue). At 256 values the warpgroups need no barrier between
+//   them: the ring's order staggers them, one's key epilogue under the
+//   other's products. The designs it was chosen over there
+//   (scripts_torch/knn_versions.py, PERF.md): BM = 128, both warpgroups on
+//   every tile (a ring of two single-plane stages, ping-pong stage by
+//   stage) halves the L2 feed but stalls the tensor cores, ~15% slower;
+//   the lo plane in registers in place of hi (five products of six read A
+//   from shared memory, whose 128 bytes a clock an SS m64n64k16 uses
+//   whole) slower still. At 128 values (half the hi registers, half the
+//   k-steps) BM = 128 with a ring of six: the warpgroups in ping-pong as
+//   bf16's, each issuing a tile's three planes in turn, 2-3% faster than
+//   the 256 structure (BM = 64: the L2 feed does not bound it at 128).
 // - Epilogue: the accumulator layout is mma.sync's m16n8 C fragment
 //   repeated along N, so knn_tc.cuh's arithmetic carries over: a thread
 //   holds 2 rows a half (rows g, g + 8 of its warp's 16) and 16 columns
@@ -122,7 +137,11 @@
 //   then the warpgroup's 4 warps' partials meet in shared memory (a named
 //   barrier per warpgroup and tile, partials double-buffered by the
 //   warpgroup's tile parity) and leave by one global atomicMin per column
-//   and warpgroup, under its next tile's products.
+//   and warpgroup, under its next tile's products. K3 keeps f32 values and
+//   int indices, d2 by one FFMA (2 a.b exact), a strict < keeping the
+//   lowest index (a thread meets its candidates in index order), and makes
+//   64-bit keys only for the exchanges; bf16's K3 takes a thread's 16
+//   columns in two passes of 8 (the same exchanges, fewer live keys).
 // - Keys are the plain versions' bit for bit on integer-valued rows (ORB's
 //   bits, the int8 store's -128..127: every product and partial sum an
 //   integer below 2^24; f32's mid and lo planes are then 0). The float
@@ -158,6 +177,15 @@
 // scheduler three warps to issue from); bf16 with three (within the
 // spread); BM = 128 with two blocks an SM (a launch failure, left
 // undiagnosed: the two blocks' setmaxnreg hand-over is the suspect).
+// K3 at 128 (scripts_torch/knn_variants.py, knn_versions.py --k3-d128, in
+// turns; PERF.md): the 256 epilogue as it was (d2 by FADD, FMUL, FSUB and
+// a -0 fix-up, one pass) 5-6% slower for bf16, 3% for f32; the row's and
+// column's moves as predicated FFMAs and IMADs (ptxas turns them back
+// into FSEL and SEL), K1's two partial top-2 chains and one pass over
+// the columns no faster; each (value, index) as one 64-bit key compared as a
+// double (DSETP, but its 64-bit selects become FSEL pairs) 17-22% slower;
+// three consumer warpgroups (152 registers) spill: bf16 no faster, f32 24%
+// slower.
 
 #pragma once
 
@@ -209,6 +237,20 @@ struct Body<D256<Bf16x3>> {       // hi in registers; mid, lo in smem
   static constexpr int kRows = 64, kHalves = 1, kPlanes = 3, kAPlanes = 2;
   static constexpr int kChunks = 4, kRing = 4, kEmpty = 4, kConsumers = 2;
 };
+template <>
+struct Body<Bf16x3> {             // f32 at 128: 64 rows a warpgroup
+  using Acc = float;
+  static constexpr int kRows = 128, kHalves = 1, kPlanes = 3, kAPlanes = 2;
+  static constexpr int kChunks = 2, kRing = 6, kEmpty = 8, kConsumers = 2;
+};
+// f32 with 64 A rows a block: both warpgroups on the block's rows, each
+// on alternate B tiles (at 128 A rows, each its own 64 rows, both on
+// every tile)
+template <typename T>
+constexpr bool kAltTiles = Body<T>::kPlanes == 3 && Body<T>::kRows == 64;
+// K3's key epilogue (kWide): bf16's 16 columns a thread in kWidePasses
+// passes of 16 / kWidePasses (the head: 2-3% faster than one pass)
+constexpr int kWidePasses = 2;
 // int8 at 128 values a row takes d2 in two operations, an IMAD and an
 // FADD, from B norms that the pre-pass writes less kNbBias (the head)
 template <typename T>
@@ -236,8 +278,9 @@ constexpr int kAChunk = kBM<T> * 128;         // bytes of one A chunk
 
 template <typename T, int MODE>
 struct Smem {
-  static_assert(Body<T>::kPlanes == 3 || Body<T>::kRing == 2,
-                "four norm slots hold a ring of two tiles (the head)");
+  static_assert(kAltTiles<T> ? Body<T>::kRing == 4
+                             : Body<T>::kRing <= Body<T>::kPlanes * 3,
+                "four norm slots hold the ring (the head)");
   static constexpr int kC = Body<T>::kChunks;
   unsigned char a[Body<T>::kAPlanes][kC][kAChunk<T>];  // 1024-aligned
   unsigned char b[Body<T>::kRing][kC][kBChunk];
@@ -317,13 +360,12 @@ __device__ __forceinline__ void issue(typename Body<T>::Acc (&acc)[2][32],
 // registers (ah[s]), mid and lo from shared memory: da the descriptor of
 // the warpgroup's rows of mid, a_off the k-step's byte offset in a plane,
 // db B's
-template <int A, int P>
+template <typename T, int A, int P>
 __device__ __forceinline__ void product(float (&d)[32],
                                         const uint32_t (&ah)[16][4],
                                         uint64_t da, int a_off, uint64_t db,
                                         int s) {
-  constexpr int kPlane =             // bytes of a plane in shared memory
-      Body<D256<Bf16x3>>::kChunks * kAChunk<D256<Bf16x3>>;
+  constexpr int kPlane = Body<T>::kChunks * kAChunk<T>;  // bytes in smem
   const int scale = A == 0 && P != 1 ? s != 0 : 1;
   if constexpr (A == 0)
     hopper::wgmma_64_rs(d, ah[s], db, scale);
@@ -337,9 +379,9 @@ __device__ __forceinline__ void product(float (&d)[32],
 // hi.hi into acc and the others into sm; ah the warpgroup's fragments of
 // A's hi plane, sa its rows of A's mid plane in shared memory, sb the B
 // stage. Each k-step's descriptors are the bases' plus a constant, the
-// bases opaque to the compiler: it would otherwise hoist all 48 out of
-// the sweep over B and spill them.
-template <int I>
+// bases opaque to the compiler: it would otherwise hoist all 48 (at 128
+// values: 24) out of the sweep over B and spill them.
+template <typename T, int I>
 __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
                                           float (&sm)[1][32],
                                           const uint32_t (&ah)[16][4],
@@ -347,8 +389,8 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
                                           const unsigned char* sb) {
   using namespace hopper;
   constexpr int P = 2 - I;
-  constexpr int kA = kAChunk<D256<Bf16x3>>;
-  constexpr int kChunks = Body<D256<Bf16x3>>::kChunks;
+  constexpr int kA = kAChunk<T>;
+  constexpr int kChunks = Body<T>::kChunks;
   uint64_t da = desc_sw128(sa), db0 = desc_sw128(sb);
   asm volatile("" : "+l"(da), "+l"(db0));
   fence_acc(acc);
@@ -362,11 +404,11 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
       const uint64_t db = db0 + ((c * kBChunk + kk * 32) >> 4);
       const int off = c * kA + kk * 32;
       if constexpr (P == 0)
-        product<0, P>(acc[0], ah, da, off, db, s);
+        product<T, 0, P>(acc[0], ah, da, off, db, s);
       else
-        product<0, P>(sm[0], ah, da, off, db, s);
-      if constexpr (P <= 1) product<1, P>(sm[0], ah, da, off, db, s);
-      if constexpr (P == 0) product<2, P>(sm[0], ah, da, off, db, s);
+        product<T, 0, P>(sm[0], ah, da, off, db, s);
+      if constexpr (P <= 1) product<T, 1, P>(sm[0], ah, da, off, db, s);
+      if constexpr (P == 0) product<T, 2, P>(sm[0], ah, da, off, db, s);
     }
   wgmma_commit();
 }
@@ -393,18 +435,20 @@ __device__ __forceinline__ void keep_half(K (&k)[16], bool up, int off) {
 }
 
 // The column minima over a warp's 32 rows by a transposed reduction: k
-// holds this thread's candidates for its 16 columns (j: column (j / 2) 8
-// + 2q + j % 2); three exchanges with the lanes of its q (xor 4, 8, 16)
-// each halve the columns a thread keeps, so that it ends with the minima
-// of columns j0 and j0 + 1 in k[0], k[1], j0 = 8 b0 + 4 b1 + 2 b2 for the
-// bits b of g; returns j0. 14 shuffles a thread where a butterfly over
-// every column takes 48.
-template <typename K>
+// holds this thread's candidates for N of its columns (N 16: j is column
+// (j / 2) 8 + 2q + j % 2; N 8 likewise, half of them); three exchanges
+// with the lanes of its q (xor 4, 8, 16) each halve the columns a thread
+// keeps, so that it ends with the minima of columns j0 .. j0 + N / 8 - 1
+// in k[0 ..], j0 = N / 2 b0 + N / 4 b1 + N / 8 b2 for the bits b of g;
+// returns j0. 14 shuffles a thread (N 16) where a butterfly over every
+// column takes 48.
+template <int N, typename K>
 __device__ __forceinline__ int column_minima(K (&k)[16], int g) {
-  keep_half<8>(k, g & 1, 4);
-  keep_half<4>(k, (g >> 1) & 1, 8);
-  keep_half<2>(k, (g >> 2) & 1, 16);
-  return (g & 1) * 8 + ((g >> 1) & 1) * 4 + ((g >> 2) & 1) * 2;
+  keep_half<N / 2>(k, g & 1, 4);
+  keep_half<N / 4>(k, (g >> 1) & 1, 8);
+  keep_half<N / 8>(k, (g >> 2) & 1, 16);
+  return (g & 1) * (N / 2) + ((g >> 1) & 1) * (N / 4) +
+         ((g >> 2) & 1) * (N / 8);
 }
 
 // One block: BM A rows (blockIdx.x) of one pair (blockIdx.y) against all
@@ -412,8 +456,8 @@ __device__ __forceinline__ int column_minima(K (&k)[16], int g) {
 // pre-filled with 0x7FFFFFFF), K3's row_k / col_k (pre-filled with
 // INT64_MAX), or kProductRowSum's wrapping row sums in both slots of
 // row_p. ta, tb: encode_pairs maps of a and b with boxes of BM and BN
-// rows; a32: f32's split A rows (n_pairs, n_a, 3, 256) bf16 as pairs of
-// values, for its hi fragments (unused by bf16).
+// rows; a32: f32's split A rows (n_pairs, n_a, 3, 128 or 256) bf16 as
+// pairs of values, for its hi fragments (unused by bf16 and int8).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads<T>, 1)
 knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
@@ -434,6 +478,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   constexpr int kHalves = Body<T>::kHalves;
   constexpr int kBMT = kBM<T>;
   constexpr int kAC = kAChunk<T>;
+  constexpr int kDim = 64 * kChunks;     // bf16 values of a plane's row
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
   constexpr bool kNorms = normed(MODE);
@@ -475,7 +520,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       for (int c = 0; c < kChunks; ++c)
         for (int r = 0; r < kBMT; r += kABox<T>)
           tma_load_3d(s.a[p][c] + r * 128, &ta, &s.a_full,
-                      (kF32 ? 256 * (p + 1) : 0) + c * 64, a0 + r, pair);
+                      (kF32 ? kDim * (p + 1) : 0) + c * 64, a0 + r, pair);
     if (kGated)
       bulk_load(s.ua, uv_a + ((size_t)pair * n_a + a0) * 2, rows_a * 8,
                 &s.a_full);
@@ -490,7 +535,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
                          (first ? (kNorms ? kBN * 4 : 0) +
                                       (kGated ? kBN * 8 : 0)
                                 : 0));
-      const int v0 = kF32 ? 256 * (2 - i) : 0;
+      const int v0 = kF32 ? kDim * (2 - i) : 0;
       for (int c = 0; c < kChunks; ++c)
         tma_load_3d(s.b[st][c], &tb, &s.full[st], v0 + c * 64, t * kBN,
                     pair);
@@ -509,14 +554,16 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   }
 
   regs_inc<kConsumerRegs<T>>();
-  // bf16 and int8: rows 128 wg .. of the block; f32: tiles wg, wg + 2, ..
+  // bf16 and int8: rows 128 wg .. of the block; f32 at 128 A rows: rows
+  // 64 wg ..; f32 at 64: tiles wg, wg + 2, ..
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int g = lane >> 2;          // fragment row (and row + 8)
   const int q = lane & 3;           // fragment column pair
-  // the warpgroup's first row in the block: f32's two on the same rows
-  constexpr int kWgRows = kF32 ? 0 : 64 * kHalves;
+  // the warpgroup's first row in the block: both on the same rows where
+  // they take alternate tiles
+  constexpr int kWgRows = kAltTiles<T> ? 0 : 64 * kHalves;
   const int r0 = a0 + wg * kWgRows + warp * 16 + g;   // (half 0, g)
   // halves of the warpgroup with rows in the pair (warpgroup-uniform;
   // f32 has one)
@@ -550,16 +597,21 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
             kSum ? 0 : MODE == kWide ? -1 : kKeyMax;
       v1[h][hh] = v2[h][hh] = __int_as_float(0x7F800000);
     }
-  // f32: the A fragments of the hi plane of rows r0, r0 + 8 (in the pair:
-  // n_a is a multiple of BM = 64), k-step s at values 16 s + 2q, + 8
+  // f32: the A fragments of the hi plane of rows r0, r0 + 8 (where the
+  // warpgroup has rows: n_a is a multiple of 64), k-step s at values 16 s
+  // + 2q, + 8; a split row is 3 kDim bf16 values, kW words (the bounds
+  // stay literal: 16 k-steps at 256 values, 8 at 128)
   uint32_t ah[16][4];
   if constexpr (kF32) {
-    const uint32_t* p = a32 + ((size_t)pair * n_a + r0) * 384;
+    constexpr int kW = 3 * kDim / 2;
+    const uint32_t* p = a32 + ((size_t)pair * n_a + r0) * kW;
 #pragma unroll
-    for (int st = 0; st < 16; ++st)
+    for (int st = 0; st < 4 * kChunks; ++st)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        ah[st][r] = __ldg(p + (r & 1) * 8 * 384 + 8 * st + q + (r >> 1) * 4);
+        ah[st][r] = valid[0] ? __ldg(p + (r & 1) * 8 * kW + 8 * st + q +
+                                     (r >> 1) * 4)
+                             : 0u;
   }
   wait(&s.a_full, 0);
 #pragma unroll
@@ -579,110 +631,126 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   // tile t's key epilogue on acc (its products complete) over the
   // warpgroup's first H halves (those with rows in the pair): H a
   // compile-time constant, so that the unrolled columns are one block of
-  // straight-line code the compiler can interleave
+  // straight-line code the compiler can interleave. bf16's K3 takes the
+  // thread's 16 columns in passes (kWidePasses), each pass's column
+  // minima reduced before the next: the same exchanges, half the keys
+  // live.
   auto epilogue = [&](auto& acc, int t, auto halves,
                       const float (&nbr)[16]) {
     constexpr int H = decltype(halves)::value;
+    constexpr int kPasses =
+        MODE == kWide && kHalves == 2 ? kWidePasses : 1;
+    constexpr int kCols = 16 / kPasses;   // columns a pass
     const int b0 = t * kBN;
     const float* spb = s.pb[t & 3];
-    // the thread's candidate for each of its 16 columns: K1's key, K3's
-    // value and row
-    int ck[16], ci[16];
-    float cv[16];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      // d[i]: n8 tile i / 4, row g + 8 ((i / 2) % 2), column i % 2
-      const int nt = j >> 1, e = j & 1;
-      const int c = nt * 8 + 2 * q + e;
-      const float nbv = nbr[j];
-      const float px = kGated ? spb[2 * c] : 0.f;
-      const float py = kGated ? spb[2 * c + 1] : 0.f;
-      ck[j] = kKeyMax;
-      cv[j] = __int_as_float(0x7F800000);
-      ci[j] = -1;
+    for (int pass = 0; pass < kPasses; ++pass) {
+      // the thread's candidate for each of the pass's columns: K1's key,
+      // K3's value and row
+      int ck[16], ci[16];
+      float cv[16];
 #pragma unroll
-      for (int h = 0; h < H; ++h)
+      for (int jj = 0; jj < kCols; ++jj) {
+        // d[i]: n8 tile i / 4, row g + 8 ((i / 2) % 2), column i % 2
+        const int j = pass * kCols + jj;
+        const int nt = j >> 1, e = j & 1;
+        const int c = nt * 8 + 2 * q + e;
+        const float nbv = nbr[j];
+        const float px = kGated ? spb[2 * c] : 0.f;
+        const float py = kGated ? spb[2 * c + 1] : 0.f;
+        ck[jj] = kKeyMax;
+        cv[jj] = __int_as_float(0x7F800000);
+        ci[jj] = -1;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = r0 + h * 64 + hh * 8;
-          const Acc dot = acc[h][nt * 4 + hh * 2 + e];
-          if constexpr (kSum) {
-            r1[h][hh][0] = tc::wrap_add(r1[h][hh][0], tc::dot_int(dot));
-          } else if constexpr (MODE == kWide) {
-            // (|a|^2 + |b|^2) - 2 a.b, as the reference and the plain
-            // version; -0 → +0: equal values tie on index
-            const float d2 = __fadd_rn(
-                __fsub_rn(__fadd_rn(na[h][hh], nbv), __fmul_rn(2.f, dot)),
-                0.f);
-            // a thread meets its columns, and its rows, in increasing
-            // index order, so a strict < on the value keeps the lowest
-            // index among equal values: the 64-bit keys' order
-            const bool p1 = d2 < v1[h][hh], p2 = d2 < v2[h][hh];
-            v2[h][hh] = p1 ? v1[h][hh] : p2 ? d2 : v2[h][hh];
-            r2[h][hh][0] = p1 ? r1[h][hh][0] : p2 ? b0 + c : r2[h][hh][0];
-            v1[h][hh] = p1 ? d2 : v1[h][hh];
-            r1[h][hh][0] = p1 ? b0 + c : r1[h][hh][0];
-            const bool pc = d2 < cv[j];
-            cv[j] = pc ? d2 : cv[j];
-            ci[j] = pc ? row : ci[j];
-          } else {
-            int bits;               // masked below
-            if constexpr (kInt8 && kD2Mad<T>) {
-              // 128 values: each value's a^2 - 2ab lies in [-2^14, 48896],
-              // so 2^21 + na - 2 dot lies in [0, 8355840], below 2^23: as
-              // the mantissa of 2^23 (nak) it is the f32 2^23 + 2^21 + na
-              // - 2 dot, exactly; adding nb - 2^23 - 2^21 (nbv, the
-              // pre-pass's biased norm) rounds the exact d2 < 2^23, an f32
-              bits = __float_as_int(__fadd_rn(
-                  __int_as_float(mad_s32(dot, -2, nak[h][hh])), nbv));
-            } else if constexpr (kInt8) {
-              // the f32 with the bits of 1.5 x 2^23 + dot, less 1.5 x
-              // 2^23, is float(dot) exactly (|dot| <= 2^22); na - 2 dot
-              // and d2 are integers below 2^24 (knn_tc.cuh's int8 d2)
-              const float dotf = __fsub_rn(
-                  __int_as_float(0x4B400000 + dot), 12582912.f);
-              bits = __float_as_int(
-                  __fadd_rn(__fmaf_rn(-2.f, dotf, na[h][hh]), nbv));
-            } else {
-              // 2 dot is exact, so one rounding of (na + nb) - 2 dot is
-              // the plain version's
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = r0 + h * 64 + hh * 8;
+            const Acc dot = acc[h][nt * 4 + hh * 2 + e];
+            if constexpr (kSum) {
+              r1[h][hh][0] = tc::wrap_add(r1[h][hh][0], tc::dot_int(dot));
+            } else if constexpr (MODE == kWide) {
+              // (|a|^2 + |b|^2) - 2 a.b rounded once, as the reference
+              // and the plain version (2 a.b is exact: one FFMA)
               const float d2 =
                   __fmaf_rn(-2.f, dot, __fadd_rn(na[h][hh], nbv));
-              bits = __float_as_int(fmaxf(d2, 0.f));
+              // a thread meets its columns, and its rows, in increasing
+              // index order, so a strict < on the value keeps the lowest
+              // index among equal values: the 64-bit keys' order
+              float& u1 = v1[h][hh];
+              float& u2 = v2[h][hh];
+              int& i1 = r1[h][hh][0];
+              int& i2 = r2[h][hh][0];
+              const bool p1 = d2 < u1, p2 = d2 < u2;
+              u2 = p1 ? u1 : p2 ? d2 : u2;
+              i2 = p1 ? i1 : p2 ? b0 + c : i2;
+              u1 = p1 ? d2 : u1;
+              i1 = p1 ? b0 + c : i1;
+              const bool pc = d2 < cv[jj];
+              cv[jj] = pc ? d2 : cv[jj];
+              ci[jj] = pc ? row : ci[jj];
+            } else {
+              int bits;               // masked below
+              if constexpr (kInt8 && kD2Mad<T>) {
+                // 128 values: each value's a^2 - 2ab lies in [-2^14,
+                // 48896], so 2^21 + na - 2 dot lies in [0, 8355840], below
+                // 2^23: as the mantissa of 2^23 (nak) it is the f32 2^23 +
+                // 2^21 + na - 2 dot, exactly; adding nb - 2^23 - 2^21
+                // (nbv, the pre-pass's biased norm) rounds the exact d2 <
+                // 2^23, an f32
+                bits = __float_as_int(__fadd_rn(
+                    __int_as_float(mad_s32(dot, -2, nak[h][hh])), nbv));
+              } else if constexpr (kInt8) {
+                // the f32 with the bits of 1.5 x 2^23 + dot, less 1.5 x
+                // 2^23, is float(dot) exactly (|dot| <= 2^22); na - 2 dot
+                // and d2 are integers below 2^24 (knn_tc.cuh's int8 d2)
+                const float dotf = __fsub_rn(
+                    __int_as_float(0x4B400000 + dot), 12582912.f);
+                bits = __float_as_int(
+                    __fadd_rn(__fmaf_rn(-2.f, dotf, na[h][hh]), nbv));
+              } else {
+                // 2 dot is exact, so one rounding of (na + nb) - 2 dot is
+                // the plain version's
+                const float d2 =
+                    __fmaf_rn(-2.f, dot, __fadd_rn(na[h][hh], nbv));
+                bits = __float_as_int(fmaxf(d2, 0.f));
+              }
+              if (kGated &&
+                  gated_out(ux[h][hh], uy[h][hh], px, py, radius2))
+                bits = kGatedBits;
+              // the row's and the column's key from one mask, by IMADs on
+              // the FMA pipe (LOP3s would take the integer pipe's slots)
+              const int m = bits & ~kIdxMask;
+              const int rk = mad_s32(m, one, b0 + c);
+              const int ek = mad_s32(m, one, row);
+              // insert2 on unique keys, as min/max
+              const int ch = nt % kChains;
+              r2[h][hh][ch] = min(r2[h][hh][ch], max(r1[h][hh][ch], rk));
+              r1[h][hh][ch] = min(r1[h][hh][ch], rk);
+              ck[jj] = min(ck[jj], ek);
             }
-            if (kGated && gated_out(ux[h][hh], uy[h][hh], px, py, radius2))
-              bits = kGatedBits;
-            // the row's and the column's key from one mask, by IMADs on
-            // the FMA pipe (LOP3s would take the integer pipe's slots)
-            const int m = bits & ~kIdxMask;
-            const int rk = mad_s32(m, one, b0 + c);
-            const int ek = mad_s32(m, one, row);
-            // insert2 on unique keys, as min/max
-            const int ch = nt % kChains;
-            r2[h][hh][ch] = min(r2[h][hh][ch], max(r1[h][hh][ch], rk));
-            r1[h][hh][ch] = min(r1[h][hh][ch], rk);
-            ck[j] = min(ck[j], ek);
           }
-        }
-    }
-    if constexpr (!kSum) {
-      // each column over the warp's rows (the lanes of one q): every lane
-      // ends with two adjacent columns' minima
-      K k[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if constexpr (MODE == kWide)
-          k[j] = wide_key(cv[j], ci[j]);
-        else
-          k[j] = ck[j];
       }
-      const int j0 = column_minima(k, g);
-      K* part = &s.colpart[wg][(kF32 ? t >> 1 : t) & 1][warp]
-                           [(j0 >> 1) * 8 + 2 * q];
-      part[0] = k[0];
-      part[1] = k[1];
-      bar_sync(kC + 1 + wg, 128);   // the partials are in: flush(t)
+      if constexpr (!kSum) {
+        // each column over the warp's rows (the lanes of one q): every
+        // lane ends with the minima of kCols / 8 adjacent columns
+        K k[16];
+#pragma unroll
+        for (int jj = 0; jj < kCols; ++jj) {
+          if constexpr (MODE == kWide)
+            k[jj] = wide_key(cv[jj], ci[jj]);
+          else
+            k[jj] = ck[jj];
+        }
+        const int j0 = pass * kCols + column_minima<kCols>(k, g);
+        K* part = &s.colpart[wg][(kAltTiles<T> ? t >> 1 : t) & 1][warp]
+                             [(j0 >> 1) * 8 + 2 * q + (j0 & 1)];
+#pragma unroll
+        for (int i = 0; i < kCols / 8; ++i) part[i] = k[i];
+      }
     }
+    if constexpr (!kSum)
+      bar_sync(kC + 1 + wg, 128);   // the partials are in: flush(t)
   };
 
   // tile t's column minima: the warpgroup's 4 warps' partials, then one
@@ -690,7 +758,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   auto flush = [&](int t) {
     const int c = tid & 127;
     if (kSum || !valid[0] || c >= kBN) return;
-    const K* p = &s.colpart[wg][(kF32 ? t >> 1 : t) & 1][0][c];
+    const K* p = &s.colpart[wg][(kAltTiles<T> ? t >> 1 : t) & 1][0][c];
     const K m = tc::kmin(tc::kmin(p[0], p[kBN]),
                          tc::kmin(p[2 * kBN], p[3 * kBN]));
     const size_t j = (size_t)pair * n_b + t * kBN + c;
@@ -749,27 +817,27 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
         epilogue(acc, t, std::integral_constant<int, 1>(), nbr);
     }
   } else {
-    // each warpgroup its own tiles, each tile's planes through the ring;
-    // the stages' order staggers the two, so that one's key epilogue runs
-    // under the other's products
+    // each tile's planes through the ring: stage u = 3t + I, tile t's B
+    // plane lo (I 0), mid (1), hi (2)
     float acc[1][32], sm[1][32];
-    for (int t = wg; t < n_tiles; t += 2) {
-      float nbr[16];
-      // stage u = 3t + I: tile t's B plane lo (I 0), mid (1), hi (2)
-      auto plane = [&](auto pos) {
-        constexpr int I = decltype(pos)::value;
-        const int u = 3 * t + I;
-        wait(&s.full[u % kRing], (u / kRing) & 1);
-        issue_f32<I>(acc, sm, ah, sa, s.b[u % kRing][0]);
-        if (I == 0 && t > 1) flush(t - 2);   // under this tile's products
-        if (I > 0) {                // the stage before is read
-          wgmma_wait<1>();
-          release(u - 1);
-        }
-      };
-      plane(std::integral_constant<int, 0>());
-      plane(std::integral_constant<int, 1>());
-      plane(std::integral_constant<int, 2>());
+    constexpr int kStep = kAltTiles<T> ? 2 : 1;   // a warpgroup's tiles
+    auto plane = [&](int t, auto pos) {
+      constexpr int I = decltype(pos)::value;
+      const int u = 3 * t + I;
+      wait(&s.full[u % kRing], (u / kRing) & 1);
+      issue_f32<T, I>(acc, sm, ah, sa, s.b[u % kRing][0]);
+      if (I == 0 && t >= kStep) flush(t - kStep);   // under its products
+      if (I > 0) {                  // the stage before is read
+        wgmma_wait<1>();
+        release(u - 1);
+      }
+    };
+    auto planes = [&](int t) {
+      plane(t, std::integral_constant<int, 0>());
+      plane(t, std::integral_constant<int, 1>());
+      plane(t, std::integral_constant<int, 2>());
+    };
+    auto finish = [&](int t) {
       wgmma_wait<0>();
       fence_acc(acc);
       fence_acc(sm);
@@ -777,11 +845,35 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         acc[0][i] = __fadd_rn(acc[0][i], sm[0][i]);
+      float nbr[16];
       norms(nbr, t);
-      epilogue(acc, t, std::integral_constant<int, 1>(), nbr);
+      if (valid[0]) epilogue(acc, t, std::integral_constant<int, 1>(), nbr);
+    };
+    if constexpr (kAltTiles<T>) {
+      // each warpgroup its own tiles; the stages' order staggers the two,
+      // so that one's key epilogue runs under the other's products
+      for (int t = wg; t < n_tiles; t += 2) {
+        planes(t);
+        finish(t);
+      }
+    } else {
+      // both on every tile, each on its own rows, in ping-pong as bf16's
+      // (the barriers around a tile's three planes)
+      for (int t = 0; t < n_tiles; ++t) {
+        if (wg > 0)
+          bar_sync(1 + wg, 256);
+        else if (t > 0)
+          bar_sync(1, 256);
+        planes(t);
+        if (wg + 1 < kC)
+          bar_arrive(2 + wg, 256);
+        else if (t + 1 < n_tiles)
+          bar_arrive(1, 256);
+        finish(t);
+      }
     }
   }
-  if constexpr (kF32) {             // the warpgroup's last tile's columns
+  if constexpr (kAltTiles<T>) {     // the warpgroup's last tile's columns
     const int last = n_tiles - 1 - ((n_tiles - 1 - wg) & 1);
     if (last >= 0) flush(last);
   } else {
@@ -818,7 +910,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
           tc::merge2(o1, o2, k1, k2);
         }
       }
-      if constexpr (kF32) {         // warpgroup 1 hands its keys over
+      if constexpr (kAltTiles<T>) {  // warpgroup 1 hands its keys over
         const int rr = warp * 16 + hh * 8 + g;
         if (wg == 1 && q == 0) {
           s.rowpart[rr][0] = k1;
@@ -845,9 +937,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// The body over T in MODE on a (n_pairs, n_a, 256) and b (n_pairs, n_b,
-// 256) rows of T (bf16 bits; int8 with K1's norm pre-pass's f32 norms;
-// f32: the split pre-pass's (n_pairs, n, 3, 256) bf16 planes), 16-byte
+// The body over T in MODE on a (n_pairs, n_a, dim) and b (n_pairs, n_b,
+// dim) rows of T, dim 128 or 256 (bf16 bits; int8 with K1's norm
+// pre-pass's f32 norms; f32: the split pre-pass's (n_pairs, n, 3, dim)
+// bf16 planes), 16-byte
 // aligned, n_a and n_b multiples of 64; other arguments as
 // knn_tc_kernel's. Returns the cudaError_t of the launch (that of the TMA
 // maps' encoding where it fails).

@@ -23,35 +23,43 @@
 // 128 are 8.6e11 multiply-adds over 168 MB (bf16) or 336 MB (f32) of
 // descriptors, at the tensor cores' bf16 rate (1.7 ms); f32 takes six bf16
 // products (10.4 ms), where the CUDA cores' f32 FMA would take 25.6 ms.
-// Then the 64-bit key epilogue, twice K1's key registers and shuffles.
+// Then the 64-bit key epilogue: d2, the row's top-2 as values and
+// indices, the column's minimum, ~15 instructions a candidate against
+// K1's 9, over 6.7e9 candidates at that shape.
 //
 // Design: the TPU kernel carries its running state across a sequential
-// grid; here blocks run in any order. Both modes run knn_tc.cuh's
-// tensor-core body (kWide): mma.sync m16n8k16 with a two-stage cp.async
-// ring of B tiles. A block owns a tile of A rows for the whole sweep over
-// B and keeps their row top-2 as f32 values and int indices in
+// grid; here blocks run in any order. Both modes at both widths run
+// knn_wg.cuh's body (launch_tc, kWide): wgmma fed by TMA, a producer warp
+// and two consumer warpgroups. A block owns a tile of A rows for the whole
+// sweep over B and keeps their row top-2 as f32 values and int indices in
 // registers, made into 64-bit keys for the merges across the threads of
 // a row; the column minimum leaves the block by a 64-bit atomicMin on the
 // key, which is order-independent. There is no 8192 limit.
-// - bf16 (every store beyond 8192 rows): the operands as they are, 128-row
-//   B tiles; its FFMA predecessor spent 93% of its time in the product.
-//   At 256 values a row (ORB's) bf16 runs knn_wg.cuh's body instead:
-//   wgmma fed by TMA, two consumer warpgroups in ping-pong (the mma.sync
-//   body there is knn_probe.cu's yardstick), and so does f32 (below).
+// - bf16 (every store beyond 8192 rows): the operands as they are, 256 A
+//   rows a block, the warpgroups in ping-pong on 64-row B tiles. At 128
+//   values the key epilogue is the kernel: its compares and selects fill
+//   the integer pipe (knn_wg.cuh's head). Its FFMA predecessor spent 93%
+//   of its time in the product.
 // - f32: the TPU kernel's f32 dot runs at Precision.HIGHEST, a multi-pass
 //   bf16 product; here a pre-pass (knn_packed.cu's split_bf16x3_kernel)
 //   writes each operand as three bf16 planes into the caller's scratch and
 //   the body takes six plane products a k-step, hi.hi in one f32
 //   accumulator and the five smaller ones in a second (why: the head of
-//   knn_tc.cuh), on 64-row B tiles (~199 KB of shared memory, one block an
-//   SM). Integer-valued descriptors give exact dots, so keys equal the
-//   plain version's bit for bit; other f32 within 2^-20 of the norms. Its
-//   FFMA predecessor (knn_probe.cu's knn_ffma_f32, kept as the yardstick)
-//   ran at 39% of the CUDA cores' 67 TFLOP/s. At 256 values a row f32
-//   runs knn_wg.cuh's body: A's hi plane in registers, its mid and lo in
-//   shared memory, B's planes streamed one by one by TMA; other f32 there
-//   within 2^-19 of the norms (the plain version's own f32 product lies
-//   further from the f64 truth than either tensor-core body's).
+//   knn_tc.cuh), A's hi plane in registers, its mid and lo in shared
+//   memory, B's planes streamed one by one by TMA. At 128 values a block
+//   holds 128 A rows, each warpgroup its own 64, both on every B tile in
+//   ping-pong: 2-3% faster than the 256 body's 64 rows on alternate tiles
+//   (their L2 feed, 80 GB of B planes at 64 x 10240 against 40, does not
+//   bound it at 128).
+//   Integer-valued descriptors give exact dots, so keys equal the plain
+//   version's bit for bit; other f32 within 2^-20 of the norms (at 256
+//   values 2^-19: the plain version's own f32 product lies further from
+//   the f64 truth than the tensor-core bodies'). Its FFMA predecessor
+//   (knn_probe.cu's knn_ffma_f32, kept as the yardstick) ran at 39% of
+//   the CUDA cores' 67 TFLOP/s.
+// The mma.sync bodies that ran K3 before (knn_tc.cuh's, m16n8k16 with a
+// cp.async ring) stay as knn_probe.cu's yardsticks: knn_bf16_d128 and
+// knn_f32_d128 at 128, knn_bf16_d256 and knn_f32_d256 at 256.
 
 #include "knn_common.cuh"
 

@@ -158,7 +158,7 @@ LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
             "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0,
             "knn_f32_d256": 0, "knn_i8_d256": 0, "knn_bf16_d128": 0,
-            "knn_i8_d128": 0}
+            "knn_i8_d128": 0, "knn_f32_d128": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
 # which tc_stage_raw runs every stage
 TC_BN, TC_BM = 128, 128
@@ -644,9 +644,10 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
 
 # rows of 128 or 256 values on either tensor-core body: the modes of
 # knn_bf16_d256, knn_i8_d256 (no "wide": K3 takes no int8), knn_f32_d256,
-# knn_bf16_d128 and knn_i8_d128 (K3 at 128 stays on the mma.sync body: no
-# "wide" at 128) (csrc/knn_probe.cu) and the bodies ("mma": mma.sync, the
-# body K1 and K3 ran there before; "wg": the wgmma body they run now)
+# knn_bf16_d128, knn_i8_d128 and knn_f32_d128 (no "packed": K1 f32 at 128
+# runs the mma.sync body itself) (csrc/knn_probe.cu) and the bodies
+# ("mma": mma.sync, the body K1 and K3 ran there before; "wg": the wgmma
+# body they run now)
 D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
 BODIES = {"mma": 0, "wg": 1}
 # the C entry point of each (type, width)
@@ -654,7 +655,8 @@ _ENTRIES = {(torch.bfloat16, 256): "knn_bf16_d256",
             (torch.float32, 256): "knn_f32_d256",
             (torch.int8, 256): "knn_i8_d256",
             (torch.bfloat16, 128): "knn_bf16_d128",
-            (torch.int8, 128): "knn_i8_d128"}
+            (torch.int8, 128): "knn_i8_d128",
+            (torch.float32, 128): "knn_f32_d128"}
 
 
 def _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype,
@@ -666,9 +668,11 @@ def _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype,
     if a.dtype != dtype or a.dim() != 3 or a.shape[2] != dim:
         raise ValueError(f"{name}: takes (B, n, {dim}) {str(dtype)[6:]}, "
                          f"got {tuple(a.shape)} {a.dtype}")
-    if mode == "wide" and (dtype == torch.int8 or dim == 128):
-        raise ValueError(f"{name}: no mode 'wide' (K3 takes bf16 or f32, "
-                         "and runs the mma.sync body at 128)")
+    if mode == "wide" and dtype == torch.int8:
+        raise ValueError(f"{name}: no mode 'wide' (K3 takes bf16 or f32)")
+    if mode == "packed" and dtype == torch.float32 and dim == 128:
+        raise ValueError(f"{name}: no mode 'packed' (K1 f32 at 128 runs "
+                         "the mma.sync body: knn.knn_packed_raw)")
     if mode == "packed":
         knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
         if uv_a is not None:
@@ -710,16 +714,15 @@ def _rows_raw(a, b, na2, nb2, uv_a, pred_b, radius2, mode, body, dtype):
     col = torch.full((B, n_b), kmax, dtype=key, device=dev)
     rp, cp, rk, ck = ((None, None, row, col) if wide
                       else (row, col, None, None))
-    # bf16 at 128 has no K3 outputs; f32: scratch for the operands' three
-    # bf16 planes
-    keys3 = (knn._ptr(rk), knn._ptr(ck)) if dim == 256 else ()
+    # f32: scratch for the operands' three bf16 planes
     split = (knn._split_scratch(a), knn._split_scratch(b)) if f32 else ()
     with torch.cuda.device(dev):
         err = getattr(_build.load(), entry)(
             a.data_ptr(), b.data_ptr(), knn._ptr(na2), knn._ptr(nb2),
             knn._ptr(uv_a), knn._ptr(pred_b),
             radius2 if uv_a is not None else 0.0, knn._ptr(rp),
-            knn._ptr(cp), *keys3, *(x.data_ptr() for x in split), B, n_a,
+            knn._ptr(cp), knn._ptr(rk), knn._ptr(ck),
+            *(x.data_ptr() for x in split), B, n_a,
             n_b, D256_MODES[mode], BODIES[body],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
@@ -755,16 +758,20 @@ def _rows_wrapper(dtype, dim, yardstick):
     tag = {torch.bfloat16: "bf16", torch.float32: "f32",
            torch.int8: "i8"}[dtype]
     name = f"{tag}_d{dim}"
-    modes = ('"packed" or "row_sum"' if dim == 128 or dtype == torch.int8
-             else '"packed", "wide" or "row_sum"')
+    modes = ('"packed" or "row_sum"' if dtype == torch.int8
+             else '"wide" or "row_sum"' if dtype == torch.float32
+             and dim == 128 else '"packed", "wide" or "row_sum"')
+
+    # f32 at 128 has no "packed" mode: K3 by default
+    first = "wide" if dtype == torch.float32 and dim == 128 else "packed"
 
     def plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-              radius2=None, mode="packed"):
+              radius2=None, mode=first):
         return _rows_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
                            f"{name}_plain", dtype, dim)
 
     def raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None, radius2=None,
-            mode="packed", body="mma"):
+            mode=first, body="mma"):
         _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, f"{name}_raw",
                     dtype, dim)
         if a.device.type == "cpu":
@@ -780,7 +787,8 @@ def _rows_wrapper(dtype, dim, yardstick):
         f"{str(dtype)[6:]} rows of {dim} values, a (B, n_a, {dim}) and b "
         f"(B, n_b, {dim}), on body \"mma\" ({yardstick}) or \"wg\" (the "
         "wgmma body of csrc/knn_wg.cuh, which K1 and K3 launch), in mode "
-        f"{modes}: \"packed\" K1 (gated with uv_a, pred_b, radius2; row_p, "
+        f"{modes} (default {first!r}): \"packed\" K1 (gated with uv_a, "
+        "pred_b, radius2; row_p, "
         "col_p int32; int8 after K1's norm pre-pass, na2 and nb2 ignored), "
         "\"wide\" K3 (row_k, col_k int64), \"row_sum\" the product-only "
         "stage (each A row's wrapping sum of its dots in both slots of row "
@@ -802,8 +810,12 @@ i8_d256_plain, i8_d256_raw = _rows_wrapper(
     torch.int8, 256, "the mma.sync s8 body, the 128-row tiles of 128 "
     "values at twice the k-steps")
 bf16_d128_plain, bf16_d128_raw = _rows_wrapper(
-    torch.bfloat16, 128, "the mma.sync body, K1 bf16's yardstick at 128: "
-    "m16n8k16, 128-row A and B tiles in a cp.async ring")
+    torch.bfloat16, 128, "the mma.sync body, K1's and K3's bf16 yardstick "
+    "at 128: m16n8k16, 128-row A and B tiles in a cp.async ring")
+f32_d128_plain, f32_d128_raw = _rows_wrapper(
+    torch.float32, 128, "the mma.sync body on the three bf16 planes after "
+    "the split pre-pass, K3 f32's yardstick at 128: 128 A rows where n_a "
+    "allows, else 64, 64-row B tiles in a cp.async ring")
 i8_d128_plain, i8_d128_raw = _rows_wrapper(
     torch.int8, 128, "the mma.sync s8 body, K1 int8's yardstick at 128: "
     "m16n8k32, 128-row A and B tiles in a cp.async ring")

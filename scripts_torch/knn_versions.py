@@ -8,7 +8,7 @@ Run it once per copy of the package, each in its own process, in turns
 card; each copy builds its kernels into ROOT/build/:
 
     python3 scripts_torch/knn_versions.py [ROOT] [--d256 | --f32-d256 |
-        --i8-d256 | --d128 [--check]]
+        --i8-d256 | --d128 [--check] | --k3-d128 [--check]]
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
@@ -31,7 +31,13 @@ plain at 256 × 4096 (``*_d128_*``), and where the copy has
 ``mma.sync`` body (``mma_*``) and the product-only stage on both bodies
 (``row_sum_<body>_*``); with ``--check`` each of those K1 cases is
 first held bit-exact against the copy's ``mma.sync`` body (the script
-exits on a difference). Times: median of CUDA events
+exits on a difference); ``--k3-d128`` K3 bf16 and f32 at 128 values a
+row alone at 64 × 10240 (``k3_<type>``), and where the copy has
+``knn_stages.f32_d128_raw`` the same cases on the ``mma.sync`` body
+(``mma_k3_<type>``) and the product-only stage on both bodies
+(``row_sum_<body>_k3_<type>``; f32's with its split pre-pass), with
+``--check`` first held bit-exact against the copy's ``mma.sync`` body.
+Times: median of CUDA events
 after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
 from the copy's build log (empty when its library was already built).
@@ -52,6 +58,7 @@ ONLY_F32_D256 = "--f32-d256" in sys.argv[1:]
 ONLY_I8_D256 = "--i8-d256" in sys.argv[1:]
 ONLY_D256 = "--d256" in sys.argv[1:]
 ONLY_D128 = "--d128" in sys.argv[1:]
+ONLY_K3_D128 = "--k3-d128" in sys.argv[1:]
 CHECK = "--check" in sys.argv[1:]
 ROOT = os.path.abspath(_ARGS[0] if _ARGS else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -215,6 +222,32 @@ def d128(gen, out):
         del a, b, gate
 
 
+def k3_d128(gen, out):
+    """K3 bf16 and f32 at 128 values a row, 64 × 10240 (bench.py's
+    planted rows as 0..255), on the copy's body; where the copy has
+    knn_stages.f32_d128_raw, each on the mma.sync body too and the
+    product-only stage on both bodies."""
+    split = hasattr(knn_stages, "f32_d128_raw")
+    a, b = planted(gen, 64, 10240)
+    for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        f = as_float(a, b, dtype)
+        fn = getattr(knn_stages, f"{kind}_d128_raw", None)
+        if CHECK and split and not all(
+                torch.equal(u, v) for u, v in zip(
+                    knn.knn_wide_raw(*f), fn(*f, mode="wide", body="mma"))):
+            sys.exit(f"{ROOT}: k3_{kind} differs from the mma.sync body")
+        out[f"k3_{kind}"] = probes.time_ms(lambda: knn.knn_wide_raw(*f),
+                                           "cuda", 5, 2)
+        if split:
+            out[f"mma_k3_{kind}"] = probes.time_ms(
+                lambda: fn(*f, mode="wide", body="mma"), "cuda", 5, 2)
+            for body in ("wg", "mma"):
+                out[f"row_sum_{body}_k3_{kind}"] = probes.time_ms(
+                    lambda: fn(f[0], f[1], mode="row_sum", body=body),
+                    "cuda", 5, 2)
+        del f
+
+
 def own_build_module():
     """This checkout's _build.py (stdlib only), for its log parsers."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -252,6 +285,9 @@ def main():
         return report(out)
     if ONLY_D128:
         d128(gen, out)
+        return report(out)
+    if ONLY_K3_D128:
+        k3_d128(gen, out)
         return report(out)
     if ONLY_D256:
         bf16_d256(gen, out)

@@ -1604,6 +1604,103 @@ def test_bf16_128_bodies_bit_exact_vs_plain(cuda, rng, kind, body, mode):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("mode", ["wide", "row_sum"])
+@pytest.mark.parametrize("body", ["mma", "wg"])
+@pytest.mark.parametrize("kind", ["planted", "full_range"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k3_128_bodies_bit_exact_vs_plain(cuda, rng, dtype, kind, body,
+                                          mode):
+    """K3 bf16 and f32 at 128 values a row (integer-valued 0..255) on
+    both bodies through knn_stages.bf16_d128_raw and f32_d128_raw (the
+    mma.sync body is the wgmma body's yardstick): K3 and the product-only
+    stage (f32: after its split pre-pass), 320 A rows against 640 B rows,
+    equal to the plain versions and counted as the probe's launches, not
+    as K3's."""
+    a, b = (t.to(cuda) for t in _rows128(rng, 3, 320, 640, kind))
+    x, y, na2, nb2 = _float_inputs(a, b, dtype)
+    norms = (None, None) if mode == "row_sum" else (na2, nb2)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    entry = f"knn_{tag}_d128"
+    before = knn_stages.LAUNCHES[entry]
+    k3 = dict(knn.LAUNCHES)
+    got = getattr(knn_stages, f"{tag}_d128_raw")(x, y, *norms, body=body,
+                                                 mode=mode)
+    assert knn_stages.LAUNCHES[entry] == before + 1
+    assert knn.LAUNCHES == k3
+    want = getattr(knn_stages, f"{tag}_d128_plain")(x, y, *norms, mode=mode)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (pairs, n_a, n_b) at the wgmma K3's edges at 128 values a row: n_a not
+# a multiple of a block's rows (bf16 256, f32 128) with n_a != n_b, one
+# 64-row B tile, one pair beyond K1's 8192 B rows, a block of f32 whose
+# second warpgroup has no rows
+_K3_128_SHAPES = [(3, 320, 640), (2, 192, 64), (1, 128, 8256),
+                  (2, 448, 8320)]
+
+
+@pytest.mark.parametrize("shape", _K3_128_SHAPES,
+                         ids=[f"{p}x{a}x{b}" for p, a, b in _K3_128_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k3_128_shapes_equal_plain_and_mma(cuda, rng, dtype, shape):
+    """K3 at 128 values a row on the wgmma body (knn_wide_raw, counted as
+    K3's launch) at its edges, integer rows with duplicates (values tie,
+    the lowest index must win): keys equal the plain version's and the
+    kept mma.sync yardstick's bit for bit."""
+    pairs, n_a, n_b = shape
+    a, b = (t.to(cuda) for t in _planted(rng, pairs, n_a, n_b,
+                                         min(n_a, n_b) // 4, dup=True))
+    args = _float_inputs(a, b, dtype)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    key = "knn_wide" if tag == "bf16" else "knn_wide_f32"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_wide_raw(*args)
+    assert knn.LAUNCHES[key] == before + 1
+    want = knn.knn_wide_plain(*args)
+    mma = getattr(knn_stages, f"{tag}_d128_raw")(*args, mode="wide",
+                                                body="mma")
+    torch.cuda.synchronize()
+    for g, w, m in zip(got, want, mma):
+        assert torch.equal(g, w)
+        assert torch.equal(m, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_k3_128_within_tolerance_of_plain_and_mma_on_random(cuda, rng,
+                                                            dtype):
+    """Non-integer rows (uniform 0..400, a quarter of B planted near A:
+    f32's mid and lo planes set) through K3 at 128 on the wgmma body, 320
+    A rows against 8256 B rows: values within 2⁻²⁰ (f32) or _TC_REL
+    (bf16) of the norms of the plain version's and of the mma.sync
+    yardstick's, indices different only on ties."""
+    pairs, n_a, n_b = 2, 320, 8256
+    a = rng.uniform(0, 400, (pairs, n_a, 128))
+    b = rng.uniform(0, 400, (pairs, n_b, 128))
+    b[:, :n_a // 4] = a[:, :n_a // 4] + rng.normal(0, 2,
+                                                   (pairs, n_a // 4, 128))
+    a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda).to(dtype)
+            for v in (a, b))
+    if dtype == torch.float32:
+        lo = knn.split_bf16x3_plain(a)[..., 2, :]
+        assert bool((lo != 0).any())
+    na2, nb2 = knn._sq_norms(a), knn._sq_norms(b)
+    rel = _F32_REL if dtype == torch.float32 else _TC_REL
+    tol = rel * float(na2.max() + nb2.max())
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    got = knn.knn_wide_raw(a, b, na2, nb2)
+    for want in (knn.knn_wide_plain(a, b, na2, nb2),
+                 getattr(knn_stages, f"{tag}_d128_raw")(
+                     a, b, na2, nb2, mode="wide", body="mma")):
+        torch.cuda.synchronize()
+        _near(got[0], want[0], a, b, tol, False, "rows")
+        _near(got[1], want[1], b, a, tol, False, "columns")
+
+
 # at 256 values a row the values hold twice _F32_REL: the plain version's
 # own f32 product rounds twice the terms at twice the magnitude of 128's;
 # on these rows its K3 values lie 21-24 from the f64 truth where both
@@ -1668,11 +1765,13 @@ def test_k3_f32_256_within_tolerance_on_random(cuda, rng, shape):
 def test_knn_wg_sass_is_hgmma(cuda):
     """The wgmma body (knn_wg_kernel) runs its products as HGMMA (wgmma),
     not as mma.sync's HMMA, in its four modes at 256 values a row for
-    bf16 and f32 and in its three at 128 for bf16 (K1 plain and gated,
-    the product-only stage), which the mma.sync bodies' kernels at both
-    widths show; its three int8 modes at 256 and at 128 as the integer
-    wgmma, IGMMA, not as mma.sync's IMMA, which the int8 mma.sync bodies
-    at both widths (the yardsticks) show."""
+    bf16 and f32, in its four at 128 for bf16 (K1 plain and gated, K3,
+    the product-only stage) and in K3's and the product-only stage's at
+    128 for f32, which the mma.sync bodies' kernels at both widths show
+    (K1 f32 at 128 and the kept yardsticks of K1 and K3 at 128); its
+    three int8 modes at 256 and at 128 as the integer wgmma, IGMMA, not as
+    mma.sync's IMMA, which the int8 mma.sync bodies at both widths (the
+    yardsticks) show."""
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines)
         for name, lines in _build.sass().items()})
@@ -1680,7 +1779,8 @@ def test_knn_wg_sass_is_hgmma(cuda):
     assert keys == ({f"{t}_d256 {m} wg" for t in ("bf16", "f32")
                      for m in range(4)}
                     | {f"{t} {m} wg" for t in ("int8_d256", "int8", "bf16")
-                       for m in (0, 1, 3)}), keys
+                       for m in (0, 1, 3)}
+                    | {"bf16 2 wg", "f32 2 wg", "f32 3 wg"}), keys
     for k in keys:
         if k.startswith("int8"):
             assert per_key[k]["IGMMA"] > 0 and per_key[k]["IMMA"] == 0 \
@@ -1694,6 +1794,10 @@ def test_knn_wg_sass_is_hgmma(cuda):
     for t, op in (("int8", "IMMA"), ("bf16", "HMMA")):
         for m in (0, 1, 3):
             assert per_key[f"{t} {m} 128 128 2"][op] > 0, (t, m)
+    # K1 f32 at 128 (plain and gated) and K3's yardsticks at 128
+    for k in ("f32 0 128 64 2", "f32 1 128 64 2", "f32 2 128 64 2",
+              "bf16 2 128 128 2"):
+        assert per_key[k]["HMMA"] > 0 and per_key[k]["HGMMA"] == 0, k
 
 
 # last in the file: it imports cv2, which the card path's tests above

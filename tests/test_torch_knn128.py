@@ -1,15 +1,17 @@
-"""Port parity: int8 and bf16 rows of 128 values (SIFT's) through
-``probes.knn_stages.i8_d128_raw`` and ``bf16_d128_raw`` (K1's mode plain
-and gated, the product-only stage), and the build log's parser for the
-``wgmma`` body of ``csrc/knn_wg.cuh`` at 128 values a row.
+"""Port parity: int8, bf16 and f32 rows of 128 values (SIFT's) through
+``probes.knn_stages.i8_d128_raw``, ``bf16_d128_raw`` and ``f32_d128_raw``
+(K1's mode plain and gated, K3's, the product-only stage), and the build
+log's parser for the ``wgmma`` body of ``csrc/knn_wg.cuh`` at 128 values
+a row.
 
 On the CPU the wrapper takes its plain version whatever the body, so
 these tests hold that plain version once: K1's mode bit-exact against the JAX
 package's Pallas K1 (interpret mode) on the same rows (bf16 rows hold
 the int8 rows plus 128: the integer distances, and so the keys, are the
-same), the gated and product-only modes against ``ops.knn``'s plain
-version and numpy. The kernels themselves run in
-``tests/test_torch_cuda.py`` on the card.
+same), K3's against ``ops.knn.knn_wide_plain`` (itself held against the
+JAX package's Pallas K3 by ``tests/test_torch_knn.py``), the gated and
+product-only modes against ``ops.knn``'s plain version and numpy. The
+kernels themselves run in ``tests/test_torch_cuda.py`` on the card.
 """
 
 import jax.numpy as jnp
@@ -41,10 +43,19 @@ def _rows(rng, pairs, n_a, n_b, full):
     return (a - 128).astype(np.int8), (b - 128).astype(np.int8)
 
 
-def _bf16(a, b):
-    """The int8 rows as bf16 0..255 with their f32 squared norms."""
+def _bf16(a, b, dtype=torch.bfloat16):
+    """The int8 rows as bf16 (or dtype) 0..255 with their f32 squared
+    norms."""
     x, y = (torch.from_numpy(v.astype(np.float32) + 128) for v in (a, b))
-    return x.bfloat16(), y.bfloat16(), (x * x).sum(-1), (y * y).sum(-1)
+    return x.to(dtype), y.to(dtype), (x * x).sum(-1), (y * y).sum(-1)
+
+
+def _args(kind, a, b):
+    """The int8 rows as kind's arguments: int8 without norms, bf16 or f32
+    0..255 with their norms."""
+    if kind == "i8":
+        return torch.from_numpy(a), torch.from_numpy(b), None, None
+    return _bf16(a, b, torch.bfloat16 if kind == "bf16" else torch.float32)
 
 
 def _pallas(a, b):
@@ -89,16 +100,17 @@ def _gate(rng, pairs, n_a, n_b):
                              .astype(np.float32)), 5.0 ** 2)
 
 
-@pytest.mark.parametrize("mode", ["gated", "row_sum"])
-@pytest.mark.parametrize("kind", ["i8", "bf16"])
+@pytest.mark.parametrize("kind,mode", [
+    ("i8", "gated"), ("i8", "row_sum"), ("bf16", "gated"),
+    ("bf16", "row_sum"), ("f32", "row_sum")])
 def test_d128_modes_on_cpu_are_plain(rng, kind, mode):
-    """The gated and product-only modes of i8_d128_raw and bf16_d128_raw
-    on the CPU are their plain versions: K1's gated keys
-    (knn_packed_plain, some candidates gated out), each A row's wrapping
-    sum of its dots against numpy; uncounted."""
+    """The gated and product-only modes of i8_d128_raw, bf16_d128_raw and
+    f32_d128_raw (no gated mode: K1 f32 at 128 is not on it) on the CPU
+    are their plain versions: K1's gated keys (knn_packed_plain, some
+    candidates gated out), each A row's wrapping sum of its dots against
+    numpy; uncounted."""
     a, b = _rows(rng, 2, 128, 192, True)
-    args = ((torch.from_numpy(a), torch.from_numpy(b), None, None)
-            if kind == "i8" else _bf16(a, b))
+    args = _args(kind, a, b)
     raw = getattr(knn_stages, f"{kind}_d128_raw")
     entry = f"knn_{kind}_d128"
     before = knn_stages.LAUNCHES[entry]
@@ -120,44 +132,80 @@ def test_d128_modes_on_cpu_are_plain(rng, kind, mode):
     assert knn_stages.LAUNCHES[entry] == before
 
 
-@pytest.mark.parametrize("kind", ["i8", "bf16"])
+@pytest.mark.parametrize("full", [False, True], ids=["sift", "full_range"])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_d128_wide_on_cpu_is_knn_wide_plain(rng, kind, full):
+    """K3's mode of bf16_d128_raw and f32_d128_raw (on the CPU their plain
+    version, whatever the body; uncounted) equals knn_wide_plain on the
+    same rows bit for bit, 2 pairs × 192 A rows × 320 B rows, with
+    duplicate rows so that values tie."""
+    a, b = _rows(rng, 2, 192, 320, full)
+    a[:, 1::2], b[:, 1::2] = a[:, ::2], b[:, ::2]
+    args = _args(kind, a, b)
+    raw = getattr(knn_stages, f"{kind}_d128_raw")
+    entry = f"knn_{kind}_d128"
+    before = knn_stages.LAUNCHES[entry]
+    want = tknn.knn_wide_plain(*args)
+    for body in ("mma", "wg"):
+        got = raw(*args, mode="wide", body=body)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert knn_stages.LAUNCHES[entry] == before
+
+
+@pytest.mark.parametrize("kind", ["i8", "bf16", "f32"])
 def test_d128_raw_rejects_what_it_does_not_take(rng, kind):
     a, b = _rows(rng, 1, 64, 64, False)
-    args = ((torch.from_numpy(a), torch.from_numpy(b), None, None)
-            if kind == "i8" else _bf16(a, b))
+    args = _args(kind, a, b)
     raw = getattr(knn_stages, f"{kind}_d128_raw")
     with pytest.raises(ValueError, match="no mode"):
         raw(*args, mode="top2")
     with pytest.raises(ValueError, match="no mode"):
         raw(*args, body="ffma")
-    with pytest.raises(ValueError, match="no mode 'wide'"):
-        raw(*args, mode="wide", body="mma")
+    if kind == "i8":                  # K3 takes no int8
+        with pytest.raises(ValueError, match="no mode 'wide'"):
+            raw(*args, mode="wide", body="mma")
+    else:                             # K3 without its norms
+        with pytest.raises(ValueError, match="norms"):
+            raw(*args[:2], mode="wide")
+    if kind == "f32":                 # K1 f32 at 128 is not on it
+        with pytest.raises(ValueError, match="no mode 'packed'"):
+            raw(*args, mode="packed")
     with pytest.raises(ValueError, match="128"):
         raw(torch.cat([args[0]] * 2, -1), torch.cat([args[1]] * 2, -1),
             *args[2:])
     with pytest.raises(ValueError, match="int8" if kind == "i8"
-                       else "bfloat16"):
-        raw(args[0].float(), args[1].float(), *args[2:])
-    with pytest.raises(ValueError, match="gate"):
-        raw(*args, torch.zeros((1, 64, 2)), torch.zeros((1, 64, 2)), 1.0,
-            mode="row_sum")
+                       else "bfloat16" if kind == "bf16" else "float32"):
+        raw(args[0].double(), args[1].double(), *args[2:])
+    gate = (torch.zeros((1, 64, 2)), torch.zeros((1, 64, 2)), 1.0)
+    for mode in ("row_sum",) + (() if kind == "i8" else ("wide",)):
+        with pytest.raises(ValueError, match="gate"):
+            raw(*args, *gate, mode=mode)
     with pytest.raises(ValueError, match="no kernel"):
         raw(*(None if x is None else x.to("meta") for x in args),
-            body="wg")
+            body="wg", mode="packed" if kind == "i8" else "wide")
 
 
 def test_build_log_reads_the_wgmma_body_at_128():
     """The build log's parser on ptxas's lines of the wgmma body at 128
-    values a row (int8_t mangled "a", bf16 bits "t") in its plain, gated
-    and product-only modes, beside the mma.sync bodies at 128 it
-    replaced and the wgmma body at 256."""
+    values a row (int8_t mangled "a", bf16 bits "t", f32's planes
+    "NS_6Bf16x3E") in its plain, gated, wide and product-only modes,
+    beside the mma.sync bodies at 128 it replaced (K3's yardsticks among
+    them) and the wgmma body at 256."""
     wg = "_ZN3knn2wg13knn_wg_kernelI{}Li{}EEEv14CUtensorMap_stS2_PKjPKf"
-    mma = "_ZN3knn2tc13knn_tc_kernelI{}Li0ELi128ELi128ELi2EEEvPKT_S4_PKf"
+    mma = "_ZN3knn2tc13knn_tc_kernelI{}Li{}ELi128ELi{}ELi2EEEvPKT_S4_PKf"
     kernels = [(wg.format(t, m), regs, spill)
                for t in ("a", "t") for m, regs, spill in
                ((0, 168, 0), (1, 168, 8), (3, 154, 0))]
-    kernels += [(mma.format("a"), 126, 0), (mma.format("t"), 128, 0),
-                (wg.format("NS_4D256IaEE", 0), 168, 0)]
+    kernels += [(wg.format("t", 2), 168, 4), (wg.format("NS_6Bf16x3E", 2),
+                                              168, 0),
+                (wg.format("NS_6Bf16x3E", 3), 160, 0)]
+    kernels += [(mma.format("a", 0, 128), 126, 0),
+                (mma.format("t", 0, 128), 128, 0),
+                (mma.format("t", 2, 128), 128, 0),
+                (mma.format("NS_6Bf16x3E", 2, 64), 255, 0),
+                (wg.format("NS_4D256IaEE", 0), 168, 0),
+                (wg.format("NS_4D256INS_6Bf16x3EEE", 2), 168, 0)]
     lines = []
     for name, regs, spill in kernels:
         lines += [
@@ -170,6 +218,11 @@ def test_build_log_reads_the_wgmma_body_at_128():
     assert usage == {"int8 0 wg": (168, 0, 0), "int8 1 wg": (168, 8, 8),
                      "int8 3 wg": (154, 0, 0), "bf16 0 wg": (168, 0, 0),
                      "bf16 1 wg": (168, 8, 8), "bf16 3 wg": (154, 0, 0),
+                     "bf16 2 wg": (168, 4, 4), "f32 2 wg": (168, 0, 0),
+                     "f32 3 wg": (160, 0, 0),
                      "int8 0 128 128 2": (126, 0, 0),
                      "bf16 0 128 128 2": (128, 0, 0),
-                     "int8_d256 0 wg": (168, 0, 0)}
+                     "bf16 2 128 128 2": (128, 0, 0),
+                     "f32 2 128 64 2": (255, 0, 0),
+                     "int8_d256 0 wg": (168, 0, 0),
+                     "f32_d256 2 wg": (168, 0, 0)}
