@@ -22,10 +22,13 @@ non-zero:
    store's shape (256 pairs × 4096) and at bench.py's (64 pairs × 6144);
    f32 and gated (int8, bf16 and f32, ~half the candidates gated out) at
    the store's shape. Integer-valued descriptors throughout (int8 over
-   the full −128..127 at both shapes too), so all bit-exact. Every mode
-   runs the tensor-core body (f32 as three bf16 planes); each is timed in
-   turns against the body it replaced (__dp4a, FFMA), and split into the
-   body's product (its product-only stage, held against its plain
+   the full −128..127 at both shapes too), so all bit-exact; f32 also on
+   rows of 256..360 (mid planes set, bit-exact) and random rows (within
+   2⁻²⁰ of the norms plus one key step, indices equal modulo ties). Every
+   mode runs the wgmma body (f32 as three bf16 planes; the body each ran,
+   by the profiler's kernels, in the kernels line); each is timed in
+   turns against the mma.sync body it replaced, and both bodies split
+   into their product (their product-only stage, held against its plain
    version) and the key epilogue (the rest); each mode beside one library
    product of its type (torch._int_mm, torch.bmm); at 256 values a row
    (ORB's bits, −128/−127 in the store, and the full −128..127): int8 at
@@ -601,19 +604,24 @@ def vs_old_body(r, name, new, old, body):
         f"({r[f'{body}_ms'] / r['ms']:.2f}x)")
 
 
-def product_split(r, name, a, b, product_ms=None):
-    """K1's or K3's time on the tensor-core body split into the body's
-    product (product_ms, measured on the same shape, type and body, or
-    else the mma.sync body's product-only stage, tc_row_sum_raw: product
-    + row sum, held bit-exact against tc_row_sum_plain on the first
-    pairs) and the key epilogue (the rest). f32's stage includes its
-    split pre-pass. The wgmma body's product-only stage is wg_vs_mma's."""
-    if product_ms is None:
-        p = PROBE_PLAIN_PAIRS
-        check_equal(f"{name} product-only stage",
-                    [x[:p] for x in knn_stages.tc_row_sum_raw(a, b)],
-                    knn_stages.tc_row_sum_plain(a[:p], b[:p]))
-        product_ms = time_ms(lambda: knn_stages.tc_row_sum_raw(a, b), 3)
+def k1_body(name, fn):
+    """The tensor-core body that one K1 call (fn) ran, from the kernels the
+    profiler saw it launch: "wgmma: <kernel>". Raises where the call did
+    not run knn_wg.cuh's wgmma body (knn_wg_kernel) alone."""
+    seen = [k for k in probes.device_kernels(fn, reps=2)
+            if "knn_wg_kernel" in k or "knn_tc_kernel" in k]
+    if len(seen) != 1 or "knn_wg_kernel" not in seen[0]:
+        raise AssertionError(f"{name} ran {seen}, not the wgmma body")
+    body = seen[0].split("(")[0].replace("void ", "")
+    log(f"[{name}] body: {body}")
+    return f"wgmma: {body}"
+
+
+def product_split(r, name, product_ms):
+    """A gated K1's time on the wgmma body split into the body's product
+    (product_ms, the ungated mode's product-only stage from wg_vs_mma on
+    the same shape and type; f32's includes its split pre-pass) and the
+    key epilogue (the rest)."""
     r["tc_product_ms"] = product_ms
     epi = r["ms"] - product_ms
     log(f"[{name}] tensor-core body split: product + row sum "
@@ -638,18 +646,22 @@ def full_range_descriptors(gen, pairs, n, n_planted):
 
 
 def check_knn():
-    """K1 in every mode; returns {mode: measurements}. int8 and bf16 (the
-    wgmma body, plain and gated) are timed in turns against the mma.sync
-    body they replaced (knn_stages.i8_d128_raw, bf16_d128_raw) and both
-    bodies split into product and key epilogue (wg_vs_mma); f32 (the
-    mma.sync body) in turns against its FFMA body (ffma_f32_raw), split
-    into its product and the key epilogue."""
+    """K1 in every mode; returns {mode: measurements}. Every mode (int8,
+    bf16 and f32, plain and gated) runs the wgmma body (the profiler's
+    kernels of one call name it: k1_body) and is timed in turns against
+    the mma.sync body it replaced (knn_stages.i8_d128_raw, bf16_d128_raw,
+    f32_d128_raw), both bodies split into product and key epilogue
+    (wg_vs_mma; f32's product with its split pre-pass); ptxas's registers
+    and spills of the wgmma instantiations at 128, which must not spill
+    or carry a note."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, pairs, n in (("store", *STORE_SHAPE), ("bench", *BENCH_SHAPE)):
         a, b = planted_descriptors(gen, pairs, n, n // 4)
         r = compare_keys("K1 int8", knn.knn_packed_raw, knn.knn_packed_plain,
                          (a, b))
+        r["body"] = k1_body(f"K1 int8 {name}",
+                            lambda: knn.knn_packed_raw(a, b))
         fa, fb = full_range_descriptors(gen, pairs, n, n // 4)
         compare_keys("K1 int8 full range", knn.knn_packed_raw,
                      knn.knn_packed_plain, (fa, fb), reps=1, plain_reps=1)
@@ -677,6 +689,8 @@ def check_knn():
         fargs = float_inputs(a, b, torch.bfloat16)
         r = compare_keys(f"K1 bf16 {name}", knn.knn_packed_raw,
                          knn.knn_packed_plain, fargs, plain_reps=1)
+        r["body"] = k1_body(f"K1 bf16 {name}",
+                            lambda: knn.knn_packed_raw(*fargs))
         wg_vs_mma(r, f"K1 bf16 {pairs} x {n}", fargs, "packed")
         with_bound(r, *k1_bound(pairs, n, 2, "bf16"))
         bt = fargs[1].transpose(1, 2)
@@ -693,17 +707,12 @@ def check_knn():
     args = float_inputs(a, b, torch.float32)
     r = compare_keys("K1 f32", knn.knn_packed_raw, knn.knn_packed_plain,
                      args)
-    vs_old_body(r, f"K1 f32 {pairs} x {n}",
-                lambda: knn.knn_packed_raw(*args),
-                lambda: knn_stages.ffma_f32_raw(*args), "ffma")
-    product_split(r, f"K1 f32 {pairs} x {n}", args[0], args[1])
-    # also the bound of its product on the CUDA cores (FFMA)
-    r["ffma_bound_ms"] = bound(0, {"f32": 2 * pairs * n * n * 128})[0]
+    r["body"] = k1_body("K1 f32", lambda: knn.knn_packed_raw(*args))
+    wg_vs_mma(r, f"K1 f32 {pairs} x {n}", args, "packed")
     with_bound(r, *k1_bound(pairs, n, 4, "f32"))
     log(f"[K1] f32 {pairs} pairs x {n}: bit-exact; kernel {r['ms']:.3f} ms, "
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']}) (six bf16 products); its product on the CUDA "
-        f"cores {r['ffma_bound_ms']:.3f} ms")
+        f"({r['bound_by']}) (six bf16 products)")
     # the product alone, in the mode's type (TF32 off, the package's
     # setting, so full f32 as the kernel)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -732,20 +741,15 @@ def check_knn():
         gargs = (*args, *gate)
         r = compare_keys(f"K1 {mode}", knn.knn_packed_raw,
                          knn.knn_packed_plain, gargs)
-        # in turns with the body it replaced: int8 and bf16 the mma.sync
-        # body, f32 the FFMA body; the gate is epilogue, so the product is
-        # the ungated mode's
-        if mode == "gated_f32":
-            vs_old_body(r, f"K1 {mode} {pairs} x {n}",
-                        lambda: knn.knn_packed_raw(*gargs),
-                        lambda: knn_stages.ffma_f32_raw(*gargs), "ffma")
-        else:
-            probe = rows_probe(args)[0]
-            vs_old_body(r, f"K1 {mode} {pairs} x {n}",
-                        lambda: knn.knn_packed_raw(*gargs),
-                        lambda: probe(*gargs, body="mma"), "was")
-            r["was_product_ms"] = out[ungated]["was_product_ms"]
-        product_split(r, f"K1 {mode} {pairs} x {n}", None, None,
+        r["body"] = k1_body(f"K1 {mode}", lambda: knn.knn_packed_raw(*gargs))
+        # in turns with the mma.sync body it replaced; the gate is
+        # epilogue, so the product is the ungated mode's
+        probe = rows_probe(args)[0]
+        vs_old_body(r, f"K1 {mode} {pairs} x {n}",
+                    lambda: knn.knn_packed_raw(*gargs),
+                    lambda: probe(*gargs, body="mma"), "was")
+        r["was_product_ms"] = out[ungated]["was_product_ms"]
+        product_split(r, f"K1 {mode} {pairs} x {n}",
                       out[ungated]["tc_product_ms"])
         r["product_only_ms"] = out[ungated]["product_only_ms"]
         with_bound(r, *k1_bound(pairs, n, eb, peak, gated=True))
@@ -757,9 +761,11 @@ def check_knn():
         out[mode] = r
     split_planes(gen, pairs, n, gate, out)
     usage = {k: v for k, v in _build.tc_kernel_usage().items()
-             if k.split()[0] in ("int8", "bf16") and k.endswith(" wg")
-             and k.split()[1] != "2"}
-    warn = wg_notes(usage, ["a", "tLi0E", "tLi1E", "tLi3E"])
+             if k.endswith(" wg") and (
+                 k.split()[0] in ("int8", "bf16") and k.split()[1] != "2"
+                 or k.split()[0] == "f32" and k.split()[1] in ("0", "1"))}
+    warn = wg_notes(usage, ["a", "tLi0E", "tLi1E", "tLi3E",
+                            "NS_6Bf16x3ELi0E", "NS_6Bf16x3ELi1E"])
     log(f"[K1 at 128] wgmma body, ptxas (registers, spill stores, spill "
         f"loads): {usage}; its notes: {warn or 'none'}")
     return out
@@ -1034,8 +1040,8 @@ def rows_probe(args):
 
 
 def wg_vs_mma(r, name, args, mode):
-    """bf16, int8 or f32 at 256 values a row or at 128 (f32 at 128: K3
-    only): the wgmma body (K1 or K3 through its wrapper) in turns with the
+    """bf16, int8 or f32 at 256 values a row or at 128: the wgmma body
+    (K1 or K3 through its wrapper) in turns with the
     mma.sync body it replaced (knn_stages.<type>_d<width>_raw with
     body="mma", whose keys must equal it), and both bodies split into their
     product-only stage (f32: with its split pre-pass; int8: without K1's
@@ -5007,7 +5013,7 @@ def main():
                                          "k4_ms", "was_kernel_ms",
                                          "stages", "was_tile",
                                          "sweep", "split_ms",
-                                         "split_bound_ms")
+                                         "split_bound_ms", "body")
                        if k in r})
 
     def at256(launch_key, *cases):
@@ -5060,8 +5066,9 @@ def main():
         dict(entry("knn_packed_gated", "knn_packed.cu", k1_src,
                    smart_launches["knn_packed_gated"], k1["gated_i8"]),
              **{f"{m}_{k}": k1[m][k] for m in ("gated_bf16", "gated_f32")
-                for k in ("ms", "ffma_ms", "was_ms", "bound_ms",
-                          "tc_product_ms", "was_product_ms") if k in k1[m]},
+                for k in ("ms", "was_ms", "bound_ms", "tc_product_ms",
+                          "was_product_ms", "body", "random_max_abs_err")
+                if k in k1[m]},
              **at18e("p8", p8),
              **at19("knn_packed_gated"), **at21("knn_packed_gated"),
              **at256("knn_packed_gated_d256", "gated_i8_bench",

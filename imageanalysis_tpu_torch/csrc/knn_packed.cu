@@ -27,29 +27,28 @@
 // What bounds it on the H100: the product and the per-element key
 // epilogue (convert, mask, gate, or, two compares). A 4096 x 4096 pair is
 // 2.1 G multiply-adds over 1-4 MB of descriptors, so memory is no limit.
-// Every mode, plain and gated, runs a tensor-core body (through
-// knn_common.cuh's knn_tc.cuh):
-// - bf16 and int8 at either width, and f32 at 256, run knn_wg.cuh's body:
-//   wgmma fed by TMA, consumer warpgroups in ping-pong (int8 at 128 three,
-//   else two), the key epilogue of one under the products of another
-//   (int8 wgmma s8 after its norm pre-pass, row_norms_i8_kernel, into f32
+// Every mode, plain and gated, at either width, runs knn_wg.cuh's
+// tensor-core body (through knn_common.cuh's knn_tc.cuh): wgmma fed by
+// TMA, consumer warpgroups in ping-pong (int8 at 128 three, else two), the
+// key epilogue of one under the products of another.
+// - int8: wgmma s8 after its norm pre-pass, row_norms_i8_kernel, into f32
 //   scratch of the caller's: exact, at most 128 x 128^2 = 2^21, B's at 128
-//   written less 2^23 + 2^21 for the epilogue's two-operation d2; f32 after
-//   its split pre-pass, A's hi plane in registers, B plane by plane). The
-//   mma.sync bodies they replaced (128-row tiles in a cp.async ring,
-//   mma.sync m16n8k16 / m16n8k32) are knn_probe.cu's yardsticks.
-// - f32 at 128 runs knn_tc.cuh's mma.sync body on three bf16 planes of
-//   each operand (hi, mid, lo: the TPU kernel's own Precision.HIGHEST
-//   product is a multi-pass bf16 product too), six plane products a
-//   k-step: hi·hi into one f32 accumulator, the five smaller products into
-//   a second, the two added once a B tile (why: the head of knn_tc.cuh).
-//   The planes come from a split pre-pass (split_bf16x3_kernel) into bf16
-//   scratch of the caller's. Integer-valued descriptors give exact dots, so
-//   keys bit-exact with the plain version; other f32 within 2^-20 of the
-//   norms (2^-19 at 256 values a row, where the plain version's own f32
-//   product errs more). Before it, the FFMA body (now the yardstick
-//   knn_ffma_f32 in knn_probe.cu) ran at 39% of the CUDA cores' 67
-//   TFLOP/s.
+//   written less 2^23 + 2^21 for the epilogue's two-operation d2.
+// - f32: three bf16 planes of each operand (hi, mid, lo: the TPU kernel's
+//   own Precision.HIGHEST product is a multi-pass bf16 product too) from a
+//   split pre-pass (split_bf16x3_kernel) into bf16 scratch of the
+//   caller's; A's hi plane in registers, B plane by plane, six plane
+//   products a k-step: hi·hi into one f32 accumulator, the five smaller
+//   products into a second, the two added once a B tile (why: the head of
+//   knn_tc.cuh). 64 A rows a block at either width, the two warpgroups
+//   on alternate B tiles (K3 f32 at 128 takes 128, each warpgroup its
+//   own 64, in ping-pong: knn_wg.cuh's head).
+//   Integer-valued descriptors give exact dots, so keys bit-exact with the
+//   plain version; other f32 within 2^-20 of the norms (2^-19 at 256
+//   values a row, where the plain version's own f32 product errs more).
+// The mma.sync bodies they replaced (cp.async rings, mma.sync m16n8k16 /
+// m16n8k32) and the FFMA f32 body before those (39% of the CUDA cores' 67
+// TFLOP/s) are knn_probe.cu's yardsticks.
 // In every body the row top-2 keys stay in registers for the whole sweep
 // over B and are merged across the threads of a row by warp shuffles at
 // the end; each B tile's column minimum is reduced in shared memory and
@@ -127,7 +126,6 @@ int launch_i8_at(const void* a, const void* b, void* na2, void* nb2,
               const void* uv_a, const void* pred_b, float radius2,
               void* row_p, void* col_p, int n_pairs, int n_a, int n_b,
               int dim, cudaStream_t s) {
-  static_assert(on_wg<I8, MODE>, "K1 int8 runs the wgmma body");
   int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n_a, s, dim);
   if (e == 0)
     e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n_b, s, dim,

@@ -24,9 +24,8 @@
 // rows of 256 values, knn_bf16_d128, knn_i8_d128 and knn_f32_d128 bf16,
 // int8 and f32 rows of 128, on the mma.sync body (what K1 and K3 launched
 // there before knn_wg.cuh's wgmma body, kept as its yardstick) or on the
-// wgmma body, in K1's and K3's modes (int8: K1's; f32 at 128: K3's, K1
-// f32 at 128 being on the mma.sync body itself) and the product-only
-// stage (the product / key-epilogue split).
+// wgmma body, in K1's and K3's modes (int8: K1's only) and the
+// product-only stage (the product / key-epilogue split).
 // knn_dp4a_i8 (K1's int8 modes, plain and gated), knn_ffma_bf16 (K1's and
 // K3's bf16 modes: plain, gated, wide) and knn_ffma_f32 (K1's and K3's f32
 // modes: plain, gated, wide) launch the old bodies as the tensor-core
@@ -248,10 +247,9 @@ extern "C" int knn_ffma_f32(const void* a, const void* b, const void* na2,
 // bits (1) or integer-valued f32 (2, split first into split_a (n_pairs,
 // n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch, unused
 // otherwise), 16-byte aligned; n_a and n_b multiples of 64, of any size
-// (K1's and K3's shapes). The body K1 f32 runs at 128 and P4's stage 0;
-// the wgmma body's product-only stage at 128 is knn_i8_d128's,
-// knn_bf16_d128's and knn_f32_d128's. Returns the cudaError_t of the
-// launch.
+// (K1's and K3's shapes). P4's stage 0; the wgmma body's product-only
+// stage at 128, the one K1 and K3 run, is knn_i8_d128's, knn_bf16_d128's
+// and knn_f32_d128's. Returns the cudaError_t of the launch.
 extern "C" int knn_tc_row_sum(const void* a, const void* b, void* split_a,
                               void* split_b, void* row_p, int n_pairs,
                               int n_a, int n_b, int dtype, void* stream) {
@@ -596,14 +594,13 @@ extern "C" int knn_f32_d256(const void* a, const void* b, const void* na2,
                                   256, stream);
 }
 
-// f32 rows of 128 values on either body, as knn_f32_d256 in the modes
-// kWide and kProductRowSum (K1 f32 at 128 runs the mma.sync body itself,
-// knn_packed_float; uv_a, pred_b and radius2 unused): body 0 the mma.sync
-// body (knn_tc_kernel<Bf16x3>, K3 f32's yardstick at 128), 1 the wgmma
-// body that K3 f32 runs; both after the split pre-pass into split_a
-// (n_pairs, n_a, 3, 128) and split_b (n_pairs, n_b, 3, 128) bf16 scratch.
-// a, b (n_pairs, n_a | n_b, 128) f32. Returns the cudaError_t of the first
-// failed launch.
+// f32 rows of 128 values on either body, as knn_f32_d256: body 0 the
+// mma.sync body (knn_tc_kernel<Bf16x3>, K1 f32's and K3 f32's yardstick at
+// 128: K1's mode gated when uv_a != NULL), 1 the wgmma body that K1 and K3
+// f32 run (its keyed modes through knn_packed_float and knn_wide); both
+// after the split pre-pass into split_a (n_pairs, n_a, 3, 128) and split_b
+// (n_pairs, n_b, 3, 128) bf16 scratch. a, b (n_pairs, n_a | n_b, 128) f32.
+// Returns the cudaError_t of the first failed launch.
 extern "C" int knn_f32_d128(const void* a, const void* b, const void* na2,
                             const void* nb2, const void* uv_a,
                             const void* pred_b, float radius2, void* row_p,
@@ -611,7 +608,7 @@ extern "C" int knn_f32_d128(const void* a, const void* b, const void* na2,
                             void* split_a, void* split_b, int n_pairs,
                             int n_a, int n_b, int mode, int body,
                             void* stream) {
-  if (mode == kPacked || bad_mode(n_pairs, n_a, n_b, mode, body, true))
+  if (bad_mode(n_pairs, n_a, n_b, mode, body, true))
     return (int)cudaErrorInvalidValue;
   return f32_bodies<Bf16x3>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
                             col_p, row_k, col_k, split_a, split_b, n_pairs,

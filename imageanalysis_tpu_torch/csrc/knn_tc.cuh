@@ -2,10 +2,9 @@
 // over the operand type T: bf16 bits (uint16_t), int8 (int8_t) or f32
 // split into three bf16 planes (Bf16x3). Included at the end of
 // knn_common.cuh, whose constants, gate and keys it uses. What still runs
-// it: K1 f32 at 128 values a row (knn_packed.cu) plain (kPacked) and
-// gated (kPackedGated), and the probes. K1 bf16 and int8 and K3 bf16 and
-// f32 at 128, and every type at 256, run the wgmma body (knn_wg.cuh,
-// launch_tc at the end); the mma.sync instantiations they replaced stay as
+// it: the probes. Every 2-NN row, K1 (every type, plain and gated) and K3
+// at 128 and 256 values a row, runs the wgmma body (knn_wg.cuh, launch_tc
+// at the end); the mma.sync instantiations they replaced stay as
 // knn_probe.cu's yardsticks (knn_bf16_d128, knn_i8_d128, knn_f32_d128,
 // knn_*_d256), and P3's and P4's stages run here whole, K1 at their full
 // stage included. The probes' modes
@@ -87,8 +86,8 @@
 // bf16's 528-byte rows 128 A rows and two 128-row B tiles (~204 KB) and
 // f32's 1552-byte rows 64 A rows and one 64-row B tile (~196 KB, STAGES =
 // 1: the copy of a tile did not overlap the product of the one before);
-// those instantiations stay only as knn_probe.cu's yardsticks, as do bf16's
-// and int8's at 128 and K3's at 128 (tc::launch_mma).
+// those instantiations stay only as knn_probe.cu's yardsticks, as do every
+// type's at 128 in K1's and K3's modes (tc::launch_mma).
 //
 // Design:
 // - A block owns BM = 128 A rows of one pair (64 where n_a is an odd
@@ -794,10 +793,10 @@ int tile_blocks_per_sm() {
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// The mma.sync body in MODE over T as launch_tc sends it: f32 at 256 (the
-// yardstick, knn_probe.cu) 64 A rows and one 64-row B tile; else 128 A
-// rows a block where n_a allows, else 64, the type's B tiles in a ring of
-// two. Returns the cudaError_t of the launch.
+// The mma.sync body in MODE over T as launch_tc sent it there before the
+// wgmma body (now knn_probe.cu's yardsticks): f32 at 256 64 A rows and one
+// 64-row B tile; else 128 A rows a block where n_a allows, else 64, the
+// type's B tiles in a ring of two. Returns the cudaError_t of the launch.
 template <typename T, int MODE>
 int launch_mma(const void* a, const void* b, const void* na2,
                const void* nb2, const void* uv_a, const void* pred_b,
@@ -842,42 +841,23 @@ int launch_row_norms_i8(const void* x, void* out, long long rows,
                         float bias = 0.f);
 
 // The tensor-core body in MODE over T (uint16_t: bf16 bits, int8_t, Bf16x3:
-// the split rows of launch_split; D256<T>: T at 256 values a row). a, b
-// (n_pairs, n, 128 or 256) T; na2, nb2 the f32 squared norms (unused by
-// kProductRowSum and kProductRowMin; int8's B norms biased by
+// the split rows of launch_split; D256<T>: T at 256 values a row): the
+// wgmma body (knn_wg.cuh) for every type at either width, in K1's modes
+// (kPacked, kPackedGated), K3's (kWide; bf16 and f32) and the product-only
+// stage (kProductRowSum). a, b (n_pairs, n, 128 or 256) T; na2, nb2 the
+// f32 squared norms (unused by kProductRowSum; int8's B norms biased by
 // wg::nb_bias); uv_a, pred_b f32 for kPackedGated; n_a and n_b multiples
-// of 64 (the caller checks the shapes). The wgmma body (knn_wg.cuh) for
-// every type at 256; at 128 for bf16 and int8 in K1's modes, bf16 and f32
-// in K3's (kWide), and all three in the product-only stage; else (K1 f32
-// at 128, plain and gated) the mma.sync body, blocks of 128 A rows where
-// n_a allows, else 64, the type's B tiles in a ring of two. Returns the
+// of 64 (the caller checks the shapes). The mma.sync body it replaced is
+// tc::launch_mma, which only knn_probe.cu's yardsticks call. Returns the
 // cudaError_t of the launch.
-template <typename T, int MODE>
-constexpr bool on_wg =
-    std::is_same<T, D256<Bf16x3>>::value ||
-    std::is_same<T, D256<uint16_t>>::value ||
-    std::is_same<T, D256<int8_t>>::value ||
-    ((std::is_same<T, uint16_t>::value || std::is_same<T, int8_t>::value) &&
-     (MODE == kPacked || MODE == kPackedGated)) ||
-    ((std::is_same<T, uint16_t>::value || std::is_same<T, Bf16x3>::value) &&
-     MODE == kWide) ||
-    MODE == kProductRowSum;
-
 template <typename T, int MODE>
 int launch_tc(const void* a, const void* b, const void* na2,
               const void* nb2, const void* uv_a, const void* pred_b,
               float radius2, void* row_p, void* col_p, void* row_k,
               void* col_k, int n_pairs, int n_a, int n_b,
               cudaStream_t stream) {
-  if constexpr (on_wg<T, MODE>) {
-    return wg::launch<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
-                               col_p, row_k, col_k, n_pairs, n_a, n_b,
-                               stream);
-  } else {
-    return tc::launch_mma<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2,
-                                   row_p, col_p, row_k, col_k, n_pairs, n_a,
-                                   n_b, stream);
-  }
+  return wg::launch<T, MODE>(a, b, na2, nb2, uv_a, pred_b, radius2, row_p,
+                             col_p, row_k, col_k, n_pairs, n_a, n_b, stream);
 }
 
 }  // namespace knn

@@ -7,8 +7,7 @@
 //   the chunked float path and every store beyond 8192 rows): K1, and K3
 //   in bf16;
 // - Bf16x3, f32 rows of 128 as three bf16 planes (hi, mid, lo;
-//   knn_tc.cuh's head): K3 (K1 f32 at 128 stays on knn_tc.cuh's mma.sync
-//   body);
+//   knn_tc.cuh's head): K1 and K3;
 // - D256<uint16_t>, bf16 rows of 256 values (ORB's 256 bits as 0/1, or
 //   the int8 store's rows cast to bf16): the bf16 body;
 // - D256<int8_t>, int8 rows of 256 (ORB's bits as the int8 store holds
@@ -17,14 +16,13 @@
 // - D256<Bf16x3>, f32 rows of 256 as three bf16 planes: the f32 body.
 // Included by knn_tc.cuh, whose launch_tc sends these types here: K1 plain
 // (kPacked) and gated (kPackedGated), K3 (kWide; bf16 and f32), and the
-// product-only stage (kProductRowSum, the probes' split). The mma.sync
-// bodies replaced here (knn_tc_kernel<uint16_t>, <int8_t>, <Bf16x3> in
-// K3's mode, <D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
+// product-only stage (kProductRowSum, the probes' split): every 2-NN row.
+// The mma.sync bodies replaced here (knn_tc_kernel<uint16_t>, <int8_t>,
+// <Bf16x3>, <D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
 // reachable from knn_probe.cu (knn_bf16_d128, knn_i8_d128, knn_f32_d128,
 // knn_bf16_d256, knn_i8_d256, knn_f32_d256) as their yardsticks.
 //
-// Replaces, for bf16 and int8 rows of 128 values (f32 in K3 only) and
-// bf16, int8 and f32 rows of 256:
+// Replaces, for bf16, int8 and f32 rows of 128 and of 256 values:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3)
 //
@@ -59,8 +57,9 @@
 //   m64 halves each): bf16 256 rows (at 256 values four chunks, 128 KB; at
 //   128 two, 64 KB), int8 at 256 256 rows as two 128-value chunks (64 KB),
 //   int8 at 128 384 rows as one (48 KB). f32 (one m64 half a warpgroup):
-//   at 256 values BM = 64, both warpgroups on all of them; at 128 BM =
-//   128, each warpgroup its own 64. The hi plane in registers (each
+//   at 256 values, and at 128 in K1's modes, BM = 64, both warpgroups on
+//   all of them; K3 and the product-only stage at 128 BM = 128, each
+//   warpgroup its own 64 (Body<Bf16x3, MODE>). The hi plane in registers (each
 //   thread's m16n8k16 A fragments of its warp's 16 rows, 16 k-steps x 4
 //   registers at 256 values, 8 at 128, loaded once from the split rows in
 //   global memory), the mid and lo planes in shared memory as bf16's A (64
@@ -73,9 +72,9 @@
 //   KB at 128) in a ring with full and empty mbarriers. bf16 and int8: a
 //   ring of two, a stage a tile, every consumer warpgroup on every tile.
 //   f32: a stage a plane, a tile's planes in the order lo, mid, hi (value
-//   dim p + 64 c of the split rows); at 256 values a ring of four,
+//   dim p + 64 c of the split rows); at BM = 64 a ring of four,
 //   warpgroup w takes tiles w, w + 2, .. (its warps alone empty their
-//   stages); at 128 a ring of six, both on every tile. Each tile's
+//   stages); at BM = 128 a ring of six, both on every tile. Each tile's
 //   f32 norms and gate positions go by bulk copy into a ring of slots,
 //   counted by the full barrier of the tile's first stage (kSlots: a slot
 //   is rewritten only after the epilogues of the tile four back, f32's by
@@ -83,10 +82,12 @@
 //   released as soon as its products are done, before the epilogue that
 //   reads its slot; bf16 and int8 rewrite tile t's slot for tile t + 4,
 //   once every warpgroup has released tile t + 2, after its epilogue of
-//   t; f32 at 128 likewise, tile t + 2's lo plane being stage 3 t + 6).
+//   t; f32 at BM = 128 likewise, tile t + 2's lo plane being stage 3 t +
+//   6, which each warpgroup releases after its epilogue of t + 1; the
+//   gate's positions share the norms' slot and barrier).
 //   ~206 KB (bf16 at 256), ~106 KB (int8 at 256), ~205 KB (f32 at 256),
 //   ~100 KB (bf16 at 128; K3 ~108), ~70 KB (int8 at 128), ~174 KB (f32 at
-//   128) of shared memory.
+//   128, BM = 128), ~109 KB (K1 f32 at 128, BM = 64) of shared memory.
 // - Products: wgmma.m64n64k16 with f32 accumulators (int8: m64n64k32 with
 //   s32 accumulators in the same layout), scale-d off at a sum's first
 //   k-step (no zero fill), 16 k-steps a plane at 256 values (int8: 8), 8
@@ -119,9 +120,16 @@
 //   the lo plane in registers in place of hi (five products of six read A
 //   from shared memory, whose 128 bytes a clock an SS m64n64k16 uses
 //   whole) slower still. At 128 values (half the hi registers, half the
-//   k-steps) BM = 128 with a ring of six: the warpgroups in ping-pong as
-//   bf16's, each issuing a tile's three planes in turn, 2-3% faster than
-//   the 256 structure (BM = 64: the L2 feed does not bound it at 128).
+//   k-steps) the faster structure depends on the mode, in turns: K3 (n_b
+//   beyond 8192) at BM = 128 with a ring of six, the warpgroups in
+//   ping-pong as bf16's, each issuing a tile's three planes in turn, 2-3%
+//   faster than the 256 structure (the L2 feed does not bound it at 128);
+//   K1 (n_b at most 8192, 64 tiles a block at 4096) the other way, the
+//   256 structure faster (PERF.md: plain 1-2%, gated ~5%; the gate's
+//   longer epilogue runs freely beside the other warpgroup's products
+//   where the ping-pong's barriers hold it), and three consumer
+//   warpgroups of 64 rows (192 A rows, 152 registers) spill in the gated
+//   mode and are slower still.
 // - Epilogue: the accumulator layout is mma.sync's m16n8 C fragment
 //   repeated along N, so knn_tc.cuh's arithmetic carries over: a thread
 //   holds 2 rows a half (rows g, g + 8 of its warp's 16) and 16 columns
@@ -198,56 +206,68 @@ constexpr int kBN = 64;             // B rows a tile
 constexpr int kBChunk = kBN * 128;  // bytes of one B chunk
 constexpr int kSlots = 4;           // norm and gate slots: tile t in t % 4
 
-// What the operand type decides: the accumulator type; A rows a block;
-// m64 halves a consumer warpgroup (bf16 and int8: two, each warpgroup its
-// own rows; f32: one, both warpgroups on the block's rows, alternate B
-// tiles); planes a row; 128-byte chunks of a plane's row (bf16: 64
-// values; int8: 128); A planes in shared memory; B stages in the ring;
-// arrivals that empty a stage (the consumer warps that read it); consumer
-// warpgroups
-template <typename T>
+// What the operand type (f32 at 128 values: and the mode) decides: the
+// accumulator type; A rows a block; m64 halves a consumer warpgroup (bf16
+// and int8: two, each warpgroup its own rows; f32: one); planes a row;
+// 128-byte chunks of a plane's row (bf16: 64 values; int8: 128); A planes
+// in shared memory; B stages in the ring; arrivals that empty a stage (the
+// consumer warps that read it); consumer warpgroups
+template <typename T, int MODE>
 struct Body;
-template <>
-struct Body<uint16_t> {             // bf16 at 128 values a row
+template <int MODE>
+struct Body<uint16_t, MODE> {       // bf16 at 128 values a row
   using Acc = float;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
   static constexpr int kChunks = 2, kRing = 2, kEmpty = 8, kConsumers = 2;
 };
-template <>
-struct Body<int8_t> {               // int8 at 128: one 128-byte chunk,
+template <int MODE>
+struct Body<int8_t, MODE> {         // int8 at 128: one 128-byte chunk,
   using Acc = int;                  // three consumer warpgroups
   static constexpr int kRows = 384, kHalves = 2, kPlanes = 1, kAPlanes = 1;
   static constexpr int kChunks = 1, kRing = 2, kEmpty = 12, kConsumers = 3;
 };
-template <>
-struct Body<D256<uint16_t>> {
+template <int MODE>
+struct Body<D256<uint16_t>, MODE> {
   using Acc = float;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
   static constexpr int kChunks = 4, kRing = 2, kEmpty = 8, kConsumers = 2;
 };
-template <>
-struct Body<D256<int8_t>> {
+template <int MODE>
+struct Body<D256<int8_t>, MODE> {
   using Acc = int;
   static constexpr int kRows = 256, kHalves = 2, kPlanes = 1, kAPlanes = 1;
   static constexpr int kChunks = 2, kRing = 2, kEmpty = 8, kConsumers = 2;
 };
-template <>
-struct Body<D256<Bf16x3>> {       // hi in registers; mid, lo in smem
+template <int MODE>
+struct Body<D256<Bf16x3>, MODE> {   // hi in registers; mid, lo in smem
   using Acc = float;
   static constexpr int kRows = 64, kHalves = 1, kPlanes = 3, kAPlanes = 2;
   static constexpr int kChunks = 4, kRing = 4, kEmpty = 4, kConsumers = 2;
 };
-template <>
-struct Body<Bf16x3> {             // f32 at 128: 64 rows a warpgroup
+// f32 at 128 values a row: K1's modes (kPacked, kPackedGated; n_b <= 8192)
+// on the 256 body's structure, 64 A rows a block, the warpgroups on
+// alternate B tiles; K3 (kWide; n_b beyond 8192) and the product-only
+// stage on 128 A rows, each warpgroup its own 64, in ping-pong (the head:
+// each the faster at its mode's shapes)
+struct F32Rows64 {
+  using Acc = float;
+  static constexpr int kRows = 64, kHalves = 1, kPlanes = 3, kAPlanes = 2;
+  static constexpr int kChunks = 2, kRing = 4, kEmpty = 4, kConsumers = 2;
+};
+struct F32Rows128 {
   using Acc = float;
   static constexpr int kRows = 128, kHalves = 1, kPlanes = 3, kAPlanes = 2;
   static constexpr int kChunks = 2, kRing = 6, kEmpty = 8, kConsumers = 2;
 };
+template <int MODE>
+struct Body<Bf16x3, MODE>
+    : std::conditional_t<MODE == kPacked || MODE == kPackedGated, F32Rows64,
+                         F32Rows128> {};
 // f32 with 64 A rows a block: both warpgroups on the block's rows, each
 // on alternate B tiles (at 128 A rows, each its own 64 rows, both on
-// every tile)
-template <typename T>
-constexpr bool kAltTiles = Body<T>::kPlanes == 3 && Body<T>::kRows == 64;
+// every tile); B below is a Body
+template <typename B>
+constexpr bool kAltTiles = B::kPlanes == 3 && B::kRows == 64;
 // K3's key epilogue (kWide): bf16's 16 columns a thread in kWidePasses
 // passes of 16 / kWidePasses (the head: 2-3% faster than one pass)
 constexpr int kWidePasses = 2;
@@ -259,38 +279,38 @@ constexpr float kNbBias = -10485760.f;    // -(2^23 + 2^21)
 // what K1's int8 pre-pass adds to the B norms for the body over T
 template <typename T>
 constexpr float nb_bias() { return kD2Mad<T> ? kNbBias : 0.f; }
-template <typename T>
-constexpr int kBM = Body<T>::kRows;
+template <typename B>
+constexpr int kBM = B::kRows;
 // threads a block: the consumer warpgroups and a producer warpgroup
-template <typename T>
-constexpr int kThreads = 128 * (Body<T>::kConsumers + 1);
+template <typename B>
+constexpr int kThreads = 128 * (B::kConsumers + 1);
 // A rows a TMA box (at most 256), the box loaded kBM / kABox times
-template <typename T>
-constexpr int kABox = kBM<T> <= 256 ? kBM<T> : 128;
+template <typename B>
+constexpr int kABox = kBM<B> <= 256 ? kBM<B> : 128;
 // a consumer thread's registers after setmaxnreg: the SM's 65,536 less
 // the producer warpgroup's 40 a thread, over the consumers, in multiples
 // of 8 (two consumer warpgroups: 232; three: 152)
-template <typename T>
+template <typename B>
 constexpr int kConsumerRegs =
-    (65536 - 40 * 128) / (128 * Body<T>::kConsumers) / 8 * 8;
-template <typename T>
-constexpr int kAChunk = kBM<T> * 128;         // bytes of one A chunk
+    (65536 - 40 * 128) / (128 * B::kConsumers) / 8 * 8;
+template <typename B>
+constexpr int kAChunk = kBM<B> * 128;         // bytes of one A chunk
 
 template <typename T, int MODE>
 struct Smem {
-  static_assert(kAltTiles<T> ? Body<T>::kRing == 4
-                             : Body<T>::kRing <= Body<T>::kPlanes * 3,
+  using B = Body<T, MODE>;
+  static_assert(kAltTiles<B> ? B::kRing == 4 : B::kRing <= B::kPlanes * 3,
                 "four norm slots hold the ring (the head)");
-  static constexpr int kC = Body<T>::kChunks;
-  unsigned char a[Body<T>::kAPlanes][kC][kAChunk<T>];  // 1024-aligned
-  unsigned char b[Body<T>::kRing][kC][kBChunk];
+  static constexpr int kC = B::kChunks;
+  unsigned char a[B::kAPlanes][kC][kAChunk<B>];  // 1024-aligned
+  unsigned char b[B::kRing][kC][kBChunk];
   float nb2[kSlots][kBN];
   float pb[kSlots][kBN * 2];        // the gate's predicted positions
-  float ua[kBM<T> * 2];             // the gate's A positions
+  float ua[kBM<B> * 2];             // the gate's A positions
   // column partials: [warpgroup][tile parity][warp][column]
-  tc::Key<MODE> colpart[Body<T>::kConsumers][2][4][kBN];
+  tc::Key<MODE> colpart[B::kConsumers][2][4][kBN];
   tc::Key<MODE> rowpart[64][2];     // f32: warpgroup 1's row top-2
-  uint64_t full[Body<T>::kRing], empty[Body<T>::kRing], a_full;
+  uint64_t full[B::kRing], empty[B::kRing], a_full;
 };
 
 template <typename T, int MODE>
@@ -335,16 +355,16 @@ __device__ __forceinline__ void product64(int (&d)[32], uint64_t da,
 // bf16 and int8: one tile's products into acc (2 m64 halves x 64
 // columns): A's rows of the warpgroup at sa, the B stage at sb; four
 // 32-byte k-steps a 128-byte chunk
-template <typename T>
-__device__ __forceinline__ void issue(typename Body<T>::Acc (&acc)[2][32],
+template <typename B>
+__device__ __forceinline__ void issue(typename B::Acc (&acc)[2][32],
                                       const unsigned char* sa,
                                       const unsigned char* sb) {
   using namespace hopper;
-  constexpr int kA = kAChunk<T>;
+  constexpr int kA = kAChunk<B>;
   fence_acc(acc);
   wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < Body<T>::kChunks; ++c)
+  for (int c = 0; c < B::kChunks; ++c)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -360,12 +380,12 @@ __device__ __forceinline__ void issue(typename Body<T>::Acc (&acc)[2][32],
 // registers (ah[s]), mid and lo from shared memory: da the descriptor of
 // the warpgroup's rows of mid, a_off the k-step's byte offset in a plane,
 // db B's
-template <typename T, int A, int P>
+template <typename B, int A, int P>
 __device__ __forceinline__ void product(float (&d)[32],
                                         const uint32_t (&ah)[16][4],
                                         uint64_t da, int a_off, uint64_t db,
                                         int s) {
-  constexpr int kPlane = Body<T>::kChunks * kAChunk<T>;  // bytes in smem
+  constexpr int kPlane = B::kChunks * kAChunk<B>;  // bytes in smem
   const int scale = A == 0 && P != 1 ? s != 0 : 1;
   if constexpr (A == 0)
     hopper::wgmma_64_rs(d, ah[s], db, scale);
@@ -381,7 +401,7 @@ __device__ __forceinline__ void product(float (&d)[32],
 // stage. Each k-step's descriptors are the bases' plus a constant, the
 // bases opaque to the compiler: it would otherwise hoist all 48 (at 128
 // values: 24) out of the sweep over B and spill them.
-template <typename T, int I>
+template <typename B, int I>
 __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
                                           float (&sm)[1][32],
                                           const uint32_t (&ah)[16][4],
@@ -389,8 +409,8 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
                                           const unsigned char* sb) {
   using namespace hopper;
   constexpr int P = 2 - I;
-  constexpr int kA = kAChunk<T>;
-  constexpr int kChunks = Body<T>::kChunks;
+  constexpr int kA = kAChunk<B>;
+  constexpr int kChunks = B::kChunks;
   uint64_t da = desc_sw128(sa), db0 = desc_sw128(sb);
   asm volatile("" : "+l"(da), "+l"(db0));
   fence_acc(acc);
@@ -404,11 +424,11 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
       const uint64_t db = db0 + ((c * kBChunk + kk * 32) >> 4);
       const int off = c * kA + kk * 32;
       if constexpr (P == 0)
-        product<T, 0, P>(acc[0], ah, da, off, db, s);
+        product<B, 0, P>(acc[0], ah, da, off, db, s);
       else
-        product<T, 0, P>(sm[0], ah, da, off, db, s);
-      if constexpr (P <= 1) product<T, 1, P>(sm[0], ah, da, off, db, s);
-      if constexpr (P == 0) product<T, 2, P>(sm[0], ah, da, off, db, s);
+        product<B, 0, P>(sm[0], ah, da, off, db, s);
+      if constexpr (P <= 1) product<B, 1, P>(sm[0], ah, da, off, db, s);
+      if constexpr (P == 0) product<B, 2, P>(sm[0], ah, da, off, db, s);
     }
   wgmma_commit();
 }
@@ -459,7 +479,7 @@ __device__ __forceinline__ int column_minima(K (&k)[16], int g) {
 // rows; a32: f32's split A rows (n_pairs, n_a, 3, 128 or 256) bf16 as
 // pairs of values, for its hi fragments (unused by bf16 and int8).
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads<T>, 1)
+__global__ void __launch_bounds__(kThreads<Body<T, MODE>>, 1)
 knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
               const __grid_constant__ CUtensorMap tb,
               const uint32_t* __restrict__ a32,
@@ -471,13 +491,14 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
               int n_a, int n_b) {
   using namespace hopper;
   using K = tc::Key<MODE>;
-  using Acc = typename Body<T>::Acc;
-  constexpr bool kF32 = Body<T>::kPlanes == 3;
+  using B = Body<T, MODE>;
+  using Acc = typename B::Acc;
+  constexpr bool kF32 = B::kPlanes == 3;
   constexpr bool kInt8 = std::is_same<Acc, int>::value;
-  constexpr int kChunks = Body<T>::kChunks;
-  constexpr int kHalves = Body<T>::kHalves;
-  constexpr int kBMT = kBM<T>;
-  constexpr int kAC = kAChunk<T>;
+  constexpr int kChunks = B::kChunks;
+  constexpr int kHalves = B::kHalves;
+  constexpr int kBMT = kBM<B>;
+  constexpr int kAC = kAChunk<B>;
   constexpr int kDim = 64 * kChunks;     // bf16 values of a plane's row
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
@@ -494,38 +515,38 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   const int a0 = blockIdx.x * kBMT;
   const int tid = threadIdx.x;
   const int n_tiles = n_b / kBN;
-  constexpr int kRing = Body<T>::kRing;
+  constexpr int kRing = B::kRing;
   if (tid == 0) {
     for (int i = 0; i < kRing; ++i) {
       mbar_init(&s.full[i], 1);
-      mbar_init(&s.empty[i], Body<T>::kEmpty);   // lane 0 of each
+      mbar_init(&s.empty[i], B::kEmpty);   // lane 0 of each
     }
     mbar_init(&s.a_full, 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  constexpr int kC = Body<T>::kConsumers;
+  constexpr int kC = B::kConsumers;
   if (tid >= 128 * kC) {            // the producer warpgroup
     regs_dec<40>();                 // consumers: kConsumerRegs
     if (tid != 128 * kC) return;
     tma_prefetch(&ta);
     tma_prefetch(&tb);
     const int rows_a = min(kBMT, n_a - a0);
-    mbar_expect_tx(&s.a_full, Body<T>::kAPlanes * kChunks * kAC +
+    mbar_expect_tx(&s.a_full, B::kAPlanes * kChunks * kAC +
                                   (kGated ? rows_a * 8 : 0));
     // bf16: its one plane; f32: mid and lo (planes 1 and 2)
 #pragma unroll
-    for (int p = 0; p < Body<T>::kAPlanes; ++p)
+    for (int p = 0; p < B::kAPlanes; ++p)
       for (int c = 0; c < kChunks; ++c)
-        for (int r = 0; r < kBMT; r += kABox<T>)
+        for (int r = 0; r < kBMT; r += kABox<B>)
           tma_load_3d(s.a[p][c] + r * 128, &ta, &s.a_full,
                       (kF32 ? kDim * (p + 1) : 0) + c * 64, a0 + r, pair);
     if (kGated)
       bulk_load(s.ua, uv_a + ((size_t)pair * n_a + a0) * 2, rows_a * 8,
                 &s.a_full);
     // stage u: tile u / P, its plane 2 - u % P for f32 (lo, mid, hi)
-    const int n_stages = n_tiles * Body<T>::kPlanes;
+    const int n_stages = n_tiles * B::kPlanes;
     for (int u = 0, t = 0, i = 0; u < n_stages; ++u) {
       const int st = u % kRing;
       const bool first = i == 0;    // the tile's norms and gate travel here
@@ -545,7 +566,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
         if (kGated)
           bulk_load(s.pb[t & 3], pred_b + 2 * j, kBN * 8, &s.full[st]);
       }
-      if (++i == Body<T>::kPlanes) {
+      if (++i == B::kPlanes) {
         i = 0;
         ++t;
       }
@@ -553,7 +574,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     return;
   }
 
-  regs_inc<kConsumerRegs<T>>();
+  regs_inc<kConsumerRegs<B>>();
   // bf16 and int8: rows 128 wg .. of the block; f32 at 128 A rows: rows
   // 64 wg ..; f32 at 64: tiles wg, wg + 2, ..
   const int wg = tid >> 7;
@@ -563,7 +584,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   const int q = lane & 3;           // fragment column pair
   // the warpgroup's first row in the block: both on the same rows where
   // they take alternate tiles
-  constexpr int kWgRows = kAltTiles<T> ? 0 : 64 * kHalves;
+  constexpr int kWgRows = kAltTiles<B> ? 0 : 64 * kHalves;
   const int r0 = a0 + wg * kWgRows + warp * 16 + g;   // (half 0, g)
   // halves of the warpgroup with rows in the pair (warpgroup-uniform;
   // f32 has one)
@@ -743,7 +764,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
             k[jj] = ck[jj];
         }
         const int j0 = pass * kCols + column_minima<kCols>(k, g);
-        K* part = &s.colpart[wg][(kAltTiles<T> ? t >> 1 : t) & 1][warp]
+        K* part = &s.colpart[wg][(kAltTiles<B> ? t >> 1 : t) & 1][warp]
                              [(j0 >> 1) * 8 + 2 * q + (j0 & 1)];
 #pragma unroll
         for (int i = 0; i < kCols / 8; ++i) part[i] = k[i];
@@ -758,7 +779,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   auto flush = [&](int t) {
     const int c = tid & 127;
     if (kSum || !valid[0] || c >= kBN) return;
-    const K* p = &s.colpart[wg][(kAltTiles<T> ? t >> 1 : t) & 1][0][c];
+    const K* p = &s.colpart[wg][(kAltTiles<B> ? t >> 1 : t) & 1][0][c];
     const K m = tc::kmin(tc::kmin(p[0], p[kBN]),
                          tc::kmin(p[2 * kBN], p[3 * kBN]));
     const size_t j = (size_t)pair * n_b + t * kBN + c;
@@ -802,7 +823,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
         bar_sync(1 + wg, 256);
       else if (t > 0)
         bar_sync(1, 256);
-      issue<T>(acc, sa, s.b[t % kRing][0]);
+      issue<B>(acc, sa, s.b[t % kRing][0]);
       if (wg + 1 < kC)
         bar_arrive(2 + wg, 256);
       else if (t + 1 < n_tiles)
@@ -820,12 +841,12 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     // each tile's planes through the ring: stage u = 3t + I, tile t's B
     // plane lo (I 0), mid (1), hi (2)
     float acc[1][32], sm[1][32];
-    constexpr int kStep = kAltTiles<T> ? 2 : 1;   // a warpgroup's tiles
+    constexpr int kStep = kAltTiles<B> ? 2 : 1;   // a warpgroup's tiles
     auto plane = [&](int t, auto pos) {
       constexpr int I = decltype(pos)::value;
       const int u = 3 * t + I;
       wait(&s.full[u % kRing], (u / kRing) & 1);
-      issue_f32<T, I>(acc, sm, ah, sa, s.b[u % kRing][0]);
+      issue_f32<B, I>(acc, sm, ah, sa, s.b[u % kRing][0]);
       if (I == 0 && t >= kStep) flush(t - kStep);   // under its products
       if (I > 0) {                  // the stage before is read
         wgmma_wait<1>();
@@ -849,7 +870,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       norms(nbr, t);
       if (valid[0]) epilogue(acc, t, std::integral_constant<int, 1>(), nbr);
     };
-    if constexpr (kAltTiles<T>) {
+    if constexpr (kAltTiles<B>) {
       // each warpgroup its own tiles; the stages' order staggers the two,
       // so that one's key epilogue runs under the other's products
       for (int t = wg; t < n_tiles; t += 2) {
@@ -873,7 +894,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       }
     }
   }
-  if constexpr (kAltTiles<T>) {     // the warpgroup's last tile's columns
+  if constexpr (kAltTiles<B>) {     // the warpgroup's last tile's columns
     const int last = n_tiles - 1 - ((n_tiles - 1 - wg) & 1);
     if (last >= 0) flush(last);
   } else {
@@ -910,7 +931,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
           tc::merge2(o1, o2, k1, k2);
         }
       }
-      if constexpr (kAltTiles<T>) {  // warpgroup 1 hands its keys over
+      if constexpr (kAltTiles<B>) {  // warpgroup 1 hands its keys over
         const int rr = warp * 16 + hh * 8 + g;
         if (wg == 1 && q == 0) {
           s.rowpart[rr][0] = k1;
@@ -949,22 +970,23 @@ int launch(const void* a, const void* b, const void* na2, const void* nb2,
            const void* uv_a, const void* pred_b, float radius2, void* row_p,
            void* col_p, void* row_k, void* col_k, int n_pairs, int n_a,
            int n_b, cudaStream_t stream) {
+  using B = Body<T, MODE>;
   // bf16 values a row (TMA moves bytes: int8's 256 bytes as 128)
-  constexpr int kK = 64 * Body<T>::kChunks * Body<T>::kPlanes;
+  constexpr int kK = 64 * B::kChunks * B::kPlanes;
   CUtensorMap ta, tb;
-  int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kABox<T>);
+  int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kABox<B>);
   if (e == 0) e = hopper::encode_pairs(&tb, b, n_pairs, n_b, kK, kBN);
   if (e != 0) return e;
   e = (int)cudaFuncSetAttribute(knn_wg_kernel<T, MODE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmem<T, MODE>);
   if (e != 0) return e;
-  dim3 grid((n_a + kBM<T> - 1) / kBM<T>, n_pairs);
+  dim3 grid((n_a + kBM<B> - 1) / kBM<B>, n_pairs);
   // the kernel reads its keys' multiplier 1 from %nctaid.z (mad_s32): a
   // grid with a z dimension would scale every K1 key
   if (grid.z != 1) return (int)cudaErrorInvalidConfiguration;
-  knn_wg_kernel<T, MODE><<<grid, kThreads<T>, kSmem<T, MODE>, stream>>>(
-      ta, tb, Body<T>::kPlanes == 3 ? (const uint32_t*)a : nullptr,
+  knn_wg_kernel<T, MODE><<<grid, kThreads<B>, kSmem<T, MODE>, stream>>>(
+      ta, tb, B::kPlanes == 3 ? (const uint32_t*)a : nullptr,
       (const float*)na2, (const float*)nb2, (const float*)uv_a,
       (const float*)pred_b, radius2, (int*)row_p, (int*)col_p,
       (long long*)row_k, (long long*)col_k, n_a, n_b);

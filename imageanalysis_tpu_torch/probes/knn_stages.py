@@ -644,10 +644,9 @@ def p4_stage_raw(a, b, na2=None, nb2=None, stage=3, body="tc"):
 
 # rows of 128 or 256 values on either tensor-core body: the modes of
 # knn_bf16_d256, knn_i8_d256 (no "wide": K3 takes no int8), knn_f32_d256,
-# knn_bf16_d128, knn_i8_d128 and knn_f32_d128 (no "packed": K1 f32 at 128
-# runs the mma.sync body itself) (csrc/knn_probe.cu) and the bodies
-# ("mma": mma.sync, the body K1 and K3 ran there before; "wg": the wgmma
-# body they run now)
+# knn_bf16_d128, knn_i8_d128 and knn_f32_d128 (csrc/knn_probe.cu) and the
+# bodies ("mma": mma.sync, the body K1 and K3 ran there before; "wg": the
+# wgmma body they run now)
 D256_MODES = {"packed": 0, "wide": 2, "row_sum": 3}
 BODIES = {"mma": 0, "wg": 1}
 # the C entry point of each (type, width)
@@ -670,9 +669,6 @@ def _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, name, dtype,
                          f"got {tuple(a.shape)} {a.dtype}")
     if mode == "wide" and dtype == torch.int8:
         raise ValueError(f"{name}: no mode 'wide' (K3 takes bf16 or f32)")
-    if mode == "packed" and dtype == torch.float32 and dim == 128:
-        raise ValueError(f"{name}: no mode 'packed' (K1 f32 at 128 runs "
-                         "the mma.sync body: knn.knn_packed_raw)")
     if mode == "packed":
         knn._check_pair_batch(a, b, na2, nb2, name, 1 << knn._IDX_BITS)
         if uv_a is not None:
@@ -759,19 +755,15 @@ def _rows_wrapper(dtype, dim, yardstick):
            torch.int8: "i8"}[dtype]
     name = f"{tag}_d{dim}"
     modes = ('"packed" or "row_sum"' if dtype == torch.int8
-             else '"wide" or "row_sum"' if dtype == torch.float32
-             and dim == 128 else '"packed", "wide" or "row_sum"')
-
-    # f32 at 128 has no "packed" mode: K3 by default
-    first = "wide" if dtype == torch.float32 and dim == 128 else "packed"
+             else '"packed", "wide" or "row_sum"')
 
     def plain(a, b, na2=None, nb2=None, uv_a=None, pred_b=None,
-              radius2=None, mode=first):
+              radius2=None, mode="packed"):
         return _rows_plain(a, b, na2, nb2, uv_a, pred_b, radius2, mode,
                            f"{name}_plain", dtype, dim)
 
     def raw(a, b, na2=None, nb2=None, uv_a=None, pred_b=None, radius2=None,
-            mode=first, body="mma"):
+            mode="packed", body="mma"):
         _check_rows(a, b, na2, nb2, uv_a, pred_b, mode, body, f"{name}_raw",
                     dtype, dim)
         if a.device.type == "cpu":
@@ -787,7 +779,7 @@ def _rows_wrapper(dtype, dim, yardstick):
         f"{str(dtype)[6:]} rows of {dim} values, a (B, n_a, {dim}) and b "
         f"(B, n_b, {dim}), on body \"mma\" ({yardstick}) or \"wg\" (the "
         "wgmma body of csrc/knn_wg.cuh, which K1 and K3 launch), in mode "
-        f"{modes} (default {first!r}): \"packed\" K1 (gated with uv_a, "
+        f"{modes} (default 'packed'): \"packed\" K1 (gated with uv_a, "
         "pred_b, radius2; row_p, "
         "col_p int32; int8 after K1's norm pre-pass, na2 and nb2 ignored), "
         "\"wide\" K3 (row_k, col_k int64), \"row_sum\" the product-only "
@@ -814,8 +806,8 @@ bf16_d128_plain, bf16_d128_raw = _rows_wrapper(
     "at 128: m16n8k16, 128-row A and B tiles in a cp.async ring")
 f32_d128_plain, f32_d128_raw = _rows_wrapper(
     torch.float32, 128, "the mma.sync body on the three bf16 planes after "
-    "the split pre-pass, K3 f32's yardstick at 128: 128 A rows where n_a "
-    "allows, else 64, 64-row B tiles in a cp.async ring")
+    "the split pre-pass, K1 f32's and K3 f32's yardstick at 128: 128 A rows "
+    "where n_a allows, else 64, 64-row B tiles in a cp.async ring")
 i8_d128_plain, i8_d128_raw = _rows_wrapper(
     torch.int8, 128, "the mma.sync s8 body, K1 int8's yardstick at 128: "
     "m16n8k32, 128-row A and B tiles in a cp.async ring")

@@ -10,7 +10,9 @@ script fails where a line is not found, so a variant never runs as the
 shipped kernel. The copies build into their own ``build/<name>/build/``
 (git ignores ``build/``). ``base`` is the package as it is.
 
-K3 at 128 values a row (``--k3-d128``):
+K3 at 128 values a row (``--k3-d128``; the f32 variants edit
+``F32Rows128``, the structure of K3 f32 and of f32's product-only stage
+at 128):
 - ``k3_256``: K3's epilogue as the 256 body had it before: d2 as (na +
   nb) - 2 dot by FADD, FMUL, FSUB and a -0 fix-up FADD, one pass over the
   columns;
@@ -24,6 +26,13 @@ K3 at 128 values a row (``--k3-d128``):
   block, the warpgroups on alternate B tiles, a ring of four stages;
 - ``f32_ring4``: f32 at 128 with 128 A rows and a ring of four stages
   (six shipped).
+
+K1 f32 at 128 values a row (``--k1-f32-d128``; shipped on ``F32Rows64``,
+64 A rows a block, the warpgroups on alternate B tiles):
+- ``k1_f32_bm128``: K1 f32 on ``F32Rows128`` as K3 f32 (128 A rows, each
+  warpgroup its own 64, in ping-pong, a ring of six plane stages);
+- ``k1_f32_wg3``: K1 f32 on ``F32Rows128`` with three consumer
+  warpgroups of 64 rows (192 A rows a block), K3 f32's too.
 """
 
 import os
@@ -38,13 +47,17 @@ WG = os.path.join(PKG, "csrc", "knn_wg.cuh")
 _F32 = ("  static constexpr int kRows = 128, kHalves = 1, kPlanes = 3, "
         "kAPlanes = 2;\n  static constexpr int kChunks = 2, kRing = 6, "
         "kEmpty = 8, kConsumers = 2;")
-_BF16 = ("struct Body<uint16_t> {             // bf16 at 128 values a row\n"
+_BF16 = ("struct Body<uint16_t, MODE> {       // bf16 at 128 values a row\n"
          "  using Acc = float;\n  static constexpr int kRows = 256, "
          "kHalves = 2, kPlanes = 1, kAPlanes = 1;\n  static constexpr int "
          "kChunks = 2, kRing = 2, kEmpty = 8, kConsumers = 2;")
 _D2 = ("              const float d2 =\n"
        "                  __fmaf_rn(-2.f, dot, __fadd_rn(na[h][hh], nbv));\n"
        "              // a thread meets")
+_K1_F32 = ("    : std::conditional_t<MODE == kPacked || MODE == kPackedGated, "
+           "F32Rows64,\n                         F32Rows128> {};")
+_WG3 = (_F32, _F32.replace("kRows = 128", "kRows = 192")
+        .replace("kEmpty = 8, kConsumers = 2", "kEmpty = 12, kConsumers = 3"))
 VARIANTS = {
     "base": [],
     "k3_256": [(_D2, "              const float d2 = __fadd_rn(__fsub_rn(\n"
@@ -58,12 +71,12 @@ VARIANTS = {
     "bf16_wg3": [(_BF16, _BF16.replace("kRows = 256", "kRows = 384")
                   .replace("kEmpty = 8, kConsumers = 2",
                            "kEmpty = 12, kConsumers = 3"))],
-    "f32_wg3": [(_F32, _F32.replace("kRows = 128", "kRows = 192")
-                 .replace("kEmpty = 8, kConsumers = 2",
-                          "kEmpty = 12, kConsumers = 3"))],
+    "f32_wg3": [_WG3],
     "f32_bm64": [(_F32, _F32.replace("kRows = 128", "kRows = 64")
                   .replace("kRing = 6, kEmpty = 8", "kRing = 4, kEmpty = 4"))],
     "f32_ring4": [(_F32, _F32.replace("kRing = 6", "kRing = 4"))],
+    "k1_f32_bm128": [(_K1_F32, "    : F32Rows128 {};")],
+    "k1_f32_wg3": [(_K1_F32, "    : F32Rows128 {};"), _WG3],
 }
 
 

@@ -8,7 +8,8 @@ Run it once per copy of the package, each in its own process, in turns
 card; each copy builds its kernels into ROOT/build/:
 
     python3 scripts_torch/knn_versions.py [ROOT] [--d256 | --f32-d256 |
-        --i8-d256 | --d128 [--check] | --k3-d128 [--check]]
+        --i8-d256 | --d128 [--check] | --k3-d128 [--check] |
+        --k1-f32-d128 [--check]]
 
 Shapes: the store's 256 pairs × 4096, bench.py's 64 × 6144 (int8 rows,
 value − 128 of 0..99, a quarter planted; bf16 and f32 as 0..255 with f32
@@ -36,7 +37,14 @@ row alone at 64 × 10240 (``k3_<type>``), and where the copy has
 ``knn_stages.f32_d128_raw`` the same cases on the ``mma.sync`` body
 (``mma_k3_<type>``) and the product-only stage on both bodies
 (``row_sum_<body>_k3_<type>``; f32's with its split pre-pass), with
-``--check`` first held bit-exact against the copy's ``mma.sync`` body.
+``--check`` first held bit-exact against the copy's ``mma.sync`` body;
+``--k1-f32-d128`` K1 f32 plain and gated at 128 values a row alone at the
+store's 256 × 4096 (``k1_f32``, ``gated_k1_f32``; ~65% of the candidates
+gated out), and where the copy's ``knn_stages.f32_d128_raw`` takes K1's
+mode the same cases on the ``mma.sync`` body (``mma_*``) and the
+product-only stage with its split pre-pass on both bodies
+(``row_sum_<body>_k1_f32``), with ``--check`` each case first held
+bit-exact against the copy's ``mma.sync`` body.
 Times: median of CUDA events
 after warm-up. Registers: "type mode BM[ BN STAGES]" → [registers, spill
 stores, spill loads], read with this checkout's _build.tc_kernel_usage
@@ -59,6 +67,7 @@ ONLY_I8_D256 = "--i8-d256" in sys.argv[1:]
 ONLY_D256 = "--d256" in sys.argv[1:]
 ONLY_D128 = "--d128" in sys.argv[1:]
 ONLY_K3_D128 = "--k3-d128" in sys.argv[1:]
+ONLY_K1_F32_D128 = "--k1-f32-d128" in sys.argv[1:]
 CHECK = "--check" in sys.argv[1:]
 ROOT = os.path.abspath(_ARGS[0] if _ARGS else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".."))
@@ -248,6 +257,42 @@ def k3_d128(gen, out):
         del f
 
 
+def k1_f32_d128(gen, out):
+    """K1 f32 plain and gated at 128 values a row, 256 × 4096 (bench.py's
+    planted rows as 0..255), on the copy's body; where the copy's
+    knn_stages.f32_d128_raw takes K1's mode ("packed"), each on the
+    mma.sync body too and the product-only stage (with its split
+    pre-pass) on both bodies."""
+    a, b = planted(gen, 256, 4096)
+    f = as_float(a, b, torch.float32)
+    del a, b
+    fn = getattr(knn_stages, "f32_d128_raw", None)
+    try:                            # the copy's probe takes K1's mode
+        fn(*(x[:1, :64] for x in f), mode="packed", body="mma")
+        split = True
+    except (TypeError, ValueError):     # no probe, or no mode "packed"
+        split = False
+    gate = (torch.rand((256, 4096, 2), generator=gen, device="cuda") * 1000,
+            torch.rand((256, 4096, 2), generator=gen, device="cuda") * 1000,
+            400.0 ** 2)
+    for pre, g in (("", ()), ("gated_", gate)):
+        if CHECK and split and not all(
+                torch.equal(u, v) for u, v in zip(
+                    knn.knn_packed_raw(*f, *g), fn(*f, *g, body="mma"))):
+            sys.exit(f"{ROOT}: {pre}k1_f32 differs from the mma.sync body")
+        out[f"{pre}k1_f32"] = probes.time_ms(
+            lambda: knn.knn_packed_raw(*f, *g), "cuda", 5, 2)
+        if split:
+            out[f"mma_{pre}k1_f32"] = probes.time_ms(
+                lambda: fn(*f, *g, body="mma"), "cuda", 5, 2)
+    if split:
+        for body in ("wg", "mma"):
+            out[f"row_sum_{body}_k1_f32"] = probes.time_ms(
+                lambda: fn(f[0], f[1], mode="row_sum", body=body), "cuda",
+                5, 2)
+    del f, gate
+
+
 def own_build_module():
     """This checkout's _build.py (stdlib only), for its log parsers."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -288,6 +333,9 @@ def main():
         return report(out)
     if ONLY_K3_D128:
         k3_d128(gen, out)
+        return report(out)
+    if ONLY_K1_F32_D128:
+        k1_f32_d128(gen, out)
         return report(out)
     if ONLY_D256:
         bf16_d256(gen, out)

@@ -38,6 +38,7 @@ CPU's results within stated tolerances.
 """
 
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -303,12 +304,17 @@ def test_bf16_tensor_cores_within_tolerance_on_random(cuda, rng, mode):
 _F32_REL = 2.0 ** -20
 
 
-@pytest.mark.parametrize("n_a", [192, 256])
+# K1 f32's A rows at 128 values a row: one, three, four and five of the
+# wgmma body's 64-row blocks
+_K1_F32_NA = [64, 192, 256, 320]
+
+
+@pytest.mark.parametrize("n_a", _K1_F32_NA)
 @pytest.mark.parametrize("mode", ["k1", "k1_gated"])
 def test_k1_f32_tensor_cores_within_tolerance_on_random(cuda, rng, mode,
                                                         n_a):
-    """Non-integer f32 descriptors (SIFT-like, 0..400) on 64-row A blocks
-    (n_a 192) and 128-row blocks (n_a 256): values within the stated
+    """Non-integer f32 descriptors (SIFT-like, 0..400) on the wgmma
+    body at the A-row counts of _K1_F32_NA: values within the stated
     tolerance, indices different only on ties."""
     pairs, n_b = 2, 704
     a = rng.uniform(0, 400, (pairs, n_a, 128))
@@ -328,13 +334,13 @@ def test_k1_f32_tensor_cores_within_tolerance_on_random(cuda, rng, mode,
     _near(got[1], want[1], b, a, tol, True, "columns")
 
 
-@pytest.mark.parametrize("n_a", [192, 256])
+@pytest.mark.parametrize("n_a", _K1_F32_NA)
 @pytest.mark.parametrize("gated", [False, True], ids=["k1", "k1_gated"])
 def test_k1_f32_bit_exact_with_mid_planes(cuda, rng, gated, n_a):
     """Integer f32 rows of 261..360: an odd value above 256 is not one
     bf16 value, so the mid planes are set, yet every dot stays below
     128 · 360² < 2²⁴ and is exact; keys equal the plain version's bit for
-    bit on 64-row and 128-row A blocks."""
+    bit at the A-row counts of _K1_F32_NA."""
     a, b = (t.to(cuda) for t in _planted(rng, 2, n_a, 704, 50))
     af, bf = (x.float() + 128.0 + 261.0 for x in (a, b))
     assert bool((af != af.bfloat16().float()).any())
@@ -1634,6 +1640,59 @@ def test_k3_128_bodies_bit_exact_vs_plain(cuda, rng, dtype, kind, body,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n_a", [64, 320])
+@pytest.mark.parametrize("gated", [False, True], ids=["plain", "gated"])
+def test_k1_f32_128_wgmma_equals_mma_on_mid_planes(cuda, rng, gated, n_a):
+    """K1 f32 at 128 values a row on the wgmma body (knn_packed_raw,
+    counted as K1's launch) equals the mma.sync body it replaced
+    (knn_stages.f32_d128_raw with body "mma", counted as knn_f32_d128)
+    and the probe's wgmma route (body "wg") bit for bit, plain and
+    gated, on integer rows of 261..360 (mid planes set, every dot exact),
+    at one and at five 64-row blocks of A."""
+    a, b = (t.to(cuda) for t in _planted(rng, 3, n_a, 640, n_a // 4))
+    af, bf = (x.float() + 128.0 + 261.0 for x in (a, b))
+    args = (af, bf, (af * af).sum(-1), (bf * bf).sum(-1))
+    gate = _gate(rng, cuda, 3, n_a, 640) if gated else ()
+    key = "knn_packed_gated" if gated else "knn_packed_f32"
+    before = knn.LAUNCHES[key]
+    got = knn.knn_packed_raw(*args, *gate)
+    assert knn.LAUNCHES[key] == before + 1
+    probe = knn_stages.LAUNCHES["knn_f32_d128"]
+    k1 = dict(knn.LAUNCHES)
+    mma = knn_stages.f32_d128_raw(*args, *gate, body="mma")
+    wg = knn_stages.f32_d128_raw(*args, *gate, body="wg")
+    assert knn_stages.LAUNCHES["knn_f32_d128"] == probe + 2
+    assert knn.LAUNCHES == k1
+    want = knn.knn_packed_plain(*args, *gate)
+    torch.cuda.synchronize()
+    for g, m, w, v in zip(got, mma, wg, want):
+        assert torch.equal(g, v)
+        assert torch.equal(m, v)
+        assert torch.equal(w, v)
+
+
+def test_k1_f32_128_wgmma_builds_without_spill(cuda, tmp_path):
+    """ptxas on csrc/knn_packed.cu alone, with the package's flags: K1
+    f32's wgmma instantiations at 128 values a row, plain ("f32 0 wg")
+    and gated ("f32 1 wg"), are built, spill nothing and carry no ptxas
+    note (C7518: wgmma serialized)."""
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        pytest.skip("needs nvcc")
+    src = os.path.join(_build.CSRC, "knn_packed.cu")
+    proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-c", "-o",
+                           str(tmp_path / "knn_packed.o"), src],
+                          capture_output=True, text=True, timeout=600)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    usage = _build.tc_kernel_usage(_build.ptxas_usage(log))
+    for key in ("f32 0 wg", "f32 1 wg"):
+        assert usage[key][1:] == (0, 0), (key, usage[key])
+    notes = [w for w in _build.ptxas_warnings(log)
+             if "knn_wg_kernelINS_6Bf16x3E" in w]
+    assert not notes, notes
+
+
 # (pairs, n_a, n_b) at the wgmma K3's edges at 128 values a row: n_a not
 # a multiple of a block's rows (bf16 256, f32 128) with n_a != n_b, one
 # 64-row B tile, one pair beyond K1's 8192 B rows, a block of f32 whose
@@ -1764,11 +1823,10 @@ def test_k3_f32_256_within_tolerance_on_random(cuda, rng, shape):
 
 def test_knn_wg_sass_is_hgmma(cuda):
     """The wgmma body (knn_wg_kernel) runs its products as HGMMA (wgmma),
-    not as mma.sync's HMMA, in its four modes at 256 values a row for
-    bf16 and f32, in its four at 128 for bf16 (K1 plain and gated, K3,
-    the product-only stage) and in K3's and the product-only stage's at
-    128 for f32, which the mma.sync bodies' kernels at both widths show
-    (K1 f32 at 128 and the kept yardsticks of K1 and K3 at 128); its
+    not as mma.sync's HMMA, in its four modes (K1 plain and gated, K3,
+    the product-only stage) at 256 values a row for bf16 and f32 and at
+    128 for bf16 and f32, which the mma.sync bodies' kernels at both
+    widths show (the kept yardsticks of K1 and K3 at 128); its
     three int8 modes at 256 and at 128 as the integer wgmma, IGMMA, not as
     mma.sync's IMMA, which the int8 mma.sync bodies at both widths (the
     yardsticks) show."""
@@ -1780,7 +1838,7 @@ def test_knn_wg_sass_is_hgmma(cuda):
                      for m in range(4)}
                     | {f"{t} {m} wg" for t in ("int8_d256", "int8", "bf16")
                        for m in (0, 1, 3)}
-                    | {"bf16 2 wg", "f32 2 wg", "f32 3 wg"}), keys
+                    | {"bf16 2 wg"} | {f"f32 {m} wg" for m in range(4)}), keys
     for k in keys:
         if k.startswith("int8"):
             assert per_key[k]["IGMMA"] > 0 and per_key[k]["IMMA"] == 0 \
@@ -1794,7 +1852,7 @@ def test_knn_wg_sass_is_hgmma(cuda):
     for t, op in (("int8", "IMMA"), ("bf16", "HMMA")):
         for m in (0, 1, 3):
             assert per_key[f"{t} {m} 128 128 2"][op] > 0, (t, m)
-    # K1 f32 at 128 (plain and gated) and K3's yardsticks at 128
+    # the yardsticks at 128 of K1 f32 (plain and gated) and of K3
     for k in ("f32 0 128 64 2", "f32 1 128 64 2", "f32 2 128 64 2",
               "bf16 2 128 128 2"):
         assert per_key[k]["HMMA"] > 0 and per_key[k]["HGMMA"] == 0, k

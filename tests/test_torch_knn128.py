@@ -8,8 +8,9 @@ On the CPU the wrapper takes its plain version whatever the body, so
 these tests hold that plain version once: K1's mode bit-exact against the JAX
 package's Pallas K1 (interpret mode) on the same rows (bf16 rows hold
 the int8 rows plus 128: the integer distances, and so the keys, are the
-same), K3's against ``ops.knn.knn_wide_plain`` (itself held against the
-JAX package's Pallas K3 by ``tests/test_torch_knn.py``), the gated and
+same; f32 rows go to the Pallas K1 as f32, its Precision.HIGHEST arm),
+K3's against ``ops.knn.knn_wide_plain`` (itself held against the JAX
+package's Pallas K3 by ``tests/test_torch_knn.py``), the gated and
 product-only modes against ``ops.knn``'s plain version and numpy. The
 kernels themselves run in ``tests/test_torch_cuda.py`` on the card.
 """
@@ -58,14 +59,18 @@ def _args(kind, a, b):
     return _bf16(a, b, torch.bfloat16 if kind == "bf16" else torch.float32)
 
 
-def _pallas(a, b):
+def _pallas(a, b, f32=False):
     """The JAX package's Pallas K1 (interpret mode on the CPU), pair by
-    pair: (row_p (B, n_a, 2), col_p (B, n_b)) as numpy."""
+    pair, on the int8 rows, or (f32) on them as f32 0..255 with f32
+    norms: (row_p (B, n_a, 2), col_p (B, n_b)) as numpy."""
     rows, cols = [], []
+    kind = jnp.float32 if f32 else jnp.int32
     for x, y in zip(a, b):
         ja, jb = jnp.asarray(x), jnp.asarray(y)
-        na2 = jnp.sum(jnp.square(ja.astype(jnp.int32)), -1, keepdims=True)
-        nb2 = jnp.sum(jnp.square(jb.astype(jnp.int32)), -1, keepdims=True)
+        if f32:
+            ja, jb = (v.astype(jnp.float32) + 128 for v in (ja, jb))
+        na2 = jnp.sum(jnp.square(ja.astype(kind)), -1, keepdims=True)
+        nb2 = jnp.sum(jnp.square(jb.astype(kind)), -1, keepdims=True)
         rp, cp = jknn._knn_packed_raw(ja, jb, na2, nb2, 128, y.shape[0])
         rows.append(np.asarray(rp))
         cols.append(np.asarray(cp)[0])
@@ -73,21 +78,19 @@ def _pallas(a, b):
 
 
 @pytest.mark.parametrize("full", [False, True], ids=["sift", "full_range"])
-@pytest.mark.parametrize("kind", ["i8", "bf16"])
+@pytest.mark.parametrize("kind", ["i8", "bf16", "f32"])
 def test_d128_packed_bit_exact_vs_pallas(rng, kind, full):
-    """K1 int8 and bf16 at 128 values a row through i8_d128_raw and
-    bf16_d128_raw (on the CPU their plain version, uncounted), bit-exact
-    against the JAX package's Pallas K1 in interpret mode on the same
-    rows, 2 pairs × 256 rows."""
+    """K1 int8, bf16 and f32 at 128 values a row through i8_d128_raw,
+    bf16_d128_raw and f32_d128_raw (on the CPU their plain version,
+    uncounted), bit-exact against the JAX package's Pallas K1 in
+    interpret mode on the same rows (f32: as f32 0..255 with f32 norms,
+    the Pallas K1's Precision.HIGHEST arm), 2 pairs × 256 rows."""
     a, b = _rows(rng, 2, 256, 256, full)
-    rp, cp = _pallas(a, b)
+    rp, cp = _pallas(a, b, f32=kind == "f32")
     entry = f"knn_{kind}_d128"
     before = knn_stages.LAUNCHES[entry]
-    if kind == "i8":
-        got = knn_stages.i8_d128_raw(torch.from_numpy(a),
-                                     torch.from_numpy(b))
-    else:
-        got = knn_stages.bf16_d128_raw(*_bf16(a, b))
+    got = getattr(knn_stages, f"{kind}_d128_raw")(*_args(kind, a, b),
+                                                  mode="packed")
     assert knn_stages.LAUNCHES[entry] == before
     np.testing.assert_array_equal(got[0].numpy(), rp)
     np.testing.assert_array_equal(got[1].numpy(), cp)
@@ -102,13 +105,12 @@ def _gate(rng, pairs, n_a, n_b):
 
 @pytest.mark.parametrize("kind,mode", [
     ("i8", "gated"), ("i8", "row_sum"), ("bf16", "gated"),
-    ("bf16", "row_sum"), ("f32", "row_sum")])
+    ("bf16", "row_sum"), ("f32", "gated"), ("f32", "row_sum")])
 def test_d128_modes_on_cpu_are_plain(rng, kind, mode):
     """The gated and product-only modes of i8_d128_raw, bf16_d128_raw and
-    f32_d128_raw (no gated mode: K1 f32 at 128 is not on it) on the CPU
-    are their plain versions: K1's gated keys (knn_packed_plain, some
-    candidates gated out), each A row's wrapping sum of its dots against
-    numpy; uncounted."""
+    f32_d128_raw on the CPU are their plain versions: K1's gated keys
+    (knn_packed_plain, some candidates gated out), each A row's wrapping
+    sum of its dots against numpy; uncounted."""
     a, b = _rows(rng, 2, 128, 192, True)
     args = _args(kind, a, b)
     raw = getattr(knn_stages, f"{kind}_d128_raw")
@@ -168,9 +170,9 @@ def test_d128_raw_rejects_what_it_does_not_take(rng, kind):
     else:                             # K3 without its norms
         with pytest.raises(ValueError, match="norms"):
             raw(*args[:2], mode="wide")
-    if kind == "f32":                 # K1 f32 at 128 is not on it
-        with pytest.raises(ValueError, match="no mode 'packed'"):
-            raw(*args, mode="packed")
+    if kind != "i8":                  # K1's float modes without norms
+        with pytest.raises(ValueError, match="norms"):
+            raw(*args[:2], mode="packed")
     with pytest.raises(ValueError, match="128"):
         raw(torch.cat([args[0]] * 2, -1), torch.cat([args[1]] * 2, -1),
             *args[2:])
@@ -189,7 +191,8 @@ def test_d128_raw_rejects_what_it_does_not_take(rng, kind):
 def test_build_log_reads_the_wgmma_body_at_128():
     """The build log's parser on ptxas's lines of the wgmma body at 128
     values a row (int8_t mangled "a", bf16 bits "t", f32's planes
-    "NS_6Bf16x3E") in its plain, gated, wide and product-only modes,
+    "NS_6Bf16x3E") in its plain, gated, wide and product-only modes (f32's
+    K1 modes among them),
     beside the mma.sync bodies at 128 it replaced (K3's yardsticks among
     them) and the wgmma body at 256."""
     wg = "_ZN3knn2wg13knn_wg_kernelI{}Li{}EEEv14CUtensorMap_stS2_PKjPKf"
@@ -199,7 +202,9 @@ def test_build_log_reads_the_wgmma_body_at_128():
                ((0, 168, 0), (1, 168, 8), (3, 154, 0))]
     kernels += [(wg.format("t", 2), 168, 4), (wg.format("NS_6Bf16x3E", 2),
                                               168, 0),
-                (wg.format("NS_6Bf16x3E", 3), 160, 0)]
+                (wg.format("NS_6Bf16x3E", 3), 160, 0),
+                (wg.format("NS_6Bf16x3E", 0), 168, 0),
+                (wg.format("NS_6Bf16x3E", 1), 166, 0)]
     kernels += [(mma.format("a", 0, 128), 126, 0),
                 (mma.format("t", 0, 128), 128, 0),
                 (mma.format("t", 2, 128), 128, 0),
@@ -219,7 +224,8 @@ def test_build_log_reads_the_wgmma_body_at_128():
                      "int8 3 wg": (154, 0, 0), "bf16 0 wg": (168, 0, 0),
                      "bf16 1 wg": (168, 8, 8), "bf16 3 wg": (154, 0, 0),
                      "bf16 2 wg": (168, 4, 4), "f32 2 wg": (168, 0, 0),
-                     "f32 3 wg": (160, 0, 0),
+                     "f32 3 wg": (160, 0, 0), "f32 0 wg": (168, 0, 0),
+                     "f32 1 wg": (166, 0, 0),
                      "int8 0 128 128 2": (126, 0, 0),
                      "bf16 0 128 128 2": (128, 0, 0),
                      "bf16 2 128 128 2": (128, 0, 0),
