@@ -93,10 +93,12 @@ non-zero:
     (tc_stage, tc_row_sum) against their plain versions on 2 of the 64
     pairs and the full stages against K1 on all 64; P4 and P3 on the
     tensor-core body, each stage or variant in turns with the old
-    bodies', and both bodies' stage splits; P6's sweep on the
-    tensor-core body (seven tiles a dtype, each bit-exact on all 64
-    pairs, timed in turns with the old body's mapped tile, with blocks
-    an SM and ptxas's registers and spills); P5's wgmma product + row
+    bodies', and both bodies' stage splits; P6's sweep on the wgmma
+    body K1 runs (seven tiles a dtype: B tiles of 64, 128 and 256 rows,
+    one and two m64 halves a warpgroup; each bit-exact on all 64 pairs,
+    as is each tile of the mma.sync body's sweep, timed in turns with the
+    mma.sync body's mapped tile, with blocks an SM and ptxas's registers
+    and spills; both bodies at their K1 tiles); P5's wgmma product + row
     sum fed by TMA (bit-exact on integer values at every K, tile and
     split, within P5_REL_TOL on normal ones; its K and tile sweeps, each
     tile's plan, registers and spills; in turns with its mma.sync first
@@ -105,11 +107,14 @@ non-zero:
     its first body (both bit-exact with the bf16 plain version, per-limb
     errors against f32; in turns, kernel and whole-call device time and
     CUDA events, beside index_select); P2's single-launch K1 + K4 on the
-    tensor-core body and on its __dp4a first body, each against
-    knn_match_fused on all 64 pairs, every variant in turns (device time
-    of a call and CUDA events; registers, spills and blocks an SM). Each
-    probe is driven on its own, its counts set to 0 before and read
-    after.
+    wgmma body K1 int8 runs, on the mma.sync body and on the __dp4a first
+    body, each against knn_match_fused on all 64 pairs, every variant on
+    the wgmma body in turns with the mma.sync body's and full also with
+    K1 then K4 (device time of a call and CUDA events; the kernels each
+    ran; registers, spills, ptxas notes and blocks an SM); the SASS of
+    the wgmma body's production instantiations against the digests
+    recorded before the probes' tiles joined it. Each probe is driven on
+    its own, its counts set to 0 before and read after.
 16. Steps 1→5 from JPEGs: the 64-frame mission of phases 7–8 written as a
     project folder (testing/synthetic.write_mission: JPEGs encoded by
     nvJPEG, pix4d.csv, the camera's DB entry), then
@@ -271,6 +276,9 @@ non-zero:
     error; peak card memory; the launches.
     scripts_torch/survey_mission.py runs it at any size (2812 frames by
     default).
+
+Each phase prints its wall on a line of its own ("[wall] phase ..."), and
+the run its total before the kernels line.
 
 Every kernel counts its launches; each phase that drives a path sets the
 counts to 0 first and reads them after. The line before the last is
@@ -2246,58 +2254,71 @@ def run_anatomy(a, b, fargs, library):
 
 
 def run_tile_sweep(a, b, fargs):
-    """P6 on the tensor-core body: product + row min at each tile of
-    knn_stages.TC_TILES, int8 and bf16, each held bit-exact against
-    tc_row_min_plain on all 64 pairs, then timed in turns with the old
-    bodies' row_min stage at the TPU sweep point's old tile, with its
-    blocks an SM (occupancy calculator) and ptxas's registers and spills;
-    then both bodies at K1's tile in turns. Returns ({(dtype, tile):
-    measurements, (dtype, "k1"): (tc ms, old ms)}, launches)."""
-    inputs = {"int8": ((a, b), (a, b, None, None)),
-              "bf16": (fargs[:2], fargs)}
-    for dtype, (tc_args, _) in inputs.items():
-        want = knn_stages.tc_row_min_plain(*tc_args)
+    """P6 on the wgmma body K1 runs: product + row min at each tile of
+    knn_stages.WG_TILES (BN 64, 128 and 256; one and two m64 halves a
+    warpgroup; two and three consumer warpgroups; rings of 2 and 3), int8
+    and bf16, each held bit-exact against tc_row_min_plain on all 64
+    pairs, as is each tile of the mma.sync body's sweep (TC_TILES); then
+    each P6_SWEEP point's wgmma tile timed in turns with the mma.sync
+    body's tile of that point, with both tiles' blocks an SM (occupancy
+    calculator) and ptxas's registers and spills; then both bodies at
+    their K1 tiles in turns. The old bodies' row_min stage is held to its
+    plain version in compare_stages. Returns ({(dtype, wgmma tile):
+    measurements, (dtype, "k1"): (wgmma ms, mma.sync ms)}, launches)."""
+    inputs = {"int8": (a, b), "bf16": fargs[:2]}
+    for dtype, args in inputs.items():
+        want = knn_stages.tc_row_min_plain(*args)
         for tile in knn_stages.TC_TILES:
             check_equal(f"tc_row_min {dtype} {tile}",
-                        knn_stages.tc_row_min_raw(*tc_args, tile), want)
+                        knn_stages.tc_row_min_raw(*args, tile), want)
+        for tile in knn_stages.WG_TILES:
+            check_equal(f"wg_row_min {dtype} {tile}",
+                        knn_stages.wg_row_min_raw(*args, tile), want)
         del want
-    log(f"[P6] tc_row_min bit-exact with tc_row_min_plain on all {len(a)} pairs "
-        f"at every tile {knn_stages.TC_TILES}, int8 and bf16")
+    log(f"[P6] wg_row_min and tc_row_min bit-exact with tc_row_min_plain "
+        f"on all {len(a)} pairs at every tile, int8 and bf16: wgmma "
+        f"{knn_stages.WG_TILES}, mma.sync {knn_stages.TC_TILES}")
     usage = _build.tc_kernel_usage()
+    notes = [w for w in _build.ptxas_warnings() if "4TileI" in w]
+    log(f"[P6] ptxas notes on the wgmma probe tiles: {notes}")
 
     def sweep():
         res = {}
-        for dtype, (tc_args, old_args) in inputs.items():
-            dt = tc_args[0].dtype
-            for (ta, tb, ic), tile, old_tile in zip(
-                    knn_stages.P6_SWEEP, knn_stages.TC_TILES,
-                    knn_stages.TILES[dt]):
+        for dtype, args in inputs.items():
+            dt = args[0].dtype
+            for (ta, tb, ic), tile, tc_tile in zip(
+                    knn_stages.P6_SWEEP, knn_stages.WG_TILES,
+                    knn_stages.TC_TILES):
                 new, old = in_turns(
-                    lambda: knn_stages.tc_row_min_raw(*tc_args, tile),
-                    lambda: knn_stages.knn_probe_raw(
-                        *old_args, stage=knn_stages.ROW_MIN,
-                        tile=old_tile))
-                regs = usage.get(f"{dtype} {ROW_MIN_MODE} "
-                                 + " ".join(map(str, tile)))
-                r = {"ms": float(np.mean(new)), "old_ms": float(np.mean(old)),
-                     "old_tile": old_tile, "registers": regs,
-                     "blocks_per_sm": knn_stages.tc_row_min_blocks(dt, tile)}
+                    lambda: knn_stages.wg_row_min_raw(*args, tile),
+                    lambda: knn_stages.tc_row_min_raw(*args, tc_tile))
+                r = {"ms": float(np.mean(new)), "was_ms": float(np.mean(old)),
+                     "was_tile": tc_tile,
+                     "registers": usage.get(
+                         f"{dtype} {ROW_MIN_MODE} wg "
+                         + " ".join(map(str, tile))),
+                     "was_registers": usage.get(
+                         f"{dtype} {ROW_MIN_MODE} "
+                         + " ".join(map(str, tc_tile))),
+                     "blocks_per_sm": knn_stages.wg_row_min_blocks(dt, tile),
+                     "was_blocks_per_sm": knn_stages.tc_row_min_blocks(
+                         dt, tc_tile)}
                 res[(dtype, tile)] = r
-                log(f"[P6] {dtype} TPU ta={ta} tb={tb} ic={ic} -> tensor "
-                    f"cores {tile}: {new[0]:.3f} / {new[1]:.3f} ms, "
-                    f"{r['blocks_per_sm']} blocks an SM, ptxas (registers, "
-                    f"spill stores, spill loads) {regs}; old body "
-                    f"{old_tile}: {old[0]:.3f} / {old[1]:.3f} ms "
-                    f"({r['old_ms'] / r['ms']:.2f}x)")
+                log(f"[P6] {dtype} TPU ta={ta} tb={tb} ic={ic} -> wgmma "
+                    f"{tile}: {new[0]:.3f} / {new[1]:.3f} ms, "
+                    f"{r['blocks_per_sm']} block(s) an SM, ptxas "
+                    f"(registers, spill stores, spill loads) "
+                    f"{r['registers']}; mma.sync {tc_tile}: {old[0]:.3f} / "
+                    f"{old[1]:.3f} ms, {r['was_blocks_per_sm']} blocks an "
+                    f"SM, {r['was_registers']} ({r['was_ms'] / r['ms']:.2f}x)")
+            k1 = knn_stages.K1_WG_TILE[dt]
             new, old = in_turns(
-                lambda: knn_stages.tc_row_min_raw(*tc_args),
-                lambda: knn_stages.knn_probe_raw(*old_args,
-                                                 stage=knn_stages.ROW_MIN))
+                lambda: knn_stages.wg_row_min_raw(*args, k1),
+                lambda: knn_stages.tc_row_min_raw(*args))
             res[(dtype, "k1")] = (float(np.mean(new)), float(np.mean(old)))
-            log(f"[P6] {dtype} at K1's tiles, in turns: tensor cores "
-                f"{knn_stages.K1_TC_TILE} {new[0]:.3f} / {new[1]:.3f} ms, "
-                f"old body {knn_stages.K1_TILE} {old[0]:.3f} / "
-                f"{old[1]:.3f} ms")
+            log(f"[P6] {dtype} at K1's tiles, in turns: wgmma {k1} "
+                f"{new[0]:.3f} / {new[1]:.3f} ms, mma.sync "
+                f"{knn_stages.K1_TC_TILE} {old[0]:.3f} / {old[1]:.3f} ms")
         return res
     return drive("P6", sweep)
 
@@ -2503,24 +2524,29 @@ def run_gather():
 
 
 def fused_usage():
-    """ptxas's (registers, spill stores, spill loads) of P2's tensor-core
-    instantiations (kFused and its flags: modes 16-31), by "int8 MODE BM
-    BN STAGES"; empty when the library was already built."""
+    """ptxas's (registers, spill stores, spill loads) of P2's
+    instantiations (kFused and its flags: modes 16-31) on both tensor-core
+    bodies: the wgmma body's keyed "int8 MODE wg ROWS BN RING CONSUMERS",
+    the mma.sync body's "int8 MODE BM BN STAGES"; empty when the library
+    was already built."""
     return {k: v for k, v in _build.tc_kernel_usage().items()
             if 16 <= int(k.split()[1]) < 32}
 
 
 def run_fused(a, b, uv_b):
-    """P2: K1 + K4 in one launch on bench's workload, on the tensor-core
-    body and on the old __dp4a body. full, nopb, epi32 and t64 on either
-    equal the port's knn_match_fused (two launches) on all 64 pairs (bj,
-    ok, and pb where COMPARED says so), every pair's counter back at 0
-    after each launch; full on the tensor cores equals its plain version on
-    the first pairs; noepi and nomain are timed only. Every variant in
-    turns with the old body's (tc, old, old, tc; full with knn_match_fused
-    between): the profiler's device time of every kernel a call launches,
-    and CUDA events. Logs the new instantiations' registers, spills and
-    blocks an SM."""
+    """P2: K1 + K4 in one launch on bench's workload, on the wgmma body,
+    the mma.sync body and the old __dp4a body. full, nopb, epi32 and t64
+    on each equal the port's knn_match_fused (two launches) on all 64
+    pairs (bj, ok, and pb where COMPARED says so), every pair's counter
+    back at 0 after each launch; full on the wgmma body equals its plain
+    version on the first pairs; noepi and nomain are timed only. Every
+    variant on the wgmma body in turns with the mma.sync body's (wg, tc,
+    tc, wg; full with K1 then K4 and the wgmma body's noepi between): the
+    profiler's device time of every kernel a call launches, and CUDA
+    events (the old body's timing turns are cut: it is held bit-exact
+    only). Logs the kernels each side ran, the wgmma instantiations'
+    registers, spills, ptxas notes and blocks an SM (no spill and no note
+    allowed), and the mma.sync body's (two blocks an SM, no spill)."""
     want = knn.knn_match_fused(a, b, uv_b, 0.75)
     for body in fused.BODIES:
         for v, (c_bj, c_ok, c_pb) in fused.COMPARED.items():
@@ -2540,29 +2566,40 @@ def run_fused(a, b, uv_b):
                 [x[:p] for x in fused.fused_probe_raw(a, b, uv_b)],
                 fused.fused_probe_plain(a[:p], b[:p], uv_b[:p]))
     usage = fused_usage()
-    blocks = {v: fused.fused_probe_blocks(v) for v in ("full", "t64")}
-    log(f"[P2] both bodies equal knn_match_fused on all {len(a)} pairs "
-        f"(full, nopb, epi32, t64), counters back at 0; tensor-core "
-        f"instantiations, ptxas (registers, spill stores, spill loads): "
-        f"{usage}; blocks an SM: {blocks}")
+    wg_usage = {k: u for k, u in usage.items() if k.split()[2] == "wg"}
+    # ptxas's notes (e.g. C7518, wgmma serialized) on P2's wgmma kernels
+    notes = [w for w in _build.ptxas_warnings() if re.search(
+        r"4TileIaLi(384|192)ELi64ELi2ELi3EEELi(1[6-9]|2\d|3[01])EE", w)]
+    blocks = {(body, v): fused.fused_probe_blocks(v, body)
+              for body in ("wg", "tc") for v in ("full", "t64")}
+    log(f"[P2] all three bodies equal knn_match_fused on all {len(a)} pairs "
+        f"(full, nopb, epi32, t64), counters back at 0; instantiations, "
+        f"ptxas (registers, spill stores, spill loads): {usage}; wgmma "
+        f"notes: {notes}; blocks an SM: {blocks}")
+    if ((_build.build_log and len(wg_usage) != 6) or notes
+            or any(st or ld for _, st, ld in wg_usage.values())
+            or min(blocks["wg", v] for v in ("full", "t64")) < 1):
+        raise AssertionError(f"P2's wgmma kernels must build without spill "
+                             f"or note and launch: {wg_usage}, {notes}, "
+                             f"{blocks}")
     if any(r > 128 or st or ld for k, (r, st, ld) in usage.items()
-           if k.split()[2] == "128") or blocks["full"] != 2:
-        raise AssertionError(f"P2's tensor-core kernel at BM 128 must "
-                             f"hold two blocks an SM without spills: "
-                             f"{usage}, {blocks}")
+           if k.split()[2] == "128") or blocks["tc", "full"] != 2:
+        raise AssertionError(f"P2's mma.sync kernel at BM 128 must hold two "
+                             f"blocks an SM without spills: {usage}, "
+                             f"{blocks}")
     extra = {"two_launch": lambda: knn.knn_match_fused(a, b, uv_b, 0.75),
-             "tc_noepi": lambda: fused.fused_probe_raw(a, b, uv_b, "noepi")}
+             "wg_noepi": lambda: fused.fused_probe_raw(a, b, uv_b, "noepi")}
 
     def sweep():
         t = {}
         for v in fused.VARIANTS:
             calls = {body: (lambda body=body: fused.fused_probe_raw(
-                a, b, uv_b, v, body)) for body in fused.BODIES}
-            order = ("tc", "old", "old", "tc")
+                a, b, uv_b, v, body)) for body in ("wg", "tc")}
+            order = ("wg", "tc", "tc", "wg")
             if v == "full":     # with K1 then K4, and full less its tail
                 calls.update(extra)
-                order = ("tc", "tc_noepi", "two_launch", "old", "old",
-                         "two_launch", "tc_noepi", "tc")
+                order = ("wg", "wg_noepi", "two_launch", "tc", "tc",
+                         "two_launch", "wg_noepi", "wg")
             t[v] = {k: {"device": [], "events": [], "kernels": []}
                     for k in calls}
             for k in order:
@@ -2588,39 +2625,44 @@ def run_fused(a, b, uv_b):
 
     def kernel_ms(k, name):
         return sum(ms for kn, ms in kernels[k].items() if name in kn)
-    split = {"kernel_ms": kernel_ms("tc", "knn_tc_kernel"),
-             "noepi_kernel_ms": kernel_ms("tc_noepi", "knn_tc_kernel"),
+    split = {"kernel_ms": kernel_ms("wg", "knn_wg_kernel"),
+             "noepi_kernel_ms": kernel_ms("wg_noepi", "knn_wg_kernel"),
              "k1_ms": kernel_ms("two_launch", "knn_wg_kernel"),
              "k4_ms": kernel_ms("two_launch", "match_epilogue_kernel"),
-             "was_kernel_ms": kernel_ms("old", "knn_fused_probe_kernel")}
+             "was_kernel_ms": kernel_ms("tc", "knn_tc_kernel")}
+
     def bodies(k):
-        """The K1 bodies whose kernels call k launched."""
-        return sorted({"wgmma" if "knn_wg_kernel" in kn else "mma.sync"
+        """The 2-NN kernels that call k launched, by name."""
+        return sorted({kn.split("(")[0].replace("void ", "")
                        for kn in kernels[k]
                        if "knn_wg_kernel" in kn or "knn_tc_kernel" in kn})
-    log(f"[P2] bodies: the single launch ran {bodies('tc')} (kFused on the "
-        f"int8 mma.sync body), its yardstick K1 then K4 "
-        f"{bodies('two_launch')} (K1 int8 at 128 runs the wgmma body)")
+    ran = {k: bodies(k) for k in ("wg", "tc", "two_launch")}
+    log(f"[P2] kernels: the single launch on the wgmma body ran "
+        f"{ran['wg']}, on the mma.sync body {ran['tc']}; its yardstick K1 "
+        f"then K4 ran {ran['two_launch']}")
+    if (len(ran["wg"]) != 1 or "knn_wg_kernel" not in ran["wg"][0]
+            or len(ran["tc"]) != 1 or "knn_tc_kernel" not in ran["tc"][0]):
+        raise AssertionError(f"P2's bodies ran other kernels: {ran}")
     full = mean["full"]
-    log(f"[P2] full: tensor cores {full['tc']['device']:.3f} ms against "
-        f"K1 then K4 {full['two_launch']['device']:.3f} "
-        f"({full['two_launch']['device'] / full['tc']['device']:.3f}x) and "
-        f"the old body {full['old']['device']:.3f} "
-        f"({full['old']['device'] / full['tc']['device']:.2f}x); kernels "
+    log(f"[P2] full: wgmma {full['wg']['device']:.3f} ms against K1 then K4 "
+        f"{full['two_launch']['device']:.3f} "
+        f"({full['two_launch']['device'] / full['wg']['device']:.3f}x) and "
+        f"the mma.sync body {full['tc']['device']:.3f} "
+        f"({full['tc']['device'] / full['wg']['device']:.2f}x); kernels "
         f"alone, ms: {json.dumps(split)}")
     pairs, n = a.shape[:2]
-    r = {"max_abs_err": 0.0, "ms": full["tc"]["device"],
-         "event_ms": full["tc"]["events"], "was_ms": full["old"]["device"],
-         "was_event_ms": full["old"]["events"],
+    r = {"max_abs_err": 0.0, "ms": full["wg"]["device"],
+         "event_ms": full["wg"]["events"], "was_ms": full["tc"]["device"],
+         "was_event_ms": full["tc"]["events"],
          "two_launch_ms": full["two_launch"]["device"],
          "kernels_a_call": {k: len(x) for k, x in kernels.items()},
-         **split,
-         "variants": {v: {"ms": m["tc"]["device"],
-                          "was_ms": m["old"]["device"],
-                          "event_ms": m["tc"]["events"],
-                          "was_event_ms": m["old"]["events"]}
+         **split, "body": ran["wg"][0],
+         "variants": {v: {"ms": m["wg"]["device"],
+                          "was_ms": m["tc"]["device"],
+                          "event_ms": m["wg"]["events"],
+                          "was_event_ms": m["tc"]["events"]}
                       for v, m in mean.items()},
-         "was_launches": counts.get("knn_fused_probe_v0", 0),
+         "was_launches": counts.get("knn_fused_probe_tc", 0),
          "timed_by": "profiler device time, every kernel of a call",
          "plain_ms": time_ms(lambda: fused.fused_probe_plain(a, b, uv_b), 1)}
     # a, b and uv_b read once; bj, ok (int32) and pb written once
@@ -2674,20 +2716,43 @@ def run_probes():
                       for d in ("int8", "bf16")}}
     out["P3"] = (with_bound(r, *k1_bound(pairs, n, 1, "int8"),
                             library_ms=int_mm), anatomy["launches"]["P3"])
-    # P6: the tensor-core body at K1's tile, bf16 (its int8 beside it),
-    # with the old bodies at theirs
-    (ms, ffma), (ms8, dp4a) = p6[("bf16", "k1")], p6[("int8", "k1")]
-    r = {"max_abs_err": 0.0, "ms": ms, "ffma_ms": ffma, "int8_ms": ms8,
-         "int8_dp4a_ms": dp4a,
+    # P6: the wgmma body at K1 bf16's tile (its int8 at K1 int8's beside
+    # it), with the mma.sync body at its K1 tile as "was"; every tile of
+    # the sweep in "sweep"
+    (ms, was), (ms8, was8) = p6[("bf16", "k1")], p6[("int8", "k1")]
+    r = {"max_abs_err": 0.0, "ms": ms, "was_ms": was, "int8_ms": ms8,
+         "int8_was_ms": was8,
+         "was_tile": [knn_stages.K1_TC_TILE, knn_stages.K1_TC_TILE],
          "int8_bound_ms": bound(*k1_bound(pairs, n, 1, "int8"))[0],
          "int8_library_ms": int_mm,
-         "plain_ms": time_ms(lambda: knn_stages.tc_row_min_plain(
+         "sweep": {f"{d} {' '.join(map(str, t))}": v
+                   for (d, t), v in p6.items() if t != "k1"},
+         "plain_ms": time_ms(lambda: knn_stages.wg_row_min_plain(
              *fargs[:2]), 1)}
     out["P6"] = (with_bound(r, *k1_bound(pairs, n, 2, "bf16"),
                             library_ms=bmm),
-                 {"knn_tc_row_min": n6.get("knn_tc_row_min", 0)})
+                 {"knn_wg_row_min": n6.get("knn_wg_row_min", 0)})
+    check_wg_sass()
     log(f"[probes] phase 15 in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def check_wg_sass():
+    """The wgmma body's production instantiations (K1, K3 and the
+    product-only stage at 128 and 256 values a row) compiled to the same
+    SASS as the digests recorded before the probes' tiles and modes
+    joined the body (_build.WG_SASS): raises on any difference where the
+    same nvcc built both; prints the nvcc versions where they differ."""
+    was_nvcc, nvcc, n, diff = _build.wg_sass_changes()
+    if was_nvcc != nvcc:
+        log(f"[probes] wgmma SASS digests not compared: recorded by "
+            f"{was_nvcc!r}, this build by {nvcc!r}")
+        return
+    log(f"[probes] wgmma SASS of the {n} production instantiations "
+        f"{'equal to' if not diff else 'DIFFERS from'} the recorded "
+        f"digests ({nvcc}){'' if not diff else f': {diff}'}")
+    if diff:
+        raise AssertionError(f"production wgmma SASS changed: {diff}")
 
 
 def mission_outcome(proj_dir, m):
@@ -4941,51 +5006,65 @@ def main():
     if sys.argv[1:2] == ["--rank"]:
         return rank_child(json.loads(sys.argv[2]))
     profile = "--profile" in sys.argv[1:]
-    smi = device_info()
-    build()
-    k2 = check_blur()
-    k1 = check_knn()
-    k3 = check_wide()
-    k256 = check_knn_256()
-    k4 = check_epilogue()
-    bench_pps = bench_workload()
-    slice_launches, m, dets = run_slice()
+    t_run = time.perf_counter()
+    walls = {}
+
+    def phase(name, fn, *args):
+        """fn(*args), its wall printed on a line of its own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"[wall] phase {name}: {walls[name]:.1f} s")
+        return out
+    smi = phase("1 (device)", device_info)
+    phase("2 (build)", build)
+    k2 = phase("3 (K2)", check_blur)
+    k1 = phase("4 (K1)", check_knn)
+    k3 = phase("5 (K3)", check_wide)
+    k256 = phase("4-5 (K1, K3 at 256 values)", check_knn_256)
+    k4 = phase("11 (K4)", check_epilogue)
+    bench_pps = phase("6 (bench's workload)", bench_workload)
+    slice_launches, m, dets = phase("7 (slice)", run_slice)
     if profile:
-        profile_detect(m)
+        phase("7 (profile)", profile_detect, m)
     with tempfile.TemporaryDirectory() as root:
-        smart_launches, smart_result, proj, state, p8 = run_smart_slice(
-            m, dets, root, profile)
+        smart_launches, smart_result, proj, state, p8 = phase(
+            "8 (smart slice)", run_smart_slice, m, dets, root, profile)
         reset_launches()
         try:
-            run_fused_bench(bench_pps)
-            run_fused_smart(m, dets, root, smart_result)
+            phase("12a (fused arm)", run_fused_bench, bench_pps)
+            phase("12b (fused smart)", run_fused_smart, m, dets, root,
+                  smart_result)
         finally:
             os.environ.pop(FUSED, None)
         fused_launches = read_launches()
         log(f"[fused] launches: {fused_launches}")
         if fused_launches["match_epilogue"] == 0:
             raise AssertionError(f"K4 never launched: {fused_launches}")
-        run_steps_3b_4(proj, state, m, root, profile)
+        phase("13 (Steps 3b-4)", run_steps_3b_4, proj, state, m, root,
+              profile)
         del m, dets, proj
-        rep_launches = run_repetitive(root)
-    wide_launches = run_wide_store()
-    p14, _ = run_mission_ba()
-    anatomy = run_probes()
+        rep_launches = phase("9 (repetitive)", run_repetitive, root)
+    wide_launches = phase("10 (wide store)", run_wide_store)
+    p14, _ = phase("14 (BA)", run_mission_ba)
+    anatomy = phase("15 (probes)", run_probes)
     with tempfile.TemporaryDirectory() as root:
-        _, p16_wall, p16_cams = run_process(root, smi)
+        _, p16_wall, p16_cams = phase("16 (process)", run_process, root,
+                                      smi)
     # phase 22 before the phases that import cv2 (17-21)
     with tempfile.TemporaryDirectory() as root:
-        p22, p22_numbers = run_survey(root, smi)
+        p22, p22_numbers = phase("22 (survey)", run_survey, root, smi)
     with tempfile.TemporaryDirectory() as root:
-        run_process_extras(root, smi)
+        phase("17 (process extras)", run_process_extras, root, smi)
     with tempfile.TemporaryDirectory() as root:
-        d256, p18e = run_stages(root, smi, p16_wall, p16_cams)
+        d256, p18e = phase("18 (stages)", run_stages, root, smi, p16_wall,
+                           p16_cams)
     with tempfile.TemporaryDirectory() as root:
-        p19 = run_parallel(root, smi, p14)
+        p19 = phase("19 (parallel)", run_parallel, root, smi, p14)
     with tempfile.TemporaryDirectory() as root:
-        run_video(root, smi)
+        phase("20 (video)", run_video, root, smi)
     with tempfile.TemporaryDirectory() as root:
-        p21 = run_tools(root, smi)
+        p21 = phase("21 (tools)", run_tools, root, smi)
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda",
@@ -5002,6 +5081,7 @@ def main():
                                          "random_max_abs_err", "int8_ms",
                                          "was_product_ms",
                                          "int8_dp4a_ms", "int8_bound_ms",
+                                         "int8_was_ms",
                                          "int8_library_ms", "was_ms",
                                          "call_device_ms", "event_ms",
                                          "was_call_device_ms",
@@ -5109,7 +5189,7 @@ def main():
              "scripts_dev/knn_stage_cost.py:31"),
             ("P5", "mm_rowsum_bf16_wg", "mma_probe.cu",
              "scripts_dev/matmul_shape_probe.py:33"),
-            ("P6", "knn_tc_row_min", "knn_probe.cu",
+            ("P6", "knn_wg_row_min", "knn_probe.cu",
              "scripts_dev/knn_overhead_sweep.py:36")):
         r, counts = anatomy[p]
         kernels.append(entry(name, source, replaces, sum(counts.values()),
@@ -5117,6 +5197,8 @@ def main():
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    log(f"[wall] total {time.perf_counter() - t_run:.1f} s; by phase: "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

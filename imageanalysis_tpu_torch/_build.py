@@ -26,6 +26,7 @@ import ctypes
 import fcntl
 import glob
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -111,16 +112,21 @@ _SIGNATURES = {
     "knn_tc_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # bf16, bm, bn, stages
     "knn_tc_row_min_blocks": [_I, _I, _I, _I],
+    # a, b, row_p, n_pairs, n_a, n_b, bf16, rows, bn, ring, consumers,
+    # stream
+    "knn_wg_row_min": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # bf16, rows, bn, ring, consumers
+    "knn_wg_row_min_blocks": [_I, _I, _I, _I, _I],
     # a, b, na2, nb2, row_p, col_p, n_pairs, n_a, n_b, dtype (0 int8,
     # 1 bf16), stage, stream
     "knn_tc_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, uv_b, row_p, col_p, counter, bj, ok, pb, norms, n_pairs, n,
-    # tile_a, epi_threads, do_main, do_epi, do_pb, body (1 tensor cores,
-    # 0 __dp4a), stream
+    # tile_a, epi_threads, do_main, do_epi, do_pb, body (2 wgmma, 1
+    # mma.sync, 0 __dp4a), stream
     "knn_fused_probe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
-    # tile_a
-    "knn_fused_probe_blocks": [_I],
+    # tile_a, body
+    "knn_fused_probe_blocks": [_I, _I],
     # a, b, out, batch, M, N, K, bm, bn, n_split, stream
     "mm_rowsum_bf16_wg": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mm_rowsum_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -284,13 +290,21 @@ _WG_KNN_KERNEL = re.compile(r"knn_wg_kernelI(t|a|NS_6Bf16x3E|NS_4D256I(?:t|"
                             r"a|NS_6Bf16x3E)EE)?Li(\d+)EE")
 
 
+# knn_wg_kernel<wg::Tile<T, ROWS, BN, RING, CONSUMERS>, MODE>: the probes'
+# tiles of the wgmma body (P6's sweep, P2's kFused), bf16 ("t") or int8
+# ("a") at 128 values a row
+_WG_TILE_KERNEL = re.compile(r"knn_wg_kernelINS\d*_4TileI(t|a)Li(\d+)ELi"
+                             r"(\d+)ELi(\d+)ELi(\d+)EEELi(\d+)EE")
+
+
 def tc_kernel_usage(usage=None):
     """ptxas_usage() of the tensor-core bodies' instantiations, keyed
     "type mode BM[ BN STAGES]" (e.g. "bf16 0 128 128 2"; at 256 values a
     row the type is suffixed, e.g. "int8_d256 0 128 128 2"); the wgmma
     body as "type mode wg": "bf16 mode wg", "int8 mode wg" and "f32 mode
     wg" at 128, "bf16_d256 mode wg", "int8_d256 mode wg" and "f32_d256
-    mode wg" at 256."""
+    mode wg" at 256; its probe tiles as "type mode wg ROWS BN RING
+    CONSUMERS" (e.g. "int8 16 wg 384 64 2 3")."""
     out = {}
     for name, u in (ptxas_usage() if usage is None else usage).items():
         m = _TC_KERNEL.search(name)
@@ -301,6 +315,10 @@ def tc_kernel_usage(usage=None):
         if m:
             kind = _TC_TYPES[m.group(1)] if m.group(1) else "bf16_d256"
             out[f"{kind} {m.group(2)} wg"] = u
+        m = _WG_TILE_KERNEL.search(name)
+        if m:
+            t, rows, bn, ring, c, mode = m.groups()
+            out[f"{_TC_TYPES[t]} {mode} wg {rows} {bn} {ring} {c}"] = u
     return out
 
 
@@ -361,6 +379,48 @@ def sass(lib=None):
                                  for ln in body.splitlines()
                                  if "/*" in ln and ";" in ln]
     return kernels
+
+
+# The SASS digests of the wgmma body's production instantiations (every
+# "type mode wg" key of tc_kernel_usage: K1, K3 and the product-only stage
+# at 128 and 256 values a row) as they were compiled before the probes'
+# tiles and modes (wg::Tile) joined the body, with that nvcc's version;
+# scripts_torch/wg_sass_digests.py writes it from any copy of the package
+WG_SASS = os.path.join(CSRC, "knn_wg_sass.json")
+
+
+def nvcc_version():
+    """nvcc's "Cuda compilation tools, release ..." line."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: needs the CUDA toolkit")
+    out = subprocess.run([nvcc, "--version"], check=True,
+                         capture_output=True, text=True).stdout
+    return [ln for ln in out.splitlines() if "release" in ln][0].strip()
+
+
+def wg_sass_digests(lib=None):
+    """{"type mode wg": the first 12 hex digits of the sha256 of its SASS}
+    for the wgmma body's production instantiations in the built library
+    (default: this package's)."""
+    digests = {name: hashlib.sha256("\n".join(lines).encode()).hexdigest()
+               [:12] for name, lines in sass(lib).items()}
+    return {k: v for k, v in tc_kernel_usage(digests).items()
+            if k.endswith(" wg")}
+
+
+def wg_sass_changes(lib=None):
+    """This build's production wgmma SASS against WG_SASS: (the recorded
+    nvcc, this nvcc, the number of this build's production
+    instantiations, {key: (recorded digest, this digest)} for every key
+    whose code differs, is missing (None) or is new (None recorded))."""
+    with open(WG_SASS) as f:
+        rec = json.load(f)
+    now = wg_sass_digests(lib)
+    was = rec["digests"]
+    diff = {k: (was.get(k), now.get(k)) for k in sorted({*was, *now})
+            if was.get(k) != now.get(k)}
+    return rec["nvcc"], nvcc_version(), len(now), diff
 
 
 def check(err, name):

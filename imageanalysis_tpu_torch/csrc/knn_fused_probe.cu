@@ -12,26 +12,34 @@
 //        last_block_epilogue: a fence, a self-resetting per-pair counter,
 //        __ldcg reads of row_p and col_p)
 //
-// Two bodies behind one entry:
-// - body 1, the tensor-core body K1 runs (knn_tc.cuh, mode kFused: int8
-//   kPacked with a tail). Its squared norms come from K1's pre-pass
-//   (launch_row_norms_i8, two launches; the TPU kernel takes them as
-//   inputs too), so a call is three kernels where K1 then K4 is four. The
-//   thread that stores row i's top-2 keys writes pb[i] from the best index
-//   it holds: no barrier, no re-read of row_p. Blocks of 128 A rows (t64:
-//   64, the body's tile for n an odd multiple of 64), B in 128-row tiles
-//   through a cp.async ring of two, mma.sync s8 m16n8k32, two blocks an
-//   SM. Blocks are scheduled pair after pair, so every pair's epilogue
-//   but the last runs under later pairs' main parts.
+// Three bodies behind one entry:
+// - body 2, the wgmma body K1 int8 runs (knn_wg.cuh, mode kFused: kPacked
+//   with a tail, wgmma s8 fed by TMA), the default. Its squared norms come
+//   from K1's pre-pass (launch_row_norms_i8, two launches, B's biased as
+//   K1 int8 takes them; the TPU kernel takes them as inputs too), so a
+//   call is three kernels where K1 then K4 is four. The thread that
+//   stores row i's top-2 keys writes pb[i] from the best index it holds;
+//   the tail (wg::fused_tail) meets the consumer warpgroups at a named
+//   barrier, since the producer warpgroup has left the block. K1's tile:
+//   384 A rows on three consumer warpgroups (512 threads, one block an
+//   SM), 64-row B tiles in a TMA ring of two. Blocks are scheduled pair
+//   after pair, so every pair's tail but the last runs under later pairs'
+//   main parts.
+// - body 1, the mma.sync body (knn_tc.cuh, mode kFused), the yardstick:
+//   blocks of 128 A rows (t64: 64), B in 128-row tiles through a cp.async
+//   ring of two, mma.sync s8 m16n8k32, two blocks an SM; the tail over the
+//   block after __syncthreads.
 // - body 0, the first body (the __dp4a int8 body, knn_common.cuh's
-//   knn_i8_block, at TA 128 or 64 and TB 64), the yardstick: it gathers
-//   pb after a barrier from row_p as the block stored it.
+//   knn_i8_block, at TA 128 or 64 and TB 64), the first yardstick: it
+//   gathers pb after a barrier from row_p as the block stored it.
 //
-// Variants (the TPU probe's cases): full (epilogue on 256 threads), nopb,
-// noepi, nomain, epi32 (the TPU's epilogue chunk of 32 rows against 64
-// maps to half the block: 128 threads), t64 (64 A rows a block). noepi and
-// nomain leave outputs unwritten (undefined, as on the TPU); they are
-// timed only.
+// Variants (the TPU probe's cases): full, nopb, noepi, nomain, epi32 (the
+// TPU's epilogue chunk of 32 rows against 64: the epilogue on half the
+// threads that run it), t64 (the TPU's half A tile). On bodies 0 and 1:
+// the epilogue on 256 threads (epi32: 128), 128 A rows a block (t64: 64).
+// On body 2: the tail on the 384 consumer threads (epi32: 192), 384 A
+// rows (t64: 192, each consumer warpgroup one m64 half). noepi and nomain
+// leave outputs unwritten (undefined, as on the TPU); they are timed only.
 //
 // What bounds it on the H100: K1's product, 2 n^2 128 int8 operations a
 // pair at the tensor cores' 1,979 TOP/s; the epilogue is ~13 MB of bytes
@@ -105,6 +113,31 @@ int launch_tc_fused(const void* a, const void* b, const void* uv_b,
                                            n_pairs, n, n, s);
 }
 
+// the wgmma body in mode MODE (kFused and its flags) over T (P2_FULL: K1
+// int8's own tile, 384 A rows on three consumer warpgroups; P2_T64: t64's
+// 192, one m64 half each), after the norm pre-pass (B's biased as K1 int8
+// takes them, wg::nb_bias) unless MODE skips the main part; the same
+// pointers as launch_tc_fused
+using P2_FULL = wg::Tile<int8_t, 384, 64, 2, 3>;
+using P2_T64 = wg::Tile<int8_t, 192, 64, 2, 3>;
+template <typename T, int MODE>
+int launch_wg_fused(const void* a, const void* b, const void* uv_b,
+                    void* row_p, void* col_p, void* counter, void* bj_ok,
+                    void* pb, void* norms, int n_pairs, int n,
+                    cudaStream_t s) {
+  float* na2 = (float*)norms;
+  float* nb2 = na2 + (size_t)n_pairs * n;
+  if (!(MODE & kFusedNoMain)) {
+    int e = launch_row_norms_i8(a, na2, (long long)n_pairs * n, s);
+    if (e == 0)
+      e = launch_row_norms_i8(b, nb2, (long long)n_pairs * n, s, kDim,
+                              wg::nb_bias<int8_t>());
+    if (e != 0) return e;
+  }
+  return wg::launch<T, MODE>(a, b, na2, nb2, counter, uv_b, 0.f, row_p,
+                             col_p, pb, bj_ok, n_pairs, n, n, s);
+}
+
 }  // namespace
 
 // a, b (n_pairs, n, 128) int8, 16-byte aligned; uv_b (n_pairs, n, 2) f32;
@@ -112,14 +145,17 @@ int launch_tc_fused(const void* a, const void* b, const void* uv_b,
 // pre-filled with 0x7FFFFFFF; counter (n_pairs) int32, 0 before the first
 // launch and left 0 by every launch that runs the epilogue; outputs bj, ok
 // (n_pairs, n) int32 and pb (n_pairs, n, 2) f32. n a multiple of tile_a
-// and 64, <= 8192. body 1, the tensor-core body: bj and ok one (2,
-// n_pairs, n) buffer (ok == bj + n_pairs * n), norms (2, n_pairs, n) f32
-// scratch for the squared norms of a and b (unused by nomain); body 0, the
-// __dp4a body: norms unused. The variants: (tile_a, epi_threads, do_main,
-// do_epi, do_pb) = (128, 256, 1, 1, 1) full, (128, 256, 1, 1, 0) nopb,
-// (128, 256, 1, 0, 1) noepi, (128, 256, 0, 1, 1) nomain, (128, 128, 1, 1,
-// 1) epi32, (64, 256, 1, 1, 1) t64; any other returns
-// cudaErrorInvalidValue, as does any other body.
+// and 64, <= 8192. body 2, the wgmma body, and body 1, the mma.sync body:
+// bj and ok one (2, n_pairs, n) buffer (ok == bj + n_pairs * n), norms
+// (2, n_pairs, n) f32 scratch for the squared norms of a and b (unused by
+// nomain); body 0, the __dp4a body: norms unused. The variants: (tile_a,
+// epi_threads, do_main, do_epi, do_pb) = (128, 256, 1, 1, 1) full, (128,
+// 256, 1, 1, 0) nopb, (128, 256, 1, 0, 1) noepi, (128, 256, 0, 1, 1)
+// nomain, (128, 128, 1, 1, 1) epi32, (64, 256, 1, 1, 1) t64; any other
+// returns cudaErrorInvalidValue, as does any other body. tile_a and
+// epi_threads name the TPU probe's case: on the wgmma body full is K1's
+// tile (384 A rows) with the tail on every consumer thread (384), epi32
+// the tail on half of them, t64 192 A rows.
 extern "C" int knn_fused_probe(const void* a, const void* b,
                                const void* uv_b, void* row_p, void* col_p,
                                void* counter, void* bj, void* ok, void* pb,
@@ -131,9 +167,28 @@ extern "C" int knn_fused_probe(const void* a, const void* b,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int v = (do_main ? 1 : 0) | (do_epi ? 2 : 0) | (do_pb ? 4 : 0);
+  if ((body == 1 || body == 2) &&
+      ((int*)ok != (int*)bj + (size_t)n_pairs * n || (do_main && !norms)))
+    return (int)cudaErrorInvalidValue;
+  if (body == 2) {
+#define ARGS a, b, uv_b, row_p, col_p, counter, bj, pb, norms, n_pairs, n, s
+    if (tile_a == 128 && epi_threads == 256) {
+      if (v == 7) return launch_wg_fused<P2_FULL, kFused>(ARGS);
+      if (v == 3)
+        return launch_wg_fused<P2_FULL, kFused | kFusedNoPb>(ARGS);
+      if (v == 5)
+        return launch_wg_fused<P2_FULL, kFused | kFusedNoEpi>(ARGS);
+      if (v == 6)
+        return launch_wg_fused<P2_FULL, kFused | kFusedNoMain>(ARGS);
+    }
+    if (tile_a == 128 && epi_threads == 128 && v == 7)
+      return launch_wg_fused<P2_FULL, kFused | kFusedEpiHalf>(ARGS);
+    if (tile_a == 64 && epi_threads == 256 && v == 7)
+      return launch_wg_fused<P2_T64, kFused>(ARGS);
+#undef ARGS
+    return (int)cudaErrorInvalidValue;
+  }
   if (body == 1) {
-    if ((int*)ok != (int*)bj + (size_t)n_pairs * n || (do_main && !norms))
-      return (int)cudaErrorInvalidValue;
 #define ARGS a, b, uv_b, row_p, col_p, counter, bj, pb, norms, n_pairs, n, s
     if (tile_a == 128 && epi_threads == 256) {
       if (v == 7) return launch_tc_fused<kFused, 128>(ARGS);
@@ -164,13 +219,17 @@ extern "C" int knn_fused_probe(const void* a, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the tensor-core body's full variant at tile_a (128, or 64 for
-// t64) resident on one SM (the occupancy calculator's count, after the
-// shared-memory opt-in); a negative cudaError_t on failure
-extern "C" int knn_fused_probe_blocks(int tile_a) {
-  if (tile_a == 128)
+// Blocks of the full variant's kernel at tile_a (128, or 64 for t64) on
+// body 2 (wgmma) or 1 (mma.sync) resident on one SM (the occupancy
+// calculator's count, after the shared-memory opt-in); a negative
+// cudaError_t on failure
+extern "C" int knn_fused_probe_blocks(int tile_a, int body) {
+  if (body == 2 && tile_a == 128)
+    return wg::blocks_per_sm<P2_FULL, kFused>();
+  if (body == 2 && tile_a == 64) return wg::blocks_per_sm<P2_T64, kFused>();
+  if (body == 1 && tile_a == 128)
     return tc::tile_blocks_per_sm<int8_t, kFused, 128, 128, 2>();
-  if (tile_a == 64)
+  if (body == 1 && tile_a == 64)
     return tc::tile_blocks_per_sm<int8_t, kFused, 64, 128, 2>();
   return -(int)cudaErrorInvalidValue;
 }

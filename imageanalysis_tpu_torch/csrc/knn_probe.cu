@@ -1,7 +1,8 @@
 // Probes of K1's anatomy, for Hopper (sm_90a): K1 cut down stage by stage
 // and swept over block tiles, on the bodies K1 ran before its tensor-core
-// body (knn_common.cuh) and, for P3's stages and P6's sweep, on the
-// tensor-core body itself (knn_tc.cuh).
+// body (knn_common.cuh), for P3's stages and P6's sweep on the mma.sync
+// tensor-core body (knn_tc.cuh), and for P6's sweep on the wgmma body K1
+// runs (knn_wg.cuh).
 //
 // Replaces the TPU dev probes
 //   scripts_dev/knn_stage_cost.py:31      kernel       (P4: K1 by stage)
@@ -33,7 +34,9 @@
 // knn_tc_row_sum, the mma.sync body's product-only stage (product +
 // wrapping row sum, kRowSum's result) in any of its types, and
 // knn_tc_row_min, P6's product
-// + row min (kRowMin's result) at each tile of P6's sweep.
+// + row min (kRowMin's result) at each tile of P6's sweep; knn_wg_row_min
+// the same on the wgmma body (kProductRowMin over wg::Tile), at each tile
+// of its sweep, whose B tile (wgmma's N) is 64, 128 or 256 rows.
 //
 // What bounds it on the H100: arithmetic, as K1 (2 x 6144^2 x 128 x 64 =
 // 618.5 G multiply-adds at bench's shape). The stages differ only in the
@@ -53,7 +56,14 @@
 // row-min stage at every tile; any other combination returns
 // cudaErrorInvalidValue. Tiles of the tensor-core body, (BM, BN, ring
 // stages), int8 and bf16 alike: (64, 64, 2), (128, 64, 2), (64, 128, 2),
-// (128, 128, 2) = K1, (128, 128, 3), (256, 64, 2), (256, 128, 2).
+// (128, 128, 2) = K1, (128, 128, 3), (256, 64, 2), (256, 128, 2). Tiles
+// of the wgmma body, (A rows, BN, ring stages, consumer warpgroups), int8
+// and bf16 alike: (128, 64, 2, 2), (192, 64, 3, 3), (128, 128, 2, 2),
+// (256, 64, 2, 2) = K1 bf16's, (384, 64, 2, 3) = K1 int8's, (256, 128, 2,
+// 2), (128, 256, 2, 2): one m64 half a consumer warpgroup where A rows /
+// consumers is 64, else two. At (128, 256, 2, 2) a warpgroup's
+// accumulators are 128 registers (m64n256), at (256, 128, 2, 2) two
+// halves of 64 each.
 
 #include "knn_common.cuh"
 
@@ -332,6 +342,63 @@ extern "C" int knn_tc_row_min(const void* a, const void* b, void* row_p,
 extern "C" int knn_tc_row_min_blocks(int bf16, int bm, int bn, int stages) {
   return bf16 ? row_min_tc<uint16_t>(nullptr, bm, bn, stages)
               : row_min_tc<int8_t>(nullptr, bm, bn, stages);
+}
+
+namespace {
+
+// one tile of P6's sweep on the wgmma body (WG_TILES): its launch, or (x
+// == NULL) its blocks an SM
+template <typename T, int ROWS, int BN, int RING, int C>
+int wg_row_min_tile(const RowMinArgs* x) {
+  using Tl = wg::Tile<T, ROWS, BN, RING, C>;
+  if (!x) return wg::blocks_per_sm<Tl, kProductRowMin>();
+  return wg::launch<Tl, kProductRowMin>(
+      x->a, x->b, nullptr, nullptr, nullptr, nullptr, 0.f, x->row_p, nullptr,
+      nullptr, nullptr, x->n_pairs, x->n_a, x->n_b, x->stream);
+}
+
+template <typename T>
+int row_min_wg(const RowMinArgs* x, int rows, int bn, int ring, int c) {
+#define WG_TILE(R, N, G, C)                                   \
+  if (rows == R && bn == N && ring == G && c == C)            \
+    return wg_row_min_tile<T, R, N, G, C>(x);
+  WG_TILE(128, 64, 2, 2)
+  WG_TILE(192, 64, 3, 3)
+  WG_TILE(128, 128, 2, 2)
+  WG_TILE(256, 64, 2, 2)            // K1 bf16's tile
+  WG_TILE(384, 64, 2, 3)            // K1 int8's tile
+  WG_TILE(256, 128, 2, 2)
+  WG_TILE(128, 256, 2, 2)
+#undef WG_TILE
+  return x ? (int)cudaErrorInvalidValue : -(int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// P6 on the wgmma body (kProductRowMin over wg::Tile) at tile (rows, bn,
+// ring, consumers) of WG_TILES (probes/knn_stages.py): A rows a block,
+// B rows a tile, ring stages, consumer warpgroups. row_p (n_pairs, n_a,
+// 2) int32 gets each A row's minimum dot with all n_b B rows, as an int,
+// in both slots. a, b int8 (bf16 == 0) or integer-valued bf16 bits (bf16
+// != 0), 16-byte aligned; n_a a multiple of 64 (a last block may hold
+// fewer rows), n_b of bn. Returns the cudaError_t of the launch.
+extern "C" int knn_wg_row_min(const void* a, const void* b, void* row_p,
+                              int n_pairs, int n_a, int n_b, int bf16,
+                              int rows, int bn, int ring, int consumers,
+                              void* stream) {
+  if (bad_shape(n_pairs, n_a, n_b, 1 << 30) || bn <= 0 || n_b % bn)
+    return (int)cudaErrorInvalidValue;
+  const RowMinArgs x{a, b, row_p, n_pairs, n_a, n_b, (cudaStream_t)stream};
+  return bf16 ? row_min_wg<uint16_t>(&x, rows, bn, ring, consumers)
+              : row_min_wg<int8_t>(&x, rows, bn, ring, consumers);
+}
+
+// Blocks of knn_wg_row_min's tile resident on one SM (the occupancy
+// calculator's count); a negative cudaError_t on failure
+extern "C" int knn_wg_row_min_blocks(int bf16, int rows, int bn, int ring,
+                                     int consumers) {
+  return bf16 ? row_min_wg<uint16_t>(nullptr, rows, bn, ring, consumers)
+              : row_min_wg<int8_t>(nullptr, rows, bn, ring, consumers);
 }
 
 namespace {

@@ -18,7 +18,9 @@
 // launch of K1 + K4 (knn_fused_probe.cu) is kPacked on int8 with a tail
 // (kFused, below): where a row's keys leave the block, the thread that
 // stores them writes pb from the best index it holds, and the pair's last
-// block to finish runs K4's epilogue on every row of the pair.
+// block to finish runs K4's epilogue on every row of the pair. P6's sweep
+// and P2's single launch run knn_wg.cuh's wgmma body too (its Tile
+// instantiations); the ones here are their mma.sync yardsticks.
 //
 // Replaces, for bf16, int8 and f32 descriptors:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
@@ -296,6 +298,28 @@ __device__ __forceinline__ int ctaid_y() {
   return y;
 }
 
+// K4's epilogue (last_block_epilogue's, below) on one pair's rows
+// threadIdx.x, + EPI_THREADS, ..: bj, ok from row_p and col_p read
+// through L2
+template <int EPI_THREADS>
+__device__ __forceinline__ void k4_rows(const int* row_p, const int* col_p,
+                                        int* bj, int* ok, int n) {
+  constexpr float kRatio2 = 0.5625f;
+  const int2* rows = reinterpret_cast<const int2*>(row_p);
+  for (int i = threadIdx.x; i < n; i += EPI_THREADS) {
+    const int2 k = __ldcg(rows + i);
+    const int j = k.x & kIdxMask;
+    float d1 = __int_as_float(k.x & ~kIdxMask);
+    float d2 = __int_as_float(k.y & ~kIdxMask);
+    d1 = d1 < 0.0f ? 0.0f : d1;     // keeps a NaN, as K4
+    d2 = d2 < 0.0f ? 0.0f : d2;
+    bool good = d1 < __fmul_rn(kRatio2, d2);
+    good = good && j < n && (__ldcg(col_p + j) & kIdxMask) == i;
+    bj[i] = j;
+    ok[i] = good ? 1 : 0;
+  }
+}
+
 // K4's epilogue over one pair's n rows at ratio 0.75 (ratio2 = 0.5625,
 // as the TPU probe hard-codes), by the last block of the pair to finish:
 // bj[i] = j, ok[i] = max(d1, 0) < 0.5625 * max(d2, 0) && j < n &&
@@ -315,7 +339,6 @@ __device__ __forceinline__ void last_block_epilogue(const int* row_p,
                                                     const int* col_p,
                                                     int* counter, int* bj,
                                                     int* ok, int n) {
-  constexpr float kRatio2 = 0.5625f;
   const int tid = threadIdx.x;
   __shared__ bool last;
   __threadfence();                  // row_p, col_p, pb before the count
@@ -324,21 +347,7 @@ __device__ __forceinline__ void last_block_epilogue(const int* row_p,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  if (tid < EPI_THREADS) {
-    const int2* rows = reinterpret_cast<const int2*>(row_p);
-    for (int i = tid; i < n; i += EPI_THREADS) {
-      const int2 k = __ldcg(rows + i);
-      const int j = k.x & kIdxMask;
-      float d1 = __int_as_float(k.x & ~kIdxMask);
-      float d2 = __int_as_float(k.y & ~kIdxMask);
-      d1 = d1 < 0.0f ? 0.0f : d1;   // keeps a NaN, as K4
-      d2 = d2 < 0.0f ? 0.0f : d2;
-      bool good = d1 < __fmul_rn(kRatio2, d2);
-      good = good && j < n && (__ldcg(col_p + j) & kIdxMask) == i;
-      bj[i] = j;
-      ok[i] = good ? 1 : 0;
-    }
-  }
+  if (tid < EPI_THREADS) k4_rows<EPI_THREADS>(row_p, col_p, bj, ok, n);
   if (tid == 0) *counter = 0;       // ready for the next launch
 }
 

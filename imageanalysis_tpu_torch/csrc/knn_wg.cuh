@@ -17,6 +17,12 @@
 // Included by knn_tc.cuh, whose launch_tc sends these types here: K1 plain
 // (kPacked) and gated (kPackedGated), K3 (kWide; bf16 and f32), and the
 // product-only stage (kProductRowSum, the probes' split): every 2-NN row.
+// - Tile<T, ROWS, BN, RING, CONSUMERS>, bf16 or int8 rows of 128 at a
+//   probe's tile: P6's product + row minimum (kProductRowMin) over B tiles
+//   of 64, 128 or 256 rows (knn_probe.cu's knn_wg_row_min), and P2's K1 +
+//   K4 in one launch (kFused and its flags, int8, knn_fused_probe.cu):
+//   K1 int8's body with the pb gather where a row's keys leave the block
+//   and K4's epilogue on the pair's last block (fused_tail).
 // The mma.sync bodies replaced here (knn_tc_kernel<uint16_t>, <int8_t>,
 // <Bf16x3>, <D256<uint16_t>>, <D256<int8_t>> and <D256<Bf16x3>>) stay
 // reachable from knn_probe.cu (knn_bf16_d128, knn_i8_d128, knn_f32_d128,
@@ -25,6 +31,9 @@
 // Replaces, for bf16, int8 and f32 rows of 128 and of 256 values:
 //   imageanalysis_tpu/ops/knn.py:105 _knn_kernel_packed  (K1, every dot)
 //   imageanalysis_tpu/ops/knn.py:407 _knn_kernel         (K3)
+// and on its probe tiles:
+//   scripts_dev/knn_overhead_sweep.py:36 kernel          (P6, row min)
+//   scripts_dev/fused_vmem_probe.py:26 kern              (P2, K1 + K4)
 //
 // What bounds it on the H100: the product, 2 n_a n_b D operations a pair
 // at 989 TFLOP/s (bf16; 1,979 TOP/s int8; six times over for f32: bf16
@@ -202,9 +211,26 @@
 namespace knn {
 namespace wg {
 
-constexpr int kBN = 64;             // B rows a tile
-constexpr int kBChunk = kBN * 128;  // bytes of one B chunk
+constexpr int kBN = 64;             // B rows a tile (a Tile: its BN)
 constexpr int kSlots = 4;           // norm and gate slots: tile t in t % 4
+
+// A probe's tile of the body at 128 values a row (P6's sweep, WG_TILES;
+// P2's t64): bf16 (uint16_t) or int8 rows, ROWS A rows a block on
+// CONSUMERS consumer warpgroups, ROWS / 64 / CONSUMERS m64 halves each
+// (one or two), B tiles of BN rows (64, 128 or 256: wgmma m64nBN) in a
+// ring of RING stages. Its own operand type, so that no production
+// instantiation changes its name or its code.
+template <typename T, int ROWS, int BN, int RING, int CONSUMERS>
+struct Tile {};
+// the row type of an operand type: T of a Tile
+template <typename T>
+struct Operand {
+  using type = T;
+};
+template <typename T, int R, int N, int G, int C>
+struct Operand<Tile<T, R, N, G, C>> {
+  using type = T;
+};
 
 // What the operand type (f32 at 128 values: and the mode) decides: the
 // accumulator type; A rows a block; m64 halves a consumer warpgroup (bf16
@@ -263,6 +289,31 @@ template <int MODE>
 struct Body<Bf16x3, MODE>
     : std::conditional_t<MODE == kPacked || MODE == kPackedGated, F32Rows64,
                          F32Rows128> {};
+template <typename T, int ROWS, int BN, int RING, int C, int MODE>
+struct Body<Tile<T, ROWS, BN, RING, C>, MODE> {
+  static constexpr bool kI8 = std::is_same<T, int8_t>::value;
+  using Acc = std::conditional_t<kI8, int, float>;
+  static constexpr int kRows = ROWS, kHalves = ROWS / 64 / C, kPlanes = 1;
+  static constexpr int kAPlanes = 1, kChunks = kI8 ? 1 : 2, kRing = RING;
+  static constexpr int kEmpty = 4 * C, kConsumers = C, kN = BN;
+  static_assert((kI8 || std::is_same<T, uint16_t>::value) &&
+                    (kHalves == 1 || kHalves == 2) &&
+                    ROWS == 64 * kHalves * C && (C == 2 || C == 3) &&
+                    (BN == 64 || BN == 128 || BN == 256),
+                "bf16 or int8, one or two m64 halves a warpgroup, B tiles "
+                "of 64, 128 or 256 rows");
+};
+// B rows a tile of a Body: kBN, or a Tile's BN
+template <typename B, typename = void>
+struct TileN {
+  static constexpr int value = kBN;
+};
+template <typename B>
+struct TileN<B, std::void_t<decltype(B::kN)>> {
+  static constexpr int value = B::kN;
+};
+template <typename B>
+constexpr int kBChunk = TileN<B>::value * 128;   // bytes of one B chunk
 // f32 with 64 A rows a block: both warpgroups on the block's rows, each
 // on alternate B tiles (at 128 A rows, each its own 64 rows, both on
 // every tile); B below is a Body
@@ -274,7 +325,8 @@ constexpr int kWidePasses = 2;
 // int8 at 128 values a row takes d2 in two operations, an IMAD and an
 // FADD, from B norms that the pre-pass writes less kNbBias (the head)
 template <typename T>
-constexpr bool kD2Mad = std::is_same<T, int8_t>::value;
+constexpr bool kD2Mad =
+    std::is_same<typename Operand<T>::type, int8_t>::value;
 constexpr float kNbBias = -10485760.f;    // -(2^23 + 2^21)
 // what K1's int8 pre-pass adds to the B norms for the body over T
 template <typename T>
@@ -302,13 +354,14 @@ struct Smem {
   static_assert(kAltTiles<B> ? B::kRing == 4 : B::kRing <= B::kPlanes * 3,
                 "four norm slots hold the ring (the head)");
   static constexpr int kC = B::kChunks;
+  static constexpr int kN = TileN<B>::value;
   unsigned char a[B::kAPlanes][kC][kAChunk<B>];  // 1024-aligned
-  unsigned char b[B::kRing][kC][kBChunk];
-  float nb2[kSlots][kBN];
-  float pb[kSlots][kBN * 2];        // the gate's predicted positions
+  unsigned char b[B::kRing][kC][kBChunk<B>];
+  float nb2[kSlots][kN];
+  float pb[kSlots][kN * 2];         // the gate's predicted positions
   float ua[kBM<B> * 2];             // the gate's A positions
   // column partials: [warpgroup][tile parity][warp][column]
-  tc::Key<MODE> colpart[B::kConsumers][2][4][kBN];
+  tc::Key<MODE> colpart[B::kConsumers][2][4][kN];
   tc::Key<MODE> rowpart[64][2];     // f32: warpgroup 1's row top-2
   uint64_t full[B::kRing], empty[B::kRing], a_full;
 };
@@ -333,16 +386,16 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
 
 // keeps the compiler from moving accumulators across wgmma's issue and
 // wait
-template <typename A, int H>
-__device__ __forceinline__ void fence_acc(A (&acc)[H][32]) {
+template <typename A, int H, int N>
+__device__ __forceinline__ void fence_acc(A (&acc)[H][N]) {
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) hopper::reg_fence(acc[h][i]);
+    for (int i = 0; i < N; ++i) hopper::reg_fence(acc[h][i]);
 }
 
-// one 32-byte k-step of the operand type: bf16 m64n64k16 into f32, int8
-// m64n64k32 into s32
+// one 32-byte k-step of the operand type: bf16 m64nNk16 into f32, int8
+// m64nNk32 into s32, N 64 (a Tile's B: also 128 and 256)
 __device__ __forceinline__ void product64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
   hopper::wgmma_64(d, da, db, scale_d);
@@ -351,14 +404,30 @@ __device__ __forceinline__ void product64(int (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
   hopper::wgmma_64_s8(d, da, db, scale_d);
 }
+__device__ __forceinline__ void product64(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_128(d, da, db, scale_d);
+}
+__device__ __forceinline__ void product64(int (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_128_s8(d, da, db, scale_d);
+}
+__device__ __forceinline__ void product64(float (&d)[128], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_256(d, da, db, scale_d);
+}
+__device__ __forceinline__ void product64(int (&d)[128], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  hopper::wgmma_256_s8(d, da, db, scale_d);
+}
 
-// bf16 and int8: one tile's products into acc (2 m64 halves x 64
+// bf16 and int8: one tile's products into acc (kHalves m64 halves x BN
 // columns): A's rows of the warpgroup at sa, the B stage at sb; four
 // 32-byte k-steps a 128-byte chunk
 template <typename B>
-__device__ __forceinline__ void issue(typename B::Acc (&acc)[2][32],
-                                      const unsigned char* sa,
-                                      const unsigned char* sb) {
+__device__ __forceinline__ void issue(
+    typename B::Acc (&acc)[B::kHalves][TileN<B>::value / 2],
+    const unsigned char* sa, const unsigned char* sb) {
   using namespace hopper;
   constexpr int kA = kAChunk<B>;
   fence_acc(acc);
@@ -368,9 +437,10 @@ __device__ __forceinline__ void issue(typename B::Acc (&acc)[2][32],
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < B::kHalves; ++h)
         product64(acc[h], desc_sw128(sa + c * kA + h * 64 * 128 + kk * 32),
-                  desc_sw128(sb + c * kBChunk + kk * 32), (c | kk) != 0);
+                  desc_sw128(sb + c * kBChunk<B> + kk * 32),
+                  (c | kk) != 0);
   wgmma_commit();
 }
 
@@ -421,7 +491,7 @@ __device__ __forceinline__ void issue_f32(float (&acc)[1][32],
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const int s = 4 * c + kk;
-      const uint64_t db = db0 + ((c * kBChunk + kk * 32) >> 4);
+      const uint64_t db = db0 + ((c * kBChunk<B> + kk * 32) >> 4);
       const int off = c * kA + kk * 32;
       if constexpr (P == 0)
         product<B, 0, P>(acc[0], ah, da, off, db, s);
@@ -471,13 +541,48 @@ __device__ __forceinline__ int column_minima(K (&k)[16], int g) {
          ((g >> 2) & 1) * (N / 8);
 }
 
+// P2's tail (kFused, int8): K4's epilogue by the pair's last block to
+// finish, as knn_tc.cuh's last_block_epilogue, on the THREADS consumer
+// threads (the producer warpgroup has left: no __syncthreads after the
+// role split), met at named barrier kTailBar: every thread fences its row
+// keys, pb stores and column atomicMins, one thread counts the block in
+// the pair's counter, and the pair's last block reads row_p and col_p
+// through L2 (__ldcg), runs K4 on EPI_THREADS of its threads and sets the
+// counter back to 0. Pointers as knn_tc.cuh's fused_epilogue: the
+// counters in uv_a, bj then ok in col_k.
+constexpr int kTailBar = 7;         // the body's: 1 .. 2 kConsumers, 5
+template <int THREADS, int EPI_THREADS>
+__device__ __forceinline__ void fused_tail(const int* row_p, const int* col_p,
+                                           const float* uv_a,
+                                           long long* col_k, int n) {
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)blockIdx.y * n;
+  int* counter =
+      const_cast<int*>(reinterpret_cast<const int*>(uv_a)) + blockIdx.y;
+  __threadfence();                  // row_p, col_p, pb before the count
+  hopper::bar_sync(kTailBar, THREADS);
+  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  hopper::bar_sync(kTailBar, THREADS);
+  if (!last) return;
+  __threadfence();
+  int* bj = reinterpret_cast<int*>(col_k) + base;
+  if (tid < EPI_THREADS)
+    tc::k4_rows<EPI_THREADS>(row_p + 2 * base, col_p + base, bj,
+                             bj + (size_t)gridDim.y * n, n);
+  if (tid == 0) *counter = 0;       // ready for the next launch
+}
+
 // One block: BM A rows (blockIdx.x) of one pair (blockIdx.y) against all
 // n_b B rows. Outputs as knn_tc_kernel's: K1's row_p / col_p (col_p
 // pre-filled with 0x7FFFFFFF), K3's row_k / col_k (pre-filled with
-// INT64_MAX), or kProductRowSum's wrapping row sums in both slots of
-// row_p. ta, tb: encode_pairs maps of a and b with boxes of BM and BN
-// rows; a32: f32's split A rows (n_pairs, n_a, 3, 128 or 256) bf16 as
-// pairs of values, for its hi fragments (unused by bf16 and int8).
+// INT64_MAX), kProductRowSum's wrapping row sums or kProductRowMin's row
+// minima of the dots (P6) in both slots of row_p, or kFused's K1 and then
+// (flags off) pb and K4's bj and ok through fused_tail's pointers (P2:
+// pb in row_k, uv_b in pred_b). ta, tb: encode_pairs maps of a and b with
+// boxes of BM and BN rows; a32: f32's split A rows (n_pairs, n_a, 3, 128
+// or 256) bf16 as pairs of values, for its hi fragments (unused by bf16
+// and int8).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads<Body<T, MODE>>, 1)
 knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
@@ -502,10 +607,23 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   constexpr int kDim = 64 * kChunks;     // bf16 values of a plane's row
   constexpr bool kGated = MODE == kPackedGated;
   constexpr bool kSum = MODE == kProductRowSum;
+  constexpr bool kMin = MODE == kProductRowMin;
+  constexpr bool kFusedM = fused(MODE);
   constexpr bool kNorms = normed(MODE);
-  static_assert(MODE == kPacked || kGated || MODE == kWide || kSum,
-                "K1, K3 or the product-only stage");
+  constexpr int kBN = TileN<B>::value;
+  constexpr int kC = B::kConsumers;
+  static_assert(MODE == kPacked || kGated || MODE == kWide || kSum ||
+                    kMin || kFusedM,
+                "K1, K3, the product-only stage or P6's and P2's modes");
   static_assert(MODE != kWide || !kInt8, "K3 takes bf16 or f32");
+  static_assert(kBN == 64 || kMin, "the key epilogue takes 64-row B tiles");
+  static_assert(!kFusedM || (kInt8 && !kF32 && kD2Mad<T>), "P2 takes int8");
+  if constexpr (kFusedM && (MODE & kFusedNoMain)) {    // P2's nomain
+    if (threadIdx.x < 128 * kC)
+      fused_tail<128 * kC, MODE & kFusedEpiHalf ? 64 * kC : 128 * kC>(
+          row_p, col_p, uv_a, col_k, n_b);
+    return;
+  }
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   Smem<T, MODE>& s = *reinterpret_cast<Smem<T, MODE>*>(
@@ -526,7 +644,6 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   }
   __syncthreads();
 
-  constexpr int kC = B::kConsumers;
   if (tid >= 128 * kC) {            // the producer warpgroup
     regs_dec<40>();                 // consumers: kConsumerRegs
     if (tid != 128 * kC) return;
@@ -552,7 +669,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       const bool first = i == 0;    // the tile's norms and gate travel here
       wait(&s.empty[st], ((u / kRing) & 1) ^ 1);
       mbar_expect_tx(&s.full[st],
-                     kChunks * kBChunk +
+                     kChunks * kBChunk<B> +
                          (first ? (kNorms ? kBN * 4 : 0) +
                                       (kGated ? kBN * 8 : 0)
                                 : 0));
@@ -599,8 +716,10 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
   // top-2s (chain c over the n8 tiles nt with nt % kChains == c), merged
   // at the end: its epilogue is short of independent work while the
   // other warpgroup waits on its products, and the min/max chain of a
-  // row's top-2 is the longest dependence in it.
-  constexpr int kChains = MODE == kPacked || kGated ? 2 : 1;
+  // row's top-2 is the longest dependence in it. kProductRowMin keeps its
+  // row minima (in r1) as two chains alike.
+  constexpr int kChains =
+      MODE == kPacked || kGated || kFusedM || kMin ? 2 : 1;
   float na[2][2], ux[2][2], uy[2][2];
   int nak[2][2];                    // kD2Mad: 2^21 + na as f32 bits of 2^23
   int r1[2][2][2], r2[2][2][2];
@@ -774,11 +893,25 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       bar_sync(kC + 1 + wg, 128);   // the partials are in: flush(t)
   };
 
+  // kProductRowMin (P6): the row minima of a tile's dots over the
+  // warpgroup's first H halves, all kBN columns, in two chains (over
+  // alternate n8 tiles)
+  auto row_min = [&](auto& acc, auto halves) {
+    constexpr int H = decltype(halves)::value;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i)
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int hh = (i >> 1) & 1, ch = (i >> 2) % kChains;
+        r1[h][hh][ch] = min(r1[h][hh][ch], tc::dot_int(acc[h][i]));
+      }
+  };
+
   // tile t's column minima: the warpgroup's 4 warps' partials, then one
   // atomicMin a column
   auto flush = [&](int t) {
     const int c = tid & 127;
-    if (kSum || !valid[0] || c >= kBN) return;
+    if (kSum || kMin || !valid[0] || c >= kBN) return;
     const K* p = &s.colpart[wg][(kAltTiles<B> ? t >> 1 : t) & 1][0][c];
     const K m = tc::kmin(tc::kmin(p[0], p[kBN]),
                          tc::kmin(p[2 * kBN], p[3 * kBN]));
@@ -814,7 +947,7 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
     // warpgroup has issued tile t - 1's (named barrier 1), warpgroup w > 0
     // once warpgroup w - 1 has issued tile t's (barrier 1 + w), so the
     // tensor cores take them in turns while the others run their epilogue
-    Acc acc[2][32];
+    Acc acc[kHalves][kBN / 2];
     for (int t = 0; t < n_tiles; ++t) {
       wait(&s.full[t % kRing], (t / kRing) & 1);
       float nbr[16];
@@ -832,10 +965,16 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
       wgmma_wait<0>();
       fence_acc(acc);
       release(t);
-      if (valid[1])
-        epilogue(acc, t, std::integral_constant<int, 2>(), nbr);
-      else if (valid[0])
+      if constexpr (kMin) {
+        if (valid[1])
+          row_min(acc, std::integral_constant<int, kHalves>());
+        else if (valid[0])
+          row_min(acc, std::integral_constant<int, 1>());
+      } else if (valid[1]) {
+        epilogue(acc, t, std::integral_constant<int, kHalves>(), nbr);
+      } else if (valid[0]) {
         epilogue(acc, t, std::integral_constant<int, 1>(), nbr);
+      }
     }
   } else {
     // each tile's planes through the ring: stage u = 3t + I, tile t's B
@@ -918,14 +1057,20 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
         k1 = r1[h][hh][0];
         k2 = r2[h][hh][0];
 #pragma unroll
-        for (int ch = 1; ch < kChains; ++ch)
-          tc::merge2(r1[h][hh][ch], r2[h][hh][ch], k1, k2);
+        for (int ch = 1; ch < kChains; ++ch) {
+          if constexpr (kMin)
+            k1 = min(k1, r1[h][hh][ch]);
+          else
+            tc::merge2(r1[h][hh][ch], r2[h][hh][ch], k1, k2);
+        }
       }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         const K o1 = __shfl_xor_sync(0xffffffffu, k1, off);
         if constexpr (kSum) {
           k1 = tc::wrap_add(k1, o1);
+        } else if constexpr (kMin) {
+          k1 = min(k1, o1);
         } else {
           const K o2 = __shfl_xor_sync(0xffffffffu, k2, off);
           tc::merge2(o1, o2, k1, k2);
@@ -951,11 +1096,22 @@ knn_wg_kernel(const __grid_constant__ CUtensorMap ta,
           row_k[r + 1] = k2;
         } else {
           row_p[r] = k1;
-          row_p[r + 1] = kSum ? k1 : k2;
+          row_p[r + 1] = kSum || kMin ? k1 : k2;
+        }
+        // P2's pb from the best index this thread holds, not re-read from
+        // row_p (int offsets: below 65535 x 8192)
+        if constexpr (kFusedM && !(MODE & kFusedNoPb)) {
+          const int p = tc::ctaid_y();
+          reinterpret_cast<float2*>(row_k)[p * n_a + r0 + h * 64 + hh * 8] =
+              reinterpret_cast<const float2*>(
+                  pred_b)[p * n_b + (k1 & kIdxMask)];
         }
       }
     }
   }
+  if constexpr (kFusedM && !(MODE & kFusedNoEpi))
+    fused_tail<128 * kC, MODE & kFusedEpiHalf ? 64 * kC : 128 * kC>(
+        row_p, col_p, uv_a, col_k, n_b);
 }
 
 // The body over T in MODE on a (n_pairs, n_a, dim) and b (n_pairs, n_b,
@@ -975,7 +1131,8 @@ int launch(const void* a, const void* b, const void* na2, const void* nb2,
   constexpr int kK = 64 * B::kChunks * B::kPlanes;
   CUtensorMap ta, tb;
   int e = hopper::encode_pairs(&ta, a, n_pairs, n_a, kK, kABox<B>);
-  if (e == 0) e = hopper::encode_pairs(&tb, b, n_pairs, n_b, kK, kBN);
+  if (e == 0)
+    e = hopper::encode_pairs(&tb, b, n_pairs, n_b, kK, TileN<B>::value);
   if (e != 0) return e;
   e = (int)cudaFuncSetAttribute(knn_wg_kernel<T, MODE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -991,6 +1148,21 @@ int launch(const void* a, const void* b, const void* na2, const void* nb2,
       (const float*)pred_b, radius2, (int*)row_p, (int*)col_p,
       (long long*)row_k, (long long*)col_k, n_a, n_b);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the body over T in MODE resident on one SM at once (the
+// occupancy calculator's count after the shared-memory opt-in); a
+// negative cudaError_t where a call fails
+template <typename T, int MODE>
+int blocks_per_sm() {
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_wg_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem<T, MODE>);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, knn_wg_kernel<T, MODE>, kThreads<Body<T, MODE>>, kSmem<T, MODE>);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 }  // namespace wg

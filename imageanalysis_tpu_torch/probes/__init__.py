@@ -59,9 +59,15 @@ def device_kernels(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    # a profile now and then comes back without device events: up to
-    # three tries
-    for _ in range(3):
+    # late in a long process on the card (a whole chip_smoke.py run) most
+    # profiles of a short call come back without device events, whatever
+    # the card's free memory, and one taken just after
+    # torch.cuda.empty_cache() mostly does not (scripts_torch/
+    # profiler_bisect.py): up to three tries, the caching allocator
+    # emptied before each retry
+    for attempt in range(3):
+        if attempt:
+            torch.cuda.empty_cache()
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):

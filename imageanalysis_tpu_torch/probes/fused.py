@@ -11,25 +11,36 @@ counter. Returns (bj (B, n) int32, ok (B, n) int32 0/1, pb (B, n, 2) f32):
 with every part on they equal ``knn_match_fused(a, b, uv_b, 0.75)`` on
 int8 ungated inputs (ok as int32).
 
-Two bodies (``body``): ``"tc"``, the default, is the tensor-core body K1
-runs (``csrc/knn_tc.cuh``, mode ``kFused``: K1's norm pre-pass, then one
-kernel; the row's pb picked from its keys in registers); ``"old"`` is the
-first body on ``__dp4a`` (``knn_fused_probe_v0`` in ``LAUNCHES``), kept as
-its yardstick. Variants map to both alike; TA is the tensor-core body's BM.
+Three bodies (``body``): ``"wg"``, the default, is the ``wgmma`` body K1
+int8 runs (``csrc/knn_wg.cuh``, mode ``kFused`` at K1's tile: K1's norm
+pre-pass, then one kernel; the row's pb picked from its keys in
+registers; the tail met at a named barrier of the consumer warpgroups);
+``"tc"`` is the ``mma.sync`` body K1 ran before (``csrc/knn_tc.cuh``,
+mode ``kFused``), and ``"old"`` the first body on ``__dp4a``
+(``knn_fused_probe_v0`` in ``LAUNCHES``), both kept as yardsticks. The
+variants map to each body by the TPU probe's cases:
 
-The TPU probe's cases, as card variants (TA A rows per block; the
-epilogue's rows per step):
+==========  ===================================  =============  ============
+variant     TPU (tile_a, tile_e, main, epi, pb)  "tc", "old"    "wg"
+==========  ===================================  =============  ============
+``full``    (128, 64, on, on, on)                TA 128, 256    384 A rows,
+                                                 threads        384 threads
+``nopb``    (128, 64, on, on, off)               pb not written  (same)
+``noepi``   (128, 64, on, off, on)               bj, ok not      (same)
+                                                 written
+``nomain``  (128, 64, off, on, on)               K1 part         (same)
+                                                 skipped
+``epi32``   (128, 32, on, on, on)                epilogue on     tail on 192
+                                                 128 threads     threads
+``t64``     (64, 64, on, on, on)                 TA 64          192 A rows,
+                                                                one m64 half
+                                                                a warpgroup
+==========  ===================================  =============  ============
 
-==========  =====================================  ==================
-variant     TPU (tile_a, tile_e, main, epi, pb)    card
-==========  =====================================  ==================
-``full``    (128, 64, on, on, on)                  TA 128, 256 threads
-``nopb``    (128, 64, on, on, off)                 pb not written
-``noepi``   (128, 64, on, off, on)                 bj, ok not written
-``nomain``  (128, 64, off, on, on)                 K1 part skipped
-``epi32``   (128, 32, on, on, on)                  epilogue on 128 threads
-``t64``     (64, 64, on, on, on)                   TA 64
-==========  =====================================  ==================
+TA is a block's A rows, the threads those that run the epilogue (on
+``"wg"`` the three consumer warpgroups' 384: the producer warpgroup has
+left the block by then); epi32 halves them and t64 halves the A tile, as
+on the TPU.
 
 ``noepi`` and ``nomain`` leave outputs undefined on the card (the TPU's
 scratch was uninitialised there too): they are timed, not compared; their
@@ -61,7 +72,8 @@ COMPARED = {"full": (True, True, True), "nopb": (True, True, False),
             "epi32": (True, True, True), "t64": (True, True, True)}
 
 # body → (the C entry's selector, its count in LAUNCHES)
-BODIES = {"tc": (1, "knn_fused_probe"), "old": (0, "knn_fused_probe_v0")}
+BODIES = {"wg": (2, "knn_fused_probe"), "tc": (1, "knn_fused_probe_tc"),
+          "old": (0, "knn_fused_probe_v0")}
 LAUNCHES = {count: 0 for _, count in BODIES.values()}
 # per-pair completion counters, by (device, pairs): zeroed once, and left
 # at zero by every launch that runs the epilogue
@@ -107,9 +119,10 @@ def fused_probe_plain(a, b, uv_b, variant="full"):
     return bj, ok, pb
 
 
-def fused_probe_raw(a, b, uv_b, variant="full", body="tc"):
-    """The single-launch kernel (body "tc" or "old") on a CUDA tensor,
-    fused_probe_plain on a CPU tensor; raises on any other device."""
+def fused_probe_raw(a, b, uv_b, variant="full", body="wg"):
+    """The single-launch kernel (body "wg", "tc" or "old") on a CUDA
+    tensor, fused_probe_plain on a CPU tensor; raises on any other
+    device."""
     if body not in BODIES:
         raise ValueError(f"fused_probe_raw: body is one of {sorted(BODIES)}")
     dev = _check(a, b, uv_b, variant, "fused_probe_raw")
@@ -127,8 +140,8 @@ def fused_probe_raw(a, b, uv_b, variant="full", body="tc"):
     col_p = torch.full((B, n), knn._KEY_MAX, dtype=torch.int32, device=dev)
     bj, ok = torch.empty((2, B, n), dtype=torch.int32, device=dev)
     pb = torch.empty((B, n, 2), dtype=torch.float32, device=dev)
-    # the tensor-core body's squared norms of a and b (K1's pre-pass)
-    norms = torch.empty((2, B, n) if body == "tc" else 0,
+    # the tensor-core bodies' squared norms of a and b (K1's pre-pass)
+    norms = torch.empty((2, B, n) if body != "old" else 0,
                         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.knn_fused_probe(
@@ -143,13 +156,15 @@ def fused_probe_raw(a, b, uv_b, variant="full", body="tc"):
     return bj, ok, pb
 
 
-def fused_probe_blocks(variant="full"):
-    """Blocks of the tensor-core body's kernel at the variant's TA that one
-    SM of the current card holds at once (the CUDA occupancy calculator's
-    count, after the kernel's shared-memory opt-in). Needs a card."""
-    if variant not in VARIANTS:
+def fused_probe_blocks(variant="full", body="wg"):
+    """Blocks of a tensor-core body's kernel ("wg" or "tc") for the
+    variant's tile that one SM of the current card holds at once (the CUDA
+    occupancy calculator's count, after the kernel's shared-memory
+    opt-in). Needs a card."""
+    if variant not in VARIANTS or body not in ("wg", "tc"):
         raise ValueError(f"fused_probe_blocks: variant is one of "
-                         f"{sorted(VARIANTS)}")
-    n = _build.load().knn_fused_probe_blocks(VARIANTS[variant]["tile_a"])
+                         f"{sorted(VARIANTS)}, body 'wg' or 'tc'")
+    n = _build.load().knn_fused_probe_blocks(VARIANTS[variant]["tile_a"],
+                                             BODIES[body][0])
     _build.check(max(0, -n), "knn_fused_probe_blocks")
     return n

@@ -67,12 +67,31 @@ its 256 threads each hold a TA/16 × TB/16 register tile. So:
   The float body keeps its A tile in shared memory as f32, so its tiles
   stop at TA × TB within the 48 KB of static shared memory.
 
-  P6 also runs on the tensor-core body K1 runs now (``tc_row_min_raw``),
+  P6 also runs on the ``mma.sync`` tensor-core body (``tc_row_min_raw``),
   whose tile is (BM A rows per block, BN B rows per streamed tile, ring
   stages), ``TC_TILES``, int8 and bf16 alike, again one to one onto the
   TPU sweep: (64, 64, 2), (128, 64, 2), (64, 128, 2), (128, 128, 2) =
-  K1's, (128, 128, 3), (256, 64, 2), (256, 128, 2). The old bodies' sweep
-  stays as its yardstick (and P3's v0 is its ``row_min``).
+  its K1 tile, (128, 128, 3), (256, 64, 2), (256, 128, 2); and on the
+  ``wgmma`` body K1 runs now (``wg_row_min_raw``), whose tile is (A rows
+  per block, BN = wgmma's N, ring stages, consumer warpgroups),
+  ``WG_TILES``, int8 and bf16 alike, one to one onto the TPU sweep in
+  order of area:
+
+  ==================  =================  ==============================
+  TPU (ta, tb, ic)    wgmma tile         m64 halves a warpgroup
+  ==================  =================  ==============================
+  (128, 6144, 0)      (128, 64, 2, 2)    1
+  (256, 6144, 0)      (192, 64, 3, 3)    1
+  (512, 2048, 0)      (128, 128, 2, 2)   1
+  (512, 6144, 1024)   (256, 64, 2, 2)    2, K1 bf16's tile
+  (1024, 6144, 1024)  (384, 64, 2, 3)    2, K1 int8's tile
+  (2048, 6144, 2048)  (256, 128, 2, 2)   2
+  (6144, 6144, 2048)  (128, 256, 2, 2)   1
+  ==================  =================  ==============================
+
+  The ``mma.sync`` sweep is the ``wgmma`` sweep's yardstick, tile for
+  tile, and the old bodies' sweep the ``mma.sync`` sweep's (P3's v0 is
+  its ``row_min``).
 
 Every mode of K1 and K3 now runs a tensor-core body
 (``csrc/knn_tc.cuh``); the stages here, ``full`` included, stay on the
@@ -90,9 +109,11 @@ measure the tensor-core body:
   size (K1's and K3's); its plain version is ``tc_row_sum_plain``, the
   ``row_sum`` stage's arithmetic. K1's or K3's time less its time is the
   key epilogue's on that body.
-- ``tc_row_min_raw``: the tensor-core body's product with the
+- ``tc_row_min_raw``: the ``mma.sync`` body's product with the
   ``row_min`` stage's row minimum in place of the key epilogue (P6), at
   any tile of ``TC_TILES``; its plain version is ``tc_row_min_plain``.
+  ``wg_row_min_raw``: the same on the ``wgmma`` body, at any tile of
+  ``WG_TILES``; its plain version ``wg_row_min_plain``.
 - ``tc_stage_raw``: P3's stages (v0–v4 through ``P3_VARIANTS``,
   ``row_min`` to ``full``) on the tensor-core body K1 runs now, at K1's
   tile (128, 128, 2), int8 and bf16, the old bodies' stages
@@ -145,6 +166,14 @@ TILES = {
 TC_TILES = ((64, 64, 2), (128, 64, 2), (64, 128, 2), (128, 128, 2),
             (128, 128, 3), (256, 64, 2), (256, 128, 2))
 K1_TC_TILE = (128, 128, 2)
+# P6 on the wgmma body K1 runs: (A rows a block, BN, ring stages, consumer
+# warpgroups) of each P6_SWEEP point, int8 and bf16 alike, in order of
+# area (A rows × BN); A rows / 64 / consumers m64 halves a warpgroup. K1
+# bf16's tile is the fourth, K1 int8's the fifth.
+WG_TILES = ((128, 64, 2, 2), (192, 64, 3, 3), (128, 128, 2, 2),
+            (256, 64, 2, 2), (384, 64, 2, 3), (256, 128, 2, 2),
+            (128, 256, 2, 2))
+K1_WG_TILE = {torch.int8: (384, 64, 2, 3), torch.bfloat16: (256, 64, 2, 2)}
 # P4's stages and P3's variants → card stages (the old bodies' P4)
 P4_STAGES = {0: ROW_SUM, 1: TOP1, 2: TOP2, 3: FULL}
 # P4 on the tensor-core body: TPU stage → (card stage, route)
@@ -156,7 +185,8 @@ P3_VARIANTS = {0: ROW_MIN, 1: TOP1, 2: TOP2_TILE, 3: TOP2, 4: FULL}
 # kernel launches (not plain-version calls), by descriptor type
 LAUNCHES = {"knn_probe_i8": 0, "knn_probe_bf16": 0, "knn_ffma_bf16": 0,
             "knn_ffma_f32": 0, "knn_dp4a_i8": 0, "knn_tc_row_sum": 0,
-            "knn_tc_row_min": 0, "knn_tc_stage": 0, "knn_bf16_d256": 0,
+            "knn_tc_row_min": 0, "knn_wg_row_min": 0, "knn_tc_stage": 0,
+            "knn_bf16_d256": 0,
             "knn_f32_d256": 0, "knn_i8_d256": 0, "knn_bf16_d128": 0,
             "knn_i8_d128": 0, "knn_f32_d128": 0}
 # the tensor-core body's B tile (int8 and bf16) and A rows a block, at
@@ -546,6 +576,75 @@ def tc_row_min_blocks(dtype, tile):
     n = _build.load().knn_tc_row_min_blocks(int(dtype == torch.bfloat16),
                                             bm, bn, stages)
     _build.check(max(0, -n), "knn_tc_row_min_blocks")
+    return n
+
+
+def _check_wg_tile(a, b, tile, name):
+    """The wgmma body's row-min tile (its dtype's K1 tile where tile is
+    None) after _check_tc's shapes: n_a a multiple of 64, n_b of BN."""
+    _check_tc(a, b, name, _ROW_MIN_TYPES)
+    tile = K1_WG_TILE[a.dtype] if tile is None else tuple(tile)
+    if tile not in WG_TILES:
+        raise ValueError(f"{name}: no tile {tile}; the wgmma body's sweep "
+                         f"is {WG_TILES}")
+    if b.shape[1] % tile[1]:
+        raise ValueError(f"{name}: n_b={b.shape[1]} must be a multiple of "
+                         f"the tile's BN {tile[1]}")
+    return tile
+
+
+def wg_row_min_plain(a, b, tile=None):
+    """Plain version of wg_row_min_raw: tc_row_min_plain's arithmetic,
+    each A row's minimum dot as an int in both slots of row, col
+    0x7FFFFFFF. The tile (default: the dtype's K1_WG_TILE) only sets the
+    shapes taken (n_b a multiple of its BN)."""
+    _check_wg_tile(a, b, tile, "wg_row_min_plain")
+    return _probe_rows(a, b, lambda dot: dot.amin(1).int())
+
+
+def wg_row_min_raw(a, b, tile=None):
+    """P6 on the wgmma body K1 runs: its product (wgmma fed by TMA) with
+    the row minimum of the dots in place of the key epilogue, at tile (A
+    rows, BN, ring stages, consumer warpgroups) of WG_TILES (default: the
+    dtype's K1_WG_TILE). a (B, n_a, 128), b (B, n_b, 128) int8 or
+    integer-valued bf16, n_a a multiple of 64, n_b of BN. A CUDA tensor
+    launches csrc/knn_probe.cu's knn_wg_row_min; a CPU tensor takes
+    wg_row_min_plain; any other device raises, and so does a tile outside
+    WG_TILES (ValueError). Result as wg_row_min_plain."""
+    name = "wg_row_min_raw"
+    rows, bn, ring, consumers = _check_wg_tile(a, b, tile, name)
+    if a.device.type == "cpu":
+        return wg_row_min_plain(a, b, tile)
+    check_launchable((a, b), name)
+    B, n_a, _ = a.shape
+    n_b = b.shape[1]
+    dev = a.device
+    lib = _build.load()
+    row = torch.empty((B, n_a, 2), dtype=torch.int32, device=dev)
+    col = torch.full((B, n_b), knn._KEY_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.knn_wg_row_min(
+            a.data_ptr(), b.data_ptr(), row.data_ptr(), B, n_a, n_b,
+            int(a.dtype == torch.bfloat16), rows, bn, ring, consumers,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "knn_wg_row_min")
+    LAUNCHES["knn_wg_row_min"] += 1
+    return row, col
+
+
+def wg_row_min_blocks(dtype, tile):
+    """Blocks of wg_row_min_raw's kernel at tile that one SM of the current
+    card holds at once (the CUDA occupancy calculator's count, after the
+    kernel's shared-memory opt-in); dtype torch.int8 or torch.bfloat16.
+    Needs a card."""
+    if tuple(tile) not in WG_TILES:
+        raise ValueError(f"wg_row_min_blocks: no tile {tuple(tile)}; the "
+                         f"wgmma body's sweep is {WG_TILES}")
+    if dtype not in _ROW_MIN_TYPES:
+        raise ValueError(f"wg_row_min_blocks: no kernel for {dtype}")
+    n = _build.load().knn_wg_row_min_blocks(int(dtype == torch.bfloat16),
+                                            *tile)
+    _build.check(max(0, -n), "knn_wg_row_min_blocks")
     return n
 
 

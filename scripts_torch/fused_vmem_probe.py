@@ -4,11 +4,12 @@ kernel per variant to bisect a VMEM overflow; the port's single-launch
 kernel (imageanalysis_tpu_torch/probes/fused.py,
 csrc/knn_fused_probe.cu) runs every variant at bench's shape, holds the
 compared ones against knn_match_fused (K1, then K4) and times them.
---body tc (the default) runs it on the tensor-core body K1 runs, --body
-old on its first body (__dp4a), the yardstick.
+--body wg (the default) runs it on the wgmma body K1 int8 runs, --body
+tc on the mma.sync body K1 ran before, --body old on its first body
+(__dp4a): the yardsticks.
 
 Usage (the card by default; variants: full nopb noepi nomain epi32 t64):
-    python scripts_torch/fused_vmem_probe.py [variant ...] [--body tc|old]
+    python scripts_torch/fused_vmem_probe.py [variant ...] [--body wg|tc|old]
         [--pairs 64] [--n 6144] [--steps 16] [--device cuda|cpu]
 """
 
@@ -31,7 +32,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", metavar="variant",
                     help=f"any of {' '.join(fused.VARIANTS)} (default all)")
-    ap.add_argument("--body", choices=tuple(fused.BODIES), default="tc")
+    ap.add_argument("--body", choices=tuple(fused.BODIES), default="wg")
     ap.add_argument("--pairs", type=int, default=64)
     ap.add_argument("--n", type=int, default=6144)
     ap.add_argument("--steps", type=int, default=16)

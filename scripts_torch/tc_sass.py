@@ -10,9 +10,10 @@ opcode, from the SASS of the package's built library (cuobjdump):
   loads UTMALDG or UBLKCP, the mbarriers' SYNCS, WARPGROUP's fences and
   waits, and no HMMA) and its first body (mm_rowsum_kernel, mma.sync);
 - with the argument p2, P2's single launch (csrc/knn_fused_probe.cu): the
-  tensor-core body's kFused instantiations (modes 16-31: IMMA, no IDP)
-  beside int8 K1's (mode 0), and its first body on __dp4a
-  (knn_fused_probe_kernel: IDP, the __dp4a instruction).
+  kFused instantiations (modes 16-31) of the wgmma body (keys "... wg
+  ROWS BN RING CONSUMERS": IGMMA) and of the mma.sync body (IMMA, no
+  IDP) beside the mma.sync int8 K1's (mode 0), and its first body on
+  __dp4a (knn_fused_probe_kernel: IDP, the __dp4a instruction).
 Needs the CUDA toolkit:
 
     python3 scripts_torch/tc_sass.py [MODE ...]    # default: 0 4 5 6 7
@@ -30,9 +31,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from imageanalysis_tpu_torch import _build  # noqa: E402
 
-OPCODES = ("HMMA", "IMMA", "IDP", "LDSM", "HGMMA", "UTMALDG", "UBLKCP",
-           "SYNCS", "WARPGROUP", "IMNMX", "VIMNMX", "FADD", "FMUL", "FFMA",
-           "FMNMX", "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
+OPCODES = ("HMMA", "IMMA", "IDP", "LDSM", "HGMMA", "IGMMA", "UTMALDG",
+           "UBLKCP", "SYNCS", "WARPGROUP", "IMNMX", "VIMNMX", "FADD", "FMUL",
+           "FFMA", "FMNMX", "LOP3", "IADD3", "SHFL", "ATOMS", "RED", "BAR")
 _MM = re.compile(r"mm_rowsum_(?:wg_)?kernelILi(\d+)ELi(\d+)E")
 _V0 = re.compile(r"knn_fused_probe_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E"
                  r"Li(\d+)E")

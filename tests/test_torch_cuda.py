@@ -754,6 +754,35 @@ def test_tc_row_min_bit_exact_vs_plain_at_every_tile(cuda, rng, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
                          ids=["int8", "bf16"])
+def test_wg_row_min_bit_exact_vs_plain_at_every_tile(cuda, rng, dtype):
+    """P6 on the wgmma body at every tile of its sweep (B tiles of 64, 128
+    and 256 rows, one and two m64 halves a warpgroup, two and three
+    consumer warpgroups, rings of 2 and 3), on full range integer rows
+    with n_a = 320, a multiple of no tile's A rows (a last block with
+    fewer rows, a warpgroup with one half or none): row minima equal the
+    plain version's bit for bit, and the mma.sync body's at its K1 tile."""
+    a, b = (t.to(cuda) for t in _full_range(rng, 2, 320, 768, 50))
+    if dtype == torch.bfloat16:
+        a, b = ((x.float() + 128.0).bfloat16() for x in (a, b))
+    want = knn_stages.wg_row_min_plain(a, b)
+    assert all(torch.equal(w, t) for w, t in zip(
+        want, knn_stages.tc_row_min_plain(a, b, (64, 64, 2))))
+    before = knn_stages.LAUNCHES["knn_wg_row_min"]
+    for tile in knn_stages.WG_TILES:
+        got = knn_stages.wg_row_min_raw(a, b, tile)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tile
+        assert knn_stages.wg_row_min_blocks(dtype, tile) >= 1
+    got = knn_stages.wg_row_min_raw(a, b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert knn_stages.LAUNCHES["knn_wg_row_min"] == before + len(
+        knn_stages.WG_TILES) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
 def test_knn_probe_full_stage_is_k1(cuda, rng, dtype):
     args = _probe_inputs(rng, cuda, dtype)
     got = knn_stages.knn_probe_raw(*args)
@@ -816,15 +845,93 @@ def test_fused_probe_t64_with_a_half_last_b_tile(cuda, rng, body):
     assert int(ok[:, :96].sum()) > 150
 
 
+@pytest.mark.parametrize("variant", ["full", "nopb", "epi32", "t64"])
+def test_fused_probe_wg_with_a_partial_last_block(cuda, rng, variant):
+    """P2 on the wgmma body at n = 640, a multiple of neither 384 (full,
+    nopb, epi32: a last block of 256 rows, its third warpgroup without
+    rows) nor 192 (t64: a last block of 64 rows, one warpgroup with one
+    m64 half): K1 then K4 twice, the counters back at 0."""
+    a, b = (t.to(cuda) for t in _planted(rng, 2, 640, 640, 160))
+    uv_b = torch.from_numpy(rng.uniform(0, 4000, (2, 640, 2))
+                            .astype(np.float32)).to(cuda)
+    ok = _fused_twice(a, b, uv_b, variant, "wg")
+    assert int(ok[:, :160].sum()) > 250
+
+
+def test_fused_probe_wg_builds_without_spill(cuda, tmp_path):
+    """ptxas on csrc/knn_fused_probe.cu alone, with the package's flags:
+    P2's wgmma instantiations (kFused and its flags at K1 int8's tile, and
+    t64's) are built, spill nothing and carry no ptxas note (C7518: wgmma
+    serialized)."""
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        pytest.skip("needs nvcc")
+    src = os.path.join(_build.CSRC, "knn_fused_probe.cu")
+    proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-c", "-o",
+                           str(tmp_path / "knn_fused_probe.o"), src],
+                          capture_output=True, text=True, timeout=600)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    usage = {k: u for k, u in _build.tc_kernel_usage(
+        _build.ptxas_usage(log)).items() if k.split()[2] == "wg"}
+    assert set(usage) == _P2_WG_KEYS, usage
+    for key, u in usage.items():
+        assert u[1:] == (0, 0), (key, u)
+    notes = [w for w in _build.ptxas_warnings(log) if "4TileIa" in w]
+    assert not notes, notes
+
+
+# P2's wgmma instantiations: kFused (16) and its flags at K1 int8's tile,
+# and t64's 192 A rows
+_P2_WG_KEYS = {f"int8 {m} wg 384 64 2 3" for m in (16, 17, 18, 20, 24)} | {
+    "int8 16 wg 192 64 2 3"}
+
+
+def test_wg_probe_tiles_sass_is_gmma(cuda):
+    """The wgmma body's probe tiles run their products as the warpgroup
+    instructions: P2's int8 instantiations (but nomain's, which has no
+    product) and P6's int8 row-min tiles as IGMMA, with no IMMA and no
+    IDP; P6's bf16 tiles as HGMMA, with no HMMA."""
+    per_key = _build.tc_kernel_usage({
+        name: _build.opcode_counts(lines)
+        for name, lines in _build.sass().items()})
+    p6 = {f"{t} 4 wg {' '.join(map(str, tile))}"
+          for t in ("int8", "bf16") for tile in knn_stages.WG_TILES}
+    keys = {k for k in per_key if len(k.split()) == 7}
+    assert keys == _P2_WG_KEYS | p6, keys
+    for k in keys:
+        c = per_key[k]
+        if k.startswith("int8"):
+            assert c["IMMA"] == 0 and c["IDP"] == 0 and c["HGMMA"] == 0, \
+                (k, c)
+            assert c["IGMMA"] > 0 or k == "int8 20 wg 384 64 2 3", (k, c)
+        else:
+            assert c["HGMMA"] > 0 and c["HMMA"] == 0, (k, c)
+
+
+def test_wg_production_sass_equals_the_recorded_digests(cuda):
+    """Adding the probe tiles and modes to the wgmma body left the SASS of
+    its production instantiations (K1, K3 and the product-only stage at
+    128 and 256 values a row) as recorded before (_build.WG_SASS) by the
+    same nvcc."""
+    if _build.find_nvcc() is None:
+        pytest.skip("needs nvcc")
+    was_nvcc, nvcc, n, diff = _build.wg_sass_changes()
+    if was_nvcc != nvcc:
+        pytest.skip(f"digests recorded by {was_nvcc!r}, this build by "
+                    f"{nvcc!r}")
+    assert n == 22 and not diff, (n, diff)
+
+
 def test_fused_probe_tc_sass_is_imma(cuda):
-    """P2's tensor-core instantiations (kFused, mode 16 and its flags)
+    """P2's mma.sync instantiations (kFused, mode 16 and its flags)
     run the product as IMMA (mma.sync s8), not as the old body's __dp4a
     (IDP.4A, counted as IDP), which the old body's kernels show."""
     per_key = _build.tc_kernel_usage({
         name: _build.opcode_counts(lines)
         for name, lines in _build.sass().items()})
     keys = {k for k in per_key if k.startswith("int8 ")
-            and 16 <= int(k.split()[1]) < 32}
+            and 16 <= int(k.split()[1]) < 32 and k.split()[2] != "wg"}
     assert keys == {"int8 16 128 128 2", "int8 17 128 128 2",
                     "int8 18 128 128 2", "int8 20 128 128 2",
                     "int8 24 128 128 2", "int8 16 64 128 2"}, keys

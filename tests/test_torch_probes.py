@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.experimental import pallas as real_pl
 
+from imageanalysis_tpu_torch import probes
 from imageanalysis_tpu_torch.ops import knn as tknn
 from imageanalysis_tpu_torch.probes import fused, knn_stages, mma
 from torch_threads import one_torch_thread  # noqa: F401
@@ -162,14 +163,15 @@ def test_p3_variant_plain_equals_reference(variant, body):
         np.testing.assert_array_equal(got_col.numpy(), col)
 
 
-@pytest.mark.parametrize("body", ["old", "tc"])
+@pytest.mark.parametrize("body", ["old", "tc", "wg"])
 @pytest.mark.parametrize("dtype,ic", [("int8", 0), ("int8", 128),
                                       ("bf16", 0), ("bf16", 128)])
 def test_p6_plain_equals_reference(dtype, ic, body):
     """knn_overhead_sweep's product + row min (ta 64, tb n, with and
     without an inner column chunk) against the port's row_min stage (the
-    old bodies' plain version) and tc_row_min_plain (the tensor-core
-    body's, at K1's tile), on int8 rows and on 0..255 rows in bf16."""
+    old bodies' plain version), tc_row_min_plain (the mma.sync body's, at
+    its K1 tile) and wg_row_min_plain (the wgmma body's, at the dtype's K1
+    tile), on int8 rows and on 0..255 rows in bf16."""
     ns, pl = _load("knn_overhead_sweep.py", N_PAD=N, DIM=128, BATCH=PAIRS)
     ai, bi, a8, b8 = _int8_pairs(20 + ic)
     if dtype == "int8":
@@ -188,8 +190,10 @@ def test_p6_plain_equals_reference(dtype, ic, body):
     if body == "old":
         row, col = knn_stages.knn_probe_plain(
             tx, ty, stage=knn_stages.ROW_MIN, tile=(64, 64))
-    else:
+    elif body == "tc":
         row, col = knn_stages.tc_row_min_plain(tx, ty)
+    else:
+        row, col = knn_stages.wg_row_min_plain(tx, ty)
     assert (col == tknn._KEY_MAX).all()
     np.testing.assert_array_equal(row[..., 0].float().numpy(), want)
     np.testing.assert_array_equal(row[..., 1], row[..., 0])
@@ -422,10 +426,11 @@ def test_ffma_yardstick_is_k1_and_k3_on_cpu(mode):
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16],
                          ids=["int8", "bf16"])
 def test_tc_row_min_wrapper_rules(dtype):
-    """tc_row_min_raw: a CPU tensor takes tc_row_min_plain (the old
-    row_min stage's result at every tile of the sweep); any other device,
-    a tile off the sweep, n_a off the tile's BM, f32 and mixed types
-    raise ValueError; nothing is launched."""
+    """tc_row_min_raw and wg_row_min_raw: a CPU tensor takes the plain
+    version (the old row_min stage's result at every tile of each sweep);
+    any other device, a tile off the sweep, n_a off the tile's BM (the
+    wgmma body's: off 64), n_b off the wgmma tile's BN, f32 and mixed
+    types raise ValueError; nothing is launched."""
     ai, bi, _, _ = _int8_pairs(70)
     a, b = _t(ai), _t(bi)
     if dtype == torch.bfloat16:
@@ -451,6 +456,31 @@ def test_tc_row_min_wrapper_rules(dtype):
         knn_stages.tc_row_min_raw(a.float(), b.float())
     with pytest.raises(ValueError, match="multiple"):
         knn_stages.tc_row_min_raw(a, b.float())
+    # the wgmma body's sweep: every tile, and K1's (the default), takes
+    # the plain version on the CPU, n_a a multiple of 64 (320 is of no
+    # tile's A rows), n_b of the tile's BN
+    assert len(knn_stages.WG_TILES) == len(knn_stages.P6_SWEEP)
+    assert knn_stages.K1_WG_TILE[dtype] in knn_stages.WG_TILES
+    assert {t[1] for t in knn_stages.WG_TILES} == {64, 128, 256}
+    a5 = torch.cat([a, a[:, :64]], 1)
+    want5 = knn_stages.knn_probe_plain(a5, b, stage=knn_stages.ROW_MIN)
+    for tile in knn_stages.WG_TILES + (None,):
+        got = knn_stages.wg_row_min_raw(a5, b, tile)
+        assert all(torch.equal(g, w) for g, w in zip(got, want5)), tile
+    with pytest.raises(ValueError, match="meta"):
+        knn_stages.wg_row_min_raw(m, m)
+    for tile in ((128, 64, 2), (128, 64, 2, 4), knn_stages.TC_TILES[0]):
+        for fn in (knn_stages.wg_row_min_raw, knn_stages.wg_row_min_plain):
+            with pytest.raises(ValueError, match="tile"):
+                fn(a, b, tile)
+        with pytest.raises(ValueError, match="tile"):
+            knn_stages.wg_row_min_blocks(dtype, tile)
+    with pytest.raises(ValueError, match="BN"):
+        knn_stages.wg_row_min_raw(a, b[:, :192], (128, 256, 2, 2))
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.wg_row_min_raw(a[:, :96], b)
+    with pytest.raises(ValueError, match="multiple"):
+        knn_stages.wg_row_min_raw(a.float(), b.float())
     assert dict(knn_stages.LAUNCHES) == before
 
 
@@ -560,3 +590,43 @@ def test_probe_scripts_and_smoke_import_no_jax():
     for path in paths:
         with open(path) as f:
             assert not pattern.search(f.read()), path
+
+
+@pytest.mark.parametrize("empty", [2, 3], ids=["recovers", "gives_up"])
+def test_device_kernels_retries_empty_profiles(monkeypatch, empty):
+    """A profile that comes back without device events (late in a long
+    process on the card) is taken again just after torch.cuda.empty_cache(),
+    up to three times in all; then device_kernels raises."""
+    from torch.autograd import DeviceType
+    tries, freed = [], []
+
+    class Event:
+        key, device_type = "kern", DeviceType.CUDA
+        self_device_time_total, count = 2000.0, 4
+
+    class Profile:
+        def __init__(self, activities):
+            tries.append(len(freed))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [] if len(tries) <= empty else [Event()]
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: freed.append(1))
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    calls = []
+    if empty < 3:
+        got = probes.device_kernels(lambda: calls.append(1), reps=4)
+        assert got == {"kern": 0.5}
+    else:
+        with pytest.raises(AssertionError, match="no device time"):
+            probes.device_kernels(lambda: calls.append(1), reps=4)
+    # each retry comes after one empty_cache, the first try after none
+    assert tries == list(range(min(empty + 1, 3)))
+    assert len(calls) == 1 + 4 * len(tries)
